@@ -1,0 +1,383 @@
+"""On-card smoke test of the PyTorch/H100 port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc.  Phases,
+in order; any failure raises and the script exits non-zero:
+
+1. environment: the card's name and power limit, torch/CUDA versions, and
+   the build of every kernel on the main path from this checkout's sources;
+2. kernels vs plain: both ``enrich_score`` kernels against their plain
+   PyTorch versions on the same card tensors at the main path's shape
+   (C = 1<<20 rows, P = 4, F = 4, Q = 8 tenant slots), f32 and bf16 rows, a
+   learned decision table and an edge-bin fixture — ``next_fn``, ``cost``,
+   ``benefit`` and ``est_joint`` must be bitwise equal — and their times
+   (CUDA events, median of 25 after warm-up) beside the memory bound;
+3. CPU vs GPU session: one churn trace at capacity 4096 with 4 tenants, in
+   both scoring modes, through ``EngineSession(device="cpu")`` (plain path)
+   and ``device="cuda"`` (kernels) — per-slot plans, merged plans,
+   want-bits and answer sets must be equal epoch by epoch, spend and
+   per-slot attribution within rtol 1e-5 (f32 sums run in another order on
+   the card);
+4. the main path at full size: the session server (``repro_torch.launch.
+   serve``: 524,288 rows growing to 1,048,576, 8 tenant slots, bf16
+   substrate, best-mode scoring) serves
+   ``admit:2;admit:3;admit:2;run:8;ingest:524288;admit:4;run:8;retire:0;run:8``,
+   then the grown state runs 8 more epochs in the paper's table mode.  Every
+   kernel must have launched on this path, the plain versions never, the
+   chunk programs stay within the tier bound, the invoices fold to
+   ``cost_spent`` bit for bit, every epoch charges new enrichment, the mean
+   entropy of the initial rows falls and E(F) stays a probability.
+   (Mean E(F) itself FALLS over these epochs, as it does in the reference:
+   the 0.5 prior overstates 0.3-selective predicates, so early enrichment
+   mostly moves probability mass down.);
+5. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and the
+   final ``{"ok": true, ...}`` line.
+
+It imports nothing of JAX or of the reference package ``repro``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
+C_FULL, P, F, Q = 1 << 20, 4, 4, 8
+MAIN_TRACE = "admit:2;admit:3;admit:2;run:8;ingest:524288;admit:4;run:8;retire:0;run:8"
+SMOKE_TRACE = [("admit", (0, 1)), ("admit", (1, 2, 3)), ("run", 4), ("ingest", 2048),
+               ("admit", (0, 2)), ("run", 4), ("retire", 0), ("run", 4)]
+KERNEL_SOURCE = "src/repro_torch/kernels/enrich_score/csrc/enrich_score.cu"
+REPLACES = {
+    "enrich_score_table": "src/repro/kernels/enrich_score/kernel.py:318",
+    "enrich_score_best": "src/repro/kernels/enrich_score/kernel.py:354",
+}
+
+
+def _nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _bound(mode: str, prob_bytes: int, c: int, p: int, f: int, q: int, table_bytes: int):
+    """(bound_ms, bound_by): each input read once, each output written once,
+    against the count of f32 operations this work needs."""
+    lanes = c * p
+    read = lanes * (2 * prob_bytes + 4) + q * c * prob_bytes + table_bytes
+    written = 4 * q * lanes * 4  # benefit, next_fn, est_joint, cost
+    # per lane: bin, lerp, clip and cost (~12 ops, per function in best mode);
+    # per lane and tenant: est_joint and benefit (~6 ops, per function in best)
+    per_f = f if mode == "best" else 1
+    ops = lanes * 12 * per_f + q * lanes * 6 * per_f
+    t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------------ phases --
+
+
+def phase_build():
+    from repro_torch.kernels.enrich_score import kernel
+
+    t0 = time.perf_counter()
+    path, log, nvcc_s = kernel.build()
+    kernel.library()
+    print(f"[build] {path.name}: nvcc {nvcc_s:.2f} s, ready in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    name = ""
+    for line in log.splitlines():  # ptxas -v: one summary per kernel instantiation
+        if "Compiling entry function" in line:
+            kind = "best" if "best_kernel" in line else "table"
+            name = f"{kind}/{'bf16' if 'bfloat16' in line else 'f32'}"
+        elif "spill stores" in line or "Used" in line:
+            print(f"[build] ptxas {name}: {line.split(' : ')[-1].strip()}", flush=True)
+
+
+def _small_world():
+    """A learned table + combine params + corpus outputs, made on the CPU."""
+    import torch
+
+    from repro_torch.core.combine import fit_combine_weights
+    from repro_torch.core.decision_table import learn_decision_table
+    from repro_torch.data.synthetic import make_corpus, split_corpus
+    from repro_torch.launch.serve import SESSION_AUCS, SESSION_COSTS
+
+    gen = torch.Generator().manual_seed(1)
+    corpus = make_corpus(gen, 512 + 4096, list(range(P)), [1] * P, selectivity=[0.3] * P,
+                         aucs=SESSION_AUCS, costs=SESSION_COSTS)
+    train, evalc = split_corpus(corpus, 512)
+    combine = fit_combine_weights(train.func_probs, train.truth_pred.float(), steps=150)
+    table = learn_decision_table(train.func_probs, combine, num_bins=10)
+    return table, combine, evalc.costs, evalc.func_probs
+
+
+def _kernel_inputs(dev, dtype, edge: bool, seed: int):
+    import torch
+
+    from repro_torch.core.entropy import binary_entropy
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pp = torch.rand((C_FULL, P), generator=g, device=dev) * 0.96 + 0.02
+    sid = torch.randint(0, 2**F, (C_FULL, P), generator=g, device=dev, dtype=torch.int32)
+    if edge:  # h ~ 0 (saturated), h ~ 1 (coin flips), exhausted rows
+        third = C_FULL // 3
+        pp[:third] = torch.rand((third, P), generator=g, device=dev) * 1e-4 + 1e-6
+        pp[third:2 * third] = 0.5 + (torch.rand((third, P), generator=g, device=dev) - 0.5) * 2e-5
+        sid[2 * third:] = 2**F - 1
+    joint = torch.rand((Q, C_FULL), generator=g, device=dev)
+    return pp.to(dtype), binary_entropy(pp).to(dtype), sid, joint.to(dtype)
+
+
+def phase_kernels(table, costs) -> dict:
+    import torch
+
+    from repro_torch.kernels.enrich_score import ops, ref
+
+    dev = torch.device("cuda")
+    table, costs = table.to(dev), costs.to(dev)
+    lut = ops._lut(4096, dev)
+    table_bytes = {
+        "enrich_score_table": 4 * (2 * table.delta_h.numel() + costs.numel() + lut.numel()),
+        "enrich_score_best": 4 * (table.delta_h_all.numel() + costs.numel() + lut.numel()),
+    }
+    results = {name: {"max_abs_err": 0.0} for name in ops.KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        for edge in (False, True):
+            pp, unc, sid, joint = _kernel_inputs(dev, dtype, edge, seed=7 + edge)
+            for mode, name in (("table", "enrich_score_table"), ("best", "enrich_score_best")):
+                def kernel_call():
+                    return ops.fused_benefits_batched(pp, unc, sid, joint, table, costs, mode)
+
+                def plain_call():
+                    if mode == "best":
+                        return ref.enrich_score_best_ref(
+                            pp, unc, sid, joint, table.delta_h_all, costs, lut)
+                    return ref.enrich_score_table_ref(
+                        pp, unc, sid, joint, table.delta_h, table.next_fn, costs, lut)
+
+                out, want = kernel_call(), plain_call()
+                torch.cuda.synchronize()
+                labels = ("benefit", "next_fn", "est_joint", "cost")
+                for label, a, b in zip(labels, out, want):
+                    if not torch.equal(a, b):
+                        diff = (a.double() - b.double()).abs().nan_to_num(0.0).max().item()
+                        raise AssertionError(
+                            f"{name} {dtype} edge={edge}: {label} differs from the plain "
+                            f"version (max abs diff {diff})")
+                    fin = torch.isfinite(a.double()) & torch.isfinite(b.double())
+                    err = (a.double() - b.double()).abs()[fin].max().item()
+                    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+                if edge:
+                    assert (out.next_fn[:, 2 * (C_FULL // 3):] == -1).all()
+                    continue
+                ms, plain_ms = _time_ms(kernel_call), _time_ms(plain_call)
+                bound_ms, bound_by = _bound(mode, pp.element_size(), C_FULL, P, F, Q,
+                                            table_bytes[name])
+                print(f"[kernels] {name} {str(dtype)[6:]} C={C_FULL} P={P} F={F} Q={Q}: "
+                      f"bitwise equal to plain (benefit, next_fn, est_joint, cost); "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                      f"({bound_by}), {bound_ms / ms:.1%} of bound", flush=True)
+                if dtype == torch.bfloat16:  # the main path's storage dtype
+                    results[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                         bound_by=bound_by)
+    return results
+
+
+def _run_trace_pair(table, combine, costs, outputs, mode):
+    """The smoke churn trace through a CPU and a CUDA session, epoch by epoch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.executor import EngineConfig
+    from repro_torch.core.query import Predicate, conjunction
+    from repro_torch.core.session import EngineSession
+
+    preds = [Predicate(i, 1) for i in range(P)]
+    sessions, states = [], []
+    for device in ("cpu", "cuda"):
+        s = EngineSession(preds, table, combine, costs, capacity=2048, max_tenants=4,
+                          max_capacity=4096, device=device,
+                          config=EngineConfig(plan_size=64, function_selection=mode))
+        sessions.append(s)
+        states.append(s.init_state(outputs[:2048]))
+    epochs = 0
+    for kind, arg in SMOKE_TRACE:
+        for i, s in enumerate(sessions):
+            if kind == "admit":
+                states[i], _ = s.admit(states[i], conjunction(*[preds[c] for c in arg]))
+            elif kind == "ingest":
+                states[i] = s.ingest(states[i], outputs[2048:2048 + arg])
+            elif kind == "retire":
+                states[i] = s.retire(states[i], arg)
+        if kind != "run":
+            continue
+        for _ in range(arg):
+            parts = [s.program._plan_part(st) for s, st in zip(sessions, states)]
+            (cp, cm, cw), (gp, gm, gw) = [[x.cpu() if torch.is_tensor(x) else x.map(
+                lambda t: t.cpu()) for x in part] for part in parts]
+            for a, b in ((cp, gp), (cm, gm)):
+                assert torch.equal(a.valid, b.valid), f"{mode} epoch {epochs}: plan validity"
+                for x, y in zip(a[:3], b[:3]):
+                    assert torch.equal(torch.where(a.valid, x, -1), torch.where(b.valid, y, -1)), (
+                        f"{mode} epoch {epochs}: plan lanes differ")
+            assert torch.equal(cw, gw), f"{mode} epoch {epochs}: want-bits differ"
+            hist = []
+            for i, s in enumerate(sessions):
+                states[i], (h,) = s.run(states[i], 1, collect_masks=True,
+                                        stop_when_exhausted=False)
+                hist.append(h)
+            hc, hg = hist
+            assert np.array_equal(hc.answer_mask, hg.answer_mask), f"{mode} epoch {epochs}: answers"
+            np.testing.assert_allclose(hg.cost_spent, hc.cost_spent, rtol=1e-5)
+            np.testing.assert_allclose(hg.attributed, hc.attributed, rtol=1e-5, atol=1e-6)
+            epochs += 1
+    bills = [st.ledger.bills(st.cost_spent) for st in states]
+    np.testing.assert_allclose(bills[1], bills[0], rtol=1e-5, atol=1e-6)
+    return epochs, hc.cost_spent, hg.cost_spent
+
+
+def phase_cpu_vs_gpu(table, combine, costs, outputs):
+    for mode in ("best", "table"):
+        t0 = time.perf_counter()
+        epochs, cpu_cost, gpu_cost = _run_trace_pair(table, combine, costs, outputs, mode)
+        print(f"[session] {mode}: CPU and GPU sessions agree over {epochs} epochs (plans, "
+              f"merged plans, want-bits, answers equal; spend {cpu_cost!r} vs {gpu_cost!r}) "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _fold(state) -> bool:
+    import numpy as np
+
+    acc = np.float32(np.float32(float(state.ledger.archived)) +
+                     np.float32(float(state.ledger.unattributed)))
+    for b in state.ledger.bills(state.cost_spent):
+        acc = np.float32(acc + b)
+    return acc == np.float32(float(state.cost_spent))
+
+
+def phase_main_path() -> dict:
+    import torch
+
+    from repro_torch.core.executor import EngineConfig
+    from repro_torch.core.session import EngineSession
+    from repro_torch.kernels.enrich_score import ops
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    session, state, pool, preds = serve.build_session_server(
+        num_objects=524288, capacity=524288, max_capacity=1 << 20, num_preds=P,
+        max_tenants=8, substrate_dtype="bfloat16", device="cuda",
+    )
+    setup_s = time.perf_counter() - t0
+    h_start = state.derived.uncertainty[:524288].float().mean().item()
+    report = serve.serve_session_trace(session, state, serve.parse_trace(MAIN_TRACE),
+                                       pool=pool, preds=preds)
+    grown = report.state
+    table_session = EngineSession(
+        session.global_predicates, session.table, session.combine_params, session.costs,
+        capacity=grown.capacity, max_tenants=8, device="cuda",
+        config=EngineConfig(plan_size=64, substrate_dtype="bfloat16"),
+    )
+    t1 = time.perf_counter()
+    final, table_hist = table_session.run(grown, 8, stop_when_exhausted=False)
+    table_s = time.perf_counter() - t1
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+
+    hist = report.history
+    assert report.epochs == 24 and len(table_hist) == 8
+    assert grown.capacity == 1 << 20 and report.num_rows == 1 << 20 and report.growths == 1
+    assert launches == {"enrich_score_table": 8, "enrich_score_best": 24}, launches
+    assert not any(plain.values()), f"plain path ran on the main path: {plain}"
+    assert report.superstep_traces <= session.retrace_bound, report.superstep_traces
+    assert _fold(grown) and _fold(final), "invoices do not fold to cost_spent"
+    spent = [h.cost_spent for h in hist + table_hist]
+    assert all(b > a for a, b in zip(spent, spent[1:])), "an epoch charged nothing"
+    h_end = final.derived.uncertainty[:524288].float().mean().item()
+    assert h_end < h_start, (h_start, h_end)
+    for h in hist + table_hist:
+        assert all(f == f and 0.0 <= f <= 1.0 for f in h.expected_f), h.expected_f
+    assert torch.isfinite(final.derived.pred_prob.float()).all()
+    assert final.derived.in_answer.shape == (8, 1 << 20)
+    best_eps = report.epochs / report.wall_s
+    print(f"[main] server setup {setup_s:.2f} s; trace {MAIN_TRACE!r}: {report.epochs} "
+          f"epochs in {report.wall_s:.2f} s wall ({best_eps:.2f} epochs/s incl. churn events), "
+          f"{report.num_rows} rows, tier {report.capacity}, {report.growths} growth, "
+          f"chunk programs {report.superstep_traces} (bound {session.retrace_bound}), "
+          f"cost_spent {report.cost_spent!r} ({report.cost_hex}), bills fold bitwise, "
+          f"mean E(F) {hist[0].mean_expected_f!r} -> {hist[-1].mean_expected_f!r}, "
+          f"mean entropy of the first 524288 rows {h_start!r} -> {h_end!r}",
+          flush=True)
+    print(f"[main] table mode on the grown state: 8 epochs in {table_s:.2f} s "
+          f"({8 / table_s:.2f} epochs/s), mean E(F) {table_hist[-1].mean_expected_f:.6f}; "
+          f"launches {launches}, plain calls {plain}; peak device memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    smi = _nvidia_smi()
+    print(f"[env] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.perf_counter()
+    phase_build()
+    table, combine, costs, outputs = _small_world()
+    results = phase_kernels(table, costs)
+    phase_cpu_vs_gpu(table, combine, costs, outputs)
+    launches = phase_main_path()
+    kernels = [
+        dict(name=name, route="cuda", source=KERNEL_SOURCE, replaces=REPLACES[name],
+             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+             library_ms=None)
+        for name, r in results.items()
+    ]
+    print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

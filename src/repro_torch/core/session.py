@@ -1,0 +1,395 @@
+"""Session-oriented engine core: churn as data updates on fixed-shape state.
+
+Port of ``repro.core.session`` (the lockstep session; the async pipeline is
+later work).  ``EngineSession`` makes every churn axis a masked,
+pre-allocated dimension:
+
+* **capacity-padded substrate** — tensors are allocated at ``[capacity, P,
+  F]``; a row-validity prefix (one device ``num_rows`` scalar) says which
+  rows hold real objects, and ``ingest`` appends into the next free rows;
+* **tenant slots** — ``max_tenants`` slots allocated up front; a slot is its
+  conjunctive query's predicate-column mask plus an ``active`` bit;
+* **cost ledger** — fair-share attribution of deduplicated spend;
+* **capacity tiers** — with ``max_capacity > capacity`` an overflowing
+  ingest migrates the state to the next geometric tier
+  (``pad_session_state``, padded rows inert), so chunk programs are built
+  at most once per tier and length (``retrace_bound``).
+
+The session runs on the card unless ``device="cpu"`` is passed; without a
+GPU and without an explicit ``"cpu"`` it raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import ledger as ledger_lib
+from repro_torch.core import state as state_lib
+from repro_torch.core.errors import CapacityError, SlotActiveError, SlotsExhaustedError
+from repro_torch.core.executor import (
+    EngineConfig,
+    EpochProgram,
+    SessionDerived,
+    SessionState,
+    resolve_substrate_dtype,
+)
+from repro_torch.core.query import CompiledQuery
+from repro_torch.core.state import SharedSubstrate
+from repro_torch.device import resolve_device
+
+
+def tier_schedule(capacity: int, max_capacity: int, num_shards: int = 1) -> tuple:
+    """Geometric capacity tiers ``capacity, 2c, 4c, ...`` covering
+    ``max_capacity``, each rounded up to a multiple of ``num_shards``."""
+    if capacity < 1:
+        raise ValueError("capacity must be >= 1")
+    if max_capacity < capacity:
+        raise ValueError(f"max_capacity={max_capacity} < capacity={capacity}")
+
+    def up(c: int) -> int:
+        return -(-c // num_shards) * num_shards
+
+    tiers = [up(capacity)]
+    while tiers[-1] < max_capacity:
+        tiers.append(up(min(2 * tiers[-1], max_capacity)))
+    return tuple(tiers)
+
+
+def pad_session_state(state: SessionState, capacity: int, prior: float) -> SessionState:
+    """Migrate a full ``SessionState`` onto a larger row capacity.
+
+    Pure data movement: every row-indexed leaf pads with the fill its
+    allocator uses, so a grown state is bitwise indistinguishable from one
+    allocated at the target capacity.  Callers refresh derived state after.
+    """
+    if capacity < state.capacity:
+        raise ValueError(f"cannot shrink a session from {state.capacity} to {capacity} rows")
+    if capacity == state.capacity:
+        return state
+    sub, der = state.substrate, state.derived
+    return dataclasses.replace(
+        state,
+        substrate=SharedSubstrate(
+            func_probs=state_lib.pad_rows(sub.func_probs, capacity, prior),
+            exec_mask=state_lib.pad_rows(sub.exec_mask, capacity, False),
+            cost_spent=sub.cost_spent,
+        ),
+        derived=SessionDerived(
+            pred_prob=state_lib.pad_rows(der.pred_prob, capacity, 0.0),
+            uncertainty=state_lib.pad_rows(der.uncertainty, capacity, 0.0),
+            joint_prob=state_lib.pad_axis(der.joint_prob, capacity, 0.0, axis=1),
+            in_answer=state_lib.pad_axis(der.in_answer, capacity, False, axis=1),
+        ),
+        bank_outputs=state_lib.pad_rows(state.bank_outputs, capacity, prior),
+        ledger=ledger_lib.migrate_ledger(state.ledger, state.num_slots),
+    )
+
+
+class EngineSession:
+    """Long-lived multi-tenant PIQUE engine with churn-stable shapes."""
+
+    def __init__(
+        self,
+        global_predicates: Sequence,  # the corpus schema (fixes the P axis)
+        table,
+        combine_params,
+        costs,  # [P, F] over the global predicate space
+        capacity: int,
+        max_tenants: int,
+        config: EngineConfig = EngineConfig(),
+        max_capacity: Optional[int] = None,
+        truth_masks: Optional[torch.Tensor] = None,  # [S, capacity] bool, metrics only
+        device=None,
+    ):
+        if config.num_shards < 1:
+            raise ValueError("num_shards must be >= 1")
+        if config.num_shards > 1 and capacity % config.num_shards:
+            raise ValueError(
+                f"capacity={capacity} must divide evenly over num_shards={config.num_shards}"
+            )
+        if max_tenants < 1:
+            raise ValueError("max_tenants must be >= 1")
+        self.device = resolve_device(device)
+        self.global_predicates = tuple(global_predicates)
+        self.table = table.to(self.device)
+        self.combine_params = combine_params.to(self.device)
+        self.costs = torch.as_tensor(costs, dtype=torch.float32).to(self.device).contiguous()
+        self.capacity = int(capacity)
+        self.max_tenants = int(max_tenants)
+        self.config = config
+        self.substrate_dtype = resolve_substrate_dtype(config.substrate_dtype)
+        self._tiers = tier_schedule(
+            self.capacity,
+            self.capacity if max_capacity is None else int(max_capacity),
+            config.num_shards,
+        )
+        self.growths = 0
+        if self.costs.shape[0] != len(self.global_predicates):
+            raise ValueError(
+                f"costs rows ({self.costs.shape[0]}) != global predicates "
+                f"({len(self.global_predicates)})"
+            )
+        self._pred_index = {p: i for i, p in enumerate(self.global_predicates)}
+        if truth_masks is not None:
+            if self.max_capacity != self.capacity:
+                raise ValueError(
+                    "truth_masks require a fixed-capacity session (the [S, C] "
+                    "truth rows cannot follow tier growth)"
+                )
+            truth_masks = torch.as_tensor(truth_masks).to(self.device)
+        self.program = EpochProgram(
+            self.table, self.combine_params, self.costs, config, truth_masks=truth_masks
+        )
+
+    @property
+    def num_predicates(self) -> int:
+        return len(self.global_predicates)
+
+    @property
+    def num_functions(self) -> int:
+        return self.costs.shape[1]
+
+    @property
+    def superstep_traces(self) -> int:
+        """Chunk programs built (1 per scan shape within a tier under churn)."""
+        return self.program.superstep_traces
+
+    @property
+    def tier_capacities(self) -> tuple:
+        return self._tiers
+
+    @property
+    def max_capacity(self) -> int:
+        return self._tiers[-1]
+
+    @property
+    def retrace_bound(self) -> int:
+        """Max programs built per distinct chunk length over ANY event trace."""
+        return len(self._tiers)
+
+    # ---- session lifecycle ---------------------------------------------------
+
+    def _tier_for(self, rows: int, used: int = 0, requested: Optional[int] = None) -> int:
+        for t in self._tiers:
+            if rows <= t:
+                return t
+        raise CapacityError(
+            f"{rows} rows exceeds capacity: the session's last tier holds "
+            f"{self.max_capacity} (tiers {self._tiers}); open the session "
+            "with a larger max_capacity for the expected arrival volume",
+            used=used,
+            capacity=self.max_capacity,
+            requested=rows if requested is None else requested,
+        )
+
+    def _as_outputs(self, outputs) -> torch.Tensor:
+        """THE quantization boundary: outputs land at the substrate dtype."""
+        outputs = torch.as_tensor(outputs).to(self.device)
+        if outputs.dtype != self.substrate_dtype:
+            outputs = outputs.to(self.substrate_dtype)
+        if outputs.ndim != 3 or tuple(outputs.shape[1:]) != (
+            self.num_predicates,
+            self.num_functions,
+        ):
+            raise ValueError(
+                f"bank outputs must be [M, {self.num_predicates}, "
+                f"{self.num_functions}]; got {tuple(outputs.shape)}"
+            )
+        return outputs
+
+    def init_state(self, bank_outputs) -> SessionState:
+        """Open a session over an initial corpus of ``bank_outputs`` [N0, P, F]
+        at the smallest tier that holds it; no tenants are active yet."""
+        bank_outputs = self._as_outputs(bank_outputs)
+        n0 = bank_outputs.shape[0]
+        if n0 > self.max_capacity:
+            raise CapacityError(
+                f"initial corpus {n0} exceeds capacity {self.max_capacity} "
+                f"(tiers {self._tiers})",
+                used=0,
+                capacity=self.max_capacity,
+                requested=n0,
+            )
+        cap = self._tier_for(n0)
+        p, s, dt, dev = self.num_predicates, self.max_tenants, self.substrate_dtype, self.device
+        state = SessionState(
+            substrate=state_lib.init_substrate(
+                n0, p, self.num_functions, prior=self.config.prior, dtype=dt,
+                capacity=cap, device=dev,
+            ),
+            derived=SessionDerived(  # placeholder; refresh fills it
+                pred_prob=torch.zeros((cap, p), dtype=dt, device=dev),
+                uncertainty=torch.zeros((cap, p), dtype=dt, device=dev),
+                joint_prob=torch.zeros((s, cap), dtype=dt, device=dev),
+                in_answer=torch.zeros((s, cap), dtype=torch.bool, device=dev),
+            ),
+            bank_outputs=state_lib.pad_rows(bank_outputs, cap, self.config.prior),
+            pred_mask=torch.zeros((s, p), dtype=torch.bool, device=dev),
+            active=torch.zeros(s, dtype=torch.bool, device=dev),
+            num_rows=torch.tensor(n0, dtype=torch.int32, device=dev),
+            ledger=ledger_lib.init_ledger(s, device=dev),
+            quarantined=torch.zeros((p, self.num_functions), dtype=torch.bool, device=dev),
+        )
+        return self.program.refresh(state)
+
+    def _query_columns(self, query: CompiledQuery) -> list:
+        if not query.is_conjunctive:
+            raise NotImplementedError(
+                "EngineSession slots are conjunctive predicate masks; general "
+                "ASTs are not served by the session"
+            )
+        missing = [p for p in query.predicates if p not in self._pred_index]
+        if missing:
+            raise ValueError(
+                f"query references {len(missing)} predicate(s) outside the "
+                f"session's global space (num_predicates={self.num_predicates}): "
+                f"{missing}; sessions are compiled over the corpus schema "
+                "passed at construction"
+            )
+        return [self._pred_index[p] for p in query.predicates]
+
+    def admit(
+        self, state: SessionState, query: CompiledQuery, slot: Optional[int] = None, *, active=None
+    ) -> tuple[SessionState, int]:
+        """Admit a tenant into a free slot between supersteps -> (state, slot).
+
+        Resets the slot's ledger accumulator (the previous occupant's bill is
+        archived) and warm-starts derived state from the substrate.
+        ``active`` may carry a host copy of ``state.active`` (else read from
+        the device).
+        """
+        cols = self._query_columns(query)
+        active_np = np.asarray(state.active.cpu() if active is None else active)
+        if slot is None:
+            free = np.flatnonzero(~active_np)
+            if free.size == 0:
+                raise SlotsExhaustedError(
+                    f"no free tenant slots (max_tenants={self.max_tenants}); "
+                    "retire a tenant or open the session with more slots",
+                    used=int(active_np.sum()),
+                    capacity=self.max_tenants,
+                    requested=1,
+                )
+            slot = int(free[0])
+        else:
+            if not 0 <= slot < self.max_tenants:
+                raise ValueError(f"slot {slot} out of range [0, {self.max_tenants})")
+            if active_np[slot]:
+                raise SlotActiveError(f"slot {slot} is already occupied; retire it first", slot=slot)
+        pred_mask = state.pred_mask.clone()
+        pred_mask[slot] = False
+        pred_mask[slot, cols] = True
+        act = state.active.clone()
+        act[slot] = True
+        state = dataclasses.replace(
+            state, pred_mask=pred_mask, active=act, ledger=ledger_lib.reset_slot(state.ledger, slot)
+        )
+        return self.program.refresh(state), slot
+
+    def retire(self, state: SessionState, slot: int, *, active=None) -> SessionState:
+        """Retire a tenant slot between supersteps (mask bits off; its ledger
+        row keeps the final bill until the slot is recycled)."""
+        if not 0 <= slot < self.max_tenants:
+            raise ValueError(f"slot {slot} out of range [0, {self.max_tenants})")
+        occupied = bool(state.active[slot]) if active is None else bool(np.asarray(active)[slot])
+        if not occupied:
+            raise ValueError(f"slot {slot} is not active")
+        pred_mask = state.pred_mask.clone()
+        pred_mask[slot] = False
+        act = state.active.clone()
+        act[slot] = False
+        return self.program.refresh(dataclasses.replace(state, pred_mask=pred_mask, active=act))
+
+    def refresh(self, state: SessionState) -> SessionState:
+        """Recompute all derived state from the substrate + masks."""
+        return self.program.refresh(state)
+
+    # ---- degraded-mode enrichment (quarantine) -------------------------------
+
+    def set_quarantine(self, state: SessionState, quarantined) -> SessionState:
+        """Replace the [P, F] enrichment-function quarantine mask (gates only
+        future plan selection; delivered enrichment stays)."""
+        q = torch.as_tensor(quarantined, dtype=torch.bool).to(self.device)
+        want = (self.num_predicates, self.num_functions)
+        if tuple(q.shape) != want:
+            raise ValueError(f"quarantine mask must be {want}; got {tuple(q.shape)}")
+        return dataclasses.replace(state, quarantined=q)
+
+    def quarantine(self, state: SessionState, pred: int, func: int) -> SessionState:
+        """Mask function ``func`` of predicate ``pred`` out of plan selection."""
+        return self._set_pf(state, pred, func, True)
+
+    def unquarantine(self, state: SessionState, pred: int, func: int) -> SessionState:
+        """Re-admit a recovered enrichment function into plan selection."""
+        return self._set_pf(state, pred, func, False)
+
+    def _set_pf(self, state, pred: int, func: int, value: bool) -> SessionState:
+        if not (0 <= pred < self.num_predicates and 0 <= func < self.num_functions):
+            raise ValueError(
+                f"(pred={pred}, func={func}) outside "
+                f"[P={self.num_predicates}, F={self.num_functions}]"
+            )
+        q = state.quarantined.clone()
+        q[pred, func] = value
+        return dataclasses.replace(state, quarantined=q)
+
+    # ---- growth + ingest ------------------------------------------------------
+
+    def _grow_padded(self, state: SessionState, min_rows: int, used: int) -> SessionState:
+        if min_rows <= state.capacity:
+            return state
+        target = self._tier_for(min_rows, used=used, requested=min_rows - used)
+        self.growths += 1
+        return pad_session_state(state, target, self.config.prior)
+
+    def ingest(
+        self, state: SessionState, outputs, *, num_rows: Optional[int] = None, refresh: bool = True
+    ) -> SessionState:
+        """Stream new objects into pre-allocated rows between supersteps.
+
+        ``outputs`` is [M, P, F] tagging outputs of the new objects; their
+        substrate rows start cold and join planning next epoch.  Overflowing
+        the current tier grows the session; past the last tier raises
+        ``CapacityError``.  ``num_rows`` may carry the host-known row count.
+        """
+        outputs = self._as_outputs(outputs)
+        nr = int(state.num_rows) if num_rows is None else int(num_rows)
+        m = outputs.shape[0]
+        if nr + m > self.max_capacity:
+            raise CapacityError(
+                f"ingest of {m} objects overflows capacity ({nr} rows used of "
+                f"{state.capacity}, max_capacity={self.max_capacity}); open the "
+                "session with a larger max_capacity for the expected arrival volume",
+                used=nr,
+                capacity=self.max_capacity,
+                requested=m,
+            )
+        state = self._grow_padded(state, nr + m, nr)
+        bank, new_rows = state_lib.ingest_rows(state.bank_outputs, state.num_rows, outputs)
+        state = dataclasses.replace(state, bank_outputs=bank, num_rows=new_rows)
+        return self.program.refresh(state) if refresh else state
+
+    # ---- driver --------------------------------------------------------------
+
+    def run(
+        self,
+        state: SessionState,
+        num_epochs: int,
+        collect_masks: bool = False,
+        stop_when_exhausted: bool = True,
+        chunk_size: Optional[int] = None,
+        on_chunk=None,
+    ):
+        """Run ``num_epochs`` supersteps as chunked dispatches -> (state, history)."""
+        return self.program.run_scan(
+            state,
+            num_epochs,
+            chunk_size=chunk_size,
+            collect_masks=collect_masks,
+            stop_when_exhausted=stop_when_exhausted,
+            on_chunk=on_chunk,
+        )

@@ -1,0 +1,219 @@
+"""Enrichment substrate: capacity-padded structure-of-arrays tensors.
+
+Port of the session half of ``repro.core.state``.  The shared substrate is
+the query-independent half of enrichment state:
+
+    func_probs  [C, P, F]  raw tagging-function outputs (prior where unexecuted)
+    exec_mask   [C, P, F]  bool, which functions have run (the "state" bitmask)
+    cost_spent  []         cumulative enrichment cost, always f32
+
+written once per (object, predicate, function) triple however many tenants
+asked for it.  ``state_id`` (the decision-table key) is the little-endian
+packing of ``exec_mask``.
+
+Storage contract: ``func_probs`` is f32 or bf16; all arithmetic runs in f32
+and ``cost_spent`` stays f32.  A write of another float dtype into a buffer
+raises ``SubstrateDtypeError`` instead of promoting or quantizing silently.
+
+Every function here returns new tensors and leaves its inputs untouched, so
+a caller may keep an older state alive (chunked vs monolithic replays,
+grown vs pre-allocated sessions).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.errors import SubstrateDtypeError
+
+
+def _check_float_dtype(buffer: torch.Tensor, values: torch.Tensor, where: str) -> None:
+    """Refuse mixed-float writes into a substrate buffer."""
+    if (
+        buffer.dtype.is_floating_point
+        and values.dtype.is_floating_point
+        and buffer.dtype != values.dtype
+    ):
+        raise SubstrateDtypeError(
+            f"{where}: substrate stores {buffer.dtype} but got {values.dtype} "
+            f"values; cast explicitly at the ingest/merge boundary",
+            expected=str(buffer.dtype),
+            got=str(values.dtype),
+            where=where,
+        )
+
+
+def _pack_state_id(exec_mask: torch.Tensor) -> torch.Tensor:
+    """[..., P] int32 little-endian packing of an [..., P, F] exec mask."""
+    f = exec_mask.shape[-1]
+    weights = 2 ** torch.arange(f, dtype=torch.int32, device=exec_mask.device)
+    return (exec_mask.to(torch.int32) * weights).sum(-1, dtype=torch.int32)
+
+
+def pack_function_bits(mask: torch.Tensor) -> torch.Tensor:
+    """Packing of an [..., F] function mask into state-id bits.
+
+    The decision table never selects a function whose bit is set in the
+    state id, so OR-ing extra bits into the lookup id excludes functions
+    from plan selection (the quarantine channel) without touching
+    ``exec_mask``."""
+    return _pack_state_id(mask)
+
+
+@dataclasses.dataclass
+class SharedSubstrate:
+    """The query-independent half of enrichment state."""
+
+    func_probs: torch.Tensor  # [C, P, F] storage dtype (prior where unexecuted)
+    exec_mask: torch.Tensor  # [C, P, F] bool
+    cost_spent: torch.Tensor  # [] f32
+
+    @property
+    def num_objects(self) -> int:
+        return self.func_probs.shape[0]
+
+    @property
+    def num_predicates(self) -> int:
+        return self.func_probs.shape[1]
+
+    @property
+    def num_functions(self) -> int:
+        return self.func_probs.shape[2]
+
+    def state_id(self) -> torch.Tensor:
+        """[C, P] int32 decision-table key."""
+        return _pack_state_id(self.exec_mask)
+
+
+def init_substrate(
+    num_objects: int,
+    num_predicates: int,
+    num_functions: int,
+    prior: float = 0.5,
+    dtype=torch.float32,
+    capacity: Optional[int] = None,
+    device=None,
+) -> SharedSubstrate:
+    """Allocate a substrate, optionally capacity-padded for streaming ingestion.
+
+    Padded rows are indistinguishable from never-enriched objects (prior
+    probabilities, empty exec mask); callers track real rows with
+    ``row_validity``.
+    """
+    if capacity is None:
+        capacity = num_objects
+    if capacity < num_objects:
+        raise ValueError(f"capacity={capacity} < num_objects={num_objects}")
+    shape = (capacity, num_predicates, num_functions)
+    return SharedSubstrate(
+        func_probs=torch.full(shape, prior, dtype=dtype, device=device),
+        exec_mask=torch.zeros(shape, dtype=torch.bool, device=device),
+        cost_spent=torch.zeros((), dtype=torch.float32, device=device),
+    )
+
+
+def substrate_hbm_bytes(
+    capacity: int, num_predicates: int, num_functions: int, dtype=torch.float32
+) -> int:
+    """Device bytes held by a capacity-padded substrate (func_probs +
+    exec_mask + cost_spent)."""
+    n = int(capacity) * int(num_predicates) * int(num_functions)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return n * itemsize + n * 1 + 4
+
+
+def row_validity(capacity: int, num_rows: torch.Tensor) -> torch.Tensor:
+    """[capacity] bool: rows [0, num_rows) hold real objects (a prefix mask
+    read off one device scalar, so admitting rows needs no host sync)."""
+    return torch.arange(capacity, dtype=torch.int32, device=num_rows.device) < num_rows
+
+
+def pad_axis(x: torch.Tensor, capacity: int, fill, axis: int = 0) -> torch.Tensor:
+    """Pad ``axis`` of ``x`` up to ``capacity`` entries with ``fill``."""
+    n = x.shape[axis]
+    if n > capacity:
+        raise ValueError(f"cannot pad {n} rows into capacity {capacity}")
+    if n == capacity:
+        return x
+    shape = list(x.shape)
+    shape[axis] = capacity - n
+    pad = torch.full(shape, fill, dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=axis)
+
+
+def pad_rows(x: torch.Tensor, capacity: int, fill) -> torch.Tensor:
+    """Pad axis 0 of ``x`` up to ``capacity`` rows with ``fill``."""
+    return pad_axis(x, capacity, fill, axis=0)
+
+
+def ingest_rows(
+    buffer: torch.Tensor,  # [C, ...] capacity-padded row buffer
+    num_rows: torch.Tensor,  # [] int32: rows currently valid
+    new_rows: torch.Tensor,  # [M, ...] rows to append
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Append ``new_rows`` into the next free rows -> (buffer', num_rows + M).
+
+    The row offset stays on the device (``index_copy`` at ``num_rows +
+    arange(M)``), so no host sync; callers bound-check M host-side.
+    """
+    _check_float_dtype(buffer, new_rows, "ingest_rows")
+    m = new_rows.shape[0]
+    idx = num_rows.to(torch.int64) + torch.arange(m, device=buffer.device)
+    out = buffer.index_copy(0, idx, new_rows.to(buffer.device, buffer.dtype))
+    return out, num_rows + m
+
+
+def chargeable_mask(
+    substrate: SharedSubstrate,
+    object_idx: torch.Tensor,  # [K]
+    pred_idx: torch.Tensor,  # [K]
+    func_idx: torch.Tensor,  # [K]
+    valid: torch.Tensor,  # [K] bool
+) -> torch.Tensor:
+    """[K] bool: which plan lanes the write-once substrate would charge —
+    THE charging rule, shared by ``apply_outputs_to_substrate`` and the
+    ledger so attribution reconciles by construction."""
+    obj_safe = torch.clamp(object_idx, 0, substrate.num_objects - 1).long()
+    already = substrate.exec_mask[obj_safe, pred_idx.long(), func_idx.long()]
+    return valid & ~already
+
+
+def apply_outputs_to_substrate(
+    substrate: SharedSubstrate,
+    object_idx: torch.Tensor,  # [K], may hold don't-care entries on invalid lanes
+    pred_idx: torch.Tensor,  # [K]
+    func_idx: torch.Tensor,  # [K]
+    probs: torch.Tensor,  # [K] at the substrate's storage dtype
+    cost: torch.Tensor,  # [K] f32
+    valid: torch.Tensor,  # [K] bool
+) -> SharedSubstrate:
+    """Scatter executed triples into the substrate with write-once charging.
+
+    The reference drops invalid lanes by scattering them out of range.  An
+    out-of-range index is a device-side assert on CUDA, and ``index_put_``
+    leaves the winner of duplicate writes undefined, so here every invalid
+    lane targets one spare dump element past the end of the flattened
+    buffer: it can never alias a real triple (row 0 included), and valid
+    lanes of a deduplicated plan are distinct.
+    """
+    _check_float_dtype(substrate.func_probs, probs, "apply_outputs_to_substrate")
+    c, p, f = substrate.func_probs.shape
+    dump = c * p * f
+    chargeable = chargeable_mask(substrate, object_idx, pred_idx, func_idx, valid)
+    flat = (object_idx.long() * p + pred_idx.long()) * f + func_idx.long()
+    flat = torch.where(valid, flat, dump)
+
+    def scatter(buf, values):
+        ext = torch.cat([buf.reshape(-1), buf.new_empty(1)])
+        ext.index_put_((flat,), values)
+        return ext[:dump].view(c, p, f)
+
+    fp = scatter(substrate.func_probs, probs)
+    em = scatter(substrate.exec_mask, torch.ones_like(valid))
+    charged = torch.where(chargeable, cost, 0.0).sum()
+    return SharedSubstrate(
+        func_probs=fp, exec_mask=em, cost_spent=substrate.cost_spent + charged
+    )

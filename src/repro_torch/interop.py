@@ -1,0 +1,110 @@
+"""Carry parameters and session state between numpy and the port's types.
+
+The reference's pytrees come out of ``jax.device_get`` as numpy leaves; this
+module turns such trees — dicts of numpy arrays, or objects with the same
+attribute names — into the port's ``CombineParams``, ``DecisionTable`` and
+``SessionState``, and back into nested dicts of numpy arrays.  It imports
+neither JAX nor the reference package: bf16 leaves travel as their raw 16-bit
+patterns (``ml_dtypes.bfloat16`` numpy arrays on the numpy side).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.combine import CombineParams
+from repro_torch.core.decision_table import DecisionTable
+from repro_torch.core.executor import SessionDerived, SessionState
+from repro_torch.core.ledger import CostLedger
+from repro_torch.core.state import SharedSubstrate
+
+
+def _field(obj, name: str):
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def to_torch(x, device=None) -> torch.Tensor:
+    """numpy (f32/int/bool, or ml_dtypes bf16) -> tensor, dtype preserved."""
+    a = np.array(x, order="C")  # a writable copy; keeps 0-d arrays 0-d
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """tensor -> numpy, dtype preserved (bf16 needs ``ml_dtypes``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def combine_params_from_numpy(obj, device=None) -> CombineParams:
+    return CombineParams(
+        *(to_torch(_field(obj, k), device).to(torch.float32) for k in ("weights", "bias", "rho"))
+    )
+
+
+def combine_params_to_numpy(params: CombineParams) -> dict:
+    return {k: to_numpy(getattr(params, k)) for k in ("weights", "bias", "rho")}
+
+
+def decision_table_from_numpy(obj, device=None) -> DecisionTable:
+    dha = _field(obj, "delta_h_all")
+    return DecisionTable(
+        next_fn=to_torch(_field(obj, "next_fn"), device).to(torch.int32),
+        delta_h=to_torch(_field(obj, "delta_h"), device).to(torch.float32),
+        delta_h_all=None if dha is None else to_torch(dha, device).to(torch.float32),
+        num_bins=int(_field(obj, "num_bins")),
+    )
+
+
+def decision_table_to_numpy(table: DecisionTable) -> dict:
+    return {
+        "next_fn": to_numpy(table.next_fn),
+        "delta_h": to_numpy(table.delta_h),
+        "delta_h_all": None if table.delta_h_all is None else to_numpy(table.delta_h_all),
+        "num_bins": table.num_bins,
+    }
+
+
+_SUBSTRATE = ("func_probs", "exec_mask", "cost_spent")
+_DERIVED = ("pred_prob", "uncertainty", "joint_prob", "in_answer")
+_LEDGER = ("attributed", "triples", "wanted", "unattributed", "archived")
+_STATE = ("bank_outputs", "pred_mask", "active", "num_rows")
+
+
+def session_state_from_numpy(tree, device=None) -> SessionState:
+    """A numpy ``SessionState`` tree -> the port's ``SessionState`` on ``device``."""
+
+    def group(obj, names):
+        return {k: to_torch(_field(obj, k), device) for k in names}
+
+    quarantined = _field(tree, "quarantined")
+    return SessionState(
+        substrate=SharedSubstrate(**group(_field(tree, "substrate"), _SUBSTRATE)),
+        derived=SessionDerived(**group(_field(tree, "derived"), _DERIVED)),
+        ledger=CostLedger(**group(_field(tree, "ledger"), _LEDGER)),
+        quarantined=None if quarantined is None else to_torch(quarantined, device),
+        **group(tree, _STATE),
+    )
+
+
+def session_state_to_numpy(state: SessionState) -> dict:
+    """The port's ``SessionState`` -> nested dict of numpy arrays."""
+
+    def group(obj, names):
+        return {k: to_numpy(getattr(obj, k)) for k in names}
+
+    return {
+        "substrate": group(state.substrate, _SUBSTRATE),
+        "derived": group(state.derived, _DERIVED),
+        "ledger": group(state.ledger, _LEDGER),
+        "quarantined": None if state.quarantined is None else to_numpy(state.quarantined),
+        **group(state, _STATE),
+    }

@@ -1,0 +1,314 @@
+// Batched PIQUE benefit scoring (paper Eq. 11) for NVIDIA Hopper (sm_90a).
+//
+// Replaces the reference's Pallas TPU kernels in
+// src/repro/kernels/enrich_score/kernel.py:
+//   enrich_score_table_kernel  <- enrich_score_tiles_batched      (table mode)
+//   enrich_score_best_kernel   <- enrich_score_best_tiles_batched (best mode)
+//
+// Per (object c, predicate p) lane, with h the stored uncertainty, pp the
+// predicate probability and j the per-tenant joint probability:
+//   bin     = floor(clip(h, 0, 1-1e-7) * B)
+//   delta   = table_delta[p, state, bin]           (table mode also: next_fn)
+//   h_hat   = clip(h + delta, 0, 1)
+//   p_hat   = lerp of the 4096-bin inverse-entropy LUT at h_hat
+//   est_j   = clip(j / max(pp, 1e-12) * p_hat, 0, 1)   (0 where pp == 0)
+//   cost    = max(costs[p, max(fn, 0)], 1e-9)
+//   benefit = j * est_j / cost,  -inf where no function remains
+// Best mode prices every remaining function and keeps the first strict
+// maximum; nothing F-shaped is written.
+//
+// What bounds it: memory bytes.  A handful of f32 ops per lane and tenant
+// (per function in best mode) against 16 bytes written per lane and tenant,
+// far below the H100's ridge point.
+// At the main-path shape (C = 1,048,576, P = 4, Q = 8, f32 rows) it reads
+// ~84 MB (pred_prob, uncertainty, state id, joint) and writes 4 x [8, 1M, 4]
+// x 4 B = 537 MB: ~621 MB, a bound of ~0.185 ms at 3.35 TB/s (bf16 rows:
+// ~579 MB, ~0.173 ms).
+//
+// Design, against that bound:
+//   * The TPU kernel's one-hot matmul gathers were a workaround for weak
+//     vector gathers; here the decision table(s), the [P, F] costs and the
+//     f32 LUT (16 KB) are staged once per block in shared memory and read
+//     with indexed loads.  Blocks are persistent (grid-stride loop, grid
+//     sized by occupancy) so the tables are staged a few hundred times, not
+//     once per 256 lanes.
+//   * The [C, P] rows are read in place (no TILE re-layout).  One thread
+//     owns one (c, p) lane and loops over the Q tenants, so the shared rows
+//     and everything Q-invariant (bin, table lookups, p_hat, costs) are
+//     loaded and computed once, whatever Q is.  Output writes are
+//     contiguous across the threads of a warp.
+//   * next_fn is written as int32 and invalid benefits as -inf directly; in
+//     best mode an unavailable function is a +inf delta, tested with isinf.
+//   * bf16 probabilities are upcast exactly on first touch; all arithmetic
+//     is f32, rounded op by op (explicit _rn intrinsics, and the file is
+//     built with --fmad=false) so the kernel matches the plain PyTorch
+//     version in ref.py bit for bit.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxFunctions = 8;
+// f32 roundings of the double constants the reference applies to f32 data
+constexpr float kClipHi = (float)(1.0 - 1e-7);
+constexpr float kMinP = (float)1e-12;
+constexpr float kMinCost = (float)1e-9;
+
+__device__ __forceinline__ float load_prob(const float* p, int64_t i) { return p[i]; }
+__device__ __forceinline__ float load_prob(const __nv_bfloat16* p, int64_t i) {
+  return __bfloat162float(p[i]);
+}
+
+__device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+
+__device__ __forceinline__ int bin_of(float h, int num_bins) {
+  return (int)floorf(__fmul_rn(fminf(fmaxf(h, 0.0f), kClipHi), (float)num_bins));
+}
+
+// Upper entropy root: p_lo * (1 - frac) + p_hi * frac, each term rounded.
+__device__ __forceinline__ float lut_lerp(float h_hat, const float* lut, int lut_bins) {
+  const float top = (float)(lut_bins - 1);
+  const float x = __fmul_rn(h_hat, top);
+  const float lo = floorf(x);
+  const float frac = __fsub_rn(x, lo);
+  const float hi = fminf(__fadd_rn(lo, 1.0f), top);
+  return __fadd_rn(__fmul_rn(lut[(int)lo], __fsub_rn(1.0f, frac)),
+                   __fmul_rn(lut[(int)hi], frac));
+}
+
+__device__ __forceinline__ float est_joint(float j, float pp, float p_hat) {
+  return pp > 0.0f ? clip01(__fmul_rn(__fdiv_rn(j, fmaxf(pp, kMinP)), p_hat)) : 0.0f;
+}
+
+__device__ __forceinline__ void stage(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) enrich_score_table_kernel(
+    const T* __restrict__ pred_prob, const T* __restrict__ unc,
+    const int32_t* __restrict__ state_id, const T* __restrict__ joint,
+    const float* __restrict__ delta_tab, const int32_t* __restrict__ next_tab,
+    const float* __restrict__ cost_tab, const float* __restrict__ lut,
+    float* __restrict__ benefit, int32_t* __restrict__ next_fn,
+    float* __restrict__ est_out, float* __restrict__ cost_out,
+    int64_t num_rows, int P, int Q, int num_states, int num_bins, int F, int lut_bins) {
+  extern __shared__ float smem[];
+  const int tsize = P * num_states * num_bins;
+  float* s_delta = smem;
+  int32_t* s_next = reinterpret_cast<int32_t*>(s_delta + tsize);
+  float* s_cost = reinterpret_cast<float*>(s_next + tsize);
+  float* s_lut = s_cost + P * F;
+  stage(s_delta, delta_tab, tsize);
+  for (int i = threadIdx.x; i < tsize; i += blockDim.x) s_next[i] = next_tab[i];
+  stage(s_cost, cost_tab, P * F);
+  stage(s_lut, lut, lut_bins);
+  __syncthreads();
+
+  const int64_t lanes = num_rows * P;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes; i += stride) {
+    const int64_t c = i / P;
+    const int p = (int)(i - c * P);
+    const float h = load_prob(unc, i);
+    const float pp = load_prob(pred_prob, i);
+    const int t = (p * num_states + state_id[i]) * num_bins + bin_of(h, num_bins);
+    const int fn = s_next[t];
+    const float p_hat = lut_lerp(clip01(__fadd_rn(h, s_delta[t])), s_lut, lut_bins);
+    const float cost = fmaxf(s_cost[p * F + max(fn, 0)], kMinCost);
+    for (int q = 0; q < Q; ++q) {
+      const float j = load_prob(joint, (int64_t)q * num_rows + c);
+      const float est = est_joint(j, pp, p_hat);
+      const int64_t o = (int64_t)q * lanes + i;
+      benefit[o] = fn >= 0 ? __fdiv_rn(__fmul_rn(j, est), cost) : -INFINITY;
+      next_fn[o] = fn;
+      est_out[o] = est;
+      cost_out[o] = cost;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) enrich_score_best_kernel(
+    const T* __restrict__ pred_prob, const T* __restrict__ unc,
+    const int32_t* __restrict__ state_id, const T* __restrict__ joint,
+    const float* __restrict__ delta_all, const float* __restrict__ cost_tab,
+    const float* __restrict__ lut,
+    float* __restrict__ benefit, int32_t* __restrict__ next_fn,
+    float* __restrict__ est_out, float* __restrict__ cost_out,
+    int64_t num_rows, int P, int Q, int num_states, int num_bins, int F, int lut_bins) {
+  extern __shared__ float smem[];
+  const int tsize = P * num_states * num_bins * F;
+  float* s_delta = smem;
+  float* s_cost = s_delta + tsize;
+  float* s_lut = s_cost + P * F;
+  stage(s_delta, delta_all, tsize);
+  stage(s_cost, cost_tab, P * F);
+  stage(s_lut, lut, lut_bins);
+  __syncthreads();
+
+  const int64_t lanes = num_rows * P;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes; i += stride) {
+    const int64_t c = i / P;
+    const int p = (int)(i - c * P);
+    const float h = load_prob(unc, i);
+    const float pp = load_prob(pred_prob, i);
+    const float* d = s_delta +
+        ((int64_t)(p * num_states + state_id[i]) * num_bins + bin_of(h, num_bins)) * F;
+    // Q-invariant per-function terms, kept in registers (static indices)
+    float p_hat[kMaxFunctions];
+    float cost[kMaxFunctions];
+    bool ok[kMaxFunctions];
+#pragma unroll
+    for (int f = 0; f < kMaxFunctions; ++f) {
+      ok[f] = false;
+      p_hat[f] = 0.0f;
+      cost[f] = kMinCost;
+      if (f < F) {
+        const float delta = d[f];
+        ok[f] = !isinf(delta);
+        p_hat[f] = lut_lerp(clip01(__fadd_rn(h, ok[f] ? delta : 0.0f)), s_lut, lut_bins);
+        cost[f] = fmaxf(s_cost[p * F + f], kMinCost);
+      }
+    }
+    const float cost_none = fmaxf(s_cost[p * F], kMinCost);
+    for (int q = 0; q < Q; ++q) {
+      const float j = load_prob(joint, (int64_t)q * num_rows + c);
+      float best_ben = -INFINITY;
+      float best_est = 0.0f;
+      float best_cost = cost_none;
+      int best_fn = -1;
+#pragma unroll
+      for (int f = 0; f < kMaxFunctions; ++f) {
+        if (f < F && ok[f]) {
+          const float est = est_joint(j, pp, p_hat[f]);
+          const float ben = __fdiv_rn(__fmul_rn(j, est), cost[f]);
+          if (ben > best_ben) {  // strict: ties keep the FIRST maximum
+            best_ben = ben;
+            best_est = est;
+            best_cost = cost[f];
+            best_fn = f;
+          }
+        }
+      }
+      const int64_t o = (int64_t)q * lanes + i;
+      benefit[o] = best_ben;
+      next_fn[o] = best_fn;
+      est_out[o] = best_est;
+      cost_out[o] = best_cost;
+    }
+  }
+}
+
+template <typename K>
+cudaError_t launch_grid(K kernel, size_t smem, int64_t lanes, int* grid) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t need = (lanes + kThreads - 1) / kThreads;
+  const int64_t cap = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  *grid = (int)(need < cap ? need : cap);
+  return cudaSuccess;
+}
+
+// Dynamic shared memory of each kernel (the Python wrapper refuses tables
+// above the 227 KB a block may use before it launches).
+size_t table_smem(int P, int num_states, int num_bins, int F, int lut_bins) {
+  return sizeof(float) * ((size_t)P * num_states * num_bins * 2 + (size_t)P * F + lut_bins);
+}
+
+size_t best_smem(int P, int num_states, int num_bins, int F, int lut_bins) {
+  return sizeof(float) * ((size_t)P * num_states * num_bins * F + (size_t)P * F + lut_bins);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns cudaGetLastError() after the launch (0 == success).
+int enrich_score_table(const void* pred_prob, const void* unc, const void* state_id,
+                       const void* joint, const void* delta_tab, const void* next_tab,
+                       const void* cost_tab, const void* lut, void* benefit, void* next_fn,
+                       void* est_joint, void* cost, int64_t num_rows, int P, int Q,
+                       int num_states, int num_bins, int F, int lut_bins, int bf16,
+                       void* stream) {
+  const int64_t lanes = num_rows * P;
+  if (lanes == 0 || Q == 0) return (int)cudaSuccess;
+  const size_t smem = table_smem(P, num_states, num_bins, F, lut_bins);
+  auto s = static_cast<cudaStream_t>(stream);
+  int grid = 0;
+  cudaError_t err;
+  if (bf16) {
+    auto k = enrich_score_table_kernel<__nv_bfloat16>;
+    if ((err = launch_grid(k, smem, lanes, &grid)) != cudaSuccess) return (int)err;
+    k<<<grid, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(pred_prob), static_cast<const __nv_bfloat16*>(unc),
+        static_cast<const int32_t*>(state_id), static_cast<const __nv_bfloat16*>(joint),
+        static_cast<const float*>(delta_tab), static_cast<const int32_t*>(next_tab),
+        static_cast<const float*>(cost_tab), static_cast<const float*>(lut),
+        static_cast<float*>(benefit), static_cast<int32_t*>(next_fn),
+        static_cast<float*>(est_joint), static_cast<float*>(cost),
+        num_rows, P, Q, num_states, num_bins, F, lut_bins);
+  } else {
+    auto k = enrich_score_table_kernel<float>;
+    if ((err = launch_grid(k, smem, lanes, &grid)) != cudaSuccess) return (int)err;
+    k<<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(pred_prob), static_cast<const float*>(unc),
+        static_cast<const int32_t*>(state_id), static_cast<const float*>(joint),
+        static_cast<const float*>(delta_tab), static_cast<const int32_t*>(next_tab),
+        static_cast<const float*>(cost_tab), static_cast<const float*>(lut),
+        static_cast<float*>(benefit), static_cast<int32_t*>(next_fn),
+        static_cast<float*>(est_joint), static_cast<float*>(cost),
+        num_rows, P, Q, num_states, num_bins, F, lut_bins);
+  }
+  return (int)cudaGetLastError();
+}
+
+int enrich_score_best(const void* pred_prob, const void* unc, const void* state_id,
+                      const void* joint, const void* delta_all, const void* cost_tab,
+                      const void* lut, void* benefit, void* next_fn, void* est_joint,
+                      void* cost, int64_t num_rows, int P, int Q, int num_states,
+                      int num_bins, int F, int lut_bins, int bf16, void* stream) {
+  const int64_t lanes = num_rows * P;
+  if (lanes == 0 || Q == 0) return (int)cudaSuccess;
+  if (F > kMaxFunctions) return (int)cudaErrorInvalidValue;
+  const size_t smem = best_smem(P, num_states, num_bins, F, lut_bins);
+  auto s = static_cast<cudaStream_t>(stream);
+  int grid = 0;
+  cudaError_t err;
+  if (bf16) {
+    auto k = enrich_score_best_kernel<__nv_bfloat16>;
+    if ((err = launch_grid(k, smem, lanes, &grid)) != cudaSuccess) return (int)err;
+    k<<<grid, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(pred_prob), static_cast<const __nv_bfloat16*>(unc),
+        static_cast<const int32_t*>(state_id), static_cast<const __nv_bfloat16*>(joint),
+        static_cast<const float*>(delta_all), static_cast<const float*>(cost_tab),
+        static_cast<const float*>(lut), static_cast<float*>(benefit),
+        static_cast<int32_t*>(next_fn), static_cast<float*>(est_joint),
+        static_cast<float*>(cost), num_rows, P, Q, num_states, num_bins, F, lut_bins);
+  } else {
+    auto k = enrich_score_best_kernel<float>;
+    if ((err = launch_grid(k, smem, lanes, &grid)) != cudaSuccess) return (int)err;
+    k<<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(pred_prob), static_cast<const float*>(unc),
+        static_cast<const int32_t*>(state_id), static_cast<const float*>(joint),
+        static_cast<const float*>(delta_all), static_cast<const float*>(cost_tab),
+        static_cast<const float*>(lut), static_cast<float*>(benefit),
+        static_cast<int32_t*>(next_fn), static_cast<float*>(est_joint),
+        static_cast<float*>(cost), num_rows, P, Q, num_states, num_bins, F, lut_bins);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,147 @@
+"""Wrapper: shared substrate rows -> ``TripleBenefits`` via the scoring kernels.
+
+``fused_benefits_batched`` keeps the reference's signature
+(``repro/kernels/enrich_score/ops.py``) and returns ``[Q, N, P]`` leaves.  It
+routes by the device of its tensors: on the CPU it runs the plain PyTorch
+version (``ref.py``); on a CUDA tensor it launches the hand-written kernel
+or raises — it never falls back and reads no environment switch.
+
+``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-path calls,
+one plain integer per kernel, so a run can show that its main path went
+through the kernels (``reset_counts`` zeroes both).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.core.benefit import TripleBenefits
+from repro_torch.core.decision_table import DecisionTable
+from repro_torch.core.entropy import inverse_entropy_table
+from repro_torch.core.errors import SubstrateDtypeError
+from repro_torch.kernels.enrich_score import kernel, ref
+
+KERNELS = ("enrich_score_table", "enrich_score_best")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
+PROB_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+        PLAIN_CALLS[k] = 0
+
+
+@functools.lru_cache(maxsize=8)
+def _lut(bins: int, device: torch.device) -> torch.Tensor:
+    return inverse_entropy_table(bins, device)
+
+
+def _check_cuda_operands(device, named: dict) -> None:
+    for name, (t, dtypes, shape) in named.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def fused_benefits_batched(
+    pred_prob: torch.Tensor,  # [N, P] shared predicate probabilities (f32 | bf16)
+    uncertainty: torch.Tensor,  # [N, P] same dtype
+    state_id: torch.Tensor,  # [N, P] int32
+    joint_prob: torch.Tensor,  # [Q, N] same dtype
+    table: DecisionTable,
+    costs: torch.Tensor,  # [P, F] f32
+    function_selection: str = "table",  # "table" | "best"
+    lut_bins: int = 4096,
+) -> TripleBenefits:
+    """Multi-query Eq. 11 over a shared substrate -> [Q, N, P] leaves.
+
+    Validity/candidate masking beyond exhausted triples is the caller's job.
+    Probability operands stay at their storage dtype (bf16 is upcast
+    exactly inside the kernel); mixed probability dtypes raise
+    ``SubstrateDtypeError`` rather than promote.
+    """
+    if not (pred_prob.dtype == uncertainty.dtype == joint_prob.dtype):
+        raise SubstrateDtypeError(
+            f"fused scoring needs one probability dtype; got pred_prob="
+            f"{pred_prob.dtype}, uncertainty={uncertainty.dtype}, "
+            f"joint_prob={joint_prob.dtype}",
+            expected=str(pred_prob.dtype),
+            got=f"{uncertainty.dtype}/{joint_prob.dtype}",
+            where="fused_benefits_batched",
+        )
+    if function_selection not in ("table", "best"):
+        raise ValueError(f"unknown function_selection: {function_selection!r}")
+    best = function_selection == "best"
+    if best and table.delta_h_all is None:
+        raise ValueError("best-mode scoring needs a table learned with delta_h_all")
+    name = KERNELS[best]
+    dev = pred_prob.device
+    lut = _lut(lut_bins, dev)
+
+    if dev.type == "cpu":
+        PLAIN_CALLS[name] += 1
+        if best:
+            out = ref.enrich_score_best_ref(
+                pred_prob, uncertainty, state_id, joint_prob, table.delta_h_all, costs, lut
+            )
+        else:
+            out = ref.enrich_score_table_ref(
+                pred_prob, uncertainty, state_id, joint_prob,
+                table.delta_h, table.next_fn, costs, lut,
+            )
+        return TripleBenefits(*out)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_benefits_batched runs on cpu or cuda, not {dev}")
+
+    n, p = pred_prob.shape
+    q = joint_prob.shape[0]
+    f = costs.shape[1]
+    tab = table.delta_h_all if best else table.delta_h
+    s, b = tab.shape[1], tab.shape[2]
+    operands = {
+        "pred_prob": (pred_prob, PROB_DTYPES, (n, p)),
+        "uncertainty": (uncertainty, PROB_DTYPES, (n, p)),
+        "state_id": (state_id, (torch.int32,), (n, p)),
+        "joint_prob": (joint_prob, PROB_DTYPES, (q, n)),
+        "costs": (costs, (torch.float32,), (p, f)),
+        "lut": (lut, (torch.float32,), (lut_bins,)),
+    }
+    if best:
+        operands["delta_h_all"] = (tab, (torch.float32,), (p, s, b, f))
+        smem = kernel.best_smem_bytes(p, s, b, f, lut_bins)
+    else:
+        operands["delta_h"] = (tab, (torch.float32,), (p, s, b))
+        operands["next_fn"] = (table.next_fn, (torch.int32,), (p, s, b))
+        smem = kernel.table_smem_bytes(p, s, b, f, lut_bins)
+    _check_cuda_operands(dev, operands)
+    if smem > kernel.SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: tables need {smem} bytes of shared memory, more than the "
+            f"{kernel.SMEM_LIMIT} a Hopper block can use"
+        )
+    if best and f > 8:
+        raise ValueError(f"{name} supports at most 8 functions, got {f}")
+
+    out = (
+        torch.empty((q, n, p), dtype=torch.float32, device=dev),
+        torch.empty((q, n, p), dtype=torch.int32, device=dev),
+        torch.empty((q, n, p), dtype=torch.float32, device=dev),
+        torch.empty((q, n, p), dtype=torch.float32, device=dev),
+    )
+    if best:
+        kernel.launch_best(pred_prob, uncertainty, state_id, joint_prob, tab, costs, lut, out)
+    else:
+        kernel.launch_table(
+            pred_prob, uncertainty, state_id, joint_prob, tab, table.next_fn, costs, lut, out
+        )
+    LAUNCHES[name] += 1
+    return TripleBenefits(*out)

@@ -1,0 +1,309 @@
+"""The progressive query server, session mode (port of ``repro.launch.serve``).
+
+Serves PIQUE's progressive epoch loop as one long-lived multi-tenant
+``EngineSession`` over a simulated (AUC-calibrated) corpus, driven by a
+scripted ingest/admit/retire/run arrival trace, lockstep:
+
+    python -m repro_torch.launch.serve --session --objects 4096 --preds 4 \\
+        --trace 'admit:2;admit:3;run:8;ingest:2048;admit:2;run:8;retire:0;run:8'
+
+Runs on the card by default (``--device cuda``); ``--device cpu`` runs the
+plain PyTorch path.  The report's ``cost_hex``, ``bills_hex`` and
+``answer_digest`` are the bitwise diff surface, as in the reference.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import json
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.combine import fit_combine_weights
+from repro_torch.core.decision_table import learn_decision_table
+from repro_torch.core.executor import EngineConfig, SessionState
+from repro_torch.core.query import Predicate, conjunction
+from repro_torch.core.session import EngineSession
+from repro_torch.data.synthetic import make_corpus, split_corpus
+from repro_torch.device import resolve_device
+
+SESSION_AUCS = (0.60, 0.88, 0.93, 0.97)
+SESSION_COSTS = (0.01, 0.05, 0.2, 0.5)
+
+
+def build_session_server(
+    num_objects: int = 256,
+    capacity: Optional[int] = None,
+    num_preds: int = 4,
+    max_tenants: int = 8,
+    seed: int = 0,
+    train_size: int = 512,
+    plan_size: int = 64,
+    plan_shards: int = 1,
+    max_capacity: Optional[int] = None,
+    substrate_dtype: str = "float32",
+    device=None,
+):
+    """Long-lived serving session over a simulated corpus.
+
+    Offline phase on the target device: draw the corpus, fit the combine
+    weights and learn the decision table on a training split, then open the
+    session over ``num_objects`` rows.  -> (session, state, ingest_pool,
+    preds): ``ingest_pool`` holds the remaining outputs (up to
+    ``max(capacity, max_capacity)`` rows) for ``ingest`` events.
+    """
+    dev = resolve_device(device)
+    if capacity is None:
+        capacity = 2 * num_objects
+    limit = max(capacity, max_capacity or capacity)
+    preds = [Predicate(i, 1) for i in range(num_preds)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    corpus = make_corpus(
+        gen, limit + train_size, [p.tag_type for p in preds], [p.tag for p in preds],
+        selectivity=[0.3] * num_preds, aucs=SESSION_AUCS, costs=SESSION_COSTS,
+    )
+    train, evalc = split_corpus(corpus, train_size)
+    combine = fit_combine_weights(train.func_probs, train.truth_pred.to(torch.float32), steps=150)
+    table = learn_decision_table(train.func_probs, combine, num_bins=10)
+    session = EngineSession(
+        [p.positive() for p in preds], table, combine, evalc.costs,
+        capacity=capacity, max_tenants=max_tenants,
+        config=EngineConfig(
+            plan_size=plan_size, function_selection="best",
+            num_shards=plan_shards, substrate_dtype=substrate_dtype,
+        ),
+        max_capacity=max_capacity,
+        device=dev,
+    )
+    state = session.init_state(evalc.func_probs[:num_objects])
+    pool = evalc.func_probs[num_objects:limit]
+    return session, state, pool, preds
+
+
+def parse_trace(spec: str) -> list:
+    """``"admit:2;run:4;ingest:64;retire:0;run:4"`` -> [(kind, int_arg), ...].
+
+    Kinds: ``run:<epochs>``, ``admit:<k>`` (a random conjunction of k schema
+    predicates), ``ingest:<m>`` (m pooled objects), ``retire:<slot>``.
+    """
+    events = []
+    for tok in spec.replace(",", ";").split(";"):
+        tok = tok.strip()
+        if not tok:
+            continue
+        kind, _, arg = tok.partition(":")
+        if kind not in ("run", "admit", "ingest", "retire"):
+            raise ValueError(f"unknown trace event {tok!r}")
+        arg = int(arg)
+        if kind in ("run", "ingest", "admit") and arg < 1:
+            raise ValueError(f"trace event {tok!r}: arg must be >= 1")
+        if kind == "retire" and arg < 0:
+            raise ValueError(f"trace event {tok!r}: slot must be >= 0")
+        events.append((kind, arg))
+    return events
+
+
+@dataclasses.dataclass
+class SessionServeReport:
+    epochs: int
+    events: list
+    cost_spent: float
+    mean_expected_f: float  # over active tenants at the end
+    active_tenants: int
+    num_rows: int
+    attributed: list  # [S] per-tenant ledger totals
+    unattributed: float
+    superstep_traces: int
+    wall_s: float
+    history: list
+    capacity: int = 0  # the tier the session ended on
+    max_capacity: int = 0
+    growths: int = 0
+    retrace_bound: int = 1
+    chunk_size: Optional[int] = None
+    num_events: int = 0
+    events_per_sec: float = 0.0
+    cost_hex: str = ""  # float.hex of cost_spent (bitwise-diffable)
+    bills_hex: list = dataclasses.field(default_factory=list)  # [S] invoice hex
+    answer_digest: str = ""  # sha256 over in_answer[:, :num_rows] (tier-free)
+    scan_lengths: list = dataclasses.field(default_factory=list)
+    substrate_dtype: str = "float32"
+    device: str = ""
+    state: Optional[SessionState] = None  # final state, for callers that serve on
+
+    def payload(self) -> dict:
+        """The JSON report (everything but the history and the state)."""
+        skip = ("history", "state")
+        return {
+            f.name: getattr(self, f.name)
+            for f in dataclasses.fields(self)
+            if f.name not in skip
+        }
+
+
+def serve_session_trace(
+    session: EngineSession,
+    state: SessionState,
+    events: list,  # [(kind, arg)] from parse_trace
+    pool=None,  # [R, P, F] outputs available to ingest events
+    preds=None,  # schema predicates, for admit events
+    seed: int = 0,
+    chunk_size: Optional[int] = None,
+) -> SessionServeReport:
+    """Drive a scripted arrival trace through one session, lockstep.
+
+    Admit events draw their predicate subsets from ``np.random.default_rng
+    (seed)`` exactly as the reference does, so both serve the same tenants.
+    """
+    rng = np.random.default_rng(seed)
+    pool_off = 0
+    history = []
+    scan_lengths: set = set()
+    t0 = time.perf_counter()
+    for kind, arg in events:
+        if kind == "run":
+            prev = [0]
+
+            def on_chunk(carry, done, _prev=prev):
+                scan_lengths.add(done - _prev[0])
+                _prev[0] = done
+                return False
+
+            state, h = session.run(
+                state, arg, stop_when_exhausted=False, chunk_size=chunk_size, on_chunk=on_chunk
+            )
+            history.extend(h)
+        elif kind == "admit":
+            if preds is None:
+                raise ValueError("admit events need the schema predicates")
+            k = min(max(1, arg), len(preds))
+            cols = sorted(rng.choice(len(preds), size=k, replace=False))
+            state, _ = session.admit(state, conjunction(*[preds[c] for c in cols]))
+        elif kind == "ingest":
+            if pool is None or pool_off + arg > pool.shape[0]:
+                raise ValueError(
+                    f"ingest of {arg} exceeds the remaining pool "
+                    f"({0 if pool is None else pool.shape[0] - pool_off})"
+                )
+            state = session.ingest(state, pool[pool_off:pool_off + arg])
+            pool_off += arg
+        else:  # retire
+            state = session.retire(state, arg)
+    if state.device.type == "cuda":
+        torch.cuda.synchronize(state.device)
+    wall = time.perf_counter() - t0
+    last = history[-1] if history else None
+    num_rows = int(state.num_rows)
+    answers = np.ascontiguousarray(state.derived.in_answer[:, :num_rows].cpu().numpy())
+    bills = state.ledger.bills(state.cost_spent)
+    cost = float(state.cost_spent)
+    return SessionServeReport(
+        epochs=len(history),
+        events=[dict(kind=k, arg=a) for k, a in events],
+        cost_spent=cost,
+        mean_expected_f=last.mean_expected_f if last else 0.0,
+        active_tenants=int(state.active.sum()),
+        num_rows=num_rows,
+        attributed=[float(x) for x in state.ledger.attributed.cpu()],
+        unattributed=float(state.ledger.unattributed),
+        superstep_traces=session.superstep_traces,
+        wall_s=wall,
+        history=history,
+        capacity=state.capacity,
+        max_capacity=session.max_capacity,
+        growths=session.growths,
+        retrace_bound=session.retrace_bound,
+        chunk_size=chunk_size,
+        num_events=len(events),
+        events_per_sec=len(events) / max(wall, 1e-9),
+        cost_hex=cost.hex(),
+        bills_hex=[float(b).hex() for b in bills],
+        answer_digest=hashlib.sha256(answers.tobytes()).hexdigest(),
+        scan_lengths=sorted(scan_lengths),
+        substrate_dtype=session.config.substrate_dtype,
+        device=str(state.device),
+        state=state,
+    )
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--session", action="store_true",
+                    help="serve a long-lived EngineSession driven by a scripted "
+                         "ingest/admit/retire arrival trace (the mode this port serves)")
+    ap.add_argument("--objects", type=int, default=512)
+    ap.add_argument("--preds", type=int, default=4)
+    ap.add_argument("--epochs", type=int, default=40,
+                    help="epochs of the default trace (split over its run events)")
+    ap.add_argument("--plan-shards", type=int, default=1,
+                    help="plan selection over this many object shards (identical "
+                         "to unsharded planning)")
+    ap.add_argument("--capacity", type=int, default=None,
+                    help="session row capacity (default 2x --objects)")
+    ap.add_argument("--max-capacity", type=int, default=None,
+                    help="grow past --capacity through geometric tiers up to this bound")
+    ap.add_argument("--max-tenants", type=int, default=8, help="pre-allocated tenant slots")
+    ap.add_argument("--trace", default=None,
+                    help="arrival trace, e.g. 'admit:2;run:4;ingest:64;admit:3;run:4;retire:0;run:4'")
+    ap.add_argument("--substrate-dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="storage dtype of the substrate (scoring math stays f32)")
+    ap.add_argument("--chunk-size", type=int, default=None,
+                    help="epochs per dispatched chunk (bitwise inert)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cuda' (default) raises when no GPU is present")
+    ap.add_argument("--report", default=None, help="write the serve report as JSON")
+    args = ap.parse_args(argv)
+    if not args.session:
+        ap.error("this port serves session mode only: pass --session")
+
+    session, state, pool, preds = build_session_server(
+        num_objects=args.objects, capacity=args.capacity,
+        num_preds=max(args.preds, 2), max_tenants=args.max_tenants, seed=args.seed,
+        plan_shards=args.plan_shards, max_capacity=args.max_capacity,
+        substrate_dtype=args.substrate_dtype, device=args.device,
+    )
+    e = max(args.epochs // 4, 1)
+    spec = args.trace or (
+        f"admit:2;admit:2;run:{e};ingest:{pool.shape[0] // 2};run:{e};"
+        f"admit:3;run:{e};retire:0;run:{e}"
+    )
+    events = parse_trace(spec)
+    report = serve_session_trace(
+        session, state, events, pool=pool, preds=preds, seed=args.seed,
+        chunk_size=args.chunk_size,
+    )
+    eps = report.epochs / max(report.wall_s, 1e-9)
+    bills = {i: f"{c:.3f}" for i, c in enumerate(report.attributed) if c > 0}
+    print(
+        f"[serve] session trace {spec!r} on {report.device} (chunk={args.chunk_size}): "
+        f"{report.epochs} epochs, {report.num_rows} rows (tier {report.capacity} of "
+        f"{report.max_capacity} max, {report.growths} growths), "
+        f"{report.active_tenants} active tenants, cost={report.cost_spent:.4f}s-model, "
+        f"mean E(F1)={report.mean_expected_f:.3f}, ledger={bills} "
+        f"(+{report.unattributed:.4f} unattributed), "
+        f"superstep traces={report.superstep_traces}, wall={report.wall_s:.2f}s "
+        f"({eps:.2f} epochs/s)"
+    )
+    if args.report:
+        with open(args.report, "w") as fh:
+            json.dump(report.payload(), fh, indent=1, sort_keys=True)
+    # each distinct dispatched chunk length builds one program per visited tier
+    expected = max(len(report.scan_lengths), 1) * (report.growths + 1)
+    if report.superstep_traces > expected:
+        print(
+            f"[serve] WARNING: superstep re-built under churn ({report.superstep_traces} "
+            f"programs for {expected} chunk-length x visited-tier combinations)"
+        )
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
