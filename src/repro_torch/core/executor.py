@@ -10,7 +10,9 @@ merge) and its chunked driver:
    the state lives on the card, their plain PyTorch twins on the CPU;
 3. per-slot top-k plans (``select_plans_batched``);
 4. cross-tenant dedup with want-bits;
-5. gather from the capacity-padded bank buffer;
+5. the bank boundary: gather from the capacity-padded bank buffer, or run
+   an attached bank's ``execute`` (the model-cascade bank) on the merged
+   plan;
 6. write-once charge and apply;
 7. ledger attribution;
 8. Theorem-1 answer selection.
@@ -81,6 +83,11 @@ def resolve_substrate_dtype(name: str) -> torch.dtype:
         raise ValueError(
             f"substrate_dtype must be one of {sorted(_SUBSTRATE_DTYPES)}, got {name!r}"
         ) from None
+
+
+def scan_capable(bank) -> bool:
+    """Can this bank's ``execute`` run inside the superstep?"""
+    return bool(getattr(bank, "supports_scan", False))
 
 
 def select_plans_batched(
@@ -202,12 +209,21 @@ class EpochProgram:
         costs: torch.Tensor,
         config: EngineConfig,
         truth_masks: Optional[torch.Tensor] = None,  # [S, C] bool (metrics only)
+        bank=None,  # bank whose execute runs INSIDE the superstep
     ):
         self.table = table
         self.combine_params = combine_params
         self.costs = costs
         self.config = config
         self.truth_masks = truth_masks
+        # With a bank attached the superstep calls ``bank.execute(merged)``;
+        # without one, outputs gather from the state's ``bank_outputs``.
+        if bank is not None and not scan_capable(bank):
+            raise ValueError(
+                "EpochProgram(bank=...) requires a bank with supports_scan == True "
+                "(a fixed-shape execute over the merged plan)"
+            )
+        self.bank = bank
         self._programs: set = set()  # (capacity, length, collect_masks) built
 
     @property
@@ -320,8 +336,12 @@ class EpochProgram:
         return plans, merged, want_bits
 
     def _gather_outputs(self, state: SessionState, merged: plan_lib.Plan) -> torch.Tensor:
-        """The bank boundary: gather from the capacity-padded output buffer
-        (invalid lanes read row 0 and stay inert)."""
+        """The bank boundary.  An attached bank executes the merged plan and
+        its f32 probabilities are quantised to the substrate dtype HERE, the
+        boundary ``ingest`` quantises at.  Otherwise outputs gather from the
+        capacity-padded buffer (invalid lanes read row 0 and stay inert)."""
+        if self.bank is not None:
+            return self.bank.execute(merged).to(state.substrate.func_probs.dtype)
         obj = plan_lib.gather_object_idx(merged, state.capacity)
         return state.bank_outputs[obj, merged.pred_idx, torch.clamp_min(merged.func_idx, 0)]
 

@@ -13,7 +13,10 @@ pre-allocated dimension:
 * **capacity tiers** — with ``max_capacity > capacity`` an overflowing
   ingest migrates the state to the next geometric tier
   (``pad_session_state``, padded rows inert), so chunk programs are built
-  at most once per tier and length (``retrace_bound``).
+  at most once per tier and length (``retrace_bound``);
+* **an attached bank** — ``bank=`` (the model-cascade bank) runs its
+  ``execute`` on every epoch's merged plan inside the superstep; a ragged
+  bank's missing levels open in the quarantine channel.
 
 The session runs on the card unless ``device="cpu"`` is passed; without a
 GPU and without an explicit ``"cpu"`` it raises.
@@ -104,6 +107,7 @@ class EngineSession:
         max_capacity: Optional[int] = None,
         truth_masks: Optional[torch.Tensor] = None,  # [S, capacity] bool, metrics only
         device=None,
+        bank=None,  # bank executed INSIDE the superstep (see executor)
     ):
         if config.num_shards < 1:
             raise ValueError("num_shards must be >= 1")
@@ -141,8 +145,10 @@ class EngineSession:
                     "truth rows cannot follow tier growth)"
                 )
             truth_masks = torch.as_tensor(truth_masks).to(self.device)
+        self.bank = bank
         self.program = EpochProgram(
-            self.table, self.combine_params, self.costs, config, truth_masks=truth_masks
+            self.table, self.combine_params, self.costs, config, truth_masks=truth_masks,
+            bank=bank,
         )
 
     @property
@@ -232,9 +238,20 @@ class EngineSession:
             active=torch.zeros(s, dtype=torch.bool, device=dev),
             num_rows=torch.tensor(n0, dtype=torch.int32, device=dev),
             ledger=ledger_lib.init_ledger(s, device=dev),
-            quarantined=torch.zeros((p, self.num_functions), dtype=torch.bool, device=dev),
+            quarantined=self._initial_quarantine(),
         )
         return self.program.refresh(state)
+
+    def _initial_quarantine(self) -> torch.Tensor:
+        """(pred, fn) pairs dead from birth: a ragged bank's missing levels
+        (``bank.available == False``) enter the quarantine channel, so beyond
+        their sentinel cost they are structurally unplannable."""
+        q = torch.zeros((self.num_predicates, self.num_functions), dtype=torch.bool,
+                        device=self.device)
+        avail = getattr(self.bank, "available", None)
+        if avail is not None:
+            q = q | ~torch.as_tensor(avail, dtype=torch.bool).to(self.device)
+        return q
 
     def _query_columns(self, query: CompiledQuery) -> list:
         if not query.is_conjunctive:

@@ -1,15 +1,19 @@
 """Carry parameters and session state between numpy and the port's types.
 
-The reference's pytrees come out of ``jax.device_get`` as numpy leaves; this
-module turns such trees — dicts of numpy arrays, or objects with the same
-attribute names — into the port's ``CombineParams``, ``DecisionTable`` and
-``SessionState``, and back into nested dicts of numpy arrays.  It imports
-neither JAX nor the reference package: bf16 leaves travel as their raw 16-bit
-patterns (``ml_dtypes.bfloat16`` numpy arrays on the numpy side).
+The reference's pytrees come out of ``jax.device_get`` as numpy leaves (or
+hold arrays that ``numpy.array`` converts); this module turns such trees —
+dicts of numpy arrays, or objects with the same attribute names — into the
+port's ``CombineParams``, ``DecisionTable``, ``SessionState``, model
+parameters (the ``[G]``-stacked ``layers`` of ``stack_init``, probes,
+backbone heads) and whole ``ModelCascadeBank``s, and back into nested dicts
+of numpy arrays.  It imports neither JAX nor the reference package: bf16
+leaves travel as their raw 16-bit patterns (``ml_dtypes.bfloat16`` numpy
+arrays on the numpy side).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
@@ -20,6 +24,8 @@ from repro_torch.core.decision_table import DecisionTable
 from repro_torch.core.executor import SessionDerived, SessionState
 from repro_torch.core.ledger import CostLedger
 from repro_torch.core.state import SharedSubstrate
+from repro_torch.enrich import cascade as cascade_lib
+from repro_torch.models.config import ModelConfig
 
 
 def _field(obj, name: str):
@@ -108,3 +114,57 @@ def session_state_to_numpy(state: SessionState) -> dict:
         "quarantined": None if state.quarantined is None else to_numpy(state.quarantined),
         **group(state, _STATE),
     }
+
+
+# ------------------------------------------------------- model parameters --
+
+
+def tree_from_numpy(tree, device=None):
+    """Nested dicts / tuples of arrays -> the same nesting of tensors (tuples
+    stay tuples: the period-grouped ``layers`` stack is a tuple of dicts)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_from_numpy(v, device) for v in tree)
+    return to_torch(tree, device)
+
+
+def tree_to_numpy(tree):
+    return cascade_lib.map_tree(to_numpy, tree)
+
+
+def model_config_from(obj) -> ModelConfig:
+    """Any object with ``ModelConfig``'s field names (the reference's config
+    is one) -> the port's ``ModelConfig``."""
+    return ModelConfig(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(ModelConfig)})
+
+
+_PROBES = {"linear": cascade_lib._linear_probe_apply, "mlp": cascade_lib._mlp_probe_apply}
+
+
+def cascade_bank_from_numpy(cascades, features, device=None) -> cascade_lib.ModelCascadeBank:
+    """Levels with the reference's ``CascadeLevel`` attributes (``name``,
+    ``params``, ``flops_per_object``, ``cfg``), one list per predicate, and
+    the [N, D] features -> the port's bank.  A trunk shared by several levels
+    (one object) stays one trunk."""
+    trunks = {}
+
+    def level(lvl) -> cascade_lib.CascadeLevel:
+        if lvl.name in _PROBES:
+            return cascade_lib.CascadeLevel(
+                lvl.name, tree_from_numpy(lvl.params, device), _PROBES[lvl.name],
+                float(lvl.flops_per_object))
+        trunk_np, head_np = lvl.params
+        cfg = model_config_from(lvl.cfg)
+        if id(trunk_np) not in trunks:
+            trunks[id(trunk_np)] = cascade_lib.with_compute_copy(
+                tree_from_numpy(trunk_np, device), cfg)
+        out = cascade_lib.backbone_level(cfg, trunks[id(trunk_np)], tree_from_numpy(head_np, device))
+        if out.flops_per_object != float(lvl.flops_per_object):
+            raise ValueError(f"{lvl.name}: cost {lvl.flops_per_object} != {out.flops_per_object}")
+        return out
+
+    return cascade_lib.ModelCascadeBank(
+        cascades=[[level(lvl) for lvl in casc] for casc in cascades],
+        features=to_torch(features, device).to(torch.float32),
+    )

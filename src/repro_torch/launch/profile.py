@@ -1,14 +1,22 @@
 """Where one session epoch spends its time on the card.
 
-    python -m repro_torch.launch.profile [--epochs 8] [--mode best|table]
+    python -m repro_torch.launch.profile [--bank simulated|cascade] [--epochs 8]
+        [--mode best|table]
 
-Builds the main-path session (524,288 rows grown to 1,048,576 by one ingest,
-8 tenant slots, bf16 substrate), admits the tenants and grows the state as
-``chip_smoke.py``'s main path does, then runs ``--epochs`` supersteps under
-``torch.profiler`` and prints: the wall time per epoch, the device-busy
+``--bank simulated`` (default) builds the main-path session (524,288 rows
+grown to 1,048,576 by one ingest, 8 tenant slots, bf16 substrate), admits
+the tenants and grows the state as ``chip_smoke.py``'s main path does.
+``--bank cascade`` builds the cascade server at full width (the 28-layer
+qwen3-1.7b trunk, 2,048 objects, 3 predicates, 8 tenant slots, f32
+substrate, best mode), admits 8 tenants and runs epochs until the planner
+selects backbone lanes.  Then ``--epochs`` supersteps run under
+``torch.profiler`` and it prints: the wall time per epoch, the device-busy
 share of that wall time (sum of kernel times over wall time; kernels on one
-stream do not overlap), and the kernels with the most device time.  Needs a
-GPU; it has no CPU mode.
+stream do not overlap), the device time by kind (attention, scoring,
+matmuls, sorts and scans, elementwise work, the rest), the kernels with the most device time
+and, for the cascade, the device idle right after each bank-boundary host
+read (from the end of its device-to-host copy to the start of the next
+kernel).  Needs a GPU; it has no CPU mode.
 """
 
 from __future__ import annotations
@@ -25,6 +33,17 @@ from repro_torch.core.query import conjunction
 from repro_torch.core.session import EngineSession
 from repro_torch.launch import serve
 
+TENANTS = ((0, 1), (1, 2, 3), (0, 2), (2, 3), (0, 1, 2, 3), (1, 3), (0, 3), (1, 2))
+CASCADE_TENANTS = ((0, 1), (1, 2), (0, 2), (0,), (1,), (2,), (0, 1, 2), (0, 1))
+KINDS = (  # (label, substrings of the kernel name), first match wins
+    ("attention (flash kernel)", ("flash_attention",)),
+    ("scoring (enrich_score)", ("enrich_score",)),
+    ("matmuls (cuBLAS)", ("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas")),
+    ("sorts and scans", ("RadixSort", "scan", "Scan", "sort")),
+    ("elementwise, copies, reductions", ("elementwise", "reduce_kernel", "CatArray", "Memcpy",
+                                         "Memset", "index", "gather", "scatter")),
+)
+
 
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
@@ -33,29 +52,62 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--epochs", type=int, default=8)
-    ap.add_argument("--mode", default="best", choices=("best", "table"))
-    ap.add_argument("--top", type=int, default=15)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile needs a GPU (torch.cuda.is_available() is False)")
+def _kind(name: str) -> str:
+    for label, keys in KINDS:
+        if any(k in name for k in keys):
+            return label
+    return "other"
 
+
+def _simulated(mode: str):
     session, state, pool, preds = serve.build_session_server(
         num_objects=524288, capacity=524288, max_capacity=1 << 20, num_preds=4,
         max_tenants=8, substrate_dtype="bfloat16", device="cuda",
     )
-    for cols in ((0, 1), (1, 2, 3), (0, 2), (2, 3), (0, 1, 2, 3), (1, 3), (0, 3), (1, 2)):
+    for cols in TENANTS:
         state, _ = session.admit(state, conjunction(*[preds[c] for c in cols]))
     state = session.ingest(state, pool)
     prog = EngineSession(
         session.global_predicates, session.table, session.combine_params, session.costs,
         capacity=state.capacity, max_tenants=8, device="cuda",
-        config=EngineConfig(plan_size=64, function_selection=args.mode,
-                            substrate_dtype="bfloat16"),
+        config=EngineConfig(plan_size=64, function_selection=mode, substrate_dtype="bfloat16"),
     ).program
     state, _ = prog.run_scan(state, 2, stop_when_exhausted=False)  # warm-up
+    return prog, state, f"{mode} mode, 8 tenants, {state.capacity} rows (bf16)"
+
+
+def _cascade():
+    session, state, preds, _ = serve.build_cascade_session_server(
+        num_objects=2048, num_preds=3, max_tenants=8, backbone_arch="qwen3-1.7b",
+        plan_size=64, substrate_dtype="float32", smoke=False, device="cuda",
+    )
+    for cols in CASCADE_TENANTS:
+        state, _ = session.admit(state, conjunction(*[preds[c] for c in cols]))
+    bank, warm = session.bank, 0
+    while bank.trunk_runs == 0 and warm < 300:  # until the planner picks backbone lanes
+        state, _ = session.run(state, 1, stop_when_exhausted=False)
+        warm += 1
+    if bank.trunk_runs == 0:
+        raise SystemExit(f"no backbone lane in {warm} epochs: nothing to profile")
+    return session.program, state, (
+        f"cascade at full width (qwen3-1.7b trunk), 8 tenants, 2048 objects, best mode, "
+        f"after {warm} warm-up epochs")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--bank", default="simulated", choices=("simulated", "cascade"))
+    ap.add_argument("--epochs", type=int, default=8)
+    ap.add_argument("--mode", default="best", choices=("best", "table"),
+                    help="scoring mode of the simulated bank (the cascade serves best mode)")
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile needs a GPU (torch.cuda.is_available() is False)")
+
+    prog, state, label = _cascade() if args.bank == "cascade" else _simulated(args.mode)
+    bank = prog.bank
+    trunk0 = 0 if bank is None else bank.trunk_runs
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -74,14 +126,35 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(f"[profile] {smi}")
-    print(f"[profile] {args.mode} mode, 8 tenants, {state.capacity} rows (bf16): "
-          f"{args.epochs} epochs in {wall * 1e3:.3f} ms wall = "
-          f"{wall * 1e3 / args.epochs:.3f} ms/epoch; device busy "
-          f"{busy_us / 1e3:.3f} ms = {busy_us / 1e6 / wall:.1%} of wall"
-          if busy_us else "[profile] the profiler recorded no device time: not measured")
+    if not busy_us:
+        print("[profile] the profiler recorded no device time: not measured")
+        return 1
+    n = args.epochs
+    trunk = "" if bank is None else f" ({bank.trunk_runs - trunk0} of them ran the trunk)"
+    print(f"[profile] {label}: {n} epochs{trunk} in {wall * 1e3:.3f} ms wall = "
+          f"{wall * 1e3 / n:.3f} ms/epoch; device busy {busy_us / 1e3:.3f} ms = "
+          f"{busy_us / 1e6 / wall:.1%} of wall")
+    by_kind: dict = {}
+    for e in events:
+        by_kind[_kind(e.key)] = by_kind.get(_kind(e.key), 0.0) + _device_us(e)
+    for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {kind:26s} {us / 1e3 / n:9.4f} ms/epoch  {us / busy_us:6.1%} of busy")
     for e in sorted(events, key=_device_us, reverse=True)[: args.top]:
-        print(f"[profile]   {_device_us(e) / 1e3 / args.epochs:9.4f} ms/epoch  "
-              f"{e.count // max(args.epochs, 1):5d} calls/epoch  {e.key[:110]}")
+        print(f"[profile]   {_device_us(e) / 1e3 / n:9.4f} ms/epoch  "
+              f"{e.count // max(n, 1):5d} calls/epoch  {e.key[:110]}")
+    if bank is not None:
+        # device idle right after each host read: end of its DtoH copy -> next kernel start
+        kernels = sorted(
+            (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        gaps = []
+        for i, (_, end, name) in enumerate(kernels):
+            if "DtoH" in name and i + 1 < len(kernels):
+                gaps.append(max(kernels[i + 1][0] - end, 0.0))
+        if gaps:
+            print(f"[profile] bank-boundary host reads: {len(gaps)} device-to-host copies, "
+                  f"device idle after them {sum(gaps) / 1e3 / n:.4f} ms/epoch = "
+                  f"{sum(gaps) / 1e6 / wall:.1%} of wall (median gap {sorted(gaps)[len(gaps) // 2]:.1f} us)")
     return 0
 
 

@@ -1,11 +1,22 @@
 """The progressive query server, session mode (port of ``repro.launch.serve``).
 
 Serves PIQUE's progressive epoch loop as one long-lived multi-tenant
-``EngineSession`` over a simulated (AUC-calibrated) corpus, driven by a
-scripted ingest/admit/retire/run arrival trace, lockstep:
+``EngineSession`` driven by a scripted ingest/admit/retire/run arrival
+trace, lockstep.  Two enrichment banks:
+
+* ``--bank simulated`` (default): precomputed AUC-calibrated outputs,
+  ingest-capable::
 
     python -m repro_torch.launch.serve --session --objects 4096 --preds 4 \\
         --trace 'admit:2;admit:3;run:8;ingest:2048;admit:2;run:8;retire:0;run:8'
+
+* ``--bank cascade``: the model-cascade bank (linear probe, MLP probe and a
+  transformer backbone head per predicate) runs its real forwards on every
+  epoch's merged plan; a fixed corpus, so no ingest.  The backbone is the
+  reference's reduced config unless ``--full-width`` asks for the published
+  one::
+
+    python -m repro_torch.launch.serve --session --bank cascade --device cpu
 
 Runs on the card by default (``--device cuda``); ``--device cpu`` runs the
 plain PyTorch path.  The report's ``cost_hex``, ``bills_hex`` and
@@ -25,13 +36,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.combine import fit_combine_weights
+from repro_torch.configs.archs import get_config
+from repro_torch.core.combine import auc_score, fit_combine_weights
 from repro_torch.core.decision_table import learn_decision_table
 from repro_torch.core.executor import EngineConfig, SessionState
 from repro_torch.core.query import Predicate, conjunction
 from repro_torch.core.session import EngineSession
 from repro_torch.data.synthetic import make_corpus, split_corpus
 from repro_torch.device import resolve_device
+from repro_torch.enrich.cascade import ModelCascadeBank, build_cascade_suite, train_level
+from repro_torch.models.config import ModelConfig
 
 SESSION_AUCS = (0.60, 0.88, 0.93, 0.97)
 SESSION_COSTS = (0.01, 0.05, 0.2, 0.5)
@@ -84,6 +98,117 @@ def build_session_server(
     state = session.init_state(evalc.func_probs[:num_objects])
     pool = evalc.func_probs[num_objects:limit]
     return session, state, pool, preds
+
+
+def _offline_phase(
+    num_objects: int,
+    num_preds: int,
+    backbone_cfg: Optional[ModelConfig],
+    seed: int,
+    train_size: int = 512,
+    device=None,
+):
+    """Corpus, cascade training, combine weights and decision table over the
+    global predicate space, on ``device`` (no backbone level when
+    ``backbone_cfg`` is None).  The bank's features are the evaluation
+    split: the corpus the session serves.
+    -> (preds, bank, combine, table, qualities)
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    preds = [Predicate(i, 1) for i in range(num_preds)]
+    corpus = make_corpus(
+        gen, num_objects + train_size, [p.tag_type for p in preds], [p.tag for p in preds],
+        selectivity=[0.3] * num_preds, feature_dim=64,
+    )
+    train, evalc = split_corpus(corpus, train_size)
+    # one SHARED backbone trunk with per-predicate heads
+    suite = build_cascade_suite(gen, num_preds, 64, backbone_cfg)
+    cascades, qualities = [], []
+    for i in range(num_preds):
+        levels = [train_level(lvl, train.features, train.truth_pred[:, i]) for lvl in suite[i]]
+        cascades.append(levels)
+        with torch.no_grad():
+            qualities.append([
+                float(auc_score(lvl.apply_fn(lvl.params, evalc.features), evalc.truth_pred[:, i]))
+                for lvl in levels
+            ])
+    bank = ModelCascadeBank(cascades=cascades, features=evalc.features)
+
+    # offline artifacts: combine weights + decision table from TRAIN outputs
+    with torch.no_grad():
+        train_outputs = torch.stack([
+            torch.stack([lvl.apply_fn(lvl.params, train.features).float() for lvl in casc], dim=1)
+            for casc in cascades
+        ], dim=1)  # [Ntr, P, F]
+    combine = fit_combine_weights(train_outputs, train.truth_pred.to(torch.float32), steps=150)
+    table = learn_decision_table(train_outputs, combine, num_bins=10, costs=bank.costs,
+                                 cost_normalized=True)
+    return preds, bank, combine, table, qualities
+
+
+def open_cascade_session(
+    preds,
+    bank: ModelCascadeBank,
+    combine,
+    table,
+    max_tenants: int = 8,
+    plan_size: int = 64,
+    plan_shards: int = 1,
+    substrate_dtype: str = "float32",
+    device=None,
+):
+    """A session over ``bank``'s whole corpus whose epochs run the bank's
+    ``execute`` on every merged plan -> (session, state)."""
+    num_objects = bank.features.shape[0]
+    session = EngineSession(
+        [p.positive() for p in preds], table, combine, bank.costs,
+        capacity=num_objects, max_tenants=max_tenants,
+        config=EngineConfig(
+            plan_size=plan_size, function_selection="best",
+            num_shards=plan_shards, substrate_dtype=substrate_dtype,
+        ),
+        device=device, bank=bank,
+    )
+    # no precomputed outputs to seed: the bank computes probabilities inside
+    # the superstep; the buffer opens at the prior and is never gathered
+    placeholder = torch.full((num_objects, len(preds), bank.num_levels), session.config.prior,
+                             dtype=torch.float32, device=session.device)
+    return session, session.init_state(placeholder)
+
+
+def build_cascade_session_server(
+    num_objects: int = 256,
+    num_preds: int = 3,
+    max_tenants: int = 8,
+    seed: int = 0,
+    backbone_arch: Optional[str] = None,
+    plan_size: int = 64,
+    plan_shards: int = 1,
+    substrate_dtype: str = "float32",
+    smoke: bool = True,
+    train_size: int = 512,
+    device=None,
+):
+    """Long-lived serving session whose enrichment is the model-cascade
+    bank, run inside the superstep (``EngineSession(bank=...)``).  The bank's
+    feature table IS the corpus, so the session is fixed-capacity
+    (capacity == num_objects) and serves no ingest events.  ``smoke=False``
+    builds the backbone at the published width of ``backbone_arch`` instead
+    of the reference's reduced config.
+
+    -> (session, state, preds, qualities)
+    """
+    dev = resolve_device(device)
+    backbone_cfg = get_config(backbone_arch, smoke=smoke) if backbone_arch else None
+    preds, bank, combine, table, qualities = _offline_phase(
+        num_objects, num_preds, backbone_cfg, seed, train_size=train_size, device=dev,
+    )
+    session, state = open_cascade_session(
+        preds, bank, combine, table, max_tenants=max_tenants, plan_size=plan_size,
+        plan_shards=plan_shards, substrate_dtype=substrate_dtype, device=dev,
+    )
+    return session, state, preds, qualities
 
 
 def parse_trace(spec: str) -> list:
@@ -155,11 +280,14 @@ def serve_session_trace(
     preds=None,  # schema predicates, for admit events
     seed: int = 0,
     chunk_size: Optional[int] = None,
+    on_chunk=None,
 ) -> SessionServeReport:
     """Drive a scripted arrival trace through one session, lockstep.
 
     Admit events draw their predicate subsets from ``np.random.default_rng
     (seed)`` exactly as the reference does, so both serve the same tenants.
+    ``on_chunk(state, epochs_done)`` is called after each dispatched chunk
+    of a run event (``EngineSession.run``'s hook; its return is ignored).
     """
     rng = np.random.default_rng(seed)
     pool_off = 0
@@ -170,13 +298,15 @@ def serve_session_trace(
         if kind == "run":
             prev = [0]
 
-            def on_chunk(carry, done, _prev=prev):
+            def record(carry, done, _prev=prev):
                 scan_lengths.add(done - _prev[0])
                 _prev[0] = done
+                if on_chunk is not None:
+                    on_chunk(carry, done)
                 return False
 
             state, h = session.run(
-                state, arg, stop_when_exhausted=False, chunk_size=chunk_size, on_chunk=on_chunk
+                state, arg, stop_when_exhausted=False, chunk_size=chunk_size, on_chunk=record
             )
             history.extend(h)
         elif kind == "admit":
@@ -237,6 +367,15 @@ def main(argv=None) -> int:
     ap.add_argument("--session", action="store_true",
                     help="serve a long-lived EngineSession driven by a scripted "
                          "ingest/admit/retire arrival trace (the mode this port serves)")
+    ap.add_argument("--bank", default="simulated", choices=("simulated", "cascade"),
+                    help="enrichment bank: 'simulated' (precomputed AUC-calibrated "
+                         "outputs, ingest-capable) or 'cascade' (real model-cascade "
+                         "forwards every epoch; fixed corpus, no ingest)")
+    ap.add_argument("--backbone", default="qwen3-1.7b",
+                    help="cascade backbone architecture ('' for probes only)")
+    ap.add_argument("--full-width", action="store_true",
+                    help="cascade backbone at the published width (default: the "
+                         "reference's reduced config)")
     ap.add_argument("--objects", type=int, default=512)
     ap.add_argument("--preds", type=int, default=4)
     ap.add_argument("--epochs", type=int, default=40,
@@ -263,17 +402,33 @@ def main(argv=None) -> int:
     if not args.session:
         ap.error("this port serves session mode only: pass --session")
 
-    session, state, pool, preds = build_session_server(
-        num_objects=args.objects, capacity=args.capacity,
-        num_preds=max(args.preds, 2), max_tenants=args.max_tenants, seed=args.seed,
-        plan_shards=args.plan_shards, max_capacity=args.max_capacity,
-        substrate_dtype=args.substrate_dtype, device=args.device,
-    )
     e = max(args.epochs // 4, 1)
-    spec = args.trace or (
-        f"admit:2;admit:2;run:{e};ingest:{pool.shape[0] // 2};run:{e};"
-        f"admit:3;run:{e};retire:0;run:{e}"
-    )
+    if args.bank == "cascade":
+        if args.max_capacity is not None or args.capacity is not None:
+            ap.error("--bank cascade serves a fixed corpus: no --capacity / --max-capacity")
+        if args.trace and any(k == "ingest" for k, _ in parse_trace(args.trace)):
+            ap.error("--bank cascade serves a fixed corpus; drop ingest events from --trace")
+        session, state, preds, qualities = build_cascade_session_server(
+            num_objects=args.objects, num_preds=max(args.preds, 2),
+            max_tenants=args.max_tenants, seed=args.seed, backbone_arch=args.backbone or None,
+            plan_shards=args.plan_shards, substrate_dtype=args.substrate_dtype,
+            smoke=not args.full_width, device=args.device,
+        )
+        pool = None
+        print(f"[serve] cascade qualities (AUC): {qualities}")
+        # the cascade bank serves its fixed corpus: the default trace churns tenants only
+        spec = args.trace or f"admit:2;run:{e};admit:2;run:{e};retire:0;run:{e}"
+    else:
+        session, state, pool, preds = build_session_server(
+            num_objects=args.objects, capacity=args.capacity,
+            num_preds=max(args.preds, 2), max_tenants=args.max_tenants, seed=args.seed,
+            plan_shards=args.plan_shards, max_capacity=args.max_capacity,
+            substrate_dtype=args.substrate_dtype, device=args.device,
+        )
+        spec = args.trace or (
+            f"admit:2;admit:2;run:{e};ingest:{pool.shape[0] // 2};run:{e};"
+            f"admit:3;run:{e};retire:0;run:{e}"
+        )
     events = parse_trace(spec)
     report = serve_session_trace(
         session, state, events, pool=pool, preds=preds, seed=args.seed,

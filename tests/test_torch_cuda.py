@@ -7,7 +7,10 @@ machine that has only PyTorch and the CUDA toolkit:
 
 Each ``enrich_score`` kernel is held BITWISE against its plain PyTorch
 version on the same card tensors — all four outputs — because both round
-every f32 op on its own (the kernels are built with ``--fmad=false``).
+every f32 op on its own (the kernels are built with ``--fmad=false``).  The
+flash-attention kernel is held against its plain twin within the reference
+tests' tolerances (2e-5 f32, 2e-2 bf16: the online softmax sums in another
+order), and a small model-cascade session serves through it on the card.
 """
 
 import numpy as np
@@ -22,6 +25,7 @@ from repro_torch.core.query import Predicate, conjunction
 from repro_torch.core.session import EngineSession
 from repro_torch.data.synthetic import make_corpus
 from repro_torch.kernels.enrich_score import ops, ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
 
 
 @pytest.fixture
@@ -111,3 +115,80 @@ def test_cuda_session_scores_through_the_kernel(cuda_device, mode):
     name = ops.KERNELS[mode == "best"]
     assert ops.LAUNCHES[name] == 5 and ops.PLAIN_CALLS[name] == 0
     assert st.capacity == 256 and hist[-1].cost_spent > 0
+
+
+# ------------------------------------------------------------ flash attention --
+
+# b, sq, skv, h, kv, d, causal, window, softcap, kv_len, q_offset_from_kv_len
+FA_CASES = [
+    (1, 128, 128, 4, 2, 32, True, None, None, None, False),
+    (2, 256, 256, 4, 4, 64, True, None, 50.0, None, False),
+    (1, 128, 128, 8, 2, 32, True, 48, None, None, False),
+    (2, 128, 128, 4, 1, 64, False, None, None, None, False),
+    (1, 64, 256, 4, 2, 32, True, None, None, 100, True),  # partial kv_len
+    (64, 8, 8, 16, 8, 128, False, None, None, None, True),  # the backbone's shape
+    (3, 37, 53, 6, 3, 48, True, 20, 30.0, 41, True),  # ragged tails, D = 48
+    (2, 19, 19, 2, 2, 256, True, None, None, None, False),  # D = 256
+    (1, 5, 9, 2, 1, 16, True, None, None, 3, True),  # rows with no live key
+]
+
+
+def _fa_inputs(dev, dtype, seed, b, sq, skv, h, kv, d):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+               for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_kernel_matches_plain_twin(cuda_device, case, dtype, tol):
+    b, sq, skv, h, kv, d, causal, window, cap, kv_len, q_off = case
+    q, k, v = _fa_inputs(cuda_device, dtype, sq * skv + d, b, sq, skv, h, kv, d)
+    kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=q_off)
+    before = fa_ops.LAUNCHES["flash_attention"]
+    out = fa_ops.flash_attention(q, k, v, kl, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+    want = fa_ops.plain_bshd(q, k, v, kl, **kw)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_bad_operands(cuda_device):
+    q, k, v = _fa_inputs(cuda_device, torch.float32, 0, 1, 8, 8, 4, 2, 32)
+    with pytest.raises(ValueError, match="expected|on cpu|q on"):
+        fa_ops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError, match="dtype"):
+        fa_ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qq, kk, vv = _fa_inputs(cuda_device, torch.float32, 0, 1, 8, 8, 4, 2, 40)
+        fa_ops.flash_attention(qq, kk, vv)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+
+
+@pytest.mark.cuda
+def test_cuda_cascade_session_runs_the_trunk_through_the_kernel(cuda_device):
+    from repro_torch.launch import serve
+
+    session, state, preds, _ = serve.build_cascade_session_server(
+        num_objects=64, num_preds=2, max_tenants=3, backbone_arch="qwen3-1.7b", plan_size=16,
+        train_size=128, device=cuda_device)
+    bank = session.bank
+    ops.reset_counts()
+    fa_ops.reset_counts()
+    trunk0 = bank.trunk_runs
+    report = serve.serve_session_trace(session, state, serve.parse_trace(
+        "admit:2;run:8;admit:1;run:8"), preds=preds)
+    trunk_epochs = bank.trunk_runs - trunk0
+    assert report.epochs == 16 and trunk_epochs > 0
+    # the reduced trunk has 2 layers: one flash launch per layer per trunk epoch
+    assert fa_ops.LAUNCHES["flash_attention"] == 2 * trunk_epochs
+    assert ops.LAUNCHES["enrich_score_best"] == 16
+    assert not fa_ops.PLAIN_CALLS["flash_attention"] and not any(ops.PLAIN_CALLS.values())
+    probs = report.state.substrate.func_probs
+    assert torch.isfinite(probs).all() and ((probs >= 0) & (probs <= 1)).all()

@@ -217,6 +217,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     code = (
         "import sys\n"
         "import repro_torch.core.session, repro_torch.launch.serve, repro_torch.interop\n"
+        "import repro_torch.enrich.cascade, repro_torch.models.transformer\n"
+        "import repro_torch.kernels.flash_attention.ops, repro_torch.launch.profile\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
