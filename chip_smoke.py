@@ -8,12 +8,15 @@ in order; any failure raises and the script exits non-zero:
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every kernel on the main paths from this checkout's sources
    (one nvcc per source, started together), with each kernel's ptxas summary;
-2. kernels vs plain: both ``enrich_score`` kernels against their plain
-   PyTorch versions on the same card tensors at the main path's shape
+2. kernels vs plain: both batched ``enrich_score`` kernels against their
+   plain PyTorch versions on the same card tensors at the main path's shape
    (C = 1<<20 rows, P = 4, F = 4, Q = 8 tenant slots), f32 and bf16 rows, a
-   learned decision table and an edge-bin fixture — ``next_fn``, ``cost``,
-   ``benefit`` and ``est_joint`` must be bitwise equal — and their times
-   (CUDA events, median of 25 after warm-up) beside the memory bound;
+   learned decision table and an edge-bin fixture, and the single-query
+   kernel at the operator's shape (N = 1<<20 objects, P = 2, F = 4, the
+   quickstart's learned table and an edge-bin fixture, ~30% of objects no
+   candidates) — ``next_fn``, ``cost``, ``benefit`` and ``est_joint`` must be
+   bitwise equal — and their times (CUDA events, median of 25 after
+   warm-up) beside the bound;
 3. CPU vs GPU session: one churn trace at capacity 4096 with 4 tenants, in
    both scoring modes, through ``EngineSession(device="cpu")`` (plain path)
    and ``device="cuda"`` (kernels) — per-slot plans, merged plans,
@@ -23,7 +26,12 @@ in order; any failure raises and the script exits non-zero:
    on the CPU and copied to the card: ``execute`` on the CPU (plain twins)
    and on the card (kernels) over the same merged plans agree within 1e-5,
    the first epoch's plans are equal, and later plans and answer sets are
-   compared (a divergence is printed with its epoch);
+   compared (a divergence is printed with its epoch); then the paper's
+   operator on the quickstart query and corpus at N = 4,096 for 24 epochs,
+   built on the CPU and run with ``device="cpu"`` and ``device="cuda"``:
+   the kernel route (``benefit_fn=fused_benefits``) and the session facade
+   (default scoring) — plans and answer sets equal epoch by epoch, spend
+   within rtol 1e-5;
 4. the main path at full size: the session server (``repro_torch.launch.
    serve``: 524,288 rows growing to 1,048,576, 8 tenant slots, bf16
    substrate, best-mode scoring) serves
@@ -43,7 +51,18 @@ in order; any failure raises and the script exits non-zero:
    launch 28 times per epoch that ran the trunk (at least 4 such epochs),
    the plain twins never; chunk programs within the bound, invoices fold
    bit for bit, every epoch charges, probabilities finite and in [0, 1];
-6. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and the
+6. the operator main path at full size: the quickstart query and corpus at
+   N = 1,048,576 (+1,024 rows to train on), ``OperatorConfig()`` defaults
+   (plan size 256, table mode, exact answers), the ``preprocess_cheapest``
+   warm start; 32 epochs of ``op.run`` on the kernel route, then 32 of the
+   same operator through the session facade.  The single-query kernel must
+   launch once per kernel-route epoch and the table kernel on every facade
+   epoch, the plain versions never; every epoch charges spend, the mean
+   entropy falls, E(F) stays in [0, 1];
+7. the two other serve entry points on the card: the single-query server
+   and ``--queries 4`` (best mode: the best-mode kernel launches); both
+   return 0;
+8. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and the
    final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the reference package ``repro``.
@@ -74,14 +93,18 @@ SMOKE_TRACE = [("admit", (0, 1)), ("admit", (1, 2, 3)), ("run", 4), ("ingest", 2
 CASCADE_TRACE = "admit:2;admit:3;admit:2;run:8;retire:0;admit:2;run:88"
 CASCADE_SMOKE_TRACE = [("admit", (0, 1)), ("admit", (1, 2)), ("run", 6), ("admit", (0, 2)),
                        ("run", 6), ("retire", 0), ("run", 8)]
+N_OP, P_OP, F_OP = 1 << 20, 2, 4  # the operator's main path: the quickstart at 1M objects
+OP_EPOCHS = 32
 SOURCES = {
     "enrich_score_table": "src/repro_torch/kernels/enrich_score/csrc/enrich_score.cu",
     "enrich_score_best": "src/repro_torch/kernels/enrich_score/csrc/enrich_score.cu",
+    "enrich_score_single": "src/repro_torch/kernels/enrich_score/csrc/enrich_score.cu",
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
 }
 REPLACES = {
     "enrich_score_table": "src/repro/kernels/enrich_score/kernel.py:318",
     "enrich_score_best": "src/repro/kernels/enrich_score/kernel.py:354",
+    "enrich_score_single": "src/repro/kernels/enrich_score/kernel.py:273",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:122",
 }
 # b, sq, skv, h, kv, d, causal, window, softcap, dtype, kv_len, q_offset_from_kv_len
@@ -214,7 +237,7 @@ def phase_kernels(table, costs) -> dict:
         "enrich_score_table": 4 * (2 * table.delta_h.numel() + costs.numel() + lut.numel()),
         "enrich_score_best": 4 * (table.delta_h_all.numel() + costs.numel() + lut.numel()),
     }
-    results = {name: {"max_abs_err": 0.0} for name in ops.KERNELS}
+    results = {name: {"max_abs_err": 0.0} for name in ("enrich_score_table", "enrich_score_best")}
     for dtype in (torch.float32, torch.bfloat16):
         for edge in (False, True):
             pp, unc, sid, joint = _kernel_inputs(dev, dtype, edge, seed=7 + edge)
@@ -255,6 +278,92 @@ def phase_kernels(table, costs) -> dict:
                     results[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                          bound_by=bound_by)
     return results
+
+
+def _single_bound(table_bytes: int) -> tuple:
+    """(bound_ms, bound_by) of one single-query launch: pred_prob, unc and
+    state_id [N, P] (4 B each), joint [N] (4 B) and cand [N] (1 B) read once,
+    four [N, P] outputs (4 B each) written once; ~18 f32 operations a lane."""
+    lanes = N_OP * P_OP
+    nbytes = lanes * 12 + N_OP * 5 + table_bytes + lanes * 16
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = lanes * 18 / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_single_kernel(table) -> dict:
+    """The single-query kernel against its plain twin at the operator's shape."""
+    import torch
+
+    from repro_torch.core.entropy import binary_entropy
+    from repro_torch.core.query import Predicate, conjunction
+    from repro_torch.core.state import EnrichmentState
+    from repro_torch.kernels.enrich_score import kernel, ops, ref
+
+    dev = torch.device("cuda")
+    table = table.to(dev)
+    costs = torch.tensor([[0.023, 0.114, 0.42, 0.949]] * P_OP, device=dev)
+    lut = ops._lut(4096, dev)
+    query = conjunction(Predicate(0, 1), Predicate(1, 2))
+    result = {"max_abs_err": 0.0}
+    for edge in (False, True):
+        g = torch.Generator(device=dev).manual_seed(17 + edge)
+        pp = torch.rand((N_OP, P_OP), generator=g, device=dev) * 0.96 + 0.02
+        sid = torch.randint(0, 2**F_OP, (N_OP, P_OP), generator=g, device=dev, dtype=torch.int32)
+        if edge:  # h ~ 0 (saturated), h ~ 1 (coin flips), exhausted rows
+            third = N_OP // 3
+            pp[:third] = torch.rand((third, P_OP), generator=g, device=dev) * 1e-4 + 1e-6
+            pp[third:2 * third] = 0.5 + (torch.rand((third, P_OP), generator=g,
+                                                    device=dev) - 0.5) * 2e-5
+            sid[2 * third:] = 2**F_OP - 1
+        bits = (sid[..., None] >> torch.arange(F_OP, device=dev)) & 1
+        st = EnrichmentState(
+            func_probs=torch.full((N_OP, P_OP, F_OP), 0.5, device=dev), exec_mask=bits.bool(),
+            pred_prob=pp, uncertainty=binary_entropy(pp),
+            joint_prob=torch.rand((N_OP,), generator=g, device=dev),
+            in_answer=torch.rand((N_OP,), generator=g, device=dev) < 0.3,  # ~30% no candidates
+            cost_spent=torch.zeros((), device=dev))
+        cand = (~st.in_answer).contiguous()
+        args = (st.pred_prob, st.uncertainty, sid, st.joint_prob, cand, table.delta_h,
+                table.next_fn, costs, lut)
+        raw = tuple(torch.empty((N_OP, P_OP), dtype=dt, device=dev)
+                    for dt in (torch.float32, torch.int32, torch.float32, torch.float32))
+
+        def kernel_call():
+            kernel.launch_single(*args, raw)
+
+        def plain_call():
+            return ref.enrich_score_single_ref(*args)
+
+        wrapped = ops.fused_benefits(st, query, table, costs)
+        kernel_call()
+        want = plain_call()
+        torch.cuda.synchronize()
+        labels = ("benefit", "next_fn", "est_joint", "cost")
+        for label, a, b in zip(labels, raw, want):
+            if not torch.equal(a, b):
+                diff = (a.double() - b.double()).abs().nan_to_num(0.0).max().item()
+                raise AssertionError(f"enrich_score_single edge={edge}: {label} differs from "
+                                     f"the plain version (max abs diff {diff})")
+            fin = torch.isfinite(a.double()) & torch.isfinite(b.double())
+            result["max_abs_err"] = max(result["max_abs_err"],
+                                        (a.double() - b.double()).abs()[fin].max().item())
+        for label, a, b in zip(labels[:3], wrapped[:3], want[:3]):
+            assert torch.equal(a, b), f"fused_benefits {label} differs from the plain version"
+        assert torch.isneginf(raw[0][st.in_answer]).all()
+        if edge:
+            assert (raw[1][2 * (N_OP // 3):] == -1).all()
+            continue
+        ms, plain_ms = _time_ms(kernel_call), _time_ms(plain_call)
+        table_bytes = 4 * (2 * table.delta_h.numel() + costs.numel() + lut.numel())
+        bound_ms, bound_by = _single_bound(table_bytes)
+        print(f"[kernels] enrich_score_single f32 N={N_OP} P={P_OP} F={F_OP}, "
+              f"{int(st.in_answer.sum())} objects no candidates: bitwise equal to plain "
+              f"(benefit, next_fn, est_joint, cost); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound",
+              flush=True)
+        result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return result
 
 
 def _run_trace_pair(table, combine, costs, outputs, mode):
@@ -366,7 +475,8 @@ def phase_main_path() -> dict:
     hist = report.history
     assert report.epochs == 24 and len(table_hist) == 8
     assert grown.capacity == 1 << 20 and report.num_rows == 1 << 20 and report.growths == 1
-    assert launches == {"enrich_score_table": 8, "enrich_score_best": 24}, launches
+    assert launches == {"enrich_score_table": 8, "enrich_score_best": 24,
+                        "enrich_score_single": 0}, launches
     assert not any(plain.values()), f"plain path ran on the main path: {plain}"
     assert report.superstep_traces <= session.retrace_bound, report.superstep_traces
     assert _fold(grown) and _fold(final), "invoices do not fold to cost_spent"
@@ -496,7 +606,7 @@ def phase_cascade_cpu_vs_gpu():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    preds, bank, combine, table, _ = serve._offline_phase(
+    preds, _, bank, combine, table, _ = serve._offline_phase(
         128, 3, _reduced_f32_backbone(), seed=0, device="cpu")
     banks = (bank, bank.to("cuda"))
     pairs = [serve.open_cascade_session(preds, b, combine, table, max_tenants=4, plan_size=32,
@@ -542,6 +652,126 @@ def phase_cascade_cpu_vs_gpu():
           f"trunk): execute agrees within {worst:.3g} (<= 1e-5), epoch-0 plans equal, "
           f"divergent epochs {diverged or 'none'}; in {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+
+def phase_operator_cpu_vs_gpu(world):
+    """The quickstart operator at N = 4,096 on the CPU (plain twins) and the
+    card (kernels), lockstep: the kernel route epoch by epoch through
+    ``run_epoch`` (plans and answer sets), the session facade through
+    one-epoch ``run`` calls (executed triples and answer sets)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.profile import quickstart_operator
+
+    n = world["num_objects"]
+    for fused in (True, False):
+        t0 = time.perf_counter()
+        pairs = [quickstart_operator(world, fused, device=d) for d in ("cpu", "cuda")]
+        ops_, states = [p[0] for p in pairs], [p[1] for p in pairs]
+        for e in range(24):
+            if fused:
+                out = [op.run_epoch(st) for op, st in zip(ops_, states)]
+                states = [o[0] for o in out]
+                (_, sc, pc, _), (_, sg, pg, _) = out
+                pg = pg.map(lambda t: t.cpu())
+                assert torch.equal(pc.valid, pg.valid), f"operator epoch {e}: plan validity"
+                for x, y in zip(pc[:3], pg[:3]):
+                    assert torch.equal(torch.where(pc.valid, x, -1), torch.where(pg.valid, y, -1)), (
+                        f"operator epoch {e}: plan lanes differ")
+                assert torch.equal(sc.mask, sg.mask.cpu()), f"operator epoch {e}: answers"
+            else:
+                states = [op.run(n, 1, state=st, stop_when_exhausted=False)[0]
+                          for op, st in zip(ops_, states)]
+                assert torch.equal(states[0].exec_mask, states[1].exec_mask.cpu()), (
+                    f"facade epoch {e}: executed triples differ")
+                assert torch.equal(states[0].in_answer, states[1].in_answer.cpu()), (
+                    f"facade epoch {e}: answers")
+            np.testing.assert_allclose(float(states[1].cost_spent), float(states[0].cost_spent),
+                                       rtol=1e-5)
+        route = "kernel route (fused_benefits)" if fused else "session facade"
+        print(f"[operator] {route}: CPU and GPU operators agree over 24 epochs at N={n} "
+              f"(plans and answers equal; spend {float(states[0].cost_spent)!r} vs "
+              f"{float(states[1].cost_spent)!r}) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_operator_main_path() -> dict:
+    """The paper's operator at 1,048,576 objects: the kernel route, then the
+    session facade; counts zeroed before each run and read after it."""
+    import torch
+
+    from repro_torch.kernels.enrich_score import ops
+    from repro_torch.launch.profile import quickstart_operator, quickstart_world
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    world = quickstart_world(N_OP, train_size=1024, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    lines = []
+    for fused in (True, False):
+        op, st0 = quickstart_operator(world, fused, device="cuda")
+        h_start = st0.uncertainty.mean().item()
+        ops.reset_counts()
+        t1 = time.perf_counter()
+        final, hist = op.run(N_OP, OP_EPOCHS, state=st0, stop_when_exhausted=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        run_launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        assert len(hist) == OP_EPOCHS, len(hist)
+        assert not any(plain.values()), f"plain path ran on the operator path: {plain}"
+        if fused:
+            assert run_launches == {"enrich_score_table": 0, "enrich_score_best": 0,
+                                    "enrich_score_single": OP_EPOCHS}, run_launches
+        else:
+            assert run_launches == {"enrich_score_table": OP_EPOCHS, "enrich_score_best": 0,
+                                    "enrich_score_single": 0}, run_launches
+        for k, v in run_launches.items():
+            launches[k] += v
+        live = [h for h in hist if h.plan_valid > 0]
+        spent = [h.cost_spent for h in live]
+        assert len(live) == OP_EPOCHS and all(b > a for a, b in zip(spent, spent[1:])), (
+            "an epoch charged nothing")
+        h_end = final.uncertainty.mean().item()
+        assert h_end < h_start, (h_start, h_end)
+        assert all(0.0 <= h.expected_f <= 1.0 for h in hist), [h.expected_f for h in hist]
+        assert torch.isfinite(final.pred_prob).all() and final.in_answer.shape == (N_OP,)
+        route = "kernel route (fused_benefits)" if fused else "session facade"
+        lines.append(
+            f"[operator-main] {route}: {OP_EPOCHS} epochs in {wall:.3f} s = "
+            f"{wall / OP_EPOCHS * 1e3:.3f} ms/epoch (host clock, synchronised at the end); "
+            f"launches {run_launches}; cost_spent {hist[-1].cost_spent!r}; E(F) "
+            f"{hist[0].expected_f!r} -> {hist[-1].expected_f!r}; true F1 {hist[0].true_f1!r} -> "
+            f"{hist[-1].true_f1!r}; mean entropy {h_start!r} -> {h_end!r}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[operator-main] quickstart query, {N_OP} objects + 1024 to train, P=2, F=4, "
+          f"OperatorConfig() defaults, preprocess_cheapest warm start; setup {setup_s:.2f} s; "
+          f"peak device memory {peak / 2**30:.3f} GiB", flush=True)
+    for line in lines:
+        print(line, flush=True)
+    return launches
+
+
+def phase_serve_entry_points() -> dict:
+    """``launch/serve.py``'s single-query and multi-query modes on the card."""
+    from repro_torch.kernels.enrich_score import ops
+    from repro_torch.launch import serve
+
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    base = ["--objects", "512", "--preds", "2", "--epochs", "8", "--backbone", ""]
+    for extra in ([], ["--queries", "4"]):
+        ops.reset_counts()
+        rc = serve.main(base + extra)
+        assert rc == 0, f"serve {extra} returned {rc}"
+        assert not any(ops.PLAIN_CALLS.values()), ops.PLAIN_CALLS
+        if extra:  # the multi-query server scores in best mode
+            assert ops.LAUNCHES["enrich_score_best"] > 0, ops.LAUNCHES
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        print(f"[serve] {' '.join(base + extra)!r}: rc 0, launches {dict(ops.LAUNCHES)}",
+              flush=True)
+    return launches
 
 
 def phase_cascade_main_path() -> dict:
@@ -631,6 +861,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from repro_torch.launch.profile import quickstart_world
 
     smi = _nvidia_smi()
     print(f"[env] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -639,15 +870,18 @@ def main() -> int:
     phase_build()
     table, combine, costs, outputs = _small_world()
     results = phase_kernels(table, costs)
+    quickstart = quickstart_world(4096, device="cpu")
+    results["enrich_score_single"] = phase_single_kernel(quickstart["table"])
     results["flash_attention"] = phase_flash()
     phase_cpu_vs_gpu(table, combine, costs, outputs)
     phase_cascade_cpu_vs_gpu()
-    main_launches = phase_main_path()
-    cascade_launches = phase_cascade_main_path()
-    # launches: the sum over both main-path runs (each zeroes the counts first)
+    phase_operator_cpu_vs_gpu(quickstart)
+    runs = [phase_main_path(), phase_cascade_main_path(), phase_operator_main_path(),
+            phase_serve_entry_points()]
+    # launches: the sum over the main-path runs (each zeroes the counts first)
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-             launches=main_launches.get(name, 0) + cascade_launches[name],
+             launches=sum(run.get(name, 0) for run in runs),
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r.get("library_ms"))
         for name, r in results.items()

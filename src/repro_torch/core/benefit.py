@@ -1,14 +1,18 @@
 """Benefit estimation (paper section 4.3, Lemma 4 / Theorem 2 / Eq. 11).
 
-Port of the session half of ``repro.core.benefit``.  For every candidate
-(object, predicate) pair: look up the decision table, form the estimated
-uncertainty ``h_hat``, invert binary entropy (optimistic upper root), update
-the conjunctive joint, and score ``Benefit = P * P_hat / cost`` (Eq. 11).
+Port of ``repro.core.benefit``.  For every candidate (object, predicate)
+pair: look up the decision table, form the estimated uncertainty ``h_hat``,
+invert binary entropy (optimistic upper root), update the joint (the O(1)
+conjunctive update or a general AST re-evaluated with one column
+substituted), and score ``Benefit = P * P_hat / cost`` (Eq. 11).
 
-``compute_benefits_batched`` is the step-by-step oracle; the session scores
-through ``kernels.enrich_score.ops.fused_benefits_batched`` (the CUDA
-kernels on the card, their plain twins on the CPU).  The candidate helpers
-broadcast over any leading slot axes.
+``compute_benefits`` (one query) and ``compute_benefits_batched`` (Q
+queries over one substrate) are the step-by-step versions; the session
+scores through ``kernels.enrich_score.ops.fused_benefits_batched`` and the
+operator's kernel route through ``ops.fused_benefits`` (the CUDA kernels
+on the card, their plain twins on the CPU).  ``benefit_exact_slow`` is the
+paper's §6.3.3 "default strategy".  The candidate helpers broadcast over
+any leading slot axes.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import entropy as entropy_lib
+from repro_torch.core import threshold as threshold_lib
 from repro_torch.core.combine import _fold_sum
 from repro_torch.core.decision_table import DecisionTable
 from repro_torch.core.query import conjunctive_joint_update
@@ -99,6 +104,80 @@ def estimate_pred_prob_after(pred_prob: torch.Tensor, delta_h: torch.Tensor):
     return h_hat, entropy_lib.inverse_entropy_upper(h_hat)
 
 
+def compute_benefits(
+    state,  # EnrichmentState
+    query,  # CompiledQuery
+    table: DecisionTable,
+    costs: torch.Tensor,  # [P, F] per-(predicate, function) cost
+    candidate_mask: Optional[torch.Tensor] = None,  # [N] bool; default ~in_answer (§4.1)
+    load_cost: Optional[torch.Tensor] = None,  # [N] per-object load cost (Eq. 12)
+    function_selection: str = "table",  # "table" (paper §4.2) | "best" (beyond-paper)
+) -> TripleBenefits:
+    """Eq. 11 over all (object, predicate) pairs of one query -> [N, P] leaves.
+
+    ``"best"`` (with a table that has ``delta_h_all``) prices every
+    remaining function and keeps the first maximum of Eq. 11 instead of the
+    table's function choice.  Conjunctive queries use the O(1) joint
+    update; general ASTs re-evaluate with one substituted column.
+    """
+    n, p = state.pred_prob.shape
+    state_id = state.state_id()
+    pred_idx = torch.arange(p, device=state.pred_prob.device)[None, :].expand(n, p)
+    if candidate_mask is None:
+        candidate_mask = ~state.in_answer
+
+    if function_selection == "best" and table.delta_h_all is not None:
+        dh_all = table.lookup_all(pred_idx, state_id, state.uncertainty)  # [N, P, F]
+        finite = torch.isfinite(dh_all)
+        _, p_hat_all = estimate_pred_prob_after(
+            state.pred_prob[..., None], torch.where(finite, dh_all, 0.0)
+        )
+        cost = torch.clamp_min(costs[None].expand(dh_all.shape), 1e-9)
+        if load_cost is not None:
+            cost = cost + load_cost[:, None, None]
+        if query.is_conjunctive:
+            est_all = query.conjunctive_update(
+                state.joint_prob[:, None, None], state.pred_prob[..., None], p_hat_all
+            )
+        else:
+            est_all = torch.stack([
+                torch.stack([
+                    query.evaluate_with_column(state.pred_prob, c, p_hat_all[:, c, f])
+                    for f in range(dh_all.shape[-1])
+                ], dim=-1)
+                for c in range(p)
+            ], dim=1)  # [N, P, F]
+        est_all = torch.clamp(est_all, 0.0, 1.0)
+        ben_all = state.joint_prob[:, None, None] * est_all / cost  # Eq. 11 per f
+        ben_all = torch.where(finite, ben_all, NEG_INF)
+        benefit, nf = torch.max(ben_all, dim=-1)  # first maximum, as jnp.argmax
+        est_joint = torch.gather(est_all, -1, nf[..., None])[..., 0]
+        cost = torch.gather(cost, -1, nf[..., None])[..., 0]
+        nf = torch.where(torch.isfinite(benefit), nf, -1).to(torch.int32)
+        valid = (nf >= 0) & candidate_mask[:, None]
+        benefit = torch.where(valid, benefit, NEG_INF)
+        return TripleBenefits(benefit=benefit, next_fn=nf, est_joint=est_joint, cost=cost)
+
+    nf, dh = table.lookup(pred_idx, state_id, state.uncertainty)  # [N, P] each
+    _, p_hat = estimate_pred_prob_after(state.pred_prob, dh)
+    if query.is_conjunctive:
+        est_joint = query.conjunctive_update(state.joint_prob[:, None], state.pred_prob, p_hat)
+    else:
+        est_joint = torch.stack(
+            [query.evaluate_with_column(state.pred_prob, c, p_hat[:, c]) for c in range(p)],
+            dim=-1,
+        )
+    est_joint = torch.clamp(est_joint, 0.0, 1.0)
+    cost = costs[pred_idx, torch.clamp_min(nf, 0).long()]  # [N, P]
+    if load_cost is not None:
+        cost = cost + load_cost[:, None]  # Eq. 12: c_load + c_fn
+    cost = torch.clamp_min(cost, 1e-9)
+    benefit = state.joint_prob[:, None] * est_joint / cost  # Eq. 11
+    valid = (nf >= 0) & candidate_mask[:, None]
+    benefit = torch.where(valid, benefit, NEG_INF)
+    return TripleBenefits(benefit=benefit, next_fn=nf, est_joint=est_joint, cost=cost)
+
+
 def compute_benefits_batched(
     pred_prob: torch.Tensor,  # [N, P] shared predicate probabilities (f32)
     uncertainty: torch.Tensor,  # [N, P] shared binary entropy of pred_prob
@@ -153,4 +232,39 @@ def compute_benefits_batched(
         next_fn=nf[None].expand(q, n, p),
         est_joint=est_joint,
         cost=cost[None].expand(q, n, p),
+    )
+
+
+def benefit_exact_slow(
+    state,  # EnrichmentState
+    query,  # CompiledQuery
+    table: DecisionTable,
+    costs: torch.Tensor,
+    alpha: float = 1.0,
+    candidate_mask: Optional[torch.Tensor] = None,
+    chunk_elements: int = 1 << 22,
+) -> TripleBenefits:
+    """The paper's §6.3.3 "default strategy": per-triple threshold re-selection.
+
+    Benefit = (E(F_a) after re-running Theorem-1 selection with one
+    object's joint set to its estimate - E(F_a) of Answer_{i-1}) / cost
+    (Eq. 7 computed literally).  A loop over the P columns, objects batched
+    ``chunk_elements // N`` at a time: still O(N^2 P log N) work, for the
+    Fig. 8 comparison at small N only.
+    """
+    base = threshold_lib.select_answer(state.joint_prob, alpha)
+    fast = compute_benefits(state, query, table, costs, candidate_mask)
+    n, p = state.pred_prob.shape
+    chunk = max(1, chunk_elements // max(n, 1))
+    ef = torch.empty((n, p), dtype=torch.float32, device=state.joint_prob.device)
+    for c in range(p):
+        for lo in range(0, n, chunk):
+            objs = torch.arange(lo, min(lo + chunk, n), device=state.joint_prob.device)
+            jp = state.joint_prob[None, :].repeat(objs.shape[0], 1)  # [chunk, N]
+            jp[torch.arange(objs.shape[0], device=jp.device), objs] = fast.est_joint[objs, c]
+            ef[objs, c] = threshold_lib.select_answer(jp, alpha).expected_f
+    benefit = (ef - base.expected_f) / fast.cost
+    benefit = torch.where(torch.isfinite(fast.benefit), benefit, NEG_INF)
+    return TripleBenefits(
+        benefit=benefit, next_fn=fast.next_fn, est_joint=fast.est_joint, cost=fast.cost
     )

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -88,6 +89,50 @@ def resolve_substrate_dtype(name: str) -> torch.dtype:
 def scan_capable(bank) -> bool:
     """Can this bank's ``execute`` run inside the superstep?"""
     return bool(getattr(bank, "supports_scan", False))
+
+
+def superstep_bank(bank):
+    """The bank a facade's session runs inside its superstep: a traceable
+    bank with no precomputed ``.outputs`` buffer (the model-cascade bank);
+    None when outputs are gathered from the state's buffer."""
+    return bank if scan_capable(bank) and not hasattr(bank, "outputs") else None
+
+
+def facade_bank_state(bank, shape, prior: float, device):
+    """(bank_outputs, quarantined) of a facade's session state: the bank's
+    ``outputs`` [N, P, F] (or a prior-filled buffer that is never gathered
+    when the bank runs inside the superstep), and a ragged bank's missing
+    levels as the [P, F] quarantine (None for a full bank)."""
+    if hasattr(bank, "outputs"):
+        outputs = bank.outputs.to(torch.float32)
+    else:
+        outputs = torch.full(shape, prior, dtype=torch.float32, device=device)
+    avail = getattr(bank, "available", None)
+    quarantined = None if avail is None else ~torch.as_tensor(avail, dtype=torch.bool).to(device)
+    return outputs, quarantined
+
+
+def resolve_deprecated_driver(driver: Optional[str]) -> Optional[str]:
+    """The facades' old ``run(driver=...)`` kwarg, kept as a warning shim.
+
+    ``run()`` routes by bank and query shape in one place; passing
+    ``driver`` is deprecated.  Returns "scan" | "loop" | None (auto) or
+    raises on unknown values.
+    """
+    if driver is None:
+        return None
+    warnings.warn(
+        "run(driver=...) is deprecated: run() routes to the session superstep "
+        "when the bank and query allow it and to the per-epoch loop otherwise; "
+        "call run_scan() directly for an explicit superstep run",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+    if driver == "auto":
+        return None
+    if driver in ("scan", "loop"):
+        return driver
+    raise ValueError(f"unknown driver: {driver!r}")
 
 
 def select_plans_batched(

@@ -33,8 +33,15 @@ class Plan(NamedTuple):
     cost: torch.Tensor  # [..., K] f32
     valid: torch.Tensor  # [..., K] bool (within budget and finite benefit)
 
+    @property
+    def capacity(self) -> int:
+        return self.object_idx.shape[-1]
+
     def num_valid(self) -> torch.Tensor:
         return self.valid.sum(-1)
+
+    def total_cost(self) -> torch.Tensor:
+        return torch.where(self.valid, self.cost, 0.0).sum(-1)
 
     def map(self, fn) -> "Plan":
         return Plan(*(fn(x) for x in self))
@@ -113,6 +120,16 @@ def select_plan(
         cost=cost,
         valid=valid,
     )
+
+
+def merge_sharded_plans(plans: Plan, plan_size: int) -> Plan:
+    """Reduce per-shard plans [S, K] -> the global top-k plan (hierarchical
+    top-k).  Top-k-equivalent to the unsharded plan but not order-identical
+    on ties; ``merge_sharded_plans_exact`` is."""
+    flat = plans.map(lambda x: x.reshape(-1))
+    score = torch.where(flat.valid, flat.benefit, float("-inf"))
+    _, idx = _top_k(score, min(plan_size, score.shape[0]))
+    return flat.map(lambda x: x[idx])
 
 
 def merge_sharded_plans_exact(plans: Plan, plan_size: int, num_predicates: int) -> Plan:
@@ -224,3 +241,62 @@ def merge_plans_dedup_wants(
     acc.index_put_((group, slot // 32), bit, accumulate=True)
     want_bits = torch.where(merged.valid[:, None], acc[group[top_idx]], 0)
     return merged, want_bits
+
+
+def merge_plans_dedup_sharded(
+    plans: Plan,
+    num_predicates: int,
+    num_functions: int,
+    capacity=None,
+    cost_budget=None,
+    num_objects=None,
+) -> Plan:
+    """Hierarchical dedup merge: ``merge_plans_dedup`` inside every shard
+    (leading axis, lossless), then once more across the shards' survivors.
+    Exact because dedup is associative and the output order (benefit desc,
+    key asc) does not depend on the partition: with ``capacity`` equal to
+    the flat entry count it equals ``merge_plans_dedup`` on every valid lane.
+    """
+    stage1 = [
+        merge_plans_dedup(plans.map(lambda x: x[i]), num_predicates, num_functions,
+                          num_objects=num_objects)
+        for i in range(plans.object_idx.shape[0])
+    ]
+    stacked = Plan(*(torch.stack(leaves) for leaves in zip(*stage1)))  # [S, K_local]
+    if capacity is None:
+        capacity = plans.object_idx.numel()
+    return merge_plans_dedup(
+        stacked, num_predicates, num_functions, capacity=capacity,
+        cost_budget=cost_budget, num_objects=num_objects,
+    )
+
+
+def static_plan_from_order(
+    object_order: torch.Tensor,  # [M] object indices in execution order
+    pred_of_slot: torch.Tensor,  # [M]
+    func_of_slot: torch.Tensor,  # [M]
+    costs: torch.Tensor,  # [P, F]
+    offset: int,  # how many triples were already executed
+    plan_size: int,
+) -> Plan:
+    """A window of a precomputed static execution order (the baselines).
+
+    The benefit carries a descending global rank (M - slot), so earlier
+    slots outrank later ones should these plans ever feed a dedup merge.
+    """
+    m = object_order.shape[0]
+    sl = offset + torch.arange(plan_size, device=object_order.device)
+    in_range = sl < m
+    rank = (m - sl).to(torch.float32)  # descending across and within windows
+    sl = torch.clamp_max(sl, m - 1)
+    obj, prd, fn = object_order[sl].long(), pred_of_slot[sl].long(), func_of_slot[sl].long()
+    cost = costs[prd, torch.clamp_min(fn, 0)]
+    valid = in_range & (fn >= 0)
+    return Plan(
+        object_idx=obj,
+        pred_idx=prd,
+        func_idx=fn,
+        benefit=torch.where(valid, rank, float("-inf")),
+        cost=cost,
+        valid=valid,
+    )

@@ -1,7 +1,8 @@
-"""Enrichment substrate: capacity-padded structure-of-arrays tensors.
+"""Enrichment state: capacity-padded structure-of-arrays tensors.
 
-Port of the session half of ``repro.core.state``.  The shared substrate is
-the query-independent half of enrichment state:
+Port of ``repro.core.state`` (all but the mesh placement helpers
+``shard_over_objects`` / ``shard_substrate``).  The shared substrate is the
+query-independent half of enrichment state:
 
     func_probs  [C, P, F]  raw tagging-function outputs (prior where unexecuted)
     exec_mask   [C, P, F]  bool, which functions have run (the "state" bitmask)
@@ -9,7 +10,10 @@ the query-independent half of enrichment state:
 
 written once per (object, predicate, function) triple however many tenants
 asked for it.  ``state_id`` (the decision-table key) is the little-endian
-packing of ``exec_mask``.
+packing of ``exec_mask``.  ``PerQueryState`` stacks the per-query derived
+half (``pred_prob``, ``uncertainty``, ``joint_prob``, ``in_answer``) on a
+leading ``[Q]`` axis, and ``EnrichmentState`` is the fused single-query
+view the paper's operator works on.
 
 Storage contract: ``func_probs`` is f32 or bf16; all arithmetic runs in f32
 and ``cost_spent`` stays f32.  A write of another float dtype into a buffer
@@ -27,6 +31,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import combine as combine_lib
+from repro_torch.core import entropy as entropy_lib
 from repro_torch.core.errors import SubstrateDtypeError
 
 
@@ -217,3 +223,158 @@ def apply_outputs_to_substrate(
     return SharedSubstrate(
         func_probs=fp, exec_mask=em, cost_spent=substrate.cost_spent + charged
     )
+
+
+@dataclasses.dataclass
+class PerQueryState:
+    """Per-query derived state for Q concurrent queries, stacked on axis 0
+    (recomputable from the substrate, the query set and combine params)."""
+
+    pred_prob: torch.Tensor  # [Q, N, P] f32
+    uncertainty: torch.Tensor  # [Q, N, P] f32
+    joint_prob: torch.Tensor  # [Q, N] f32
+    in_answer: torch.Tensor  # [Q, N] bool
+
+    @property
+    def num_queries(self) -> int:
+        return self.joint_prob.shape[0]
+
+
+def derive_query_state(
+    substrate: SharedSubstrate,
+    query,
+    combine_params: combine_lib.CombineParams,
+    prior: float = 0.5,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(pred_prob [N, P], uncertainty [N, P], joint_prob [N]) for one query:
+    the warm start of a newly admitted query (paper §5 "Caching")."""
+    pred_prob = combine_lib.combine_probabilities(
+        combine_params, substrate.func_probs, substrate.exec_mask, prior=prior
+    )
+    return pred_prob, entropy_lib.binary_entropy(pred_prob), query.evaluate(pred_prob)
+
+
+@dataclasses.dataclass
+class EnrichmentState:
+    """The single-query state: substrate and derived half fused (Q = 1)."""
+
+    func_probs: torch.Tensor  # [N, P, F] f32
+    exec_mask: torch.Tensor  # [N, P, F] bool
+    pred_prob: torch.Tensor  # [N, P] f32
+    uncertainty: torch.Tensor  # [N, P] f32
+    joint_prob: torch.Tensor  # [N] f32
+    in_answer: torch.Tensor  # [N] bool
+    cost_spent: torch.Tensor  # [] f32
+
+    @property
+    def num_objects(self) -> int:
+        return self.func_probs.shape[0]
+
+    @property
+    def num_predicates(self) -> int:
+        return self.func_probs.shape[1]
+
+    @property
+    def num_functions(self) -> int:
+        return self.func_probs.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.func_probs.device
+
+    def state_id(self) -> torch.Tensor:
+        """[N, P] int32 little-endian packing of exec_mask (decision-table key)."""
+        return _pack_state_id(self.exec_mask)
+
+    @property
+    def substrate(self) -> SharedSubstrate:
+        """The query-independent half of this state."""
+        return SharedSubstrate(
+            func_probs=self.func_probs, exec_mask=self.exec_mask, cost_spent=self.cost_spent
+        )
+
+    def with_substrate(self, substrate: SharedSubstrate) -> "EnrichmentState":
+        """Replace the substrate half (derived fields left stale: refresh after)."""
+        return dataclasses.replace(
+            self,
+            func_probs=substrate.func_probs,
+            exec_mask=substrate.exec_mask,
+            cost_spent=substrate.cost_spent,
+        )
+
+
+def init_state(
+    num_objects: int,
+    num_predicates: int,
+    num_functions: int,
+    prior: float = 0.5,
+    dtype=torch.float32,
+    device=None,
+) -> EnrichmentState:
+    n, p, f = num_objects, num_predicates, num_functions
+    h0 = float(entropy_lib.binary_entropy(torch.tensor(prior, dtype=torch.float32)))
+    return EnrichmentState(
+        func_probs=torch.full((n, p, f), prior, dtype=dtype, device=device),
+        exec_mask=torch.zeros((n, p, f), dtype=torch.bool, device=device),
+        pred_prob=torch.full((n, p), prior, dtype=dtype, device=device),
+        uncertainty=torch.full((n, p), h0, dtype=dtype, device=device),
+        joint_prob=torch.full((n,), prior**p, dtype=dtype, device=device),
+        in_answer=torch.zeros((n,), dtype=torch.bool, device=device),
+        cost_spent=torch.zeros((), dtype=torch.float32, device=device),  # spend is always f32
+    )
+
+
+def refresh_derived(
+    state: EnrichmentState,
+    query,
+    combine_params: combine_lib.CombineParams,
+    prior: float = 0.5,
+) -> EnrichmentState:
+    """Recompute pred_prob / uncertainty / joint_prob from raw outputs + mask."""
+    pred_prob, uncertainty, joint = derive_query_state(
+        state.substrate, query, combine_params, prior=prior
+    )
+    return dataclasses.replace(
+        state, pred_prob=pred_prob, uncertainty=uncertainty, joint_prob=joint
+    )
+
+
+def apply_function_outputs(
+    state: EnrichmentState,
+    query,
+    combine_params: combine_lib.CombineParams,
+    object_idx: torch.Tensor,  # [K]
+    pred_idx: torch.Tensor,  # [K]
+    func_idx: torch.Tensor,  # [K]
+    probs: torch.Tensor,  # [K] raw outputs of the executed functions
+    cost: torch.Tensor,  # [K] per-triple cost
+    valid: torch.Tensor,  # [K] bool
+) -> EnrichmentState:
+    """Scatter a batch of executed triples through the write-once substrate
+    path (re-executed triples are free) and recombine every row.  Like the
+    reference, the recombination uses the default prior of 0.5."""
+    sub = apply_outputs_to_substrate(
+        state.substrate, object_idx, pred_idx, func_idx, probs, cost, valid
+    )
+    return refresh_derived(state.with_substrate(sub), query, combine_params)
+
+
+def with_cached_state(
+    state: EnrichmentState,
+    query,
+    combine_params: combine_lib.CombineParams,
+    cached_probs: torch.Tensor,  # [N, P, F]
+    cached_mask: torch.Tensor,  # [N, P, F] bool
+    prior: float = 0.5,
+) -> EnrichmentState:
+    """Warm-start from a previous query's cache (paper section 5, "Caching").
+
+    Cached triples replace the state's; derived quantities are recombined so
+    the first answer set already reflects the cache.  A cache of another
+    float dtype than ``func_probs`` raises ``SubstrateDtypeError``.
+    """
+    _check_float_dtype(state.func_probs, cached_probs, "with_cached_state")
+    merged_mask = state.exec_mask | cached_mask
+    merged_probs = torch.where(cached_mask, cached_probs, state.func_probs)
+    new = dataclasses.replace(state, func_probs=merged_probs, exec_mask=merged_mask)
+    return refresh_derived(new, query, combine_params, prior=prior)

@@ -3,7 +3,8 @@
 The reference's pytrees come out of ``jax.device_get`` as numpy leaves (or
 hold arrays that ``numpy.array`` converts); this module turns such trees —
 dicts of numpy arrays, or objects with the same attribute names — into the
-port's ``CombineParams``, ``DecisionTable``, ``SessionState``, model
+port's ``CombineParams``, ``DecisionTable``, ``SessionState``,
+``EnrichmentState``, ``MultiQueryState``, ``SimulatedBank``, model
 parameters (the ``[G]``-stacked ``layers`` of ``stack_init``, probes,
 backbone heads) and whole ``ModelCascadeBank``s, and back into nested dicts
 of numpy arrays.  It imports neither JAX nor the reference package: bf16
@@ -23,8 +24,10 @@ from repro_torch.core.combine import CombineParams
 from repro_torch.core.decision_table import DecisionTable
 from repro_torch.core.executor import SessionDerived, SessionState
 from repro_torch.core.ledger import CostLedger
-from repro_torch.core.state import SharedSubstrate
+from repro_torch.core.multi_query import MultiQueryState
+from repro_torch.core.state import EnrichmentState, PerQueryState, SharedSubstrate
 from repro_torch.enrich import cascade as cascade_lib
+from repro_torch.enrich.simulated import SimulatedBank
 from repro_torch.models.config import ModelConfig
 
 
@@ -114,6 +117,44 @@ def session_state_to_numpy(state: SessionState) -> dict:
         "quarantined": None if state.quarantined is None else to_numpy(state.quarantined),
         **group(state, _STATE),
     }
+
+
+_ENRICHMENT = _SUBSTRATE[:2] + _DERIVED + _SUBSTRATE[2:]
+
+
+def enrichment_state_from_numpy(tree, device=None) -> EnrichmentState:
+    """A numpy ``EnrichmentState`` tree -> the port's, on ``device``."""
+    return EnrichmentState(**{k: to_torch(_field(tree, k), device) for k in _ENRICHMENT})
+
+
+def enrichment_state_to_numpy(state: EnrichmentState) -> dict:
+    return {k: to_numpy(getattr(state, k)) for k in _ENRICHMENT}
+
+
+def multi_query_state_from_numpy(tree, device=None) -> MultiQueryState:
+    """A numpy ``MultiQueryState`` tree (substrate + per_query) -> the port's."""
+    sub, per = _field(tree, "substrate"), _field(tree, "per_query")
+    return MultiQueryState(
+        substrate=SharedSubstrate(**{k: to_torch(_field(sub, k), device) for k in _SUBSTRATE}),
+        per_query=PerQueryState(**{k: to_torch(_field(per, k), device) for k in _DERIVED}),
+    )
+
+
+def multi_query_state_to_numpy(state: MultiQueryState) -> dict:
+    return {
+        "substrate": {k: to_numpy(getattr(state.substrate, k)) for k in _SUBSTRATE},
+        "per_query": {k: to_numpy(getattr(state.per_query, k)) for k in _DERIVED},
+    }
+
+
+def simulated_bank_from_numpy(obj, device=None) -> SimulatedBank:
+    """Anything with ``outputs`` [N, P, F] and ``costs`` [P, F] -> a bank."""
+    return SimulatedBank(outputs=to_torch(_field(obj, "outputs"), device),
+                         costs=to_torch(_field(obj, "costs"), device).to(torch.float32))
+
+
+def simulated_bank_to_numpy(bank: SimulatedBank) -> dict:
+    return {"outputs": to_numpy(bank.outputs), "costs": to_numpy(bank.costs)}
 
 
 # ------------------------------------------------------- model parameters --

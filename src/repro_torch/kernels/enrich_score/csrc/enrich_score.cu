@@ -1,9 +1,11 @@
-// Batched PIQUE benefit scoring (paper Eq. 11) for NVIDIA Hopper (sm_90a).
+// PIQUE benefit scoring (paper Eq. 11) for NVIDIA Hopper (sm_90a).
 //
 // Replaces the reference's Pallas TPU kernels in
 // src/repro/kernels/enrich_score/kernel.py:
 //   enrich_score_table_kernel  <- enrich_score_tiles_batched      (table mode)
 //   enrich_score_best_kernel   <- enrich_score_best_tiles_batched (best mode)
+//   enrich_score_single_kernel <- enrich_score_tiles              (one query,
+//                                 table mode, with a candidate mask)
 //
 // Per (object c, predicate p) lane, with h the stored uncertainty, pp the
 // predicate probability and j the per-tenant joint probability:
@@ -15,15 +17,21 @@
 //   cost    = max(costs[p, max(fn, 0)], 1e-9)
 //   benefit = j * est_j / cost,  -inf where no function remains
 // Best mode prices every remaining function and keeps the first strict
-// maximum; nothing F-shaped is written.
+// maximum; nothing F-shaped is written.  The single-query kernel also sets
+// -inf where the object is no candidate (cand[c] == 0).  Table mode and the
+// single-query kernel share the per-lane math (table_lane), so the two
+// agree by construction.
 //
-// What bounds it: memory bytes.  A handful of f32 ops per lane and tenant
+// What bounds them: memory bytes.  A handful of f32 ops per lane and tenant
 // (per function in best mode) against 16 bytes written per lane and tenant,
 // far below the H100's ridge point.
-// At the main-path shape (C = 1,048,576, P = 4, Q = 8, f32 rows) it reads
-// ~84 MB (pred_prob, uncertainty, state id, joint) and writes 4 x [8, 1M, 4]
-// x 4 B = 537 MB: ~621 MB, a bound of ~0.185 ms at 3.35 TB/s (bf16 rows:
-// ~579 MB, ~0.173 ms).
+// At the session's main-path shape (C = 1,048,576, P = 4, Q = 8, f32 rows)
+// the batched kernels read ~84 MB (pred_prob, uncertainty, state id, joint)
+// and write 4 x [8, 1M, 4] x 4 B = 537 MB: ~621 MB, a bound of ~0.185 ms at
+// 3.35 TB/s (bf16 rows: ~579 MB, ~0.173 ms).  At the operator's shape
+// (C = 1,048,576, P = 2) the single-query kernel reads pred_prob, unc and
+// state_id (3 x 8.4 MB), joint (4.2 MB) and cand (1 MB) and writes four
+// [C, P] outputs (33.6 MB): ~64 MB, ~0.019 ms.
 //
 // Design, against that bound:
 //   * The TPU kernel's one-hot matmul gathers were a workaround for weak
@@ -32,7 +40,10 @@
 //     with indexed loads.  Blocks are persistent (grid-stride loop, grid
 //     sized by occupancy) so the tables are staged a few hundred times, not
 //     once per 256 lanes.
-//   * The [C, P] rows are read in place (no TILE re-layout).  One thread
+//   * The [C, P] rows are read in place (no TILE re-layout): the TPU
+//     wrapper's broadcast [N*P] rows of joint, candidate mask and predicate
+//     index are gone; joint and cand are read per object, the predicate is
+//     lane % P, the state id is int32.  In the batched kernels one thread
 //     owns one (c, p) lane and loops over the Q tenants, so the shared rows
 //     and everything Q-invariant (bin, table lookups, p_hat, costs) are
 //     loaded and computed once, whatever Q is.  Output writes are
@@ -88,6 +99,52 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
+// The decision-table mode's shared-memory tables: [P*S*B] deltas and
+// next functions, [P*F] costs, the LUT.
+struct TableSmem {
+  const float* delta;
+  const int32_t* next;
+  const float* cost;
+  const float* lut;
+};
+
+__device__ __forceinline__ TableSmem stage_table(
+    float* smem, const float* delta_tab, const int32_t* next_tab, const float* cost_tab,
+    const float* lut, int tsize, int PF, int lut_bins) {
+  float* s_delta = smem;
+  int32_t* s_next = reinterpret_cast<int32_t*>(s_delta + tsize);
+  float* s_cost = reinterpret_cast<float*>(s_next + tsize);
+  float* s_lut = s_cost + PF;
+  stage(s_delta, delta_tab, tsize);
+  for (int i = threadIdx.x; i < tsize; i += blockDim.x) s_next[i] = next_tab[i];
+  stage(s_cost, cost_tab, PF);
+  stage(s_lut, lut, lut_bins);
+  __syncthreads();
+  return TableSmem{s_delta, s_next, s_cost, s_lut};
+}
+
+// Everything of one (object, predicate) lane that no joint probability
+// enters: the table's function choice, p_hat and the floored cost.
+struct TableLane {
+  int fn;
+  float p_hat;
+  float cost;
+};
+
+__device__ __forceinline__ TableLane table_lane(TableSmem t, float h, int p, int state,
+                                                int num_states, int num_bins, int F, int lut_bins) {
+  const int k = (p * num_states + state) * num_bins + bin_of(h, num_bins);
+  TableLane r;
+  r.fn = t.next[k];
+  r.p_hat = lut_lerp(clip01(__fadd_rn(h, t.delta[k])), t.lut, lut_bins);
+  r.cost = fmaxf(t.cost[p * F + max(r.fn, 0)], kMinCost);
+  return r;
+}
+
+__device__ __forceinline__ float benefit_of(float j, float est, float cost) {
+  return __fdiv_rn(__fmul_rn(j, est), cost);  // (j * est) / cost, in that order
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) enrich_score_table_kernel(
     const T* __restrict__ pred_prob, const T* __restrict__ unc,
@@ -98,37 +155,56 @@ __global__ void __launch_bounds__(kThreads) enrich_score_table_kernel(
     float* __restrict__ est_out, float* __restrict__ cost_out,
     int64_t num_rows, int P, int Q, int num_states, int num_bins, int F, int lut_bins) {
   extern __shared__ float smem[];
-  const int tsize = P * num_states * num_bins;
-  float* s_delta = smem;
-  int32_t* s_next = reinterpret_cast<int32_t*>(s_delta + tsize);
-  float* s_cost = reinterpret_cast<float*>(s_next + tsize);
-  float* s_lut = s_cost + P * F;
-  stage(s_delta, delta_tab, tsize);
-  for (int i = threadIdx.x; i < tsize; i += blockDim.x) s_next[i] = next_tab[i];
-  stage(s_cost, cost_tab, P * F);
-  stage(s_lut, lut, lut_bins);
-  __syncthreads();
-
+  const TableSmem tab = stage_table(smem, delta_tab, next_tab, cost_tab, lut,
+                                    P * num_states * num_bins, P * F, lut_bins);
   const int64_t lanes = num_rows * P;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes; i += stride) {
     const int64_t c = i / P;
     const int p = (int)(i - c * P);
-    const float h = load_prob(unc, i);
     const float pp = load_prob(pred_prob, i);
-    const int t = (p * num_states + state_id[i]) * num_bins + bin_of(h, num_bins);
-    const int fn = s_next[t];
-    const float p_hat = lut_lerp(clip01(__fadd_rn(h, s_delta[t])), s_lut, lut_bins);
-    const float cost = fmaxf(s_cost[p * F + max(fn, 0)], kMinCost);
+    const TableLane s = table_lane(tab, load_prob(unc, i), p, state_id[i], num_states,
+                                   num_bins, F, lut_bins);
     for (int q = 0; q < Q; ++q) {
       const float j = load_prob(joint, (int64_t)q * num_rows + c);
-      const float est = est_joint(j, pp, p_hat);
+      const float est = est_joint(j, pp, s.p_hat);
       const int64_t o = (int64_t)q * lanes + i;
-      benefit[o] = fn >= 0 ? __fdiv_rn(__fmul_rn(j, est), cost) : -INFINITY;
-      next_fn[o] = fn;
+      benefit[o] = s.fn >= 0 ? benefit_of(j, est, s.cost) : -INFINITY;
+      next_fn[o] = s.fn;
       est_out[o] = est;
-      cost_out[o] = cost;
+      cost_out[o] = s.cost;
     }
+  }
+}
+
+// One query (Q = 1), f32 rows, and the candidate mask: a lane is valid when
+// a function remains AND its object is a candidate.  next_fn, est_joint and
+// cost are written as computed for every lane, as the TPU kernel does.
+__global__ void __launch_bounds__(kThreads) enrich_score_single_kernel(
+    const float* __restrict__ pred_prob, const float* __restrict__ unc,
+    const int32_t* __restrict__ state_id, const float* __restrict__ joint,
+    const bool* __restrict__ cand,
+    const float* __restrict__ delta_tab, const int32_t* __restrict__ next_tab,
+    const float* __restrict__ cost_tab, const float* __restrict__ lut,
+    float* __restrict__ benefit, int32_t* __restrict__ next_fn,
+    float* __restrict__ est_out, float* __restrict__ cost_out,
+    int64_t num_rows, int P, int num_states, int num_bins, int F, int lut_bins) {
+  extern __shared__ float smem[];
+  const TableSmem tab = stage_table(smem, delta_tab, next_tab, cost_tab, lut,
+                                    P * num_states * num_bins, P * F, lut_bins);
+  const int64_t lanes = num_rows * P;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes; i += stride) {
+    const int64_t c = i / P;
+    const int p = (int)(i - c * P);
+    const TableLane s = table_lane(tab, unc[i], p, state_id[i], num_states, num_bins, F,
+                                   lut_bins);
+    const float j = joint[c];
+    const float est = est_joint(j, pred_prob[i], s.p_hat);
+    benefit[i] = (s.fn >= 0 && cand[c]) ? benefit_of(j, est, s.cost) : -INFINITY;
+    next_fn[i] = s.fn;
+    est_out[i] = est;
+    cost_out[i] = s.cost;
   }
 }
 
@@ -187,7 +263,7 @@ __global__ void __launch_bounds__(kThreads) enrich_score_best_kernel(
       for (int f = 0; f < kMaxFunctions; ++f) {
         if (f < F && ok[f]) {
           const float est = est_joint(j, pp, p_hat[f]);
-          const float ben = __fdiv_rn(__fmul_rn(j, est), cost[f]);
+          const float ben = benefit_of(j, est, cost[f]);
           if (ben > best_ben) {  // strict: ties keep the FIRST maximum
             best_ben = ben;
             best_est = est;
@@ -272,6 +348,29 @@ int enrich_score_table(const void* pred_prob, const void* unc, const void* state
         static_cast<float*>(est_joint), static_cast<float*>(cost),
         num_rows, P, Q, num_states, num_bins, F, lut_bins);
   }
+  return (int)cudaGetLastError();
+}
+
+int enrich_score_single(const void* pred_prob, const void* unc, const void* state_id,
+                        const void* joint, const void* cand, const void* delta_tab,
+                        const void* next_tab, const void* cost_tab, const void* lut,
+                        void* benefit, void* next_fn, void* est_joint, void* cost,
+                        int64_t num_rows, int P, int num_states, int num_bins, int F,
+                        int lut_bins, void* stream) {
+  const int64_t lanes = num_rows * P;
+  if (lanes == 0) return (int)cudaSuccess;
+  const size_t smem = table_smem(P, num_states, num_bins, F, lut_bins);
+  int grid = 0;
+  cudaError_t err = launch_grid(enrich_score_single_kernel, smem, lanes, &grid);
+  if (err != cudaSuccess) return (int)err;
+  enrich_score_single_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pred_prob), static_cast<const float*>(unc),
+      static_cast<const int32_t*>(state_id), static_cast<const float*>(joint),
+      static_cast<const bool*>(cand), static_cast<const float*>(delta_tab),
+      static_cast<const int32_t*>(next_tab), static_cast<const float*>(cost_tab),
+      static_cast<const float*>(lut), static_cast<float*>(benefit),
+      static_cast<int32_t*>(next_fn), static_cast<float*>(est_joint),
+      static_cast<float*>(cost), num_rows, P, num_states, num_bins, F, lut_bins);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA ``enrich_score`` kernels.
 
-``csrc/enrich_score.cu`` exposes two ``extern "C"`` launchers (table and
-best mode, each templated on f32 / bf16 probabilities).  They are compiled
+``csrc/enrich_score.cu`` exposes three ``extern "C"`` launchers: the
+batched table and best modes (each templated on f32 / bf16 probabilities)
+and the single-query table mode with a candidate mask (f32).  They are compiled
 with ``nvcc`` for ``sm_90a`` into a shared library at first use
 (``kernels/build.py``) and loaded with ``ctypes``.
 
@@ -43,6 +44,8 @@ def library() -> ctypes.CDLL:
     lib.enrich_score_table.restype = _I
     lib.enrich_score_best.argtypes = [_P] * 11 + [_I64] + [_I] * 7 + [_P]
     lib.enrich_score_best.restype = _I
+    lib.enrich_score_single.argtypes = [_P] * 13 + [_I64] + [_I] * 5 + [_P]
+    lib.enrich_score_single.restype = _I
     return lib
 
 
@@ -83,3 +86,18 @@ def launch_best(pred_prob, unc, state_id, joint, delta_all, costs, lut, out):
         torch.cuda.current_stream(pred_prob.device).cuda_stream,
     )
     check_launch(err, "enrich_score_best")
+
+
+def launch_single(pred_prob, unc, state_id, joint, cand, delta_tab, next_tab, costs, lut, out):
+    """Launch the single-query kernel on the current stream; ``out`` is the
+    (benefit, next_fn, est_joint, cost) tuple of preallocated [N, P]."""
+    n, p = pred_prob.shape
+    _, s, b = delta_tab.shape
+    err = library().enrich_score_single(
+        pred_prob.data_ptr(), unc.data_ptr(), state_id.data_ptr(), joint.data_ptr(),
+        cand.data_ptr(), delta_tab.data_ptr(), next_tab.data_ptr(), costs.data_ptr(),
+        lut.data_ptr(), *(t.data_ptr() for t in out),
+        n, p, s, b, costs.shape[1], lut.shape[0],
+        torch.cuda.current_stream(pred_prob.device).cuda_stream,
+    )
+    check_launch(err, "enrich_score_single")

@@ -1,10 +1,13 @@
-"""Wrapper: shared substrate rows -> ``TripleBenefits`` via the scoring kernels.
+"""Wrappers: enrichment state -> ``TripleBenefits`` via the scoring kernels.
 
-``fused_benefits_batched`` keeps the reference's signature
-(``repro/kernels/enrich_score/ops.py``) and returns ``[Q, N, P]`` leaves.  It
-routes by the device of its tensors: on the CPU it runs the plain PyTorch
-version (``ref.py``); on a CUDA tensor it launches the hand-written kernel
-or raises — it never falls back and reads no environment switch.
+Both keep the reference's signatures (``repro/kernels/enrich_score/ops.py``):
+``fused_benefits`` scores one conjunctive query's ``EnrichmentState`` (the
+operator's ``benefit_fn`` route, ``[N, P]`` leaves) and
+``fused_benefits_batched`` a shared substrate for Q queries (``[Q, N, P]``
+leaves).  They route by the device of their tensors: on the CPU they run
+the plain PyTorch versions (``ref.py``); on CUDA tensors they launch the
+hand-written kernels or raise — they never fall back, read no environment
+switch, and refuse tensors on mixed devices.
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-path calls,
 one plain integer per kernel, so a run can show that its main path went
@@ -23,7 +26,7 @@ from repro_torch.core.entropy import inverse_entropy_table
 from repro_torch.core.errors import SubstrateDtypeError
 from repro_torch.kernels.enrich_score import kernel, ref
 
-KERNELS = ("enrich_score_table", "enrich_score_best")
+KERNELS = ("enrich_score_table", "enrich_score_best", "enrich_score_single")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 PROB_DTYPES = (torch.float32, torch.bfloat16)
@@ -50,6 +53,89 @@ def _check_cuda_operands(device, named: dict) -> None:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_devices(device, named: dict) -> None:
+    for name, t in named.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def fused_benefits(
+    state,  # EnrichmentState (f32 rows)
+    query,  # CompiledQuery, conjunctive
+    table: DecisionTable,
+    costs: torch.Tensor,  # [P, F] f32
+    candidate_mask=None,  # [N] bool; None: ~state.in_answer
+    lut_bins: int = 4096,
+) -> TripleBenefits:
+    """Single-query table-mode Eq. 11 -> [N, P] leaves (the reference's
+    ``fused_benefits``, a drop-in for ``core.benefit.compute_benefits`` on
+    conjunctive queries, passed to the operator as ``benefit_fn``).
+
+    The benefit is -inf where no function remains or the object is no
+    candidate.  ``cost`` is re-gathered UNFLOORED, ``costs[p, max(fn, 0)]``,
+    as the reference returns it; the benefit divides by the floored cost.
+    Rows are scored as f32, as the reference's wrapper casts them.
+    """
+    if not query.is_conjunctive:
+        raise ValueError("fused_benefits covers the conjunctive fast path only")
+    name = "enrich_score_single"
+    n, p = state.pred_prob.shape
+    if candidate_mask is None:
+        candidate_mask = ~state.in_answer
+    dev = state.pred_prob.device
+    _check_devices(dev, {
+        "uncertainty": state.uncertainty, "joint_prob": state.joint_prob,
+        "exec_mask": state.exec_mask, "candidate_mask": candidate_mask, "costs": costs,
+        "delta_h": table.delta_h, "next_fn": table.next_fn,
+    })
+    pp, unc, joint = (x.to(torch.float32) for x in
+                      (state.pred_prob, state.uncertainty, state.joint_prob))
+    sid = state.state_id()
+    cand = candidate_mask.to(torch.bool)
+    lut = _lut(lut_bins, dev)
+    if dev.type == "cpu":
+        PLAIN_CALLS[name] += 1
+        benefit, nf, est, _ = ref.enrich_score_single_ref(
+            pp, unc, sid, joint, cand, table.delta_h, table.next_fn, costs, lut
+        )
+    elif dev.type == "cuda":
+        f = costs.shape[1]
+        s, b = table.delta_h.shape[1], table.delta_h.shape[2]
+        pp, unc, joint, cand = (x.contiguous() for x in (pp, unc, joint, cand))
+        _check_cuda_operands(dev, {
+            "pred_prob": (pp, (torch.float32,), (n, p)),
+            "uncertainty": (unc, (torch.float32,), (n, p)),
+            "state_id": (sid, (torch.int32,), (n, p)),
+            "joint_prob": (joint, (torch.float32,), (n,)),
+            "candidate_mask": (cand, (torch.bool,), (n,)),
+            "costs": (costs, (torch.float32,), (p, f)),
+            "lut": (lut, (torch.float32,), (lut_bins,)),
+            "delta_h": (table.delta_h, (torch.float32,), (p, s, b)),
+            "next_fn": (table.next_fn, (torch.int32,), (p, s, b)),
+        })
+        smem = kernel.table_smem_bytes(p, s, b, f, lut_bins)
+        if smem > kernel.SMEM_LIMIT:
+            raise ValueError(
+                f"{name}: tables need {smem} bytes of shared memory, more than the "
+                f"{kernel.SMEM_LIMIT} a Hopper block can use"
+            )
+        out = (
+            torch.empty((n, p), dtype=torch.float32, device=dev),
+            torch.empty((n, p), dtype=torch.int32, device=dev),
+            torch.empty((n, p), dtype=torch.float32, device=dev),
+            torch.empty((n, p), dtype=torch.float32, device=dev),
+        )
+        kernel.launch_single(pp, unc, sid, joint, cand, table.delta_h, table.next_fn,
+                             costs, lut, out)
+        LAUNCHES[name] += 1
+        benefit, nf, est, _ = out
+    else:
+        raise ValueError(f"fused_benefits runs on cpu or cuda, not {dev}")
+    pred = torch.arange(p, device=dev)[None, :]
+    cost = costs[pred, torch.clamp_min(nf, 0).long()]
+    return TripleBenefits(benefit=benefit, next_fn=nf, est_joint=est, cost=cost)
 
 
 def fused_benefits_batched(

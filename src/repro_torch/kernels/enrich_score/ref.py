@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the two batched ``enrich_score`` kernels.
+"""Plain PyTorch versions of the three ``enrich_score`` kernels.
 
 They compute, op for op and rounding for rounding, what the CUDA kernels in
 ``csrc/enrich_score.cu`` compute, which is what the reference's Pallas
@@ -13,7 +13,9 @@ both the bin and ``h_hat``, like the kernels.  Inputs may be bf16; the first
 touch upcasts exactly to f32.
 
 Shapes: ``pred_prob``/``unc``/``state_id`` [C, P], ``joint`` [Q, C];
-outputs ``(benefit, next_fn, est_joint, cost)`` each [Q, C, P].
+outputs ``(benefit, next_fn, est_joint, cost)`` each [Q, C, P].  The
+single-query twin takes ``joint`` [C] and a candidate mask ``cand`` [C] and
+returns [C, P] leaves.
 """
 
 from __future__ import annotations
@@ -68,6 +70,29 @@ def enrich_score_table_ref(
         est,
         cost.expand(q, c, np_).contiguous(),
     )
+
+
+def enrich_score_single_ref(
+    pred_prob: torch.Tensor,  # [C, P] f32
+    unc: torch.Tensor,  # [C, P] f32
+    state_id: torch.Tensor,  # [C, P] int32
+    joint: torch.Tensor,  # [C] f32
+    cand: torch.Tensor,  # [C] bool: candidate objects
+    delta_tab: torch.Tensor,  # [P, S, B] f32
+    next_tab: torch.Tensor,  # [P, S, B] int32
+    costs: torch.Tensor,  # [P, F] f32
+    lut: torch.Tensor,  # [L] f32
+):
+    """Single-query table mode (the reference's ``enrich_score_tiles``):
+    the table-mode lane math for one query, with the benefit of a
+    non-candidate object set to -inf.  ``next_fn``, ``est_joint`` and the
+    floored ``cost`` are returned as computed for every lane."""
+    benefit, fn, est, cost = (
+        x[0] for x in enrich_score_table_ref(
+            pred_prob, unc, state_id, joint[None], delta_tab, next_tab, costs, lut)
+    )
+    benefit = torch.where(cand[:, None], benefit, float("-inf"))
+    return benefit, fn, est.contiguous(), cost
 
 
 def enrich_score_best_ref(

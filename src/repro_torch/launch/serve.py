@@ -1,8 +1,23 @@
-"""The progressive query server, session mode (port of ``repro.launch.serve``).
+"""The progressive query server (port of ``repro.launch.serve``).
 
-Serves PIQUE's progressive epoch loop as one long-lived multi-tenant
-``EngineSession`` driven by a scripted ingest/admit/retire/run arrival
-trace, lockstep.  Two enrichment banks:
+Three serving modes, as in the reference:
+
+* single query (no ``--session``, ``--queries 1``, the paper's operator):
+  one ``ProgressiveQueryOperator`` over the model-cascade bank, epoch by
+  epoch with early termination::
+
+    python -m repro_torch.launch.serve --objects 512 --preds 2 --backbone ""
+
+* multi-tenant (``--queries Q``): Q overlapping conjunctive queries over
+  one shared substrate through ``MultiQueryEngine``, reporting per-query
+  E(F) and the cost the cross-query dedup avoided::
+
+    python -m repro_torch.launch.serve --objects 512 --preds 3 --queries 4 --backbone ""
+
+* session (``--session``): one long-lived multi-tenant ``EngineSession``
+  driven by a scripted ingest/admit/retire/run arrival trace, lockstep.
+
+Session mode has two enrichment banks:
 
 * ``--bank simulated`` (default): precomputed AUC-calibrated outputs,
   ingest-capable::
@@ -18,8 +33,10 @@ trace, lockstep.  Two enrichment banks:
 
     python -m repro_torch.launch.serve --session --bank cascade --device cpu
 
-Runs on the card by default (``--device cuda``); ``--device cpu`` runs the
-plain PyTorch path.  The report's ``cost_hex``, ``bills_hex`` and
+The single and multi-tenant modes use the cascade bank; ``--backbone ""``
+drops its backbone level and ``--full-width`` builds it at the published
+width, as for ``--session --bank cascade``.  Runs on the card by default
+(``--device cuda``); ``--device cpu`` runs the plain PyTorch path.  The report's ``cost_hex``, ``bills_hex`` and
 ``answer_digest`` are the bitwise diff surface, as in the reference.
 """
 
@@ -40,9 +57,12 @@ from repro_torch.configs.archs import get_config
 from repro_torch.core.combine import auc_score, fit_combine_weights
 from repro_torch.core.decision_table import learn_decision_table
 from repro_torch.core.executor import EngineConfig, SessionState
+from repro_torch.core.metrics import true_f_alpha
+from repro_torch.core.multi_query import MultiQueryConfig, MultiQueryEngine, build_query_set
+from repro_torch.core.operator import OperatorConfig, ProgressiveQueryOperator
 from repro_torch.core.query import Predicate, conjunction
 from repro_torch.core.session import EngineSession
-from repro_torch.data.synthetic import make_corpus, split_corpus
+from repro_torch.data.synthetic import make_corpus, split_corpus, truth_answer_mask
 from repro_torch.device import resolve_device
 from repro_torch.enrich.cascade import ModelCascadeBank, build_cascade_suite, train_level
 from repro_torch.models.config import ModelConfig
@@ -111,8 +131,8 @@ def _offline_phase(
     """Corpus, cascade training, combine weights and decision table over the
     global predicate space, on ``device`` (no backbone level when
     ``backbone_cfg`` is None).  The bank's features are the evaluation
-    split: the corpus the session serves.
-    -> (preds, bank, combine, table, qualities)
+    split: the corpus the server serves.
+    -> (preds, evalc, bank, combine, table, qualities)
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -144,7 +164,173 @@ def _offline_phase(
     combine = fit_combine_weights(train_outputs, train.truth_pred.to(torch.float32), steps=150)
     table = learn_decision_table(train_outputs, combine, num_bins=10, costs=bank.costs,
                                  cost_normalized=True)
-    return preds, bank, combine, table, qualities
+    return preds, evalc, bank, combine, table, qualities
+
+
+@dataclasses.dataclass
+class ServeReport:
+    epochs: int
+    cost_spent: float
+    expected_f: float
+    true_f1: Optional[float]
+    wall_s: float
+    history: list
+
+
+def build_server(
+    num_objects: int = 512,
+    num_preds: int = 1,
+    backbone_arch: Optional[str] = "qwen3-1.7b",
+    seed: int = 0,
+    smoke: bool = True,
+    device=None,
+):
+    """Single-query server over the cascade bank -> (operator, corpus,
+    truth, qualities).  Trains the cascade offline; ``smoke=False`` builds
+    the backbone at the published width."""
+    dev = resolve_device(device)
+    backbone_cfg = get_config(backbone_arch, smoke=smoke) if backbone_arch else None
+    preds, evalc, bank, combine, table, qualities = _offline_phase(
+        num_objects, num_preds, backbone_cfg, seed, device=dev
+    )
+    query = conjunction(*preds)
+    truth = truth_answer_mask(evalc, query)
+    cfg = OperatorConfig(plan_size=64, function_selection="best")
+    op = ProgressiveQueryOperator(query, table, combine, bank.costs, bank, cfg,
+                                  truth_mask=truth, device=dev)
+    return op, evalc, truth, qualities
+
+
+def build_multi_server(
+    num_objects: int = 512,
+    num_preds: int = 3,
+    num_queries: int = 8,
+    backbone_arch: Optional[str] = "qwen3-1.7b",
+    seed: int = 0,
+    preds_per_query: int = 2,
+    plan_shards: int = 1,
+    smoke: bool = True,
+    device=None,
+):
+    """Multi-tenant server: Q overlapping conjunctive queries, one substrate.
+
+    Tenants draw random predicate subsets from the corpus schema with
+    ``np.random.default_rng(seed + 1)``, as the reference does.
+    -> (engine, corpus, truths, qualities, queries)
+    """
+    dev = resolve_device(device)
+    backbone_cfg = get_config(backbone_arch, smoke=smoke) if backbone_arch else None
+    preds, evalc, bank, combine, table, qualities = _offline_phase(
+        num_objects, num_preds, backbone_cfg, seed, device=dev
+    )
+    rng = np.random.default_rng(seed + 1)
+    queries = []
+    for _ in range(num_queries):
+        k = min(max(1, preds_per_query), num_preds)
+        cols = rng.choice(num_preds, size=k, replace=False)
+        queries.append(conjunction(*[preds[c] for c in sorted(cols)]))
+    query_set = build_query_set(queries, global_predicates=[p.positive() for p in preds])
+    # truth_pred columns are the GLOBAL predicate columns: evaluate the
+    # reindexed queries, not the local-space originals
+    truths = torch.stack([truth_answer_mask(evalc, rq) for rq in query_set.reindexed])
+    cfg = MultiQueryConfig(plan_size=64, function_selection="best", num_shards=plan_shards)
+    engine = MultiQueryEngine(query_set, table, combine, bank.costs, bank, cfg,
+                              truth_masks=truths, device=dev)
+    return engine, evalc, truths, qualities, queries
+
+
+def serve_query(
+    op: ProgressiveQueryOperator,
+    num_objects: int,
+    epochs: int = 40,
+    target_expected_f: Optional[float] = None,
+) -> ServeReport:
+    """Progressive evaluation with early termination (pay-as-you-go)."""
+    state = op.init_state(num_objects)
+    t0 = time.perf_counter()
+    history = []
+    sel = None
+    for e in range(epochs):
+        state, sel, plan, _ = op.run_epoch(state)
+        history.append(dict(epoch=e, cost=float(state.cost_spent),
+                            expected_f=float(sel.expected_f), size=int(sel.size)))
+        if int(plan.num_valid()) == 0:
+            break
+        if target_expected_f is not None and float(sel.expected_f) >= target_expected_f:
+            break
+    tf1 = None
+    if op.truth_mask is not None and sel is not None:
+        tf1 = float(true_f_alpha(sel.mask, op.truth_mask))
+    return ServeReport(
+        epochs=len(history),
+        cost_spent=float(state.cost_spent),
+        expected_f=history[-1]["expected_f"] if history else 0.0,
+        true_f1=tf1,
+        wall_s=time.perf_counter() - t0,
+        history=history,
+    )
+
+
+@dataclasses.dataclass
+class MultiServeReport:
+    epochs: int
+    num_queries: int
+    cost_spent: float  # shared substrate spend
+    requested_cost: float  # what the tenants would have paid without dedup
+    expected_f: list  # [Q] final per-query E(F_alpha)
+    true_f: Optional[list]  # [Q]
+    wall_s: float
+    history: list  # per-epoch dicts with per-query + aggregate trajectories
+
+    @property
+    def dedup_savings(self) -> float:
+        return self.requested_cost - self.cost_spent
+
+    @property
+    def mean_expected_f(self) -> float:
+        return sum(self.expected_f) / max(len(self.expected_f), 1)
+
+
+def serve_queries(
+    engine: MultiQueryEngine,
+    num_objects: int,
+    epochs: int = 40,
+    target_expected_f: Optional[float] = None,
+) -> MultiServeReport:
+    """Multi-tenant progressive evaluation: lockstep epochs over Q queries;
+    ``target_expected_f`` stops once the MEAN per-query E(F) reaches it."""
+    state = engine.init_state(num_objects)
+    t0 = time.perf_counter()
+    history = []
+    requested = 0.0
+    for e in range(epochs):
+        state, sel, plans, merged, _, _ = engine.run_epoch(state)
+        requested += float(torch.where(plans.valid, plans.cost, 0.0).sum())
+        per_query_f = [float(x) for x in sel.expected_f.cpu()]
+        mean_f = sum(per_query_f) / len(per_query_f)
+        merged_valid = int(merged.num_valid())
+        history.append(dict(epoch=e, cost=float(state.cost_spent), requested_cost=requested,
+                            expected_f=per_query_f, mean_expected_f=mean_f,
+                            sizes=[int(x) for x in sel.size.cpu()],
+                            merged_valid=merged_valid))
+        if merged_valid == 0:
+            break
+        if target_expected_f is not None and mean_f >= target_expected_f:
+            break
+    tf = None
+    if engine.truth_masks is not None and history:
+        tf = [float(x) for x in true_f_alpha(state.per_query.in_answer, engine.truth_masks,
+                                             engine.config.alpha).cpu()]
+    return MultiServeReport(
+        epochs=len(history),
+        num_queries=engine.query_set.num_queries,
+        cost_spent=float(state.cost_spent),
+        requested_cost=requested,
+        expected_f=history[-1]["expected_f"] if history else [],
+        true_f=tf,
+        wall_s=time.perf_counter() - t0,
+        history=history,
+    )
 
 
 def open_cascade_session(
@@ -201,7 +387,7 @@ def build_cascade_session_server(
     """
     dev = resolve_device(device)
     backbone_cfg = get_config(backbone_arch, smoke=smoke) if backbone_arch else None
-    preds, bank, combine, table, qualities = _offline_phase(
+    preds, _, bank, combine, table, qualities = _offline_phase(
         num_objects, num_preds, backbone_cfg, seed, train_size=train_size, device=dev,
     )
     session, state = open_cascade_session(
@@ -366,9 +552,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--session", action="store_true",
                     help="serve a long-lived EngineSession driven by a scripted "
-                         "ingest/admit/retire arrival trace (the mode this port serves)")
+                         "ingest/admit/retire arrival trace")
+    ap.add_argument("--queries", type=int, default=1,
+                    help="without --session: concurrent tenant queries (>1 serves "
+                         "them through the multi-query engine, 1 the single-query operator)")
+    ap.add_argument("--preds-per-query", type=int, default=2)
     ap.add_argument("--bank", default="simulated", choices=("simulated", "cascade"),
-                    help="enrichment bank: 'simulated' (precomputed AUC-calibrated "
+                    help="session enrichment bank: 'simulated' (precomputed AUC-calibrated "
                          "outputs, ingest-capable) or 'cascade' (real model-cascade "
                          "forwards every epoch; fixed corpus, no ingest)")
     ap.add_argument("--backbone", default="qwen3-1.7b",
@@ -400,7 +590,7 @@ def main(argv=None) -> int:
     ap.add_argument("--report", default=None, help="write the serve report as JSON")
     args = ap.parse_args(argv)
     if not args.session:
-        ap.error("this port serves session mode only: pass --session")
+        return _serve_queries_main(args)
 
     e = max(args.epochs // 4, 1)
     if args.bank == "cascade":
@@ -457,6 +647,41 @@ def main(argv=None) -> int:
             f"programs for {expected} chunk-length x visited-tier combinations)"
         )
         return 1
+    return 0
+
+
+def _serve_queries_main(args) -> int:
+    """The single-query (``--queries 1``) and multi-tenant modes."""
+    backbone = args.backbone or None
+    if args.queries > 1:
+        engine, _, _, qualities, _ = build_multi_server(
+            args.objects, args.preds, args.queries, backbone, seed=args.seed,
+            preds_per_query=args.preds_per_query, plan_shards=args.plan_shards,
+            smoke=not args.full_width, device=args.device,
+        )
+        print(f"[serve] cascade qualities (AUC): {qualities}")
+        report = serve_queries(engine, args.objects, args.epochs)
+        tf = [f"{x:.3f}" for x in report.true_f] if report.true_f else "n/a"
+        eps = report.epochs / max(report.wall_s, 1e-9)
+        print(
+            f"[serve] {report.num_queries} queries x {report.epochs} epochs on "
+            f"{engine.device}, cost={report.cost_spent:.4f}s-model "
+            f"(requested {report.requested_cost:.4f}, dedup saved "
+            f"{report.dedup_savings:.4f}), mean E(F1)={report.mean_expected_f:.3f}, "
+            f"per-query E(F1)={[f'{x:.3f}' for x in report.expected_f]}, "
+            f"true F1={tf}, wall={report.wall_s:.2f}s ({eps:.2f} epochs/s)"
+        )
+        return 0
+    op, _, _, qualities = build_server(args.objects, args.preds, backbone, seed=args.seed,
+                                       smoke=not args.full_width, device=args.device)
+    print(f"[serve] cascade qualities (AUC): {qualities}")
+    report = serve_query(op, args.objects, args.epochs)
+    eps = report.epochs / max(report.wall_s, 1e-9)
+    print(
+        f"[serve] {report.epochs} epochs on {op.device}, cost={report.cost_spent:.4f}s-model, "
+        f"E(F1)={report.expected_f:.3f}, true F1={report.true_f1:.3f}, "
+        f"wall={report.wall_s:.2f}s ({eps:.2f} epochs/s)"
+    )
     return 0
 
 

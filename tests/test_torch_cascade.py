@@ -39,6 +39,7 @@ from repro_torch.core.session import EngineSession
 from repro_torch.enrich import cascade
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.launch import serve
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 PROB_ATOL = {"float32": 1e-5, "bfloat16": 2e-3}
 SUM_RTOL = 1e-5

@@ -36,6 +36,7 @@ from repro_torch.core import entropy as t_entropy
 from repro_torch.core import errors as t_errors
 from repro_torch.core import query as t_query
 from repro_torch.core import state as t_state
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TRANSCENDENTAL_RTOL = 1e-5
 LEARNED_ATOL = 1e-4

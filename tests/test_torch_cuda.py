@@ -7,7 +7,8 @@ machine that has only PyTorch and the CUDA toolkit:
 
 Each ``enrich_score`` kernel is held BITWISE against its plain PyTorch
 version on the same card tensors — all four outputs — because both round
-every f32 op on its own (the kernels are built with ``--fmad=false``).  The
+every f32 op on its own (the kernels are built with ``--fmad=false``); the
+single-query kernel also drives a small operator run on the card.  The
 flash-attention kernel is held against its plain twin within the reference
 tests' tolerances (2e-5 f32, 2e-2 bf16: the online softmax sums in another
 order), and a small model-cascade session serves through it on the card.
@@ -23,6 +24,7 @@ from repro_torch.core.entropy import binary_entropy
 from repro_torch.core.executor import EngineConfig
 from repro_torch.core.query import Predicate, conjunction
 from repro_torch.core.session import EngineSession
+from repro_torch.core.state import EnrichmentState
 from repro_torch.data.synthetic import make_corpus
 from repro_torch.kernels.enrich_score import ops, ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -115,6 +117,81 @@ def test_cuda_session_scores_through_the_kernel(cuda_device, mode):
     name = ops.KERNELS[mode == "best"]
     assert ops.LAUNCHES[name] == 5 and ops.PLAIN_CALLS[name] == 0
     assert st.capacity == 256 and hist[-1].cost_spent > 0
+
+
+def _single_state(dev, seed, n, p, f):
+    """A random single-query state on the card with ~30% of objects in the
+    answer (so ~30% are no candidates under the default ~in_answer)."""
+    rng = np.random.default_rng(seed)
+    pp, unc, sid, joint = _rows(dev, seed, n, p, f, 1)
+    mask = (sid[..., None] >> torch.arange(f, device=dev)) & 1
+    return EnrichmentState(
+        func_probs=torch.full((n, p, f), 0.5, device=dev), exec_mask=mask.bool(),
+        pred_prob=pp, uncertainty=unc, joint_prob=joint[0],
+        in_answer=torch.from_numpy(rng.uniform(size=n) < 0.3).to(dev),
+        cost_spent=torch.zeros((), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p,f", [(1, 1, 4), (257, 1, 3), (1000, 3, 4), (4099, 2, 4)])
+def test_single_query_kernel_matches_plain_bitwise(cuda_device, n, p, f):
+    query = conjunction(*[Predicate(i, 1) for i in range(p)])
+    for table, costs in _tables(cuda_device, p, f):
+        st = _single_state(cuda_device, n + p, n, p, f)
+        before = ops.LAUNCHES["enrich_score_single"]
+        out = ops.fused_benefits(st, query, table, costs)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["enrich_score_single"] == before + 1
+        lut = ops._lut(4096, cuda_device)
+        want = ref.enrich_score_single_ref(st.pred_prob, st.uncertainty, st.state_id(),
+                                           st.joint_prob, ~st.in_answer, table.delta_h,
+                                           table.next_fn, costs, lut)
+        for a, b in zip(out[:3], want[:3]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert torch.isneginf(out.benefit[st.in_answer]).all()
+        pred = torch.arange(p, device=cuda_device)[None, :]
+        assert torch.equal(out.cost, costs[pred, out.next_fn.clamp_min(0).long()])
+        # the kernel's own floored cost output is the twin's
+        raw = tuple(torch.empty_like(x) for x in want)
+        from repro_torch.kernels.enrich_score import kernel
+
+        kernel.launch_single(st.pred_prob, st.uncertainty, st.state_id(), st.joint_prob,
+                             (~st.in_answer).contiguous(), table.delta_h, table.next_fn,
+                             costs, lut, raw)
+        torch.cuda.synchronize()
+        for a, b in zip(raw, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_single_query_wrapper_refuses_mixed_devices(cuda_device):
+    (table, costs), _ = _tables(cuda_device, 2, 4)
+    st = _single_state(cuda_device, 0, 64, 2, 4)
+    query = conjunction(Predicate(0, 1), Predicate(1, 1))
+    with pytest.raises(ValueError, match="expected cuda"):
+        ops.fused_benefits(st, query, table, costs.cpu())
+    with pytest.raises(ValueError, match="expected cuda"):
+        ops.fused_benefits(st, query, table, costs,
+                           candidate_mask=torch.ones(64, dtype=torch.bool))
+
+
+@pytest.mark.cuda
+def test_cuda_operator_scores_through_the_single_query_kernel(cuda_device):
+    from repro_torch.launch import profile
+
+    world = profile.quickstart_world(2048, train_size=512, device="cpu")
+    hist = {}
+    for device in ("cpu", cuda_device):
+        op, st = profile.quickstart_operator(world, fused=True, device=device)
+        ops.reset_counts()
+        st, hist[str(device)] = op.run(2048, 6, state=st)
+        key = "enrich_score_single"
+        assert (ops.LAUNCHES if device != "cpu" else ops.PLAIN_CALLS)[key] == 6
+        assert not (ops.PLAIN_CALLS if device != "cpu" else ops.LAUNCHES)[key]
+    cpu, gpu = hist["cpu"], hist[str(cuda_device)]
+    assert [h.answer_size for h in cpu] == [h.answer_size for h in gpu]
+    np.testing.assert_allclose([h.cost_spent for h in gpu], [h.cost_spent for h in cpu],
+                               rtol=1e-5)
 
 
 # ------------------------------------------------------------ flash attention --

@@ -34,6 +34,7 @@ from repro_torch import interop
 from repro_torch.core.benefit import compute_benefits_batched as t_compute_batched
 from repro_torch.core.errors import SubstrateDtypeError
 from repro_torch.kernels.enrich_score import ops as t_ops
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 BENEFIT_RTOL = 5e-7  # 4 ulp of f32: the lerp's possible FMA contraction under XLA
 

@@ -20,6 +20,7 @@ from repro.kernels.flash_attention import ops as j_ops
 from repro.kernels.flash_attention import ref as j_ref
 from repro_torch import interop
 from repro_torch.kernels.flash_attention import ops, ref
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # b, sq, skv, h, kv, d, causal, window, softcap, dtype
 FA_CASES = [

@@ -29,6 +29,7 @@ from repro_torch.models import attention, layers
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.model import Model
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _np(x):

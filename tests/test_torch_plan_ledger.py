@@ -31,6 +31,7 @@ from repro_torch.core import ledger as t_ledger
 from repro_torch.core import plan as t_plan
 from repro_torch.core import state as t_state
 from repro_torch.core import threshold as t_thr
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SUM_RTOL = 1e-6
 

@@ -26,6 +26,7 @@ from repro_torch.core.executor import EngineConfig
 from repro_torch.core.query import Predicate as TPredicate
 from repro_torch.core.session import EngineSession as TSession
 from repro_torch.launch import serve as t_serve
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TRACE = "admit:2;admit:3;run:3;ingest:64;admit:2;run:3;retire:0;run:3"
 
@@ -82,8 +83,11 @@ def test_serve_main_writes_report(tmp_path):
     for key in ("cost_hex", "bills_hex", "answer_digest", "superstep_traces", "epochs"):
         assert key in rep
     assert rep["epochs"] == 8 and rep["device"] == "cpu"
-    with pytest.raises(SystemExit):
-        t_serve.main(["--objects", "64", "--device", "cpu"])  # session mode only
+    # without --session the single-query operator serves (the reference's default mode)
+    assert t_serve.main(["--objects", "64", "--epochs", "2", "--backbone", "",
+                         "--device", "cpu"]) == 0
+    with pytest.raises(SystemExit):  # the cascade session serves a fixed corpus
+        t_serve.main(["--session", "--bank", "cascade", "--capacity", "128", "--device", "cpu"])
 
 
 def test_serve_trace_report_matches_jax_server():

@@ -39,6 +39,7 @@ from repro_torch.core.executor import EngineConfig
 from repro_torch.core.query import Predicate as TPredicate
 from repro_torch.core.query import conjunction as t_conjunction
 from repro_torch.core.session import EngineSession as TSession
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 P, F, SLOTS = 4, 4, 4
 QUERIES = [(0, 1), (1, 2, 3), (0, 2), (2, 3)]
@@ -219,6 +220,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.core.session, repro_torch.launch.serve, repro_torch.interop\n"
         "import repro_torch.enrich.cascade, repro_torch.models.transformer\n"
         "import repro_torch.kernels.flash_attention.ops, repro_torch.launch.profile\n"
+        "import repro_torch.core.operator, repro_torch.core.multi_query\n"
+        "import repro_torch.core.baselines, repro_torch.enrich.simulated\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
