@@ -283,7 +283,8 @@ def phase_kernels(table, costs) -> dict:
 def _single_bound(table_bytes: int) -> tuple:
     """(bound_ms, bound_by) of one single-query launch: pred_prob, unc and
     state_id [N, P] (4 B each), joint [N] (4 B) and cand [N] (1 B) read once,
-    four [N, P] outputs (4 B each) written once; ~18 f32 operations a lane."""
+    the four [N, P] outputs that fused_benefits returns (4 B each, the
+    unfloored cost among them) written once; ~18 f32 operations a lane."""
     lanes = N_OP * P_OP
     nbytes = lanes * 12 + N_OP * 5 + table_bytes + lanes * 16
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -348,7 +349,7 @@ def phase_single_kernel(table) -> dict:
             fin = torch.isfinite(a.double()) & torch.isfinite(b.double())
             result["max_abs_err"] = max(result["max_abs_err"],
                                         (a.double() - b.double()).abs()[fin].max().item())
-        for label, a, b in zip(labels[:3], wrapped[:3], want[:3]):
+        for label, a, b in zip(labels, wrapped, want):
             assert torch.equal(a, b), f"fused_benefits {label} differs from the plain version"
         assert torch.isneginf(raw[0][st.in_answer]).all()
         if edge:
@@ -662,7 +663,7 @@ def phase_operator_cpu_vs_gpu(world):
     import numpy as np
     import torch
 
-    from repro_torch.launch.profile import quickstart_operator
+    from repro_torch.quickstart import quickstart_operator
 
     n = world["num_objects"]
     for fused in (True, False):
@@ -701,7 +702,7 @@ def phase_operator_main_path() -> dict:
     import torch
 
     from repro_torch.kernels.enrich_score import ops
-    from repro_torch.launch.profile import quickstart_operator, quickstart_world
+    from repro_torch.quickstart import quickstart_operator, quickstart_world
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -861,7 +862,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
-    from repro_torch.launch.profile import quickstart_world
+    from repro_torch.quickstart import quickstart_world
 
     smi = _nvidia_smi()
     print(f"[env] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "

@@ -18,9 +18,10 @@
 //   benefit = j * est_j / cost,  -inf where no function remains
 // Best mode prices every remaining function and keeps the first strict
 // maximum; nothing F-shaped is written.  The single-query kernel also sets
-// -inf where the object is no candidate (cand[c] == 0).  Table mode and the
-// single-query kernel share the per-lane math (table_lane), so the two
-// agree by construction.
+// -inf where the object is no candidate (cand[c] == 0), and writes the
+// UNFLOORED cost costs[p, max(fn, 0)] that its function returns (the benefit
+// still divides by the floored one).  Table mode and the single-query kernel
+// share the per-lane math (table_lane), so the two agree by construction.
 //
 // What bounds them: memory bytes.  A handful of f32 ops per lane and tenant
 // (per function in best mode) against 16 bytes written per lane and tenant,
@@ -30,8 +31,8 @@
 // and write 4 x [8, 1M, 4] x 4 B = 537 MB: ~621 MB, a bound of ~0.185 ms at
 // 3.35 TB/s (bf16 rows: ~579 MB, ~0.173 ms).  At the operator's shape
 // (C = 1,048,576, P = 2) the single-query kernel reads pred_prob, unc and
-// state_id (3 x 8.4 MB), joint (4.2 MB) and cand (1 MB) and writes four
-// [C, P] outputs (33.6 MB): ~64 MB, ~0.019 ms.
+// state_id (3 x 8.4 MB), joint (4.2 MB) and cand (1 MB) and writes the four
+// [C, P] outputs its function returns (33.6 MB): ~64 MB, ~0.019 ms.
 //
 // Design, against that bound:
 //   * The TPU kernel's one-hot matmul gathers were a workaround for weak
@@ -179,7 +180,8 @@ __global__ void __launch_bounds__(kThreads) enrich_score_table_kernel(
 
 // One query (Q = 1), f32 rows, and the candidate mask: a lane is valid when
 // a function remains AND its object is a candidate.  next_fn, est_joint and
-// cost are written as computed for every lane, as the TPU kernel does.
+// cost are written as computed for every lane, as the TPU kernel does; cost
+// is the table entry unfloored, the one the function returns.
 __global__ void __launch_bounds__(kThreads) enrich_score_single_kernel(
     const float* __restrict__ pred_prob, const float* __restrict__ unc,
     const int32_t* __restrict__ state_id, const float* __restrict__ joint,
@@ -204,7 +206,7 @@ __global__ void __launch_bounds__(kThreads) enrich_score_single_kernel(
     benefit[i] = (s.fn >= 0 && cand[c]) ? benefit_of(j, est, s.cost) : -INFINITY;
     next_fn[i] = s.fn;
     est_out[i] = est;
-    cost_out[i] = s.cost;
+    cost_out[i] = tab.cost[p * F + max(s.fn, 0)];
   }
 }
 

@@ -74,8 +74,8 @@ def fused_benefits(
     conjunctive queries, passed to the operator as ``benefit_fn``).
 
     The benefit is -inf where no function remains or the object is no
-    candidate.  ``cost`` is re-gathered UNFLOORED, ``costs[p, max(fn, 0)]``,
-    as the reference returns it; the benefit divides by the floored cost.
+    candidate.  ``cost`` is UNFLOORED, ``costs[p, max(fn, 0)]``, as the
+    reference returns it; the benefit divides by the floored cost.
     Rows are scored as f32, as the reference's wrapper casts them.
     """
     if not query.is_conjunctive:
@@ -97,7 +97,7 @@ def fused_benefits(
     lut = _lut(lut_bins, dev)
     if dev.type == "cpu":
         PLAIN_CALLS[name] += 1
-        benefit, nf, est, _ = ref.enrich_score_single_ref(
+        benefit, nf, est, cost = ref.enrich_score_single_ref(
             pp, unc, sid, joint, cand, table.delta_h, table.next_fn, costs, lut
         )
     elif dev.type == "cuda":
@@ -130,11 +130,9 @@ def fused_benefits(
         kernel.launch_single(pp, unc, sid, joint, cand, table.delta_h, table.next_fn,
                              costs, lut, out)
         LAUNCHES[name] += 1
-        benefit, nf, est, _ = out
+        benefit, nf, est, cost = out
     else:
         raise ValueError(f"fused_benefits runs on cpu or cuda, not {dev}")
-    pred = torch.arange(p, device=dev)[None, :]
-    cost = costs[pred, torch.clamp_min(nf, 0).long()]
     return TripleBenefits(benefit=benefit, next_fn=nf, est_joint=est, cost=cost)
 
 

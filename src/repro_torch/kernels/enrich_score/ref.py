@@ -85,14 +85,17 @@ def enrich_score_single_ref(
 ):
     """Single-query table mode (the reference's ``enrich_score_tiles``):
     the table-mode lane math for one query, with the benefit of a
-    non-candidate object set to -inf.  ``next_fn``, ``est_joint`` and the
-    floored ``cost`` are returned as computed for every lane."""
-    benefit, fn, est, cost = (
+    non-candidate object set to -inf.  ``next_fn``, ``est_joint`` and
+    ``cost`` are returned as computed for every lane; ``cost`` is the
+    UNFLOORED table entry ``costs[p, max(fn, 0)]``, while the benefit divides
+    by the floored one."""
+    benefit, fn, est, _ = (
         x[0] for x in enrich_score_table_ref(
             pred_prob, unc, state_id, joint[None], delta_tab, next_tab, costs, lut)
     )
     benefit = torch.where(cand[:, None], benefit, float("-inf"))
-    return benefit, fn, est.contiguous(), cost
+    pred = torch.arange(fn.shape[1], device=fn.device)[None, :]
+    return benefit, fn, est.contiguous(), costs[pred, torch.clamp_min(fn, 0).long()]
 
 
 def enrich_score_best_ref(

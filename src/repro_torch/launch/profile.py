@@ -11,7 +11,7 @@ qwen3-1.7b trunk, 2,048 objects, 3 predicates, 8 tenant slots, f32
 substrate, best mode), admits 8 tenants and runs epochs until the planner
 selects backbone lanes.  ``--path operator`` builds the paper's
 single-query operator on the quickstart query and corpus at 1,048,576
-objects (``quickstart_world``: 2 predicates, 4 functions, the
+objects (``repro_torch.quickstart``: 2 predicates, 4 functions, the
 ``preprocess_cheapest`` warm start, ``OperatorConfig()`` defaults) scoring
 through ``ops.fused_benefits`` (the single-query kernel), and runs 2
 warm-up epochs.  Then ``--epochs`` epochs run under
@@ -33,17 +33,11 @@ import time
 
 import torch
 
-from repro_torch.core.combine import fit_combine_weights
-from repro_torch.core.decision_table import learn_decision_table
 from repro_torch.core.executor import EngineConfig
-from repro_torch.core.operator import OperatorConfig, ProgressiveQueryOperator
-from repro_torch.core.query import Predicate, conjunction
+from repro_torch.core.query import conjunction
 from repro_torch.core.session import EngineSession
-from repro_torch.data.synthetic import make_corpus, split_corpus, truth_answer_mask
-from repro_torch.device import resolve_device
-from repro_torch.enrich.simulated import SimulatedBank, preprocess_cheapest
-from repro_torch.kernels.enrich_score import ops as es_ops
 from repro_torch.launch import serve
+from repro_torch.quickstart import quickstart_operator, quickstart_world
 
 TENANTS = ((0, 1), (1, 2, 3), (0, 2), (2, 3), (0, 1, 2, 3), (1, 3), (0, 3), (1, 2))
 CASCADE_TENANTS = ((0, 1), (1, 2), (0, 2), (0,), (1,), (2,), (0, 1, 2), (0, 1))
@@ -57,47 +51,7 @@ KINDS = (  # (label, substrings of the kernel name), first match wins
 )
 
 
-# The quickstart query and corpus (examples/quickstart.py): "Gender == Male
-# AND Expression == Smile", selectivity 0.4 / 0.35, the paper's Table 1
-# function qualities and costs.
-QUICKSTART_AUCS = (0.61, 0.84, 0.9, 0.95)
-QUICKSTART_COSTS = (0.023, 0.114, 0.42, 0.949)
 OPERATOR_OBJECTS = 1 << 20
-
-
-def quickstart_world(num_objects: int, train_size: int = 1024, seed: int = 0,
-                     device=None) -> dict:
-    """The quickstart corpus on ``device``: combine weights and decision
-    table learned on ``train_size`` training rows, the bank over the
-    ``num_objects`` evaluation rows, the query and its ground truth."""
-    dev = resolve_device(device)
-    query = conjunction(Predicate(0, 1), Predicate(1, 2))
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    corpus = make_corpus(gen, num_objects + train_size, [0, 1], [1, 2],
-                         selectivity=[0.4, 0.35], aucs=QUICKSTART_AUCS, costs=QUICKSTART_COSTS)
-    train, evalc = split_corpus(corpus, train_size)
-    combine = fit_combine_weights(train.func_probs, train.truth_pred.to(torch.float32), steps=150)
-    table = learn_decision_table(train.func_probs, combine, num_bins=10)
-    return dict(query=query, table=table, combine=combine, costs=evalc.costs,
-                bank=SimulatedBank(outputs=evalc.func_probs, costs=evalc.costs),
-                truth=truth_answer_mask(evalc, query), num_objects=num_objects)
-
-
-def quickstart_operator(world: dict, fused: bool, config: OperatorConfig = OperatorConfig(),
-                        device=None):
-    """The operator over ``world`` on ``device`` (its bank copied there),
-    warm-started by the paper's initialization step -> (operator, state).
-    ``fused`` scores through ``ops.fused_benefits`` (the legacy per-epoch
-    loop); otherwise the default scoring runs through the session facade."""
-    dev = resolve_device(device)
-    bank = world["bank"].to(dev)
-    op = ProgressiveQueryOperator(
-        world["query"], world["table"], world["combine"], world["costs"], bank, config,
-        truth_mask=world["truth"], benefit_fn=es_ops.fused_benefits if fused else None,
-        device=dev,
-    )
-    pre_p, pre_m, _ = preprocess_cheapest(bank.outputs, bank.costs)
-    return op, op.warm_start(op.init_state(world["num_objects"]), pre_p, pre_m)
 
 
 def _device_us(evt) -> float:
@@ -127,30 +81,20 @@ def _simulated(mode: str):
         capacity=state.capacity, max_tenants=8, device="cuda",
         config=EngineConfig(plan_size=64, function_selection=mode, substrate_dtype="bfloat16"),
     ).program
-    step = _stepper(lambda st, n: prog.run_scan(st, n, stop_when_exhausted=False), state)
-    step(2)  # warm-up
-    return step, None, f"{mode} mode, 8 tenants, {state.capacity} rows (bf16)"
-
-
-def _stepper(run, state):
-    """``run(state, n) -> (state, history)`` as a closure ``step(n)`` that
-    carries the state from call to call."""
-    holder = [state]
-
-    def step(n: int) -> None:
-        holder[0], _ = run(holder[0], n)
-
-    return step
+    state, _ = prog.run_scan(state, 2, stop_when_exhausted=False)  # warm-up
+    return prog.run_scan, state, None, f"{mode} mode, 8 tenants, {state.capacity} rows (bf16)"
 
 
 def _operator():
     world = quickstart_world(OPERATOR_OBJECTS, device="cuda")
     op, state = quickstart_operator(world, fused=True, device="cuda")
-    step = _stepper(
-        lambda st, n: op.run(OPERATOR_OBJECTS, n, state=st, stop_when_exhausted=False), state)
-    step(2)  # warm-up
-    return step, None, (f"operator, kernel route (fused_benefits), quickstart query, "
-                        f"{OPERATOR_OBJECTS} objects, OperatorConfig() defaults")
+
+    def run(st, n, stop_when_exhausted):
+        return op.run(OPERATOR_OBJECTS, n, state=st, stop_when_exhausted=stop_when_exhausted)
+
+    state, _ = run(state, 2, stop_when_exhausted=False)  # warm-up
+    return run, state, None, (f"operator, kernel route (fused_benefits), quickstart query, "
+                              f"{OPERATOR_OBJECTS} objects, OperatorConfig() defaults")
 
 
 def _cascade():
@@ -166,9 +110,7 @@ def _cascade():
         warm += 1
     if bank.trunk_runs == 0:
         raise SystemExit(f"no backbone lane in {warm} epochs: nothing to profile")
-    step = _stepper(
-        lambda st, n: session.program.run_scan(st, n, stop_when_exhausted=False), state)
-    return step, bank, (
+    return session.program.run_scan, state, bank, (
         f"cascade at full width (qwen3-1.7b trunk), 8 tenants, 2048 objects, best mode, "
         f"after {warm} warm-up epochs")
 
@@ -187,17 +129,17 @@ def main(argv=None) -> int:
         raise SystemExit("profile needs a GPU (torch.cuda.is_available() is False)")
 
     if args.path == "operator":
-        step, bank, label = _operator()
+        run, state, bank, label = _operator()
     elif args.bank == "cascade":
-        step, bank, label = _cascade()
+        run, state, bank, label = _cascade()
     else:
-        step, bank, label = _simulated(args.mode)
+        run, state, bank, label = _simulated(args.mode)
     trunk0 = 0 if bank is None else bank.trunk_runs
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        step(args.epochs)
+        state, _ = run(state, args.epochs, stop_when_exhausted=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # kernel records only: the aten:: operator records repeat their kernels' time

@@ -11,6 +11,7 @@ probabilities within atol 5e-7 (XLA's and PyTorch's CPU log / exp differ by
 an ulp or two inside the combine function).
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -29,12 +30,15 @@ from repro.core.decision_table import learn_decision_table
 from repro.data.synthetic import make_corpus
 from repro.enrich import simulated as j_sim
 from repro.enrich.simulated import SimulatedBank as JBank
+from repro.launch import serve as j_serve
 from repro_torch import interop
 from repro_torch.core import plan as t_plan
 from repro_torch.core import query as tq
 from repro_torch.core.multi_query import MultiQueryConfig as TConfig
 from repro_torch.core.multi_query import MultiQueryEngine as TEngine
 from repro_torch.core.multi_query import build_query_set as t_build
+from repro_torch.core.operator import OperatorConfig as TOpConfig
+from repro_torch.core.operator import ProgressiveQueryOperator as TOperator
 from repro_torch.enrich import simulated as t_sim
 from repro_torch.kernels.enrich_score import ops as t_ops
 from repro_torch.launch import serve as t_serve
@@ -346,6 +350,83 @@ def test_serve_reports():
     assert rep.num_queries == 4 and len(queries) == 4 and truths.shape == (4, 96)
     assert rep.requested_cost >= rep.cost_spent > 0 and rep.dedup_savings >= 0
     assert len(rep.true_f) == 4 and all(0.0 <= f <= 1.0 for f in rep.expected_f)
+
+
+def _shared_fields(cls, jcfg):
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in dataclasses.asdict(jcfg).items() if k in names}
+
+
+def _assert_history(th, jh, keys_equal, keys_close):
+    assert len(th) == len(jh)
+    for e, (a, b) in enumerate(zip(th, jh)):
+        for k in keys_equal:
+            assert a[k] == b[k], f"epoch {e}: {k} {a[k]} != {b[k]}"
+        for k, rtol in keys_close:
+            np.testing.assert_allclose(a[k], b[k], rtol=rtol, atol=1e-12,
+                                       err_msg=f"epoch {e}: {k}")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_servers():
+    """The reference's single- and multi-query servers (probe cascades, no
+    backbone): its offline phase trains the levels, learns combine and table."""
+    single = j_serve.build_server(num_objects=96, num_preds=2, backbone_arch=None, seed=0)
+    multi = j_serve.build_multi_server(num_objects=96, num_preds=3, num_queries=4,
+                                       backbone_arch=None, seed=0)
+    return single, multi
+
+
+def _port_parts(jobj):
+    return (interop.cascade_bank_from_numpy(jobj.bank.cascades, np.asarray(jobj.bank.features)),
+            interop.decision_table_from_numpy(jax.device_get(jobj.table)),
+            interop.combine_params_from_numpy(jax.device_get(jobj.combine_params)))
+
+
+def test_serve_query_matches_jax_server():
+    """The reference's single-query server, its bank, table and combine
+    weights carried into the port: serve_query's history (spend, E(F),
+    answer size) epoch by epoch, and the true F1."""
+    (jop, _, jtruth, _), _ = _jax_servers()
+    bank, table, combine = _port_parts(jop)
+    np.testing.assert_array_equal(bank.costs.numpy(), _np(jop.costs))
+    top = TOperator(tq.conjunction(tq.Predicate(0, 1), tq.Predicate(1, 1)), table, combine,
+                    bank.costs, bank, TOpConfig(**_shared_fields(TOpConfig, jop.config)),
+                    truth_mask=torch.tensor(_np(jtruth)), device="cpu")
+    jrep = j_serve.serve_query(jop, 96, epochs=6)
+    trep = t_serve.serve_query(top, 96, epochs=6)
+    assert trep.epochs == jrep.epochs == 6
+    _assert_history(trep.history, jrep.history, ("epoch", "size"),
+                    (("cost", SUM_RTOL), ("expected_f", 1e-5)))
+    np.testing.assert_allclose(trep.true_f1, jrep.true_f1, rtol=1e-6)
+
+
+def test_serve_queries_matches_jax_server():
+    """The reference's multi-query server (its queries, bank, table and
+    combine weights) against the port's engine over the same parts:
+    serve_queries' history (spend, requested spend, per-query E(F) and
+    answer sizes, merged plan lanes) epoch by epoch.  The reference engine
+    scores through its Pallas kernels in interpret mode, the route the
+    port's engine takes on the CPU."""
+    _, (je, _, jtruths, _, jqueries) = _jax_servers()
+    je = JEngine(je.query_set, je.table, je.combine_params, je.costs, je.bank,
+                 dataclasses.replace(je.config, backend="pallas", pallas_interpret=True),
+                 truth_masks=je.truth_masks)
+    bank, table, combine = _port_parts(je)
+    queries = [tq.conjunction(*[tq.Predicate(p.tag_type, p.tag) for p in q.predicates])
+               for q in jqueries]
+    qs = t_build(queries, global_predicates=[tq.Predicate(i, 1) for i in range(3)])
+    np.testing.assert_array_equal(qs.pred_mask.numpy(), _np(je.query_set.pred_mask))
+    te = TEngine(qs, table, combine, bank.costs, bank,
+                 TConfig(**_shared_fields(TConfig, je.config)),
+                 truth_masks=torch.tensor(_np(jtruths)), device="cpu")
+    jrep = j_serve.serve_queries(je, 96, epochs=6)
+    trep = t_serve.serve_queries(te, 96, epochs=6)
+    assert trep.epochs == jrep.epochs == 6 and trep.num_queries == jrep.num_queries == 4
+    _assert_history(trep.history, jrep.history, ("epoch", "sizes", "merged_valid"),
+                    (("cost", SUM_RTOL), ("requested_cost", SUM_RTOL),
+                     ("expected_f", 1e-5), ("mean_expected_f", 1e-5)))
+    np.testing.assert_allclose(trep.true_f, jrep.true_f, rtol=1e-6)
 
 
 def test_facades_attach_the_cascade_bank_to_their_session():

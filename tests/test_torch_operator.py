@@ -197,13 +197,17 @@ def test_enrichment_state_round_trips_through_interop():
 # ---------------------------------------------------------------- benefits --
 
 
-def _assert_benefits_close(tb, jb, rtol):
+def _assert_benefits_close(tb, jb, rtol, exact_cost=False):
+    """``exact_cost``: both sides gather the same f32 cost-table entry."""
     np.testing.assert_array_equal(tb.next_fn.numpy(), _np(jb.next_fn))
     fin = np.isfinite(_np(jb.benefit))
     np.testing.assert_array_equal(np.isfinite(tb.benefit.numpy()), fin)
     np.testing.assert_allclose(tb.benefit.numpy()[fin], _np(jb.benefit)[fin], rtol=rtol, atol=0)
     np.testing.assert_allclose(tb.est_joint.numpy(), _np(jb.est_joint), rtol=rtol, atol=1e-7)
-    np.testing.assert_allclose(tb.cost.numpy(), _np(jb.cost), rtol=rtol, atol=0)
+    if exact_cost:
+        np.testing.assert_array_equal(tb.cost.numpy(), _np(jb.cost))
+    else:
+        np.testing.assert_allclose(tb.cost.numpy(), _np(jb.cost), rtol=rtol, atol=0)
     return fin
 
 
@@ -280,7 +284,7 @@ def test_fused_benefits_twin_matches_jax_kernel(n, p, f):
     before = t_ops.PLAIN_CALLS["enrich_score_single"]
     jb, tb = _fused_both(js, jquery, tquery, table, costs, cand)
     assert t_ops.PLAIN_CALLS["enrich_score_single"] == before + 1
-    fin = _assert_benefits_close(tb, jb, rtol=ULP4)
+    fin = _assert_benefits_close(tb, jb, rtol=ULP4, exact_cost=True)
     assert fin.any() and not fin[~cand].any()
     assert tb.next_fn.dtype == torch.int32
 
@@ -292,7 +296,7 @@ def test_fused_benefits_twin_learned_table_and_default_candidates():
         js, in_answer=jnp.asarray(np.random.default_rng(9).uniform(size=64) < 0.4))
     table, costs = _learned(2, 4)
     jb, tb = _fused_both(js, jquery, tquery, table, costs, None)  # None: ~in_answer
-    assert _assert_benefits_close(tb, jb, rtol=ULP4).any()
+    assert _assert_benefits_close(tb, jb, rtol=ULP4, exact_cost=True).any()
 
 
 def test_fused_benefits_twin_edge_bins():
@@ -313,7 +317,7 @@ def test_fused_benefits_twin_edge_bins():
         unc.astype(np.float32)), exec_mask=jnp.asarray(mask))
     table, costs = _fallback(p, f)
     jb, tb = _fused_both(js, jquery, tquery, table, costs, np.ones(n, bool))
-    _assert_benefits_close(tb, jb, rtol=ULP4)
+    _assert_benefits_close(tb, jb, rtol=ULP4, exact_cost=True)
     assert (tb.next_fn[2 * n // 3:] == -1).all() and torch.isneginf(tb.benefit[2 * n // 3:]).all()
 
 
