@@ -15,8 +15,15 @@ in order; any failure raises and the script exits non-zero:
    kernel at the operator's shape (N = 1<<20 objects, P = 2, F = 4, the
    quickstart's learned table and an edge-bin fixture, ~30% of objects no
    candidates) — ``next_fn``, ``cost``, ``benefit`` and ``est_joint`` must be
-   bitwise equal — and their times (CUDA events, median of 25 after
-   warm-up) beside the bound;
+   bitwise equal — and their times (CUDA events around runs of 10 calls,
+   median of 25 runs after warm-up) beside the bound; the flash kernel
+   (``FA_CASES``); the decode kernel's partials at qwen3-1.7b decode (B 8,
+   H 16, KV 8, D 128, kv_len 2048 of a 4096 cache, bf16 and f32, and a
+   window + softcap case) within 2e-5 of its twin, with SDPA over the live keys as the yardstick; and the
+   SSD intra-chunk kernel at the mamba2-370m prefill shape (B 2, S 4096,
+   H 32, P 64, N 128, chunk 256, bf16) and the cascade's (512 lanes x 8
+   tokens, with and without the final state), every output within 1e-4 of
+   its largest magnitude;
 3. CPU vs GPU session: one churn trace at capacity 4096 with 4 tenants, in
    both scoring modes, through ``EngineSession(device="cpu")`` (plain path)
    and ``device="cuda"`` (kernels) — per-slot plans, merged plans,
@@ -26,12 +33,16 @@ in order; any failure raises and the script exits non-zero:
    on the CPU and copied to the card: ``execute`` on the CPU (plain twins)
    and on the card (kernels) over the same merged plans agree within 1e-5,
    the first epoch's plans are equal, and later plans and answer sets are
-   compared (a divergence is printed with its epoch); then the paper's
+   compared (a divergence is printed with its epoch); the same with the
+   reduced f32 mamba2 trunk, where plans and answer sets must be equal on
+   every epoch; then the paper's
    operator on the quickstart query and corpus at N = 4,096 for 24 epochs,
    built on the CPU and run with ``device="cpu"`` and ``device="cuda"``:
    the kernel route (``benefit_fn=fused_benefits``) and the session facade
    (default scoring) — plans and answer sets equal epoch by epoch, spend
-   within rtol 1e-5;
+   within rtol 1e-5; and the reduced f32 qwen3 and mamba2 models: prefill
+   of 96 tokens x 4 and 8 greedy decode steps on the CPU and the card,
+   logits within 1e-3 and greedy tokens equal;
 4. the main path at full size: the session server (``repro_torch.launch.
    serve``: 524,288 rows growing to 1,048,576, 8 tenant slots, bf16
    substrate, best-mode scoring) serves
@@ -51,6 +62,8 @@ in order; any failure raises and the script exits non-zero:
    launch 28 times per epoch that ran the trunk (at least 4 such epochs),
    the plain twins never; chunk programs within the bound, invoices fold
    bit for bit, every epoch charges, probabilities finite and in [0, 1];
+   then the same with the 48-layer mamba2-370m trunk (d_model 1024): the
+   SSD kernel launches 48 times per trunk epoch, the flash kernel never;
 6. the operator main path at full size: the quickstart query and corpus at
    N = 1,048,576 (+1,024 rows to train on), ``OperatorConfig()`` defaults
    (plan size 256, table mode, exact answers), the ``preprocess_cheapest``
@@ -61,7 +74,11 @@ in order; any failure raises and the script exits non-zero:
    entropy falls, E(F) stays in [0, 1];
 7. the two other serve entry points on the card: the single-query server
    and ``--queries 4`` (best mode: the best-mode kernel launches); both
-   return 0;
+   return 0; then ``Model.prefill`` + 32 greedy ``decode_step``s at full
+   width: qwen3-1.7b over 2,048 tokens x 8 (28 flash launches in the
+   prefill, 28 decode launches a step) and mamba2-370m over 4,096 tokens x
+   2 (48 SSD launches in the prefill; decode runs ``ssd_step``), with ms
+   per prefill and per step and peak memory;
 8. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and the
    final ``{"ok": true, ...}`` line.
 
@@ -100,13 +117,37 @@ SOURCES = {
     "enrich_score_best": "src/repro_torch/kernels/enrich_score/csrc/enrich_score.cu",
     "enrich_score_single": "src/repro_torch/kernels/enrich_score/csrc/enrich_score.cu",
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "decode_attention_partials":
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+    "ssd_intra_chunk": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
 }
 REPLACES = {
     "enrich_score_table": "src/repro/kernels/enrich_score/kernel.py:318",
     "enrich_score_best": "src/repro/kernels/enrich_score/kernel.py:354",
     "enrich_score_single": "src/repro/kernels/enrich_score/kernel.py:273",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:122",
+    "decode_attention_partials": "src/repro/kernels/decode_attention/kernel.py:65",
+    "ssd_intra_chunk": "src/repro/kernels/ssd_scan/kernel.py:72",
 }
+# the mamba2-370m prefill (B 2, S 4096, chunk 256) and the cascade backbone's
+# 512 lanes x 8 tokens; H 32, P 64, N 128, bf16 x / B / C.  The cascade runs
+# without a final state (its last chunk's state is neither computed nor
+# written), the prefill with one; both forms are held against the twin.
+# b, s, chunk, final_state
+SSD_CASES = [(2, 4096, 256, True), (512, 8, 8, False), (512, 8, 8, True)]
+SSD_H, SSD_P, SSD_N = 32, 64, 128
+SSD_TOL = 1e-4  # relative to the output's largest magnitude: f32 sums in another order
+# qwen3-1.7b decode: B 8, H 16, KV 8, D 128, kv_len 2048 of a 4096 cache;
+# b, skv, h, kv, d, kv_len, window, softcap, dtype
+DA_CASES = [
+    (8, 4096, 16, 8, 128, 2048, None, None, "bfloat16"),
+    (8, 4096, 16, 8, 128, 2048, None, None, "float32"),
+    (8, 4096, 16, 8, 128, 2048, 512, 50.0, "bfloat16"),
+]
+DA_TOL = 2e-5  # partials (m, l, acc): f32 sums in another order
+# the model serve paths at full width: (arch, batch, prompt, decode steps, cache)
+SERVE_PATHS = [("qwen3-1.7b", 8, 2048, 32, 4096), ("mamba2-370m", 2, 4096, 32, 4128)]
+SERVE_LOGIT_TOL = 1e-3  # reduced f32 models, CPU vs card: matmul sums in another order
 # b, sq, skv, h, kv, d, causal, window, softcap, dtype, kv_len, q_offset_from_kv_len
 BACKBONE_FA = (512, 8, 8, 16, 8, 128, False, None, None, "bfloat16", None, True)
 FA_CASES = [
@@ -131,8 +172,11 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up."""
+def _time_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 10) -> float:
+    """Median over ``reps`` CUDA-event timings of a run of ``inner`` calls of
+    ``fn``, per call, after warm-up.  One call between two events would time
+    the host's launch overhead (tens of microseconds a call) for a kernel
+    shorter than that."""
     import torch
 
     for _ in range(warmup):
@@ -142,10 +186,11 @@ def _time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -170,11 +215,13 @@ def _bound(mode: str, prob_bytes: int, c: int, p: int, f: int, q: int, table_byt
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.enrich_score import kernel as es_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
     t0 = time.perf_counter()
-    modules = (es_kernel, fa_kernel)
+    modules = (es_kernel, fa_kernel, da_kernel, ssd_kernel)
     with ThreadPoolExecutor(len(modules)) as pool:  # one nvcc per source, all at once
         builds = [f.result() for f in [pool.submit(m.build) for m in modules]]
     for m in modules:
@@ -587,17 +634,18 @@ def phase_flash() -> dict:
     return result
 
 
-def _reduced_f32_backbone():
+def _reduced_f32_backbone(arch):
     import dataclasses
 
     from repro_torch.configs.archs import get_config
 
-    return dataclasses.replace(get_config("qwen3-1.7b", smoke=True), dtype="float32")
+    return dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
 
 
-def phase_cascade_cpu_vs_gpu():
+def phase_cascade_cpu_vs_gpu(arch="qwen3-1.7b"):
     """The cascade bank built on the CPU, copied to the card; one churn trace
-    through a CPU and a CUDA session, lockstep."""
+    through a CPU and a CUDA session, lockstep.  With the mamba2 backbone the
+    plans and answer sets must be equal on every epoch."""
     import torch
 
     from repro_torch.core.query import conjunction
@@ -608,7 +656,7 @@ def phase_cascade_cpu_vs_gpu():
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     preds, _, bank, combine, table, _ = serve._offline_phase(
-        128, 3, _reduced_f32_backbone(), seed=0, device="cpu")
+        128, 3, _reduced_f32_backbone(arch), seed=0, device="cpu")
     banks = (bank, bank.to("cuda"))
     pairs = [serve.open_cascade_session(preds, b, combine, table, max_tenants=4, plan_size=32,
                                         device=b.device) for b in banks]
@@ -649,7 +697,9 @@ def phase_cascade_cpu_vs_gpu():
                       f"{bool(same_answers)} (CPU vs card)", flush=True)
             epochs += 1
     assert trunk_epochs > 0, "the smoke trace never ran the trunk"
-    print(f"[cascade] reduced f32 trunk, CPU vs card over {epochs} epochs ({trunk_epochs} ran the "
+    if arch == "mamba2-370m":
+        assert not diverged, f"mamba2 cascade: CPU and card differ on epochs {diverged}"
+    print(f"[cascade] reduced f32 {arch} trunk, CPU vs card over {epochs} epochs ({trunk_epochs} ran the "
           f"trunk): execute agrees within {worst:.3g} (<= 1e-5), epoch-0 plans equal, "
           f"divergent epochs {diverged or 'none'}; in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -775,17 +825,18 @@ def phase_serve_entry_points() -> dict:
     return launches
 
 
-def phase_cascade_main_path() -> dict:
+def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     import torch
 
     from repro_torch.kernels.enrich_score import ops as es_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch import serve
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     session, state, preds, qualities = serve.build_cascade_session_server(
-        num_objects=2048, num_preds=3, max_tenants=8, backbone_arch="qwen3-1.7b",
+        num_objects=2048, num_preds=3, max_tenants=8, backbone_arch=arch,
         plan_size=64, substrate_dtype="float32", smoke=False, train_size=512, device="cuda",
     )
     torch.cuda.synchronize()
@@ -793,9 +844,19 @@ def phase_cascade_main_path() -> dict:
     bank = session.bank
     trunk = bank.cascades[0][2].params[0]
     cfg = bank.cascades[0][2].cfg
-    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-            cfg.d_ff) == (28, 2048, 16, 8, 128, 6144), cfg
-    assert trunk["layers"][0]["attn"]["wq"].shape == (28, 2048, 16, 128)
+    if arch == "qwen3-1.7b":
+        assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                cfg.d_ff) == (28, 2048, 16, 8, 128, 6144), cfg
+        assert trunk["layers"][0]["attn"]["wq"].shape == (28, 2048, 16, 128)
+        kernel_name, width = "flash_attention", (
+            "28 layers, d_model 2048, 16/8 heads, D 128, bf16 trunk")
+    else:
+        s_cfg = cfg.ssm
+        assert (cfg.num_layers, cfg.d_model, s_cfg.state_dim, s_cfg.head_dim, s_cfg.expand,
+                s_cfg.conv_width, s_cfg.chunk_size) == (48, 1024, 128, 64, 2, 4, 256), cfg
+        assert trunk["layers"][0]["ssm"]["in_proj"].shape == (48, 1024, 4384)
+        kernel_name, width = "ssd_intra_chunk", (
+            "48 layers, d_model 1024, 32 SSD heads, P 64, N 128, bf16 trunk")
     epoch_marks, trunk_marks = [], []
 
     def on_chunk(_state, _done):  # one chunk per epoch: time it and note the trunk
@@ -803,23 +864,25 @@ def phase_cascade_main_path() -> dict:
         epoch_marks.append(time.perf_counter())
         trunk_marks.append(bank.trunk_runs)
 
-    es_ops.reset_counts()
-    fa_ops.reset_counts()
+    for counted in (es_ops, fa_ops, ssd_ops):
+        counted.reset_counts()
     syncs0, trunk0 = bank.bank_syncs, bank.trunk_runs
     t1 = time.perf_counter()
     epoch_marks.append(t1)
     trunk_marks.append(trunk0)
     report = serve.serve_session_trace(session, state, serve.parse_trace(CASCADE_TRACE),
                                        preds=preds, chunk_size=1, on_chunk=on_chunk)
-    launches = {**es_ops.LAUNCHES, **fa_ops.LAUNCHES}
-    plain = {**es_ops.PLAIN_CALLS, **fa_ops.PLAIN_CALLS}
+    launches = {**es_ops.LAUNCHES, **fa_ops.LAUNCHES, **ssd_ops.LAUNCHES}
+    plain = {**es_ops.PLAIN_CALLS, **fa_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
     peak = torch.cuda.max_memory_allocated()
     trunk_epochs = bank.trunk_runs - trunk0
     st, hist = report.state, report.history
 
     assert report.epochs == 96, report.epochs
     assert trunk_epochs >= 4, f"the trunk ran on {trunk_epochs} epochs (< 4)"
-    assert launches["flash_attention"] == 28 * trunk_epochs, (launches, trunk_epochs)
+    assert launches[kernel_name] == cfg.num_layers * trunk_epochs, (launches, trunk_epochs)
+    other = {"flash_attention", "ssd_intra_chunk"} - {kernel_name}
+    assert not any(launches[k] for k in other), launches
     assert launches["enrich_score_best"] == report.epochs and not launches["enrich_score_table"]
     assert not any(plain.values()), f"plain path ran on the cascade main path: {plain}"
     assert bank.bank_syncs - syncs0 == report.epochs  # the one host read per epoch
@@ -837,9 +900,8 @@ def phase_cascade_main_path() -> dict:
     first = ran.index(True)
     with_trunk = [t for t, r in zip(steps, ran) if r]
     without = [t for t, r in zip(steps, ran) if not r]
-    print(f"[cascade-main] qwen3-1.7b at full width (28 layers, d_model 2048, 16/8 heads, "
-          f"D 128, bf16 trunk), 2048 objects, 3 predicates x 3 levels, 8 slots: offline phase "
-          f"{offline_s:.2f} s; AUCs {qualities}", flush=True)
+    print(f"[cascade-main] {arch} at full width ({width}), 2048 objects, 3 predicates x 3 "
+          f"levels, 8 slots: offline phase {offline_s:.2f} s; AUCs {qualities}", flush=True)
     print(f"[cascade-main] trace {CASCADE_TRACE!r}: {report.epochs} epochs in "
           f"{report.wall_s:.2f} s; the planner first picked backbone lanes at epoch {first}; "
           f"{trunk_epochs} epochs ran the trunk at {statistics.median(with_trunk) * 1e3:.3f} ms "
@@ -850,6 +912,276 @@ def phase_cascade_main_path() -> dict:
           f"{bound}); cost_spent {report.cost_spent!r} ({report.cost_hex}), bills fold "
           f"bitwise; mean E(F) {hist[0].mean_expected_f!r} -> {hist[-1].mean_expected_f!r}; "
           f"peak device memory {peak / 2**30:.3f} GiB", flush=True)
+    return launches
+
+
+def _ssd_inputs(b, s, dev, seed):
+    """Model-layout SSD operands at the mamba2-370m widths: x, B and C slices
+    of one bf16 projection, dt f32, a [H] read with a batch stride of 0."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xbc = torch.randn((b, s, SSD_H * SSD_P + 2 * SSD_N), generator=g, device=dev)
+    xbc = xbc.to(torch.bfloat16)
+    x = xbc[..., :SSD_H * SSD_P].reshape(b, s, SSD_H, SSD_P)
+    bm, cm = xbc[..., SSD_H * SSD_P:SSD_H * SSD_P + SSD_N], xbc[..., SSD_H * SSD_P + SSD_N:]
+    dt = torch.rand((b, s, SSD_H), generator=g, device=dev) * 0.099 + 0.001
+    a = -torch.arange(1, SSD_H + 1, dtype=torch.float32, device=dev)  # -exp(A_log) at init
+    return x, dt, a[None].expand(b, SSD_H), bm, cm
+
+
+def _ssd_bound(b, s, chunk, final_state) -> tuple:
+    """(bound_ms, bound_by): x, B, C (bf16), dt (f32) read once, y, the kept
+    states and cumexp (f32) written once; the operations C.B^T and W.X over
+    the live lower triangle and X^T.B for each kept state, at the bf16 rate."""
+    h, p, n = SSD_H, SSD_P, SSD_N
+    nc = s // chunk
+    kept = nc if final_state else nc - 1
+    nbytes = (2 * b * s * h * p + 2 * 2 * b * s * n + 4 * b * s * h + 4 * h
+              + 4 * b * s * h * p + 4 * b * h * kept * p * n + 4 * b * h * s)
+    tri = chunk * (chunk + 1) // 2
+    ops = b * h * (nc * tri * 2 * (n + p) + kept * chunk * 2 * p * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"), nbytes
+
+
+def phase_ssd() -> dict:
+    """Kernel 6 against its plain twin at the mamba2 prefill and cascade shapes."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    dev = torch.device("cuda")
+    result = {"max_abs_err": 0.0}
+    for b, s, chunk, final in SSD_CASES:
+        args = _ssd_inputs(b, s, dev, seed=s)
+
+        def kernel_call():
+            return ops.intra_chunk(*args, chunk=chunk, final_state=final)
+
+        def plain_call():
+            return ref.intra_chunk_bshp(*args, chunk=chunk, final_state=final)
+
+        got, want = kernel_call(), plain_call()
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, w in zip(("y_intra", "s_contrib", "cumexp"), got, want):
+            assert g.shape == w.shape, (name, g.shape, w.shape)
+            if not w.numel():
+                continue
+            err = (g - w).abs().max().item()
+            scale = w.abs().max().item()
+            if not err <= SSD_TOL * max(scale, 1.0):
+                raise AssertionError(f"ssd_intra_chunk B={b} S={s}: {name} differs from the "
+                                     f"plain twin by {err} (scale {scale}, tol {SSD_TOL} x scale)")
+            errs.append(f"{name} {err:.3g} of {scale:.3g}")
+            result["max_abs_err"] = max(result["max_abs_err"], err)
+        ms, plain_ms = _time_ms(kernel_call), _time_ms(plain_call)
+        (bound_ms, bound_by), nbytes = _ssd_bound(b, s, chunk, final)
+        print(f"[ssd] B={b} S={s} H={SSD_H} P={SSD_P} N={SSD_N} chunk={chunk} bf16, final state "
+              f"{final}: max abs diff {'; '.join(errs)}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
+              f"{bound_ms / ms:.1%} of bound", flush=True)
+        if s == 4096:  # the prefill: the table's row
+            result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None)
+    return result
+
+
+def _da_bound(case) -> tuple:
+    """(bound_ms, bound_by): q, the live K / V rows read once, the partials
+    written once; 4 * D operations per (query head, live key) at the inputs'
+    type's peak rate."""
+    from repro_torch.kernels.decode_attention import ops
+
+    b, skv, h, kv, d, kv_len, window, _, dtype = case
+    esize = 2 if dtype == "bfloat16" else 4
+    live = kv_len if window is None else min(kv_len, window - 1)
+    ns = ops.default_num_splits(b * kv, skv)
+    g = h // kv
+    nbytes = esize * (b * h * d + 2 * b * kv * live * d) + 4 * b * kv * ns * g * (2 + d)
+    ops_ = 4.0 * d * b * h * live
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_decode() -> dict:
+    """Kernel 5 against its plain twin at the qwen3-1.7b decode shape."""
+    import torch
+    import torch.nn.functional as tnf
+
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    dev = torch.device("cuda")
+    result = {"max_abs_err": 0.0}
+    for case in DA_CASES:
+        b, skv, h, kv, d, kv_len, window, cap, dtype = case
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device=dev).manual_seed(kv_len + d)
+        q = torch.randn((b, 1, h, d), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((b, skv, kv, d), generator=g, device=dev).to(dt) for _ in range(2))
+        kl = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+        ns = ops.default_num_splits(b * kv, skv)
+        qm = q.reshape(b * kv, h // kv, d)
+        km, vm = (t.transpose(1, 2).reshape(b * kv, skv, d).contiguous() for t in (k, v))
+        kw = dict(softcap=cap, window=window)
+
+        def kernel_call():
+            return ops.cache_partials(qm, k, v, kl, ns, **kw)
+
+        def plain_call():
+            return ref.decode_attention_partials(qm, km, vm, kl, num_splits=ns, **kw)
+
+        got, want = kernel_call(), plain_call()
+        out = ops.decode_attention(q, k, v, kl, **kw)
+        oracle = ref.reference_decode(q, k, v, kl, **kw)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("m", "l", "acc"), got, want):
+            if not torch.allclose(x, y, rtol=DA_TOL, atol=DA_TOL):
+                raise AssertionError(f"decode_attention_partials {case}: {name} differs from "
+                                     f"the plain twin beyond {DA_TOL}")
+            result["max_abs_err"] = max(result["max_abs_err"], (x - y).abs().max().item())
+        tol = FA_TOL[dtype]
+        err = (out.float() - oracle.float()).abs().max().item()
+        assert torch.allclose(out.float(), oracle.float(), rtol=tol, atol=tol), (case, err)
+        label = (f"B={b} H={h} KV={kv} D={d} kv_len={kv_len} of {skv} window={window} "
+                 f"softcap={cap} {dtype} ns={ns}")
+        if window is not None:
+            print(f"[decode] {label}: partials within {DA_TOL}, output within {err:.3g} of the "
+                  f"oracle", flush=True)
+            continue
+        qt = q.transpose(1, 2)  # sdpa over the live keys, GQA
+        kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
+
+        def library_call():
+            return tnf.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+
+        lib = library_call().transpose(1, 2)
+        torch.cuda.synchronize()
+        assert torch.allclose(lib.float(), oracle.float(), rtol=tol, atol=tol), (
+            f"scaled_dot_product_attention disagrees at {label}")
+        ms, plain_ms, library_ms = (_time_ms(f) for f in (kernel_call, plain_call, library_call))
+        wrapper_ms = _time_ms(lambda: ops.decode_attention(q, k, v, kl, **kw))
+        bound_ms, bound_by = _da_bound(case)
+        print(f"[decode] {label}: partials within {DA_TOL}, output within {err:.3g}; kernel "
+              f"{ms:.4f} ms (with the combine {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / ms:.1%} of bound", flush=True)
+        if dtype == "bfloat16":  # the model's dtype: the table's row
+            result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms)
+    return result
+
+
+def _generate(model, params, tokens, steps, max_len):
+    """Prefill then ``steps`` greedy decode steps -> (logits per step, tokens)."""
+    logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+    out, chosen = [logits], []
+    for _ in range(steps):
+        tok = logits.argmax(-1)
+        chosen.append(tok)
+        logits, cache = model.decode_step(params, tok, cache)
+        out.append(logits)
+    return out, chosen, cache
+
+
+def phase_serve_cpu_vs_gpu():
+    """Reduced f32 qwen3 and mamba2 models: prefill + 8 greedy decode steps on
+    the CPU (plain twins) and the card (kernels), the same weights."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.enrich.cascade import map_tree
+    from repro_torch.models.model import random_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ("qwen3-1.7b", "mamba2-370m"):
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+        model, params = random_model(cfg, seed=3, device="cpu")
+        g = torch.Generator().manual_seed(4)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 96), generator=g)
+        cpu = _generate(model, params, tokens, 8, 128)
+        gpu = _generate(model, map_tree(lambda t: t.to("cuda"), params), tokens.cuda(), 8, 128)
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(cpu[0], gpu[0])):
+            err = (a - b.cpu()).abs().max().item()
+            assert err <= SERVE_LOGIT_TOL, f"{arch} step {i}: logits differ by {err}"
+            worst = max(worst, err)
+        for i, (a, b) in enumerate(zip(cpu[1], gpu[1])):
+            assert torch.equal(a, b.cpu()), f"{arch} step {i}: greedy tokens differ"
+        assert int(cpu[2].length) == int(gpu[2].length) == 104
+        print(f"[serve-cpu-gpu] reduced f32 {arch}: prefill 96 tokens x 4 + 8 greedy steps, "
+              f"logits within {worst:.3g} (<= {SERVE_LOGIT_TOL}), greedy tokens equal", flush=True)
+
+
+def phase_model_serve() -> dict:
+    """``Model.prefill`` + ``decode_step`` at full width: qwen3-1.7b (the flash
+    kernel in prefill, the decode kernel per step) and mamba2-370m (the SSD
+    kernel in prefill, ``ssd_step`` per decode step)."""
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    from repro_torch.models.model import random_model
+
+    counted = (fa_ops, da_ops, ssd_ops)
+    launches = {}
+    for arch, b, prompt, steps, max_len in SERVE_PATHS:
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, params = random_model(cfg, seed=0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=g, device="cuda")
+        _generate(model, params, tokens[:, :256], 2, 512)  # warm-up (cuBLAS, allocator)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        for c in counted:
+            c.reset_counts()
+        t1 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        run = {**fa_ops.LAUNCHES, **da_ops.LAUNCHES, **ssd_ops.LAUNCHES}
+        step_s = []
+        for _ in range(steps):
+            t2 = time.perf_counter()
+            logits, cache = model.decode_step(params, logits.argmax(-1), cache)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t2)
+        run_all = {**fa_ops.LAUNCHES, **da_ops.LAUNCHES, **ssd_ops.LAUNCHES}
+        plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
+        peak = torch.cuda.max_memory_allocated()
+        n = cfg.num_layers
+        if arch == "qwen3-1.7b":
+            assert run == {"flash_attention": n, "decode_attention_partials": 0,
+                           "ssd_intra_chunk": 0}, run
+            assert run_all["decode_attention_partials"] == n * steps, run_all
+        else:
+            assert run == {"flash_attention": 0, "decode_attention_partials": 0,
+                           "ssd_intra_chunk": n}, run
+            assert run_all == run, run_all  # decode steps run ssd_step, no kernel
+        assert not any(plain.values()), f"plain path ran on the {arch} serve path: {plain}"
+        assert logits.shape == (b, 1, cfg.vocab_size) and torch.isfinite(logits).all()
+        assert int(cache.length) == prompt + steps
+        for k, v in run_all.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"[serve-model] {arch} at full width ({n} layers, d_model {cfg.d_model}, bf16): "
+              f"setup {setup_s:.2f} s; prefill B={b} x {prompt} tokens {prefill_s * 1e3:.2f} ms "
+              f"({b * prompt / prefill_s:.0f} tokens/s); {steps} decode steps "
+              f"{statistics.median(step_s) * 1e3:.3f} ms median per step (host clock, "
+              f"synchronised per step); launches {run_all}; peak device memory "
+              f"{peak / 2**30:.3f} GiB", flush=True)
+        del params, cache, logits
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -874,11 +1206,16 @@ def main() -> int:
     quickstart = quickstart_world(4096, device="cpu")
     results["enrich_score_single"] = phase_single_kernel(quickstart["table"])
     results["flash_attention"] = phase_flash()
+    results["decode_attention_partials"] = phase_decode()
+    results["ssd_intra_chunk"] = phase_ssd()
     phase_cpu_vs_gpu(table, combine, costs, outputs)
-    phase_cascade_cpu_vs_gpu()
+    phase_cascade_cpu_vs_gpu("qwen3-1.7b")
+    phase_cascade_cpu_vs_gpu("mamba2-370m")
     phase_operator_cpu_vs_gpu(quickstart)
-    runs = [phase_main_path(), phase_cascade_main_path(), phase_operator_main_path(),
-            phase_serve_entry_points()]
+    phase_serve_cpu_vs_gpu()
+    runs = [phase_main_path(), phase_cascade_main_path("qwen3-1.7b"),
+            phase_cascade_main_path("mamba2-370m"), phase_operator_main_path(),
+            phase_serve_entry_points(), phase_model_serve()]
     # launches: the sum over the main-path runs (each zeroes the counts first)
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],

@@ -1,16 +1,16 @@
-"""Architecture configs (port of ``repro.configs.archs``, this slice's subset).
+"""Architecture configs (port of ``repro.configs.archs``, the port's subset).
 
-``qwen3_1_7b()`` is the full published configuration and
-``qwen3_1_7b_smoke()`` the reduced same-family one the reference serves its
-cascade backbone with.  The reference's other nine architectures come with
-the model-zoo slice.
+``qwen3_1_7b()`` and ``mamba2_370m()`` are the full published
+configurations, ``*_smoke()`` the reduced same-family ones the reference
+serves its cascade backbone and its arch smoke tests with.  The reference's
+other eight architectures come with the model-zoo slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, SSMConfig
 
 
 def qwen3_1_7b() -> ModelConfig:
@@ -30,8 +30,27 @@ def qwen3_1_7b_smoke() -> ModelConfig:
     )
 
 
-ARCHS = {"qwen3-1.7b": qwen3_1_7b}
-SMOKES = {"qwen3-1.7b": qwen3_1_7b_smoke}
+def mamba2_370m() -> ModelConfig:
+    """[arXiv:2405.21060] 48L d1024 attn-free v50280 ssm_state=128 — SSD."""
+    return ModelConfig(
+        name="mamba2-370m", num_layers=48, d_model=1024, num_heads=0,
+        num_kv_heads=0, head_dim=0, d_ff=0, vocab_size=50280,
+        mlp_type="none", layer_pattern=("mamba",),
+        ssm=SSMConfig(state_dim=128, head_dim=64, expand=2, chunk_size=256),
+        tie_embeddings=True, subquadratic=True,
+    )
+
+
+def mamba2_370m_smoke() -> ModelConfig:
+    return dataclasses.replace(
+        mamba2_370m(), name="mamba2-370m-smoke", num_layers=2, d_model=64,
+        vocab_size=256,
+        ssm=SSMConfig(state_dim=16, head_dim=16, expand=2, chunk_size=16),
+    )
+
+
+ARCHS = {"qwen3-1.7b": qwen3_1_7b, "mamba2-370m": mamba2_370m}
+SMOKES = {"qwen3-1.7b": qwen3_1_7b_smoke, "mamba2-370m": mamba2_370m_smoke}
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

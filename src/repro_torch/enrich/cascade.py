@@ -25,12 +25,14 @@ once per epoch on the host whether any lane is at a backbone level
 trunk then runs over all M lanes, as the reference's fixed shape does.
 
 Every forward-only pass (``execute``, ``execute_host``, evaluation) runs the
-trunk's attention through the ``"kernel"`` route (the CUDA flash-attention
-kernel on the card).  Head training goes through the ``"dense"`` engine with
-the trunk frozen: the reference's own route there, since neither kernel has
-a backward.  At any width the trunk keeps ONE copy of its projection
-matrices in the activation dtype (``compute_layers``), bitwise what the
-reference's per-call casts give.
+trunk's sequence mixers through the ``"kernel"`` route: the CUDA
+flash-attention kernel for a qwen3 trunk, the CUDA SSD intra-chunk kernel
+for a mamba2 one (its final state is never computed: nothing reads it).
+Head training goes through the ``"dense"`` engine with the trunk frozen:
+the reference's own route there, since no kernel has a backward.  At any
+width the trunk keeps ONE copy of its projection matrices in the activation
+dtype (``compute_layers``), bitwise what the reference's per-call casts
+give.
 """
 
 from __future__ import annotations
@@ -114,8 +116,8 @@ def _backbone_apply(cfg: ModelConfig, trunk: dict, head: dict, feats: torch.Tens
     x = feats @ head["proj"]  # [B, d_model]
     x = x[:, None, :].expand(b, N_BACKBONE_TOKENS, cfg.d_model).to(cfg.activation_dtype)
     pos = torch.arange(N_BACKBONE_TOKENS, device=feats.device)[None].expand(b, N_BACKBONE_TOKENS)
-    h = tf.stack_apply(trunk["compute_layers"], cfg, x.contiguous(), pos, cfg.num_layers,
-                       causal=False)
+    h, _ = tf.stack_apply(trunk["compute_layers"], cfg, x.contiguous(), pos, cfg.num_layers,
+                          causal=False)
     pooled = torch.mean(h.float(), dim=1)
     return torch.sigmoid(pooled @ head["out"])[:, 0]
 
@@ -363,8 +365,8 @@ class ModelCascadeBank:
                 x = x.to(cfg.activation_dtype).contiguous()
                 pos = torch.arange(N_BACKBONE_TOKENS, device=x.device)[None].expand(
                     m, N_BACKBONE_TOKENS)
-                h = tf.stack_apply(entry["trunk"]["compute_layers"], cfg, x, pos,
-                                   cfg.num_layers, causal=False)
+                h, _ = tf.stack_apply(entry["trunk"]["compute_layers"], cfg, x, pos,
+                                      cfg.num_layers, causal=False)
                 pooled = torch.mean(h.float(), dim=1)
                 logits = torch.einsum("mk,pko->pmo", pooled, heads["out"])
                 probs = torch.sigmoid(logits[s_prd, lane, 0])

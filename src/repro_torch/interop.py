@@ -28,7 +28,7 @@ from repro_torch.core.multi_query import MultiQueryState
 from repro_torch.core.state import EnrichmentState, PerQueryState, SharedSubstrate
 from repro_torch.enrich import cascade as cascade_lib
 from repro_torch.enrich.simulated import SimulatedBank
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import EncoderConfig, ModelConfig, MoEConfig, SSMConfig
 
 
 def _field(obj, name: str):
@@ -174,10 +174,23 @@ def tree_to_numpy(tree):
     return cascade_lib.map_tree(to_numpy, tree)
 
 
+_NESTED_CONFIGS = {"moe": MoEConfig, "ssm": SSMConfig, "encoder": EncoderConfig}
+
+
+def _config_of(cls, obj):
+    """An object with ``cls``'s field names -> a ``cls`` of plain values."""
+    return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
+
+
 def model_config_from(obj) -> ModelConfig:
     """Any object with ``ModelConfig``'s field names (the reference's config
-    is one) -> the port's ``ModelConfig``."""
-    return ModelConfig(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(ModelConfig)})
+    is one) -> the port's ``ModelConfig``; the nested ``moe`` / ``ssm`` /
+    ``encoder`` configs are rebuilt as the port's dataclasses."""
+    fields = {f.name: getattr(obj, f.name) for f in dataclasses.fields(ModelConfig)}
+    for name, cls in _NESTED_CONFIGS.items():
+        if fields[name] is not None:
+            fields[name] = _config_of(cls, fields[name])
+    return ModelConfig(**fields)
 
 
 _PROBES = {"linear": cascade_lib._linear_probe_apply, "mlp": cascade_lib._mlp_probe_apply}

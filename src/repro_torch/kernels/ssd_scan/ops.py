@@ -1,0 +1,147 @@
+"""Wrappers: the Mamba-2 SSD scan through the intra-chunk kernel.
+
+``intra_chunk`` computes the intra-chunk term in the model's layout (x
+``[B, S, H, P]``, dt ``[B, S, H]``, a ``[B, H]``, single-group B / C
+``[B, S, N]``); ``ssd_bshp`` adds the inter-chunk recurrence (a PyTorch
+loop over chunks, as the reference runs it in a jnp scan,
+``repro/kernels/ssd_scan/ops.py``) and is the model's route;
+``ssd_scan`` keeps the reference's ``[BH, S, P]`` signature over the same
+two steps.  They route by the device of their tensors: on the CPU the
+intra-chunk term is the plain PyTorch twin (``ref.py``); on a CUDA tensor
+the hand-written kernel launches or the call raises — it never falls back
+and reads no environment switch.  The kernel reads strided views, so the
+model passes x, B and C as slices of its projection and B / C with no
+H-fold copy.
+
+``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-path calls,
+so a run can show that its main path went through the kernel
+(``reset_counts`` zeroes both).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.ssd_scan import kernel, ref
+
+KERNEL = "ssd_intra_chunk"
+LAUNCHES = {KERNEL: 0}
+PLAIN_CALLS = {KERNEL: 0}
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_counts() -> None:
+    LAUNCHES[KERNEL] = 0
+    PLAIN_CALLS[KERNEL] = 0
+
+
+def _check(x, dt, a, b, c, chunk) -> None:
+    if x.ndim != 4 or dt.ndim != 3 or a.ndim != 2 or b.ndim != 3 or c.ndim != 3:
+        raise ValueError("intra_chunk takes x [B, S, H, P], dt [B, S, H], a [B, H], "
+                         "b and c [B, S, N]")
+    bsz, seq, heads, _ = x.shape
+    if tuple(dt.shape) != (bsz, seq, heads) or tuple(a.shape) != (bsz, heads):
+        raise ValueError(f"dt {tuple(dt.shape)} / a {tuple(a.shape)} do not fit x {tuple(x.shape)}")
+    if b.shape != c.shape or tuple(b.shape[:2]) != (bsz, seq):
+        raise ValueError(f"b {tuple(b.shape)} / c {tuple(c.shape)} do not fit x {tuple(x.shape)}")
+    if chunk <= 0 or seq % chunk:
+        raise ValueError(f"chunk {chunk} does not divide the sequence length {seq}")
+    for name, t in (("dt", dt), ("a", a), ("b", b), ("c", c)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if x.dtype not in DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"x, b and c take one dtype of {DTYPES}, got {x.dtype}, {b.dtype}, "
+                        f"{c.dtype}")
+
+
+def _launch(x, dt, a, b, c, chunk, kept):
+    bsz, seq, heads, p = x.shape
+    n = b.shape[2]
+    if chunk > kernel.MAX_CHUNK or p > kernel.MAX_HEAD_DIM or p % 4 or n % 4:
+        raise ValueError(f"the kernel takes chunk <= {kernel.MAX_CHUNK}, head_dim <= "
+                         f"{kernel.MAX_HEAD_DIM} and head_dim, state_dim multiples of 4; got "
+                         f"chunk {chunk}, P {p}, N {n}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(f"the kernel takes f32 dt and a, got {dt.dtype} and {a.dtype}")
+    for name, t in (("x", x), ("b", b), ("c", c)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have a unit innermost stride")
+    dev = x.device
+    y = torch.empty((bsz, seq, heads, p), dtype=torch.float32, device=dev)
+    s = torch.empty((bsz, heads, kept, p, n), dtype=torch.float32, device=dev)
+    ce = torch.empty((bsz, heads, seq), dtype=torch.float32, device=dev)
+    kernel.launch(x, dt, a, b, c, y, s, ce, chunk=chunk)
+    return y, s, ce
+
+
+def intra_chunk(x, dt, a, b, c, *, chunk: int, final_state: bool = True):
+    """The intra-chunk term -> (y_intra [B, S, H, P] f32, s_contrib
+    [B, H, nc', P, N] f32, cumexp [B, H, S] f32); ``final_state=False``
+    leaves out the last chunk's state (nc' = nc - 1)."""
+    _check(x, dt, a, b, c, chunk)
+    dev = x.device
+    if dev.type == "cpu":
+        PLAIN_CALLS[KERNEL] += 1
+        return ref.intra_chunk_bshp(x, dt, a, b, c, chunk=chunk, final_state=final_state)
+    if dev.type != "cuda":
+        raise ValueError(f"intra_chunk runs on cpu or cuda, not {dev}")
+    nc = x.shape[1] // chunk
+    out = _launch(x, dt, a, b, c, chunk, nc if final_state else nc - 1)
+    LAUNCHES[KERNEL] += 1
+    return out
+
+
+def inter_chunk(y_intra, s_contrib, cumexp, c, h0, *, chunk: int, final_state: bool = True):
+    """The inter-chunk recurrence: h_{i+1} = h_i exp(cum_last_i) + S_i, and
+    y_t += cumexp_t C_t . h_i for t in chunk i -> (y [B, S, H, P] f32,
+    h_final [B, H, P, N] f32, or None without ``final_state``)."""
+    bsz, seq, heads, p = y_intra.shape
+    n = c.shape[-1]
+    nc = seq // chunk
+    ce = cumexp.reshape(bsz, heads, nc, chunk)
+    h = None if h0 is None else h0.float()
+    entering = []  # the state entering each chunk
+    for i in range(nc):
+        entering.append(h)
+        if i < s_contrib.shape[2]:
+            s_i = s_contrib[:, :, i]
+            h = s_i if h is None else h * ce[:, :, i, -1, None, None] + s_i
+    if any(e is not None for e in entering):
+        zero = torch.zeros((bsz, heads, p, n), dtype=torch.float32, device=y_intra.device)
+        hs = torch.stack([zero if e is None else e for e in entering], dim=2)  # [B, H, nc, P, N]
+        cr = c.float().reshape(bsz, nc, chunk, n)
+        y_inter = torch.einsum("bcqn,bhcpn,bhcq->bcqhp", cr, hs, ce)
+        y_intra = y_intra + y_inter.reshape(bsz, seq, heads, p)
+    if not final_state:
+        return y_intra, None
+    if h is None:
+        h = torch.zeros((bsz, heads, p, n), dtype=torch.float32, device=y_intra.device)
+    return y_intra, h
+
+
+def ssd_bshp(x, dt, a, b, c, h0: Optional[torch.Tensor] = None, *, chunk: int = 256,
+             final_state: bool = True):
+    """Full SSD in the model's layout: x [B, S, H, P], dt [B, S, H], a [B, H],
+    b / c [B, S, N], h0 [B, H, P, N] -> (y [B, S, H, P] f32, h_final
+    [B, H, P, N] f32 or None)."""
+    chunk = min(chunk, x.shape[1])
+    y_intra, s_contrib, cumexp = intra_chunk(x, dt, a, b, c, chunk=chunk, final_state=final_state)
+    return inter_chunk(y_intra, s_contrib, cumexp, c, h0, chunk=chunk, final_state=final_state)
+
+
+def ssd_scan(
+    x: torch.Tensor,  # [BH, S, P]
+    dt: torch.Tensor,  # [BH, S]
+    a: torch.Tensor,  # [BH]
+    b: torch.Tensor,  # [BH, S, N]
+    c: torch.Tensor,  # [BH, S, N]
+    h0: Optional[torch.Tensor] = None,  # [BH, P, N]
+    *,
+    chunk: int = 256,
+):
+    """The reference's signature -> (y [BH, S, P] f32, h_final [BH, P, N] f32)."""
+    y, h = ssd_bshp(x[:, :, None], dt.float()[:, :, None], a.float()[:, None], b, c,
+                    None if h0 is None else h0[:, None], chunk=chunk)
+    return y[:, :, 0], h[:, 0]

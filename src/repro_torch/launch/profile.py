@@ -1,20 +1,27 @@
 """Where one epoch spends its time on the card.
 
-    python -m repro_torch.launch.profile [--path session|operator]
-        [--bank simulated|cascade] [--epochs 8] [--mode best|table]
+    python -m repro_torch.launch.profile [--path session|operator|prefill|decode]
+        [--bank simulated|cascade] [--backbone qwen3-1.7b|mamba2-370m]
+        [--epochs 8] [--mode best|table]
 
 ``--bank simulated`` (default) builds the main-path session (524,288 rows
 grown to 1,048,576 by one ingest, 8 tenant slots, bf16 substrate), admits
 the tenants and grows the state as ``chip_smoke.py``'s main path does.
-``--bank cascade`` builds the cascade server at full width (the 28-layer
-qwen3-1.7b trunk, 2,048 objects, 3 predicates, 8 tenant slots, f32
-substrate, best mode), admits 8 tenants and runs epochs until the planner
-selects backbone lanes.  ``--path operator`` builds the paper's
+``--bank cascade`` builds the cascade server at full width (the
+``--backbone`` trunk: 28-layer qwen3-1.7b by default, or the 48-layer
+mamba2-370m; 2,048 objects, 3 predicates, 8 tenant slots, f32 substrate,
+best mode), admits 8 tenants and runs epochs until the planner selects
+backbone lanes.  ``--path operator`` builds the paper's
 single-query operator on the quickstart query and corpus at 1,048,576
 objects (``repro_torch.quickstart``: 2 predicates, 4 functions, the
 ``preprocess_cheapest`` warm start, ``OperatorConfig()`` defaults) scoring
 through ``ops.fused_benefits`` (the single-query kernel), and runs 2
-warm-up epochs.  Then ``--epochs`` epochs run under
+warm-up epochs.  ``--path prefill`` and ``--path decode`` build the
+``--backbone`` model at its published width with random weights
+(``models.model.random_model``, the kernel route) at its serve shape
+(qwen3-1.7b: 8 x 2,048 prompt tokens; mamba2-370m: 2 x 4,096) and profile
+whole prefills, or decode steps after one prefill; an "epoch" below is then
+one prefill or one decode step.  Then ``--epochs`` epochs run under
 ``torch.profiler`` and it prints: the wall time per epoch, the device-busy
 share of that wall time (sum of kernel times over wall time; kernels on one
 stream do not overlap), the device time by kind (attention, scoring,
@@ -33,6 +40,7 @@ import time
 
 import torch
 
+from repro_torch.configs.archs import ARCHS
 from repro_torch.core.executor import EngineConfig
 from repro_torch.core.query import conjunction
 from repro_torch.core.session import EngineSession
@@ -43,6 +51,8 @@ TENANTS = ((0, 1), (1, 2, 3), (0, 2), (2, 3), (0, 1, 2, 3), (1, 3), (0, 3), (1, 
 CASCADE_TENANTS = ((0, 1), (1, 2), (0, 2), (0,), (1,), (2,), (0, 1, 2), (0, 1))
 KINDS = (  # (label, substrings of the kernel name), first match wins
     ("attention (flash kernel)", ("flash_attention",)),
+    ("attention (decode kernel)", ("decode_partials",)),
+    ("SSD intra-chunk kernel", ("ssd_intra_chunk",)),
     ("scoring (enrich_score)", ("enrich_score",)),
     ("matmuls (cuBLAS)", ("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas")),
     ("sorts and scans", ("RadixSort", "scan", "Scan", "sort")),
@@ -52,6 +62,7 @@ KINDS = (  # (label, substrings of the kernel name), first match wins
 
 
 OPERATOR_OBJECTS = 1 << 20
+MODEL_SHAPES = {"qwen3-1.7b": (8, 2048), "mamba2-370m": (2, 4096)}  # batch, prompt tokens
 
 
 def _device_us(evt) -> float:
@@ -97,9 +108,9 @@ def _operator():
                               f"{OPERATOR_OBJECTS} objects, OperatorConfig() defaults")
 
 
-def _cascade():
+def _cascade(backbone: str):
     session, state, preds, _ = serve.build_cascade_session_server(
-        num_objects=2048, num_preds=3, max_tenants=8, backbone_arch="qwen3-1.7b",
+        num_objects=2048, num_preds=3, max_tenants=8, backbone_arch=backbone,
         plan_size=64, substrate_dtype="float32", smoke=False, device="cuda",
     )
     for cols in CASCADE_TENANTS:
@@ -111,15 +122,49 @@ def _cascade():
     if bank.trunk_runs == 0:
         raise SystemExit(f"no backbone lane in {warm} epochs: nothing to profile")
     return session.program.run_scan, state, bank, (
-        f"cascade at full width (qwen3-1.7b trunk), 8 tenants, 2048 objects, best mode, "
+        f"cascade at full width ({backbone} trunk), 8 tenants, 2048 objects, best mode, "
         f"after {warm} warm-up epochs")
+
+
+def _model(backbone: str, decode: bool):
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models.model import random_model
+
+    b, prompt = MODEL_SHAPES[backbone]
+    model, params = random_model(get_config(backbone), seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, model.cfg.vocab_size, (b, prompt), generator=gen, device="cuda")
+    max_len = prompt + 512
+
+    def prefill(st, n, stop_when_exhausted):
+        for _ in range(n):
+            st = model.prefill(params, {"tokens": tokens}, max_len)
+        return st, None
+
+    def step(st, n, stop_when_exhausted):
+        logits, cache = st
+        for _ in range(n):
+            logits, cache = model.decode_step(params, logits.argmax(-1), cache)
+        return (logits, cache), None
+
+    state, _ = prefill(None, 1, False)  # warm-up
+    if decode:
+        state, _ = step(state, 2, False)
+    kind = "decode step" if decode else "prefill"
+    return step if decode else prefill, state, None, (
+        f"{backbone} at full width, {kind}s at B={b}, prompt {prompt} tokens (bf16, kernel "
+        f"route; an 'epoch' is one {kind})")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", default="session", choices=("session", "operator"))
+    ap.add_argument("--path", default="session",
+                    choices=("session", "operator", "prefill", "decode"))
     ap.add_argument("--bank", default="simulated", choices=("simulated", "cascade"),
                     help="the session path's bank")
+    ap.add_argument("--backbone", default="qwen3-1.7b", choices=sorted(ARCHS),
+                    help="the cascade bank's backbone, or the model of --path prefill / "
+                         "decode, at its published width")
     ap.add_argument("--epochs", type=int, default=8)
     ap.add_argument("--mode", default="best", choices=("best", "table"),
                     help="scoring mode of the simulated bank (the cascade serves best mode)")
@@ -130,8 +175,10 @@ def main(argv=None) -> int:
 
     if args.path == "operator":
         run, state, bank, label = _operator()
+    elif args.path in ("prefill", "decode"):
+        run, state, bank, label = _model(args.backbone, args.path == "decode")
     elif args.bank == "cascade":
-        run, state, bank, label = _cascade()
+        run, state, bank, label = _cascade(args.backbone)
     else:
         run, state, bank, label = _simulated(args.mode)
     trunk0 = 0 if bank is None else bank.trunk_runs

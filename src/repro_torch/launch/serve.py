@@ -27,11 +27,15 @@ Session mode has two enrichment banks:
 
 * ``--bank cascade``: the model-cascade bank (linear probe, MLP probe and a
   transformer backbone head per predicate) runs its real forwards on every
-  epoch's merged plan; a fixed corpus, so no ingest.  The backbone is the
+  epoch's merged plan; a fixed corpus, so no ingest.  ``--backbone`` picks
+  the trunk (qwen3-1.7b, the default, or the attention-free mamba2-370m,
+  whose SSD mixer runs through the intra-chunk kernel).  The backbone is the
   reference's reduced config unless ``--full-width`` asks for the published
   one::
 
     python -m repro_torch.launch.serve --session --bank cascade --device cpu
+    python -m repro_torch.launch.serve --session --bank cascade \\
+        --backbone mamba2-370m --device cpu
 
 The single and multi-tenant modes use the cascade bank; ``--backbone ""``
 drops its backbone level and ``--full-width`` builds it at the published
@@ -562,7 +566,8 @@ def main(argv=None) -> int:
                          "outputs, ingest-capable) or 'cascade' (real model-cascade "
                          "forwards every epoch; fixed corpus, no ingest)")
     ap.add_argument("--backbone", default="qwen3-1.7b",
-                    help="cascade backbone architecture ('' for probes only)")
+                    help="cascade backbone architecture: qwen3-1.7b or mamba2-370m ('' for "
+                         "probes only)")
     ap.add_argument("--full-width", action="store_true",
                     help="cascade backbone at the published width (default: the "
                          "reference's reduced config)")

@@ -1,26 +1,38 @@
-"""GQA attention with RoPE, qk-norm, logit softcap and causal / sliding-window
-/ non-causal masks (port of ``repro.models.attention``, no KV cache yet).
+"""GQA attention with RoPE, qk-norm, logit softcap, causal / sliding-window
+/ non-causal masks and a KV cache (port of ``repro.models.attention``).
 
 Score engines:
     dense   — materializes [.., Sq, Skv] scores (the reference's "dense");
-    kernel  — ``repro_torch.kernels.flash_attention``: the hand-written CUDA
-              kernel on the card, its plain twin on the CPU (the reference's
-              "pallas").
+    kernel  — the hand-written CUDA kernels on the card, their plain twins on
+              the CPU (the reference's "pallas"): one query token over a
+              cache (``Sq == 1``) goes to ``kernels/decode_attention``, any
+              other call to ``kernels/flash_attention``.
 
 ``cfg.attn_impl``: "auto" (dense here: the reference's chunked engine for
-long sequences, the KV cache and ``init_kv_cache`` come with the decode
-slice) | "dense" | "kernel".
+long sequences waits for the model-zoo slice) | "dense" | "kernel".
+
+The cache branch writes the new K/V rows into ``cache.k`` / ``cache.v`` at
+``cache.length`` IN PLACE (``index_copy_`` at a device-side index: no host
+read) and returns a ``KVCache`` over the same tensors with the new length;
+the reference returns updated copies.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import _dense_init, apply_rope, rmsnorm, softcap
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [B, S_max, KV, D]
+    v: torch.Tensor  # [B, S_max, KV, D]
+    length: torch.Tensor  # [] int32 — tokens already in cache
 
 
 def attn_init(gen: torch.Generator, cfg) -> dict:
@@ -73,12 +85,20 @@ def _dense_engine(q, k, v, q_pos, kv_pos, causal, window, kv_len, cap):
 
 def attention_engine(q, k, v, q_pos, kv_pos, *, causal, window, kv_len, cap, impl="auto"):
     if impl == "kernel":
+        if kv_len is not None and q.shape[1] == 1:
+            # One query token over the cache, already written at q = kv_len - 1.
+            # The decode kernel admits k < kv_len and, under a window w,
+            # k > kv_len - w; the model admits k > q - window = kv_len - 1 -
+            # window, so the kernel gets w = window + 1.
+            kl = kv_len.reshape(1).to(torch.int32)
+            return da_ops.decode_attention(
+                q, k, v, kl, softcap=cap, window=None if window is None else window + 1)
         # The kernel derives positions itself: queries sit at the end of the
         # valid cache (q_base = kv_len - Sq), which is how attn_apply builds
         # q_pos / kv_pos (contiguous aranges).
         return fa_ops.flash_attention(
-            q, k, v, kv_len, causal=causal, window=window,
-            logit_softcap=cap, q_offset_from_kv_len=True,
+            q, k, v, None if kv_len is None else kv_len.reshape(1).to(torch.int32),
+            causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=True,
         )
     if impl not in ("auto", "dense"):
         raise NotImplementedError(
@@ -94,9 +114,11 @@ def attn_apply(
     x: torch.Tensor,  # [B, Sq, d]
     positions: torch.Tensor,  # [B, Sq]
     mixer: str,  # "global" | "local"
+    cache: Optional[KVCache] = None,
+    update_cache: bool = False,
     causal: bool = True,
-) -> torch.Tensor:
-    """Self-attention without a cache -> [B, Sq, d].  Projections run in x's
+):
+    """Self-attention -> (out [B, Sq, d], new_cache).  Projections run in x's
     dtype; a weight already stored in that dtype is used as it is."""
     dt = x.dtype
     b, sq, d = x.shape
@@ -110,9 +132,27 @@ def attn_apply(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window if mixer == "local" else None
-    kv_pos = torch.arange(sq, device=x.device)[None, :].expand(b, sq)
-    out = attention_engine(
-        q, k, v, positions, kv_pos, causal=causal, window=window, kv_len=None,
-        cap=cfg.attn_logit_softcap, impl=cfg.attn_impl,
-    )
-    return out.reshape(b, sq, h * hd) @ params["wo"].to(dt).reshape(h * hd, d)
+    kw = dict(causal=causal, window=window, cap=cfg.attn_logit_softcap, impl=cfg.attn_impl)
+    new_cache = cache
+    if cache is not None:
+        if update_cache:
+            rows = cache.length.to(torch.int64) + torch.arange(sq, device=x.device)
+            cache.k.index_copy_(1, rows, k.to(cache.k.dtype))
+            cache.v.index_copy_(1, rows, v.to(cache.v.dtype))
+            new_cache = KVCache(cache.k, cache.v, cache.length + sq)
+        k_all, v_all = new_cache.k.to(dt), new_cache.v.to(dt)
+        s_max = k_all.shape[1]
+        kv_pos = torch.arange(s_max, device=x.device)[None, :].expand(b, s_max)
+        out = attention_engine(q, k_all, v_all, positions, kv_pos, kv_len=new_cache.length, **kw)
+    else:
+        kv_pos = torch.arange(sq, device=x.device)[None, :].expand(b, sq)
+        out = attention_engine(q, k, v, positions, kv_pos, kv_len=None, **kw)
+    out = out.reshape(b, sq, h * hd) @ params["wo"].to(dt).reshape(h * hd, d)
+    return out, new_cache
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, dtype, device=None) -> KVCache:
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=torch.zeros((), dtype=torch.int32, device=device))

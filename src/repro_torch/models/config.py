@@ -8,8 +8,9 @@ Layer mixers are a per-layer pattern cycled across depth:
     "mamba"   — Mamba-2 SSD mixer (attention-free)
     "hymba"   — parallel attention and Mamba-2 heads
 
-This slice of the port RUNS the attention mixers ("global", "local") with
-dense MLPs; ``MoEConfig``, ``SSMConfig`` and ``EncoderConfig`` are carried as
+The port RUNS the attention mixers ("global", "local") with dense MLPs and
+the Mamba-2 mixer ("mamba", ``ssm=SSMConfig(...)``, ``mlp_type="none"``);
+``MoEConfig`` and ``EncoderConfig`` and the "hymba" mixer are carried as
 plain data so configurations and ``param_counts`` match the reference, and
 the layers refuse them (``check_supported``).
 """
@@ -22,8 +23,12 @@ from typing import Optional
 import torch
 
 # "kernel" is the port's counterpart of the reference's "pallas": the
-# hand-written CUDA flash-attention kernel on the card, its plain twin on the
-# CPU.  The reference's "chunked" engine waits for the model-zoo slice.
+# hand-written CUDA kernels on the card (flash attention, decode attention for
+# one query token over a cache, the SSD intra-chunk term of the Mamba-2
+# mixer), their plain twins on the CPU.  "auto" and "dense" run plain PyTorch
+# everywhere (the reference's dense attention engine and jnp SSD), the route
+# that head training differentiates through.  The reference's "chunked"
+# attention engine waits for the model-zoo slice.
 ATTN_IMPLS = ("auto", "dense", "kernel")
 
 
@@ -110,10 +115,12 @@ class ModelConfig:
                 f"attn_impl={self.attn_impl!r}: the port runs {ATTN_IMPLS} (the "
                 "chunked engine waits for the model-zoo slice)"
             )
-        odd = sorted(set(self.layer_pattern) - {"global", "local"})
+        odd = sorted(set(self.layer_pattern) - {"global", "local", "mamba"})
         if odd:
             raise NotImplementedError(f"mixers {odd} wait for the model-zoo slice")
-        for name in ("moe", "ssm", "encoder"):
+        if "mamba" in self.layer_pattern and self.ssm is None:
+            raise ValueError("the mamba mixer needs ssm=SSMConfig(...)")
+        for name in ("moe", "encoder"):
             if getattr(self, name) is not None:
                 raise NotImplementedError(f"{name} layers wait for the model-zoo slice")
 

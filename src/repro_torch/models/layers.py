@@ -99,3 +99,13 @@ def mlp_apply(params: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
 
 def embedding_init(gen: torch.Generator, vocab: int, d_model: int) -> torch.Tensor:
     return torch.randn((vocab, d_model), generator=gen, device=gen.device) * (1.0 / math.sqrt(d_model))
+
+
+def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return emb[tokens].to(dtype)
+
+
+def unembed(emb_or_w: torch.Tensor, x: torch.Tensor, cap: Optional[float] = None) -> torch.Tensor:
+    """-> f32 logits, softcapped when ``cap`` is set."""
+    logits = x @ emb_or_w.to(x.dtype).T
+    return softcap(logits.float(), cap)

@@ -1,0 +1,172 @@
+"""Mamba-2 (SSD, arXiv:2405.21060) mixer (port of ``repro.models.ssm``).
+
+Chunk-parallel state-space duality: the intra-chunk quadratic term and the
+inter-chunk state recurrence.  ``ssd_chunked`` has two engines, chosen by
+``cfg.attn_impl`` like the attention engines:
+
+    kernel       — ``repro_torch.kernels.ssd_scan``: the hand-written CUDA
+                   intra-chunk kernel on the card (its plain twin on the
+                   CPU) and the recurrence as a PyTorch loop over chunks;
+    auto / dense — the kernel's plain twin and the same recurrence on any
+                   device (the reference's jnp closed form): the route head
+                   training differentiates through (the kernel has no
+                   backward).
+
+``ssd_step`` (decode, one token) stays plain PyTorch: no TPU kernel
+computes it.  Single-group (G=1) B/C as in mamba2-370m; the state cache for
+decode is (conv_tail [B, W-1, conv_channels], h [B, H, P, N]).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.models.layers import _dense_init, rmsnorm
+
+
+class SSMCache(NamedTuple):
+    conv: torch.Tensor  # [B, W-1, di + 2N]
+    h: torch.Tensor  # [B, H, P, N]
+
+
+def ssm_init(gen: torch.Generator, cfg) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    nh = s.num_heads(d)
+    n = s.state_dim
+    conv_ch = di + 2 * n
+    dev = gen.device
+    u = torch.rand((nh,), generator=gen, device=dev)
+    dt = torch.exp(u * (math.log(s.dt_max) - math.log(s.dt_min)) + math.log(s.dt_min))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))  # inverse softplus
+    return {
+        "in_proj": _dense_init(gen, (d, 2 * di + 2 * n + nh)),
+        "conv_w": _dense_init(gen, (s.conv_width, conv_ch), in_axis=0),
+        "conv_b": torch.zeros((conv_ch,), dtype=torch.float32, device=dev),
+        "A_log": torch.log(torch.arange(1, nh + 1, dtype=torch.float32, device=dev)),
+        "D": torch.ones((nh,), dtype=torch.float32, device=dev),
+        "dt_bias": dt_bias.float(),
+        "norm_w": torch.ones((di,), dtype=torch.float32, device=dev),
+        "out_proj": _dense_init(gen, (di, d)),
+    }
+
+
+def _split_proj(cfg, proj: torch.Tensor):
+    s = cfg.ssm
+    d = cfg.d_model
+    di, n = s.d_inner(d), s.state_dim
+    return proj[..., :di], proj[..., di:2 * di + 2 * n], proj[..., 2 * di + 2 * n:]
+
+
+def _causal_conv(xbc, w, b, cache_tail: Optional[torch.Tensor] = None):
+    """Depthwise causal conv of width W; cache_tail holds the previous W-1 steps."""
+    width = w.shape[0]
+    if cache_tail is None:
+        pad = torch.zeros(xbc.shape[:1] + (width - 1,) + xbc.shape[2:], dtype=xbc.dtype,
+                          device=xbc.device)
+    else:
+        pad = cache_tail.to(xbc.dtype)
+    full = torch.cat([pad, xbc], dim=1)  # [B, W-1+S, C]
+    s = xbc.shape[1]
+    wd = w.to(xbc.dtype)
+    out = full[:, 0:s] * wd[0]
+    for i in range(1, width):
+        out = out + full[:, i:i + s] * wd[i]
+    out = out + b.to(xbc.dtype)
+    new_tail = full[:, full.shape[1] - (width - 1):]
+    return F.silu(out), new_tail
+
+
+def ssd_chunked(
+    x: torch.Tensor,  # [B, S, H, P]
+    dt: torch.Tensor,  # [B, S, H]  (post-softplus, f32)
+    a: torch.Tensor,  # [H]  (negative)
+    b_mat: torch.Tensor,  # [B, S, N]
+    c_mat: torch.Tensor,  # [B, S, N]
+    h0: Optional[torch.Tensor] = None,  # [B, H, P, N]
+    chunk: int = 256,
+    impl: str = "auto",
+    final_state: bool = True,
+):
+    """Chunk-parallel SSD -> (y [B, S, H, P] in x's dtype, h_final [B, H, P, N]
+    f32, or None when ``final_state`` is False)."""
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunk {chunk} does not divide the sequence length {s}")
+    a_bh = a.float()[None, :].expand(x.shape[0], a.shape[0])  # batch stride 0
+    kw = dict(chunk=chunk, final_state=final_state)
+    if impl == "kernel":
+        y, h = ssd_ops.ssd_bshp(x, dt.float(), a_bh, b_mat, c_mat, h0, **kw)
+    elif impl in ("auto", "dense"):
+        y, h = ssd_ops.inter_chunk(
+            *ssd_ref.intra_chunk_bshp(x, dt.float(), a_bh, b_mat, c_mat, **kw), c_mat, h0, **kw)
+    else:
+        raise NotImplementedError(f"SSD engine {impl!r}: the port runs 'dense' and 'kernel'")
+    return y.to(x.dtype), h
+
+
+def ssd_step(x, dt, a, b_vec, c_vec, h):
+    """Single decode step of the recurrence: x [B, H, P], dt [B, H], a [H],
+    b_vec / c_vec [B, N], h [B, H, P, N] -> (y [B, H, P], h_new)."""
+    dtf = dt.float()
+    decay = torch.exp(dtf * a)  # [B, H]
+    h_new = h * decay[:, :, None, None] + torch.einsum(
+        "bhp,bn,bh->bhpn", x.float(), b_vec.float(), dtf)
+    y = torch.einsum("bhpn,bn->bhp", h_new, c_vec.float())
+    return y.to(x.dtype), h_new
+
+
+def ssm_apply(params: dict, cfg, x: torch.Tensor, cache: Optional[SSMCache] = None,
+              update_cache: bool = False):
+    """Full Mamba-2 mixer -> (y [B, S, d], new_cache).  Without a cache the
+    final state is not computed (nothing would read it)."""
+    s_cfg = cfg.ssm
+    d = cfg.d_model
+    di, n, nh = s_cfg.d_inner(d), s_cfg.state_dim, s_cfg.num_heads(d)
+    p = s_cfg.head_dim
+    dt_in = x.dtype
+    bsz, seq, _ = x.shape
+
+    proj = x @ params["in_proj"].to(dt_in)
+    z, xbc, dt_raw = _split_proj(cfg, proj)
+    conv_tail = cache.conv if cache is not None else None
+    xbc, new_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"], conv_tail)
+    x_in = xbc[..., :di].reshape(bsz, seq, nh, p)
+    b_mat, c_mat = xbc[..., di:di + n], xbc[..., di + n:]
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    a = -torch.exp(params["A_log"])
+
+    h0 = cache.h if cache is not None else None
+    if seq == 1 and cache is not None:
+        y1, h_new = ssd_step(x_in[:, 0], dt[:, 0], a, b_mat[:, 0], c_mat[:, 0], h0)
+        y = y1[:, None]
+    else:
+        y, h_new = ssd_chunked(x_in, dt, a, b_mat, c_mat, h0, chunk=s_cfg.chunk_size,
+                               impl=cfg.attn_impl, final_state=cache is not None)
+    y = y + x_in * params["D"].to(dt_in)[None, None, :, None]
+    y = y.reshape(bsz, seq, di)
+    y = rmsnorm(y * F.silu(z), params["norm_w"], cfg.rmsnorm_eps)
+    out = y @ params["out_proj"].to(dt_in)
+
+    new_cache = cache
+    if cache is not None and update_cache:
+        new_cache = SSMCache(conv=new_tail.to(cache.conv.dtype), h=h_new)
+    return out, new_cache
+
+
+def init_ssm_cache(cfg, batch: int, dtype, device=None) -> SSMCache:
+    s = cfg.ssm
+    d = cfg.d_model
+    di, n, nh = s.d_inner(d), s.state_dim, s.num_heads(d)
+    return SSMCache(
+        conv=torch.zeros((batch, s.conv_width - 1, di + 2 * n), dtype=dtype, device=device),
+        h=torch.zeros((batch, nh, s.head_dim, n), dtype=torch.float32, device=device),
+    )

@@ -3,8 +3,8 @@
 Banks are built by the reference (``tests/test_cascade_fused.py``'s
 fixtures, or its cascade server) and carried into the port with
 ``repro_torch.interop``.  The port's forwards run the trunk's attention
-through the ``"kernel"`` route (its plain twin here); the reference's run
-its ``"auto"`` (dense) engine.  Tolerances:
+(qwen3) or SSD (mamba2) through the ``"kernel"`` route (its plain twin
+here); the reference's run its ``"auto"`` (dense) engine.  Tolerances:
 
 * probabilities, f32 trunk or probes: atol 1e-5 (the reference's own
   fused-vs-host contract; matmul sums run in another order);
@@ -38,6 +38,7 @@ from repro_torch.core.query import Predicate, conjunction
 from repro_torch.core.session import EngineSession
 from repro_torch.enrich import cascade
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch import serve
 from test_torch_threads import one_torch_thread  # noqa: F401
 
@@ -55,8 +56,8 @@ def _port_bank(jbank):
     return interop.cascade_bank_from_numpy(jbank.cascades, np.asarray(jbank.features))
 
 
-def _backbone_jbank(dtype, num_preds=2, n=24, seed=0):
-    cfg = dataclasses.replace(j_get_config("qwen3-1.7b", smoke=True), dtype=dtype)
+def _backbone_jbank(dtype, num_preds=2, n=24, seed=0, arch="qwen3-1.7b"):
+    cfg = dataclasses.replace(j_get_config(arch, smoke=True), dtype=dtype)
     suite = j_cascade.build_cascade_suite(jax.random.PRNGKey(seed), num_preds, FEATURE_DIM,
                                           backbone_cfg=cfg)
     feats = jax.random.normal(jax.random.PRNGKey(seed + 1), (n, FEATURE_DIM))
@@ -163,21 +164,47 @@ def test_train_level_matches_jax(level_idx):
     assert max(moved.values()) > 1e-4, moved  # the steps did move the parameters
 
 
+def test_mamba2_backbone_head_training_matches_jax():
+    """The head trains through the frozen mamba2 trunk on the dense SSD
+    engine (plain PyTorch, differentiable) as the reference trains through
+    its jnp SSD: the same parameters after the minimum of 50 steps."""
+    jbank = _backbone_jbank("float32", num_preds=1, arch="mamba2-370m")
+    jlvl = jbank.cascades[0][2]
+    rng = np.random.default_rng(1)
+    feats = rng.standard_normal((24, FEATURE_DIM)).astype(np.float32)
+    labels = rng.random(24) < 0.4
+    want = j_cascade.train_level(jlvl, jnp.asarray(feats), jnp.asarray(labels), steps=6)
+    lvl = _port_bank(jbank).cascades[0][2]
+    ssd_ops.reset_counts()
+    got = cascade.train_level(lvl, torch.from_numpy(feats), torch.from_numpy(labels), steps=6)
+    assert ssd_ops.PLAIN_CALLS["ssd_intra_chunk"] == 0  # the dense engine, not the kernel route
+    for k in want.params[1]:
+        np.testing.assert_allclose(got.params[1][k].numpy(), np.asarray(want.params[1][k]),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+
+
 # ------------------------------------------------------------- the session --
 
 TRACE = [("admit", (0, 1)), ("admit", (1,)), ("run", 5), ("retire", 0), ("admit", (0,)),
          ("run", 6)]
 
 
-@pytest.fixture(scope="module")
-def jax_cascade_server():
+# the kernel each backbone's trunk runs through (its plain twin here), one
+# call per layer of the reduced two-layer trunk
+TRUNK_KERNEL = {"qwen3-1.7b": (fa_ops, "flash_attention"),
+                "mamba2-370m": (ssd_ops, "ssd_intra_chunk")}
+
+
+@pytest.fixture(scope="module", params=sorted(TRUNK_KERNEL))
+def jax_cascade_server(request):
     """The reference's cascade server (its offline phase trains every level)."""
-    return j_serve.build_cascade_session_server(num_objects=48, num_preds=2, max_tenants=3,
-                                                backbone_arch="qwen3-1.7b", plan_size=16)
+    return request.param, j_serve.build_cascade_session_server(
+        num_objects=48, num_preds=2, max_tenants=3, backbone_arch=request.param, plan_size=16)
 
 
 def test_cascade_session_matches_jax_epoch_by_epoch(jax_cascade_server):
-    js, jst, jpreds, _ = jax_cascade_server
+    arch, (js, jst, jpreds, _) = jax_cascade_server
+    kernel_ops, kernel_name = TRUNK_KERNEL[arch]
     bank = _port_bank(js.bank)
     preds = [Predicate(i, 1) for i in range(2)]
     ts, tst = serve.open_cascade_session(
@@ -214,11 +241,11 @@ def test_cascade_session_matches_jax_epoch_by_epoch(jax_cascade_server):
                     checked += 1
                 trunk_epochs += trunk_epoch
                 jst, (jh,) = js.run(jst, 1, collect_masks=True, stop_when_exhausted=False)
-                fa_ops.reset_counts()
+                kernel_ops.reset_counts()
                 tst, (th,) = ts.run(tst, 1, collect_masks=True, stop_when_exhausted=False)
-                # the trunk (2 layers) ran through the flash route iff the plan
+                # the trunk (2 layers) ran through the kernel route iff the plan
                 # held a backbone lane
-                assert fa_ops.PLAIN_CALLS["flash_attention"] == 2 * trunk_epoch
+                assert kernel_ops.PLAIN_CALLS[kernel_name] == 2 * trunk_epoch
                 np.testing.assert_array_equal(th.answer_mask, jh.answer_mask)
                 assert th.answer_size == jh.answer_size and th.merged_valid == jh.merged_valid
                 np.testing.assert_allclose(th.cost_spent, jh.cost_spent, rtol=SUM_RTOL)
@@ -252,3 +279,17 @@ def test_port_cascade_server_serves_a_churn_trace_on_cpu():
     with pytest.raises(SystemExit):
         serve.main(["--session", "--bank", "cascade", "--device", "cpu", "--trace",
                     "admit:1;ingest:4;run:1"])
+
+
+def test_port_cascade_server_serves_with_a_mamba2_backbone_on_cpu():
+    ssd_ops.reset_counts()
+    fa_ops.reset_counts()
+    rc = serve.main(["--session", "--bank", "cascade", "--backbone", "mamba2-370m", "--device",
+                     "cpu", "--objects", "64", "--preds", "2", "--max-tenants", "3",
+                     "--trace", "admit:2;run:6;admit:1;run:10;retire:0;run:6"])
+    assert rc == 0
+    assert not fa_ops.PLAIN_CALLS["flash_attention"]  # an attention-free trunk
+    # head training ran the dense engine; the offline phase's evaluation and
+    # the session's trunk epochs ran the kernel route, 2 layers a forward
+    calls = ssd_ops.PLAIN_CALLS["ssd_intra_chunk"]
+    assert calls > 0 and calls % 2 == 0, calls

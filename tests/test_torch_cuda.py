@@ -12,6 +12,12 @@ single-query kernel also drives a small operator run on the card.  The
 flash-attention kernel is held against its plain twin within the reference
 tests' tolerances (2e-5 f32, 2e-2 bf16: the online softmax sums in another
 order), and a small model-cascade session serves through it on the card.
+The SSD intra-chunk kernel is held against its plain twin within 1e-4 (f32
+products summed over the chunk and the state in another order, the cumsum
+scanned in another order) on ragged chunks, strided model-layout operands
+and both state forms; the decode kernel's partials within 2e-5 (f32 sums in
+another order), dead splits and an empty cache included; and the reduced
+qwen3 and mamba2 models prefill and decode on the card as on the CPU.
 """
 
 import numpy as np
@@ -27,7 +33,11 @@ from repro_torch.core.session import EngineSession
 from repro_torch.core.state import EnrichmentState
 from repro_torch.data.synthetic import make_corpus
 from repro_torch.kernels.enrich_score import ops, ref
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
 
 @pytest.fixture
@@ -269,3 +279,151 @@ def test_cuda_cascade_session_runs_the_trunk_through_the_kernel(cuda_device):
     assert not fa_ops.PLAIN_CALLS["flash_attention"] and not any(ops.PLAIN_CALLS.values())
     probs = report.state.substrate.func_probs
     assert torch.isfinite(probs).all() and ((probs >= 0) & (probs <= 1)).all()
+
+
+# ------------------------------------------------------------------ SSD ----
+
+# b, s, h, p, n, chunk, dtype, final_state
+SSD_CASES = [
+    (2, 8, 32, 64, 128, 8, torch.bfloat16, False),  # the cascade's 8 tokens
+    (2, 8, 32, 64, 128, 8, torch.float32, True),
+    (1, 512, 4, 64, 128, 256, torch.bfloat16, True),  # the prefill chunk
+    (2, 100, 3, 20, 12, 50, torch.float32, True),  # ragged tile edges
+    (1, 96, 2, 128, 64, 32, torch.float32, False),  # two head-dim blocks
+    (3, 64, 2, 16, 16, 16, torch.bfloat16, True),  # the smoke config: a part-filled block
+    (1, 12, 5, 8, 8, 4, torch.float32, True),  # 16 heads a block, 5 of them live
+    (2, 64, 3, 32, 24, 32, torch.float32, True),
+]
+
+
+def _ssd_inputs(dev, dtype, seed, b, s, h, p, n):
+    """Model-layout operands: x, B, C slices of one projection, a with a batch
+    stride of 0."""
+    rng = np.random.default_rng(seed)
+    xbc = torch.from_numpy(rng.standard_normal((b, s, h * p + 2 * n)).astype(np.float32))
+    xbc = xbc.to(dev, dtype)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, (b, s, h)).astype(np.float32)).to(dev)
+    a = -torch.from_numpy(rng.uniform(1.0, 32.0, h).astype(np.float32)).to(dev)
+    return x, dt, a[None].expand(b, h), bm, cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain_twin(cuda_device, case):
+    b, s, h, p, n, chunk, dtype, final = case
+    args = _ssd_inputs(cuda_device, dtype, s + p, b, s, h, p, n)
+    before = ssd_ops.LAUNCHES["ssd_intra_chunk"]
+    got = ssd_ops.intra_chunk(*args, chunk=chunk, final_state=final)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES["ssd_intra_chunk"] == before + 1
+    want = ssd_ref.intra_chunk_bshp(*args, chunk=chunk, final_state=final)
+    nc = s // chunk
+    assert got[1].shape == (b, h, nc if final else nc - 1, p, n)
+    for name, g, w in zip(("y_intra", "s_contrib", "cumexp"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
+    y, hf = ssd_ops.ssd_bshp(*args, chunk=chunk, final_state=final)
+    assert (hf is not None) == final and torch.isfinite(y).all()
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    args = _ssd_inputs(cuda_device, torch.float32, 0, 1, 512, 2, 16, 16)
+    with pytest.raises(ValueError, match="chunk <= 256"):
+        ssd_ops.intra_chunk(*args, chunk=512)
+    x, dt, a, bm, cm = args
+    with pytest.raises(TypeError, match="f32 dt"):
+        ssd_ops.intra_chunk(x, dt.bfloat16(), a, bm, cm, chunk=64)
+    with pytest.raises(ValueError, match="on cpu|x on"):
+        ssd_ops.intra_chunk(x, dt.cpu(), a, bm, cm, chunk=64)
+
+
+# --------------------------------------------------------- decode attention --
+
+# b, skv, h, kv, d, kv_len, window, softcap, num_splits
+DA_CASES = [
+    (8, 4096, 16, 8, 128, 2048, None, None, 16),  # qwen3-1.7b decode
+    (2, 256, 4, 2, 32, 192, None, None, 4),  # the reference tests' cases
+    (1, 512, 8, 2, 64, 384, None, 30.0, 8),
+    (2, 256, 4, 4, 32, 192, 128, None, 4),
+    (3, 200, 8, 1, 48, 77, 20, 50.0, 8),  # ragged: ns halves to 8, D = 48, G = 8
+    (2, 64, 4, 2, 256, 33, None, None, 2),  # D = 256
+    (2, 128, 4, 2, 16, 0, None, None, 4),  # an empty cache
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", DA_CASES)
+def test_decode_kernel_matches_plain_twin(cuda_device, case, dtype, tol):
+    b, skv, h, kv, d, kv_len, window, cap, ns = case
+    q, k, v = _fa_inputs(cuda_device, dtype, skv + d, b, 1, skv, h, kv, d)
+    kl = torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
+    g = h // kv
+    qm = q.reshape(b * kv, g, d)
+    km, vm = (t.transpose(1, 2).reshape(b * kv, skv, d).contiguous() for t in (k, v))
+    before = da_ops.LAUNCHES["decode_attention_partials"]
+    got = da_ops.decode_attention_partials(qm, km, vm, kl, softcap=cap, window=window,
+                                           num_splits=ns)
+    torch.cuda.synchronize()
+    assert da_ops.LAUNCHES["decode_attention_partials"] == before + 1
+    want = da_ref.decode_attention_partials(qm, km, vm, kl, softcap=cap, window=window,
+                                            num_splits=ns)
+    for name, x, y in zip(("m", "l", "acc"), got, want):
+        torch.testing.assert_close(x, y, rtol=2e-5, atol=2e-5, msg=name)
+    if kv_len == 0:
+        assert (got[0] == da_ref.NEG_INF).all() and (got[1] == 0).all()
+    out = da_ops.decode_attention(q, k, v, kl, softcap=cap, window=window, num_splits=ns)
+    assert out.dtype == dtype and out.shape == q.shape
+    ref_out = da_ref.reference_decode(q, k, v, kl, softcap=cap, window=window)
+    if kv_len == 0:
+        assert (out == 0).all()
+    else:
+        torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_decode_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    q, k, v = _fa_inputs(cuda_device, torch.float32, 0, 1, 1, 64, 32, 2, 64)
+    kl = torch.tensor([8], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="G \\* D <= 512"):
+        da_ops.decode_attention(q, k, v, kl)  # G = 16
+    with pytest.raises(ValueError, match="kv_len is on"):
+        da_ops.decode_attention(q[:, :, :2], k, v, kl.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-370m"])
+def test_cuda_model_prefill_and_decode_run_the_kernels(cuda_device, arch):
+    import dataclasses
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.enrich.cascade import map_tree
+    from repro_torch.models.model import random_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32 (the default)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    model, cpu_params = random_model(cfg, seed=0, device="cpu")
+    params = map_tree(lambda t: t.to(cuda_device), cpu_params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 68)))
+    for counts in (fa_ops, da_ops, ssd_ops):
+        counts.reset_counts()
+    results = []
+    for p, dev in ((cpu_params, "cpu"), (params, cuda_device)):
+        logits, cache = model.prefill(p, {"tokens": tokens[:, :64].to(dev)}, max_len=72)
+        outs = [logits.cpu()]
+        for t in range(64, 68):  # teacher-forced: no near-tie argmax can fork the runs
+            logits, cache = model.decode_step(p, tokens[:, t:t + 1].to(dev), cache)
+            outs.append(logits.cpu())
+        results.append(outs)
+    for a, b in zip(*results):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+    launches = {**fa_ops.LAUNCHES, **da_ops.LAUNCHES, **ssd_ops.LAUNCHES}
+    if arch == "mamba2-370m":
+        assert launches == {"flash_attention": 0, "decode_attention_partials": 0,
+                            "ssd_intra_chunk": 2}, launches
+    else:
+        assert launches == {"flash_attention": 2, "decode_attention_partials": 8,
+                            "ssd_intra_chunk": 0}, launches

@@ -1,0 +1,220 @@
+"""Decode-attention parity: the port's split-KV twin and decode route vs the JAX package.
+
+Inputs are drawn with numpy and handed to both packages; both run on the
+CPU.  The port's ``ops`` on CPU tensors run the plain twin (``ref.py``); it
+is held against the reference's Pallas kernel in interpret mode on
+``tests/test_kernels.py``'s cases.  Tolerances:
+
+* the partials (m, l, acc) at equal ``num_splits``: rtol / atol 2e-5 — the
+  dot products and sums run in another order (bf16 inputs hold the same bits
+  in both packages and are computed in f32);
+* the combined output: the reference tests' own 2e-5 (f32) and 3e-2 (bf16:
+  the port returns q's dtype, so its output rounds to bf16 once);
+* the combine across split counts: the reference test's 1e-5 / 1e-6;
+* the model's decode route against the reference's dense engine: 2e-5
+  (f32), the attention tests' tolerance.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+from test_kernels import DA_CASES
+
+from repro.configs.archs import get_config as j_get_config
+from repro.kernels.decode_attention import kernel as j_kernel
+from repro.kernels.decode_attention import ops as j_ops
+from repro.kernels.decode_attention import ref as j_ref
+from repro.models import attention as j_attn
+from repro_torch import interop
+from repro_torch.kernels.decode_attention import ops, ref
+from repro_torch.models import attention
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+PART_TOL = 2e-5
+
+
+def _f32(x):
+    return np.asarray(interop.to_numpy(x) if torch.is_tensor(x) else x).astype(np.float32)
+
+
+def _inputs(seed, b, skv, h, kv, d, dtype):
+    rng = np.random.default_rng(seed)
+    np_dt = ml_dtypes.bfloat16 if dtype == jnp.bfloat16 else np.float32
+    return [rng.standard_normal(s).astype(np.float32).astype(np_dt)
+            for s in ((b, 1, h, d), (b, skv, kv, d), (b, skv, kv, d))]
+
+
+def _grouped(q, k, v):
+    """[B, 1, H, D] / [B, Skv, KV, D] -> the kernel's [BKV, G, D] / [BKV, Skv, D]."""
+    b, _, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    qm = q[:, 0].reshape(b * kvh, h // kvh, d)
+    km, vm = (np.ascontiguousarray(np.transpose(t, (0, 2, 1, 3)).reshape(b * kvh, skv, d))
+              for t in (k, v))
+    return qm, km, vm
+
+
+@pytest.mark.parametrize("case", DA_CASES)
+def test_partials_twin_matches_the_pallas_kernel(case):
+    b, skv, h, kv, d, cap, window, ns, dtype = case
+    arrays = _grouped(*_inputs(0, b, skv, h, kv, d, dtype))
+    kv_len = np.asarray([skv * 3 // 4], np.int32)
+    want = j_kernel.decode_attention_partials(*(jnp.asarray(a) for a in arrays),
+                                              jnp.asarray(kv_len), softcap=cap, window=window,
+                                              num_splits=ns, interpret=True)
+    ops.reset_counts()
+    got = ops.decode_attention_partials(*(interop.to_torch(a) for a in arrays),
+                                        torch.from_numpy(kv_len), softcap=cap, window=window,
+                                        num_splits=ns)
+    assert ops.PLAIN_CALLS[ops.KERNEL] == 1 and ops.LAUNCHES[ops.KERNEL] == 0
+    for name, g, w in zip(("m", "l", "acc"), got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=PART_TOL, atol=PART_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("case", DA_CASES)
+def test_decode_attention_matches_jax(case):
+    b, skv, h, kv, d, cap, window, ns, dtype = case
+    q, k, v = _inputs(1, b, skv, h, kv, d, dtype)
+    kv_len = np.asarray([skv * 3 // 4], np.int32)
+    got = ops.decode_attention(*(interop.to_torch(a) for a in (q, k, v)),
+                               torch.from_numpy(kv_len), softcap=cap, window=window,
+                               num_splits=ns)
+    assert got.shape == (b, 1, h, d) and got.dtype == interop.to_torch(q).dtype
+    jargs = [jnp.asarray(a) for a in (q, k, v, kv_len)]
+    want = j_ops.decode_attention(*jargs, softcap=cap, window=window, num_splits=ns,
+                                  interpret=True)
+    oracle = j_ref.reference_decode(*jargs, softcap=cap, window=window)
+    tol = 3e-2 if dtype == jnp.bfloat16 else 2e-5
+    for w in (want, oracle):
+        np.testing.assert_allclose(_f32(got), _f32(w), rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        _f32(ref.reference_decode(*(interop.to_torch(a) for a in (q, k, v, kv_len)),
+                                  softcap=cap, window=window)), _f32(oracle), rtol=tol, atol=tol)
+
+
+def test_combine_partials_algebra_over_split_counts():
+    """The reference test's fixture: the combine is exact whatever the splits."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(7, 1, 512, 4, 2, 32, jnp.float32))
+    kv_len = torch.tensor([512], dtype=torch.int32)
+    outs = [ops.decode_attention(q, k, v, kv_len, num_splits=ns).numpy() for ns in (1, 2, 8)]
+    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(outs[0], outs[2], rtol=1e-5, atol=1e-6)
+    m, l, acc = (torch.from_numpy(np.array(t)) for t in j_kernel.decode_attention_partials(
+        *(jnp.asarray(a) for a in _grouped(q.numpy(), k.numpy(), v.numpy())),
+        jnp.asarray([512], jnp.int32), num_splits=8, interpret=True))
+    np.testing.assert_allclose(ref.combine_partials(m, l, acc).numpy(),
+                               np.asarray(j_ops.combine_partials(*(jnp.asarray(t.numpy())
+                                                                   for t in (m, l, acc)))),
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_dead_splits_and_an_empty_cache():
+    """A split with no live key gives the TPU kernel's (-1e30, 0, 0), and
+    kv_len = 0 combines to 0, not NaN."""
+    qm, km, vm = (interop.to_torch(a) for a in _grouped(*_inputs(2, 2, 256, 4, 2, 32,
+                                                                 jnp.float32)))
+    for kv_len, window in ((40, None), (200, 16), (0, None)):
+        kl = torch.tensor([kv_len], dtype=torch.int32)
+        m, l, acc = ops.decode_attention_partials(qm, km, vm, kl, window=window, num_splits=8)
+        pos = torch.arange(256).reshape(8, 32)
+        live = (pos < kv_len) & ((pos > kv_len - window) if window else True)
+        dead = ~live.any(dim=1)
+        assert dead.any()
+        assert (m[:, dead] == ref.NEG_INF).all() and (l[:, dead] == 0).all()
+        assert (acc[:, dead] == 0).all()
+        jm, jl, jacc = j_kernel.decode_attention_partials(
+            *(jnp.asarray(t.numpy()) for t in (qm, km, vm)), jnp.asarray([kv_len], jnp.int32),
+            window=window, num_splits=8, interpret=True)
+        np.testing.assert_allclose(m.numpy(), np.asarray(jm), rtol=PART_TOL, atol=PART_TOL)
+        np.testing.assert_allclose(l.numpy(), np.asarray(jl), rtol=PART_TOL, atol=PART_TOL)
+    out = ref.combine_partials(m, l, acc)
+    assert torch.isfinite(out).all() and (out == 0).all()
+
+
+def _local_cfgs(window):
+    j_cfg = dataclasses.replace(j_get_config("qwen3-1.7b", smoke=True), dtype="float32",
+                                layer_pattern=("local",), sliding_window=window,
+                                attn_logit_softcap=30.0)
+    return j_cfg, interop.model_config_from(j_cfg)
+
+
+@pytest.mark.parametrize("mixer", ["local", "global"])
+def test_decode_route_matches_the_dense_engine_decode(mixer):
+    """The port's ``attn_apply`` decode route (``impl="kernel"``: one query
+    token over the cache goes to the decode kernel) equals the reference's
+    dense-engine decode, at a local window too: the route translates the
+    model's window (``k > q - window``) into the kernel's (``k > kv_len -
+    window``) by passing ``window + 1``."""
+    window, b, s_max, prefix = 8, 3, 48, 39
+    j_cfg, cfg = _local_cfgs(window)
+    j_params, _ = j_attn.attn_init(jax.random.PRNGKey(0), j_cfg)
+    params = interop.tree_from_numpy(jax.device_get(j_params))
+    rng = np.random.default_rng(3)
+    shape = (b, s_max, cfg.num_kv_heads, cfg.head_dim)
+    k0, v0 = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    x = rng.standard_normal((b, 1, cfg.d_model)).astype(np.float32)
+    pos = np.full((b, 1), prefix, np.int32)
+    j_cache = j_attn.KVCache(jnp.asarray(k0), jnp.asarray(v0), jnp.asarray(prefix, jnp.int32))
+    want, j_new = j_attn.attn_apply(j_params, dataclasses.replace(j_cfg, attn_impl="dense"),
+                                    jnp.asarray(x), jnp.asarray(pos), mixer, cache=j_cache,
+                                    update_cache=True)
+    cache = attention.init_kv_cache(cfg, b, s_max, torch.float32)
+    assert int(cache.length) == 0 and cache.k.shape == shape
+    cache.k.copy_(torch.from_numpy(k0))
+    cache.v.copy_(torch.from_numpy(v0))
+    cache = cache._replace(length=torch.tensor(prefix, dtype=torch.int32))
+    ops.reset_counts()
+    got, new = attention.attn_apply(params, dataclasses.replace(cfg, attn_impl="kernel"),
+                                    torch.from_numpy(x), torch.from_numpy(pos).long(), mixer,
+                                    cache=cache, update_cache=True)
+    assert ops.PLAIN_CALLS[ops.KERNEL] == 1  # the decode route ran
+    np.testing.assert_allclose(got.numpy(), _f32(want), rtol=2e-5, atol=2e-5)
+    assert int(new.length) == int(j_new.length) == prefix + 1
+    # the new row written in place (RoPE rounds an ulp apart in the two packages)
+    np.testing.assert_allclose(new.k.numpy(), _f32(j_new.k), rtol=1e-6, atol=1e-6)
+    assert new.k is cache.k
+
+
+def test_decode_kernel_window_convention_is_one_key_narrower():
+    """The reference kernel's window (``k > kv_len - window``, the query at
+    ``kv_len``) admits one key fewer than the dense engine's (``k > q -
+    window``, the query at ``kv_len - 1``): equal with ``window + 1``,
+    different without it.  Nothing in the reference routes its model
+    through the decode kernel, so its own tests cannot see this."""
+    window, kv_len, b, s_max, h, kv, d = 8, 40, 2, 64, 4, 2, 16
+    q, k, v = _inputs(4, b, s_max, h, kv, d, jnp.float32)
+    q_pos = np.full((b, 1), kv_len - 1, np.int32)
+    kv_pos = np.broadcast_to(np.arange(s_max)[None], (b, s_max)).astype(np.int32)
+    dense = j_attn.attention_engine(*(jnp.asarray(a) for a in (q, k, v, q_pos, kv_pos)),
+                                    causal=True, window=window,
+                                    kv_len=jnp.asarray(kv_len, jnp.int32), cap=None,
+                                    impl="dense")
+    kl = torch.tensor([kv_len], dtype=torch.int32)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    plus_one = ops.decode_attention(tq, tk, tv, kl, window=window + 1)
+    as_is = ops.decode_attention(tq, tk, tv, kl, window=window)
+    np.testing.assert_allclose(plus_one.numpy(), _f32(dense), rtol=2e-5, atol=2e-5)
+    assert np.abs(as_is.numpy() - _f32(dense)).max() > 0.5  # 0.713 on these inputs
+    j_as_is = j_ops.decode_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                     jnp.asarray([kv_len], jnp.int32), window=window,
+                                     interpret=True)
+    np.testing.assert_allclose(as_is.numpy(), _f32(j_as_is), rtol=2e-5, atol=2e-5)
+
+
+def test_decode_wrapper_refuses_bad_operands():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(5, 1, 32, 4, 2, 16, jnp.float32))
+    kl = torch.tensor([8], dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        ops.decode_attention(q, k, v, kl.long())
+    with pytest.raises(TypeError, match="dtype"):
+        ops.decode_attention(q, k.bfloat16(), v, kl)
+    with pytest.raises(ValueError, match="B, 1, H, D"):
+        ops.decode_attention(q.expand(1, 2, 4, 16), k, v, kl)
+    assert ops.default_num_splits(64, 4096) == 16 and ops.default_num_splits(1024, 4096) == 8

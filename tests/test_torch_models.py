@@ -6,7 +6,11 @@ elementwise layers 1e-6 (f32 transcendental rounding differs by an ulp
 between XLA and PyTorch); attention 2e-5 f32 / 2e-2 bf16 (the reference
 kernel tests' own); the two-layer trunk 2e-4 f32 / 4e-2 bf16 (the
 reference's trunk test, ``tests/test_kernels.py``: matmul sums run in
-another order and bf16 rounds at other places in the two frameworks).
+another order and bf16 rounds at other places in the two frameworks);
+prefill / decode logits of the two-layer smoke models 2e-5 f32 (the same
+sums, 2 layers deep, over logits of magnitude ~1); the port's teacher-forced
+decode against its own prefill 2e-5 f32 (the reference test's 2e-2 covers
+bf16; here both sides run the same f32 code, only the cache path differs).
 """
 
 import dataclasses
@@ -24,11 +28,14 @@ from repro.models import layers as j_layers
 from repro.models import transformer as j_tf
 from repro.models.model import Model as JModel
 from repro_torch import interop
-from repro_torch.configs.archs import get_config, qwen3_1_7b
+from repro_torch.configs.archs import get_config, mamba2_370m, qwen3_1_7b
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import attention, layers
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig, MoEConfig
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, random_model, serving_params
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -96,14 +103,14 @@ def test_reduced_qwen3_trunk_matches_jax(dtype, tol, impl):
                                       attn_impl=impl)
     layers_t = interop.tree_from_numpy(params["layers"])
     xt = interop.to_torch(np.asarray(x))
-    got = tf.stack_apply(layers_t, cfg, xt, torch.from_numpy(np.array(pos)), cfg.num_layers,
-                         causal=False)
+    got, _ = tf.stack_apply(layers_t, cfg, xt, torch.from_numpy(np.array(pos)), cfg.num_layers,
+                            causal=False)
     assert got.dtype == cfg.activation_dtype
     np.testing.assert_allclose(_np(interop.to_numpy(got)), _np(want), rtol=tol, atol=tol)
     # one stored copy of the matrices in the activation dtype gives the same bits
     cast = tf.cast_matrices(layers_t, cfg.activation_dtype)
-    again = tf.stack_apply(cast, cfg, xt, torch.from_numpy(np.array(pos)), cfg.num_layers,
-                           causal=False)
+    again, _ = tf.stack_apply(cast, cfg, xt, torch.from_numpy(np.array(pos)), cfg.num_layers,
+                              causal=False)
     assert torch.equal(again, got)
 
 
@@ -133,9 +140,127 @@ def test_port_init_matches_the_reference_layout_and_scale():
 def test_unsupported_pieces_raise():
     with pytest.raises(NotImplementedError, match="chunked"):
         dataclasses.replace(qwen3_1_7b(), attn_impl="chunked").check_supported()
-    with pytest.raises(NotImplementedError, match="mamba"):
-        dataclasses.replace(qwen3_1_7b(), layer_pattern=("mamba",)).check_supported()
+    with pytest.raises(NotImplementedError, match="hymba"):
+        dataclasses.replace(qwen3_1_7b(), layer_pattern=("hymba",)).check_supported()
     moe = dataclasses.replace(qwen3_1_7b(), moe=MoEConfig(num_experts=4))
     with pytest.raises(NotImplementedError, match="moe"):
         Model(moe)
     assert isinstance(moe, ModelConfig) and moe.param_counts()["total"] > 0
+
+
+def test_model_config_from_holds_no_reference_objects():
+    for arch in ("qwen3-1.7b", "mamba2-370m"):
+        for smoke in (False, True):
+            j_cfg = j_get_config(arch, smoke=smoke)
+            cfg = interop.model_config_from(j_cfg)
+            assert cfg == get_config(arch, smoke=smoke)
+            for f in dataclasses.fields(cfg):
+                value = getattr(cfg, f.name)
+                assert not type(value).__module__.startswith("repro."), (f.name, type(value))
+            if cfg.ssm is not None:
+                assert type(cfg.ssm).__module__ == "repro_torch.models.config"
+    moe = interop.model_config_from(dataclasses.replace(
+        j_get_config("qwen3-1.7b", smoke=True), moe=j_get_config("grok-1-314b", smoke=True).moe))
+    assert type(moe.moe) is MoEConfig
+
+
+def test_full_mamba2_param_counts_match_the_reference():
+    cfg = mamba2_370m()
+    assert cfg.param_counts() == j_get_config("mamba2-370m").param_counts()
+    assert (cfg.num_layers, cfg.d_model, cfg.ssm.state_dim, cfg.ssm.head_dim,
+            cfg.ssm.num_heads(cfg.d_model)) == (48, 1024, 128, 64, 32)
+    cfg.check_supported()
+
+
+def test_mamba2_init_layout_and_serving_copy():
+    cfg = get_config("mamba2-370m", smoke=True)
+    params = Model(cfg).init_params(torch.Generator().manual_seed(0))
+    j_params, _ = JModel(j_get_config("mamba2-370m", smoke=True)).init_params(
+        jax.random.PRNGKey(0))
+    flat_t = jax.tree_util.tree_leaves_with_path(
+        interop.tree_to_numpy(params), is_leaf=lambda x: isinstance(x, np.ndarray))
+    flat_j = jax.tree_util.tree_leaves_with_path(j_params)
+    assert [(jax.tree_util.keystr(p), x.shape) for p, x in flat_t] == [
+        (jax.tree_util.keystr(p), x.shape) for p, x in flat_j]
+    ssm_p = params["layers"][0]["ssm"]
+    np.testing.assert_allclose(ssm_p["A_log"].numpy(),  # log(1..H): an ulp apart
+                               np.asarray(j_params["layers"][0]["ssm"]["A_log"]), rtol=1e-6)
+    dt = torch.nn.functional.softplus(ssm_p["dt_bias"])  # inverse softplus of dt in [1e-3, 0.1]
+    assert ((dt > 0.0009) & (dt < 0.1001)).all()
+    serve = serving_params(params, dataclasses.replace(cfg, dtype="bfloat16"))
+    s_ssm = serve["layers"][0]["ssm"]
+    for k in ("A_log", "D", "dt_bias", "norm_w", "conv_b"):
+        assert s_ssm[k].dtype == torch.float32 and s_ssm[k] is ssm_p[k], k
+    for k in ("in_proj", "conv_w", "out_proj"):
+        assert s_ssm[k].dtype == torch.bfloat16, k
+    assert serve["embed"].dtype == torch.bfloat16 and serve["final_ln"].dtype == torch.float32
+
+
+def _prefill_decode(model, params, tokens, steps, max_len, to_tensor):
+    logits, cache = model.prefill(params, {"tokens": to_tensor(tokens[:, :-steps])}, max_len)
+    out = [logits]
+    for t in range(tokens.shape[1] - steps, tokens.shape[1]):
+        logits, cache = model.decode_step(params, to_tensor(tokens[:, t:t + 1]), cache)
+        out.append(logits)
+    return out, cache
+
+
+@pytest.mark.parametrize("impl", ["dense", "kernel"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-370m"])
+def test_prefill_and_decode_match_jax(arch, impl):
+    """Prefill of 32 tokens then 3 decode steps, on the reference's smoke
+    params carried across: the logits of every step and the cache length."""
+    j_cfg = dataclasses.replace(j_get_config(arch, smoke=True), dtype="float32")
+    j_model = JModel(j_cfg)
+    j_params, _ = j_model.init_params(jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(1).integers(0, j_cfg.vocab_size, (2, 35)).astype(np.int32)
+    want, j_cache = _prefill_decode(j_model, j_params, tokens, 3, 40, jnp.asarray)
+    cfg = dataclasses.replace(interop.model_config_from(j_cfg), attn_impl=impl)
+    params = interop.tree_from_numpy(jax.device_get(j_params))
+    for counts in (fa_ops, da_ops, ssd_ops):
+        counts.reset_counts()
+    got, cache = _prefill_decode(Model(cfg), params, tokens, 3, 40,
+                                 lambda t: torch.from_numpy(t).long())
+    for g, w in zip(got, want):
+        assert g.shape == (2, 1, cfg.vocab_size) and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), _np(w), rtol=2e-5, atol=2e-5)
+    assert int(cache.length) == int(j_cache.length) == 35
+    plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
+    if impl == "dense":
+        assert not any(plain.values()), plain
+    elif arch == "mamba2-370m":  # 2 layers: the SSD route in prefill, ssd_step in decode
+        assert plain == {"flash_attention": 0, "decode_attention_partials": 0,
+                         "ssd_intra_chunk": 2}, plain
+    else:  # the flash route in prefill, the decode route per step
+        assert plain == {"flash_attention": 2, "decode_attention_partials": 6,
+                         "ssd_intra_chunk": 0}, plain
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-370m"])
+def test_teacher_forced_decode_matches_prefill_of_longer_prefixes(arch):
+    """``test_arch_smoke.py::test_decode_matches_prefill_incremental`` on the
+    port, through the kernel route (plain twins here)."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    model, params = random_model(cfg, seed=0, device="cpu")
+    seq, cut = 16, 8
+    tokens = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab_size, (1, seq)).astype(np.int64))
+    logits, cache = model.prefill(params, {"tokens": tokens[:, :cut]}, max_len=seq + 4)
+    steps = [logits[:, -1]]
+    for t in range(cut, seq):
+        lg, cache = model.decode_step(params, tokens[:, t:t + 1], cache)
+        steps.append(lg[:, -1])
+    for i, t in enumerate(range(cut, seq + 1)):
+        want, _ = model.prefill(params, {"tokens": tokens[:, :t]}, max_len=seq + 4)
+        np.testing.assert_allclose(steps[i].numpy(), want[:, -1].numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_random_model_needs_a_gpu_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this checks the CPU-only machine's refusal")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        random_model(get_config("mamba2-370m", smoke=True))
+    with pytest.raises(NotImplementedError, match="model-zoo"):
+        model, params = random_model(get_config("qwen3-1.7b", smoke=True), device="cpu")
+        model.prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.long),
+                               "image_embeds": torch.zeros((1, 2, 64))}, 8)

@@ -222,6 +222,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.kernels.flash_attention.ops, repro_torch.launch.profile\n"
         "import repro_torch.core.operator, repro_torch.core.multi_query\n"
         "import repro_torch.core.baselines, repro_torch.enrich.simulated, repro_torch.quickstart\n"
+        "import repro_torch.models.model, repro_torch.models.ssm, repro_torch.configs.archs\n"
+        "import repro_torch.kernels.ssd_scan.ops, repro_torch.kernels.decode_attention.ops\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"

@@ -1,0 +1,217 @@
+"""SSD parity: the port's intra-chunk twin, scan and Mamba-2 mixer vs the JAX package.
+
+Inputs are drawn with numpy and handed to both packages; both run on the
+CPU.  The port's ``ops`` on CPU tensors run the plain twin (``ref.py``); it
+is held against the reference's Pallas kernel in interpret mode and its
+``ops.ssd_scan`` / ``reference_ssd``, on ``tests/test_kernels.py``'s cases.
+Tolerances:
+
+* the intra-chunk outputs: rtol / atol 2e-5 — the port's cumsum is a
+  sequential scan, the reference kernel's a tril-ones matmul, so
+  ``exp(cum)`` and the decays differ in the last f32 bits, and the products
+  sum over Q and N in another order (bf16 inputs round identically: both
+  packages hold the same bits and compute in f32);
+* the scan against the naive recurrence: the reference tests' own 1e-4
+  (f32) and 5e-2 (bf16);
+* the mixer and the SSD engines against the reference's jnp ``ssd_chunked``
+  and ``ssm_apply``: 2e-5 (f32 sums in another order, XLA's and PyTorch's
+  softplus / exp differ by an ulp).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+from test_kernels import SSD_CASES
+
+from repro.configs.archs import get_config as j_get_config
+from repro.kernels.ssd_scan import kernel as j_kernel
+from repro.kernels.ssd_scan import ops as j_ops
+from repro.kernels.ssd_scan import ref as j_ref
+from repro.models import ssm as j_ssm
+from repro.models.model import Model as JModel
+from repro_torch import interop
+from repro_torch.kernels.ssd_scan import ops, ref
+from repro_torch.models import ssm
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+INTRA_TOL = 2e-5
+MIXER_TOL = 2e-5
+
+
+def _f32(x):
+    return np.asarray(interop.to_numpy(x) if torch.is_tensor(x) else x).astype(np.float32)
+
+
+def _inputs(seed, bh, s, p, n, dtype, h0=False):
+    """x, dt, a, b, c (and h0) as numpy, the reference tests' distributions."""
+    rng = np.random.default_rng(seed)
+    np_dt = ml_dtypes.bfloat16 if dtype == jnp.bfloat16 else np.float32
+    x = rng.standard_normal((bh, s, p)).astype(np.float32).astype(np_dt)
+    dt = (np.log1p(np.exp(rng.standard_normal((bh, s)))) * 0.1).astype(np.float32)
+    a = (-np.exp(rng.standard_normal(bh) * 0.3)).astype(np.float32)
+    b = rng.standard_normal((bh, s, n)).astype(np.float32).astype(np_dt)
+    c = rng.standard_normal((bh, s, n)).astype(np.float32).astype(np_dt)
+    out = [x, dt, a, b, c]
+    if h0:
+        out.append(rng.standard_normal((bh, p, n)).astype(np.float32))
+    return out
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_intra_chunk_twin_matches_the_pallas_kernel(case):
+    bh, s, p, n, chunk, dtype = case
+    arrays = _inputs(3, bh, s, p, n, dtype)
+    want = j_kernel.ssd_intra_chunk(*(jnp.asarray(a) for a in arrays), chunk=chunk,
+                                    interpret=True)
+    got = ref.ssd_intra_chunk(*(interop.to_torch(a) for a in arrays), chunk=chunk)
+    for name, g, w in zip(("y_intra", "s_contrib", "cumexp"), got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=INTRA_TOL, atol=INTRA_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_matches_jax_scan_and_recurrence(case):
+    bh, s, p, n, chunk, dtype = case
+    arrays = _inputs(4, bh, s, p, n, dtype)
+    ops.reset_counts()
+    y, h = ops.ssd_scan(*(interop.to_torch(a) for a in arrays), chunk=chunk)
+    assert ops.PLAIN_CALLS[ops.KERNEL] == 1 and ops.LAUNCHES[ops.KERNEL] == 0
+    jy, jh = j_ops.ssd_scan(*(jnp.asarray(a) for a in arrays), chunk=chunk, interpret=True)
+    np.testing.assert_allclose(y.numpy(), _f32(jy), rtol=INTRA_TOL, atol=INTRA_TOL)
+    np.testing.assert_allclose(h.numpy(), _f32(jh), rtol=INTRA_TOL, atol=INTRA_TOL)
+    tol = 5e-2 if dtype == jnp.bfloat16 else 1e-4
+    ry, rh = j_ref.reference_ssd(*(jnp.asarray(a) for a in arrays))
+    np.testing.assert_allclose(y.numpy(), _f32(ry), rtol=tol, atol=tol)
+    np.testing.assert_allclose(h.numpy(), _f32(rh), rtol=tol, atol=tol)
+    ty, th = ref.reference_ssd(*(interop.to_torch(a) for a in arrays))
+    np.testing.assert_allclose(ty.numpy(), _f32(ry), rtol=INTRA_TOL, atol=INTRA_TOL)
+    np.testing.assert_allclose(th.numpy(), _f32(rh), rtol=INTRA_TOL, atol=INTRA_TOL)
+
+
+def test_ssd_scan_with_initial_state_matches_jax():
+    """The fixture of ``test_kernels.py::test_ssd_scan_with_initial_state``."""
+    arrays = _inputs(5, 2, 64, 16, 8, jnp.float32, h0=True)
+    y, h = ops.ssd_scan(*(interop.to_torch(a) for a in arrays), chunk=32)
+    jy, jh = j_ops.ssd_scan(*(jnp.asarray(a) for a in arrays), chunk=32, interpret=True)
+    np.testing.assert_allclose(y.numpy(), _f32(jy), rtol=INTRA_TOL, atol=INTRA_TOL)
+    np.testing.assert_allclose(h.numpy(), _f32(jh), rtol=INTRA_TOL, atol=INTRA_TOL)
+    ry, rh = j_ref.reference_ssd(*(jnp.asarray(a) for a in arrays))
+    np.testing.assert_allclose(y.numpy(), _f32(ry), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h.numpy(), _f32(rh), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 16), (8, 8)])
+def test_shared_bc_layout_and_dropped_final_state(s, chunk):
+    """The model's layout (B / C shared by H heads, read with a head stride of
+    0) gives the [BH] layout's outputs; without a final state the last
+    chunk's state is left out and nothing else changes."""
+    bsz, nh, p, n = 2, 3, 8, 12
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((bsz, s, nh, p)).astype(np.float32))
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (bsz, s, nh)).astype(np.float32))
+    a = -torch.from_numpy(rng.uniform(0.5, 2.0, nh).astype(np.float32))
+    b, c = (torch.from_numpy(rng.standard_normal((bsz, s, n)).astype(np.float32))
+            for _ in range(2))
+    a_bh = a[None].expand(bsz, nh)
+    full = ref.intra_chunk_bshp(x, dt, a_bh, b, c, chunk=chunk)
+    part = ref.intra_chunk_bshp(x, dt, a_bh, b, c, chunk=chunk, final_state=False)
+    nc = s // chunk
+    assert full[1].shape == (bsz, nh, nc, p, n) and part[1].shape == (bsz, nh, nc - 1, p, n)
+    assert torch.equal(full[0], part[0]) and torch.equal(full[2], part[2])
+    assert torch.equal(full[1][:, :, :-1], part[1])
+    # the [BH] layout with B / C broadcast over the heads
+    xb = x.permute(0, 2, 1, 3).reshape(bsz * nh, s, p)
+    bb, cb = (t[:, None].expand(bsz, nh, s, n).reshape(bsz * nh, s, n) for t in (b, c))
+    y_bh, h_bh = ops.ssd_scan(xb, dt.permute(0, 2, 1).reshape(bsz * nh, s), a_bh.reshape(-1),
+                              bb, cb, chunk=chunk)
+    y, h = ops.ssd_bshp(x, dt, a_bh, b, c, chunk=chunk)
+    torch.testing.assert_close(y.permute(0, 2, 1, 3).reshape(bsz * nh, s, p), y_bh,
+                               rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(h.reshape(bsz * nh, p, n), h_bh, rtol=1e-6, atol=1e-6)
+    y2, h2 = ops.ssd_bshp(x, dt, a_bh, b, c, chunk=chunk, final_state=False)
+    assert h2 is None and torch.equal(y2, y)
+
+
+# ------------------------------------------------------------- the mixer --
+
+
+def _mamba_layer():
+    """Reduced mamba2 f32 params of layer 0 (the reference's init)."""
+    j_cfg = dataclasses.replace(j_get_config("mamba2-370m", smoke=True), dtype="float32")
+    params, _ = JModel(j_cfg).init_params(jax.random.PRNGKey(0))
+    j_layer = jax.tree.map(lambda t: t[0], params["layers"][0]["ssm"])
+    return j_cfg, j_layer, interop.tree_from_numpy(jax.device_get(j_layer))
+
+
+@pytest.mark.parametrize("impl", ["dense", "kernel"])
+def test_ssd_chunked_with_initial_state_matches_jax(impl):
+    bsz, s, nh, p, n = 2, 48, 4, 8, 16
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((bsz, s, nh, p)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.2, (bsz, s, nh)).astype(np.float32)
+    a = -rng.uniform(0.5, 4.0, nh).astype(np.float32)
+    b, c = (rng.standard_normal((bsz, s, n)).astype(np.float32) for _ in range(2))
+    h0 = rng.standard_normal((bsz, nh, p, n)).astype(np.float32)
+    jy, jh = j_ssm.ssd_chunked(*(jnp.asarray(t) for t in (x, dt, a, b, c, h0)), chunk=16)
+    ops.reset_counts()
+    y, h = ssm.ssd_chunked(*(torch.from_numpy(t) for t in (x, dt, a, b, c, h0)), chunk=16,
+                           impl=impl)
+    assert ops.PLAIN_CALLS[ops.KERNEL] == (impl == "kernel")
+    np.testing.assert_allclose(y.numpy(), _f32(jy), rtol=MIXER_TOL, atol=MIXER_TOL)
+    np.testing.assert_allclose(h.numpy(), _f32(jh), rtol=MIXER_TOL, atol=MIXER_TOL)
+
+
+def test_ssd_step_matches_jax():
+    bsz, nh, p, n = 3, 4, 8, 16
+    rng = np.random.default_rng(8)
+    arrays = (rng.standard_normal((bsz, nh, p)), rng.uniform(0.01, 0.2, (bsz, nh)),
+              -rng.uniform(0.5, 4.0, nh), rng.standard_normal((bsz, n)),
+              rng.standard_normal((bsz, n)), rng.standard_normal((bsz, nh, p, n)))
+    arrays = [t.astype(np.float32) for t in arrays]
+    jy, jh = j_ssm.ssd_step(*(jnp.asarray(t) for t in arrays))
+    y, h = ssm.ssd_step(*(torch.from_numpy(t) for t in arrays))
+    np.testing.assert_allclose(y.numpy(), _f32(jy), rtol=MIXER_TOL, atol=MIXER_TOL)
+    np.testing.assert_allclose(h.numpy(), _f32(jh), rtol=MIXER_TOL, atol=MIXER_TOL)
+
+
+@pytest.mark.parametrize("impl", ["dense", "kernel"])
+def test_ssm_apply_matches_jax_with_and_without_a_cache(impl):
+    j_cfg, j_layer, layer = _mamba_layer()
+    cfg = dataclasses.replace(interop.model_config_from(j_cfg), attn_impl=impl)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 32, cfg.d_model)).astype(np.float32)
+    want, _ = j_ssm.ssm_apply(j_layer, j_cfg, jnp.asarray(x))
+    got, none = ssm.ssm_apply(layer, cfg, torch.from_numpy(x))
+    assert none is None
+    np.testing.assert_allclose(got.numpy(), _f32(want), rtol=MIXER_TOL, atol=MIXER_TOL)
+    # prefill into a cache, then one decode step through ssd_step
+    j_cache = j_ssm.init_ssm_cache(j_cfg, 2, jnp.float32)
+    cache = ssm.init_ssm_cache(cfg, 2, torch.float32)
+    want, j_cache = j_ssm.ssm_apply(j_layer, j_cfg, jnp.asarray(x), j_cache, update_cache=True)
+    got, cache = ssm.ssm_apply(layer, cfg, torch.from_numpy(x), cache, update_cache=True)
+    np.testing.assert_allclose(got.numpy(), _f32(want), rtol=MIXER_TOL, atol=MIXER_TOL)
+    for g, w in zip(cache, j_cache):
+        np.testing.assert_allclose(g.numpy(), _f32(w), rtol=MIXER_TOL, atol=MIXER_TOL)
+    x1 = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    want, j_cache = j_ssm.ssm_apply(j_layer, j_cfg, jnp.asarray(x1), j_cache, update_cache=True)
+    got, cache = ssm.ssm_apply(layer, cfg, torch.from_numpy(x1), cache, update_cache=True)
+    np.testing.assert_allclose(got.numpy(), _f32(want), rtol=MIXER_TOL, atol=MIXER_TOL)
+    for g, w in zip(cache, j_cache):
+        np.testing.assert_allclose(g.numpy(), _f32(w), rtol=MIXER_TOL, atol=MIXER_TOL)
+
+
+def test_intra_chunk_refuses_bad_operands():
+    x = torch.zeros((1, 8, 2, 4))
+    dt, a, b = torch.zeros((1, 8, 2)), torch.zeros((1, 2)), torch.zeros((1, 8, 4))
+    with pytest.raises(ValueError, match="does not divide"):
+        ops.intra_chunk(x, dt, a, b, b, chunk=3)
+    with pytest.raises(TypeError, match="one dtype"):
+        ops.intra_chunk(x, dt, a, b.bfloat16(), b, chunk=4)
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.intra_chunk(x, dt[:, :4], a, b, b, chunk=4)
