@@ -23,7 +23,14 @@ in order; any failure raises and the script exits non-zero:
    SSD intra-chunk kernel at the mamba2-370m prefill shape (B 2, S 4096,
    H 32, P 64, N 128, chunk 256, bf16) and the cascade's (512 lanes x 8
    tokens, with and without the final state), every output within 1e-4 of
-   its largest magnitude;
+   its largest magnitude.  The flash cases run both of its kernels, as
+   ``kernel.route`` picks them: "simt" (f32, and the cascade's 8-token
+   blocks) and "tc" (the tensor-core kernel: bf16 with >= 64 query rows and
+   D 64 or 128), each within its tolerance of the twin; the cascade shape,
+   the causal S 4096 case and the qwen3-1.7b prefill shape (B 8, Sq 2048
+   over a 4096-row cache, kv_len 2048) are timed beside SDPA over the live
+   keys, the bound and the kernel the route did not pick (where it takes
+   the dtype and head dim; held against the twin too, and not counted);
 3. CPU vs GPU session: one churn trace at capacity 4096 with 4 tenants, in
    both scoring modes, through ``EngineSession(device="cpu")`` (plain path)
    and ``device="cuda"`` (kernels) — per-slot plans, merged plans,
@@ -62,7 +69,7 @@ in order; any failure raises and the script exits non-zero:
    launch 28 times per epoch that ran the trunk (at least 4 such epochs),
    the plain twins never; chunk programs within the bound, invoices fold
    bit for bit, every epoch charges, probabilities finite and in [0, 1];
-   then the same with the 48-layer mamba2-370m trunk (d_model 1024): the
+   every flash launch goes by the "simt" route; then the same with the 48-layer mamba2-370m trunk (d_model 1024): the
    SSD kernel launches 48 times per trunk epoch, the flash kernel never;
 6. the operator main path at full size: the quickstart query and corpus at
    N = 1,048,576 (+1,024 rows to train on), ``OperatorConfig()`` defaults
@@ -76,11 +83,14 @@ in order; any failure raises and the script exits non-zero:
    and ``--queries 4`` (best mode: the best-mode kernel launches); both
    return 0; then ``Model.prefill`` + 32 greedy ``decode_step``s at full
    width: qwen3-1.7b over 2,048 tokens x 8 (28 flash launches in the
-   prefill, 28 decode launches a step) and mamba2-370m over 4,096 tokens x
+   prefill, all by the "tc" route; 28 decode launches a step) and mamba2-370m over 4,096 tokens x
    2 (48 SSD launches in the prefill; decode runs ``ssd_step``), with ms
    per prefill and per step and peak memory;
-8. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and the
-   final ``{"ok": true, ...}`` line.
+8. one JSON line of per-kernel numbers (the flash kernel's two routes as
+   ``flash_attention`` and ``flash_attention_tc``; the first also carries
+   the prefill shape's ``prefill_ms``, ``prefill_bound_ms``,
+   ``prefill_library_ms`` and the main paths' ``routes``), the
+   ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -117,6 +127,7 @@ SOURCES = {
     "enrich_score_best": "src/repro_torch/kernels/enrich_score/csrc/enrich_score.cu",
     "enrich_score_single": "src/repro_torch/kernels/enrich_score/csrc/enrich_score.cu",
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "flash_attention_tc": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu",
     "decode_attention_partials":
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
     "ssd_intra_chunk": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
@@ -126,6 +137,7 @@ REPLACES = {
     "enrich_score_best": "src/repro/kernels/enrich_score/kernel.py:354",
     "enrich_score_single": "src/repro/kernels/enrich_score/kernel.py:273",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:122",
+    "flash_attention_tc": "src/repro/kernels/flash_attention/kernel.py:122",
     "decode_attention_partials": "src/repro/kernels/decode_attention/kernel.py:65",
     "ssd_intra_chunk": "src/repro/kernels/ssd_scan/kernel.py:72",
 }
@@ -150,6 +162,9 @@ SERVE_PATHS = [("qwen3-1.7b", 8, 2048, 32, 4096), ("mamba2-370m", 2, 4096, 32, 4
 SERVE_LOGIT_TOL = 1e-3  # reduced f32 models, CPU vs card: matmul sums in another order
 # b, sq, skv, h, kv, d, causal, window, softcap, dtype, kv_len, q_offset_from_kv_len
 BACKBONE_FA = (512, 8, 8, 16, 8, 128, False, None, None, "bfloat16", None, True)
+LONG_FA = (1, 4096, 4096, 16, 8, 128, True, None, None, "bfloat16", None, False)
+# phase 7's qwen3-1.7b prefill: 8 x 2048 queries at the end of 2048 valid rows of a 4096 cache
+PREFILL_FA = (8, 2048, 4096, 16, 8, 128, True, None, None, "bfloat16", 2048, True)
 FA_CASES = [
     BACKBONE_FA,
     BACKBONE_FA[:9] + ("float32",) + BACKBONE_FA[10:],
@@ -159,8 +174,11 @@ FA_CASES = [
     (2, 128, 128, 4, 1, 64, False, None, None, "float32", None, False),
     (1, 256, 256, 4, 2, 32, True, None, None, "bfloat16", None, False),
     (1, 64, 256, 4, 2, 32, True, None, None, "float32", 100, True),  # partial kv_len
-    (1, 4096, 4096, 16, 8, 128, True, None, None, "bfloat16", None, False),  # long prefill
+    (2, 200, 333, 4, 2, 128, True, 100, 30.0, "bfloat16", 300, True),  # ragged "tc" tiles
+    LONG_FA,
+    PREFILL_FA,
 ]
+FA_TIMED = (BACKBONE_FA, FA_CASES[1], LONG_FA, PREFILL_FA)
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -221,18 +239,21 @@ def phase_build():
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
     t0 = time.perf_counter()
-    modules = (es_kernel, fa_kernel, da_kernel, ssd_kernel)
-    with ThreadPoolExecutor(len(modules)) as pool:  # one nvcc per source, all at once
-        builds = [f.result() for f in [pool.submit(m.build) for m in modules]]
-    for m in modules:
-        m.library()
-    for path, log, nvcc_s in builds:
+    builds = (es_kernel.build, fa_kernel.build, fa_kernel.build_tc, da_kernel.build,
+              ssd_kernel.build)
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, all at once
+        built = [f.result() for f in [pool.submit(b) for b in builds]]
+    for load in (es_kernel.library, fa_kernel.library, fa_kernel.library_tc, da_kernel.library,
+                 ssd_kernel.library):
+        load()
+    for path, log, nvcc_s in built:
         print(f"[build] {path.name}: nvcc {nvcc_s:.2f} s", flush=True)
         name = ""
         for line in log.splitlines():  # ptxas -v: one summary per kernel instantiation
             if "Compiling entry function" in line:
                 name = line.split("'")[1] if "'" in line else line.strip()
-            elif "spill stores" in line or "Used" in line:
+            elif ("spill stores" in line or "Used" in line or "warning" in line
+                  or "wgmma" in line):
                 print(f"[build] ptxas {name}: {line.split(' : ')[-1].strip()}", flush=True)
     print(f"[build] all kernels ready in {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -576,14 +597,15 @@ def _fa_bound(case) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_flash() -> dict:
+def phase_flash() -> tuple:
+    """Both flash kernels against the plain twin -> (simt results, tc results)."""
     import torch
     import torch.nn.functional as tnf
 
-    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import kernel, ops
 
     dev = torch.device("cuda")
-    result = {"max_abs_err": 0.0}
+    results = {"simt": {"max_abs_err": 0.0}, "tc": {"max_abs_err": 0.0}}
     for case in FA_CASES:
         b, sq, skv, h, kv, d, causal, window, cap, dtype, kv_len, q_off = case
         dt = getattr(torch, dtype)
@@ -600,20 +622,27 @@ def phase_flash() -> dict:
         def plain_call():
             return ops.plain_bshd(q, k, v, kl, **kw)
 
+        route = kernel.route(q.dtype, sq, d)
+        before = ops.ROUTES[route]
         out, want = kernel_call(), plain_call()
         torch.cuda.synchronize()
+        assert ops.ROUTES[route] == before + 1, (case, route, ops.ROUTES)
         err = (out.float() - want.float()).abs().max().item()
         tol = FA_TOL[dtype]
         if not torch.allclose(out.float(), want.float(), rtol=tol, atol=tol):
-            raise AssertionError(f"flash_attention {case}: differs from the plain twin beyond "
-                                 f"{tol} (max abs diff {err})")
+            raise AssertionError(f"flash_attention {case} ({route}): differs from the plain "
+                                 f"twin beyond {tol} (max abs diff {err})")
+        result = results[route]
         result["max_abs_err"] = max(result["max_abs_err"], err)
-        label = f"B={b} Sq={sq} Skv={skv} H={h} KV={kv} D={d} causal={causal} {dtype}"
-        if case not in (BACKBONE_FA, FA_CASES[1], FA_CASES[-1]):
-            print(f"[flash] {label} window={window} softcap={cap} kv_len={kv_len}: "
+        label = (f"B={b} Sq={sq} Skv={skv} H={h} KV={kv} D={d} causal={causal} {dtype} "
+                 f"kv_len={kv_len} ({route})")
+        if case not in FA_TIMED:
+            print(f"[flash] {label} window={window} softcap={cap}: "
                   f"max abs diff {err:.3g} (tol {tol})", flush=True)
             continue
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        live = skv if kv_len is None else kv_len  # SDPA over the live keys
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k[:, :live], v[:, :live]))
+        assert not causal or not q_off or live == sq  # SDPA's causal queries start at key 0
 
         def library_call():
             return tnf.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -628,10 +657,32 @@ def phase_flash() -> dict:
         print(f"[flash] {label}: max abs diff {err:.3g} (tol {tol}); kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), {bound_ms / ms:.1%} of bound", flush=True)
-        if case == BACKBONE_FA:  # the main path's shape and dtype
+        # the kernel the route did not pick, on the same inputs (uncounted): why the route
+        other = "simt" if route == "tc" else "tc"
+        if other == "simt" or kernel.route(dt, kernel.TC_MIN_SQ, d) == "tc":
+            out_other = torch.empty_like(q)
+
+            def other_call():
+                kernel.launch(q, k, v, kl, out_other, causal=causal, window=window,
+                              softcap=cap, q_offset_from_kv_len=q_off, kind=other)
+
+            other_call()
+            torch.cuda.synchronize()
+            other_err = (out_other.float() - want.float()).abs().max().item()
+            if not torch.allclose(out_other.float(), want.float(), rtol=tol, atol=tol):
+                raise AssertionError(f"flash_attention {case} ({other}): differs from the "
+                                     f"plain twin beyond {tol} (max abs diff {other_err})")
+            print(f"[flash] {label}: the {other} kernel on the same inputs "
+                  f"{_time_ms(other_call):.4f} ms (max abs diff {other_err:.3g})", flush=True)
+        if case == BACKBONE_FA:  # the cascade's shape and dtype
             result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms)
-    return result
+        elif case == PREFILL_FA:  # the qwen3 prefill's shape and dtype
+            result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms)
+            results["simt"].update(prefill_ms=ms, prefill_bound_ms=bound_ms,
+                                   prefill_library_ms=library_ms)
+    return results["simt"], results["tc"]
 
 
 def _reduced_f32_backbone(arch):
@@ -872,7 +923,8 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     trunk_marks.append(trunk0)
     report = serve.serve_session_trace(session, state, serve.parse_trace(CASCADE_TRACE),
                                        preds=preds, chunk_size=1, on_chunk=on_chunk)
-    launches = {**es_ops.LAUNCHES, **fa_ops.LAUNCHES, **ssd_ops.LAUNCHES}
+    launches = {**es_ops.LAUNCHES, **fa_ops.LAUNCHES, **ssd_ops.LAUNCHES,
+                **{f"flash_attention/{r}": n for r, n in fa_ops.ROUTES.items()}}
     plain = {**es_ops.PLAIN_CALLS, **fa_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
     peak = torch.cuda.max_memory_allocated()
     trunk_epochs = bank.trunk_runs - trunk0
@@ -883,6 +935,8 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     assert launches[kernel_name] == cfg.num_layers * trunk_epochs, (launches, trunk_epochs)
     other = {"flash_attention", "ssd_intra_chunk"} - {kernel_name}
     assert not any(launches[k] for k in other), launches
+    # the cascade's 8-token blocks take the simt kernel, never the tensor-core one
+    assert fa_ops.ROUTES == {"tc": 0, "simt": launches["flash_attention"]}, fa_ops.ROUTES
     assert launches["enrich_score_best"] == report.epochs and not launches["enrich_score_table"]
     assert not any(plain.values()), f"plain path ran on the cascade main path: {plain}"
     assert bank.bank_syncs - syncs0 == report.epochs  # the one host read per epoch
@@ -1151,6 +1205,7 @@ def phase_model_serve() -> dict:
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t1
         run = {**fa_ops.LAUNCHES, **da_ops.LAUNCHES, **ssd_ops.LAUNCHES}
+        routes = dict(fa_ops.ROUTES)
         step_s = []
         for _ in range(steps):
             t2 = time.perf_counter()
@@ -1164,6 +1219,7 @@ def phase_model_serve() -> dict:
         if arch == "qwen3-1.7b":
             assert run == {"flash_attention": n, "decode_attention_partials": 0,
                            "ssd_intra_chunk": 0}, run
+            assert routes == {"tc": n, "simt": 0}, routes  # the prefill on the tensor cores
             assert run_all["decode_attention_partials"] == n * steps, run_all
         else:
             assert run == {"flash_attention": 0, "decode_attention_partials": 0,
@@ -1172,12 +1228,13 @@ def phase_model_serve() -> dict:
         assert not any(plain.values()), f"plain path ran on the {arch} serve path: {plain}"
         assert logits.shape == (b, 1, cfg.vocab_size) and torch.isfinite(logits).all()
         assert int(cache.length) == prompt + steps
+        run_all.update({f"flash_attention/{r}": c for r, c in fa_ops.ROUTES.items()})
         for k, v in run_all.items():
             launches[k] = launches.get(k, 0) + v
         print(f"[serve-model] {arch} at full width ({n} layers, d_model {cfg.d_model}, bf16): "
               f"setup {setup_s:.2f} s; prefill B={b} x {prompt} tokens {prefill_s * 1e3:.2f} ms "
-              f"({b * prompt / prefill_s:.0f} tokens/s); {steps} decode steps "
-              f"{statistics.median(step_s) * 1e3:.3f} ms median per step (host clock, "
+              f"({b * prompt / prefill_s:.0f} tokens/s, flash routes {routes}); {steps} decode "
+              f"steps {statistics.median(step_s) * 1e3:.3f} ms median per step (host clock, "
               f"synchronised per step); launches {run_all}; peak device memory "
               f"{peak / 2**30:.3f} GiB", flush=True)
         del params, cache, logits
@@ -1205,7 +1262,7 @@ def main() -> int:
     results = phase_kernels(table, costs)
     quickstart = quickstart_world(4096, device="cpu")
     results["enrich_score_single"] = phase_single_kernel(quickstart["table"])
-    results["flash_attention"] = phase_flash()
+    results["flash_attention"], results["flash_attention_tc"] = phase_flash()
     results["decode_attention_partials"] = phase_decode()
     results["ssd_intra_chunk"] = phase_ssd()
     phase_cpu_vs_gpu(table, combine, costs, outputs)
@@ -1216,14 +1273,23 @@ def main() -> int:
     runs = [phase_main_path(), phase_cascade_main_path("qwen3-1.7b"),
             phase_cascade_main_path("mamba2-370m"), phase_operator_main_path(),
             phase_serve_entry_points(), phase_model_serve()]
-    # launches: the sum over the main-path runs (each zeroes the counts first)
+    # launches: the sum over the main-path runs (each zeroes the counts first);
+    # the flash wrapper's launches split by route, one entry per kernel
+    counted = {"flash_attention": "flash_attention/simt",
+               "flash_attention_tc": "flash_attention/tc"}
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-             launches=sum(run.get(name, 0) for run in runs),
+             launches=sum(run.get(counted.get(name, name), 0) for run in runs),
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r.get("library_ms"))
         for name, r in results.items()
     ]
+    kernels[[k["name"] for k in kernels].index("flash_attention")].update(
+        prefill_ms=results["flash_attention"]["prefill_ms"],
+        prefill_bound_ms=results["flash_attention"]["prefill_bound_ms"],
+        prefill_library_ms=results["flash_attention"]["prefill_library_ms"],
+        routes={r: sum(run.get(f"flash_attention/{r}", 0) for run in runs)
+                for r in ("tc", "simt")})
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,8 +3,9 @@
 Each kernel family keeps its sources under ``csrc/`` with a plain
 ``extern "C"`` interface (no PyTorch headers, so a build takes seconds) and
 binds the library with ``ctypes``.  ``build_library`` runs ``nvcc`` into
-``build/repro_torch/`` at the repository root, keyed on the hash of the
-source and flags; a failed build raises with nvcc's stderr.
+``build/repro_torch/`` at the repository root, keyed on the hash of every
+file under the source's ``csrc/`` and the flags, so a changed header or
+sibling source rebuilds; a failed build raises with nvcc's stderr.
 
 Nothing here touches CUDA or nvcc at import time: the CPU test suite imports
 this module on machines with neither.
@@ -46,7 +47,10 @@ def nvcc() -> str:
 def build_library(source: Path, flags: tuple, stem: str) -> tuple[Path, str, float]:
     """Compile ``source`` if needed -> (library path, nvcc log, seconds); the
     log and seconds are empty / 0 when the library was already built."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(flags).encode())
+    for f in sorted(p for p in source.parent.rglob("*") if p.is_file()):
+        h.update(f.relative_to(source.parent).as_posix().encode() + b"\0" + f.read_bytes())
+    digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"{stem}_{digest}.so"
     if lib.exists():
         return lib, "", 0.0

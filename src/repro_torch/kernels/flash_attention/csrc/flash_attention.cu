@@ -23,9 +23,10 @@
 // 8, H = 16, KV = 8, D = 128, bf16) each key row is dotted with only 2 x 8
 // query rows, so the work is ~0.27 GFLOP against ~50 MB moved: memory bytes
 // bound it (~15 us at 3.35 TB/s on the H100).  A long causal prefill (S =
-// 4096) is operation-bound instead; this first kernel does its arithmetic in
-// f32 FMAs outside the tensor cores and is far from that bound there
-// (wgmma / TMA tiles are later work).
+// 4096) is operation-bound instead, and far from that bound in this kernel's
+// f32 FMAs: ``kernel.route`` sends bf16 calls with >= 64 query rows and D 64
+// or 128 to the tensor-core kernel (flash_attention_tc.cu).  This one keeps
+// f32 (exact FMAs, no TF32), short query blocks and the other head dims.
 //
 // Design:
 //   * A team of 8 threads owns one query row.  Each thread holds D/8 of the

@@ -1,0 +1,529 @@
+// Flash attention forward on Hopper's tensor cores (sm_90a): wgmma + TMA.
+//
+// Replaces the reference's Pallas TPU kernel
+// src/repro/kernels/flash_attention/kernel.py:flash_attention_bhsd (body
+// _attn_kernel) for bf16 operands with at least 64 query rows and a head dim
+// of 64 or 128 (``kernel.route`` in kernel.py); flash_attention.cu keeps f32,
+// short query blocks (the cascade's 8 tokens) and other head dims.  It
+// computes the same function as that kernel:
+//
+//   s      = (q . k) * scale            scale = 1/sqrt(D)
+//   s      = softcap * tanh(s / softcap)                  (optional)
+//   mask   key j of query row i (at position q_pos) is live iff
+//            j < kv_len  and  (not causal or j <= q_pos)
+//                        and  (no window or j > q_pos - window)
+//   out    = sum_j softmax(s)_j v_j over the live keys, 0 for a row with none
+//
+// with q_pos = i, or kv_len - Sq + i when q_offset_from_kv_len.  kv_len is
+// read ON THE DEVICE from an int32[1] tensor (a null pointer means Skv).
+// q and o are [B, Sq, H, D], k and v [B, Skv, KV, D], contiguous bf16, read
+// and written in place; query head h reads kv head h / (H / KV).
+//
+// What bounds it: a long causal prefill (qwen3-1.7b: 8 x 2,048 queries, H 16,
+// KV 8, D 128) does 4 * D operations per live (query, key) pair and head
+// against 2 bytes per element moved once, so the bf16 tensor-core rate
+// bounds it (137.5 GFLOP: 0.139 ms at 989 TFLOP/s).  The design serves that:
+//
+//   * One block per (b, q head, tile of 128 query rows): two consumer
+//     warpgroups of 64 rows each and one producer warp (288 threads, one
+//     block an SM).  ptxas budgets registers by whole warpgroups, so the
+//     block gets 168 a thread (65,536 / 384); the kernel uses all 168 and
+//     spills none, which leaves no room for a second score tile in flight.
+//     Blocks are issued longest causal key range first.
+//   * The producer's one thread loads the Q tile once and K / V tiles of 128
+//     keys into a 2-stage ring by TMA (4-D maps over (D, heads, S, B) as the
+//     tensors lie, 128-byte swizzle, boxes of 64 columns x 128 rows, so keys
+//     past Skv and rows past Sq read as zeros and no box crosses a batch),
+//     completing on mbarriers; the consumers release a stage on its "empty"
+//     barrier once their products have read it.
+//   * S = Q K^T: wgmma m64n128k16, Q and K from shared memory (K-major,
+//     128-byte swizzle descriptors), f32 accumulators.  The online softmax
+//     runs in registers on the accumulator layout (each thread holds two
+//     rows, a row spread over four threads: two xor shuffles per reduction),
+//     with log2(e) folded into the scale and ex2.approx.  P is rounded to
+//     bf16 in registers, where the accumulator layout already is the A
+//     operand's, and O += P V runs as wgmma with A from registers and V read
+//     D-contiguous from shared memory through the transpose bit.
+//   * Each block derives its live key-tile range from kv_len, causal and
+//     window on the device: tiles outside it are never loaded (at a prefill
+//     into a larger cache the rows past kv_len are never read).  Element
+//     masks run only on boundary tiles (the diagonal, the window's edge, the
+//     kv_len edge).  Keys past kv_len inside the edge tile are read and
+//     weighted by 0, as in the TPU kernel and the plain twin.
+//   * m, l and O are f32; a row with no live key writes 0 (the TPU kernel's
+//     l == 0 rule).  Rounding P to bf16 before P V is what SDPA does too.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlockM = 128;        // query rows a block: two warpgroups of 64
+constexpr int kBlockN = 128;        // keys a K / V tile
+constexpr int kStages = 2;          // K / V ring depth
+constexpr int kConsumers = 256;     // two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;  // + the producer warp
+constexpr int kSwizzleBytes = 128;  // one row of a TMA box: 64 bf16 columns
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one block, as offsets from a 1024-byte aligned base.  A
+// tile of 128 rows x D is D / 64 "halves" of 128 rows x 128 bytes (one TMA
+// box each); 8 rows of a half form one 1024-byte swizzle atom.
+template <int D>
+struct Smem {
+  static constexpr int kHalfBytes = kBlockN * kSwizzleBytes;  // 16 KB
+  static constexpr int kTileBytes = kBlockN * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTileBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;  // Q, then full K, full V, empty
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;  // + alignment slack
+};
+static_assert(kBlockM == kBlockN, "the Q tile and a K / V tile share one size");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits for the phase of parity `parity` to complete.  A wait that lasts
+// kWatchdogNs traps (the launch then fails) instead of hanging the card.
+constexpr unsigned long long kWatchdogNs = 4000000000ull;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  unsigned long long t0, now;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
+  while (!mbar_try(bar, parity)) {
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (now - t0 > kWatchdogNs) __trap();
+  }
+}
+
+// One TMA box (64 columns x 128 rows) at (d0, head, row0, batch) into dst.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int d0, int head, int row0, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(head), "r"(row0), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units), layout type 1 in bits 62-63.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma's accumulators
+// across the asynchronous product (the asm above names no registers).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// m64nNk16 bf16 -> f32.  _ss: A and B by descriptor (both K-major);
+// _rs: A from registers, B by descriptor read MN-major (transpose bit).
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          __nv_bfloat16* __restrict__ o, const int* __restrict__ kv_len_ptr,
+                          int sq, int skv, int heads, int kv_heads, int causal, int window,
+                          int has_softcap, float softcap, float scale, int q_offset_from_kv_len,
+                          int q_tiles, int batch_heads) {
+  using S = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = raw + ((1024u - (raw & 1023u)) & 1023u);
+  const uint32_t s_q = base + S::kQ, s_k = base + S::kK, s_v = base + S::kV;
+  const uint32_t bar_q = base + S::kBar;
+  auto bar_k = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto bar_v = [&](int s) { return bar_q + 8u * (1 + kStages + s); };
+  auto bar_empty = [&](int s) { return bar_q + 8u * (1 + 2 * kStages + s); };
+
+  // block -> (query tile, b, h): every head's last tile first (longest causal range)
+  const int q_tile = q_tiles - 1 - (int)(blockIdx.x / batch_heads);
+  const int bh = (int)(blockIdx.x % batch_heads);
+  const int h = bh % heads, b = bh / heads;
+  const int kvh = h / (heads / kv_heads);
+  const int i0 = q_tile * kBlockM;
+
+  // the block's live key range [lo, hi) over its rows, on whole tiles
+  const int kvl = kv_len_ptr ? *kv_len_ptr : skv;
+  const int off = q_offset_from_kv_len ? kvl - sq : 0;
+  const int kv_end = min(kvl, skv);
+  int hi = kv_end;
+  if (causal) hi = min(hi, min(i0 + kBlockM, sq) - 1 + off + 1);
+  int lo = 0;
+  if (window >= 0) lo = max(0, i0 + off - window + 1);
+  const int t_hi = (hi + kBlockN - 1) / kBlockN;
+  const int n_tiles = hi > lo ? t_hi - lo / kBlockN : 0;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k(s), 1);
+      mbar_init(bar_v(s), 1);
+      mbar_init(bar_empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // ---------------------------- producer --
+    if (lane == 0 && n_tiles > 0) {
+      mbar_expect_tx(bar_q, S::kTileBytes);
+#pragma unroll
+      for (int hf = 0; hf < D / 64; ++hf)
+        tma_load(s_q + hf * S::kHalfBytes, &q_map, bar_q, hf * 64, h, i0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const uint32_t phase = (it / kStages) & 1;
+        const int j0 = (t_hi - 1 - it) * kBlockN;
+        mbar_wait(bar_empty(s), phase ^ 1);  // the first pass of each stage is free
+        mbar_expect_tx(bar_k(s), S::kTileBytes);
+#pragma unroll
+        for (int hf = 0; hf < D / 64; ++hf)
+          tma_load(s_k + s * S::kTileBytes + hf * S::kHalfBytes, &k_map, bar_k(s), hf * 64, kvh,
+                   j0, b);
+        mbar_expect_tx(bar_v(s), S::kTileBytes);
+#pragma unroll
+        for (int hf = 0; hf < D / 64; ++hf)
+          tma_load(s_v + s * S::kTileBytes + hf * S::kHalfBytes, &v_map, bar_v(s), hf * 64, kvh,
+                   j0, b);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers --
+  const int wg = warp / 4;  // rows [64 wg, 64 wg + 64) of the tile
+  const int row_a = (warp % 4) * 16 + lane / 4;  // this thread's rows: row_a and row_a + 8
+  const int ia = i0 + wg * 64 + row_a, ib = ia + 8;
+  const int pa = ia + off, pb = ib + off;
+  const int col0 = 2 * (lane % 4);
+  const int wg_first = i0 + wg * 64 + off;                       // least position of the
+  const int wg_last = min(i0 + wg * 64 + 63, sq - 1) + off;      // warpgroup's rows, and most
+  const float scale_log2 = scale * kLog2e;
+  const float cap_log2 = softcap * kLog2e, inv_cap = scale / softcap;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+  if (n_tiles > 0) mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const uint32_t phase = (it / kStages) & 1;
+    const int j0 = (t_hi - 1 - it) * kBlockN;
+
+    // S = Q K^T over D in steps of 16 (32 bytes inside a swizzle row, then the next half)
+    float sc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) sc[e] = 0.f;
+    mbar_wait(bar_k(s), phase);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t koff = (kk / 4) * S::kHalfBytes + (kk % 4) * 32;
+      wgmma_m64n128k16_ss(sc, smem_desc(s_q + wg * 64 * kSwizzleBytes + koff, 16, 1024),
+                          smem_desc(s_k + s * S::kTileBytes + koff, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // scores in log2 units; accumulator element e sits at row (e / 2) % 2 ? b : a,
+    // column 8 (e / 4) + col0 + e % 2
+    if (has_softcap) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) sc[e] = cap_log2 * tanhf(sc[e] * inv_cap);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) sc[e] *= scale_log2;
+    }
+    const bool boundary = j0 + kBlockN > kv_end || (causal && j0 + kBlockN - 1 > wg_first) ||
+                          (window >= 0 && j0 <= wg_last - window);
+    if (boundary) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        const int key = j0 + 8 * (e / 4) + col0 + (e % 2);
+        const int p = (e / 2) % 2 ? pb : pa;
+        const bool live = key < kv_end && (!causal || key <= p) && (window < 0 || key > p - window);
+        if (!live) sc[e] = -INFINITY;
+      }
+    }
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {
+      if ((e / 2) % 2) mx_b = fmaxf(mx_b, sc[e]);
+      else mx_a = fmaxf(mx_a, sc[e]);
+    }
+#pragma unroll
+    for (int sh = 1; sh < 4; sh <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, sh));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, sh));
+    }
+    const float new_a = fmaxf(m_a, mx_a), new_b = fmaxf(m_b, mx_b);
+    // a row with no live key yet keeps m = -inf and subtracts 0: its p and corr are 0
+    const float use_a = new_a == -INFINITY ? 0.f : new_a;
+    const float use_b = new_b == -INFINITY ? 0.f : new_b;
+    const float corr_a = ex2(m_a - use_a), corr_b = ex2(m_b - use_b);
+    m_a = new_a;
+    m_b = new_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {
+      if ((e / 2) % 2) {
+        sc[e] = ex2(sc[e] - use_b);
+        sum_b += sc[e];
+      } else {
+        sc[e] = ex2(sc[e] - use_a);
+        sum_a += sc[e];
+      }
+    }
+    l_a = l_a * corr_a + sum_a;  // this thread's columns; summed over the row at the end
+    l_b = l_b * corr_b + sum_b;
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] *= (e / 2) % 2 ? corr_b : corr_a;
+
+    // P in bf16: accumulator columns [16 kk, 16 kk + 16) are the A fragment of key step kk
+    uint32_t pf[kBlockN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pf[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    }
+
+    // O += P V over the tile's keys in steps of 16 (two 8-row swizzle atoms)
+    mbar_wait(bar_v(s), phase);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      const uint64_t desc_v =
+          smem_desc(s_v + s * S::kTileBytes + kk * 16 * kSwizzleBytes, S::kHalfBytes, 1024);
+      if constexpr (D == 128) wgmma_m64n128k16_rs(acc, pf[kk], desc_v, 1);
+      else wgmma_m64n64k16_rs(acc, pf[kk], desc_v, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(bar_empty(s));
+  }
+
+#pragma unroll
+  for (int sh = 1; sh < 4; sh <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, sh);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, sh);
+  }
+  const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
+  const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+  __nv_bfloat16* o_a = o + (((long long)b * sq + ia) * heads + h) * D + col0;
+  __nv_bfloat16* o_b = o_a + 8LL * heads * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (ia < sq)
+      *reinterpret_cast<__nv_bfloat162*>(o_a + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
+    if (ib < sq)
+      *reinterpret_cast<__nv_bfloat162*>(o_b + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (D, heads, rows, B) over a contiguous [B, rows, heads, D] bf16
+// tensor, boxes of 64 x 1 x 128 x 1 with 128-byte swizzle; reads outside the
+// tensor fill zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows, int nheads, int d) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)nheads, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)nheads * d * 2,
+                                 (cuuint64_t)rows * nheads * d * 2};
+  const cuuint32_t box[4] = {kSwizzleBytes / 2, 1, kBlockN, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o,
+                   const void* kv_len, int batch, int sq, int skv, int heads, int kv_heads,
+                   int causal, int window, int has_softcap, float softcap, float scale,
+                   int q_offset_from_kv_len, cudaStream_t stream) {
+  const int bytes = Smem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int q_tiles = (sq + kBlockM - 1) / kBlockM;
+  const unsigned blocks = (unsigned)((long long)q_tiles * batch * heads);
+  flash_attention_tc_kernel<D><<<blocks, kThreads, bytes, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<const int*>(kv_len), sq, skv,
+      heads, kv_heads, causal, window, has_softcap, softcap, scale, q_offset_from_kv_len, q_tiles,
+      batch * heads);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Returns 0 on success, else a cudaError_t (cudaErrorInvalidValue when the
+// tensor maps cannot be made or D is not 64 or 128).  The wrapper (kernel.py)
+// has checked devices, dtypes (bf16), shapes, contiguity, 16-byte alignment
+// and the route (D 64 or 128, Sq >= 64).
+extern "C" int flash_attention_tc_fwd(const void* q, const void* k, const void* v, void* o,
+                                      const void* kv_len, int batch, int sq, int skv, int heads,
+                                      int kv_heads, int d, int causal, int window,
+                                      int has_softcap, float softcap, float scale,
+                                      int q_offset_from_kv_len, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((long long)batch * sq * heads == 0) return 0;
+  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
+  if (skv == 0)  // no key at all: every row writes 0
+    return (int)cudaMemsetAsync(o, 0, (size_t)batch * sq * heads * d * 2, s);
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, q, batch, sq, heads, d) || !make_map(&km, k, batch, skv, kv_heads, d) ||
+      !make_map(&vm, v, batch, skv, kv_heads, d))
+    return (int)cudaErrorInvalidValue;
+  if (d == 128)
+    return (int)launch<128>(qm, km, vm, o, kv_len, batch, sq, skv, heads, kv_heads, causal,
+                            window, has_softcap, softcap, scale, q_offset_from_kv_len, s);
+  return (int)launch<64>(qm, km, vm, o, kv_len, batch, sq, skv, heads, kv_heads, causal, window,
+                         has_softcap, softcap, scale, q_offset_from_kv_len, s);
+}

@@ -1,9 +1,12 @@
-"""Build and bind the hand-written CUDA flash-attention kernel.
+"""Build and bind the two hand-written CUDA flash-attention kernels.
 
-``csrc/flash_attention.cu`` exposes one ``extern "C"`` launcher (templated
-inside on f32 / bf16 and on the per-thread head-dim slice).  It is compiled
-with ``nvcc`` for ``sm_90a`` into a shared library at first use
-(``kernels/build.py``) and loaded with ``ctypes``.
+``csrc/flash_attention.cu`` ("simt": f32 FMAs, 8 threads a query row,
+templated on f32 / bf16 and on the per-thread head-dim slice) and
+``csrc/flash_attention_tc.cu`` ("tc": Hopper tensor cores, wgmma and TMA,
+bf16 with D 64 or 128) each expose one ``extern "C"`` launcher.  Each is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library of its own at
+first use (``kernels/build.py``) and loaded with ``ctypes``.  ``route``
+picks the kernel from the dtype and shape alone: it is not a fallback.
 
 Nothing here touches CUDA or nvcc at import time: the CPU test suite imports
 this module on machines with neither.
@@ -22,25 +25,51 @@ import torch
 from repro_torch.kernels.build import BASE_FLAGS, build_library, check_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+SOURCE_TC = Path(__file__).resolve().parent / "csrc" / "flash_attention_tc.cu"
 MAX_HEAD_DIM = 256
+TC_HEAD_DIMS = (64, 128)  # the tensor-core kernel's head dims
+TC_MIN_SQ = 64  # one consumer warpgroup's rows: shorter query blocks stay on "simt"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
 
+def route(dtype: torch.dtype, sq: int, d: int) -> str:
+    """The kernel for a call: "tc" (tensor cores) for bf16 with at least
+    ``TC_MIN_SQ`` query rows and D in ``TC_HEAD_DIMS``, else "simt"."""
+    if dtype == torch.bfloat16 and sq >= TC_MIN_SQ and d in TC_HEAD_DIMS:
+        return "tc"
+    return "simt"
+
+
 def build() -> tuple[Path, str, float]:
-    """Compile the kernel if needed -> (library path, nvcc log, seconds)."""
+    """Compile the simt kernel if needed -> (library path, nvcc log, seconds)."""
     return build_library(SOURCE, BASE_FLAGS, "flash_attention")
+
+
+def build_tc() -> tuple[Path, str, float]:
+    """Compile the tensor-core kernel if needed -> (library path, nvcc log, seconds)."""
+    return build_library(SOURCE_TC, BASE_FLAGS, "flash_attention_tc")
 
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded simt kernel library (built on first use)."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     lib.flash_attention_fwd.argtypes = [_P] * 5 + [_I] * 9 + [_F, _F, _I, _I, _P]
     lib.flash_attention_fwd.restype = _I
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library_tc() -> ctypes.CDLL:
+    """The loaded tensor-core kernel library (built on first use)."""
+    path, _, _ = build_tc()
+    lib = ctypes.CDLL(str(path))
+    lib.flash_attention_tc_fwd.argtypes = [_P] * 5 + [_I] * 9 + [_F, _F, _I, _P]
+    lib.flash_attention_tc_fwd.restype = _I
     return lib
 
 
@@ -55,18 +84,25 @@ def launch(
     window: Optional[int],
     softcap: Optional[float],
     q_offset_from_kv_len: bool,
+    kind: str,
 ) -> None:
-    """Launch the kernel on the current stream (the caller validated operands)."""
+    """Launch the ``kind`` kernel ("simt" or "tc", see ``route``) on the
+    current stream (the caller validated operands)."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    err = library().flash_attention_fwd(
+    args = [
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if kv_len is None else kv_len.data_ptr(),
         b, sq, skv, h, kvh, d,
         int(causal), -1 if window is None else int(window),
         int(softcap is not None), 0.0 if softcap is None else float(softcap),
         1.0 / math.sqrt(d), int(q_offset_from_kv_len),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check_launch(err, "flash_attention")
+    ]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if kind == "tc":
+        err = library_tc().flash_attention_tc_fwd(*args, stream)
+    elif kind == "simt":
+        err = library().flash_attention_fwd(*args, int(q.dtype == torch.bfloat16), stream)
+    else:
+        raise ValueError(f"no flash-attention kernel {kind!r}: 'tc' or 'simt'")
+    check_launch(err, f"flash_attention ({kind})")

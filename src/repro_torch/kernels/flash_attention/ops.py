@@ -3,13 +3,15 @@
 ``flash_attention`` keeps the reference's signature
 (``repro/kernels/flash_attention/ops.py``).  It routes by the device of its
 tensors: on the CPU it runs the plain PyTorch twin (``ref.py``); on a CUDA
-tensor it launches the hand-written kernel or raises — it never falls back
-and reads no environment switch.  The kernel reads the [B, S, H, D] layout
-in place, so the card path makes no transposed copies.
+tensor it launches the hand-written kernel that ``kernel.route`` names from
+the dtype and shape ("tc": the tensor-core kernel for bf16 prefills; "simt"
+otherwise) or raises — it never falls back, to the other kernel or to the
+twin, and reads no environment switch.  Both kernels read the [B, S, H, D]
+layout in place, so the card path makes no transposed copies.
 
-``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-path calls, so
-a run can show that its main path went through the kernel
-(``reset_counts`` zeroes both).
+``LAUNCHES`` counts kernel launches, ``ROUTES`` them by kernel and
+``PLAIN_CALLS`` plain-path calls, so a run can show that its main path went
+through the kernel it should (``reset_counts`` zeroes all three).
 """
 
 from __future__ import annotations
@@ -23,12 +25,15 @@ from repro_torch.kernels.flash_attention import kernel, ref
 KERNEL = "flash_attention"
 LAUNCHES = {KERNEL: 0}
 PLAIN_CALLS = {KERNEL: 0}
+ROUTES = {"tc": 0, "simt": 0}
 DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_counts() -> None:
     LAUNCHES[KERNEL] = 0
     PLAIN_CALLS[KERNEL] = 0
+    for r in ROUTES:
+        ROUTES[r] = 0
 
 
 def plain_bshd(q, k, v, kv_len, *, causal, window, logit_softcap, q_offset_from_kv_len):
@@ -102,7 +107,9 @@ def flash_attention(
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     out = torch.empty_like(q)
+    kind = kernel.route(q.dtype, q.shape[1], d)
     kernel.launch(q, k, v, kv_len, out, causal=causal, window=window,
-                  softcap=logit_softcap, q_offset_from_kv_len=q_offset_from_kv_len)
+                  softcap=logit_softcap, q_offset_from_kv_len=q_offset_from_kv_len, kind=kind)
     LAUNCHES[KERNEL] += 1
+    ROUTES[kind] += 1
     return out

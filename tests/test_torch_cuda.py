@@ -9,9 +9,12 @@ Each ``enrich_score`` kernel is held BITWISE against its plain PyTorch
 version on the same card tensors — all four outputs — because both round
 every f32 op on its own (the kernels are built with ``--fmad=false``); the
 single-query kernel also drives a small operator run on the card.  The
-flash-attention kernel is held against its plain twin within the reference
-tests' tolerances (2e-5 f32, 2e-2 bf16: the online softmax sums in another
-order), and a small model-cascade session serves through it on the card.
+flash-attention kernels — "simt" and the tensor-core "tc" kernel that
+``kernel.route`` picks for bf16 with >= 64 query rows and D 64 or 128 — are
+held against their plain twin within the reference tests' tolerances (2e-5
+f32, 2e-2 bf16: the online softmax sums in another order, and the tc kernel
+rounds P to bf16 before P.V), each call counted on its route, and a small
+model-cascade session serves through the simt kernel on the card.
 The SSD intra-chunk kernel is held against its plain twin within 1e-4 (f32
 products summed over the chunk and the state in another order, the cumsum
 scanned in another order) on ragged chunks, strided model-layout operands
@@ -35,6 +38,7 @@ from repro_torch.data.synthetic import make_corpus
 from repro_torch.kernels.enrich_score import ops, ref
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
@@ -235,13 +239,63 @@ def test_flash_kernel_matches_plain_twin(cuda_device, case, dtype, tol):
     q, k, v = _fa_inputs(cuda_device, dtype, sq * skv + d, b, sq, skv, h, kv, d)
     kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
     kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=q_off)
-    before = fa_ops.LAUNCHES["flash_attention"]
+    route = fa_kernel.route(dtype, sq, d)
+    before, routed = fa_ops.LAUNCHES["flash_attention"], fa_ops.ROUTES[route]
     out = fa_ops.flash_attention(q, k, v, kl, **kw)
     torch.cuda.synchronize()
     assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+    assert fa_ops.ROUTES[route] == routed + 1
     want = fa_ops.plain_bshd(q, k, v, kl, **kw)
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+# bf16 cases the tensor-core kernel takes (Sq >= 64, D 64 or 128); same columns
+FA_TC_CASES = [
+    (1, 64, 64, 2, 1, 128, False, None, None, None, False),  # Sq 64, GQA 2
+    (1, 128, 128, 4, 1, 64, True, None, None, None, False),  # D 64, GQA 4, causal
+    (2, 200, 333, 4, 2, 128, True, 100, 30.0, 300, True),  # ragged; window, softcap, kv_len
+    (1, 128, 512, 4, 2, 128, True, None, None, 200, True),  # key tiles 2-3 past kv_len
+    (1, 200, 256, 2, 1, 64, True, None, None, 100, True),  # rows 0-99 have no live key
+    (2, 128, 300, 4, 2, 128, False, 64, None, None, True),  # window without causal
+    (1, 64, 1024, 2, 2, 64, True, 200, 20.0, None, True),  # window + softcap, long cache
+    (2, 200, 150, 4, 4, 128, False, None, 50.0, None, False),  # Sq > Skv, softcap
+    (3, 384, 384, 16, 4, 128, False, None, None, None, False),  # 144 blocks: the grid wraps
+    (2, 512, 512, 8, 4, 128, True, None, None, None, False),  # 64 causal blocks, 4 tiles
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_TC_CASES)
+def test_flash_tc_kernel_matches_plain_twin(cuda_device, case):
+    b, sq, skv, h, kv, d, causal, window, cap, kv_len, q_off = case
+    assert fa_kernel.route(torch.bfloat16, sq, d) == "tc"
+    q, k, v = _fa_inputs(cuda_device, torch.bfloat16, sq * skv + d, b, sq, skv, h, kv, d)
+    kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=q_off)
+    fa_ops.reset_counts()
+    out = fa_ops.flash_attention(q, k, v, kl, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.ROUTES == {"tc": 1, "simt": 0} and fa_ops.LAUNCHES["flash_attention"] == 1
+    want = fa_ops.plain_bshd(q, k, v, kl, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,sq,d", [(torch.float32, 128, 128), (torch.float32, 200, 64),
+                                        (torch.bfloat16, 8, 128), (torch.bfloat16, 63, 64),
+                                        (torch.bfloat16, 128, 32), (torch.bfloat16, 128, 256)])
+def test_flash_f32_short_blocks_and_other_head_dims_take_simt(cuda_device, dtype, sq, d):
+    q, k, v = _fa_inputs(cuda_device, dtype, sq + d, 2, sq, sq, 4, 2, d)
+    fa_ops.reset_counts()
+    out = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.ROUTES == {"tc": 0, "simt": 1}
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), fa_ops.plain_bshd(
+        q, k, v, None, causal=True, window=None, logit_softcap=None,
+        q_offset_from_kv_len=False).float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
@@ -275,6 +329,7 @@ def test_cuda_cascade_session_runs_the_trunk_through_the_kernel(cuda_device):
     assert report.epochs == 16 and trunk_epochs > 0
     # the reduced trunk has 2 layers: one flash launch per layer per trunk epoch
     assert fa_ops.LAUNCHES["flash_attention"] == 2 * trunk_epochs
+    assert fa_ops.ROUTES == {"tc": 0, "simt": 2 * trunk_epochs}  # 8 tokens a lane: simt
     assert ops.LAUNCHES["enrich_score_best"] == 16
     assert not fa_ops.PLAIN_CALLS["flash_attention"] and not any(ops.PLAIN_CALLS.values())
     probs = report.state.substrate.func_probs

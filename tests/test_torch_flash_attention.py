@@ -19,7 +19,7 @@ import torch
 from repro.kernels.flash_attention import ops as j_ops
 from repro.kernels.flash_attention import ref as j_ref
 from repro_torch import interop
-from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.kernels.flash_attention import kernel, ops, ref
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 # b, sq, skv, h, kv, d, causal, window, softcap, dtype
@@ -116,3 +116,26 @@ def test_ops_refuses_mixed_devices_dtypes_and_shapes():
         ops.flash_attention(q, k.to("meta"), v)
     with pytest.raises(TypeError, match="int32"):
         ops.flash_attention(q, k, v, torch.tensor([8]))
+
+
+@pytest.mark.parametrize("dtype,sq,d,want", [
+    (torch.bfloat16, 2048, 128, "tc"),  # the qwen3-1.7b prefill
+    (torch.bfloat16, 64, 64, "tc"),
+    (torch.bfloat16, 200, 128, "tc"),
+    (torch.bfloat16, 8, 128, "simt"),  # the cascade's 8 tokens a lane
+    (torch.bfloat16, 63, 128, "simt"),
+    (torch.bfloat16, 4096, 32, "simt"),  # head dims the tc kernel does not take
+    (torch.bfloat16, 4096, 96, "simt"),
+    (torch.bfloat16, 4096, 256, "simt"),
+    (torch.float32, 4096, 128, "simt"),  # f32 keeps exact FMAs: no TF32
+    (torch.float16, 4096, 128, "simt"),
+])
+def test_route_picks_the_kernel_from_dtype_and_shape(dtype, sq, d, want):
+    assert kernel.route(dtype, sq, d) == want
+
+
+def test_cpu_calls_count_no_route():
+    q, k, v = _inputs(3, 1, 64, 64, 4, 2, 64, "bfloat16")
+    ops.reset_counts()
+    ops.flash_attention(*(interop.to_torch(x) for x in (q, k, v)))
+    assert ops.ROUTES == {"tc": 0, "simt": 0} and ops.PLAIN_CALLS["flash_attention"] == 1
