@@ -15,15 +15,22 @@ in order; any failure raises and the script exits non-zero:
    kernel at the operator's shape (N = 1<<20 objects, P = 2, F = 4, the
    quickstart's learned table and an edge-bin fixture, ~30% of objects no
    candidates) — ``next_fn``, ``cost``, ``benefit`` and ``est_joint`` must be
-   bitwise equal — and their times (CUDA events around runs of 10 calls,
-   median of 25 runs after warm-up) beside the bound; the flash kernel
-   (``FA_CASES``); the decode kernel's partials at qwen3-1.7b decode (B 8,
-   H 16, KV 8, D 128, kv_len 2048 of a 4096 cache, bf16 and f32, and a
-   window + softcap case) within 2e-5 of its twin, with SDPA over the live keys as the yardstick; and the
-   SSD intra-chunk kernel at the mamba2-370m prefill shape (B 2, S 4096,
-   H 32, P 64, N 128, chunk 256, bf16) and the cascade's (512 lanes x 8
-   tokens, with and without the final state), every output within 1e-4 of
-   its largest magnitude.  The flash cases run both of its kernels, as
+   bitwise equal — and their times (CUDA events around runs of 10 calls
+   enqueued behind a device sleep, so that host launch overhead does not
+   pace them; median of 25 runs after warm-up) beside the bound; the flash kernel
+   (``FA_CASES``); the decode kernels at qwen3-1.7b decode (B 8, H 16, KV 8,
+   D 128, kv_len 2048 of a 4096 cache, bf16 and f32, and a window +
+   softcap case): the fused kernel (the model's route: splits over the
+   live keys, the combine through a cluster, one launch) within 2e-5 of
+   its twin in f32 and 2e-2 of the oracle in bf16, the partials kernel
+   (splits over the cache length) within 2e-5 of its twin, each timed
+   beside its own bound, with SDPA over the live keys as the yardstick;
+   and the SSD intra-chunk kernels at the mamba2-370m prefill shape (B 2,
+   S 4096, H 32, P 64, N 128, chunk 256, bf16: the "tc" route, and the
+   "simt" kernel on the same inputs, uncounted) and the cascade's (512
+   lanes x 8 tokens, with and without the final state: the "packed"
+   route), every output within 1e-4 of its largest magnitude.  The flash
+   cases run both of its kernels, as
    ``kernel.route`` picks them: "simt" (f32, and the cascade's 8-token
    blocks) and "tc" (the tensor-core kernel: bf16 with >= 64 query rows and
    D 64 or 128), each within its tolerance of the twin; the cascade shape,
@@ -49,7 +56,11 @@ in order; any failure raises and the script exits non-zero:
    (default scoring) — plans and answer sets equal epoch by epoch, spend
    within rtol 1e-5; and the reduced f32 qwen3 and mamba2 models: prefill
    of 96 tokens x 4 and 8 greedy decode steps on the CPU and the card,
-   logits within 1e-3 and greedy tokens equal;
+   logits within 1e-3 and greedy tokens equal; then the reduced bf16
+   qwen3 (head_dim 128, GQA 2 / 1, 96-token prefill) and mamba2 (chunk 256,
+   512-token prefill) models, whose widths take the bf16 routes (flash
+   "tc", the fused decode, SSD "tc": asserted), the card fed the CPU's
+   greedy tokens, logits within 2x the CPU bf16 run's distance from f32;
 4. the main path at full size: the session server (``repro_torch.launch.
    serve``: 524,288 rows growing to 1,048,576, 8 tenant slots, bf16
    substrate, best-mode scoring) serves
@@ -69,8 +80,9 @@ in order; any failure raises and the script exits non-zero:
    launch 28 times per epoch that ran the trunk (at least 4 such epochs),
    the plain twins never; chunk programs within the bound, invoices fold
    bit for bit, every epoch charges, probabilities finite and in [0, 1];
-   every flash launch goes by the "simt" route; then the same with the 48-layer mamba2-370m trunk (d_model 1024): the
-   SSD kernel launches 48 times per trunk epoch, the flash kernel never;
+   every flash launch goes by the "simt" route; then the same with the
+   48-layer mamba2-370m trunk (d_model 1024): the SSD kernel launches 48
+   times per trunk epoch, all by the "packed" route, the flash kernel never;
 6. the operator main path at full size: the quickstart query and corpus at
    N = 1,048,576 (+1,024 rows to train on), ``OperatorConfig()`` defaults
    (plan size 256, table mode, exact answers), the ``preprocess_cheapest``
@@ -83,14 +95,21 @@ in order; any failure raises and the script exits non-zero:
    and ``--queries 4`` (best mode: the best-mode kernel launches); both
    return 0; then ``Model.prefill`` + 32 greedy ``decode_step``s at full
    width: qwen3-1.7b over 2,048 tokens x 8 (28 flash launches in the
-   prefill, all by the "tc" route; 28 decode launches a step) and mamba2-370m over 4,096 tokens x
-   2 (48 SSD launches in the prefill; decode runs ``ssd_step``), with ms
-   per prefill and per step and peak memory;
-8. one JSON line of per-kernel numbers (the flash kernel's two routes as
-   ``flash_attention`` and ``flash_attention_tc``; the first also carries
-   the prefill shape's ``prefill_ms``, ``prefill_bound_ms``,
-   ``prefill_library_ms`` and the main paths' ``routes``), the
-   ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
+   prefill, all by the "tc" route; 28 fused decode launches a step and no
+   partials kernel) and mamba2-370m over 4,096 tokens x 2 (48 SSD launches
+   in the prefill, all by the "tc" route; decode runs ``ssd_step``), with
+   ms per prefill and per step and peak memory;
+8. one JSON line of per-kernel numbers, one entry per kernel: the flash
+   kernel's two routes as ``flash_attention`` and ``flash_attention_tc``
+   (the first also carries the prefill shape's ``prefill_ms``,
+   ``prefill_bound_ms``, ``prefill_library_ms`` and the main paths'
+   ``routes``), ``decode_attention_fused`` and ``decode_attention_partials``
+   (on no main path: its launches are 0), ``ssd_intra_chunk_tc`` and
+   ``ssd_intra_chunk`` (the simt and packed kernels of ``ssd_scan.cu``, its
+   numbers the packed kernel's at the cascade shape, with the simt
+   kernel's ``prefill_simt_ms`` and the ``routes``); every other kernel
+   must have launched on a main path; the ``nvidia-smi`` line, and the
+   final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -130,7 +149,10 @@ SOURCES = {
     "flash_attention_tc": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu",
     "decode_attention_partials":
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+    "decode_attention_fused":
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention_fused.cu",
     "ssd_intra_chunk": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+    "ssd_intra_chunk_tc": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_tc.cu",
 }
 REPLACES = {
     "enrich_score_table": "src/repro/kernels/enrich_score/kernel.py:318",
@@ -139,8 +161,22 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:122",
     "flash_attention_tc": "src/repro/kernels/flash_attention/kernel.py:122",
     "decode_attention_partials": "src/repro/kernels/decode_attention/kernel.py:65",
+    "decode_attention_fused": "src/repro/kernels/decode_attention/kernel.py:65",
     "ssd_intra_chunk": "src/repro/kernels/ssd_scan/kernel.py:72",
+    "ssd_intra_chunk_tc": "src/repro/kernels/ssd_scan/kernel.py:72",
 }
+# the launch counters each JSON entry sums over the main-path runs: the
+# flash, SSD and decode wrappers count per route / kernel
+COUNTED = {
+    "flash_attention": ("flash_attention/simt",),
+    "flash_attention_tc": ("flash_attention/tc",),
+    "ssd_intra_chunk": ("ssd_intra_chunk/simt", "ssd_intra_chunk/packed"),
+    "ssd_intra_chunk_tc": ("ssd_intra_chunk/tc",),
+}
+# listed with their launches but on no main path: the partials route keeps
+# the reference's signature (splits over the cache length) for callers of it;
+# the model's decode runs the fused kernel
+OFF_PATH = {"decode_attention_partials"}
 # the mamba2-370m prefill (B 2, S 4096, chunk 256) and the cascade backbone's
 # 512 lanes x 8 tokens; H 32, P 64, N 128, bf16 x / B / C.  The cascade runs
 # without a final state (its last chunk's state is neither computed nor
@@ -160,6 +196,13 @@ DA_TOL = 2e-5  # partials (m, l, acc): f32 sums in another order
 # the model serve paths at full width: (arch, batch, prompt, decode steps, cache)
 SERVE_PATHS = [("qwen3-1.7b", 8, 2048, 32, 4096), ("mamba2-370m", 2, 4096, 32, 4128)]
 SERVE_LOGIT_TOL = 1e-3  # reduced f32 models, CPU vs card: matmul sums in another order
+# the reduced bf16 models (configs/archs.py bf16_check): prompt, decode steps, batch
+BF16_CHECK = {"qwen3-1.7b": (96, 8, 2), "mamba2-370m": (512, 8, 2)}
+# card vs CPU, both bf16: at most this many times the CPU bf16 run's distance
+# from an f32 run of the same weights (bf16 rounds each activation to 2^-9
+# relative, and the card and the CPU round at other places: two bf16 runs lie
+# about sqrt(2) times one run's error apart, and under 2x it)
+BF16_LOGIT_FACTOR = 2.0
 # b, sq, skv, h, kv, d, causal, window, softcap, dtype, kv_len, q_offset_from_kv_len
 BACKBONE_FA = (512, 8, 8, 16, 8, 128, False, None, None, "bfloat16", None, True)
 LONG_FA = (1, 4096, 4096, 16, 8, 128, True, None, None, "bfloat16", None, False)
@@ -190,11 +233,17 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+SLEEP_CYCLES = 10_000_000  # ~5.7 ms of device time at 1.755 GHz
+
+
 def _time_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 10) -> float:
     """Median over ``reps`` CUDA-event timings of a run of ``inner`` calls of
-    ``fn``, per call, after warm-up.  One call between two events would time
-    the host's launch overhead (tens of microseconds a call) for a kernel
-    shorter than that."""
+    ``fn``, per call, after warm-up.  Each run is enqueued behind a device
+    sleep (``torch.cuda._sleep``) that outlasts the host's launches, so the
+    calls run back to back on the card and a kernel shorter than its
+    wrapper's host overhead (tens of microseconds a call from Python) is
+    timed as the card runs it.  A call that synchronises (a plain twin that
+    reads a device scalar) is timed with its host gaps, as it runs."""
     import torch
 
     for _ in range(warmup):
@@ -203,6 +252,7 @@ def _time_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 10) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         for _ in range(inner):
             fn()
@@ -210,6 +260,21 @@ def _time_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def _host_ms(fn, calls: int = 200) -> float:
+    """Per call, host clock around ``calls`` calls and one synchronise: what
+    a caller that issues one call after another pays, launch overhead and
+    all."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
 
 
 def _bound(mode: str, prob_bytes: int, c: int, p: int, f: int, q: int, table_bytes: int):
@@ -240,11 +305,11 @@ def phase_build():
 
     t0 = time.perf_counter()
     builds = (es_kernel.build, fa_kernel.build, fa_kernel.build_tc, da_kernel.build,
-              ssd_kernel.build)
+              da_kernel.build_fused, ssd_kernel.build, ssd_kernel.build_tc)
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, all at once
         built = [f.result() for f in [pool.submit(b) for b in builds]]
     for load in (es_kernel.library, fa_kernel.library, fa_kernel.library_tc, da_kernel.library,
-                 ssd_kernel.library):
+                 da_kernel.library_fused, ssd_kernel.library, ssd_kernel.library_tc):
         load()
     for path, log, nvcc_s in built:
         print(f"[build] {path.name}: nvcc {nvcc_s:.2f} s", flush=True)
@@ -253,7 +318,7 @@ def phase_build():
             if "Compiling entry function" in line:
                 name = line.split("'")[1] if "'" in line else line.strip()
             elif ("spill stores" in line or "Used" in line or "warning" in line
-                  or "wgmma" in line):
+                  or "wgmma" in line or "error" in line):
                 print(f"[build] ptxas {name}: {line.split(' : ')[-1].strip()}", flush=True)
     print(f"[build] all kernels ready in {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -924,7 +989,8 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     report = serve.serve_session_trace(session, state, serve.parse_trace(CASCADE_TRACE),
                                        preds=preds, chunk_size=1, on_chunk=on_chunk)
     launches = {**es_ops.LAUNCHES, **fa_ops.LAUNCHES, **ssd_ops.LAUNCHES,
-                **{f"flash_attention/{r}": n for r, n in fa_ops.ROUTES.items()}}
+                **{f"flash_attention/{r}": n for r, n in fa_ops.ROUTES.items()},
+                **{f"ssd_intra_chunk/{r}": n for r, n in ssd_ops.ROUTES.items()}}
     plain = {**es_ops.PLAIN_CALLS, **fa_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
     peak = torch.cuda.max_memory_allocated()
     trunk_epochs = bank.trunk_runs - trunk0
@@ -935,8 +1001,10 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     assert launches[kernel_name] == cfg.num_layers * trunk_epochs, (launches, trunk_epochs)
     other = {"flash_attention", "ssd_intra_chunk"} - {kernel_name}
     assert not any(launches[k] for k in other), launches
-    # the cascade's 8-token blocks take the simt kernel, never the tensor-core one
+    # the cascade's 8-token blocks take the simt flash kernel and the packed SSD kernel
     assert fa_ops.ROUTES == {"tc": 0, "simt": launches["flash_attention"]}, fa_ops.ROUTES
+    assert ssd_ops.ROUTES == {"tc": 0, "simt": 0, "packed": launches["ssd_intra_chunk"]}, (
+        ssd_ops.ROUTES)
     assert launches["enrich_score_best"] == report.epochs and not launches["enrich_score_table"]
     assert not any(plain.values()), f"plain path ran on the cascade main path: {plain}"
     assert bank.bank_syncs - syncs0 == report.epochs  # the one host read per epoch
@@ -1000,16 +1068,37 @@ def _ssd_bound(b, s, chunk, final_state) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"), nbytes
 
 
-def phase_ssd() -> dict:
-    """Kernel 6 against its plain twin at the mamba2 prefill and cascade shapes."""
+def _ssd_hold(name, got, want, result) -> str:
+    """Every output within SSD_TOL of its largest magnitude -> a summary."""
+    errs = []
+    for label, g, w in zip(("y_intra", "s_contrib", "cumexp"), got, want):
+        assert g.shape == w.shape, (label, g.shape, w.shape)
+        if not w.numel():
+            continue
+        err = (g - w).abs().max().item()
+        scale = w.abs().max().item()
+        if not err <= SSD_TOL * max(scale, 1.0):
+            raise AssertionError(f"{name}: {label} differs from the plain twin by {err} (scale "
+                                 f"{scale}, tol {SSD_TOL} x scale)")
+        errs.append(f"{label} {err:.3g} of {scale:.3g}")
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+    return "; ".join(errs)
+
+
+def phase_ssd() -> tuple:
+    """Kernel 6 against its plain twin at the mamba2 prefill (the "tc" route,
+    and the "simt" kernel on the same inputs, uncounted) and the cascade
+    shapes (the "packed" route) -> (ssd_scan.cu results, tc results)."""
     import torch
 
-    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.kernels.ssd_scan import kernel, ops, ref
 
     dev = torch.device("cuda")
-    result = {"max_abs_err": 0.0}
+    results = {"ssd_intra_chunk": {"max_abs_err": 0.0}, "ssd_intra_chunk_tc": {"max_abs_err": 0.0}}
     for b, s, chunk, final in SSD_CASES:
         args = _ssd_inputs(b, s, dev, seed=s)
+        route = kernel.route(args[0].dtype, chunk, SSD_P, SSD_N)
+        name = "ssd_intra_chunk_tc" if route == "tc" else "ssd_intra_chunk"
 
         def kernel_call():
             return ops.intra_chunk(*args, chunk=chunk, final_state=final)
@@ -1017,44 +1106,56 @@ def phase_ssd() -> dict:
         def plain_call():
             return ref.intra_chunk_bshp(*args, chunk=chunk, final_state=final)
 
+        before = ops.ROUTES[route]
         got, want = kernel_call(), plain_call()
         torch.cuda.synchronize()
-        errs = []
-        for name, g, w in zip(("y_intra", "s_contrib", "cumexp"), got, want):
-            assert g.shape == w.shape, (name, g.shape, w.shape)
-            if not w.numel():
-                continue
-            err = (g - w).abs().max().item()
-            scale = w.abs().max().item()
-            if not err <= SSD_TOL * max(scale, 1.0):
-                raise AssertionError(f"ssd_intra_chunk B={b} S={s}: {name} differs from the "
-                                     f"plain twin by {err} (scale {scale}, tol {SSD_TOL} x scale)")
-            errs.append(f"{name} {err:.3g} of {scale:.3g}")
-            result["max_abs_err"] = max(result["max_abs_err"], err)
+        assert ops.ROUTES[route] == before + 1, (route, ops.ROUTES)
+        label = (f"B={b} S={s} H={SSD_H} P={SSD_P} N={SSD_N} chunk={chunk} bf16, final state "
+                 f"{final} ({route})")
+        errs = _ssd_hold(label, got, want, results[name])
         ms, plain_ms = _time_ms(kernel_call), _time_ms(plain_call)
         (bound_ms, bound_by), nbytes = _ssd_bound(b, s, chunk, final)
-        print(f"[ssd] B={b} S={s} H={SSD_H} P={SSD_P} N={SSD_N} chunk={chunk} bf16, final state "
-              f"{final}: max abs diff {'; '.join(errs)}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        print(f"[ssd] {label}: max abs diff {errs}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
               f"ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
               f"{bound_ms / ms:.1%} of bound", flush=True)
-        if s == 4096:  # the prefill: the table's row
-            result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=None)
-    return result
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=None)
+        if route == "tc":  # the prefill: the simt kernel on the same inputs, uncounted
+            out = [torch.empty_like(t) for t in got]
+
+            def simt_call():
+                kernel.launch(*args, *out, chunk=chunk, kind="simt")
+
+            simt_call()
+            torch.cuda.synchronize()
+            simt_errs = _ssd_hold(f"{label} (simt)", out, want, results["ssd_intra_chunk"])
+            simt_ms = _time_ms(simt_call)
+            print(f"[ssd] {label}: the simt kernel on the same inputs {simt_ms:.4f} ms "
+                  f"(max abs diff {simt_errs}), bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{bound_ms / simt_ms:.1%} of bound", flush=True)
+            results[name].update(row)
+            results["ssd_intra_chunk"].update(prefill_simt_ms=simt_ms,
+                                              prefill_bound_ms=bound_ms)
+        elif not final:  # the cascade's main-path form: the table's row
+            results[name].update(row)
+    return results["ssd_intra_chunk"], results["ssd_intra_chunk_tc"]
 
 
-def _da_bound(case) -> tuple:
-    """(bound_ms, bound_by): q, the live K / V rows read once, the partials
-    written once; 4 * D operations per (query head, live key) at the inputs'
-    type's peak rate."""
+def _da_bound(case, fused: bool) -> tuple:
+    """(bound_ms, bound_by): q and the live K / V rows read once, and the
+    output (fused: [B, 1, H, D] in q's dtype) or the f32 partials (m, l, acc
+    over ``default_num_splits``) written once; 4 * D operations per (query
+    head, live key) at the inputs' type's peak rate."""
     from repro_torch.kernels.decode_attention import ops
 
     b, skv, h, kv, d, kv_len, window, _, dtype = case
     esize = 2 if dtype == "bfloat16" else 4
     live = kv_len if window is None else min(kv_len, window - 1)
-    ns = ops.default_num_splits(b * kv, skv)
-    g = h // kv
-    nbytes = esize * (b * h * d + 2 * b * kv * live * d) + 4 * b * kv * ns * g * (2 + d)
+    nbytes = esize * (b * h * d + 2 * b * kv * live * d)
+    if fused:
+        nbytes += esize * b * h * d
+    else:
+        nbytes += 4 * b * kv * ops.default_num_splits(b * kv, skv) * (h // kv) * (2 + d)
     ops_ = 4.0 * d * b * h * live
     rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1062,15 +1163,17 @@ def _da_bound(case) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_decode() -> dict:
-    """Kernel 5 against its plain twin at the qwen3-1.7b decode shape."""
+def phase_decode() -> tuple:
+    """Kernel 5 at the qwen3-1.7b decode shape: the fused kernel (the model's
+    route) against its twin and the oracle, the partials kernel against its
+    twin -> (partials results, fused results)."""
     import torch
     import torch.nn.functional as tnf
 
-    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.kernels.decode_attention import kernel, ops, ref
 
     dev = torch.device("cuda")
-    result = {"max_abs_err": 0.0}
+    part, fused = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
     for case in DA_CASES:
         b, skv, h, kv, d, kv_len, window, cap, dtype = case
         dt = getattr(torch, dtype)
@@ -1079,33 +1182,47 @@ def phase_decode() -> dict:
         k, v = (torch.randn((b, skv, kv, d), generator=g, device=dev).to(dt) for _ in range(2))
         kl = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
         ns = ops.default_num_splits(b * kv, skv)
+        fns = ops.fused_num_splits(b * kv, skv, kernel.fused_route(dt, d))
         qm = q.reshape(b * kv, h // kv, d)
         km, vm = (t.transpose(1, 2).reshape(b * kv, skv, d).contiguous() for t in (k, v))
         kw = dict(softcap=cap, window=window)
 
-        def kernel_call():
+        def partials_call():
             return ops.cache_partials(qm, k, v, kl, ns, **kw)
 
-        def plain_call():
+        def partials_plain():
             return ref.decode_attention_partials(qm, km, vm, kl, num_splits=ns, **kw)
 
-        got, want = kernel_call(), plain_call()
-        out = ops.decode_attention(q, k, v, kl, **kw)
+        def fused_call():
+            return ops.decode_attention(q, k, v, kl, **kw)
+
+        def fused_plain():
+            return ref.decode_attention_fused(q, k, v, kl, num_splits=fns, **kw)
+
+        before = dict(ops.LAUNCHES)
+        got, want = partials_call(), partials_plain()
+        out, twin = fused_call(), fused_plain()
         oracle = ref.reference_decode(q, k, v, kl, **kw)
         torch.cuda.synchronize()
+        assert ops.LAUNCHES == {n: c + 1 for n, c in before.items()}, ops.LAUNCHES
         for name, x, y in zip(("m", "l", "acc"), got, want):
             if not torch.allclose(x, y, rtol=DA_TOL, atol=DA_TOL):
                 raise AssertionError(f"decode_attention_partials {case}: {name} differs from "
                                      f"the plain twin beyond {DA_TOL}")
-            result["max_abs_err"] = max(result["max_abs_err"], (x - y).abs().max().item())
+            part["max_abs_err"] = max(part["max_abs_err"], (x - y).abs().max().item())
         tol = FA_TOL[dtype]
         err = (out.float() - oracle.float()).abs().max().item()
+        twin_err = (out.float() - twin.float()).abs().max().item()
         assert torch.allclose(out.float(), oracle.float(), rtol=tol, atol=tol), (case, err)
+        if dtype == "float32":  # the same splits and f32 sums in another order
+            assert torch.allclose(out, twin, rtol=DA_TOL, atol=DA_TOL), (case, twin_err)
+        fused["max_abs_err"] = max(fused["max_abs_err"], twin_err)
         label = (f"B={b} H={h} KV={kv} D={d} kv_len={kv_len} of {skv} window={window} "
-                 f"softcap={cap} {dtype} ns={ns}")
+                 f"softcap={cap} {dtype} (fused: {kernel.fused_route(dt, d)})")
         if window is not None:
-            print(f"[decode] {label}: partials within {DA_TOL}, output within {err:.3g} of the "
-                  f"oracle", flush=True)
+            print(f"[decode] {label}: partials ({ns} splits) within {DA_TOL} of the twin; "
+                  f"fused ({fns} splits) within {twin_err:.3g} of its twin, {err:.3g} of the "
+                  f"oracle (tol {tol})", flush=True)
             continue
         qt = q.transpose(1, 2)  # sdpa over the live keys, GQA
         kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
@@ -1117,17 +1234,26 @@ def phase_decode() -> dict:
         torch.cuda.synchronize()
         assert torch.allclose(lib.float(), oracle.float(), rtol=tol, atol=tol), (
             f"scaled_dot_product_attention disagrees at {label}")
-        ms, plain_ms, library_ms = (_time_ms(f) for f in (kernel_call, plain_call, library_call))
-        wrapper_ms = _time_ms(lambda: ops.decode_attention(q, k, v, kl, **kw))
-        bound_ms, bound_by = _da_bound(case)
-        print(f"[decode] {label}: partials within {DA_TOL}, output within {err:.3g}; kernel "
-              f"{ms:.4f} ms (with the combine {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{bound_ms / ms:.1%} of bound", flush=True)
-        if dtype == "bfloat16":  # the model's dtype: the table's row
-            result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms)
-    return result
+        ms, plain_ms, p_ms, p_plain_ms, library_ms = (
+            _time_ms(f) for f in (fused_call, fused_plain, partials_call, partials_plain,
+                                  library_call))
+        combine_ms = _time_ms(lambda: ref.combine_partials(*partials_call()))
+        host_ms = _host_ms(fused_call)
+        bound_ms, bound_by = _da_bound(case, fused=True)
+        p_bound_ms, p_bound_by = _da_bound(case, fused=False)
+        print(f"[decode] {label}: fused ({fns} splits, one launch) {ms:.4f} ms ({host_ms:.4f} ms a "
+              f"call issued one after another from the host), within "
+              f"{twin_err:.3g} of its twin and {err:.3g} of the oracle, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound; partials "
+              f"({ns} splits) {p_ms:.4f} ms (with the PyTorch combine {combine_ms:.4f} ms), "
+              f"plain {p_plain_ms:.4f} ms, bound {p_bound_ms:.4f} ms ({p_bound_by}); sdpa "
+              f"{library_ms:.4f} ms", flush=True)
+        if dtype == "bfloat16":  # the model's dtype: the table's rows
+            fused.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms, host_ms=host_ms)
+            part.update(ms=p_ms, plain_ms=p_plain_ms, bound_ms=p_bound_ms, bound_by=p_bound_by,
+                        library_ms=library_ms, with_combine_ms=combine_ms)
+    return part, fused
 
 
 def _generate(model, params, tokens, steps, max_len):
@@ -1173,10 +1299,91 @@ def phase_serve_cpu_vs_gpu():
               f"logits within {worst:.3g} (<= {SERVE_LOGIT_TOL}), greedy tokens equal", flush=True)
 
 
+def _launches(fa_ops, da_ops, ssd_ops) -> dict:
+    """The kernel counters, the flash and SSD launches split by route."""
+    return {**fa_ops.LAUNCHES, **da_ops.LAUNCHES, **ssd_ops.LAUNCHES,
+            **{f"flash_attention/{r}": n for r, n in fa_ops.ROUTES.items()},
+            **{f"ssd_intra_chunk/{r}": n for r, n in ssd_ops.ROUTES.items()}}
+
+
+def _bf16_expected(arch, n):
+    """The launches a bf16-check run must make: {counter: count}."""
+    _, steps, _ = BF16_CHECK[arch]
+    qwen = arch == "qwen3-1.7b"
+    return {"flash_attention/tc": n if qwen else 0, "flash_attention/simt": 0,
+            "decode_attention_fused": n * steps if qwen else 0, "decode_attention_partials": 0,
+            "ssd_intra_chunk/tc": 0 if qwen else n, "ssd_intra_chunk/simt": 0,
+            "ssd_intra_chunk/packed": 0}
+
+
+def phase_serve_bf16_cpu_vs_gpu():
+    """Reduced bf16 qwen3 (head_dim 128, GQA 2 / 1) and mamba2 (SSM head_dim
+    64, state 128, chunk 256) models whose widths route the card's bf16
+    kernels: the CPU (plain twins) greedy-decodes, and the card (kernels) and
+    an f32 CPU run of the same weights are fed the CPU's tokens
+    (teacher-forced, so no bf16 near-tie can fork the sequences).  The card
+    must stay within ``BF16_LOGIT_FACTOR`` times the bf16 CPU run's own
+    distance from f32: the kernels may add no more error than bf16 rounding
+    already makes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.enrich.cascade import map_tree
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models.model import random_model, teacher_forced
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counted = (fa_ops, da_ops, ssd_ops)
+    for arch, (prompt, steps, b) in BF16_CHECK.items():
+        cfg = get_config(arch, bf16_check=True)
+        model, params = random_model(cfg, seed=5, device="cpu")
+        g = torch.Generator().manual_seed(6)
+        tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=g)
+        max_len = prompt + steps + 8
+        cpu, chosen, _ = _generate(model, params, tokens, steps, max_len)
+        seq = torch.cat([tokens, *chosen], dim=1)
+        f32_model, f32_params = (random_model(dataclasses.replace(cfg, dtype="float32"),
+                                              seed=5, device="cpu")[0],
+                                 map_tree(lambda t: t.float(), params))
+        ref, _ = teacher_forced(f32_model, f32_params, seq, prompt, max_len)
+        for c in counted:
+            c.reset_counts()
+        gpu, cache = teacher_forced(model, map_tree(lambda t: t.to("cuda"), params), seq.cuda(),
+                                    prompt, max_len)
+        torch.cuda.synchronize()
+        launches = _launches(fa_ops, da_ops, ssd_ops)
+        plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
+        want = _bf16_expected(arch, cfg.num_layers)
+        assert {k: launches.get(k, 0) for k in want} == want, (arch, launches)
+        assert not any(plain.values()), f"plain path ran on the card: {plain}"
+        assert int(cache.length) == prompt + steps
+        gpu = [x.cpu() for x in gpu]
+        assert all(torch.isfinite(x).all() for x in gpu)
+        bf16_err = max((a - r).abs().max().item() for a, r in zip(cpu, ref))
+        gpu_f32 = max((a - r).abs().max().item() for a, r in zip(gpu, ref))
+        err = max((a - c).abs().max().item() for a, c in zip(gpu, cpu))
+        scale = max(r.abs().max().item() for r in ref)
+        per_step = [round((a - c).abs().max().item(), 5) for a, c in zip(gpu, cpu)]
+        tol = BF16_LOGIT_FACTOR * bf16_err
+        assert err <= tol, (f"{arch} bf16: card vs CPU logits differ by {err} > {tol} "
+                            f"({BF16_LOGIT_FACTOR} x the CPU's bf16-vs-f32 {bf16_err}); per step "
+                            f"{per_step}")
+        print(f"[serve-bf16] reduced bf16 {arch} ({cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}): prefill {prompt} x {b} + {steps} teacher-forced steps; card vs "
+              f"CPU logits max abs {err:.4g} (tol {tol:.4g} = {BF16_LOGIT_FACTOR} x the CPU "
+              f"bf16 run's distance from f32 {bf16_err:.4g}; card vs f32 {gpu_f32:.4g}; logit "
+              f"scale {scale:.3g}); per step {per_step}; launches {launches}", flush=True)
+
+
 def phase_model_serve() -> dict:
-    """``Model.prefill`` + ``decode_step`` at full width: qwen3-1.7b (the flash
-    kernel in prefill, the decode kernel per step) and mamba2-370m (the SSD
-    kernel in prefill, ``ssd_step`` per decode step)."""
+    """``Model.prefill`` + ``decode_step`` at full width: qwen3-1.7b (the "tc"
+    flash kernel in prefill, the fused decode kernel per step) and
+    mamba2-370m (the "tc" SSD kernel in prefill, ``ssd_step`` per decode
+    step)."""
     import torch
 
     from repro_torch.configs.archs import get_config
@@ -1204,7 +1411,7 @@ def phase_model_serve() -> dict:
         logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t1
-        run = {**fa_ops.LAUNCHES, **da_ops.LAUNCHES, **ssd_ops.LAUNCHES}
+        run = _launches(fa_ops, da_ops, ssd_ops)
         routes = dict(fa_ops.ROUTES)
         step_s = []
         for _ in range(steps):
@@ -1212,29 +1419,32 @@ def phase_model_serve() -> dict:
             logits, cache = model.decode_step(params, logits.argmax(-1), cache)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t2)
-        run_all = {**fa_ops.LAUNCHES, **da_ops.LAUNCHES, **ssd_ops.LAUNCHES}
+        run_all = _launches(fa_ops, da_ops, ssd_ops)
         plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
         peak = torch.cuda.max_memory_allocated()
         n = cfg.num_layers
+        idle = {"decode_attention_partials": 0, "decode_attention_fused": 0,
+                "ssd_intra_chunk": 0, "flash_attention": 0, "flash_attention/simt": 0,
+                "flash_attention/tc": 0, "ssd_intra_chunk/tc": 0, "ssd_intra_chunk/simt": 0,
+                "ssd_intra_chunk/packed": 0}
         if arch == "qwen3-1.7b":
-            assert run == {"flash_attention": n, "decode_attention_partials": 0,
-                           "ssd_intra_chunk": 0}, run
-            assert routes == {"tc": n, "simt": 0}, routes  # the prefill on the tensor cores
-            assert run_all["decode_attention_partials"] == n * steps, run_all
+            # the prefill on the tensor cores; one fused decode launch a layer and step
+            assert run == {**idle, "flash_attention": n, "flash_attention/tc": n}, run
+            assert routes == {"tc": n, "simt": 0}, routes
+            assert run_all == {**run, "decode_attention_fused": n * steps}, run_all
         else:
-            assert run == {"flash_attention": 0, "decode_attention_partials": 0,
-                           "ssd_intra_chunk": n}, run
+            assert run == {**idle, "ssd_intra_chunk": n, "ssd_intra_chunk/tc": n}, run
             assert run_all == run, run_all  # decode steps run ssd_step, no kernel
         assert not any(plain.values()), f"plain path ran on the {arch} serve path: {plain}"
         assert logits.shape == (b, 1, cfg.vocab_size) and torch.isfinite(logits).all()
         assert int(cache.length) == prompt + steps
-        run_all.update({f"flash_attention/{r}": c for r, c in fa_ops.ROUTES.items()})
         for k, v in run_all.items():
             launches[k] = launches.get(k, 0) + v
         print(f"[serve-model] {arch} at full width ({n} layers, d_model {cfg.d_model}, bf16): "
               f"setup {setup_s:.2f} s; prefill B={b} x {prompt} tokens {prefill_s * 1e3:.2f} ms "
               f"({b * prompt / prefill_s:.0f} tokens/s, flash routes {routes}); {steps} decode "
-              f"steps {statistics.median(step_s) * 1e3:.3f} ms median per step (host clock, "
+              f"steps {statistics.median(step_s) * 1e3:.3f} ms median per step ({min(step_s) * 1e3:.3f}"
+              f"-{max(step_s) * 1e3:.3f}; host clock, "
               f"synchronised per step); launches {run_all}; peak device memory "
               f"{peak / 2**30:.3f} GiB", flush=True)
         del params, cache, logits
@@ -1263,33 +1473,42 @@ def main() -> int:
     quickstart = quickstart_world(4096, device="cpu")
     results["enrich_score_single"] = phase_single_kernel(quickstart["table"])
     results["flash_attention"], results["flash_attention_tc"] = phase_flash()
-    results["decode_attention_partials"] = phase_decode()
-    results["ssd_intra_chunk"] = phase_ssd()
+    results["decode_attention_partials"], results["decode_attention_fused"] = phase_decode()
+    results["ssd_intra_chunk"], results["ssd_intra_chunk_tc"] = phase_ssd()
     phase_cpu_vs_gpu(table, combine, costs, outputs)
     phase_cascade_cpu_vs_gpu("qwen3-1.7b")
     phase_cascade_cpu_vs_gpu("mamba2-370m")
     phase_operator_cpu_vs_gpu(quickstart)
     phase_serve_cpu_vs_gpu()
+    phase_serve_bf16_cpu_vs_gpu()
     runs = [phase_main_path(), phase_cascade_main_path("qwen3-1.7b"),
             phase_cascade_main_path("mamba2-370m"), phase_operator_main_path(),
             phase_serve_entry_points(), phase_model_serve()]
-    # launches: the sum over the main-path runs (each zeroes the counts first);
-    # the flash wrapper's launches split by route, one entry per kernel
-    counted = {"flash_attention": "flash_attention/simt",
-               "flash_attention_tc": "flash_attention/tc"}
+    # launches: the sum over the main-path runs (each zeroes the counts first)
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-             launches=sum(run.get(counted.get(name, name), 0) for run in runs),
+             launches=sum(run.get(key, 0) for run in runs for key in COUNTED.get(name, (name,))),
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r.get("library_ms"))
         for name, r in results.items()
     ]
-    kernels[[k["name"] for k in kernels].index("flash_attention")].update(
+    missing = [k["name"] for k in kernels if not k["launches"] and k["name"] not in OFF_PATH]
+    assert not missing, f"kernels of the main paths launched no time there: {missing}"
+    by_name = {k["name"]: k for k in kernels}
+    by_name["flash_attention"].update(
         prefill_ms=results["flash_attention"]["prefill_ms"],
         prefill_bound_ms=results["flash_attention"]["prefill_bound_ms"],
         prefill_library_ms=results["flash_attention"]["prefill_library_ms"],
         routes={r: sum(run.get(f"flash_attention/{r}", 0) for run in runs)
                 for r in ("tc", "simt")})
+    by_name["ssd_intra_chunk"].update(
+        prefill_simt_ms=results["ssd_intra_chunk"]["prefill_simt_ms"],
+        prefill_bound_ms=results["ssd_intra_chunk"]["prefill_bound_ms"],
+        routes={r: sum(run.get(f"ssd_intra_chunk/{r}", 0) for run in runs)
+                for r in ("tc", "simt", "packed")})
+    by_name["decode_attention_partials"].update(
+        with_combine_ms=results["decode_attention_partials"]["with_combine_ms"])
+    by_name["decode_attention_fused"].update(host_ms=results["decode_attention_fused"]["host_ms"])
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,8 +2,11 @@
 
 ``qwen3_1_7b()`` and ``mamba2_370m()`` are the full published
 configurations, ``*_smoke()`` the reduced same-family ones the reference
-serves its cascade backbone and its arch smoke tests with.  The reference's
-other eight architectures come with the model-zoo slice.
+serves its cascade backbone and its arch smoke tests with.  ``bf16_check``
+gives reduced bf16 configurations that keep the widths the card's bf16
+kernels route on (head_dim 128; SSM head_dim 64, state 128, chunk 256), for
+comparing a model on the CPU and the card through those kernels.  The
+reference's other eight architectures come with the model-zoo slice.
 """
 
 from __future__ import annotations
@@ -49,12 +52,29 @@ def mamba2_370m_smoke() -> ModelConfig:
     )
 
 
+def qwen3_1_7b_bf16_check() -> ModelConfig:
+    """2 layers, head_dim 128, 2 query heads over 1 KV head (GQA), bf16."""
+    return dataclasses.replace(
+        qwen3_1_7b(), name="qwen3-1.7b-bf16-check", num_layers=2, d_model=256,
+        num_heads=2, num_kv_heads=1, d_ff=512, vocab_size=512,
+    )
+
+
+def mamba2_370m_bf16_check() -> ModelConfig:
+    """2 layers, 4 SSM heads of head_dim 64, state 128, chunk 256, bf16."""
+    return dataclasses.replace(
+        mamba2_370m(), name="mamba2-370m-bf16-check", num_layers=2, d_model=128,
+        vocab_size=512,
+    )
+
+
 ARCHS = {"qwen3-1.7b": qwen3_1_7b, "mamba2-370m": mamba2_370m}
 SMOKES = {"qwen3-1.7b": qwen3_1_7b_smoke, "mamba2-370m": mamba2_370m_smoke}
+BF16_CHECKS = {"qwen3-1.7b": qwen3_1_7b_bf16_check, "mamba2-370m": mamba2_370m_bf16_check}
 
 
-def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    table = SMOKES if smoke else ARCHS
+def get_config(arch: str, smoke: bool = False, bf16_check: bool = False) -> ModelConfig:
+    table = BF16_CHECKS if bf16_check else SMOKES if smoke else ARCHS
     if arch not in table:
         raise KeyError(f"unknown arch {arch!r}; the port has {sorted(table)}")
     return table[arch]()

@@ -1,0 +1,679 @@
+// Fused split-KV decode attention for NVIDIA Hopper (sm_90a): splits over the
+// live keys, their combine fused through a thread-block cluster.
+//
+// Replaces the reference's Pallas TPU kernel
+// src/repro/kernels/decode_attention/kernel.py:decode_attention_partials
+// (body _decode_kernel) together with the jnp combine that follows it
+// (repro/kernels/decode_attention/ops.py:combine_partials): one launch takes
+// one query token per (batch, kv head) group of G query heads to its output
+// row.  The query sits at position kv_len and attends to the live keys
+//
+//   [lo, hi),  hi = min(kv_len, Skv),  lo = max(0, kv_len - window + 1) (0 with no window)
+//   s_gj = (q_g . k_j) / sqrt(D),  s = softcap * tanh(s / softcap)  (optional)
+//   out_g = sum_j softmax_j(s_g) v_j   (0 when no key is live, as the combine gives)
+//
+// kv_len is read ON THE DEVICE from an int32[1] tensor, so the launch needs
+// no host sync and its grid does not depend on it.
+//
+// Layout: q and out [BKV, G, D] contiguous (the model's [B, 1, H, D]); k and
+// v are read in place through (batch, position, kv-head) strides, so the
+// model's [B, S_max, KV, D] cache is read with no transposed copy.
+//
+// What bounds it: one query token reads every live key and value row once:
+// at qwen3-1.7b decode (B 8, KV 8, G 2, D 128, kv_len 2048, bf16) that is
+// 67 MB for ~0.27 GFLOP, so device-memory bytes bound it (~0.020 ms at
+// 3.35 TB/s).  Nothing else is written: the partials stay on chip.
+//
+// Design:
+//   * Grid (ns, B*KV), one cluster of ns <= 8 blocks (the portable cluster
+//     size) per (b, kv head); the wrapper picks ns (ops.fused_num_splits)
+//     so that the blocks fit on the SMs at once: at the qwen3 decode shape
+//     2 in the tensor-core form and 4 in the simt form, the fastest there.
+//     Block `rank` takes the share [lo + floor(rank*L/ns), lo +
+//     floor((rank+1)*L/ns)) of the L = hi - lo LIVE keys: no block walks
+//     keys past kv_len or outside the window, the shares differ by at most
+//     one key, and none is empty unless L < ns.
+//   * Keys arrive in tiles of 32 rows of K and of V (simt form; 64 in the
+//     tensor-core form) through 16-byte cp.async into a 2-stage (3-stage)
+//     shared-memory ring: the next tiles are in flight while one is scored.
+//     Rows past the share are zero-filled (no load) and masked.
+//   * 128 threads = 16 teams of 8; a team scores keys team and team + 16 of
+//     a tile.  Each thread holds 16-byte chunks of the G query rows and of
+//     the G f32 accumulators in registers; a team reads one key row as 8
+//     consecutive 16-byte chunks (conflict-free), and a score is reduced over
+//     the team with three xor shuffles.
+//   * One online-softmax update per warp and tile: the warp's scores of a
+//     row g in the tile give one maximum, one rescale of the accumulators
+//     and one exponential a key (exp2 with log2(e) folded in after the
+//     softcap).  Every thread of a warp shares its maximum, so the
+//     team-partial sums merge by plain addition at the end.
+//   * The 4 warps merge in shared memory, then the ns blocks of the cluster
+//     merge through distributed shared memory (map_shared_rank after
+//     cluster.sync()), each block combining a slice of the G*D outputs and
+//     writing them in q's dtype.  No f32 partial reaches device memory.
+//   * kv_len = 0 gives 0 (the combine's m = -1e30, l = 0, acc = 0 algebra).
+//   * bf16 at head dim 64 or 128 takes the tensor-core form
+//     (decode_fused_tc_kernel, chosen by kernel.py fused_route): the same
+//     shares, ring and combine, with Q.K^T and P.V as mma.sync; f32 and the
+//     other head dims take the form above, which keeps f32 math for f32.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kTeam = 8;
+constexpr int kTeams = kThreads / kTeam;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 32;  // keys per tile
+constexpr int kKeys = kTile / kTeams;  // keys a team scores in a tile
+constexpr int kStages = 2;
+constexpr int kTcTile = 64;  // keys a tile of the tensor-core form: 16 a warp
+constexpr int kTcStages = 3;  // its ring: one block an SM (ops.fused_num_splits) has room
+constexpr int kMaxSplits = 8;
+constexpr float kNegInf = -1e30f;  // the reference kernel's NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename T>
+struct Vec;  // 16 bytes of T, widened to f32
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void load(const float* p, float* out) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  }
+  static __device__ __forceinline__ float store(float v) { return v; }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ __nv_bfloat16 store(float v) { return __float2bfloat16(v); }
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool copy) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = copy ? 16 : 0;  // 0: zero-fill, nothing read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* kv_len;
+  void* out;
+  int kv_heads, g, d, skv, ns;
+  long long skb, sks, skh, svb, svs, svh;
+  int window, has_softcap;
+  float softcap, scale;
+};
+
+// Shared memory: the block's merged (m, l, acc) first (read by the cluster's
+// other blocks), then the K / V ring, which the warps' merge reuses.
+__host__ __device__ inline size_t result_floats(int maxg, int g, int d) {
+  return ((2 * maxg + g * d + 3) / 4) * 4;
+}
+
+// The warps' partials (wm, wl [kWarps][MAXG], wacc [kWarps][G * D], in
+// log2 units) merge into the block's (res: m[MAXG], l[MAXG], acc[G * D]);
+// then the cluster's ns blocks merge through distributed shared memory, each
+// block a slice of the G * D outputs, written in T.  Every thread calls it.
+template <typename T, int MAXG>
+__device__ void merge_and_store(const Args& a, float* res, const float* wm, const float* wl,
+                                const float* wacc, long long bkv, cg::cluster_group& cluster) {
+  const int tid = threadIdx.x, g = a.g, d = a.d, ns = a.ns;
+  const int rank = static_cast<int>(cluster.block_rank());
+  __syncthreads();
+  for (int e = tid; e < g * d; e += kThreads) {
+    const int gg = e / d;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * MAXG + gg]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = exp2f(wm[w * MAXG + gg] - mx);
+      num = fmaf(wacc[w * g * d + e], wt, num);
+      den = fmaf(wl[w * MAXG + gg], wt, den);
+    }
+    res[2 * MAXG + e] = num;
+    if (e % d == 0) {
+      res[gg] = mx;
+      res[MAXG + gg] = den;
+    }
+  }
+  cluster.sync();
+  const float* peers[kMaxSplits];
+#pragma unroll
+  for (int r = 0; r < kMaxSplits; ++r) peers[r] = r < ns ? cluster.map_shared_rank(res, r) : res;
+  T* out = static_cast<T*>(a.out) + bkv * g * d;
+  for (int e = rank * kThreads + tid; e < g * d; e += ns * kThreads) {
+    const int gg = e / d;
+    float mx = kNegInf;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < ns) mx = fmaxf(mx, peers[r][gg]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r) {
+      if (r < ns) {
+        const float wt = exp2f(peers[r][gg] - mx);
+        num = fmaf(peers[r][2 * MAXG + e], wt, num);
+        den = fmaf(peers[r][MAXG + gg], wt, den);
+      }
+    }
+    out[e] = Vec<T>::store(num / fmaxf(den, 1e-20f));
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// NCH: 16-byte chunks of a row a thread holds; MAXG: query rows of a group
+// (G rounded up).  A thread keeps MAXG * NCH * VEC query values and as many
+// accumulators in registers.
+template <typename T, int NCH, int MAXG>
+__global__ void __launch_bounds__(kThreads) decode_fused_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int VEC = Vec<T>::N;
+  constexpr int PER = NCH * VEC;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ns = a.ns, g = a.g, d = a.d;
+  const long long bkv = blockIdx.y;
+  const long long b = bkv / a.kv_heads;
+  const int kvh = static_cast<int>(bkv % a.kv_heads);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int team = tid / kTeam, tl = tid % kTeam;
+  const int chunks = d / VEC;
+
+  float* res = reinterpret_cast<float*>(smem);  // bm[MAXG], bl[MAXG], bacc[g * d]
+  T* kbuf = reinterpret_cast<T*>(smem + result_floats(MAXG, g, d) * sizeof(float));
+  T* vbuf = kbuf + kStages * kTile * d;
+
+  // ---- this block's share of the live keys
+  const int kvl = *a.kv_len;
+  const int hi = min(kvl, a.skv);
+  const int lo = a.window >= 0 ? max(0, kvl - a.window + 1) : 0;
+  const long long live = max(hi - lo, 0);
+  const int s_lo = lo + static_cast<int>(rank * live / ns);
+  const int s_hi = lo + static_cast<int>((rank + 1) * live / ns);
+  const int ntiles = s_hi > s_lo ? (s_hi - s_lo + kTile - 1) / kTile : 0;
+
+  const T* k_base = static_cast<const T*>(a.k) + b * a.skb + (long long)kvh * a.skh;
+  const T* v_base = static_cast<const T*>(a.v) + b * a.svb + (long long)kvh * a.svh;
+
+  // The tile copy: with chunks a power of two each thread copies the same
+  // chunk of every (kThreads / chunks)-th row, so its offsets are set once.
+  const bool fixed = kThreads % chunks == 0;
+  const int rstep = fixed ? kThreads / chunks : 0;
+  const int r_thr = fixed ? tid / chunks : 0, c_thr = fixed ? tid % chunks : 0;
+  auto issue = [&](int t) {  // tile t into stage t % kStages; always one group
+    if (t < ntiles) {
+      const int st = t % kStages;
+      const int k0 = s_lo + t * kTile;
+      if (fixed) {
+        const T* kp = k_base + (long long)(k0 + r_thr) * a.sks + c_thr * VEC;
+        const T* vp = v_base + (long long)(k0 + r_thr) * a.svs + c_thr * VEC;
+        const long long kstep = (long long)rstep * a.sks, vstep = (long long)rstep * a.svs;
+        T* ks = kbuf + (st * kTile + r_thr) * d + c_thr * VEC;
+        T* vs = vbuf + (st * kTile + r_thr) * d + c_thr * VEC;
+        for (int r = r_thr; r < kTile; r += rstep) {
+          const bool ok = k0 + r < s_hi;  // past the share: zero-filled, nothing read
+          cp_async16(ks, ok ? kp : k_base, ok);
+          cp_async16(vs, ok ? vp : v_base, ok);
+          kp += kstep;
+          vp += vstep;
+          ks += rstep * d;
+          vs += rstep * d;
+        }
+      } else {
+        for (int e = tid; e < kTile * chunks; e += kThreads) {
+          const int r = e / chunks, c = e - r * chunks;
+          const bool ok = k0 + r < s_hi;
+          const long long key = ok ? k0 + r : s_lo;  // a valid address either way
+          cp_async16(kbuf + (st * kTile + r) * d + c * VEC, k_base + key * a.sks + c * VEC, ok);
+          cp_async16(vbuf + (st * kTile + r) * d + c * VEC, v_base + key * a.svs + c * VEC, ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < kStages - 1; ++t) issue(t);
+
+  float qr[MAXG][PER], acc[MAXG][PER], m[MAXG], l[MAXG];
+  const T* q_base = static_cast<const T*>(a.q) + bkv * g * d;
+#pragma unroll
+  for (int gg = 0; gg < MAXG; ++gg) {
+    m[gg] = kNegInf;
+    l[gg] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int ch = tl + c * kTeam;
+      if (gg < g && ch < chunks) {
+        Vec<T>::load(q_base + gg * d + ch * VEC, &qr[gg][c * VEC]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) qr[gg][c * VEC + i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[gg][c * VEC + i] = 0.f;
+    }
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t has landed (later ones may be in flight)
+    __syncthreads();  // ... for every thread, and stage (t - 1) % kStages is free
+    issue(t + kStages - 1);
+    const int st = t % kStages;
+    const int k0 = s_lo + t * kTile;
+    float s[kKeys][MAXG];
+#pragma unroll
+    for (int kk = 0; kk < kKeys; ++kk) {
+      const T* kr = kbuf + (st * kTile + team + kTeams * kk) * d;
+      float kx[PER];
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int ch = tl + c * kTeam;
+        if (ch < chunks) {
+          Vec<T>::load(kr + ch * VEC, &kx[c * VEC]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) kx[c * VEC + i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int gg = 0; gg < MAXG; ++gg) {
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < PER; ++e) part = fmaf(qr[gg][e], kx[e], part);
+        s[kk][gg] = part;
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < kTeam; off <<= 1) {
+#pragma unroll
+      for (int kk = 0; kk < kKeys; ++kk)
+#pragma unroll
+        for (int gg = 0; gg < MAXG; ++gg) s[kk][gg] += __shfl_xor_sync(0xffffffffu, s[kk][gg], off);
+    }
+    float p[kKeys][MAXG];
+#pragma unroll
+    for (int gg = 0; gg < MAXG; ++gg) {
+      float tm = -INFINITY;
+#pragma unroll
+      for (int kk = 0; kk < kKeys; ++kk) {
+        float x = s[kk][gg] * a.scale;
+        if (a.has_softcap) x = a.softcap * tanhf(x / a.softcap);
+        s[kk][gg] = k0 + team + kTeams * kk < s_hi ? x * kLog2e : -INFINITY;  // mask before exp
+        tm = fmaxf(tm, s[kk][gg]);
+      }
+      tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 8));
+      tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 16));
+      const float m_new = fmaxf(m[gg], tm);
+      const float corr = exp2f(m[gg] - m_new);  // 0 on the warp's first live tile
+      m[gg] = m_new;
+      float psum = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKeys; ++kk) {
+        p[kk][gg] = exp2f(s[kk][gg] - m_new);
+        psum += p[kk][gg];
+      }
+      l[gg] = fmaf(l[gg], corr, psum);
+#pragma unroll
+      for (int e = 0; e < PER; ++e) acc[gg][e] *= corr;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKeys; ++kk) {
+      const T* vr = vbuf + (st * kTile + team + kTeams * kk) * d;
+      float vx[PER];
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int ch = tl + c * kTeam;
+        if (ch < chunks) {
+          Vec<T>::load(vr + ch * VEC, &vx[c * VEC]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) vx[c * VEC + i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int gg = 0; gg < MAXG; ++gg)
+#pragma unroll
+        for (int e = 0; e < PER; ++e) acc[gg][e] = fmaf(p[kk][gg], vx[e], acc[gg][e]);
+    }
+  }
+  cp_async_wait<0>();  // the trailing (empty) groups
+  __syncthreads();     // the ring is free for the merge
+
+  // ---- the warp's 4 teams (m is warp-uniform): plain sums
+#pragma unroll
+  for (int gg = 0; gg < MAXG; ++gg) {
+    l[gg] += __shfl_xor_sync(0xffffffffu, l[gg], 8);
+    l[gg] += __shfl_xor_sync(0xffffffffu, l[gg], 16);
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      acc[gg][e] += __shfl_xor_sync(0xffffffffu, acc[gg][e], 8);
+      acc[gg][e] += __shfl_xor_sync(0xffffffffu, acc[gg][e], 16);
+    }
+  }
+  // ---- the 4 warps' partials into shared memory (over the ring)
+  float* wm = reinterpret_cast<float*>(kbuf);  // [kWarps][MAXG]
+  float* wl = wm + kWarps * MAXG;               // [kWarps][MAXG]
+  float* wacc = wl + kWarps * MAXG;             // [kWarps][g * d]
+  if (lane < kTeam) {
+#pragma unroll
+    for (int gg = 0; gg < MAXG; ++gg) {
+      if (gg < g) {
+        if (lane == 0) {
+          wm[warp * MAXG + gg] = m[gg];
+          wl[warp * MAXG + gg] = l[gg];
+        }
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          const int ch = tl + c * kTeam;
+          if (ch < chunks) {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i)
+              wacc[warp * g * d + gg * d + ch * VEC + i] = acc[gg][c * VEC + i];
+          }
+        }
+      }
+    }
+  }
+  merge_and_store<T, MAXG>(a, res, wm, wl, wacc, bkv, cluster);
+}
+
+// The tensor-core form (bf16, D 64 or 128, G <= 8): the same shares and
+// combine, a 3-stage ring of 64-key tiles, and Q.K^T and P.V as mma.sync
+// m16n8k16 (bf16 in, f32 accumulate).  The G query rows fill the top of a 16-row A tile (the rest
+// zero); a block-tile is 64 keys, 16 a warp; each warp keeps its own online
+// softmax over its keys (one update a tile), with P rounded to bf16 for P.V
+// as the tensor-core flash kernel does.
+template <int D>
+__global__ void __launch_bounds__(kThreads) decode_fused_tc_kernel(Args a) {
+  typedef __nv_bfloat16 bf16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int MAXG = 8;
+  constexpr int LD = D + 8;      // a padded row (halves): conflict-free ldmatrix
+  constexpr int CH = D / 8;      // 16-byte chunks of a row
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ns = a.ns, g = a.g;
+  const long long bkv = blockIdx.y;
+  const long long b = bkv / a.kv_heads;
+  const int kvh = static_cast<int>(bkv % a.kv_heads);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;  // fragment row and column pair
+
+  float* res = reinterpret_cast<float*>(smem);
+  bf16* kbuf = reinterpret_cast<bf16*>(smem + result_floats(MAXG, g, D) * sizeof(float));
+  bf16* vbuf = kbuf + kTcStages * kTcTile * LD;
+
+  const int kvl = *a.kv_len;
+  const int hi = min(kvl, a.skv);
+  const int lo = a.window >= 0 ? max(0, kvl - a.window + 1) : 0;
+  const long long live = max(hi - lo, 0);
+  const int s_lo = lo + static_cast<int>(rank * live / ns);
+  const int s_hi = lo + static_cast<int>((rank + 1) * live / ns);
+  const int ntiles = s_hi > s_lo ? (s_hi - s_lo + kTcTile - 1) / kTcTile : 0;
+
+  const bf16* k_base = static_cast<const bf16*>(a.k) + b * a.skb + (long long)kvh * a.skh;
+  const bf16* v_base = static_cast<const bf16*>(a.v) + b * a.svb + (long long)kvh * a.svh;
+  auto issue = [&](int t) {  // tile t into stage t % kTcStages; always one group
+    if (t < ntiles) {
+      const int st = t % kTcStages;
+      const int k0 = s_lo + t * kTcTile;
+      for (int e = tid; e < kTcTile * CH; e += kThreads) {
+        const int r = e / CH, c = e % CH;
+        const bool ok = k0 + r < s_hi;  // past the share: zero-filled, nothing read
+        const long long key = ok ? k0 + r : s_lo;
+        cp_async16(kbuf + (st * kTcTile + r) * LD + c * 8, k_base + key * a.sks + c * 8, ok);
+        cp_async16(vbuf + (st * kTcTile + r) * LD + c * 8, v_base + key * a.svs + c * 8, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < kTcStages - 1; ++t) issue(t);
+
+  // Q as A fragments: row gq (< G) of the group; rows gq + 8 are zero
+  unsigned qf[D / 16][2];
+  const bf16* qrow = static_cast<const bf16*>(a.q) + (bkv * g + gq) * D;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    qf[ks][0] = gq < g ? *reinterpret_cast<const unsigned*>(qrow + 16 * ks + 2 * t4) : 0u;
+    qf[ks][1] = gq < g ? *reinterpret_cast<const unsigned*>(qrow + 16 * ks + 8 + 2 * t4) : 0u;
+  }
+  float o[D / 8][4] = {};
+  float m = kNegInf, l = 0.f;  // row gq; l sums this lane's keys
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kTcStages - 2>();  // tile t has landed
+    __syncthreads();  // ... for every thread, and stage (t - 1) % kTcStages is free
+    issue(t + kTcStages - 1);
+    const int st = t % kTcStages;
+    const bf16* kt = kbuf + (st * kTcTile + 16 * warp) * LD;
+    const bf16* vt = vbuf + (st * kTcTile + 16 * warp) * LD;
+    const int key0 = s_lo + t * kTcTile + 16 * warp;
+    float sc[2][4] = {};  // S: 16 rows x the warp's 16 keys
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      unsigned bfr[4];
+      ldsm_x4(bfr, kt + ((lane & 7) + ((lane >> 4) << 3)) * LD + 16 * ks + ((lane >> 3) & 1) * 8);
+      const unsigned af[4] = {qf[ks][0], 0u, qf[ks][1], 0u};
+      mma(sc[0], af, bfr[0], bfr[1]);
+      mma(sc[1], af, bfr[2], bfr[3]);
+    }
+    float x[4];  // row gq at keys key0 + 8 * nt + 2 * t4 + j
+    float tm = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float v = sc[nt][j] * a.scale;
+        if (a.has_softcap) v = a.softcap * tanhf(v / a.softcap);
+        x[2 * nt + j] = key0 + 8 * nt + 2 * t4 + j < s_hi ? v * kLog2e : -INFINITY;  // mask before exp
+        tm = fmaxf(tm, x[2 * nt + j]);
+      }
+    }
+    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
+    const float m_new = fmaxf(m, tm);
+    const float corr = exp2f(m - m_new);  // 0 on the warp's first live tile
+    m = m_new;
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = exp2f(x[i] - m_new);
+    l = fmaf(l, corr, (p[0] + p[1]) + (p[2] + p[3]));
+    const __nv_bfloat162 p01 = __floats2bfloat162_rn(p[0], p[1]);
+    const __nv_bfloat162 p23 = __floats2bfloat162_rn(p[2], p[3]);
+    const unsigned pa[4] = {*reinterpret_cast<const unsigned*>(&p01), 0u,
+                            *reinterpret_cast<const unsigned*>(&p23), 0u};
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      unsigned bfr[4];
+      ldsm_x4_t(bfr, vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + 16 * np + (lane >> 4) * 8);
+      o[2 * np][0] *= corr;
+      o[2 * np][1] *= corr;
+      o[2 * np + 1][0] *= corr;
+      o[2 * np + 1][1] *= corr;
+      mma(o[2 * np], pa, bfr[0], bfr[1]);
+      mma(o[2 * np + 1], pa, bfr[2], bfr[3]);
+    }
+  }
+  cp_async_wait<0>();  // the trailing (empty) groups
+  __syncthreads();     // the ring is free for the merge
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+
+  float* wm = reinterpret_cast<float*>(kbuf);  // [kWarps][MAXG]
+  float* wl = wm + kWarps * MAXG;               // [kWarps][MAXG]
+  float* wacc = wl + kWarps * MAXG;             // [kWarps][g * D]
+  if (gq < g) {
+    if (t4 == 0) {
+      wm[warp * MAXG + gq] = m;
+      wl[warp * MAXG + gq] = l;
+    }
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8)
+      *reinterpret_cast<float2*>(wacc + warp * g * D + gq * D + 8 * n8 + 2 * t4) =
+          make_float2(o[n8][0], o[n8][1]);
+  }
+  merge_and_store<bf16, MAXG>(a, res, wm, wl, wacc, bkv, cluster);
+}
+
+// Dynamic shared memory: the block's merged (m, l, acc), then the larger of
+// the K / V ring and the warps' partials.
+size_t smem_simt(const Args& a, size_t esize, int maxg) {
+  const size_t ring = static_cast<size_t>(kStages) * 2 * kTile * a.d * esize;
+  const size_t merge = static_cast<size_t>(kWarps) * (2 * maxg + a.g * a.d) * sizeof(float);
+  return result_floats(maxg, a.g, a.d) * sizeof(float) + (ring > merge ? ring : merge);
+}
+
+size_t smem_tc(const Args& a, int d) {
+  const size_t ring = static_cast<size_t>(kTcStages) * 2 * kTcTile * (d + 8) * 2;
+  const size_t merge = static_cast<size_t>(kWarps) * (2 * 8 + a.g * d) * sizeof(float);
+  return result_floats(8, a.g, d) * sizeof(float) + (ring > merge ? ring : merge);
+}
+
+// One cluster of ns blocks per (b, kv head).
+template <typename Kernel>
+cudaError_t launch_one(Kernel kern, const Args& a, long long bkv, size_t smem,
+                       cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(a.ns), static_cast<unsigned>(bkv), 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(a.ns);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const Args& a, long long bkv, cudaStream_t stream) {
+  if (bkv == 0) return cudaSuccess;
+  if (a.ns < 1 || a.ns > kMaxSplits || bkv > 65535) return cudaErrorInvalidValue;
+  const int chunks = a.d / Vec<T>::N;
+  const int nch = chunks <= 8 ? 1 : chunks <= 16 ? 2 : chunks <= 32 ? 4 : 8;
+  const int maxg = a.g <= 2 ? 2 : a.g <= 4 ? 4 : 8;
+#define DF_LAUNCH(C, G) \
+  if (nch == C && maxg == G) return launch_one(decode_fused_kernel<T, C, G>, a, bkv, \
+                                               smem_simt(a, sizeof(T), G), stream)
+  DF_LAUNCH(1, 2);
+  DF_LAUNCH(1, 4);
+  DF_LAUNCH(1, 8);
+  DF_LAUNCH(2, 2);
+  DF_LAUNCH(2, 4);
+  DF_LAUNCH(4, 2);
+  if (Vec<T>::N == 4) {  // f32: a thread holds twice the chunks for the same registers
+    DF_LAUNCH(2, 8);
+    DF_LAUNCH(4, 4);
+    DF_LAUNCH(8, 2);
+  }
+#undef DF_LAUNCH
+  return cudaErrorInvalidValue;  // the wrapper refuses these shapes first
+}
+
+cudaError_t launch_tc(const Args& a, long long bkv, cudaStream_t stream) {
+  if (bkv == 0) return cudaSuccess;
+  if (a.ns < 1 || a.ns > kMaxSplits || bkv > 65535 || a.g > 8) return cudaErrorInvalidValue;
+  if (a.d == 64) return launch_one(decode_fused_tc_kernel<64>, a, bkv, smem_tc(a, 64), stream);
+  if (a.d == 128) return launch_one(decode_fused_tc_kernel<128>, a, bkv, smem_tc(a, 128), stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch (0 on success).  The wrapper
+// (kernel.py) has checked devices, dtypes, shapes and strides: D a multiple
+// of 16 up to 256, G <= 8, the registers a thread holds (kernel.py
+// supports_fused), 16-byte aligned rows, 1 <= ns <= 8; tc: the tensor-core
+// form (kernel.py fused_route: bf16, D 64 or 128).
+extern "C" int decode_attention_fused_fwd(
+    const void* q, const void* k, const void* v, const void* kv_len, void* out, long long bkv,
+    int kv_heads, int g, int d, int skv, int ns, long long skb, long long sks, long long skh,
+    long long svb, long long svs, long long svh, int window, int has_softcap, float softcap,
+    float scale, int is_bf16, int tc, void* stream) {
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.out = out;
+  a.kv_heads = kv_heads;
+  a.g = g;
+  a.d = d;
+  a.skv = skv;
+  a.ns = ns;
+  a.skb = skb; a.sks = sks; a.skh = skh;
+  a.svb = svb; a.svs = svs; a.svh = svh;
+  a.window = window;
+  a.has_softcap = has_softcap;
+  a.softcap = softcap;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tc) return static_cast<int>(is_bf16 ? launch_tc(a, bkv, s) : cudaErrorInvalidValue);
+  if (is_bf16) return static_cast<int>(launch<__nv_bfloat16>(a, bkv, s));
+  return static_cast<int>(launch<float>(a, bkv, s));
+}

@@ -1,9 +1,15 @@
-"""Build and bind the hand-written CUDA split-KV decode-attention kernel.
+"""Build and bind the two hand-written CUDA decode-attention kernels.
 
-``csrc/decode_attention.cu`` exposes one ``extern "C"`` launcher (templated
-inside on f32 / bf16 and on the per-thread head-dim slice and group size).
-It is compiled with ``nvcc`` for ``sm_90a`` into a shared library at first
-use (``kernels/build.py``) and loaded with ``ctypes``.
+``csrc/decode_attention_fused.cu`` ("fused": splits over the live keys,
+their combine through a thread-block cluster, one launch from the query to
+the output rows; Q.K^T and P.V on the tensor cores for bf16 at head dim 64
+or 128, ``fused_route``) serves the model's decode route; ``csrc/decode_attention.cu``
+("partials": the reference's signature, splits over the cache length, f32
+partials out) serves ``decode_attention_partials``.  Each exposes one
+``extern "C"`` launcher (templated inside on f32 / bf16 and on the
+per-thread head-dim slice and group size), is compiled with ``nvcc`` for
+``sm_90a`` into a shared library of its own at first use
+(``kernels/build.py``) and is loaded with ``ctypes``.
 
 Nothing here touches CUDA or nvcc at import time: the CPU test suite imports
 this module on machines with neither.
@@ -22,8 +28,18 @@ import torch
 from repro_torch.kernels.build import BASE_FLAGS, build_library, check_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
-# (pairs a thread holds, query rows) instantiated in the source
+SOURCE_FUSED = Path(__file__).resolve().parent / "csrc" / "decode_attention_fused.cu"
+# (pairs a thread holds, query rows) instantiated in the partials source
 INSTANTIATED = {(2, 2), (2, 4), (2, 8), (4, 2), (4, 4), (4, 8), (8, 2), (8, 4), (16, 2)}
+MAX_SPLITS = 8  # the fused kernel's cluster: the portable cluster size
+FUSED_VALUES = 64  # query values a thread of the fused simt form holds, at most
+TC_HEAD_DIMS = (64, 128)  # the fused kernel's tensor-core form: bf16 at these head dims
+
+
+def fused_route(dtype: torch.dtype, d: int) -> str:
+    """The fused kernel's form for a call: "tc" (Q.K^T and P.V on the tensor
+    cores) for bf16 at a head dim in ``TC_HEAD_DIMS``, else "simt"."""
+    return "tc" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else "simt"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,9 +57,30 @@ def supports(g: int, d: int) -> bool:
     return (maxp, maxg) in INSTANTIATED
 
 
+def supports_fused(g: int, d: int, dtype: torch.dtype) -> bool:
+    """Whether the fused kernel takes a group of ``g`` <= 8 query rows of head
+    dim ``d``: the tc form takes them all; in the simt form a thread holds
+    16-byte chunks of each row (one in eight of them, rounded up to a power
+    of two) for the rows rounded up to 2, 4 or 8, at most 64 values."""
+    if d % 16 or not 16 <= d <= 256 or not 1 <= g <= 8:
+        return False
+    if fused_route(dtype, d) == "tc":
+        return True
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    chunks = d // vec
+    nch = 1 if chunks <= 8 else 2 if chunks <= 16 else 4 if chunks <= 32 else 8
+    maxg = 2 if g <= 2 else 4 if g <= 4 else 8
+    return nch * maxg * vec <= FUSED_VALUES
+
+
 def build() -> tuple[Path, str, float]:
-    """Compile the kernel if needed -> (library path, nvcc log, seconds)."""
+    """Compile the partials kernel if needed -> (library path, nvcc log, seconds)."""
     return build_library(SOURCE, BASE_FLAGS, "decode_attention")
+
+
+def build_fused() -> tuple[Path, str, float]:
+    """Compile the fused kernel if needed -> (library path, nvcc log, seconds)."""
+    return build_library(SOURCE_FUSED, BASE_FLAGS, "decode_attention_fused")
 
 
 @functools.lru_cache(maxsize=1)
@@ -55,6 +92,45 @@ def library() -> ctypes.CDLL:
         [_P] * 7 + [_L] + [_I] * 5 + [_L] * 6 + [_I, _I, _F, _F, _I, _P])
     lib.decode_attention_partials_fwd.restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library_fused() -> ctypes.CDLL:
+    """The loaded fused kernel library (built on first use)."""
+    path, _, _ = build_fused()
+    lib = ctypes.CDLL(str(path))
+    lib.decode_attention_fused_fwd.argtypes = (
+        [_P] * 5 + [_L] + [_I] * 5 + [_L] * 6 + [_I, _I, _F, _F, _I, _I, _P])
+    lib.decode_attention_fused_fwd.restype = _I
+    return lib
+
+
+def launch_fused(
+    q: torch.Tensor,  # [BKV, G, D] contiguous
+    k: torch.Tensor,  # [B, Skv, KV, D], innermost stride 1
+    v: torch.Tensor,  # [B, Skv, KV, D], innermost stride 1
+    kv_len: torch.Tensor,  # int32 [1] on the same device
+    out: torch.Tensor,  # [BKV, G, D] contiguous, q's dtype, preallocated
+    *,
+    num_splits: int,
+    softcap: Optional[float],
+    window: Optional[int],
+) -> None:
+    """Launch the fused kernel, in the form ``fused_route`` names, on the
+    current stream (the caller validated operands): ``num_splits`` blocks,
+    one cluster, per (b, kv head)."""
+    bkv, g, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    err = library_fused().decode_attention_fused_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+        bkv, kvh, g, d, skv, num_splits,
+        k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
+        -1 if window is None else int(window),
+        int(softcap is not None), 0.0 if softcap is None else float(softcap),
+        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+        int(fused_route(q.dtype, d) == "tc"), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check_launch(err, "decode_attention_fused")
 
 
 def launch(
@@ -69,7 +145,8 @@ def launch(
     softcap: Optional[float],
     window: Optional[int],
 ) -> None:
-    """Launch on the current stream (the caller validated operands)."""
+    """Launch the partials kernel on the current stream (the caller validated
+    operands)."""
     bkv, g, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     err = library().decode_attention_partials_fwd(

@@ -1,14 +1,16 @@
-"""Wrappers: one query token over a KV cache through the split-KV kernel.
+"""Wrappers: one query token over a KV cache through the decode kernels.
 
-``decode_attention_partials`` keeps the reference's signature
-(``repro/kernels/decode_attention/kernel.py``: q ``[BKV, G, D]``, k / v
-``[BKV, Skv, D]``); ``decode_attention`` is the ``[B, 1, H, D]`` /
-``[B, Skv, KV, D]`` wrapper the model's decode route calls, with the
-logsumexp combine (``ref.combine_partials``) in PyTorch, as the reference
-combines in jnp.  They route by the device of their tensors: on the CPU the
-partials come from the plain PyTorch twin (``ref.py``); on a CUDA tensor the
-hand-written kernel launches or the call raises — it never falls back and
-reads no environment switch.  On the card the kernel reads the cache in its
+``decode_attention`` is the ``[B, 1, H, D]`` / ``[B, Skv, KV, D]`` wrapper
+the model's decode route calls: on the card ONE launch of the fused kernel
+(``csrc/decode_attention_fused.cu``) splits the live keys over a cluster of
+``num_splits <= 8`` blocks per (b, kv head) and merges them on chip, with
+no PyTorch combine.  ``decode_attention_partials`` keeps the reference's
+signature (``repro/kernels/decode_attention/kernel.py``: q ``[BKV, G, D]``,
+k / v ``[BKV, Skv, D]``, splits over Skv, f32 partials out) on the partials
+kernel (``csrc/decode_attention.cu``).  They route by the device of their
+tensors: on the CPU the plain PyTorch twins (``ref.py``) run; on a CUDA
+tensor the kernel launches or the call raises — it never falls back and
+reads no environment switch.  On the card the kernels read the cache in its
 ``[B, S, KV, D]`` layout in place.
 
 The query sits at position ``kv_len`` and attends to keys ``< kv_len`` and,
@@ -16,13 +18,19 @@ under a window, ``> kv_len - window``: the reference kernel's convention.
 A model whose new token is already in the cache at ``kv_len - 1`` and
 whose window admits ``k > q - window`` passes ``window + 1``.
 
-``num_splits=None`` picks ``default_num_splits``: at least the reference's
-8, doubled while the (b * kv, split) blocks are fewer than four per SM of
-an H100 (132 SMs) and a split keeps at least 64 keys; the reference's rule
-(halve until it divides Skv) applies to any count.
+``decode_attention``'s ``num_splits=None`` picks ``fused_num_splits``: 8,
+halved while a split would cover fewer than ``MIN_SPLIT_KEYS`` cache rows
+or the (b * kv, split) blocks would outnumber what the 132 SMs of an H100
+hold at once in the kernel's form (one a SM for the tensor-core form's
+108 KB ring, two for the simt form): at the qwen3 decode shape, B 8 x KV
+8, that is 2 splits for bf16 and 4 for f32, the fastest on the card.
+``default_num_splits`` is the partials route's count over the cache
+length: at least the reference's 8, doubled while the blocks are fewer
+than four per SM of an H100 (132 SMs) and a split keeps at least 64 keys;
+the reference's rule (halve until it divides Skv) applies to any count.
 
-``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-path calls
-(``reset_counts`` zeroes both).
+``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-path calls,
+one key per kernel (``reset_counts`` zeroes both).
 """
 
 from __future__ import annotations
@@ -34,16 +42,19 @@ import torch
 from repro_torch.kernels.decode_attention import kernel, ref
 
 KERNEL = "decode_attention_partials"
-LAUNCHES = {KERNEL: 0}
-PLAIN_CALLS = {KERNEL: 0}
+FUSED = "decode_attention_fused"
+LAUNCHES = {KERNEL: 0, FUSED: 0}
+PLAIN_CALLS = {KERNEL: 0, FUSED: 0}
 DTYPES = (torch.float32, torch.bfloat16)
-FILL_BLOCKS = 4 * 132
+SMS = 132  # streaming multiprocessors of an H100 SXM
+FILL_BLOCKS = 4 * SMS
 MIN_SPLIT_KEYS = 64
 
 
 def reset_counts() -> None:
-    LAUNCHES[KERNEL] = 0
-    PLAIN_CALLS[KERNEL] = 0
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for name in counts:
+            counts[name] = 0
 
 
 def default_num_splits(bkv: int, skv: int) -> int:
@@ -53,12 +64,29 @@ def default_num_splits(bkv: int, skv: int) -> int:
     return ns
 
 
+def fused_num_splits(bkv: int, skv: int, route: str) -> int:
+    per_sm = 1 if route == "tc" else 2  # blocks an SM its shared memory leaves room for
+    ns = kernel.MAX_SPLITS
+    while ns > 1 and (skv < ns * MIN_SPLIT_KEYS or bkv * ns > per_sm * SMS):
+        ns //= 2
+    return ns
+
+
 def _check_kv_len(kv_len, dev) -> torch.Tensor:
     if kv_len.device != dev:
         raise ValueError(f"kv_len is on {kv_len.device}, q on {dev}")
     if kv_len.dtype != torch.int32 or kv_len.numel() != 1:
         raise TypeError(f"kv_len must be one int32, got {kv_len.dtype} {tuple(kv_len.shape)}")
     return kv_len.reshape(1)
+
+
+def _check_cache(k, v, row_align: Optional[int] = None) -> None:
+    """Unit innermost stride, a 16-byte aligned base and rows whose strides
+    keep ``row_align`` elements (default: 16 bytes) aligned."""
+    align = row_align or 16 // k.element_size()
+    for name, t in (("k", k), ("v", v)):
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % align for s in t.stride()[:3]):
+            raise ValueError(f"{name} needs a unit innermost stride and aligned rows")
 
 
 def cache_partials(q, k, v, kv_len, ns, softcap, window):
@@ -75,9 +103,7 @@ def cache_partials(q, k, v, kv_len, ns, softcap, window):
                          f"query rows per kv head with G * D <= 512; got G {g}, D {d}")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
-    for name, t in (("k", k), ("v", v)):
-        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 2 for s in t.stride()[:3]):
-            raise ValueError(f"{name} needs a unit innermost stride and aligned rows")
+    _check_cache(k, v, row_align=2)
     dev = q.device
     m = torch.empty((bkv, ns, g), dtype=torch.float32, device=dev)
     l = torch.empty((bkv, ns, g), dtype=torch.float32, device=dev)
@@ -143,17 +169,30 @@ def decode_attention(
             raise TypeError(f"{name} has dtype {t.dtype}, q has {q.dtype}")
     kv_len = _check_kv_len(kv_len, q.device)
     g = h // kvh
-    ns = ref.split_count(skv, default_num_splits(b * kvh, skv) if num_splits is None
-                         else num_splits)
-    qm = q.reshape(b * kvh, g, d)
-    kw = dict(softcap=softcap, window=window)
+    route = kernel.fused_route(q.dtype, d)
+    ns = fused_num_splits(b * kvh, skv, route) if num_splits is None else num_splits
+    if not 1 <= ns <= kernel.MAX_SPLITS:
+        raise ValueError(f"the fused route takes 1 to {kernel.MAX_SPLITS} splits (one cluster "
+                         f"per kv head), got {ns}")
+    kw = dict(num_splits=ns, softcap=softcap, window=window)
     if q.device.type == "cpu":
-        PLAIN_CALLS[KERNEL] += 1
-        km = k.transpose(1, 2).reshape(b * kvh, skv, d)
-        vm = v.transpose(1, 2).reshape(b * kvh, skv, d)
-        m, l, acc = ref.decode_attention_partials(qm, km, vm, kv_len, num_splits=ns, **kw)
-    elif q.device.type == "cuda":
-        m, l, acc = cache_partials(qm.contiguous(), k, v, kv_len, ns, **kw)
-    else:
+        PLAIN_CALLS[FUSED] += 1
+        return ref.decode_attention_fused(q, k, v, kv_len, **kw)
+    if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on cpu or cuda, not {q.device}")
-    return ref.combine_partials(m, l, acc).reshape(b, 1, h, d).to(q.dtype)
+    if q.dtype not in DTYPES:
+        raise TypeError(f"decode attention takes {DTYPES}, got {q.dtype}")
+    if not kernel.supports_fused(g, d, q.dtype):
+        raise ValueError(f"the fused kernel takes head_dim a multiple of 16 up to 256 and at "
+                         f"most 8 query rows per kv head, within {kernel.FUSED_VALUES} query "
+                         f"values a thread in its simt form (G * D <= 512 in bf16); got G "
+                         f"{g}, D {d}")
+    if b * kvh > 65535:
+        raise ValueError(f"the fused kernel takes at most 65535 (batch, kv head) groups, "
+                         f"got {b * kvh}")
+    _check_cache(k, v)
+    qm = q.reshape(b * kvh, g, d).contiguous()
+    out = torch.empty_like(qm)
+    kernel.launch_fused(qm, k, v, kv_len, out, **kw)
+    LAUNCHES[FUSED] += 1
+    return out.reshape(b, 1, h, d)

@@ -1,4 +1,6 @@
-// Mamba-2 SSD intra-chunk term for NVIDIA Hopper (sm_90a).
+// Mamba-2 SSD intra-chunk term for NVIDIA Hopper (sm_90a): the "simt" and
+// "packed" routes (bf16 chunks of 64 to 256 with P, N in {64, 128} take the
+// tensor-core kernel, ssd_scan_tc.cu; kernel.py:route picks).
 //
 // Replaces the reference's Pallas TPU kernel
 // src/repro/kernels/ssd_scan/kernel.py:ssd_intra_chunk (body _ssd_kernel).
@@ -23,14 +25,13 @@
 // neither computed nor written.  At the cascade backbone's 8 tokens (nc = 1)
 // that is the whole [BH, P, N] f32 output, 16x the bytes of y.
 //
-// What bounds it: at the mamba2-370m prefill shape (B 2, S 4096, H 32, P 64,
-// N 128, Q 256) the function moves ~0.14 GB (x bf16, y and S f32) but does
-// ~17 GFLOP of f32 products (C.B^T over the lower triangle, W.X, X^T.B), so
-// on the CUDA cores (67 TFLOP/s f32) operations bound it; the same products
-// in bf16 on the tensor cores (wgmma) would make it byte-bound, which is
-// later work.  At the cascade's 8 tokens bytes bound it.
+// What bounds it: at a chunk of 256 (B 2, S 4096, H 32, P 64, N 128) the
+// function moves ~0.14 GB but does ~17 GFLOP of f32 products (C.B^T over
+// the lower triangle, W.X, X^T.B), so on the CUDA cores (67 TFLOP/s f32)
+// operations bound this kernel; the tc route runs bf16 inputs on the
+// tensor cores.  At the cascade's 8 tokens bytes bound it.
 //
-// Design:
+// Design (simt, any chunk up to 256; f32 inputs and shapes tc does not take):
 //   * One 256-thread block per (b, h, chunk); Q <= 256, so the scan of dt*a
 //     is one value a thread: warp shuffles, then a scan of the 8 warp
 //     totals.  The TPU's tril-ones matmul for the cumsum goes.
@@ -43,10 +44,7 @@
 //   * A thread whose 4 x 4 tile lies outside the chunk, the head dim or the
 //     state dim skips the products.
 //   * Chunks of 4, 8, 16 or 32 positions (the cascade's 8 tokens) take the
-//     packed kernel instead: one block per 64 / Q heads, C.B^T computed once
-//     for all of them (B and C are shared), and W.X over 64 packed (head, i)
-//     rows.  One block per head there left 7 of 8 warps idle, repeated
-//     C.B^T for every head and ran 37x its byte bound.
+//     packed kernel instead (below): one block per lane covering all heads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -287,128 +285,224 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_chunk_kernel(Args g) {
 }
 
 // The packed kernel for chunks of Q in {4, 8, 16, 32} positions (the cascade
-// backbone's 8 tokens): one block per (b, chunk, group of G = 64 / Q heads).
-// C.B^T is computed ONCE for the G heads (B and C are shared by all heads)
-// and kept in the registers of the threads whose 4 x 4 tile it is; the G
-// heads' decay weights then fill the 64 packed rows (head, i) of one W tile,
-// and W.X runs over all of them at once, each thread's 4 rows inside one
-// head.  A kernel block per head would leave 7 of its 8 warps idle at Q = 8
-// and repeat C.B^T for every head.
+// backbone's 8 tokens): bytes bound it (at 512 lanes x 8 tokens, H 32, P 64,
+// N 128 it reads 19 MB of x and writes 34 MB of y, and does 0.05 GFLOP).
+// One block per lane (b, chunk) covers ALL H heads, so C.B^T is computed
+// once a lane (B and C are shared by the heads).  B, C, dt, the scans and
+// C.B^T sit in shared memory; then for a group of heads at a time (all 32
+// at the cascade's shape) the block stages their x rows with 16-byte
+// cp.async and their decay weights W[h][i][j] (masked before exp) in shared
+// memory, and threads take (head, 4 rows, 16 bytes of P) items of y
+// (16-byte shared-memory reads, float4 stores) and, for the state, one warp
+// a (head, p) row of S with a lane a float4 of N (512-byte stores).  A block
+// holds ~53 KB of shared memory and <= 64 registers a thread at the
+// cascade's shape, so four lanes share an SM and their loads are in flight
+// together.
+constexpr int kPackedStage = 40 * 1024;  // x rows and W of one head group
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) ssd_intra_chunk_packed_kernel(Args g) {
-  __shared__ __align__(16) float As[kT * kLd];
-  __shared__ __align__(16) float Bs[kT * kLd];
-  __shared__ float cum[kT];  // packed (head, i)
-  __shared__ float dts[kT];
-  __shared__ float xscale[kT];
+__host__ __device__ inline int packed_heads(int q, int p, int heads) {
+  const int per_head = q * p * static_cast<int>(sizeof(T)) + q * q * 4;
+  const int hg = kPackedStage / per_head;
+  return hg < 1 ? 1 : hg > heads ? heads : hg;
+}
 
-  const int tid = threadIdx.x;
-  const int Q = g.chunk, P = g.p, N = g.n;
-  const int heads_per_block = kT / Q;
-  const int groups = (g.heads + heads_per_block - 1) / heads_per_block;
-  const int ci = (int)(blockIdx.x % g.nc);
-  const long long rest = blockIdx.x / g.nc;
-  const int h0 = (int)(rest % groups) * heads_per_block;
-  const long long b = rest / groups;
-  const int nh = min(heads_per_block, g.heads - h0);
-  const int rows = nh * Q;
+template <typename T>
+__host__ __device__ inline size_t packed_smem(int q, int p, int n, int heads) {
+  const int hg = packed_heads<T>(q, p, heads);
+  const size_t xs = ((size_t)hg * q * p * sizeof(T) + 15) / 16 * 16;
+  return xs + (2 * (size_t)q * (n + 4) + (size_t)q * q + 3 * (size_t)heads * q +
+               (size_t)hg * q * q) * sizeof(float);
+}
+
+// CW values of T from shared memory (16 bytes when vec), zero past `valid`
+template <typename T>
+__device__ __forceinline__ void read_vec(const T* p, float* out, int valid, bool vec);
+
+template <>
+__device__ __forceinline__ void read_vec<float>(const float* p, float* out, int valid, bool vec) {
+  if (vec) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+    return;
+  }
+  for (int c = 0; c < 4; ++c) out[c] = c < valid ? p[c] : 0.f;
+}
+
+template <>
+__device__ __forceinline__ void read_vec<__nv_bfloat16>(const __nv_bfloat16* p, float* out,
+                                                        int valid, bool vec) {
+  if (vec) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+    return;
+  }
+  for (int c = 0; c < 8; ++c) out[c] = c < valid ? __bfloat162float(p[c]) : 0.f;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// vec: x's base and strides keep 16-byte rows aligned and P is a multiple
+// of 16 bytes of T (else scalar loads and stores).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 4) ssd_intra_chunk_packed_kernel(Args g, int vec) {
+  extern __shared__ __align__(16) unsigned char pk_smem[];
+  constexpr int CW = 16 / sizeof(T);  // P values an item holds: 16 bytes of x
+  const int Q = g.chunk, P = g.p, N = g.n, H = g.heads;
+  const int HG = packed_heads<T>(Q, P, H);
+  const int ldn = N + 4;  // rows keep 16-byte alignment; bank-shifted for C.B^T
+  T* Xs = reinterpret_cast<T*>(pk_smem);  // [Q][HG][P]
+  float* Bs = reinterpret_cast<float*>(pk_smem + ((size_t)HG * Q * P * sizeof(T) + 15) / 16 * 16);
+  float* Cs = Bs + Q * ldn;   // [Q][ldn]
+  float* CB = Cs + Q * ldn;   // [Q][Q]
+  float* cum = CB + Q * Q;    // [H][Q]
+  float* dts = cum + H * Q;   // [H][Q]
+  float* xsc = dts + H * Q;   // [H][Q]: dt_j * exp(cum_{Q-1} - cum_j)
+  float* W = xsc + H * Q;     // [HG][Q][Q]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ci = static_cast<int>(blockIdx.x % g.nc);
+  const long long b = blockIdx.x / g.nc;
   const long long t0 = (long long)ci * Q;
+  const T* x = static_cast<const T*>(g.x) + b * g.sxb + t0 * g.sxt;
+  const T* Bg = static_cast<const T*>(g.b) + b * g.sbb + t0 * g.sbt;
+  const T* Cg = static_cast<const T*>(g.c) + b * g.scb + t0 * g.sct;
 
-  const T* x = static_cast<const T*>(g.x) + b * g.sxb + t0 * g.sxt + h0 * g.sxh;
-  const T* B = static_cast<const T*>(g.b) + b * g.sbb + t0 * g.sbt;
-  const T* C = static_cast<const T*>(g.c) + b * g.scb + t0 * g.sct;
-
-  // ---- 1. segmented inclusive scans of dt * a, one segment of Q lanes a head
-  // (Q divides 32, so no segment crosses a warp; warps 0 and 1 hold the 64 rows)
-  if (tid < kT) {
-    const int hh = tid / Q, i = tid % Q;
-    float d = 0.f, v = 0.f;
-    if (hh < nh) {
-      d = g.dt[b * g.sdb + (t0 + i) * g.sdt + (long long)(h0 + hh) * g.sdh];
-      v = d * g.a[b * g.sab + (long long)(h0 + hh) * g.sah];
-    }
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float u = __shfl_up_sync(0xffffffffu, v, off);
-      if (off < Q && i >= off) v += u;
-    }
-    cum[tid] = v;
-    dts[tid] = d;
-    if (hh < nh) g.ce[(b * g.heads + h0 + hh) * g.seq + t0 + i] = expf(v);
+  // ---- 1. B, C and dt of the lane
+  for (int e = tid; e < Q * N; e += kThreads) {
+    const int i = e / N, n = e - i * N;
+    Bs[i * ldn + n] = to_f32(Bg[i * g.sbt + n]);
+    Cs[i * ldn + n] = to_f32(Cg[i * g.sct + n]);
+  }
+  for (int e = tid; e < Q * H; e += kThreads) {
+    const int i = e / H, h = e - i * H;
+    dts[h * Q + i] = g.dt[b * g.sdb + (t0 + i) * g.sdt + (long long)h * g.sdh];
   }
   __syncthreads();
-  if (tid < kT) xscale[tid] = dts[tid] * expf(cum[(tid / Q) * Q + Q - 1] - cum[tid]);
 
-  // ---- 2. C.B^T once for the block's heads (rows and columns < Q)
-  const int r0 = (tid >> 4) * 4, c0 = (tid & 15) * 4;
-  const bool holds_cb = r0 < Q && c0 < Q;
-  float sacc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) sacc[r][cc] = 0.f;
-  for (int n0 = 0; n0 < N; n0 += kT) {
-    const int nn = min(kT, N - n0);
-    __syncthreads();
-    load_transposed(As, C + n0, Q, nn, g.sct);  // As[n][i]
-    load_transposed(Bs, B + n0, Q, nn, g.sbt);  // Bs[n][j]
-    __syncthreads();
-    if (holds_cb) tile_product(As, Bs, nn, r0, c0, sacc);
+  // ---- 2. each head's scan of dt * a (a thread a head), cumexp, the tail
+  // scale; C.B^T once for all heads (the lower triangle)
+  for (int h = tid; h < H; h += kThreads) {
+    const float av = g.a[b * g.sab + (long long)h * g.sah];
+    float v = 0.f;
+    for (int i = 0; i < Q; ++i) {
+      v += dts[h * Q + i] * av;
+      cum[h * Q + i] = v;
+      g.ce[(b * H + h) * g.seq + t0 + i] = expf(v);
+    }
+    for (int i = 0; i < Q; ++i) xsc[h * Q + i] = dts[h * Q + i] * expf(v - cum[h * Q + i]);
+  }
+  for (int e = tid; e < Q * Q; e += kThreads) {
+    const int i = e / Q, j = e - i * Q;
+    float acc = 0.f;
+    if (j <= i)
+      for (int n = 0; n < N; ++n) acc = fmaf(Cs[i * ldn + n], Bs[j * ldn + n], acc);
+    CB[e] = acc;
   }
   __syncthreads();
-  // every head's W into As, k-major in j: As[j][hh * Q + i], masked before exp
-  if (holds_cb) {
-    for (int hh = 0; hh < nh; ++hh) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          const int i = r0 + r, j = c0 + cc;
-          float w = 0.f;
-          if (j <= i) w = expf(cum[hh * Q + i] - cum[hh * Q + j]) * sacc[r][cc] * dts[hh * Q + j];
-          As[j * kLd + hh * Q + i] = w;
-        }
+
+  const int npc = (P + CW - 1) / CW;
+  const long long yrow = (long long)H * P;
+  float* y = g.y + (b * g.seq + t0) * yrow;
+  const bool state = ci < g.nc_state;
+  for (int h0 = 0; h0 < H; h0 += HG) {
+    const int nh = min(HG, H - h0);
+    // ---- 3. the group's x rows (16-byte cp.async) and decay weights
+    if (vec) {
+      const int chunks = nh * P / CW;
+      for (int e = tid; e < Q * chunks; e += kThreads) {
+        const int j = e / chunks, r = e - j * chunks;
+        const int hh = r * CW / P, p = r * CW - hh * P;
+        cp_async16(Xs + (j * HG + hh) * P + p, x + j * g.sxt + (long long)(h0 + hh) * g.sxh + p);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    } else {
+      for (int e = tid; e < Q * nh * P; e += kThreads) {
+        const int j = e / (nh * P), r = e - j * nh * P;
+        const int hh = r / P, p = r - hh * P;
+        Xs[(j * HG + hh) * P + p] = x[j * g.sxt + (long long)(h0 + hh) * g.sxh + p];
       }
     }
-  }
+    for (int e = tid; e < nh * Q * Q; e += kThreads) {
+      const int hh = e / (Q * Q), ij = e - hh * Q * Q;
+      const int i = ij / Q, j = ij - i * Q;
+      const float* ch = cum + (h0 + hh) * Q;
+      // masked before exp: exp(-inf) = 0
+      W[e] = expf(j <= i ? ch[i] - ch[j] : -INFINITY) * CB[ij] * dts[(h0 + hh) * Q + j];
+    }
+    if (vec) asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
 
-  // ---- 3. y over the packed rows: y[(hh, i)][p] = sum_j W[j][(hh, i)] x_hh[j][p]
-  const long long y_row = (long long)g.heads * P;
-  float* y = g.y + ((b * g.seq + t0) * g.heads + h0) * P;
+    // ---- 4. y: an item is (head, 4 rows, CW values of P)
+    const int nib = (Q + 3) / 4;
+    for (int item = tid; item < nh * nib * npc; item += kThreads) {
+      const int pc = item % npc, rest = item / npc;
+      const int ib = rest % nib, hh = rest / nib;
+      const int p0 = pc * CW, i0 = ib * 4, valid = min(CW, P - p0);
+      const float* w = W + hh * Q * Q;
+      float acc[4][CW];
 #pragma unroll
-  for (int pb = 0; pb < kMaxPBlocks; ++pb) {
-    if (pb * kT < P) {
-      const int npb = min(kT, P - pb * kT);
-      __syncthreads();
-      for (int e = tid; e < rows * npb; e += kThreads) {  // Bs[hh * Q + j][p]
-        const int row = e / npb, pp = e % npb;
-        Bs[row * kLd + pp] = to_f32(x[(row % Q) * g.sxt + (long long)(row / Q) * g.sxh +
-                                      pb * kT + pp]);
-      }
-      __syncthreads();
-      if (r0 < rows && c0 < npb) {
-        const int hh = r0 / Q;  // the thread's 4 rows lie in one head (Q % 4 == 0)
-        float acc[4][4];
+      for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) acc[r][cc] = 0.f;
-        tile_product(As, Bs + hh * Q * kLd, Q, r0, c0, acc);
+        for (int c = 0; c < CW; ++c) acc[r][c] = 0.f;
+      const int jend = min(i0 + 4, Q);
+      for (int j = 0; j < jend; ++j) {
+        float xv[CW];
+        read_vec<T>(Xs + (j * HG + hh) * P + p0, xv, valid, vec);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const int i = (r0 + r) - hh * Q;
-          *reinterpret_cast<float4*>(y + i * y_row + (long long)hh * P + pb * kT + c0) =
-              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+          const float wr = i0 + r < Q ? w[(i0 + r) * Q + j] : 0.f;  // 0 above the diagonal
+#pragma unroll
+          for (int c = 0; c < CW; ++c) acc[r][c] = fmaf(wr, xv[c], acc[r][c]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (i0 + r >= Q) break;
+        float* yo = y + (i0 + r) * yrow + (long long)(h0 + hh) * P + p0;
+        if (vec) {
+#pragma unroll
+          for (int c = 0; c < CW; c += 4)
+            *reinterpret_cast<float4*>(yo + c) =
+                make_float4(acc[r][c], acc[r][c + 1], acc[r][c + 2], acc[r][c + 3]);
+        } else {
+          for (int c = 0; c < valid; ++c) yo[c] = acc[r][c];
         }
       }
     }
-  }
 
-  // ---- 4. each head's state contribution, when wanted
-  if (ci >= g.nc_state) return;
-  for (int hh = 0; hh < nh; ++hh) {
-    chunk_state(As, Bs, x + (long long)hh * g.sxh, B, xscale + hh * Q, Q, P, N, g.sxt, g.sbt,
-                g.s + (((b * g.heads + h0 + hh) * g.nc_state + ci) * (long long)P) * N);
+    // ---- 5. the group's state contributions, when wanted: a warp a (head, p)
+    // row of S, a lane a float4 of N
+    if (state) {
+      for (int row = warp; row < nh * P; row += kWarps) {
+        const int hh = row / P, p = row - hh * P;
+        const int h = h0 + hh;
+        float* so = g.s + (((b * H + h) * g.nc_state + ci) * (long long)P + p) * N;
+        for (int n4 = lane; n4 < N / 4; n4 += 32) {
+          float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+          for (int j = 0; j < Q; ++j) {
+            const float xw = to_f32(Xs[(j * HG + hh) * P + p]) * xsc[h * Q + j];
+            const float4 bv = *reinterpret_cast<const float4*>(Bs + j * ldn + 4 * n4);
+            acc.x = fmaf(xw, bv.x, acc.x);
+            acc.y = fmaf(xw, bv.y, acc.y);
+            acc.z = fmaf(xw, bv.z, acc.z);
+            acc.w = fmaf(xw, bv.w, acc.w);
+          }
+          *reinterpret_cast<float4*>(so + 4 * n4) = acc;
+        }
+      }
+    }
+    __syncthreads();  // Xs and W are restaged for the next group
   }
 }
 
@@ -416,13 +510,14 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_chunk_packed_kernel(Args g
 
 // Returns cudaGetLastError() after the launch (0 on success).  The wrapper
 // (kernel.py) has checked devices, dtypes, shapes and strides: chunk <= 256
-// divides seq, P <= 128, P and N multiples of 4, innermost strides 1.
+// divides seq, P <= 128, P and N multiples of 4, innermost strides 1;
+// vec_x: x's rows allow 16-byte loads (the packed kernel reads it).
 extern "C" int ssd_intra_chunk_fwd(
     const void* x, const void* dt, const void* a, const void* b, const void* c, void* y,
     void* s, void* ce, int batch, int seq, int heads, int p, int n, int chunk, int nc_state,
     long long sxb, long long sxt, long long sxh, long long sdb, long long sdt, long long sdh,
     long long sab, long long sah, long long sbb, long long sbt, long long scb, long long sct,
-    int is_bf16, void* stream) {
+    int is_bf16, int vec_x, void* stream) {
   Args g;
   g.x = x;
   g.dt = static_cast<const float*>(dt);
@@ -446,13 +541,24 @@ extern "C" int ssd_intra_chunk_fwd(
   g.scb = scb; g.sct = sct;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (chunk == 4 || chunk == 8 || chunk == 16 || chunk == 32) {
-    const int per_block = kT / chunk;
-    const long long blocks = (long long)batch * ((heads + per_block - 1) / per_block) * g.nc;
+    const long long blocks = (long long)batch * g.nc;
     if (blocks == 0) return 0;
-    if (is_bf16)
-      ssd_intra_chunk_packed_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0, st>>>(g);
-    else
-      ssd_intra_chunk_packed_kernel<float><<<(unsigned)blocks, kThreads, 0, st>>>(g);
+    if (is_bf16) {
+      const size_t smem = packed_smem<__nv_bfloat16>(chunk, p, n, heads);
+      if (smem > 48 * 1024 && cudaFuncSetAttribute(ssd_intra_chunk_packed_kernel<__nv_bfloat16>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(smem)) != cudaSuccess)
+        return (int)cudaGetLastError();
+      ssd_intra_chunk_packed_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, smem, st>>>(
+          g, vec_x);
+    } else {
+      const size_t smem = packed_smem<float>(chunk, p, n, heads);
+      if (smem > 48 * 1024 && cudaFuncSetAttribute(ssd_intra_chunk_packed_kernel<float>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(smem)) != cudaSuccess)
+        return (int)cudaGetLastError();
+      ssd_intra_chunk_packed_kernel<float><<<(unsigned)blocks, kThreads, smem, st>>>(g, vec_x);
+    }
     return (int)cudaGetLastError();
   }
   const long long blocks = (long long)batch * heads * g.nc;

@@ -1,9 +1,13 @@
-"""Build and bind the hand-written CUDA SSD intra-chunk kernel.
+"""Build and bind the hand-written CUDA SSD intra-chunk kernels.
 
-``csrc/ssd_scan.cu`` exposes one ``extern "C"`` launcher (templated inside
-on f32 / bf16 x, B and C).  It is compiled with ``nvcc`` for ``sm_90a`` into
-a shared library at first use (``kernels/build.py``) and loaded with
-``ctypes``.
+``csrc/ssd_scan_tc.cu`` ("tc": Hopper tensor cores, mma.sync on bf16 x, B
+and C, chunks of 64 / 128 / 256, P and N of 64 or 128) and
+``csrc/ssd_scan.cu`` ("simt": f32 CUDA-core products for any other chunk up
+to 256 and for f32 inputs; "packed": chunks of 4 to 32, one block a lane
+over all heads) each expose one ``extern "C"`` launcher, compiled with
+``nvcc`` for ``sm_90a`` into a shared library of its own at first use
+(``kernels/build.py``) and loaded with ``ctypes``.  ``route`` picks the
+kernel from the dtype and shape alone: it is not a fallback.
 
 Nothing here touches CUDA or nvcc at import time: the CPU test suite imports
 this module on machines with neither.
@@ -20,44 +24,90 @@ import torch
 from repro_torch.kernels.build import BASE_FLAGS, build_library, check_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+SOURCE_TC = Path(__file__).resolve().parent / "csrc" / "ssd_scan_tc.cu"
 MAX_CHUNK = 256
 MAX_HEAD_DIM = 128
+PACKED_CHUNKS = (4, 8, 16, 32)
+TC_CHUNKS = (64, 128, 256)
+TC_DIMS = (64, 128)  # the tc kernel's head dims P and state dims N
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
 
+def route(dtype: torch.dtype, chunk: int, p: int, n: int) -> str:
+    """The kernel for a call: "packed" for chunks in ``PACKED_CHUNKS``, "tc"
+    (tensor cores) for bf16 with a chunk in ``TC_CHUNKS`` and P, N in
+    ``TC_DIMS``, else "simt"."""
+    if chunk in PACKED_CHUNKS:
+        return "packed"
+    if dtype == torch.bfloat16 and chunk in TC_CHUNKS and p in TC_DIMS and n in TC_DIMS:
+        return "tc"
+    return "simt"
+
+
 def build() -> tuple[Path, str, float]:
-    """Compile the kernel if needed -> (library path, nvcc log, seconds)."""
+    """Compile the simt / packed kernels if needed -> (library path, nvcc log, seconds)."""
     return build_library(SOURCE, BASE_FLAGS, "ssd_scan")
+
+
+def build_tc() -> tuple[Path, str, float]:
+    """Compile the tensor-core kernel if needed -> (library path, nvcc log, seconds)."""
+    return build_library(SOURCE_TC, BASE_FLAGS, "ssd_scan_tc")
 
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded simt / packed kernel library (built on first use)."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
-    lib.ssd_intra_chunk_fwd.argtypes = [_P] * 8 + [_I] * 7 + [_L] * 12 + [_I, _P]
+    lib.ssd_intra_chunk_fwd.argtypes = [_P] * 8 + [_I] * 7 + [_L] * 12 + [_I, _I, _P]
     lib.ssd_intra_chunk_fwd.restype = _I
     return lib
 
 
-def launch(x, dt, a, b, c, y, s, ce, *, chunk: int) -> None:
-    """Launch on the current stream (the caller validated operands).
+@functools.lru_cache(maxsize=1)
+def library_tc() -> ctypes.CDLL:
+    """The loaded tensor-core kernel library (built on first use)."""
+    path, _, _ = build_tc()
+    lib = ctypes.CDLL(str(path))
+    lib.ssd_intra_chunk_tc_fwd.argtypes = [_P] * 8 + [_I] * 7 + [_L] * 12 + [_P]
+    lib.ssd_intra_chunk_tc_fwd.restype = _I
+    return lib
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """16-byte aligned base and strides (all but the innermost, which is 1)."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % step == 0 for s in t.stride()[:-1])
+
+
+def launch(x, dt, a, b, c, y, s, ce, *, chunk: int, kind: str) -> None:
+    """Launch the ``kind`` kernel ("tc", "simt" or "packed", see ``route``)
+    on the current stream (the caller validated operands).
 
     x [B, S, H, P], dt [B, S, H], a [B, H], b / c [B, S, N] as strided
     views; y [B, S, H, P], s [B, H, nc', P, N] and ce [B, H, S] contiguous
     f32 outputs; nc' = s.shape[2] chunks keep their state."""
+    if kind not in ("tc", "simt", "packed"):
+        raise ValueError(f"no SSD kernel {kind!r}: 'tc', 'simt' or 'packed'")
+    if kind != "tc" and (kind == "packed") != (chunk in PACKED_CHUNKS):
+        raise ValueError(f"the {kind} kernel does not take chunk {chunk}")
     bsz, seq, heads, p = x.shape
     n = b.shape[2]
-    err = library().ssd_intra_chunk_fwd(
+    args = [
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         y.data_ptr(), s.data_ptr(), ce.data_ptr(),
         bsz, seq, heads, p, n, chunk, s.shape[2],
         x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
         a.stride(0), a.stride(1), b.stride(0), b.stride(1), c.stride(0), c.stride(1),
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    check_launch(err, "ssd_intra_chunk")
+    ]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if kind == "tc":
+        err = library_tc().ssd_intra_chunk_tc_fwd(*args, stream)
+    else:
+        vec_x = rows_aligned(x) and p % (16 // x.element_size()) == 0
+        err = library().ssd_intra_chunk_fwd(*args, int(x.dtype == torch.bfloat16), int(vec_x),
+                                            stream)
+    check_launch(err, f"ssd_intra_chunk ({kind})")

@@ -8,14 +8,16 @@ loop over chunks, as the reference runs it in a jnp scan,
 ``ssd_scan`` keeps the reference's ``[BH, S, P]`` signature over the same
 two steps.  They route by the device of their tensors: on the CPU the
 intra-chunk term is the plain PyTorch twin (``ref.py``); on a CUDA tensor
-the hand-written kernel launches or the call raises — it never falls back
-and reads no environment switch.  The kernel reads strided views, so the
-model passes x, B and C as slices of its projection and B / C with no
-H-fold copy.
+the hand-written kernel that ``kernel.route`` names launches — "tc" (bf16
+on the tensor cores: the mamba2 prefill's chunks of 256), "packed" (chunks
+of 4 to 32: the cascade's 8 tokens) or "simt" (f32 and the other shapes)
+— or the call raises: it never falls back and reads no environment
+switch.  The kernels read strided views, so the model passes x, B and C as
+slices of its projection and B / C with no H-fold copy.
 
-``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-path calls,
-so a run can show that its main path went through the kernel
-(``reset_counts`` zeroes both).
+``LAUNCHES`` counts kernel launches, ``ROUTES`` them by kernel, and
+``PLAIN_CALLS`` plain-path calls, so a run can show that its main path
+went through the kernels (``reset_counts`` zeroes them).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro_torch.kernels.ssd_scan import kernel, ref
 
 KERNEL = "ssd_intra_chunk"
 LAUNCHES = {KERNEL: 0}
+ROUTES = {"tc": 0, "simt": 0, "packed": 0}
 PLAIN_CALLS = {KERNEL: 0}
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -35,6 +38,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 def reset_counts() -> None:
     LAUNCHES[KERNEL] = 0
     PLAIN_CALLS[KERNEL] = 0
+    for r in ROUTES:
+        ROUTES[r] = 0
 
 
 def _check(x, dt, a, b, c, chunk) -> None:
@@ -56,7 +61,7 @@ def _check(x, dt, a, b, c, chunk) -> None:
                         f"{c.dtype}")
 
 
-def _launch(x, dt, a, b, c, chunk, kept):
+def _launch(x, dt, a, b, c, chunk, kept, kind):
     bsz, seq, heads, p = x.shape
     n = b.shape[2]
     if chunk > kernel.MAX_CHUNK or p > kernel.MAX_HEAD_DIM or p % 4 or n % 4:
@@ -68,11 +73,14 @@ def _launch(x, dt, a, b, c, chunk, kept):
     for name, t in (("x", x), ("b", b), ("c", c)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have a unit innermost stride")
+        if kind == "tc" and not kernel.rows_aligned(t):
+            raise ValueError(f"the tc kernel reads 16-byte rows: {name} needs an aligned base "
+                             "and strides")
     dev = x.device
     y = torch.empty((bsz, seq, heads, p), dtype=torch.float32, device=dev)
     s = torch.empty((bsz, heads, kept, p, n), dtype=torch.float32, device=dev)
     ce = torch.empty((bsz, heads, seq), dtype=torch.float32, device=dev)
-    kernel.launch(x, dt, a, b, c, y, s, ce, chunk=chunk)
+    kernel.launch(x, dt, a, b, c, y, s, ce, chunk=chunk, kind=kind)
     return y, s, ce
 
 
@@ -88,8 +96,10 @@ def intra_chunk(x, dt, a, b, c, *, chunk: int, final_state: bool = True):
     if dev.type != "cuda":
         raise ValueError(f"intra_chunk runs on cpu or cuda, not {dev}")
     nc = x.shape[1] // chunk
-    out = _launch(x, dt, a, b, c, chunk, nc if final_state else nc - 1)
+    kind = kernel.route(x.dtype, chunk, x.shape[3], b.shape[2])
+    out = _launch(x, dt, a, b, c, chunk, nc if final_state else nc - 1, kind)
     LAUNCHES[KERNEL] += 1
+    ROUTES[kind] += 1
     return out
 
 

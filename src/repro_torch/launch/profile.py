@@ -51,7 +51,7 @@ TENANTS = ((0, 1), (1, 2, 3), (0, 2), (2, 3), (0, 1, 2, 3), (1, 3), (0, 3), (1, 
 CASCADE_TENANTS = ((0, 1), (1, 2), (0, 2), (0,), (1,), (2,), (0, 1, 2), (0, 1))
 KINDS = (  # (label, substrings of the kernel name), first match wins
     ("attention (flash kernel)", ("flash_attention",)),
-    ("attention (decode kernel)", ("decode_partials",)),
+    ("attention (decode kernel)", ("decode_partials", "decode_fused")),
     ("SSD intra-chunk kernel", ("ssd_intra_chunk",)),
     ("scoring (enrich_score)", ("enrich_score",)),
     ("matmuls (cuBLAS)", ("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas")),

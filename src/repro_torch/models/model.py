@@ -89,6 +89,18 @@ class Model:
         return self._logits(params, x), cache
 
 
+def teacher_forced(model: Model, params: dict, tokens: torch.Tensor, prompt: int, max_len: int):
+    """Prefill ``tokens[:, :prompt]``, then feed ``tokens[:, t]`` for each
+    ``t >= prompt`` as one decode step -> (logits after the prefill and after
+    each step, each [B, 1, V] f32; the cache)."""
+    logits, cache = model.prefill(params, {"tokens": tokens[:, :prompt]}, max_len)
+    out = [logits]
+    for t in range(prompt, tokens.shape[1]):
+        logits, cache = model.decode_step(params, tokens[:, t:t + 1], cache)
+        out.append(logits)
+    return out, cache
+
+
 def serving_params(params: dict, cfg: ModelConfig) -> dict:
     """The tree serving reads: the embedding and the stack's matrices stored
     in the activation dtype, norms and SSM vectors f32."""

@@ -15,12 +15,17 @@ held against their plain twin within the reference tests' tolerances (2e-5
 f32, 2e-2 bf16: the online softmax sums in another order, and the tc kernel
 rounds P to bf16 before P.V), each call counted on its route, and a small
 model-cascade session serves through the simt kernel on the card.
-The SSD intra-chunk kernel is held against its plain twin within 1e-4 (f32
-products summed over the chunk and the state in another order, the cumsum
-scanned in another order) on ragged chunks, strided model-layout operands
-and both state forms; the decode kernel's partials within 2e-5 (f32 sums in
-another order), dead splits and an empty cache included; and the reduced
-qwen3 and mamba2 models prefill and decode on the card as on the CPU.
+The SSD intra-chunk kernels — "tc" (bf16 on the tensor cores, chunks of 64
+to 256), "packed" (chunks of 4 to 32) and "simt" — are held against their
+plain twin within 1e-4 (f32 products summed over the chunk and the state in
+another order, the cumsum scanned in another order; the tc kernel's f32
+operands split into bf16 hi + lo lose ~2^-16) on ragged chunks, strided
+model-layout operands and both state forms; the decode partials kernel
+within 2e-5 (f32 sums in another order), dead splits and an empty cache
+included, and the fused decode kernel within 2e-5 of its twin in f32 and
+2e-2 of the oracle in bf16; the reduced f32 qwen3 and mamba2 models
+prefill and decode on the card as on the CPU, and the reduced bf16 ones
+(head_dim 128, SSM chunk 256) through the bf16 routes.
 """
 
 import numpy as np
@@ -40,6 +45,7 @@ from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
@@ -364,23 +370,52 @@ def _ssd_inputs(dev, dtype, seed, b, s, h, p, n):
     return x, dt, a[None].expand(b, h), bm, cm
 
 
+def _ssd_check(args, chunk, final, route):
+    """One counted launch on ``route``, every output within 1e-4 of the twin."""
+    b, s, h, p = args[0].shape
+    before, routes = ssd_ops.LAUNCHES["ssd_intra_chunk"], dict(ssd_ops.ROUTES)
+    got = ssd_ops.intra_chunk(*args, chunk=chunk, final_state=final)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES["ssd_intra_chunk"] == before + 1
+    assert ssd_ops.ROUTES[route] == routes[route] + 1, (route, ssd_ops.ROUTES)
+    want = ssd_ref.intra_chunk_bshp(*args, chunk=chunk, final_state=final)
+    nc = s // chunk
+    assert got[1].shape == (b, h, nc if final else nc - 1, p, args[3].shape[2])
+    for name, g, w in zip(("y_intra", "s_contrib", "cumexp"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SSD_CASES)
 def test_ssd_kernel_matches_plain_twin(cuda_device, case):
     b, s, h, p, n, chunk, dtype, final = case
     args = _ssd_inputs(cuda_device, dtype, s + p, b, s, h, p, n)
-    before = ssd_ops.LAUNCHES["ssd_intra_chunk"]
-    got = ssd_ops.intra_chunk(*args, chunk=chunk, final_state=final)
-    torch.cuda.synchronize()
-    assert ssd_ops.LAUNCHES["ssd_intra_chunk"] == before + 1
-    want = ssd_ref.intra_chunk_bshp(*args, chunk=chunk, final_state=final)
-    nc = s // chunk
-    assert got[1].shape == (b, h, nc if final else nc - 1, p, n)
-    for name, g, w in zip(("y_intra", "s_contrib", "cumexp"), got, want):
-        assert g.dtype == torch.float32 and g.shape == w.shape, name
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
+    _ssd_check(args, chunk, final, ssd_kernel.route(dtype, chunk, p, n))
     y, hf = ssd_ops.ssd_bshp(*args, chunk=chunk, final_state=final)
     assert (hf is not None) == final and torch.isfinite(y).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("final", [True, False])
+@pytest.mark.parametrize("p,n", [(64, 64), (64, 128), (128, 64), (128, 128)])
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+def test_ssd_tc_kernel_matches_plain_twin(cuda_device, chunk, p, n, final):
+    """The tensor-core route on the model's strided slices, 5 heads (a group
+    of 4 and a group of 1), two chunks."""
+    args = _ssd_inputs(cuda_device, torch.bfloat16, chunk + p + n, 2, 2 * chunk, 5, p, n)
+    assert ssd_kernel.route(torch.bfloat16, chunk, p, n) == "tc"
+    _ssd_check(args, chunk, final, "tc")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("chunk,h", [(4, 33), (8, 7), (16, 5), (32, 3)])
+def test_ssd_packed_kernel_matches_plain_twin(cuda_device, chunk, h, dtype):
+    """One block a lane over all heads, H not a multiple of the old head group."""
+    args = _ssd_inputs(cuda_device, dtype, chunk + h, 3, 2 * chunk, h, 64, 128)
+    for final in (True, False):
+        _ssd_check(args, chunk, final, "packed")
 
 
 @pytest.mark.cuda
@@ -393,11 +428,20 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         ssd_ops.intra_chunk(x, dt.bfloat16(), a, bm, cm, chunk=64)
     with pytest.raises(ValueError, match="on cpu|x on"):
         ssd_ops.intra_chunk(x, dt.cpu(), a, bm, cm, chunk=64)
+    # the tc route reads 16-byte rows: a projection 4 halves wider misaligns them
+    x, dt, a, bm, cm = _ssd_inputs(cuda_device, torch.bfloat16, 1, 1, 128, 2, 64, 66)
+    bm, cm = bm[..., :64], cm[..., 2:]
+    assert ssd_kernel.route(x.dtype, 64, 64, 64) == "tc"
+    with pytest.raises(ValueError, match="16-byte rows"):
+        ssd_ops.intra_chunk(x, dt, a, bm, cm, chunk=64)
+    with pytest.raises(ValueError, match="does not take chunk"):
+        out = [torch.empty(1, device=cuda_device)] * 3
+        ssd_kernel.launch(x, dt, a, bm, bm, *out, chunk=64, kind="packed")
 
 
 # --------------------------------------------------------- decode attention --
 
-# b, skv, h, kv, d, kv_len, window, softcap, num_splits
+# b, skv, h, kv, d, kv_len, window, softcap, num_splits (of the partials route)
 DA_CASES = [
     (8, 4096, 16, 8, 128, 2048, None, None, 16),  # qwen3-1.7b decode
     (2, 256, 4, 2, 32, 192, None, None, 4),  # the reference tests' cases
@@ -413,30 +457,78 @@ DA_CASES = [
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("case", DA_CASES)
 def test_decode_kernel_matches_plain_twin(cuda_device, case, dtype, tol):
+    """The partials kernel (splits over the cache length) within 2e-5 of its
+    twin, and the fused route (the wrapper's default splits) within the
+    flash tolerances of the oracle."""
     b, skv, h, kv, d, kv_len, window, cap, ns = case
     q, k, v = _fa_inputs(cuda_device, dtype, skv + d, b, 1, skv, h, kv, d)
     kl = torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
     g = h // kv
     qm = q.reshape(b * kv, g, d)
     km, vm = (t.transpose(1, 2).reshape(b * kv, skv, d).contiguous() for t in (k, v))
-    before = da_ops.LAUNCHES["decode_attention_partials"]
+    before = dict(da_ops.LAUNCHES)
     got = da_ops.decode_attention_partials(qm, km, vm, kl, softcap=cap, window=window,
                                            num_splits=ns)
     torch.cuda.synchronize()
-    assert da_ops.LAUNCHES["decode_attention_partials"] == before + 1
+    assert da_ops.LAUNCHES == {**before, "decode_attention_partials":
+                               before["decode_attention_partials"] + 1}
     want = da_ref.decode_attention_partials(qm, km, vm, kl, softcap=cap, window=window,
                                             num_splits=ns)
     for name, x, y in zip(("m", "l", "acc"), got, want):
         torch.testing.assert_close(x, y, rtol=2e-5, atol=2e-5, msg=name)
     if kv_len == 0:
         assert (got[0] == da_ref.NEG_INF).all() and (got[1] == 0).all()
-    out = da_ops.decode_attention(q, k, v, kl, softcap=cap, window=window, num_splits=ns)
+    out = da_ops.decode_attention(q, k, v, kl, softcap=cap, window=window)
     assert out.dtype == dtype and out.shape == q.shape
+    assert da_ops.LAUNCHES["decode_attention_fused"] == before["decode_attention_fused"] + 1
     ref_out = da_ref.reference_decode(q, k, v, kl, softcap=cap, window=window)
     if kv_len == 0:
         assert (out == 0).all()
     else:
         torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol, atol=tol)
+
+
+# b, skv, h, kv, d, kv_len, window, softcap, num_splits (the fused route's)
+FUSED_CASES = [
+    (8, 4096, 16, 8, 128, 2048, None, None, 8),  # qwen3-1.7b decode
+    (2, 64, 4, 2, 64, 0, None, None, 8),  # an empty cache: 0
+    (2, 64, 4, 2, 64, 1, None, None, 8),  # one live key
+    (1, 128, 8, 1, 64, 5, None, None, 8),  # fewer live keys than splits; GQA 8
+    (2, 100, 4, 4, 128, 77, None, None, 6),  # S_max and kv_len not multiples of ns; GQA 1
+    (2, 4100, 16, 8, 128, 4099, 512, 50.0, 8),  # window + softcap over a ragged cache
+    (1, 999, 16, 2, 64, 999, None, 30.0, 7),  # GQA 8, a full cache, 7 splits
+    (3, 333, 4, 2, 128, 300, 100, None, 3),
+    (2, 96, 4, 2, 256, 90, None, None, 4),  # D 256
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_decode_kernel_matches_its_twin(cuda_device, case, dtype):
+    """One launch, no PyTorch combine: within 2e-5 of the twin in f32 (the
+    same splits, f32 sums in another order) and within the flash kernel's
+    bf16 tolerance 2e-2 of the oracle in bf16 (the output rounds to bf16)."""
+    b, skv, h, kv, d, kv_len, window, cap, ns = case
+    q, k, v = _fa_inputs(cuda_device, dtype, skv + d + ns, b, 1, skv, h, kv, d)
+    kl = torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
+    kw = dict(softcap=cap, window=window)
+    before = dict(da_ops.LAUNCHES)
+    out = da_ops.decode_attention(q, k, v, kl, num_splits=ns, **kw)
+    torch.cuda.synchronize()
+    assert da_ops.LAUNCHES == {**before, "decode_attention_fused":
+                               before["decode_attention_fused"] + 1}
+    assert out.dtype == dtype and out.shape == q.shape and torch.isfinite(out).all()
+    twin = da_ref.decode_attention_fused(q, k, v, kl, num_splits=ns, **kw)
+    oracle = da_ref.reference_decode(q, k, v, kl, **kw)
+    if kv_len == 0:
+        assert (out == 0).all() and (twin == 0).all()
+    elif dtype == torch.float32:
+        torch.testing.assert_close(out, twin, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(out, oracle, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(out.float(), oracle.float(), rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(out.float(), twin.float(), rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.cuda
@@ -447,6 +539,14 @@ def test_decode_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         da_ops.decode_attention(q, k, v, kl)  # G = 16
     with pytest.raises(ValueError, match="kv_len is on"):
         da_ops.decode_attention(q[:, :, :2], k, v, kl.cpu())
+    with pytest.raises(ValueError, match="1 to 8 splits"):
+        da_ops.decode_attention(q[:, :, :2], k, v, kl, num_splits=16)
+    with pytest.raises(ValueError, match="aligned rows"):  # rows 16-byte aligned for cp.async
+        wide = torch.zeros((1, 64, 2, 66), device=cuda_device)
+        da_ops.decode_attention(q[:, :, :2], wide[..., 2:], wide[..., 2:], kl)
+    with pytest.raises(TypeError, match="decode attention takes"):
+        da_ops.decode_attention(*(t[:, :, :2].half() if t is q else t.half() for t in (q, k, v)),
+                                kl)
 
 
 @pytest.mark.cuda
@@ -478,7 +578,59 @@ def test_cuda_model_prefill_and_decode_run_the_kernels(cuda_device, arch):
     launches = {**fa_ops.LAUNCHES, **da_ops.LAUNCHES, **ssd_ops.LAUNCHES}
     if arch == "mamba2-370m":
         assert launches == {"flash_attention": 0, "decode_attention_partials": 0,
-                            "ssd_intra_chunk": 2}, launches
+                            "decode_attention_fused": 0, "ssd_intra_chunk": 2}, launches
+        assert ssd_ops.ROUTES == {"tc": 0, "simt": 0, "packed": 2}  # f32, chunk 16
     else:
-        assert launches == {"flash_attention": 2, "decode_attention_partials": 8,
-                            "ssd_intra_chunk": 0}, launches
+        assert launches == {"flash_attention": 2, "decode_attention_partials": 0,
+                            "decode_attention_fused": 8, "ssd_intra_chunk": 0}, launches
+
+
+# reduced bf16 models that route the bf16 kernels: prompt, teacher-forced steps
+BF16_CHECK = {"qwen3-1.7b": (96, 4), "mamba2-370m": (512, 4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-370m"])
+def test_cuda_bf16_models_route_the_bf16_kernels(cuda_device, arch):
+    """The reduced bf16 configs (head_dim 128, GQA; SSM chunk 256) on the CPU
+    (plain twins) and the card (kernels), fed the same tokens, with the
+    routes asserted: the flash "tc" kernel and the fused decode for qwen3,
+    the SSD "tc" kernel for mamba2.  The card's logits stay within 2x the
+    bf16 CPU run's own distance from an f32 run of the same weights: the
+    kernels add no more error than bf16 rounding makes (the CPU and the card
+    round at other places, so two bf16 runs lie ~sqrt(2) of one run's error
+    apart)."""
+    import dataclasses
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.enrich.cascade import map_tree
+    from repro_torch.models.model import random_model, teacher_forced
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prompt, steps = BF16_CHECK[arch]
+    cfg = get_config(arch, bf16_check=True)
+    model, cpu_params = random_model(cfg, seed=5, device="cpu")
+    seq = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size,
+                                                             (2, prompt + steps)))
+    max_len = prompt + steps + 8
+    cpu, _ = teacher_forced(model, cpu_params, seq, prompt, max_len)
+    f32_model = random_model(dataclasses.replace(cfg, dtype="float32"), seed=5, device="cpu")[0]
+    ref, _ = teacher_forced(f32_model, map_tree(lambda t: t.float(), cpu_params), seq, prompt,
+                            max_len)
+    for counts in (fa_ops, da_ops, ssd_ops):
+        counts.reset_counts()
+    gpu, cache = teacher_forced(model, map_tree(lambda t: t.to(cuda_device), cpu_params),
+                                seq.to(cuda_device), prompt, max_len)
+    torch.cuda.synchronize()
+    n = cfg.num_layers
+    if arch == "qwen3-1.7b":
+        assert fa_ops.ROUTES == {"tc": n, "simt": 0}, fa_ops.ROUTES
+        assert da_ops.LAUNCHES == {"decode_attention_partials": 0,
+                                   "decode_attention_fused": n * steps}, da_ops.LAUNCHES
+    else:
+        assert ssd_ops.ROUTES == {"tc": n, "simt": 0, "packed": 0}, ssd_ops.ROUTES
+    assert not any({**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}.values())
+    assert int(cache.length) == prompt + steps
+    bf16_err = max((c - r).abs().max().item() for c, r in zip(cpu, ref))
+    err = max((g.cpu() - c).abs().max().item() for g, c in zip(gpu, cpu))
+    assert err <= 2.0 * bf16_err, (err, bf16_err)

@@ -31,7 +31,7 @@ from repro.kernels.decode_attention import ops as j_ops
 from repro.kernels.decode_attention import ref as j_ref
 from repro.models import attention as j_attn
 from repro_torch import interop
-from repro_torch.kernels.decode_attention import ops, ref
+from repro_torch.kernels.decode_attention import kernel, ops, ref
 from repro_torch.models import attention
 from test_torch_threads import one_torch_thread  # noqa: F401
 
@@ -174,7 +174,7 @@ def test_decode_route_matches_the_dense_engine_decode(mixer):
     got, new = attention.attn_apply(params, dataclasses.replace(cfg, attn_impl="kernel"),
                                     torch.from_numpy(x), torch.from_numpy(pos).long(), mixer,
                                     cache=cache, update_cache=True)
-    assert ops.PLAIN_CALLS[ops.KERNEL] == 1  # the decode route ran
+    assert ops.PLAIN_CALLS[ops.FUSED] == 1  # the decode route ran (the fused kernel's twin)
     np.testing.assert_allclose(got.numpy(), _f32(want), rtol=2e-5, atol=2e-5)
     assert int(new.length) == int(j_new.length) == prefix + 1
     # the new row written in place (RoPE rounds an ulp apart in the two packages)
@@ -218,3 +218,94 @@ def test_decode_wrapper_refuses_bad_operands():
     with pytest.raises(ValueError, match="B, 1, H, D"):
         ops.decode_attention(q.expand(1, 2, 4, 16), k, v, kl)
     assert ops.default_num_splits(64, 4096) == 16 and ops.default_num_splits(1024, 4096) == 8
+
+
+# b, skv, h, kv, d, kv_len, window, softcap, num_splits (the fused route's live-key splits)
+LIVE_CASES = [
+    (2, 64, 4, 2, 64, 0, None, None, 8),  # an empty cache: 0, not NaN
+    (2, 64, 4, 2, 64, 1, None, None, 8),  # one live key
+    (1, 128, 8, 1, 128, 5, None, None, 8),  # fewer live keys than splits; GQA 8
+    (2, 96, 4, 4, 64, 77, None, None, 6),  # kv_len not a multiple of ns; GQA 1
+    (2, 256, 4, 2, 128, 200, 48, 30.0, 8),  # window and softcap; GQA 2
+    (1, 512, 16, 2, 64, 384, None, 50.0, 4),  # GQA 8 with a softcap
+    (2, 128, 8, 1, 128, 100, 200, None, 3),  # a window wider than the live keys
+]
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("case", LIVE_CASES)
+def test_fused_decode_twin_matches_jax(case, dtype):
+    """The fused route's twin (partials over the live-key splits, then the
+    combine) against JAX's ``decode_attention`` (the Pallas kernel in
+    interpret mode, splits over the cache length) and ``reference_decode``."""
+    b, skv, h, kv, d, kv_len, window, cap, ns = case
+    q, k, v = _inputs(11, b, skv, h, kv, d, dtype)
+    kl = np.asarray([kv_len], np.int32)
+    ops.reset_counts()
+    got = ops.decode_attention(*(interop.to_torch(a) for a in (q, k, v)), torch.from_numpy(kl),
+                               softcap=cap, window=window, num_splits=ns)
+    assert ops.PLAIN_CALLS == {ops.KERNEL: 0, ops.FUSED: 1} and not any(ops.LAUNCHES.values())
+    assert got.shape == (b, 1, h, d) and got.dtype == interop.to_torch(q).dtype
+    jargs = [jnp.asarray(a) for a in (q, k, v, kl)]
+    want = j_ops.decode_attention(*jargs, softcap=cap, window=window, interpret=True)
+    oracle = j_ref.reference_decode(*jargs, softcap=cap, window=window)
+    if kv_len == 0:
+        assert (got == 0).all()  # the reference's dense softmax over no key is NaN
+        np.testing.assert_array_equal(_f32(want), 0.0)
+        return
+    tol = 3e-2 if dtype == jnp.bfloat16 else 2e-5
+    for w in (want, oracle):
+        np.testing.assert_allclose(_f32(got), _f32(w), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kv_len,skv,ns,window", [
+    (0, 64, 8, None), (1, 64, 8, None), (5, 128, 8, None), (9, 64, 8, None),
+    (77, 96, 6, None), (4096, 4096, 8, None), (300, 256, 8, 48), (100, 128, 3, 200),
+    (2048, 4096, 8, 513),
+])
+def test_live_split_bounds_share_the_live_keys(kv_len, skv, ns, window):
+    """The fused kernel's shares cover the live keys once, in order, differ
+    by at most one key, and leave a block idle only when fewer than ``ns``
+    keys are live; the partials over them combine to the same output as
+    the reference's splits over the cache length."""
+    bounds = ref.live_split_bounds(kv_len, skv, ns, window)
+    lo = 0 if window is None else max(0, kv_len - window + 1)
+    hi = min(kv_len, skv)
+    assert len(bounds) == ns and bounds[0][0] == lo and bounds[-1][1] == max(hi, lo)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    sizes = [e - s for s, e in bounds]
+    assert max(sizes) - min(sizes) <= 1 and sum(sizes) == max(hi - lo, 0)
+    assert (0 in sizes) == (hi - lo < ns)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(12, 1, skv, 4, 2, 32, jnp.float32))
+    kl = torch.tensor([kv_len], dtype=torch.int32)
+    qm, km, vm = (torch.from_numpy(a) for a in _grouped(q.numpy(), k.numpy(), v.numpy()))
+    m, l, acc = ref.live_partials(qm, km, vm, kl, num_splits=ns, window=window)
+    for i, (s, e) in enumerate(bounds):
+        if s == e:
+            assert (m[:, i] == ref.NEG_INF).all() and (l[:, i] == 0).all()
+            assert (acc[:, i] == 0).all()
+    split_ns = ref.split_count(skv, 8)
+    np.testing.assert_allclose(
+        ref.combine_partials(m, l, acc).numpy(),
+        ref.combine_partials(*ref.decode_attention_partials(
+            qm, km, vm, kl, num_splits=split_ns, window=window)).numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_fused_split_count_and_its_refusals():
+    """``fused_num_splits`` keeps one cluster of at most 8 blocks per kv
+    head, fewer for a short cache or when the blocks would outnumber what
+    the SMs hold at once in the kernel's form; the wrapper refuses a count
+    the cluster cannot hold."""
+    assert ops.fused_num_splits(64, 4096, "tc") == 2  # qwen3-1.7b decode: B 8 x KV 8, bf16
+    assert ops.fused_num_splits(64, 4096, "simt") == 4  # ... in f32
+    assert ops.fused_num_splits(16, 4096, "simt") == 8 and ops.fused_num_splits(16, 4096, "tc") == 8
+    assert ops.fused_num_splits(32, 4096, "simt") == 8 and ops.fused_num_splits(32, 4096, "tc") == 4
+    assert ops.fused_num_splits(64, 128, "simt") == 2 and ops.fused_num_splits(4, 16, "tc") == 1
+    assert ops.fused_num_splits(1024, 4096, "simt") == 1 and ops.fused_num_splits(100, 4096, "simt") == 2
+    assert kernel.fused_route(torch.bfloat16, 128) == "tc" and kernel.fused_route(torch.float32, 128) == "simt"
+    assert kernel.fused_route(torch.bfloat16, 256) == "simt" and kernel.fused_route(torch.bfloat16, 64) == "tc"
+    q, k, v = (torch.from_numpy(a) for a in _inputs(13, 1, 32, 4, 2, 16, jnp.float32))
+    kl = torch.tensor([8], dtype=torch.int32)
+    for ns in (0, 9, 16):
+        with pytest.raises(ValueError, match="1 to 8 splits"):
+            ops.decode_attention(q, k, v, kl, num_splits=ns)

@@ -35,7 +35,7 @@ from repro.kernels.ssd_scan import ref as j_ref
 from repro.models import ssm as j_ssm
 from repro.models.model import Model as JModel
 from repro_torch import interop
-from repro_torch.kernels.ssd_scan import ops, ref
+from repro_torch.kernels.ssd_scan import kernel, ops, ref
 from repro_torch.models import ssm
 from test_torch_threads import one_torch_thread  # noqa: F401
 
@@ -215,3 +215,33 @@ def test_intra_chunk_refuses_bad_operands():
         ops.intra_chunk(x, dt, a, b.bfloat16(), b, chunk=4)
     with pytest.raises(ValueError, match="do not fit"):
         ops.intra_chunk(x, dt[:, :4], a, b, b, chunk=4)
+
+
+@pytest.mark.parametrize("dtype,chunk,p,n,want", [
+    (torch.bfloat16, 256, 64, 128, "tc"),  # the mamba2-370m prefill
+    (torch.bfloat16, 64, 128, 64, "tc"),
+    (torch.bfloat16, 128, 64, 64, "tc"),
+    (torch.float32, 256, 64, 128, "simt"),  # f32 stays on the CUDA cores
+    (torch.bfloat16, 50, 64, 128, "simt"),  # a chunk the tensor-core tiles do not take
+    (torch.bfloat16, 256, 32, 128, "simt"),  # a head dim they do not take
+    (torch.bfloat16, 256, 64, 16, "simt"),  # a state dim they do not take
+    (torch.bfloat16, 8, 64, 128, "packed"),  # the cascade's 8 tokens
+    (torch.float32, 32, 16, 16, "packed"),
+    (torch.bfloat16, 4, 64, 128, "packed"),
+])
+def test_route_picks_the_kernel_by_dtype_and_shape(dtype, chunk, p, n, want):
+    """``kernel.route`` names the CUDA kernel a call takes from its dtype
+    and shape alone; the CPU path runs the twin whatever the route."""
+    assert kernel.route(dtype, chunk, p, n) == want
+    rng = np.random.default_rng(chunk + p + n)
+    x = torch.from_numpy(rng.standard_normal((1, chunk, 2, p)).astype(np.float32)).to(dtype)
+    b, c = (torch.from_numpy(rng.standard_normal((1, chunk, n)).astype(np.float32)).to(dtype)
+            for _ in range(2))
+    dt = torch.full((1, chunk, 2), 0.05)
+    a = -torch.ones((1, 2))
+    ops.reset_counts()
+    got = ops.intra_chunk(x, dt, a, b, c, chunk=chunk)
+    assert ops.PLAIN_CALLS[ops.KERNEL] == 1 and not any(ops.ROUTES.values())
+    want_out = ref.intra_chunk_bshp(x, dt, a, b, c, chunk=chunk)
+    for g, w in zip(got, want_out):
+        assert torch.equal(g, w)
