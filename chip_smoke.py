@@ -30,14 +30,16 @@ in order; any failure raises and the script exits non-zero:
    "simt" kernel on the same inputs, uncounted) and the cascade's (512
    lanes x 8 tokens, with and without the final state: the "packed"
    route), every output within 1e-4 of its largest magnitude.  The flash
-   cases run both of its kernels, as
-   ``kernel.route`` picks them: "simt" (f32, and the cascade's 8-token
-   blocks) and "tc" (the tensor-core kernel: bf16 with >= 64 query rows and
-   D 64 or 128), each within its tolerance of the twin; the cascade shape,
-   the causal S 4096 case and the qwen3-1.7b prefill shape (B 8, Sq 2048
-   over a 4096-row cache, kv_len 2048) are timed beside SDPA over the live
-   keys, the bound and the kernel the route did not pick (where it takes
-   the dtype and head dim; held against the twin too, and not counted);
+   cases run its three kernels, as ``kernel.route`` picks them: for bf16 at
+   D 64 or 128 "tc" (wgmma + TMA, >= 64 query rows) and "short" (mma.sync,
+   fewer rows: the cascade's 8-token blocks), else "simt" (f32, other head
+   dims), each within its tolerance of the twin; the cascade shape, the
+   causal S 4096 case and the qwen3-1.7b prefill shape (B 8, Sq 2048 over a
+   4096-row cache, kv_len 2048) are timed beside SDPA over the live keys,
+   the bound and the kernels the route did not pick (where they take the
+   dtype and head dim; held against the twin too, and not counted: at the
+   cascade's shape the short kernel must be no slower than the simt kernel
+   it replaced);
 3. CPU vs GPU session: one churn trace at capacity 4096 with 4 tenants, in
    both scoring modes, through ``EngineSession(device="cpu")`` (plain path)
    and ``device="cuda"`` (kernels) — per-slot plans, merged plans,
@@ -61,6 +63,11 @@ in order; any failure raises and the script exits non-zero:
    512-token prefill) models, whose widths take the bf16 routes (flash
    "tc", the fused decode, SSD "tc": asserted), the card fed the CPU's
    greedy tokens, logits within 2x the CPU bf16 run's distance from f32;
+   then the cascade bank with the reduced bf16 qwen3 trunk (D 128, 2 query
+   heads over 1 KV head: the "short" route, asserted), built on the CPU and
+   copied to the card, ``execute`` over the same merged plans on both and on
+   an f32 CPU copy: the card's probabilities within 2x the bf16 CPU run's
+   distance from f32;
 4. the main path at full size: the session server (``repro_torch.launch.
    serve``: 524,288 rows growing to 1,048,576, 8 tenant slots, bf16
    substrate, best-mode scoring) serves
@@ -80,7 +87,7 @@ in order; any failure raises and the script exits non-zero:
    launch 28 times per epoch that ran the trunk (at least 4 such epochs),
    the plain twins never; chunk programs within the bound, invoices fold
    bit for bit, every epoch charges, probabilities finite and in [0, 1];
-   every flash launch goes by the "simt" route; then the same with the
+   every flash launch goes by the "short" route; then the same with the
    48-layer mamba2-370m trunk (d_model 1024): the SSD kernel launches 48
    times per trunk epoch, all by the "packed" route, the flash kernel never;
 6. the operator main path at full size: the quickstart query and corpus at
@@ -100,8 +107,10 @@ in order; any failure raises and the script exits non-zero:
    in the prefill, all by the "tc" route; decode runs ``ssd_step``), with
    ms per prefill and per step and peak memory;
 8. one JSON line of per-kernel numbers, one entry per kernel: the flash
-   kernel's two routes as ``flash_attention`` and ``flash_attention_tc``
-   (the first also carries the prefill shape's ``prefill_ms``,
+   kernel's three routes as ``flash_attention`` (simt: on no main path, its
+   launches are 0 and its numbers the cascade shape's, timed beside the
+   short kernel), ``flash_attention_tc`` and ``flash_attention_short`` (the
+   first also carries the tc kernel's prefill-shape ``prefill_ms``,
    ``prefill_bound_ms``, ``prefill_library_ms`` and the main paths'
    ``routes``), ``decode_attention_fused`` and ``decode_attention_partials``
    (on no main path: its launches are 0), ``ssd_intra_chunk_tc`` and
@@ -147,6 +156,8 @@ SOURCES = {
     "enrich_score_single": "src/repro_torch/kernels/enrich_score/csrc/enrich_score.cu",
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "flash_attention_tc": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu",
+    "flash_attention_short":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention_short.cu",
     "decode_attention_partials":
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
     "decode_attention_fused":
@@ -160,6 +171,7 @@ REPLACES = {
     "enrich_score_single": "src/repro/kernels/enrich_score/kernel.py:273",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:122",
     "flash_attention_tc": "src/repro/kernels/flash_attention/kernel.py:122",
+    "flash_attention_short": "src/repro/kernels/flash_attention/kernel.py:122",
     "decode_attention_partials": "src/repro/kernels/decode_attention/kernel.py:65",
     "decode_attention_fused": "src/repro/kernels/decode_attention/kernel.py:65",
     "ssd_intra_chunk": "src/repro/kernels/ssd_scan/kernel.py:72",
@@ -170,13 +182,16 @@ REPLACES = {
 COUNTED = {
     "flash_attention": ("flash_attention/simt",),
     "flash_attention_tc": ("flash_attention/tc",),
+    "flash_attention_short": ("flash_attention/short",),
     "ssd_intra_chunk": ("ssd_intra_chunk/simt", "ssd_intra_chunk/packed"),
     "ssd_intra_chunk_tc": ("ssd_intra_chunk/tc",),
 }
 # listed with their launches but on no main path: the partials route keeps
-# the reference's signature (splits over the cache length) for callers of it;
-# the model's decode runs the fused kernel
-OFF_PATH = {"decode_attention_partials"}
+# the reference's signature (splits over the cache length) for callers of it,
+# while the model's decode runs the fused kernel; the simt flash kernel takes
+# f32 and the head dims the tensor-core kernels do not, while the main paths'
+# attention is bf16 at D 128 ("short" in the cascade, "tc" in the prefill)
+OFF_PATH = {"decode_attention_partials", "flash_attention"}
 # the mamba2-370m prefill (B 2, S 4096, chunk 256) and the cascade backbone's
 # 512 lanes x 8 tokens; H 32, P 64, N 128, bf16 x / B / C.  The cascade runs
 # without a final state (its last chunk's state is neither computed nor
@@ -218,11 +233,18 @@ FA_CASES = [
     (1, 256, 256, 4, 2, 32, True, None, None, "bfloat16", None, False),
     (1, 64, 256, 4, 2, 32, True, None, None, "float32", 100, True),  # partial kv_len
     (2, 200, 333, 4, 2, 128, True, 100, 30.0, "bfloat16", 300, True),  # ragged "tc" tiles
+    (2, 33, 128, 8, 2, 128, True, 24, 30.0, "bfloat16", 100, True),  # "short": G*Sq = 132
+    (4, 8, 64, 4, 2, 64, True, 4, 20.0, "bfloat16", 6, True),  # "short", D 64, dead rows
+    (3, 8, 300, 4, 4, 128, True, 100, None, "bfloat16", 250, True),  # "short", 7 key tiles
     LONG_FA,
     PREFILL_FA,
 ]
 FA_TIMED = (BACKBONE_FA, FA_CASES[1], LONG_FA, PREFILL_FA)
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the cascade bank with the reduced bf16 qwen3 trunk (bf16_check: head_dim
+# 128, 2 query heads over 1 KV head, so 16 query rows a (lane, kv head) at 8
+# tokens): objects, predicates, merged plans of this many lanes
+CASCADE_BF16 = (128, 3, 96, 3)
 
 
 def _nvidia_smi() -> str:
@@ -304,12 +326,13 @@ def phase_build():
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
     t0 = time.perf_counter()
-    builds = (es_kernel.build, fa_kernel.build, fa_kernel.build_tc, da_kernel.build,
-              da_kernel.build_fused, ssd_kernel.build, ssd_kernel.build_tc)
+    builds = (es_kernel.build, fa_kernel.build, fa_kernel.build_tc, fa_kernel.build_short,
+              da_kernel.build, da_kernel.build_fused, ssd_kernel.build, ssd_kernel.build_tc)
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, all at once
         built = [f.result() for f in [pool.submit(b) for b in builds]]
-    for load in (es_kernel.library, fa_kernel.library, fa_kernel.library_tc, da_kernel.library,
-                 da_kernel.library_fused, ssd_kernel.library, ssd_kernel.library_tc):
+    for load in (es_kernel.library, fa_kernel.library, fa_kernel.library_tc,
+                 fa_kernel.library_short, da_kernel.library, da_kernel.library_fused,
+                 ssd_kernel.library, ssd_kernel.library_tc):
         load()
     for path, log, nvcc_s in built:
         print(f"[build] {path.name}: nvcc {nvcc_s:.2f} s", flush=True)
@@ -662,15 +685,15 @@ def _fa_bound(case) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_flash() -> tuple:
-    """Both flash kernels against the plain twin -> (simt results, tc results)."""
+def phase_flash() -> dict:
+    """The three flash kernels against the plain twin -> {route: results}."""
     import torch
     import torch.nn.functional as tnf
 
     from repro_torch.kernels.flash_attention import kernel, ops
 
     dev = torch.device("cuda")
-    results = {"simt": {"max_abs_err": 0.0}, "tc": {"max_abs_err": 0.0}}
+    results = {r: {"max_abs_err": 0.0} for r in kernel.ROUTE_NAMES}
     for case in FA_CASES:
         b, sq, skv, h, kv, d, causal, window, cap, dtype, kv_len, q_off = case
         dt = getattr(torch, dtype)
@@ -719,12 +742,15 @@ def phase_flash() -> tuple:
             raise AssertionError(f"scaled_dot_product_attention disagrees at {label}")
         ms, plain_ms, library_ms = (_time_ms(f) for f in (kernel_call, plain_call, library_call))
         bound_ms, bound_by = _fa_bound(case)
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms)
         print(f"[flash] {label}: max abs diff {err:.3g} (tol {tol}); kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), {bound_ms / ms:.1%} of bound", flush=True)
-        # the kernel the route did not pick, on the same inputs (uncounted): why the route
-        other = "simt" if route == "tc" else "tc"
-        if other == "simt" or kernel.route(dt, kernel.TC_MIN_SQ, d) == "tc":
+        # the kernels the route did not pick, on the same inputs (uncounted): why
+        # the route.  All three take bf16 at D 64 / 128; "simt" alone takes the rest.
+        others = [r for r in kernel.ROUTE_NAMES if r != route and route != "simt"]
+        for other in others:
             out_other = torch.empty_like(q)
 
             def other_call():
@@ -737,17 +763,24 @@ def phase_flash() -> tuple:
             if not torch.allclose(out_other.float(), want.float(), rtol=tol, atol=tol):
                 raise AssertionError(f"flash_attention {case} ({other}): differs from the "
                                      f"plain twin beyond {tol} (max abs diff {other_err})")
-            print(f"[flash] {label}: the {other} kernel on the same inputs "
-                  f"{_time_ms(other_call):.4f} ms (max abs diff {other_err:.3g})", flush=True)
+            results[other]["max_abs_err"] = max(results[other]["max_abs_err"], other_err)
+            other_ms = _time_ms(other_call)
+            print(f"[flash] {label}: the {other} kernel on the same inputs {other_ms:.4f} ms "
+                  f"(max abs diff {other_err:.3g}), {bound_ms / other_ms:.1%} of bound",
+                  flush=True)
+            if case == BACKBONE_FA and other == "simt":  # its numbers at the cascade's shape
+                results["simt"].update(row, ms=other_ms)
+                assert ms <= other_ms, (
+                    f"the short kernel ({ms:.4f} ms) is slower than the simt kernel it "
+                    f"replaces ({other_ms:.4f} ms) at the cascade's shape")
         if case == BACKBONE_FA:  # the cascade's shape and dtype
-            result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms)
+            result.update(row)
         elif case == PREFILL_FA:  # the qwen3 prefill's shape and dtype
-            result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms)
+            result.update(row)
             results["simt"].update(prefill_ms=ms, prefill_bound_ms=bound_ms,
                                    prefill_library_ms=library_ms)
-    return results["simt"], results["tc"]
+    assert kernel.route(torch.bfloat16, BACKBONE_FA[1], BACKBONE_FA[5]) == "short"
+    return results
 
 
 def _reduced_f32_backbone(arch):
@@ -1001,8 +1034,9 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     assert launches[kernel_name] == cfg.num_layers * trunk_epochs, (launches, trunk_epochs)
     other = {"flash_attention", "ssd_intra_chunk"} - {kernel_name}
     assert not any(launches[k] for k in other), launches
-    # the cascade's 8-token blocks take the simt flash kernel and the packed SSD kernel
-    assert fa_ops.ROUTES == {"tc": 0, "simt": launches["flash_attention"]}, fa_ops.ROUTES
+    # the cascade's 8-token blocks take the short flash kernel and the packed SSD kernel
+    assert fa_ops.ROUTES == {"tc": 0, "short": launches["flash_attention"], "simt": 0}, (
+        fa_ops.ROUTES)
     assert ssd_ops.ROUTES == {"tc": 0, "simt": 0, "packed": launches["ssd_intra_chunk"]}, (
         ssd_ops.ROUTES)
     assert launches["enrich_score_best"] == report.epochs and not launches["enrich_score_table"]
@@ -1310,7 +1344,8 @@ def _bf16_expected(arch, n):
     """The launches a bf16-check run must make: {counter: count}."""
     _, steps, _ = BF16_CHECK[arch]
     qwen = arch == "qwen3-1.7b"
-    return {"flash_attention/tc": n if qwen else 0, "flash_attention/simt": 0,
+    return {"flash_attention/tc": n if qwen else 0, "flash_attention/short": 0,
+            "flash_attention/simt": 0,
             "decode_attention_fused": n * steps if qwen else 0, "decode_attention_partials": 0,
             "ssd_intra_chunk/tc": 0 if qwen else n, "ssd_intra_chunk/simt": 0,
             "ssd_intra_chunk/packed": 0}
@@ -1379,6 +1414,59 @@ def phase_serve_bf16_cpu_vs_gpu():
               f"scale {scale:.3g}); per step {per_step}; launches {launches}", flush=True)
 
 
+def phase_cascade_bf16_cpu_vs_gpu():
+    """The cascade bank with the reduced bf16 qwen3 trunk, built on the CPU
+    and copied to the card; ``execute`` over the same merged plans (every
+    (pred, level), the trunk on each) on the CPU (plain twins), on the card
+    (kernels: every trunk attention by the "short" route) and on the CPU with
+    an f32 trunk of the same weights.  The card must stay within
+    ``BF16_LOGIT_FACTOR`` times the bf16 CPU run's own distance from f32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core.plan import Plan
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    n, npred, lanes, count = CASCADE_BF16
+    cfg = get_config("qwen3-1.7b", bf16_check=True)
+    _, _, bank, _, _, _ = serve._offline_phase(n, npred, cfg, seed=0, train_size=128,
+                                               device="cpu")
+    f32_bank, gpu_bank = bank.to("cpu", dtype="float32"), bank.to("cuda")
+    rng = np.random.default_rng(8)
+    plans = []
+    for _ in range(count):
+        idx = [torch.from_numpy(rng.integers(0, hi, lanes))
+               for hi in (n, npred, bank.num_levels)]
+        zero = torch.zeros(lanes)
+        plans.append(Plan(*idx, zero, zero, torch.from_numpy(rng.uniform(size=lanes) < 0.9)))
+    fa_ops.reset_counts()
+    gpu = [gpu_bank.execute(pl.map(lambda t: t.to("cuda"))).cpu() for pl in plans]
+    torch.cuda.synchronize()
+    routes = dict(fa_ops.ROUTES)
+    assert routes == {"tc": 0, "short": cfg.num_layers * count, "simt": 0}, routes
+    assert not fa_ops.PLAIN_CALLS["flash_attention"], fa_ops.PLAIN_CALLS
+    cpu = [bank.execute(pl) for pl in plans]
+    ref = [f32_bank.execute(pl) for pl in plans]
+    bf16_err = max((c - r).abs().max().item() for c, r in zip(cpu, ref))
+    err = max((g - c).abs().max().item() for g, c in zip(gpu, cpu))
+    gpu_f32 = max((g - r).abs().max().item() for g, r in zip(gpu, ref))
+    tol = BF16_LOGIT_FACTOR * bf16_err
+    assert all(torch.isfinite(g).all() and ((g >= 0) & (g <= 1)).all() for g in gpu)
+    assert 0.0 < bf16_err and err <= tol, (
+        f"bf16 cascade: card vs CPU probabilities differ by {err} > {tol} "
+        f"({BF16_LOGIT_FACTOR} x the CPU's bf16-vs-f32 {bf16_err})")
+    print(f"[cascade-bf16] reduced bf16 qwen3 trunk ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads, D {cfg.head_dim}), "
+          f"{count} merged plans of {lanes} lanes: card vs CPU probabilities max abs {err:.4g} "
+          f"(tol {tol:.4g} = {BF16_LOGIT_FACTOR} x the CPU bf16 run's distance from f32 "
+          f"{bf16_err:.4g}; card vs f32 {gpu_f32:.4g}); flash routes {routes}; in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def phase_model_serve() -> dict:
     """``Model.prefill`` + ``decode_step`` at full width: qwen3-1.7b (the "tc"
     flash kernel in prefill, the fused decode kernel per step) and
@@ -1425,12 +1513,13 @@ def phase_model_serve() -> dict:
         n = cfg.num_layers
         idle = {"decode_attention_partials": 0, "decode_attention_fused": 0,
                 "ssd_intra_chunk": 0, "flash_attention": 0, "flash_attention/simt": 0,
-                "flash_attention/tc": 0, "ssd_intra_chunk/tc": 0, "ssd_intra_chunk/simt": 0,
+                "flash_attention/tc": 0, "flash_attention/short": 0, "ssd_intra_chunk/tc": 0,
+                "ssd_intra_chunk/simt": 0,
                 "ssd_intra_chunk/packed": 0}
         if arch == "qwen3-1.7b":
             # the prefill on the tensor cores; one fused decode launch a layer and step
             assert run == {**idle, "flash_attention": n, "flash_attention/tc": n}, run
-            assert routes == {"tc": n, "simt": 0}, routes
+            assert routes == {"tc": n, "short": 0, "simt": 0}, routes
             assert run_all == {**run, "decode_attention_fused": n * steps}, run_all
         else:
             assert run == {**idle, "ssd_intra_chunk": n, "ssd_intra_chunk/tc": n}, run
@@ -1472,7 +1561,10 @@ def main() -> int:
     results = phase_kernels(table, costs)
     quickstart = quickstart_world(4096, device="cpu")
     results["enrich_score_single"] = phase_single_kernel(quickstart["table"])
-    results["flash_attention"], results["flash_attention_tc"] = phase_flash()
+    flash = phase_flash()
+    for route, name in (("simt", "flash_attention"), ("tc", "flash_attention_tc"),
+                        ("short", "flash_attention_short")):
+        results[name] = flash[route]
     results["decode_attention_partials"], results["decode_attention_fused"] = phase_decode()
     results["ssd_intra_chunk"], results["ssd_intra_chunk_tc"] = phase_ssd()
     phase_cpu_vs_gpu(table, combine, costs, outputs)
@@ -1481,6 +1573,7 @@ def main() -> int:
     phase_operator_cpu_vs_gpu(quickstart)
     phase_serve_cpu_vs_gpu()
     phase_serve_bf16_cpu_vs_gpu()
+    phase_cascade_bf16_cpu_vs_gpu()
     runs = [phase_main_path(), phase_cascade_main_path("qwen3-1.7b"),
             phase_cascade_main_path("mamba2-370m"), phase_operator_main_path(),
             phase_serve_entry_points(), phase_model_serve()]
@@ -1500,7 +1593,7 @@ def main() -> int:
         prefill_bound_ms=results["flash_attention"]["prefill_bound_ms"],
         prefill_library_ms=results["flash_attention"]["prefill_library_ms"],
         routes={r: sum(run.get(f"flash_attention/{r}", 0) for run in runs)
-                for r in ("tc", "simt")})
+                for r in ("tc", "short", "simt")})
     by_name["ssd_intra_chunk"].update(
         prefill_simt_ms=results["ssd_intra_chunk"]["prefill_simt_ms"],
         prefill_bound_ms=results["ssd_intra_chunk"]["prefill_bound_ms"],

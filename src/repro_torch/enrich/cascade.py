@@ -297,21 +297,24 @@ class ModelCascadeBank:
                                   params=_stack_trees(params)))
         return stack
 
-    def to(self, device) -> "ModelCascadeBank":
+    def to(self, device, dtype: Optional[str] = None) -> "ModelCascadeBank":
         """A copy of the bank on ``device`` (the shared trunk stays shared,
-        its compute copy is remade there)."""
+        its compute copy is remade there).  ``dtype`` ("float32" /
+        "bfloat16") sets the backbone's activation dtype over the same
+        weights; None keeps it."""
         trunks = {}
 
         def move(lvl: CascadeLevel) -> CascadeLevel:
             if not lvl.name.startswith("backbone"):
                 return dataclasses.replace(lvl, params=map_tree(lambda t: t.to(device), lvl.params))
             trunk, head = lvl.params
+            cfg = lvl.cfg if dtype is None else dataclasses.replace(lvl.cfg, dtype=dtype)
             if id(trunk) not in trunks:
                 kept = {k: v for k, v in trunk.items() if k != "compute_layers"}
-                trunks[id(trunk)] = with_compute_copy(
-                    map_tree(lambda t: t.to(device), kept), lvl.cfg)
-            return dataclasses.replace(
-                lvl, params=(trunks[id(trunk)], map_tree(lambda t: t.to(device), head)))
+                trunks[id(trunk)] = with_compute_copy(map_tree(lambda t: t.to(device), kept), cfg)
+            moved = backbone_level(cfg, trunks[id(trunk)], map_tree(lambda t: t.to(device), head))
+            return dataclasses.replace(lvl, params=moved.params, apply_fn=moved.apply_fn,
+                                       cfg=moved.cfg)
 
         return ModelCascadeBank(cascades=[[move(lvl) for lvl in c] for c in self.cascades],
                                 features=self.features.to(device))

@@ -55,6 +55,20 @@
 //     is f32, rounded op by op (explicit _rn intrinsics, and the file is
 //     built with --fmad=false) so the kernel matches the plain PyTorch
 //     version in ref.py bit for bit.
+//   * Best mode moves the same bytes as table mode but prices every
+//     remaining function for every tenant, and its first form ran half
+//     again as long: per (lane, tenant, function) two IEEE divisions under
+//     a runtime F, four scalar stores per (lane, tenant) between the
+//     compare chains, and the joint row read once per lane.  Its kernel is
+//     templated on F (1..8) and, for P <= 4 (the session's 4, the
+//     cascade's 3), on P: one thread per object covers its P lanes, reads
+//     the object's rows as vectors and each tenant's joint once, hoists
+//     r = j / max(pp, 1e-12) out of the function loop (the plain version
+//     computes (j / max(pp)) * p_hat left to right, so this is bitwise the
+//     same), and writes each output row with one streaming store
+//     (st.global.cs; 16 bytes at P = 4).  What remains
+//     per (lane, tenant, function) is one multiply, a clip and the
+//     benefit's IEEE division.  P > 4 keeps one thread per lane.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -210,7 +224,150 @@ __global__ void __launch_bounds__(kThreads) enrich_score_single_kernel(
   }
 }
 
-template <typename T>
+// ---- best mode (see the header) -------------------------------------------
+
+// What no joint probability enters, per (object, predicate) lane: p_hat for
+// each of the F functions and whether it remains.
+template <int F>
+struct BestLane {
+  float p_hat[F];
+  bool ok[F];
+};
+
+template <int F>
+__device__ __forceinline__ BestLane<F> best_lane(const float* s_delta, const float* s_lut,
+                                                 float h, int p, int state, int num_states,
+                                                 int num_bins, int lut_bins) {
+  const float* d =
+      s_delta + ((int64_t)(p * num_states + state) * num_bins + bin_of(h, num_bins)) * F;
+  BestLane<F> r;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const float delta = d[f];
+    r.ok[f] = !isinf(delta);  // +inf: the function already ran
+    r.p_hat[f] = lut_lerp(clip01(__fadd_rn(h, r.ok[f] ? delta : 0.0f)), s_lut, lut_bins);
+  }
+  return r;
+}
+
+struct BestOut {
+  float benefit;
+  int fn;
+  float est;
+  float cost;
+};
+
+// Eq. 11 for every remaining function of one lane and one tenant: the first
+// strict maximum (cost: the floored cost of the chosen function, of function
+// 0 when none remains).  r = j / max(pp, 1e-12) once for all F functions:
+// the plain version's (j / max(pp)) * p_hat, bitwise.
+template <int F>
+__device__ __forceinline__ BestOut best_of(const BestLane<F>& s, const float* cost, float j,
+                                           float pp) {
+  const float r = __fdiv_rn(j, fmaxf(pp, kMinP));
+  BestOut o{-INFINITY, -1, 0.0f, cost[0]};
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    if (s.ok[f]) {
+      const float est = pp > 0.0f ? clip01(__fmul_rn(r, s.p_hat[f])) : 0.0f;
+      const float ben = benefit_of(j, est, cost[f]);
+      if (ben > o.benefit) {  // strict: ties keep the FIRST maximum
+        o.benefit = ben;
+        o.fn = f;
+        o.est = est;
+        o.cost = cost[f];
+      }
+    }
+  }
+  return o;
+}
+
+// The best mode's shared-memory tables: [P*S*B*F] deltas, [P*F] costs, the LUT.
+__device__ __forceinline__ void stage_best(float* smem, const float* delta_all,
+                                           const float* cost_tab, const float* lut, int tsize,
+                                           int PF, int lut_bins) {
+  stage(smem, delta_all, tsize);
+  stage(smem + tsize, cost_tab, PF);
+  stage(smem + tsize + PF, lut, lut_bins);
+  __syncthreads();
+}
+
+// [P] values of row c of a [C, P] tensor, widened to f32 (16 bytes for P = 4
+// in f32, 8 in bf16: one load; 8 / 4 bytes for P = 2).
+template <int P, typename T>
+__device__ __forceinline__ void load_row(const T* base, int64_t c, float (&out)[P]) {
+  const T* row = base + c * P;
+  if constexpr (P == 4 && sizeof(T) == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(row));
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else if constexpr (P == 4) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(row));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+  } else if constexpr (P == 2 && sizeof(T) == 4) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(row));
+    out[0] = v.x; out[1] = v.y;
+  } else if constexpr (P == 2) {
+    const float2 v = __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(row)));
+    out[0] = v.x; out[1] = v.y;
+  } else {
+#pragma unroll
+    for (int p = 0; p < P; ++p) out[p] = load_prob(row, p);
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void load_ids(const int32_t* base, int64_t c, int (&out)[P]) {
+  const int32_t* row = base + c * P;
+  if constexpr (P == 4) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(row));
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else if constexpr (P == 2) {
+    const int2 v = __ldg(reinterpret_cast<const int2*>(row));
+    out[0] = v.x; out[1] = v.y;
+  } else {
+#pragma unroll
+    for (int p = 0; p < P; ++p) out[p] = __ldg(row + p);
+  }
+}
+
+// The [P] outputs of one (tenant, object) row, written once and never read
+// here again: streaming stores (st.global.cs), 16 bytes each for P = 4.
+template <int P>
+__device__ __forceinline__ void store_row(float* benefit, int32_t* next_fn, float* est_out,
+                                          float* cost_out, int64_t o, const BestOut (&r)[P]) {
+  if constexpr (P == 4) {
+    __stcs(reinterpret_cast<float4*>(benefit + o),
+           make_float4(r[0].benefit, r[1].benefit, r[2].benefit, r[3].benefit));
+    __stcs(reinterpret_cast<int4*>(next_fn + o), make_int4(r[0].fn, r[1].fn, r[2].fn, r[3].fn));
+    __stcs(reinterpret_cast<float4*>(est_out + o),
+           make_float4(r[0].est, r[1].est, r[2].est, r[3].est));
+    __stcs(reinterpret_cast<float4*>(cost_out + o),
+           make_float4(r[0].cost, r[1].cost, r[2].cost, r[3].cost));
+  } else if constexpr (P == 2) {
+    __stcs(reinterpret_cast<float2*>(benefit + o), make_float2(r[0].benefit, r[1].benefit));
+    __stcs(reinterpret_cast<int2*>(next_fn + o), make_int2(r[0].fn, r[1].fn));
+    __stcs(reinterpret_cast<float2*>(est_out + o), make_float2(r[0].est, r[1].est));
+    __stcs(reinterpret_cast<float2*>(cost_out + o), make_float2(r[0].cost, r[1].cost));
+  } else {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      __stcs(benefit + o + p, r[p].benefit);
+      __stcs(next_fn + o + p, r[p].fn);
+      __stcs(est_out + o + p, r[p].est);
+      __stcs(cost_out + o + p, r[p].cost);
+    }
+  }
+}
+
+// P <= 4: one thread per object covers its P lanes: one read of the object's
+// rows, one joint load per (object, tenant) for all P lanes, each output row
+// of a tenant as one store (16 bytes at P = 4).  The P lanes' F divisions of
+// a tenant are independent, so a thread keeps P * F of them in flight; a
+// second tenant in flight as well took more registers than it hid latency
+// (fewer blocks an SM, a slower kernel on the card).
+template <typename T, int P, int F>
 __global__ void __launch_bounds__(kThreads) enrich_score_best_kernel(
     const T* __restrict__ pred_prob, const T* __restrict__ unc,
     const int32_t* __restrict__ state_id, const T* __restrict__ joint,
@@ -218,67 +375,71 @@ __global__ void __launch_bounds__(kThreads) enrich_score_best_kernel(
     const float* __restrict__ lut,
     float* __restrict__ benefit, int32_t* __restrict__ next_fn,
     float* __restrict__ est_out, float* __restrict__ cost_out,
-    int64_t num_rows, int P, int Q, int num_states, int num_bins, int F, int lut_bins) {
+    int64_t num_rows, int Q, int num_states, int num_bins, int lut_bins) {
   extern __shared__ float smem[];
   const int tsize = P * num_states * num_bins * F;
-  float* s_delta = smem;
-  float* s_cost = s_delta + tsize;
-  float* s_lut = s_cost + P * F;
-  stage(s_delta, delta_all, tsize);
-  stage(s_cost, cost_tab, P * F);
-  stage(s_lut, lut, lut_bins);
-  __syncthreads();
+  stage_best(smem, delta_all, cost_tab, lut, tsize, P * F, lut_bins);
+  const float* s_delta = smem;
+  const float* s_lut = smem + tsize + P * F;
+  float cost[P][F];  // floored, the same for every object
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int f = 0; f < F; ++f) cost[p][f] = fmaxf(smem[tsize + p * F + f], kMinCost);
 
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; c < num_rows; c += stride) {
+    float pp[P], h[P];
+    int sid[P];
+    load_row<P>(pred_prob, c, pp);
+    load_row<P>(unc, c, h);
+    load_ids<P>(state_id, c, sid);
+    BestLane<F> lane[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      lane[p] = best_lane<F>(s_delta, s_lut, h[p], p, sid[p], num_states, num_bins, lut_bins);
+    for (int q = 0; q < Q; ++q) {
+      const float j = load_prob(joint, (int64_t)q * num_rows + c);
+      BestOut r[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) r[p] = best_of<F>(lane[p], cost[p], j, pp[p]);
+      store_row<P>(benefit, next_fn, est_out, cost_out, ((int64_t)q * num_rows + c) * P, r);
+    }
+  }
+}
+
+// P > 4: one thread per (object, predicate) lane, looping over the tenants.
+template <typename T, int F>
+__global__ void __launch_bounds__(kThreads) enrich_score_best_lane_kernel(
+    const T* __restrict__ pred_prob, const T* __restrict__ unc,
+    const int32_t* __restrict__ state_id, const T* __restrict__ joint,
+    const float* __restrict__ delta_all, const float* __restrict__ cost_tab,
+    const float* __restrict__ lut,
+    float* __restrict__ benefit, int32_t* __restrict__ next_fn,
+    float* __restrict__ est_out, float* __restrict__ cost_out,
+    int64_t num_rows, int P, int Q, int num_states, int num_bins, int lut_bins) {
+  extern __shared__ float smem[];
+  const int tsize = P * num_states * num_bins * F;
+  stage_best(smem, delta_all, cost_tab, lut, tsize, P * F, lut_bins);
+  const float* s_lut = smem + tsize + P * F;
   const int64_t lanes = num_rows * P;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes; i += stride) {
     const int64_t c = i / P;
     const int p = (int)(i - c * P);
-    const float h = load_prob(unc, i);
     const float pp = load_prob(pred_prob, i);
-    const float* d = s_delta +
-        ((int64_t)(p * num_states + state_id[i]) * num_bins + bin_of(h, num_bins)) * F;
-    // Q-invariant per-function terms, kept in registers (static indices)
-    float p_hat[kMaxFunctions];
-    float cost[kMaxFunctions];
-    bool ok[kMaxFunctions];
+    const BestLane<F> lane = best_lane<F>(smem, s_lut, load_prob(unc, i), p, state_id[i],
+                                          num_states, num_bins, lut_bins);
+    float cost[F];
 #pragma unroll
-    for (int f = 0; f < kMaxFunctions; ++f) {
-      ok[f] = false;
-      p_hat[f] = 0.0f;
-      cost[f] = kMinCost;
-      if (f < F) {
-        const float delta = d[f];
-        ok[f] = !isinf(delta);
-        p_hat[f] = lut_lerp(clip01(__fadd_rn(h, ok[f] ? delta : 0.0f)), s_lut, lut_bins);
-        cost[f] = fmaxf(s_cost[p * F + f], kMinCost);
-      }
-    }
-    const float cost_none = fmaxf(s_cost[p * F], kMinCost);
+    for (int f = 0; f < F; ++f) cost[f] = fmaxf(smem[tsize + p * F + f], kMinCost);
     for (int q = 0; q < Q; ++q) {
-      const float j = load_prob(joint, (int64_t)q * num_rows + c);
-      float best_ben = -INFINITY;
-      float best_est = 0.0f;
-      float best_cost = cost_none;
-      int best_fn = -1;
-#pragma unroll
-      for (int f = 0; f < kMaxFunctions; ++f) {
-        if (f < F && ok[f]) {
-          const float est = est_joint(j, pp, p_hat[f]);
-          const float ben = benefit_of(j, est, cost[f]);
-          if (ben > best_ben) {  // strict: ties keep the FIRST maximum
-            best_ben = ben;
-            best_est = est;
-            best_cost = cost[f];
-            best_fn = f;
-          }
-        }
-      }
+      const BestOut r = best_of<F>(lane, cost, load_prob(joint, (int64_t)q * num_rows + c), pp);
       const int64_t o = (int64_t)q * lanes + i;
-      benefit[o] = best_ben;
-      next_fn[o] = best_fn;
-      est_out[o] = best_est;
-      cost_out[o] = best_cost;
+      __stcs(benefit + o, r.benefit);
+      __stcs(next_fn + o, r.fn);
+      __stcs(est_out + o, r.est);
+      __stcs(cost_out + o, r.cost);
     }
   }
 }
@@ -308,6 +469,75 @@ size_t table_smem(int P, int num_states, int num_bins, int F, int lut_bins) {
 
 size_t best_smem(int P, int num_states, int num_bins, int F, int lut_bins) {
   return sizeof(float) * ((size_t)P * num_states * num_bins * F + (size_t)P * F + lut_bins);
+}
+
+// The best-mode launch: F (1..8) and, for P <= 4, P are template
+// parameters of the kernel.
+struct BestArgs {
+  const void *pred_prob, *unc, *state_id, *joint, *delta_all, *cost_tab, *lut;
+  void *benefit, *next_fn, *est_joint, *cost;
+  int64_t num_rows;
+  int P, Q, num_states, num_bins, F, lut_bins;
+  cudaStream_t stream;
+};
+
+template <typename T, int P, int F>
+cudaError_t launch_best_obj(const BestArgs& a) {
+  auto k = enrich_score_best_kernel<T, P, F>;
+  const size_t smem = best_smem(P, a.num_states, a.num_bins, F, a.lut_bins);
+  int grid = 0;
+  cudaError_t err = launch_grid(k, smem, a.num_rows, &grid);
+  if (err != cudaSuccess) return err;
+  k<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.pred_prob), static_cast<const T*>(a.unc),
+      static_cast<const int32_t*>(a.state_id), static_cast<const T*>(a.joint),
+      static_cast<const float*>(a.delta_all), static_cast<const float*>(a.cost_tab),
+      static_cast<const float*>(a.lut), static_cast<float*>(a.benefit),
+      static_cast<int32_t*>(a.next_fn), static_cast<float*>(a.est_joint),
+      static_cast<float*>(a.cost), a.num_rows, a.Q, a.num_states, a.num_bins, a.lut_bins);
+  return cudaGetLastError();
+}
+
+template <typename T, int F>
+cudaError_t launch_best_lanes(const BestArgs& a) {
+  auto k = enrich_score_best_lane_kernel<T, F>;
+  const size_t smem = best_smem(a.P, a.num_states, a.num_bins, F, a.lut_bins);
+  int grid = 0;
+  cudaError_t err = launch_grid(k, smem, a.num_rows * a.P, &grid);
+  if (err != cudaSuccess) return err;
+  k<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.pred_prob), static_cast<const T*>(a.unc),
+      static_cast<const int32_t*>(a.state_id), static_cast<const T*>(a.joint),
+      static_cast<const float*>(a.delta_all), static_cast<const float*>(a.cost_tab),
+      static_cast<const float*>(a.lut), static_cast<float*>(a.benefit),
+      static_cast<int32_t*>(a.next_fn), static_cast<float*>(a.est_joint),
+      static_cast<float*>(a.cost), a.num_rows, a.P, a.Q, a.num_states, a.num_bins, a.lut_bins);
+  return cudaGetLastError();
+}
+
+template <typename T, int F>
+cudaError_t best_dispatch_p(const BestArgs& a) {
+  switch (a.P) {
+    case 1: return launch_best_obj<T, 1, F>(a);
+    case 2: return launch_best_obj<T, 2, F>(a);
+    case 3: return launch_best_obj<T, 3, F>(a);
+    case 4: return launch_best_obj<T, 4, F>(a);
+    default: return launch_best_lanes<T, F>(a);
+  }
+}
+
+template <typename T>
+cudaError_t best_dispatch_f(const BestArgs& a) {
+  switch (a.F) {
+    case 1: return best_dispatch_p<T, 1>(a);
+    case 2: return best_dispatch_p<T, 2>(a);
+    case 3: return best_dispatch_p<T, 3>(a);
+    case 4: return best_dispatch_p<T, 4>(a);
+    case 5: return best_dispatch_p<T, 5>(a);
+    case 6: return best_dispatch_p<T, 6>(a);
+    case 7: return best_dispatch_p<T, 7>(a);
+    default: return best_dispatch_p<T, 8>(a);
+  }
 }
 
 }  // namespace
@@ -381,35 +611,12 @@ int enrich_score_best(const void* pred_prob, const void* unc, const void* state_
                       const void* lut, void* benefit, void* next_fn, void* est_joint,
                       void* cost, int64_t num_rows, int P, int Q, int num_states,
                       int num_bins, int F, int lut_bins, int bf16, void* stream) {
-  const int64_t lanes = num_rows * P;
-  if (lanes == 0 || Q == 0) return (int)cudaSuccess;
-  if (F > kMaxFunctions) return (int)cudaErrorInvalidValue;
-  const size_t smem = best_smem(P, num_states, num_bins, F, lut_bins);
-  auto s = static_cast<cudaStream_t>(stream);
-  int grid = 0;
-  cudaError_t err;
-  if (bf16) {
-    auto k = enrich_score_best_kernel<__nv_bfloat16>;
-    if ((err = launch_grid(k, smem, lanes, &grid)) != cudaSuccess) return (int)err;
-    k<<<grid, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(pred_prob), static_cast<const __nv_bfloat16*>(unc),
-        static_cast<const int32_t*>(state_id), static_cast<const __nv_bfloat16*>(joint),
-        static_cast<const float*>(delta_all), static_cast<const float*>(cost_tab),
-        static_cast<const float*>(lut), static_cast<float*>(benefit),
-        static_cast<int32_t*>(next_fn), static_cast<float*>(est_joint),
-        static_cast<float*>(cost), num_rows, P, Q, num_states, num_bins, F, lut_bins);
-  } else {
-    auto k = enrich_score_best_kernel<float>;
-    if ((err = launch_grid(k, smem, lanes, &grid)) != cudaSuccess) return (int)err;
-    k<<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(pred_prob), static_cast<const float*>(unc),
-        static_cast<const int32_t*>(state_id), static_cast<const float*>(joint),
-        static_cast<const float*>(delta_all), static_cast<const float*>(cost_tab),
-        static_cast<const float*>(lut), static_cast<float*>(benefit),
-        static_cast<int32_t*>(next_fn), static_cast<float*>(est_joint),
-        static_cast<float*>(cost), num_rows, P, Q, num_states, num_bins, F, lut_bins);
-  }
-  return (int)cudaGetLastError();
+  if (num_rows * P == 0 || Q == 0) return (int)cudaSuccess;
+  if (F < 1 || F > kMaxFunctions) return (int)cudaErrorInvalidValue;
+  BestArgs a{pred_prob, unc, state_id, joint, delta_all, cost_tab, lut, benefit, next_fn,
+             est_joint, cost, num_rows, P, Q, num_states, num_bins, F, lut_bins,
+             static_cast<cudaStream_t>(stream)};
+  return (int)(bf16 ? best_dispatch_f<__nv_bfloat16>(a) : best_dispatch_f<float>(a));
 }
 
 }  // extern "C"

@@ -214,6 +214,12 @@ def fused_benefits_batched(
         )
     if best and f > 8:
         raise ValueError(f"{name} supports at most 8 functions, got {f}")
+    if best and p in (2, 4):  # the kernel reads an object's [P] row as one vector
+        for label, t in (("pred_prob", pred_prob), ("uncertainty", uncertainty),
+                         ("state_id", state_id)):
+            width = p * t.element_size()
+            if t.data_ptr() % width:
+                raise ValueError(f"{name}: {label} must start on a {width}-byte boundary")
 
     out = (
         torch.empty((q, n, p), dtype=torch.float32, device=dev),

@@ -1,11 +1,14 @@
-"""Build and bind the two hand-written CUDA flash-attention kernels.
+"""Build and bind the three hand-written CUDA flash-attention kernels.
 
 ``csrc/flash_attention.cu`` ("simt": f32 FMAs, 8 threads a query row,
-templated on f32 / bf16 and on the per-thread head-dim slice) and
+templated on f32 / bf16 and on the per-thread head-dim slice),
 ``csrc/flash_attention_tc.cu`` ("tc": Hopper tensor cores, wgmma and TMA,
-bf16 with D 64 or 128) each expose one ``extern "C"`` launcher.  Each is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library of its own at
-first use (``kernels/build.py``) and loaded with ``ctypes``.  ``route``
+bf16 with >= 64 query rows and D 64 or 128) and
+``csrc/flash_attention_short.cu`` ("short": mma.sync over one 16-row tile
+a warp, bf16 with fewer query rows and D 64 or 128) each expose one
+``extern "C"`` launcher.  Each is compiled with ``nvcc`` for ``sm_90a`` into
+a shared library of its own at first use (``kernels/build.py``) and loaded
+with ``ctypes``.  ``route``
 picks the kernel from the dtype and shape alone: it is not a fallback.
 
 Nothing here touches CUDA or nvcc at import time: the CPU test suite imports
@@ -26,9 +29,11 @@ from repro_torch.kernels.build import BASE_FLAGS, build_library, check_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 SOURCE_TC = Path(__file__).resolve().parent / "csrc" / "flash_attention_tc.cu"
+SOURCE_SHORT = Path(__file__).resolve().parent / "csrc" / "flash_attention_short.cu"
 MAX_HEAD_DIM = 256
-TC_HEAD_DIMS = (64, 128)  # the tensor-core kernel's head dims
-TC_MIN_SQ = 64  # one consumer warpgroup's rows: shorter query blocks stay on "simt"
+TC_HEAD_DIMS = (64, 128)  # the tensor-core kernels' head dims ("tc" and "short")
+TC_MIN_SQ = 64  # one consumer warpgroup's rows: shorter bf16 query blocks go "short"
+ROUTE_NAMES = ("tc", "short", "simt")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,10 +41,11 @@ _F = ctypes.c_float
 
 
 def route(dtype: torch.dtype, sq: int, d: int) -> str:
-    """The kernel for a call: "tc" (tensor cores) for bf16 with at least
-    ``TC_MIN_SQ`` query rows and D in ``TC_HEAD_DIMS``, else "simt"."""
-    if dtype == torch.bfloat16 and sq >= TC_MIN_SQ and d in TC_HEAD_DIMS:
-        return "tc"
+    """The kernel for a call: for bf16 with D in ``TC_HEAD_DIMS``, "tc"
+    (wgmma + TMA) with at least ``TC_MIN_SQ`` query rows and "short"
+    (mma.sync, one 16-row tile a warp) with fewer; else "simt"."""
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        return "tc" if sq >= TC_MIN_SQ else "short"
     return "simt"
 
 
@@ -51,6 +57,11 @@ def build() -> tuple[Path, str, float]:
 def build_tc() -> tuple[Path, str, float]:
     """Compile the tensor-core kernel if needed -> (library path, nvcc log, seconds)."""
     return build_library(SOURCE_TC, BASE_FLAGS, "flash_attention_tc")
+
+
+def build_short() -> tuple[Path, str, float]:
+    """Compile the short-block kernel if needed -> (library path, nvcc log, seconds)."""
+    return build_library(SOURCE_SHORT, BASE_FLAGS, "flash_attention_short")
 
 
 @functools.lru_cache(maxsize=1)
@@ -73,6 +84,16 @@ def library_tc() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=1)
+def library_short() -> ctypes.CDLL:
+    """The loaded short-block kernel library (built on first use)."""
+    path, _, _ = build_short()
+    lib = ctypes.CDLL(str(path))
+    lib.flash_attention_short_fwd.argtypes = [_P] * 5 + [_I] * 9 + [_F, _F, _I, _P]
+    lib.flash_attention_short_fwd.restype = _I
+    return lib
+
+
 def launch(
     q: torch.Tensor,  # [B, Sq, H, D]
     k: torch.Tensor,  # [B, Skv, KV, D]
@@ -86,8 +107,8 @@ def launch(
     q_offset_from_kv_len: bool,
     kind: str,
 ) -> None:
-    """Launch the ``kind`` kernel ("simt" or "tc", see ``route``) on the
-    current stream (the caller validated operands)."""
+    """Launch the ``kind`` kernel ("tc", "short" or "simt", see ``route``) on
+    the current stream (the caller validated operands)."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     args = [
@@ -101,8 +122,10 @@ def launch(
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if kind == "tc":
         err = library_tc().flash_attention_tc_fwd(*args, stream)
+    elif kind == "short":
+        err = library_short().flash_attention_short_fwd(*args, stream)
     elif kind == "simt":
         err = library().flash_attention_fwd(*args, int(q.dtype == torch.bfloat16), stream)
     else:
-        raise ValueError(f"no flash-attention kernel {kind!r}: 'tc' or 'simt'")
+        raise ValueError(f"no flash-attention kernel {kind!r}: one of {ROUTE_NAMES}")
     check_launch(err, f"flash_attention ({kind})")

@@ -4,10 +4,12 @@
 (``repro/kernels/flash_attention/ops.py``).  It routes by the device of its
 tensors: on the CPU it runs the plain PyTorch twin (``ref.py``); on a CUDA
 tensor it launches the hand-written kernel that ``kernel.route`` names from
-the dtype and shape ("tc": the tensor-core kernel for bf16 prefills; "simt"
-otherwise) or raises — it never falls back, to the other kernel or to the
-twin, and reads no environment switch.  Both kernels read the [B, S, H, D]
-layout in place, so the card path makes no transposed copies.
+the dtype and shape — "tc" (wgmma + TMA) for bf16 blocks of >= 64 query
+rows, "short" (mma.sync) for shorter bf16 blocks such as the cascade's 8
+tokens, both at D 64 / 128; "simt" for f32 and the other head dims — or
+raises: it never falls back, to another kernel or to the twin, and reads no
+environment switch.  The three kernels read the [B, S, H, D] layout in
+place, so the card path makes no transposed copies.
 
 ``LAUNCHES`` counts kernel launches, ``ROUTES`` them by kernel and
 ``PLAIN_CALLS`` plain-path calls, so a run can show that its main path went
@@ -25,7 +27,7 @@ from repro_torch.kernels.flash_attention import kernel, ref
 KERNEL = "flash_attention"
 LAUNCHES = {KERNEL: 0}
 PLAIN_CALLS = {KERNEL: 0}
-ROUTES = {"tc": 0, "simt": 0}
+ROUTES = dict.fromkeys(kernel.ROUTE_NAMES, 0)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

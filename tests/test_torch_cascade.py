@@ -110,6 +110,19 @@ def test_backbone_bank_execute_matches_jax(dtype):
     assert fa_ops.PLAIN_CALLS["flash_attention"] == 0 and bank.bank_syncs == 2
 
 
+def test_bank_to_another_dtype_runs_the_same_weights():
+    """``ModelCascadeBank.to(device, dtype=)``: a bf16 bank's trunk run in f32
+    is the reference's f32 bank of the same seed (its weights do not depend
+    on the activation dtype), with the trunk still shared."""
+    jb16, jb32 = _backbone_jbank("bfloat16"), _backbone_jbank("float32")
+    bank = _port_bank(jb16).to("cpu", dtype="float32")
+    assert {c[2].cfg.dtype for c in bank.cascades} == {"float32"}
+    assert all(c[2].params[0] is bank.cascades[0][2].params[0] for c in bank.cascades)
+    got = bank.execute(_port_plan(_random_plan(jb16, m=24, seed=1)))
+    want = np.asarray(jb32.execute(_random_plan(jb32, m=24, seed=1)))
+    np.testing.assert_allclose(got.numpy(), want, atol=PROB_ATOL["float32"], rtol=0)
+
+
 def test_ragged_bank_sentinel_cost_opens_in_quarantine():
     jbank = _probe_bank(num_preds=2, n=24, ragged_pred=0)
     bank = _port_bank(jbank)

@@ -8,13 +8,18 @@ machine that has only PyTorch and the CUDA toolkit:
 Each ``enrich_score`` kernel is held BITWISE against its plain PyTorch
 version on the same card tensors — all four outputs — because both round
 every f32 op on its own (the kernels are built with ``--fmad=false``); the
-single-query kernel also drives a small operator run on the card.  The
-flash-attention kernels — "simt" and the tensor-core "tc" kernel that
-``kernel.route`` picks for bf16 with >= 64 query rows and D 64 or 128 — are
+single-query kernel also drives a small operator run on the card, and the
+best-mode kernel (templated on F and on P <= 4) is held bitwise over P 1-5,
+F 1-8, Q 1-8 and ragged C.  The
+flash-attention kernels — "simt", and for bf16 at D 64 or 128 the tensor-core
+"tc" kernel (>= 64 query rows) and "short" kernel (fewer), as
+``kernel.route`` picks them — are
 held against their plain twin within the reference tests' tolerances (2e-5
-f32, 2e-2 bf16: the online softmax sums in another order, and the tc kernel
-rounds P to bf16 before P.V), each call counted on its route, and a small
-model-cascade session serves through the simt kernel on the card.
+f32, 2e-2 bf16: the online softmax sums in another order, and the tensor-core
+kernels round P to bf16 before P.V), each call counted on its route, and a
+small model-cascade session with a bf16 head_dim-128 trunk serves through
+the short kernel on the card, whose probabilities stay within 2x the bf16
+CPU run's distance from f32.
 The SSD intra-chunk kernels — "tc" (bf16 on the tensor cores, chunks of 64
 to 256), "packed" (chunks of 4 to 32) and "simt" — are held against their
 plain twin within 1e-4 (f32 products summed over the chunk and the state in
@@ -27,6 +32,8 @@ included, and the fused decode kernel within 2e-5 of its twin in f32 and
 prefill and decode on the card as on the CPU, and the reduced bf16 ones
 (head_dim 128, SSM chunk 256) through the bf16 routes.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -41,6 +48,7 @@ from repro_torch.core.session import EngineSession
 from repro_torch.core.state import EnrichmentState
 from repro_torch.data.synthetic import make_corpus
 from repro_torch.kernels.enrich_score import ops, ref
+from repro_torch.kernels.enrich_score.kernel import SMEM_LIMIT
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -106,6 +114,48 @@ def test_kernel_matches_plain_bitwise(cuda_device, mode, dtype, n, p, f, q, edge
             assert (out.next_fn[:, 2 * n // 3:] == -1).all()
 
 
+@functools.lru_cache(maxsize=None)
+def _best_tables(p, f):
+    """(fallback, learned) tables for the best-mode sweep, on the CPU, with
+    as many entropy bins (<= 10) as the kernel's shared memory holds."""
+    lut_bins = 4096
+    bins = min(10, (SMEM_LIMIT // 4 - lut_bins - p * f) // (p * 2**f * f))
+    costs = torch.tensor(np.tile(np.linspace(0.05, 0.9, f), (p, 1)), dtype=torch.float32)
+    gen = torch.Generator().manual_seed(11)
+    corpus = make_corpus(gen, 256, list(range(p)), [1] * p, aucs=np.linspace(0.6, 0.95, f),
+                         costs=np.linspace(0.05, 0.9, f))
+    learned = learn_decision_table(corpus.func_probs, default_combine_params(corpus.aucs),
+                                   num_bins=bins)
+    fallback = fallback_decision_table(p, f, torch.linspace(0.6, 0.9, f), num_bins=bins)
+    return [(t, costs) for t in (fallback, learned)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 33, 4099])
+@pytest.mark.parametrize("q", [1, 3, 8])
+@pytest.mark.parametrize("f", [1, 3, 4, 8])
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 5])
+def test_best_kernel_matches_plain_bitwise_over_shapes(cuda_device, p, f, q, n, dtype):
+    """The best-mode kernel's forms (one thread an object for P <= 4, one a
+    lane for P > 4; F 1-8 unrolled; Q 1, 3 and 8 tenants)
+    against the plain version: all four outputs bitwise, learned and
+    fallback tables, plain and edge-bin rows."""
+    for table, costs in _best_tables(p, f):
+        table, costs = table.to(cuda_device), costs.to(cuda_device)
+        for edge in (False, True):
+            pp, unc, sid, joint = _rows(cuda_device, n + p + f + q, n, p, f, q, edge)
+            pp, unc, joint = pp.to(dtype), unc.to(dtype), joint.to(dtype)
+            before = ops.LAUNCHES["enrich_score_best"]
+            out = ops.fused_benefits_batched(pp, unc, sid, joint, table, costs, "best")
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["enrich_score_best"] == before + 1
+            for a, b in zip(out, _plain("best", pp, unc, sid, joint, table, costs)):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+            if edge:
+                assert (out.next_fn[:, 2 * n // 3:] == -1).all()
+
+
 @pytest.mark.cuda
 def test_wrapper_refuses_bad_operands(cuda_device):
     (table, costs), _ = _tables(cuda_device, 2, 4)
@@ -116,6 +166,11 @@ def test_wrapper_refuses_bad_operands(cuda_device):
         ops.fused_benefits_batched(pp, unc, sid.cpu(), joint, table, costs)
     with pytest.raises(TypeError, match="dtype"):
         ops.fused_benefits_batched(pp, unc, sid.long(), joint, table, costs)
+    # best mode reads an object's [P] row as one vector: a row start off its
+    # width (a contiguous view one element into its storage) is refused
+    shifted = torch.empty(1 + pp.numel(), device=cuda_device)[1:].view_as(pp).copy_(pp)
+    with pytest.raises(ValueError, match="boundary"):
+        ops.fused_benefits_batched(shifted, unc, sid, joint, table, costs, "best")
 
 
 @pytest.mark.cuda
@@ -282,7 +337,40 @@ def test_flash_tc_kernel_matches_plain_twin(cuda_device, case):
     fa_ops.reset_counts()
     out = fa_ops.flash_attention(q, k, v, kl, **kw)
     torch.cuda.synchronize()
-    assert fa_ops.ROUTES == {"tc": 1, "simt": 0} and fa_ops.LAUNCHES["flash_attention"] == 1
+    assert fa_ops.ROUTES == {"tc": 1, "short": 0, "simt": 0}
+    assert fa_ops.LAUNCHES["flash_attention"] == 1
+    want = fa_ops.plain_bshd(q, k, v, kl, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+# bf16 cases the short kernel takes (Sq < 64, D 64 or 128); same columns
+FA_SHORT_CASES = [
+    (64, 8, 8, 16, 8, 128, False, None, None, None, True),  # the cascade: G * Sq = 16
+    (32, 8, 8, 2, 1, 128, False, None, None, None, False),  # the bf16 check's trunk: G 2
+    (16, 8, 8, 8, 4, 64, False, None, None, None, True),  # D 64
+    (2, 33, 77, 8, 2, 128, True, 24, 30.0, 60, True),  # G * Sq = 132: ragged last tile
+    (2, 33, 77, 8, 2, 64, True, 24, 30.0, 60, True),
+    (3, 8, 300, 4, 4, 128, True, 100, None, 250, True),  # 7 key tiles through the ring
+    (2, 63, 63, 2, 2, 64, True, None, None, None, False),  # Sq 63, G 1
+    (1, 5, 9, 2, 1, 128, True, None, None, 3, True),  # rows with no live key
+    (2, 12, 16, 6, 2, 128, False, 5, 20.0, None, False),  # window without causal
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_SHORT_CASES)
+def test_flash_short_kernel_matches_plain_twin(cuda_device, case):
+    b, sq, skv, h, kv, d, causal, window, cap, kv_len, q_off = case
+    assert fa_kernel.route(torch.bfloat16, sq, d) == "short"
+    q, k, v = _fa_inputs(cuda_device, torch.bfloat16, sq * skv + d, b, sq, skv, h, kv, d)
+    kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=q_off)
+    fa_ops.reset_counts()
+    out = fa_ops.flash_attention(q, k, v, kl, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.ROUTES == {"tc": 0, "short": 1, "simt": 0}
+    assert fa_ops.LAUNCHES["flash_attention"] == 1
     want = fa_ops.plain_bshd(q, k, v, kl, **kw)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
@@ -290,14 +378,14 @@ def test_flash_tc_kernel_matches_plain_twin(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,sq,d", [(torch.float32, 128, 128), (torch.float32, 200, 64),
-                                        (torch.bfloat16, 8, 128), (torch.bfloat16, 63, 64),
+                                        (torch.float32, 8, 128), (torch.bfloat16, 8, 96),
                                         (torch.bfloat16, 128, 32), (torch.bfloat16, 128, 256)])
 def test_flash_f32_short_blocks_and_other_head_dims_take_simt(cuda_device, dtype, sq, d):
     q, k, v = _fa_inputs(cuda_device, dtype, sq + d, 2, sq, sq, 4, 2, d)
     fa_ops.reset_counts()
     out = fa_ops.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert fa_ops.ROUTES == {"tc": 0, "simt": 1}
+    assert fa_ops.ROUTES == {"tc": 0, "short": 0, "simt": 1}
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), fa_ops.plain_bshd(
         q, k, v, None, causal=True, window=None, logit_softcap=None,
@@ -320,12 +408,16 @@ def test_flash_wrapper_refuses_bad_operands(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_cascade_session_runs_the_trunk_through_the_kernel(cuda_device):
+    from repro_torch.configs.archs import get_config
     from repro_torch.launch import serve
 
-    session, state, preds, _ = serve.build_cascade_session_server(
-        num_objects=64, num_preds=2, max_tenants=3, backbone_arch="qwen3-1.7b", plan_size=16,
-        train_size=128, device=cuda_device)
-    bank = session.bank
+    # the reduced bf16 qwen3 (head_dim 128, 2 query heads over 1 KV head): 16
+    # query rows a (lane, kv head) at 8 tokens, the short kernel's tile
+    preds, _, bank, combine, table, _ = serve._offline_phase(
+        64, 2, get_config("qwen3-1.7b", bf16_check=True), seed=0, train_size=128,
+        device=cuda_device)
+    session, state = serve.open_cascade_session(preds, bank, combine, table, max_tenants=3,
+                                                plan_size=16, device=cuda_device)
     ops.reset_counts()
     fa_ops.reset_counts()
     trunk0 = bank.trunk_runs
@@ -335,11 +427,57 @@ def test_cuda_cascade_session_runs_the_trunk_through_the_kernel(cuda_device):
     assert report.epochs == 16 and trunk_epochs > 0
     # the reduced trunk has 2 layers: one flash launch per layer per trunk epoch
     assert fa_ops.LAUNCHES["flash_attention"] == 2 * trunk_epochs
-    assert fa_ops.ROUTES == {"tc": 0, "simt": 2 * trunk_epochs}  # 8 tokens a lane: simt
+    assert fa_ops.ROUTES == {"tc": 0, "short": 2 * trunk_epochs, "simt": 0}  # 8 tokens a lane
     assert ops.LAUNCHES["enrich_score_best"] == 16
     assert not fa_ops.PLAIN_CALLS["flash_attention"] and not any(ops.PLAIN_CALLS.values())
     probs = report.state.substrate.func_probs
     assert torch.isfinite(probs).all() and ((probs >= 0) & (probs <= 1)).all()
+
+
+def _cascade_plans(n, p, f, dev, lanes=96, count=3, seed=7):
+    """Merged plans over every (pred, level) of a cascade bank, a few lanes
+    invalid, made with numpy from a seed."""
+    from repro_torch.core.plan import Plan
+
+    rng = np.random.default_rng(seed)
+    plans = []
+    for _ in range(count):
+        idx = [torch.from_numpy(rng.integers(0, hi, lanes)).to(dev) for hi in (n, p, f)]
+        zero = torch.zeros(lanes, device=dev)
+        valid = torch.from_numpy(rng.uniform(size=lanes) < 0.9).to(dev)
+        plans.append(Plan(*idx, zero, zero, valid))
+    return plans
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_cascade_bank_routes_the_short_kernel(cuda_device):
+    """The cascade bank with the reduced bf16 qwen3 trunk (head_dim 128, 2
+    query heads over 1 KV head), built on the CPU and copied to the card:
+    ``execute`` over the same merged plans on both runs every trunk
+    attention through the short kernel, and the card's probabilities stay
+    within 2x the bf16 CPU run's own distance from an f32 run of the same
+    weights (the two bf16 runs round at other places)."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.launch import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-1.7b", bf16_check=True)
+    _, _, bank, _, _, _ = serve._offline_phase(128, 3, cfg, seed=0, train_size=128,
+                                               device="cpu")
+    f32_bank, gpu_bank = bank.to("cpu", dtype="float32"), bank.to(cuda_device)
+    plans = _cascade_plans(128, 3, bank.num_levels, "cpu")
+    fa_ops.reset_counts()
+    gpu = [gpu_bank.execute(pl.map(lambda t: t.to(cuda_device))).cpu() for pl in plans]
+    torch.cuda.synchronize()
+    assert fa_ops.ROUTES == {"tc": 0, "short": cfg.num_layers * len(plans), "simt": 0}, (
+        fa_ops.ROUTES)
+    assert not fa_ops.PLAIN_CALLS["flash_attention"]
+    cpu = [bank.execute(pl) for pl in plans]
+    ref = [f32_bank.execute(pl) for pl in plans]
+    bf16_err = max((c - r).abs().max().item() for c, r in zip(cpu, ref))
+    err = max((g - c).abs().max().item() for g, c in zip(gpu, cpu))
+    assert 0.0 < bf16_err and err <= 2.0 * bf16_err, (err, bf16_err)
+    assert all(torch.isfinite(g).all() and ((g >= 0) & (g <= 1)).all() for g in gpu)
 
 
 # ------------------------------------------------------------------ SSD ----
@@ -624,7 +762,7 @@ def test_cuda_bf16_models_route_the_bf16_kernels(cuda_device, arch):
     torch.cuda.synchronize()
     n = cfg.num_layers
     if arch == "qwen3-1.7b":
-        assert fa_ops.ROUTES == {"tc": n, "simt": 0}, fa_ops.ROUTES
+        assert fa_ops.ROUTES == {"tc": n, "short": 0, "simt": 0}, fa_ops.ROUTES
         assert da_ops.LAUNCHES == {"decode_attention_partials": 0,
                                    "decode_attention_fused": n * steps}, da_ops.LAUNCHES
     else:

@@ -129,6 +129,18 @@ def test_fused_benefits_batched_edge_bins(mode, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("f", [1, 8])
+@pytest.mark.parametrize("p", [2, 4, 5])
+def test_best_mode_matches_jax_over_p_and_f(p, f, dtype):
+    """Best mode at the shapes the CUDA kernel's forms split on: P 2 and 4
+    (one thread an object, vector rows), P 5 (one thread a lane), F 1 and 8,
+    and C = 67, not a multiple of 4."""
+    table, costs = _fallback(p, f)
+    jb, tb = _both(_rows(p * 10 + f, 67, p, f, 3), table, costs, "best", dtype)
+    assert _assert_parity(jb, tb).any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", ["table", "best"])
 def test_fused_benefits_batched_learned_table(mode, dtype):
     table, costs = _learned(4, 4)

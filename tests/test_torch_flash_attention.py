@@ -73,6 +73,39 @@ def test_plain_twin_matches_jax_reference_and_kernel(case):
     np.testing.assert_allclose(_f32(interop.to_numpy(out)), _f32(j_kernel), rtol=tol, atol=tol)
 
 
+# bf16 shapes of the "short" route (Sq < 64, D 64 / 128), with the whole mask
+# contract: b, sq, skv, h, kv, d, kv_len, window, softcap (causal, queries at
+# the end of the valid cache)
+SHORT_CASES = [
+    (4, 8, 64, 4, 2, 128, 6, 4, 20.0),  # G * Sq = 16; rows 0-1 sit before key 0
+    (2, 33, 128, 8, 2, 128, 100, 24, 30.0),  # G 4, Sq 33: G * Sq = 132, a ragged tile
+    (2, 33, 128, 8, 2, 64, 100, 24, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", SHORT_CASES)
+def test_short_route_shapes_match_jax(case):
+    b, sq, skv, h, kv, d, kv_len, window, cap = case
+    assert kernel.route(torch.bfloat16, sq, d) == "short"
+    q, k, v = _inputs(sq * 7 + d, b, sq, skv, h, kv, d, "bfloat16")
+    kw = dict(causal=True, window=window, logit_softcap=cap, q_offset_from_kv_len=True)
+    out = ops.flash_attention(*(interop.to_torch(x) for x in (q, k, v)),
+                              torch.tensor([kv_len], dtype=torch.int32), **kw)
+    j_kv_len = jnp.asarray([kv_len], jnp.int32)
+    j_kernel = j_ops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), j_kv_len,
+                                     block_q=64, block_kv=64, interpret=True, **kw)
+    j_plain = j_ref.reference_bhsd(jnp.asarray(_bhsd(q)), jnp.asarray(_bhsd(k)),
+                                   jnp.asarray(_bhsd(v)), j_kv_len, num_q_heads=h,
+                                   num_kv_heads=kv, causal=True, window=window, softcap=cap,
+                                   q_offset_from_kv_len=True)
+    j_plain = np.transpose(_f32(j_plain).reshape(b, h, sq, d), (0, 2, 1, 3))
+    got = _f32(interop.to_numpy(out))
+    np.testing.assert_allclose(got, j_plain, rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+    np.testing.assert_allclose(got, _f32(j_kernel), rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+    if kv_len < sq:  # rows before key 0 see no key: 0 (the l == 0 rule)
+        assert not got[:, :sq - kv_len].any()
+
+
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 40), (False, 60)])
 def test_partial_kv_len_queries_at_the_end_of_the_cache(causal, window):
     b, sq, skv, h, kv, d = 1, 64, 256, 4, 2, 32
@@ -122,8 +155,10 @@ def test_ops_refuses_mixed_devices_dtypes_and_shapes():
     (torch.bfloat16, 2048, 128, "tc"),  # the qwen3-1.7b prefill
     (torch.bfloat16, 64, 64, "tc"),
     (torch.bfloat16, 200, 128, "tc"),
-    (torch.bfloat16, 8, 128, "simt"),  # the cascade's 8 tokens a lane
-    (torch.bfloat16, 63, 128, "simt"),
+    (torch.bfloat16, 8, 128, "short"),  # the cascade's 8 tokens a lane
+    (torch.bfloat16, 63, 128, "short"),
+    (torch.bfloat16, 8, 64, "short"),
+    (torch.bfloat16, 8, 96, "simt"),
     (torch.bfloat16, 4096, 32, "simt"),  # head dims the tc kernel does not take
     (torch.bfloat16, 4096, 96, "simt"),
     (torch.bfloat16, 4096, 256, "simt"),
@@ -138,4 +173,5 @@ def test_cpu_calls_count_no_route():
     q, k, v = _inputs(3, 1, 64, 64, 4, 2, 64, "bfloat16")
     ops.reset_counts()
     ops.flash_attention(*(interop.to_torch(x) for x in (q, k, v)))
-    assert ops.ROUTES == {"tc": 0, "simt": 0} and ops.PLAIN_CALLS["flash_attention"] == 1
+    assert ops.ROUTES == {"tc": 0, "short": 0, "simt": 0}
+    assert ops.PLAIN_CALLS["flash_attention"] == 1
