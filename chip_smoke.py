@@ -80,6 +80,25 @@ in order; any failure raises and the script exits non-zero:
    (Mean E(F) itself FALLS over these epochs, as it does in the reference:
    the 0.5 prior overstates 0.3-selective predicates, so early enrichment
    mostly moves probability mass down.);
+4b. serving robustness at the same size (phase 4's world, ``MAIN_TRACE``),
+   each part against a lockstep control from the same seed: ``overlap=True``
+   in turns with lockstep (digests equal, no more chunk programs, epochs/s
+   of both), the pipeline's event staging (host ingest rows: the pinned
+   copy path) under ``torch.cuda.set_sync_debug_mode("error")``, and 8
+   table-mode epochs on the grown state through a pipeline (kernel 1); the
+   ingest through ``StreamingIngest`` (65,536-row batches: 4 slots
+   ``block`` under overlap, 2 slots ``spill`` lockstep; digests equal direct
+   ingest) and the feed's rate beside the bare pinned copy's; a preemption
+   from the boundary hook at chunk 5 of 2-epoch chunks, a checkpoint every
+   2 chunks, restore on a fresh session and resume (digests and
+   ``epochs_total`` equal; bytes, save and restore ms); the supervisor:
+   ``kill:w1@chunk:4`` on 2 shards ends healthy with ``shrinks == [[2,
+   1]]`` and the 2-shard control's digests, ``raise:p1.f2@chunk:4`` on one
+   ends degraded with ``quarantined == [[1, 2]]``; then overlap + streaming
+   and checkpoint / resume at phase 3's size on the CPU and the card (each
+   bitwise its device's lockstep run, answers equal across devices, spend
+   within rtol 1e-5).  The scoring kernels launch in every part and the
+   plain versions never;
 5. the cascade main path at full width: ``build_cascade_session_server`` on
    the card with the full 28-layer qwen3-1.7b trunk (2,048 objects + 512 to
    train on, 3 predicates x 3 levels, 8 tenant slots, plan size 64, f32
@@ -1008,7 +1027,7 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
             "48 layers, d_model 1024, 32 SSD heads, P 64, N 128, bf16 trunk")
     epoch_marks, trunk_marks = [], []
 
-    def on_chunk(_state, _done):  # one chunk per epoch: time it and note the trunk
+    def on_chunk():  # one chunk per epoch: time it and note the trunk
         torch.cuda.synchronize()
         epoch_marks.append(time.perf_counter())
         trunk_marks.append(bank.trunk_runs)
@@ -1020,7 +1039,7 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     epoch_marks.append(t1)
     trunk_marks.append(trunk0)
     report = serve.serve_session_trace(session, state, serve.parse_trace(CASCADE_TRACE),
-                                       preds=preds, chunk_size=1, on_chunk=on_chunk)
+                                       preds=preds, chunk_size=1, boundary_hook=on_chunk)
     launches = {**es_ops.LAUNCHES, **fa_ops.LAUNCHES, **ssd_ops.LAUNCHES,
                 **{f"flash_attention/{r}": n for r, n in fa_ops.ROUTES.items()},
                 **{f"ssd_intra_chunk/{r}": n for r, n in ssd_ops.ROUTES.items()}}
@@ -1541,6 +1560,399 @@ def phase_model_serve() -> dict:
     return launches
 
 
+# ------------------------------------------------------- serving robustness --
+
+ROBUST_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_robust"
+ROBUST_SMALL_TRACE = "admit:2;admit:3;run:4;ingest:2048;admit:2;run:4;retire:0;run:4"
+ROBUST_BATCH = 65536  # streaming micro-batch rows: MAIN_TRACE's ingest is 8 of them
+
+
+def _robust_world(plan_shards: int = 1):
+    """Phase 4's world: 524,288 rows growing to 1,048,576, bf16, 8 slots."""
+    from repro_torch.launch import serve
+
+    return serve.build_session_server(
+        num_objects=524288, capacity=524288, max_capacity=1 << 20, num_preds=P,
+        max_tenants=8, substrate_dtype="bfloat16", plan_shards=plan_shards, device="cuda",
+    )
+
+
+def _same_digests(a, b, what: str) -> None:
+    for key in ("cost_hex", "bills_hex", "answer_digest", "epochs_total"):
+        assert getattr(a, key) == getattr(b, key), (
+            f"{what}: {key} {getattr(a, key)!r} != {getattr(b, key)!r}")
+
+
+def _stage_trace(pipe, events, pool, preds, seed: int = 0) -> None:
+    """The serve loop's event staging on a pipeline (admits draw their
+    predicates from ``default_rng(seed)`` as ``serve_session_trace`` does)."""
+    import numpy as np
+
+    from repro_torch.core.query import conjunction
+
+    rng = np.random.default_rng(seed)
+    off = 0
+    for kind, arg in events:
+        if kind == "run":
+            pipe.run(arg)
+        elif kind == "admit":
+            cols = sorted(rng.choice(len(preds), size=min(arg, len(preds)), replace=False))
+            pipe.admit(conjunction(*[preds[c] for c in cols]))
+        elif kind == "ingest":
+            pipe.ingest(pool[off:off + arg])
+            off += arg
+        else:
+            pipe.retire(arg)
+
+
+def _robust_counts(ops, what: str, best: int = None, table: int = 0) -> dict:
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    assert not any(plain.values()), f"{what}: the plain path ran: {plain}"
+    if best is not None:
+        assert launches["enrich_score_best"] == best, (what, launches)
+    else:
+        assert launches["enrich_score_best"] > 0, (what, launches)
+    assert launches["enrich_score_table"] == table, (what, launches)
+    return launches
+
+
+def _robust_overlap(ops, serve, events) -> dict:
+    """Overlap vs lockstep at full size (digests equal, no extra chunk
+    programs), the pipeline's staging under sync debug mode "error", and
+    the grown state's table-mode epochs through a pipeline."""
+    import torch
+
+    from repro_torch.core.executor import EngineConfig
+    from repro_torch.core.session import EngineSession
+
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    reports = {}
+    for name in ("lockstep", "overlap", "overlap ", "lockstep "):  # in turns
+        session, state, pool, preds = _robust_world()
+        ops.reset_counts()
+        rep = serve.serve_session_trace(session, state, events, pool=pool, preds=preds,
+                                        overlap=name.startswith("overlap"))
+        for k, v in _robust_counts(ops, name, best=24).items():
+            launches[k] += v
+        reports[name] = (rep, session)
+    control, c_session = reports["lockstep"]
+    for name, (rep, session) in reports.items():
+        _same_digests(rep, control, f"{name.strip()} vs lockstep")
+        assert rep.superstep_traces <= control.superstep_traces, (name, rep.superstep_traces)
+    rates = {name.strip(): [] for name in reports}
+    for name, (rep, _) in reports.items():
+        rates[name.strip()].append(rep.epochs / rep.wall_s)
+    print(f"[robust] overlap vs lockstep: {control.epochs} epochs, digests equal "
+          f"({control.cost_hex}, {control.answer_digest[:16]}), chunk programs "
+          f"{reports['overlap'][0].superstep_traces} vs {control.superstep_traces}; epochs/s "
+          f"(host clock, trace incl. churn events) lockstep {rates['lockstep']!r}, overlap "
+          f"{rates['overlap']!r}", flush=True)
+
+    # the staging itself, host pool (pinned copy path), under sync debug "error"
+    session, state, pool, preds = _robust_world()
+    host_pool = pool.cpu()
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = session.pipeline(state)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _stage_trace(pipe, events, host_pool, preds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    staged_s = time.perf_counter() - t0
+    grown, _ = pipe.finish()
+    wall_s = time.perf_counter() - t0
+    for k, v in _robust_counts(ops, "staged pipeline", best=24).items():
+        launches[k] += v
+    assert serve.state_digests(grown) == (control.cost_hex, control.bills_hex,
+                                          control.answer_digest), "staged pipeline digests"
+    print(f"[robust] pipeline staging of {len(events)} events raised nothing under "
+          f"set_sync_debug_mode('error'); staged in {staged_s * 1e3:.1f} ms, finished "
+          f"{wall_s * 1e3:.1f} ms after open; digests equal the lockstep run's", flush=True)
+
+    # table mode (kernel 1) on the grown state: lockstep vs pipeline
+    table_session = EngineSession(
+        session.global_predicates, session.table, session.combine_params, session.costs,
+        capacity=grown.capacity, max_tenants=8, device=session.device,
+        config=EngineConfig(plan_size=64, substrate_dtype="bfloat16"),
+    )
+    ops.reset_counts()
+    lock, _ = table_session.run(grown, 8, stop_when_exhausted=False)
+    tpipe = table_session.pipeline(grown)
+    tpipe.run(8)
+    piped, _ = tpipe.finish()
+    for k, v in _robust_counts(ops, "table mode", best=0, table=16).items():
+        launches[k] += v
+    assert serve.state_digests(lock) == serve.state_digests(piped), "table-mode pipeline digests"
+    print("[robust] table mode on the grown state: 8 epochs lockstep and through a "
+          "pipeline, digests equal", flush=True)
+    return launches, control, c_session
+
+
+def _robust_streaming(ops, serve, events, control) -> dict:
+    """The ingest event through StreamingIngest (block under overlap, spill
+    lockstep), digests equal to direct ingest; the feed's rate."""
+    import torch
+
+    from repro_torch.ingest import IngestStream, PendingRing
+
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    for slots, policy, overlap in ((4, "block", True), (2, "spill", False)):
+        session, state, pool, preds = _robust_world()
+        streaming = serve.StreamingIngest(session, batch_rows=ROBUST_BATCH, num_slots=slots,
+                                          policy=policy)
+        ops.reset_counts()
+        rep = serve.serve_session_trace(session, state, events, pool=pool.cpu(), preds=preds,
+                                        overlap=overlap, streaming=streaming)
+        for k, v in _robust_counts(ops, f"streaming {policy}", best=24).items():
+            launches[k] += v
+        _same_digests(rep, control, f"streaming {policy} vs direct ingest")
+        c = rep.ingest_counters
+        rows = sum(arg for kind, arg in events if kind == "ingest")
+        batches = -(-rows // ROBUST_BATCH)
+        assert c["rows_fed"] == c["drained_rows"] == rows and c["shed_rows"] == 0, c
+        if policy == "block":  # a full ring drains once per `slots` batches
+            assert c["blocked"] == (batches - 1) // slots and not c["spilled_rows"], c
+        else:  # everything past the free slots spills, then refills FIFO
+            assert c["spilled_batches"] == batches - slots and not c["blocked"], c
+        print(f"[robust] streaming {policy} ({'overlap' if overlap else 'lockstep'}, batch "
+              f"{ROBUST_BATCH} x {slots} slots): digests equal direct ingest; {rep.ring_drains} "
+              f"drains, counters {c}", flush=True)
+
+    # the feed's own rate: quantize f32 -> bf16 into pinned staging, copy on
+    # the side stream, write the ring (8 slots: no drain in the timed region)
+    session, state, pool, preds = _robust_world()
+    rows = pool.cpu()
+    ring = PendingRing(session, slot_rows=ROBUST_BATCH, num_slots=8, policy="block")
+    stream = IngestStream(ring, batch_rows=ROBUST_BATCH)
+    stream.feed(rows[:ROBUST_BATCH])  # warm-up: pinned blocks, side stream
+    ring.drain_into(session, state, int(state.num_rows))
+    times, nbytes = [], 0
+    for _ in range(3):
+        stream.bytes_staged = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream.feed(rows)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        nbytes = stream.bytes_staged
+        ring._head = ring._count = 0  # discard: the timing needs no drain
+        ring._fill = [0] * ring.num_slots
+    pinned = torch.empty(rows.shape, dtype=torch.bfloat16, pin_memory=True)
+    pinned.copy_(rows)
+    raw = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        pinned.to("cuda", non_blocking=True)
+        end.record()
+        end.synchronize()
+        raw.append(start.elapsed_time(end) / 1e3)
+    feed_gbs = nbytes / statistics.median(times) / 1e9
+    raw_gbs = nbytes / statistics.median(raw) / 1e9
+    print(f"[robust] feed of {rows.shape[0]} f32 rows as {nbytes} bf16 bytes (batches of "
+          f"{ROBUST_BATCH}): "
+          f"{statistics.median(times) * 1e3:.3f} ms median of 3 (host clock, synchronised) = "
+          f"{feed_gbs:.3f} GB/s quantize + pinned copy + ring write; the bare pinned H2D "
+          f"copy {statistics.median(raw) * 1e3:.3f} ms = {raw_gbs:.3f} GB/s (CUDA events)",
+          flush=True)
+    return launches
+
+
+def _robust_resume(ops, serve, events, control) -> dict:
+    """Preempt mid-trace from the boundary hook, restore on a fresh session,
+    resume: digests and epochs_total equal the uninterrupted run's."""
+    import shutil
+
+    from repro_torch.core.durability import SessionCheckpointer, restore_session_checkpoint
+    from repro_torch.runtime.fault_tolerance import PreemptionHandler
+
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    root = ROBUST_DIR / "resume"
+    shutil.rmtree(root, ignore_errors=True)
+    session, state, pool, preds = _robust_world()
+    ckpt = SessionCheckpointer(session, root, every=2, keep=3)
+    stop = PreemptionHandler()
+    ticks = [0]
+
+    def hook():
+        ticks[0] += 1
+        if ticks[0] == 5:  # mid-trace: the second run event, after the ingest
+            stop.request()
+
+    ops.reset_counts()
+    first = serve.serve_session_trace(session, state, events, pool=pool, preds=preds,
+                                      preemption=stop, chunk_size=2, checkpointer=ckpt,
+                                      boundary_hook=hook)
+    assert first.preempted and first.epochs_total == 10, (first.preempted, first.epochs_total)
+    for k, v in _robust_counts(ops, "preempted run", best=10).items():
+        launches[k] += v
+    session2, _, pool2, preds2 = _robust_world()
+    t0 = time.perf_counter()
+    restored, step, extra = restore_session_checkpoint(session2, root)
+    restore_s = time.perf_counter() - t0
+    ops.reset_counts()
+    resumed = serve.serve_session_trace(session2, restored, events, pool=pool2, preds=preds2,
+                                        chunk_size=2, resume=extra["host"])
+    for k, v in _robust_counts(ops, "resumed run", best=14).items():
+        launches[k] += v
+    _same_digests(resumed, control, "resumed vs uninterrupted")
+    per = ckpt.bytes_written / ckpt.saves
+    print(f"[robust] preempted at boundary 5 (epoch {first.epochs_total}), restored step "
+          f"{step} on a fresh session and resumed: digests and epochs_total "
+          f"({resumed.epochs_total}) equal the uninterrupted run's; {ckpt.saves} saves of "
+          f"{per:.0f} bytes, {ckpt.save_seconds / ckpt.saves * 1e3:.1f} ms a save, restore "
+          f"{restore_s * 1e3:.1f} ms (host clock)", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def _robust_supervised(ops, serve, events, control) -> dict:
+    """A killed plan shard (2 -> 1, healthy, digests equal a 2-shard
+    control) and a raising enrichment function (1 shard, degraded)."""
+    import shutil
+
+    from repro_torch.runtime.chaos import parse_fault_spec
+    from repro_torch.runtime.supervisor import Supervisor, SupervisorConfig
+
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    session, state, pool, preds = _robust_world(plan_shards=2)
+    ops.reset_counts()
+    control2 = serve.serve_session_trace(session, state, events, pool=pool, preds=preds,
+                                         chunk_size=2)
+    for k, v in _robust_counts(ops, "2-shard control", best=24).items():
+        launches[k] += v
+    _same_digests(control2, control, "2-shard vs 1-shard planning")
+    for spec, shards in (("kill:w1@chunk:4", 2), ("raise:p1.f2@chunk:4", 1)):
+        root = ROBUST_DIR / "supervised"
+        shutil.rmtree(root, ignore_errors=True)
+        session, state, pool, preds = _robust_world(plan_shards=shards)
+        sup = Supervisor(
+            session, state, events, pool=pool, preds=preds, checkpoint_dir=root,
+            chunk_size=2, fault_plan=parse_fault_spec(spec),
+            config=SupervisorConfig(heartbeat_timeout=2.0, checkpoint_every=2,
+                                    checkpoint_keep=3),
+        )
+        ops.reset_counts()
+        rep = sup.serve()
+        for k, v in _robust_counts(ops, spec).items():
+            launches[k] += v
+        s = sup.summary()
+        assert not rep.preempted, spec
+        if spec.startswith("kill"):
+            assert s["final_state"] == "healthy" and s["shrinks"] == [[2, 1]], s
+            assert s["failed_workers"] == [1] and s["restarts"] == 1, s
+            assert [t[2] for t in s["transitions"]] == ["draining", "restoring", "healthy"], s
+            _same_digests(rep, control2, "supervised kill vs 2-shard control")
+        else:
+            assert s["final_state"] == "degraded" and s["quarantined"] == [[1, 2]], s
+            assert rep.degraded and rep.quarantined == [[1, 2]] and rep.mean_expected_f > 0
+            assert s["restarts"] == 1 and s["function_failures"]["p1.f2"] >= 2, s
+            assert s["shrinks"] == [], s
+        print(f"[robust] supervised {spec!r} on {shards} shard(s): {s['final_state']}, "
+              f"shrinks {s['shrinks']}, quarantined {s['quarantined']}, restarts "
+              f"{s['restarts']}, restored steps {s['restored_steps']}, recovery latency "
+              f"{[round(x * 1e3, 3) for x in s['recovery_latency_s']]} ms (host clock, "
+              f"detection to the first chunk after restore), {s['checkpoint_saves_total']} "
+              f"saves, mean E(F) {rep.mean_expected_f!r}", flush=True)
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def _robust_cpu_vs_gpu(serve) -> None:
+    """Overlap + streaming and checkpoint / resume on the CPU and the card
+    over phase 3's world: each mode equals its own device's lockstep run
+    bitwise, and the card's answers equal the CPU's."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core.durability import SessionCheckpointer, restore_session_checkpoint
+    from repro_torch.core.executor import EngineConfig
+    from repro_torch.core.query import Predicate
+    from repro_torch.core.session import EngineSession
+    from repro_torch.runtime.fault_tolerance import PreemptionHandler
+
+    table, combine, costs, outputs = _small_world()
+    preds = [Predicate(i, 1) for i in range(P)]
+    events = serve.parse_trace(ROBUST_SMALL_TRACE)
+    pool = outputs[2048:4096]
+    results = {}
+    for device in ("cpu", "cuda"):
+        def fresh():
+            s = EngineSession(preds, table, combine, costs, capacity=2048, max_tenants=4,
+                              max_capacity=4096, device=device,
+                              config=EngineConfig(plan_size=64, function_selection="best"))
+            return s, s.init_state(outputs[:2048])
+
+        s, st = fresh()
+        lock = serve.serve_session_trace(s, st, events, pool=pool, preds=preds)
+        s, st = fresh()
+        streaming = serve.StreamingIngest(s, batch_rows=512, num_slots=2, policy="block")
+        over = serve.serve_session_trace(s, st, events, pool=pool, preds=preds, overlap=True,
+                                         streaming=streaming)
+        _same_digests(over, lock, f"{device}: overlap + streaming vs lockstep")
+        root = ROBUST_DIR / f"small_{device}"
+        shutil.rmtree(root, ignore_errors=True)
+        s, st = fresh()
+        stop = PreemptionHandler()
+        ticks = [0]
+
+        def hook():
+            ticks[0] += 1
+            if ticks[0] == 3:
+                stop.request()
+
+        first = serve.serve_session_trace(
+            s, st, events, pool=pool, preds=preds, preemption=stop, chunk_size=2,
+            checkpointer=SessionCheckpointer(s, root, every=2), boundary_hook=hook)
+        assert first.preempted
+        s, _ = fresh()
+        restored, _, extra = restore_session_checkpoint(s, root)
+        resumed = serve.serve_session_trace(s, restored, events, pool=pool, preds=preds,
+                                            chunk_size=2, resume=extra["host"])
+        _same_digests(resumed, lock, f"{device}: resumed vs lockstep")
+        shutil.rmtree(root, ignore_errors=True)
+        results[device] = lock
+    cpu, gpu = results["cpu"], results["cuda"]
+    assert gpu.answer_digest == cpu.answer_digest, "CPU and card answers differ"
+    assert (gpu.epochs, gpu.num_rows, gpu.growths) == (cpu.epochs, cpu.num_rows, cpu.growths)
+    np.testing.assert_allclose(gpu.cost_spent, cpu.cost_spent, rtol=1e-5)
+    np.testing.assert_allclose([float.fromhex(h) for h in gpu.bills_hex],
+                               [float.fromhex(h) for h in cpu.bills_hex], rtol=1e-5, atol=1e-6)
+    print(f"[robust] CPU vs card ({ROBUST_SMALL_TRACE!r}, 2048 -> 4096 rows): overlap + "
+          f"streaming and preempt / resume equal each device's lockstep run bitwise; answer "
+          f"digests equal across devices ({gpu.answer_digest[:16]}), spend {cpu.cost_spent!r} "
+          f"vs {gpu.cost_spent!r} (cost_hex {'equal' if cpu.cost_hex == gpu.cost_hex else 'differs'})",
+          flush=True)
+
+
+def phase_serving_robustness() -> dict:
+    """Overlap, streaming, preempt / resume and supervised serving at the
+    session cell's size, each against a lockstep control from the same
+    seed; then the same modes CPU vs card at phase 3's size."""
+    import shutil
+
+    from repro_torch.kernels.enrich_score import ops
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    events = serve.parse_trace(MAIN_TRACE)
+    runs = []
+    launches, control, _ = _robust_overlap(ops, serve, events)
+    runs.append(launches)
+    runs.append(_robust_streaming(ops, serve, events, control))
+    runs.append(_robust_resume(ops, serve, events, control))
+    runs.append(_robust_supervised(ops, serve, events, control))
+    _robust_cpu_vs_gpu(serve)
+    shutil.rmtree(ROBUST_DIR, ignore_errors=True)
+    total = {k: sum(r.get(k, 0) for r in runs) for k in ops.KERNELS}
+    print(f"[robust] all parts passed in {time.perf_counter() - t0:.1f} s; launches {total}",
+          flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1574,7 +1986,7 @@ def main() -> int:
     phase_serve_cpu_vs_gpu()
     phase_serve_bf16_cpu_vs_gpu()
     phase_cascade_bf16_cpu_vs_gpu()
-    runs = [phase_main_path(), phase_cascade_main_path("qwen3-1.7b"),
+    runs = [phase_main_path(), phase_serving_robustness(), phase_cascade_main_path("qwen3-1.7b"),
             phase_cascade_main_path("mamba2-370m"), phase_operator_main_path(),
             phase_serve_entry_points(), phase_model_serve()]
     # launches: the sum over the main-path runs (each zeroes the counts first)

@@ -35,7 +35,7 @@ from repro_torch.core.query import (
     global_predicate_space,
     reindex_query,
 )
-from repro_torch.core.session import EngineSession
+from repro_torch.core.session import EngineSession, SessionPipeline
 from repro_torch.core.state import (
     EnrichmentState,
     PerQueryState,
@@ -45,6 +45,12 @@ from repro_torch.core.state import (
     refresh_derived,
 )
 from repro_torch.core.threshold import select_answer, select_answer_approx
+from repro_torch.core.durability import (
+    SessionCheckpointer,
+    restore_session_checkpoint,
+    save_session_checkpoint,
+    session_state_spec,
+)
 
 __all__ = [
     "And", "Not", "Or", "Predicate", "compile_query", "conjunction",
@@ -56,7 +62,9 @@ __all__ = [
     "select_answer", "select_answer_approx", "compute_benefits",
     "Plan", "select_plan", "merge_plans_dedup",
     "OperatorConfig", "EpochStats", "ProgressiveQueryOperator",
-    "EngineConfig", "EpochProgram", "SessionState", "EngineSession",
+    "EngineConfig", "EpochProgram", "SessionState", "EngineSession", "SessionPipeline",
+    "SessionCheckpointer", "save_session_checkpoint", "restore_session_checkpoint",
+    "session_state_spec",
     "MultiQueryEngine", "MultiQueryConfig", "MultiQueryState", "MultiEpochStats",
     "QuerySet", "build_query_set",
     "StaticOrderEvaluator",

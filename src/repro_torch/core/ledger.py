@@ -85,7 +85,7 @@ def reset_slot(ledger: CostLedger, slot: int) -> CostLedger:
 
     def zeroed(x):
         out = x.clone()
-        out[slot] = 0
+        out[slot:slot + 1] = 0  # a fill: ``out[slot] = 0`` copies a host scalar (a sync)
         return out
 
     return CostLedger(

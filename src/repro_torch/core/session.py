@@ -1,8 +1,7 @@
 """Session-oriented engine core: churn as data updates on fixed-shape state.
 
-Port of ``repro.core.session`` (the lockstep session; the async pipeline is
-later work).  ``EngineSession`` makes every churn axis a masked,
-pre-allocated dimension:
+Port of ``repro.core.session``.  ``EngineSession`` makes every churn axis a
+masked, pre-allocated dimension:
 
 * **capacity-padded substrate** — tensors are allocated at ``[capacity, P,
   F]``; a row-validity prefix (one device ``num_rows`` scalar) says which
@@ -16,7 +15,20 @@ pre-allocated dimension:
   at most once per tier and length (``retrace_bound``);
 * **an attached bank** — ``bank=`` (the model-cascade bank) runs its
   ``execute`` on every epoch's merged plan inside the superstep; a ragged
-  bank's missing levels open in the quarantine channel.
+  bank's missing levels open in the quarantine channel;
+* **async event overlap** — ``SessionPipeline`` stages ingest / admit /
+  retire events against host shadows of ``num_rows`` and ``active`` while
+  earlier chunks are still running on the card: after one upfront read of
+  the shadows no event and no dispatch synchronises the host with the
+  device, and the pipeline waits once, chunk by chunk, in ``finish()``.
+
+Event methods that take the host shadows (``num_rows=`` / ``active=``)
+make no host sync on a CUDA state.  Two PyTorch idioms would sync, so they
+are avoided: indexing with a host list (its index tensor is copied to the
+card) and assigning a Python scalar to a single element (``t[i] = v``
+copies a host scalar into a 0-d view); single elements are written as
+one-element slices (``t[i:i + 1] = v``, a fill), and host outputs cross
+through pinned memory with a non-blocking copy.
 
 The session runs on the card unless ``device="cpu"`` is passed; without a
 GPU and without an explicit ``"cpu"`` it raises.
@@ -25,6 +37,7 @@ GPU and without an explicit ``"cpu"`` it raises.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -37,6 +50,7 @@ from repro_torch.core.executor import (
     EngineConfig,
     EpochProgram,
     SessionDerived,
+    SessionEpochStats,
     SessionState,
     resolve_substrate_dtype,
 )
@@ -193,8 +207,17 @@ class EngineSession:
         )
 
     def _as_outputs(self, outputs) -> torch.Tensor:
-        """THE quantization boundary: outputs land at the substrate dtype."""
-        outputs = torch.as_tensor(outputs).to(self.device)
+        """THE quantization boundary: outputs land at the substrate dtype.
+
+        Host outputs bound for the card cross through pinned memory with a
+        non-blocking copy (the caching host allocator keeps the pinned block
+        until the copy is done), so an ingest makes no host sync."""
+        outputs = torch.as_tensor(outputs)
+        if outputs.device != self.device:
+            if self.device.type == "cuda" and outputs.device.type == "cpu":
+                outputs = outputs.pin_memory().to(self.device, non_blocking=True)
+            else:
+                outputs = outputs.to(self.device)
         if outputs.dtype != self.substrate_dtype:
             outputs = outputs.to(self.substrate_dtype)
         if outputs.ndim != 3 or tuple(outputs.shape[1:]) != (
@@ -299,9 +322,10 @@ class EngineSession:
                 raise SlotActiveError(f"slot {slot} is already occupied; retire it first", slot=slot)
         pred_mask = state.pred_mask.clone()
         pred_mask[slot] = False
-        pred_mask[slot, cols] = True
+        for c in cols:  # one-element fills: no host index tensor, no 0-d copy
+            pred_mask[slot, c:c + 1] = True
         act = state.active.clone()
-        act[slot] = True
+        act[slot:slot + 1] = True
         state = dataclasses.replace(
             state, pred_mask=pred_mask, active=act, ledger=ledger_lib.reset_slot(state.ledger, slot)
         )
@@ -318,7 +342,7 @@ class EngineSession:
         pred_mask = state.pred_mask.clone()
         pred_mask[slot] = False
         act = state.active.clone()
-        act[slot] = False
+        act[slot:slot + 1] = False
         return self.program.refresh(dataclasses.replace(state, pred_mask=pred_mask, active=act))
 
     def refresh(self, state: SessionState) -> SessionState:
@@ -351,17 +375,62 @@ class EngineSession:
                 f"[P={self.num_predicates}, F={self.num_functions}]"
             )
         q = state.quarantined.clone()
-        q[pred, func] = value
+        q[pred, func:func + 1] = value
         return dataclasses.replace(state, quarantined=q)
+
+    def reshard(self, num_shards: int) -> "EngineSession":
+        """A new session over the same world, planning across ``num_shards``.
+
+        The elastic-restart building block: after ``ElasticPolicy`` shrinks
+        the data axis, the supervisor opens the resharded session and
+        restores the newest checkpoint onto it.  Sharded plan selection is
+        exact, so answers stay bitwise the same.  Same table, parameters,
+        costs, tiers, ``truth_masks``, bank and device; the new session
+        builds its own chunk programs.
+        """
+        cfg = dataclasses.replace(self.config, num_shards=int(num_shards))
+        return EngineSession(
+            self.global_predicates,
+            self.table,
+            self.combine_params,
+            self.costs,
+            capacity=self.capacity,
+            max_tenants=self.max_tenants,
+            config=cfg,
+            max_capacity=self._tiers[-1],
+            truth_masks=self.program.truth_masks,
+            device=self.device,
+            bank=self.bank,
+        )
 
     # ---- growth + ingest ------------------------------------------------------
 
     def _grow_padded(self, state: SessionState, min_rows: int, used: int) -> SessionState:
+        """Tier migration without the derived-state refresh, for callers whose
+        own tail refreshes anyway (``ingest``).  ``used`` is the host-known
+        occupied row count: no device read here."""
         if min_rows <= state.capacity:
             return state
         target = self._tier_for(min_rows, used=used, requested=min_rows - used)
         self.growths += 1
         return pad_session_state(state, target, self.config.prior)
+
+    def grow(
+        self, state: SessionState, min_rows: int, *, num_rows: Optional[int] = None
+    ) -> SessionState:
+        """Migrate a live session to the smallest tier holding ``min_rows``
+        (no-op when the current tier does), then refresh derived state once.
+
+        Padded rows are inert and every accumulator carries over, so the
+        next ``run`` builds one chunk program for the new tier.  Raises
+        ``CapacityError`` past the last tier.  ``num_rows`` may carry the
+        host-known row count (it only feeds the error payload); without it
+        the count is read from the device.
+        """
+        if min_rows <= state.capacity:
+            return state
+        used = int(state.num_rows) if num_rows is None else int(num_rows)
+        return self.program.refresh(self._grow_padded(state, min_rows, used))
 
     def ingest(
         self, state: SessionState, outputs, *, num_rows: Optional[int] = None, refresh: bool = True
@@ -410,3 +479,162 @@ class EngineSession:
             stop_when_exhausted=stop_when_exhausted,
             on_chunk=on_chunk,
         )
+
+    def pipeline(
+        self,
+        state: SessionState,
+        chunk_size: Optional[int] = None,
+        preemption=None,
+        heartbeat=None,
+        boundary_hook=None,
+    ) -> "SessionPipeline":
+        """Open an async event pipeline over this session (one host read
+        here, the shadow snapshot, then none until ``finish()``).
+        ``preemption`` (a ``runtime.fault_tolerance.PreemptionHandler``) is
+        polled at chunk boundaries; ``heartbeat`` beats worker 0 per
+        dispatched chunk; ``boundary_hook`` (no-arg callable) fires once per
+        dispatched chunk — the supervisor's fault clock."""
+        return SessionPipeline(
+            self, state, chunk_size=chunk_size,
+            preemption=preemption, heartbeat=heartbeat, boundary_hook=boundary_hook,
+        )
+
+
+class SessionPipeline:
+    """Overlap churn-event application with in-flight chunks.
+
+    The lockstep loop waits at every boundary: ``run`` copies its stats to
+    the host before the next event is looked at, and each event reads
+    ``num_rows`` / ``active`` from the device.  The pipeline removes those
+    waits:
+
+    * chunks are enqueued on the current CUDA stream and never waited on;
+      a CUDA event recorded after each chunk marks its completion;
+    * events validate against host shadows of ``num_rows`` and ``active``
+      (every event's effect on them is host-computable) and enqueue their
+      data updates behind the in-flight chunks;
+    * ``finish()`` waits on each chunk's event in dispatch order and copies
+      its stats, so each completion time is that chunk's own.
+
+    It enqueues the same chunk programs the lockstep path does, in the same
+    order, so the result is bitwise the lockstep result and
+    ``superstep_traces`` is unchanged.
+    """
+
+    def __init__(
+        self,
+        session: EngineSession,
+        state: SessionState,
+        chunk_size: Optional[int] = None,
+        preemption=None,
+        heartbeat=None,
+        boundary_hook=None,
+    ):
+        self.session = session
+        self.state = state
+        self.chunk_size = chunk_size if chunk_size is not None else session.config.chunk_size
+        self.preemption = preemption
+        self.heartbeat = heartbeat
+        self.boundary_hook = boundary_hook
+        self.preempted = False  # a chunk-boundary poll saw should_stop
+        # the pipeline's ONE upfront host read: the shadows
+        self.num_rows = int(state.num_rows)
+        self.active = state.active.cpu().numpy().copy()
+        self._cuda = state.device.type == "cuda"
+        self._chunks = []  # (epoch_base_within_run, length, stats, collect, done_event)
+        self.epochs_dispatched = 0
+        self.events_staged = 0  # churn events only (ingest / admit / retire / drains)
+        self.stamps: list = []  # (wall_s, mean_active_expected_f) per epoch
+        self._t0 = time.perf_counter()
+
+    def run(self, num_epochs: int, collect_masks: bool = False) -> None:
+        """Enqueue ``num_epochs`` supersteps as chunks (non-blocking).
+
+        With a ``preemption`` handler, each chunk boundary polls
+        ``should_stop``: once it is set no further chunk is dispatched
+        (``preempted`` latches), so the stop is always at a superstep
+        boundary.
+        """
+        prog = self.session.program
+        base = 0
+        for length in prog.chunk_lengths(num_epochs, self.chunk_size):
+            if self.preemption is not None and self.preemption.should_stop:
+                self.preempted = True
+                break
+            self.state, stats = prog.dispatch_scan(self.state, length, collect_masks)
+            done = None
+            if self._cuda:
+                done = torch.cuda.Event()
+                done.record()
+            self._chunks.append((base, length, stats, collect_masks, done))
+            base += length
+            if self.heartbeat is not None:
+                self.heartbeat.beat(0)
+            if self.boundary_hook is not None:
+                # may trip ``preemption`` so the NEXT poll stops dispatch here
+                self.boundary_hook()
+        self.epochs_dispatched += base
+
+    def checkpoint(self, checkpointer, step: int, host_meta=None, force=True):
+        """Snapshot the carry at this chunk boundary (the save waits for the
+        in-flight chunks).  Stats stay queued for ``finish()`` and the
+        shadows are untouched.  -> the checkpoint path, or None when the
+        cadence said skip and ``force`` is False."""
+        return checkpointer.maybe_save(self.state, step, host_meta=host_meta, force=force)
+
+    def ingest(self, outputs) -> None:
+        """Stage an ingest against the in-flight carry (bounds-checked and
+        tier-grown from the host shadow; no sync)."""
+        self.state = self.session.ingest(self.state, outputs, num_rows=self.num_rows)
+        self.num_rows += int(outputs.shape[0])
+        self.events_staged += 1
+
+    def drain_ring(self, ring) -> int:
+        """Drain a ``repro_torch.ingest.PendingRing`` into the in-flight carry:
+        refresh-free ingests of every pending slot, one refresh at the end,
+        bounds checks and growth off the host shadow.  -> rows drained."""
+        self.state, self.num_rows, drained = ring.drain_into(
+            self.session, self.state, self.num_rows
+        )
+        if drained:
+            self.events_staged += 1
+        return drained
+
+    def admit(self, query: CompiledQuery, slot: Optional[int] = None) -> int:
+        """Stage a tenant admission (slot chosen from the host shadow)."""
+        self.state, slot = self.session.admit(self.state, query, slot=slot, active=self.active)
+        self.active[slot] = True
+        self.events_staged += 1
+        return slot
+
+    def retire(self, slot: int) -> None:
+        """Stage a tenant retirement (validated against the host shadow)."""
+        self.state = self.session.retire(self.state, slot, active=self.active)
+        self.active[slot] = False
+        self.events_staged += 1
+
+    def finish(self) -> tuple:
+        """Drain the pipeline -> (final state, history): wait on each chunk's
+        event in dispatch order, copy its stats, stamp its completion time.
+        The only place the pipeline waits for the card."""
+        prog = self.session.program
+        history: list[SessionEpochStats] = []
+        for base, length, stats, collect, done in self._chunks:
+            if done is not None:
+                done.synchronize()  # THIS chunk's completion
+            host = {k: v.cpu().numpy() for k, v in stats.items()}
+            t_done = time.perf_counter() - self._t0
+            chunk_hist = prog.materialize_history(
+                [(length, host)],
+                wall_per_epoch=t_done / max(self.epochs_dispatched, 1),
+                collect_masks=collect,
+                stop_when_exhausted=False,
+                epoch_base=base,
+            )
+            for h in chunk_hist:
+                self.stamps.append((t_done, h.mean_expected_f))
+            history.extend(chunk_hist)
+        if self._cuda:
+            torch.cuda.synchronize(self.state.device)
+        self._chunks = []
+        return self.state, history

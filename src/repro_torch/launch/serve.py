@@ -15,7 +15,23 @@ Three serving modes, as in the reference:
     python -m repro_torch.launch.serve --objects 512 --preds 3 --queries 4 --backbone ""
 
 * session (``--session``): one long-lived multi-tenant ``EngineSession``
-  driven by a scripted ingest/admit/retire/run arrival trace, lockstep.
+  driven by a scripted ingest/admit/retire/run arrival trace: lockstep, or
+  with ``--overlap`` through the async ``SessionPipeline``; durable with
+  ``--checkpoint-dir`` (``--restore`` resumes bitwise); ingest events
+  streamed through pinned staging and the pending-row ring with
+  ``--ingest-batch``; and under the fault supervisor with ``--supervise``
+  (``--inject-faults`` schedules deterministic faults)::
+
+    python -m repro_torch.launch.serve --session --objects 256 --device cpu --overlap
+    python -m repro_torch.launch.serve --session --objects 256 --device cpu \
+        --checkpoint-dir /tmp/ck --checkpoint-every 1
+    python -m repro_torch.launch.serve --session --objects 256 --device cpu \
+        --checkpoint-dir /tmp/ck --restore
+    python -m repro_torch.launch.serve --session --objects 256 --device cpu \
+        --ingest-batch 64 --ring-capacity 2 --ingest-policy spill
+    python -m repro_torch.launch.serve --session --objects 256 --device cpu \
+        --plan-shards 2 --supervise --checkpoint-dir /tmp/ck \
+        --chunk-size 1 --inject-faults 'kill:w1@chunk:4'
 
 Session mode has two enrichment banks:
 
@@ -40,8 +56,10 @@ Session mode has two enrichment banks:
 The single and multi-tenant modes use the cascade bank; ``--backbone ""``
 drops its backbone level and ``--full-width`` builds it at the published
 width, as for ``--session --bank cascade``.  Runs on the card by default
-(``--device cuda``); ``--device cpu`` runs the plain PyTorch path.  The report's ``cost_hex``, ``bills_hex`` and
-``answer_digest`` are the bitwise diff surface, as in the reference.
+(``--device cuda``); ``--device cpu`` runs the plain PyTorch path.  The
+reference's ``--backend`` is not taken: the port routes scoring by device.
+The report's ``cost_hex``, ``bills_hex`` and ``answer_digest`` are the
+bitwise diff surface, as in the reference.
 """
 
 from __future__ import annotations
@@ -60,6 +78,7 @@ import torch
 from repro_torch.configs.archs import get_config
 from repro_torch.core.combine import auc_score, fit_combine_weights
 from repro_torch.core.decision_table import learn_decision_table
+from repro_torch.core.durability import SessionCheckpointer, restore_session_checkpoint
 from repro_torch.core.executor import EngineConfig, SessionState
 from repro_torch.core.metrics import true_f_alpha
 from repro_torch.core.multi_query import MultiQueryConfig, MultiQueryEngine, build_query_set
@@ -69,7 +88,11 @@ from repro_torch.core.session import EngineSession
 from repro_torch.data.synthetic import make_corpus, split_corpus, truth_answer_mask
 from repro_torch.device import resolve_device
 from repro_torch.enrich.cascade import ModelCascadeBank, build_cascade_suite, train_level
+from repro_torch.ingest import IngestStream, PendingRing
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.chaos import parse_fault_spec
+from repro_torch.runtime.fault_tolerance import Heartbeat, PreemptionHandler, StragglerMonitor
+from repro_torch.runtime.supervisor import Supervisor, SupervisorConfig
 
 SESSION_AUCS = (0.60, 0.88, 0.93, 0.97)
 SESSION_COSTS = (0.01, 0.05, 0.2, 0.5)
@@ -247,15 +270,23 @@ def serve_query(
     op: ProgressiveQueryOperator,
     num_objects: int,
     epochs: int = 40,
+    preemption: Optional[PreemptionHandler] = None,
     target_expected_f: Optional[float] = None,
 ) -> ServeReport:
-    """Progressive evaluation with early termination (pay-as-you-go)."""
+    """Progressive evaluation with early termination (pay-as-you-go); a
+    ``preemption`` request stops it between epochs, and each epoch's host
+    time feeds a ``StragglerMonitor``, as in the reference."""
+    monitor = StragglerMonitor(num_shards=1)
     state = op.init_state(num_objects)
     t0 = time.perf_counter()
     history = []
     sel = None
     for e in range(epochs):
+        if preemption is not None and preemption.should_stop:
+            break
+        te = time.perf_counter()
         state, sel, plan, _ = op.run_epoch(state)
+        monitor.record(0, time.perf_counter() - te)
         history.append(dict(epoch=e, cost=float(state.cost_spent),
                             expected_f=float(sel.expected_f), size=int(sel.size)))
         if int(plan.num_valid()) == 0:
@@ -299,15 +330,19 @@ def serve_queries(
     engine: MultiQueryEngine,
     num_objects: int,
     epochs: int = 40,
+    preemption: Optional[PreemptionHandler] = None,
     target_expected_f: Optional[float] = None,
 ) -> MultiServeReport:
     """Multi-tenant progressive evaluation: lockstep epochs over Q queries;
-    ``target_expected_f`` stops once the MEAN per-query E(F) reaches it."""
+    ``target_expected_f`` stops once the MEAN per-query E(F) reaches it, a
+    ``preemption`` request between epochs."""
     state = engine.init_state(num_objects)
     t0 = time.perf_counter()
     history = []
     requested = 0.0
     for e in range(epochs):
+        if preemption is not None and preemption.should_stop:
+            break
         state, sel, plans, merged, _, _ = engine.run_epoch(state)
         requested += float(torch.where(plans.valid, plans.cost, 0.0).sum())
         per_query_f = [float(x) for x in sel.expected_f.cpu()]
@@ -401,6 +436,73 @@ def build_cascade_session_server(
     return session, state, preds, qualities
 
 
+class StreamingIngest:
+    """Routes ``ingest`` trace events through the staging / ring front-end.
+
+    Owns a ``PendingRing`` sized by the ``--ingest-*`` flags and an
+    ``IngestStream`` whose backpressure callback drains the ring back into
+    the serve loop: lockstep drains through a host ``num_rows`` shadow (one
+    host read at attach, none per event), overlap drains through
+    ``SessionPipeline.drain_ring`` against the in-flight carry, so a full
+    ring under the ``block`` policy resolves itself.  Rows are fed from the
+    host: a pool on the card is copied to the host per event (a sync), so
+    serving keeps its ingest pool on the host.
+    """
+
+    def __init__(
+        self,
+        session: EngineSession,
+        *,
+        batch_rows: int,
+        num_slots: int = 4,
+        policy: str = "block",
+        rate_rows_per_s: Optional[float] = None,
+    ):
+        self.ring = PendingRing(session, slot_rows=batch_rows, num_slots=num_slots, policy=policy)
+        self.stream = IngestStream(
+            self.ring, batch_rows=batch_rows, rate_rows_per_s=rate_rows_per_s,
+            on_pressure=self.drain,
+        )
+        self._session = session
+        self._pipe = None
+        self._state = None
+        self._num_rows: Optional[int] = None
+        self.drains = 0
+
+    def attach_pipeline(self, pipe) -> None:
+        self._pipe = pipe
+
+    def attach_lockstep(self, state) -> None:
+        self._state = state
+        self._num_rows = int(state.num_rows)  # one host read, at attach time
+
+    def begin(self, state) -> None:
+        """Lockstep only: adopt the loop's current state before feed / drain."""
+        self._state = state
+
+    @property
+    def state(self):
+        """Lockstep only: the state after the last feed / drain."""
+        return self._state
+
+    def feed(self, rows) -> int:
+        return self.stream.feed(rows)
+
+    def drain(self) -> None:
+        if self._pipe is not None:
+            if self._pipe.drain_ring(self.ring):
+                self.drains += 1
+            return
+        self._state, self._num_rows, drained = self.ring.drain_into(
+            self._session, self._state, self._num_rows
+        )
+        if drained:
+            self.drains += 1
+
+    def counters(self) -> dict:
+        return self.stream.counters()
+
+
 def parse_trace(spec: str) -> list:
     """``"admit:2;run:4;ingest:64;retire:0;run:4"`` -> [(kind, int_arg), ...].
 
@@ -441,14 +543,29 @@ class SessionServeReport:
     max_capacity: int = 0
     growths: int = 0
     retrace_bound: int = 1
+    overlap: bool = False  # events applied against in-flight chunks
     chunk_size: Optional[int] = None
     num_events: int = 0
     events_per_sec: float = 0.0
+    # ---- durability (checkpoint / restore / preemption) ----
+    preempted: bool = False  # the trace stopped at a preemption drain
+    epochs_total: int = 0  # cumulative epochs INCLUDING pre-restore progress
+    events_done: int = 0  # trace events fully completed (cumulative)
+    restored_step: Optional[int] = None  # checkpoint step this run resumed from
     cost_hex: str = ""  # float.hex of cost_spent (bitwise-diffable)
     bills_hex: list = dataclasses.field(default_factory=list)  # [S] invoice hex
     answer_digest: str = ""  # sha256 over in_answer[:, :num_rows] (tier-free)
     scan_lengths: list = dataclasses.field(default_factory=list)
+    checkpoint_saves: int = 0
+    checkpoint_seconds: float = 0.0
+    # ---- degraded-mode enrichment (quarantine) ----
+    quarantined: list = dataclasses.field(default_factory=list)  # [[pred, func]]
+    degraded: bool = False  # any enrichment function quarantined at the end
+    # ---- streaming ingestion (staging + pending-row ring) ----
+    streaming: bool = False
     substrate_dtype: str = "float32"
+    ring_drains: int = 0
+    ingest_counters: dict = dataclasses.field(default_factory=dict)
     device: str = ""
     state: Optional[SessionState] = None  # final state, for callers that serve on
 
@@ -462,6 +579,22 @@ class SessionServeReport:
         }
 
 
+HOST_META_FORMAT = 1  # the serve loop's shadow block version in extra["host"]
+
+
+def state_digests(state: SessionState) -> tuple:
+    """(cost_hex, bills_hex, answer_digest): the report's bitwise diff
+    surface — ``float.hex`` of the spend and of each invoice, and the sha256
+    of the answer masks over the occupied rows (tier-free)."""
+    rows = int(state.num_rows)
+    answers = np.ascontiguousarray(state.derived.in_answer[:, :rows].cpu().numpy())
+    return (
+        float(state.cost_spent).hex(),
+        [float(b).hex() for b in state.ledger.bills(state.cost_spent)],
+        hashlib.sha256(answers.tobytes()).hexdigest(),
+    )
+
+
 def serve_session_trace(
     session: EngineSession,
     state: SessionState,
@@ -469,60 +602,236 @@ def serve_session_trace(
     pool=None,  # [R, P, F] outputs available to ingest events
     preds=None,  # schema predicates, for admit events
     seed: int = 0,
+    preemption: Optional[PreemptionHandler] = None,
+    overlap: bool = False,
     chunk_size: Optional[int] = None,
-    on_chunk=None,
+    checkpointer: Optional[SessionCheckpointer] = None,
+    resume: Optional[dict] = None,
+    heartbeat: Optional[Heartbeat] = None,
+    boundary_hook=None,
+    streaming: Optional[StreamingIngest] = None,
 ) -> SessionServeReport:
-    """Drive a scripted arrival trace through one session, lockstep.
+    """Drive a scripted arrival trace through one long-lived session.
 
     Admit events draw their predicate subsets from ``np.random.default_rng
     (seed)`` exactly as the reference does, so both serve the same tenants.
-    ``on_chunk(state, epochs_done)`` is called after each dispatched chunk
-    of a run event (``EngineSession.run``'s hook; its return is ignored).
+
+    ``overlap=True`` drives the trace through ``SessionPipeline``: chunks
+    are enqueued without waiting, events validate against host shadows and
+    apply to the in-flight carry, and the pipeline waits once, at the end —
+    bitwise the lockstep result.  ``chunk_size`` sets the dispatch
+    granularity of both modes.
+
+    **Durability.**  With a ``checkpointer``, snapshots land only at chunk
+    boundaries: lockstep runs save on the checkpointer's cadence from the
+    ``on_chunk`` hook; overlap mode saves at event boundaries.  A
+    ``preemption`` request stops dispatch at the next boundary, force-saves
+    and returns ``preempted=True``.  A clean completion saves a final
+    checkpoint past the last event.  ``resume`` takes a checkpoint's
+    ``extra["host"]`` block: the trace re-enters at the saved event cursor,
+    skipping epochs already run, with the pool cursor and the admit RNG's
+    bit-generator state restored, so the resumed run replays the
+    uninterrupted one bitwise (``cost_hex``, ``bills_hex``,
+    ``answer_digest``).
+
+    ``boundary_hook`` (no-arg callable) fires once per dispatched chunk,
+    BEFORE that boundary's preemption poll: the supervisor's fault clock.
+
+    With ``streaming``, ingest events stage their rows through the pinned,
+    double-buffered copy path into the pending-row ring; the ring drains
+    into the session before every run event, before overlap-mode
+    checkpoints, and once at the end — bitwise the direct-ingest result.
     """
     rng = np.random.default_rng(seed)
     pool_off = 0
+    start_event = 0
+    start_into = 0  # epochs already run of the resumed-into run event
+    epochs_total = 0  # cumulative across restarts (the checkpoint step)
+    restored_step = None
+    if resume is not None:
+        if resume.get("format") != HOST_META_FORMAT:
+            raise ValueError(
+                f"resume host-meta format {resume.get('format')!r} != {HOST_META_FORMAT}"
+            )
+        rng.bit_generator.state = resume["rng_state"]
+        pool_off = int(resume["pool_offset"])
+        start_event = int(resume["event_cursor"])
+        start_into = int(resume["epochs_into_event"])
+        epochs_total = int(resume["epochs_total"])
+        restored_step = epochs_total
+
+    def host_meta(cursor: int, into: int, total: int) -> dict:
+        # what the restarted serve loop needs before touching array data; the
+        # rng state is captured at snapshot time (admits advance it)
+        return dict(
+            format=HOST_META_FORMAT,
+            event_cursor=cursor,
+            epochs_into_event=into,
+            epochs_total=total,
+            pool_offset=pool_off,
+            rng_state=rng.bit_generator.state,
+        )
+
     history = []
     scan_lengths: set = set()
+    pipe = (
+        session.pipeline(
+            state, chunk_size=chunk_size, preemption=preemption, heartbeat=heartbeat,
+            boundary_hook=boundary_hook,
+        )
+        if overlap
+        else None
+    )
+    if streaming is not None:
+        if pipe is not None:
+            streaming.attach_pipeline(pipe)
+        else:
+            streaming.attach_lockstep(state)
+    preempted = False
+    events_done = start_event
     t0 = time.perf_counter()
-    for kind, arg in events:
+    for idx in range(start_event, len(events)):
+        kind, arg = events[idx]
+        if preemption is not None and preemption.should_stop:
+            preempted = True
+            break
+        into0 = start_into if idx == start_event else 0
         if kind == "run":
-            prev = [0]
+            run_epochs = arg - into0
+            if run_epochs <= 0:
+                events_done = idx + 1
+                continue
+            if streaming is not None:
+                # pending ring rows join planning before these epochs run
+                if pipe is None:
+                    streaming.begin(state)
+                streaming.drain()
+                if pipe is None:
+                    state = streaming.state
+            if pipe is not None:
+                n_chunks = len(pipe._chunks)
+                pipe.run(run_epochs)
+                lengths = [c[1] for c in pipe._chunks[n_chunks:]]
+                scan_lengths.update(lengths)
+                this_run = sum(lengths)
+                epochs_total += this_run
+                if pipe.preempted:
+                    preempted = True
+                    if checkpointer is not None:
+                        done = into0 + this_run
+                        cursor, into = (idx + 1, 0) if done >= arg else (idx, done)
+                        pipe.checkpoint(
+                            checkpointer, epochs_total,
+                            host_meta=host_meta(cursor, into, epochs_total),
+                        )
+                    break
+            else:
+                base_total = epochs_total
+                stop_box = {"stop": False}
+                prev_done = [0]
 
-            def record(carry, done, _prev=prev):
-                scan_lengths.add(done - _prev[0])
-                _prev[0] = done
-                if on_chunk is not None:
-                    on_chunk(carry, done)
-                return False
+                def on_chunk(carry, done, _idx=idx, _arg=arg, _into0=into0,
+                             _base=base_total, _stop=stop_box, _prev=prev_done):
+                    scan_lengths.add(done - _prev[0])
+                    _prev[0] = done
+                    if heartbeat is not None:
+                        heartbeat.beat(0)
+                    if boundary_hook is not None:
+                        boundary_hook()
+                    stop = preemption is not None and preemption.should_stop
+                    if checkpointer is not None:
+                        into = _into0 + done
+                        cursor, rem = (_idx + 1, 0) if into >= _arg else (_idx, into)
+                        checkpointer.maybe_save(
+                            carry, _base + done,
+                            host_meta=host_meta(cursor, rem, _base + done),
+                            force=stop,
+                        )
+                    if stop:
+                        _stop["stop"] = True
+                    return stop
 
-            state, h = session.run(
-                state, arg, stop_when_exhausted=False, chunk_size=chunk_size, on_chunk=record
-            )
-            history.extend(h)
+                state, h = session.run(
+                    state, run_epochs, stop_when_exhausted=False, chunk_size=chunk_size,
+                    on_chunk=on_chunk,
+                )
+                history.extend(h)
+                epochs_total = base_total + prev_done[0]
+                if stop_box["stop"]:
+                    preempted = True
+                    break
         elif kind == "admit":
             if preds is None:
                 raise ValueError("admit events need the schema predicates")
             k = min(max(1, arg), len(preds))
             cols = sorted(rng.choice(len(preds), size=k, replace=False))
-            state, _ = session.admit(state, conjunction(*[preds[c] for c in cols]))
+            query = conjunction(*[preds[c] for c in cols])
+            if pipe is not None:
+                pipe.admit(query)
+            else:
+                state, _ = session.admit(state, query)
         elif kind == "ingest":
             if pool is None or pool_off + arg > pool.shape[0]:
                 raise ValueError(
                     f"ingest of {arg} exceeds the remaining pool "
                     f"({0 if pool is None else pool.shape[0] - pool_off})"
                 )
-            state = session.ingest(state, pool[pool_off:pool_off + arg])
+            batch = pool[pool_off:pool_off + arg]
+            if streaming is not None:
+                if pipe is None:
+                    streaming.begin(state)
+                streaming.feed(batch)
+                if pipe is None:
+                    state = streaming.state
+            elif pipe is not None:
+                pipe.ingest(batch)
+            else:
+                state = session.ingest(state, batch)
             pool_off += arg
         else:  # retire
-            state = session.retire(state, arg)
+            if pipe is not None:
+                pipe.retire(arg)
+            else:
+                state = session.retire(state, arg)
+        events_done = idx + 1
+        if pipe is not None and checkpointer is not None:
+            if streaming is not None:
+                streaming.drain()  # ring rows are not part of a snapshot
+            # overlap cadence: event boundaries (a save waits for the chunks)
+            pipe.checkpoint(
+                checkpointer, epochs_total,
+                host_meta=host_meta(idx + 1, 0, epochs_total), force=False,
+            )
+    if streaming is not None:
+        # rows still parked in the ring land before the final answers are read
+        if pipe is None:
+            streaming.begin(state)
+        streaming.drain()
+        if pipe is None:
+            state = streaming.state
+    if pipe is not None:
+        state, history = pipe.finish()  # the pipeline's one wait
+    if preempted and checkpointer is not None:
+        # preemption seen BETWEEN events (the in-run paths force-saved already,
+        # leaving last_step == epochs_total): snapshot at the event cursor
+        if checkpointer.last_step != epochs_total:
+            checkpointer.save(
+                state, epochs_total, host_meta=host_meta(events_done, 0, epochs_total)
+            )
+    if not preempted and checkpointer is not None:
+        # clean completion: a final restore point past the last event
+        checkpointer.save(state, epochs_total, host_meta=host_meta(len(events), 0, epochs_total))
     if state.device.type == "cuda":
         torch.cuda.synchronize(state.device)
     wall = time.perf_counter() - t0
     last = history[-1] if history else None
     num_rows = int(state.num_rows)
-    answers = np.ascontiguousarray(state.derived.in_answer[:, :num_rows].cpu().numpy())
-    bills = state.ledger.bills(state.cost_spent)
     cost = float(state.cost_spent)
+    cost_hex, bills_hex, answer_digest = state_digests(state)
+    quarantined = []
+    if state.quarantined is not None:
+        qm = state.quarantined.cpu().numpy()
+        quarantined = [[int(i), int(j)] for i, j in zip(*np.nonzero(qm))]
     return SessionServeReport(
         epochs=len(history),
         events=[dict(kind=k, arg=a) for k, a in events],
@@ -539,17 +848,53 @@ def serve_session_trace(
         max_capacity=session.max_capacity,
         growths=session.growths,
         retrace_bound=session.retrace_bound,
+        overlap=overlap,
         chunk_size=chunk_size,
         num_events=len(events),
         events_per_sec=len(events) / max(wall, 1e-9),
-        cost_hex=cost.hex(),
-        bills_hex=[float(b).hex() for b in bills],
-        answer_digest=hashlib.sha256(answers.tobytes()).hexdigest(),
+        preempted=preempted,
+        epochs_total=epochs_total,
+        events_done=events_done,
+        restored_step=restored_step,
+        cost_hex=cost_hex,
+        bills_hex=bills_hex,
+        answer_digest=answer_digest,
         scan_lengths=sorted(scan_lengths),
+        checkpoint_saves=0 if checkpointer is None else checkpointer.saves,
+        checkpoint_seconds=0.0 if checkpointer is None else checkpointer.save_seconds,
+        quarantined=quarantined,
+        degraded=bool(quarantined),
+        streaming=streaming is not None,
         substrate_dtype=session.config.substrate_dtype,
+        ring_drains=0 if streaming is None else streaming.drains,
+        ingest_counters={} if streaming is None else streaming.counters(),
         device=str(state.device),
         state=state,
     )
+
+
+def _check_session_flags(ap, args) -> None:
+    """The reference's ``ap.error`` combinations, checked before any work."""
+    if args.bank == "cascade":
+        if args.max_capacity is not None or args.capacity is not None or (
+                args.ingest_batch is not None):
+            ap.error("--bank cascade serves a fixed corpus: no --capacity / --max-capacity "
+                     "/ --ingest-batch")
+        if args.trace and any(k == "ingest" for k, _ in parse_trace(args.trace)):
+            ap.error("--bank cascade serves a fixed corpus; drop ingest events from --trace")
+        if args.supervise:
+            ap.error("--bank cascade is not wired into --supervise yet")
+    if args.ingest_batch is not None and args.supervise:
+        ap.error("--ingest-batch is not wired into --supervise yet")
+    if args.restore and not args.checkpoint_dir:
+        ap.error("--restore requires --checkpoint-dir")
+    if args.inject_faults and not args.supervise:
+        ap.error("--inject-faults requires --supervise")
+    if args.supervise:
+        if not args.checkpoint_dir:
+            ap.error("--supervise requires --checkpoint-dir")
+        if args.restore:
+            ap.error("--supervise owns restore; drop --restore")
 
 
 def main(argv=None) -> int:
@@ -587,22 +932,82 @@ def main(argv=None) -> int:
                     help="arrival trace, e.g. 'admit:2;run:4;ingest:64;admit:3;run:4;retire:0;run:4'")
     ap.add_argument("--substrate-dtype", default="float32", choices=("float32", "bfloat16"),
                     help="storage dtype of the substrate (scoring math stays f32)")
+    ap.add_argument("--ingest-batch", type=int, default=None, metavar="ROWS",
+                    help="stream ingest trace events through the staging + "
+                         "pending-row-ring front-end in micro-batches of this "
+                         "many rows (enables streaming ingestion; results "
+                         "stay bitwise identical to direct ingest)")
+    ap.add_argument("--ring-capacity", type=int, default=4, metavar="SLOTS",
+                    help="pending-row ring slots; arrivals beyond "
+                         "ring + drain rate hit --ingest-policy")
+    ap.add_argument("--ingest-rate", type=float, default=None, metavar="ROWS_PER_S",
+                    help="throttle staged arrivals to this many rows/s "
+                         "(default: unthrottled)")
+    ap.add_argument("--ingest-policy", default="block", choices=("block", "shed", "spill"),
+                    help="full-ring behavior: block (drain then retry), shed "
+                         "(drop + count), spill (host-side FIFO overflow)")
     ap.add_argument("--chunk-size", type=int, default=None,
-                    help="epochs per dispatched chunk (bitwise inert)")
+                    help="epochs per dispatched chunk (bitwise inert; the unit "
+                         "of event overlap)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="apply trace events against in-flight chunks (async "
+                         "pipeline: no host syncs until the final drain) instead "
+                         "of lockstep between runs")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="durable sessions: snapshot the full session state "
+                         "here at chunk boundaries (atomic step_N dirs); "
+                         "SIGTERM drains in-flight chunks, checkpoints, and "
+                         "exits 0")
+    ap.add_argument("--checkpoint-every", type=int, default=4,
+                    help="snapshot cadence in chunk boundaries (lockstep mode; "
+                         "overlap snapshots at event boundaries)")
+    ap.add_argument("--checkpoint-keep", type=int, default=3,
+                    help="checkpoints retained after each save")
+    ap.add_argument("--restore", action="store_true",
+                    help="resume the trace from the latest checkpoint in "
+                         "--checkpoint-dir (bitwise-identical to an "
+                         "uninterrupted run; works onto a different "
+                         "--plan-shards or capacity tier)")
+    ap.add_argument("--restore-step", type=int, default=None,
+                    help="restore this checkpoint step instead of the latest")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run the session trace under runtime.supervisor: "
+                         "heartbeat-driven failure detection, elastic shrink "
+                         "(ElasticPolicy), restore onto the resharded session, and "
+                         "enrichment-function quarantine with backoff probes "
+                         "(requires --checkpoint-dir)")
+    ap.add_argument("--inject-faults", default=None, metavar="SPEC",
+                    help="deterministic chaos schedule at named chunk "
+                         "boundaries, e.g. 'kill:w1@chunk:6;"
+                         "raise:p2.f1@chunk:5+3;slow:w0*4@chunk:3+8;"
+                         "silence:w1@chunk:4+2' (see runtime.chaos; "
+                         "requires --supervise)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for 'auto' fault boundaries in --inject-faults")
+    ap.add_argument("--heartbeat-timeout", type=float, default=2.0,
+                    help="supervised mode: chunk boundaries of silence before "
+                         "a worker is declared failed")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' (default) raises when no GPU is present")
-    ap.add_argument("--report", default=None, help="write the serve report as JSON")
+    ap.add_argument("--report", default=None,
+                    help="write the serve report as JSON (the kill-and-resume "
+                         "bitwise diff surface)")
     args = ap.parse_args(argv)
-    if not args.session:
-        return _serve_queries_main(args)
+    handler = PreemptionHandler().install()
+    try:
+        if not args.session:
+            return _serve_queries_main(args, handler)
+        _check_session_flags(ap, args)
+        return _serve_session_main(ap, args, handler)
+    finally:
+        handler.uninstall()
 
+
+def _serve_session_main(ap, args, handler) -> int:
+    """The ``--session`` mode of ``main``."""
     e = max(args.epochs // 4, 1)
     if args.bank == "cascade":
-        if args.max_capacity is not None or args.capacity is not None:
-            ap.error("--bank cascade serves a fixed corpus: no --capacity / --max-capacity")
-        if args.trace and any(k == "ingest" for k, _ in parse_trace(args.trace)):
-            ap.error("--bank cascade serves a fixed corpus; drop ingest events from --trace")
         session, state, preds, qualities = build_cascade_session_server(
             num_objects=args.objects, num_preds=max(args.preds, 2),
             max_tenants=args.max_tenants, seed=args.seed, backbone_arch=args.backbone or None,
@@ -625,28 +1030,100 @@ def main(argv=None) -> int:
             f"admit:3;run:{e};retire:0;run:{e}"
         )
     events = parse_trace(spec)
-    report = serve_session_trace(
-        session, state, events, pool=pool, preds=preds, seed=args.seed,
-        chunk_size=args.chunk_size,
-    )
+    streaming = None
+    if args.ingest_batch is not None:
+        streaming = StreamingIngest(
+            session, batch_rows=args.ingest_batch, num_slots=args.ring_capacity,
+            policy=args.ingest_policy, rate_rows_per_s=args.ingest_rate,
+        )
+        pool = pool.cpu()  # arrivals come from the host
+    checkpointer = None
+    if args.checkpoint_dir:
+        checkpointer = SessionCheckpointer(
+            session, args.checkpoint_dir, every=args.checkpoint_every, keep=args.checkpoint_keep,
+        )
+    resume = None
+    if args.restore:
+        # build_session_server is deterministic given (args, seed), so the
+        # restored state drops into an identically-schema'd session; restore
+        # re-pads onto THIS session's tiers and shard count
+        state, step, extra = restore_session_checkpoint(
+            session, args.checkpoint_dir, step=args.restore_step
+        )
+        resume = extra.get("host")
+        if resume is None:
+            ap.error("checkpoint has no serve host metadata to resume")
+        print(
+            f"[serve] restored step {step} (event cursor {resume['event_cursor']}, "
+            f"{resume['epochs_total']} epochs done, {extra['num_rows']} rows) onto tier "
+            f"{state.capacity} x {args.plan_shards} shard(s)"
+        )
+    supervision = None
+    if args.supervise:
+        plan = (
+            parse_fault_spec(args.inject_faults, seed=args.fault_seed)
+            if args.inject_faults
+            else None
+        )
+        sup = Supervisor(
+            session, state, events, pool=pool, preds=preds, seed=args.seed,
+            checkpoint_dir=args.checkpoint_dir, fault_plan=plan, external=handler,
+            chunk_size=args.chunk_size, overlap=args.overlap,
+            config=SupervisorConfig(
+                heartbeat_timeout=args.heartbeat_timeout,
+                checkpoint_every=args.checkpoint_every,
+                checkpoint_keep=args.checkpoint_keep,
+            ),
+        )
+        report = sup.serve()
+        supervision = sup.summary()
+        print(
+            f"[serve] supervised: state={supervision['final_state']}, "
+            f"{supervision['restarts']} restarts, shrinks={supervision['shrinks']}, "
+            f"quarantined={supervision['quarantined']}, "
+            f"recovered={supervision['recovered']}, "
+            f"transitions={supervision['transitions']}"
+        )
+    else:
+        report = serve_session_trace(
+            session, state, events, pool=pool, preds=preds, seed=args.seed,
+            preemption=handler, overlap=args.overlap, chunk_size=args.chunk_size,
+            checkpointer=checkpointer, resume=resume, streaming=streaming,
+        )
     eps = report.epochs / max(report.wall_s, 1e-9)
     bills = {i: f"{c:.3f}" for i, c in enumerate(report.attributed) if c > 0}
+    mode = "overlap" if args.overlap else "lockstep"
     print(
-        f"[serve] session trace {spec!r} on {report.device} (chunk={args.chunk_size}): "
-        f"{report.epochs} epochs, {report.num_rows} rows (tier {report.capacity} of "
-        f"{report.max_capacity} max, {report.growths} growths), "
+        f"[serve] session trace {spec!r} on {report.device} ({mode}, chunk={args.chunk_size}): "
+        f"{report.epochs} epochs ({report.epochs_total} total), {report.num_rows} rows "
+        f"(tier {report.capacity} of {report.max_capacity} max, {report.growths} growths), "
         f"{report.active_tenants} active tenants, cost={report.cost_spent:.4f}s-model, "
         f"mean E(F1)={report.mean_expected_f:.3f}, ledger={bills} "
         f"(+{report.unattributed:.4f} unattributed), "
         f"superstep traces={report.superstep_traces}, wall={report.wall_s:.2f}s "
-        f"({eps:.2f} epochs/s)"
+        f"({eps:.2f} epochs/s, {report.events_per_sec:.2f} events/s)"
+        + (f", {report.checkpoint_saves} checkpoints" if checkpointer is not None else "")
+        + (" [PREEMPTED: drained + checkpointed]" if report.preempted else "")
     )
+    if report.streaming:
+        c = report.ingest_counters
+        print(
+            f"[serve] streaming ingest ({args.substrate_dtype} substrate, "
+            f"batch={args.ingest_batch} x {args.ring_capacity} slots, "
+            f"policy={args.ingest_policy}): {c.get('pushed_rows', 0)} rows staged, "
+            f"{report.ring_drains} drains, blocked={c.get('blocked', 0)}, "
+            f"shed={c.get('shed_rows', 0)}, spilled={c.get('spilled_rows', 0)}"
+        )
     if args.report:
+        payload = report.payload()
+        if supervision is not None:
+            payload["supervision"] = supervision
         with open(args.report, "w") as fh:
-            json.dump(report.payload(), fh, indent=1, sort_keys=True)
-    # each distinct dispatched chunk length builds one program per visited tier
+            json.dump(payload, fh, indent=1, sort_keys=True)
+    # each distinct dispatched chunk length builds one program per visited
+    # tier; supervised runs rebuild legitimately across reshards
     expected = max(len(report.scan_lengths), 1) * (report.growths + 1)
-    if report.superstep_traces > expected:
+    if not args.supervise and report.superstep_traces > expected:
         print(
             f"[serve] WARNING: superstep re-built under churn ({report.superstep_traces} "
             f"programs for {expected} chunk-length x visited-tier combinations)"
@@ -655,7 +1132,7 @@ def main(argv=None) -> int:
     return 0
 
 
-def _serve_queries_main(args) -> int:
+def _serve_queries_main(args, handler) -> int:
     """The single-query (``--queries 1``) and multi-tenant modes."""
     backbone = args.backbone or None
     if args.queries > 1:
@@ -665,7 +1142,7 @@ def _serve_queries_main(args) -> int:
             smoke=not args.full_width, device=args.device,
         )
         print(f"[serve] cascade qualities (AUC): {qualities}")
-        report = serve_queries(engine, args.objects, args.epochs)
+        report = serve_queries(engine, args.objects, args.epochs, handler)
         tf = [f"{x:.3f}" for x in report.true_f] if report.true_f else "n/a"
         eps = report.epochs / max(report.wall_s, 1e-9)
         print(
@@ -680,7 +1157,7 @@ def _serve_queries_main(args) -> int:
     op, _, _, qualities = build_server(args.objects, args.preds, backbone, seed=args.seed,
                                        smoke=not args.full_width, device=args.device)
     print(f"[serve] cascade qualities (AUC): {qualities}")
-    report = serve_query(op, args.objects, args.epochs)
+    report = serve_query(op, args.objects, args.epochs, handler)
     eps = report.epochs / max(report.wall_s, 1e-9)
     print(
         f"[serve] {report.epochs} epochs on {op.device}, cost={report.cost_spent:.4f}s-model, "

@@ -30,7 +30,12 @@ within 2e-5 (f32 sums in another order), dead splits and an empty cache
 included, and the fused decode kernel within 2e-5 of its twin in f32 and
 2e-2 of the oracle in bf16; the reduced f32 qwen3 and mamba2 models
 prefill and decode on the card as on the CPU, and the reduced bf16 ones
-(head_dim 128, SSM chunk 256) through the bf16 routes.
+(head_dim 128, SSM chunk 256) through the bf16 routes.  Serving
+robustness: a session pipeline's event staging makes no host sync under
+``set_sync_debug_mode("error")`` and ends bitwise equal to lockstep; a
+pinned, double-buffered ``IngestStream`` feed of eight micro-batches on a
+side stream equals direct ingest bitwise; and a checkpoint saved from the
+card restores on the CPU bitwise, and back.
 """
 
 import functools
@@ -56,6 +61,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.launch.serve import state_digests
 
 
 @pytest.fixture
@@ -772,3 +778,119 @@ def test_cuda_bf16_models_route_the_bf16_kernels(cuda_device, arch):
     bf16_err = max((c - r).abs().max().item() for c, r in zip(cpu, ref))
     err = max((g.cpu() - c).abs().max().item() for g, c in zip(gpu, cpu))
     assert err <= 2.0 * bf16_err, (err, bf16_err)
+
+
+# ------------------------------------------------------- serving robustness --
+
+
+def _robust_session(dev, dtype="bfloat16", capacity=2048, max_capacity=4096):
+    gen = torch.Generator().manual_seed(3)
+    preds = [Predicate(i, 1) for i in range(4)]
+    corpus = make_corpus(gen, 4096 + 512, list(range(4)), [1] * 4, selectivity=[0.3] * 4,
+                         aucs=[0.60, 0.88, 0.93, 0.97], costs=[0.01, 0.05, 0.2, 0.5])
+    combine = default_combine_params(corpus.aucs)
+    table = learn_decision_table(corpus.func_probs[:512], combine, num_bins=10)
+    outputs = corpus.func_probs[512:]
+    sess = EngineSession(preds, table, combine, corpus.costs, capacity=capacity, max_tenants=4,
+                         max_capacity=max_capacity, device=dev,
+                         config=EngineConfig(plan_size=64, function_selection="best",
+                                             substrate_dtype=dtype))
+    return sess, outputs, preds
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_staging_makes_no_host_sync(cuda_device):
+    """Admit, ingest (host rows: the pinned copy path), run and retire
+    staged on a pipeline under ``set_sync_debug_mode("error")``; the result
+    is bitwise the lockstep run's."""
+    def trace(events):
+        events.admit(conjunction(Predicate(0, 1), Predicate(1, 1)))
+        events.admit(conjunction(Predicate(1, 1), Predicate(2, 1), Predicate(3, 1)))
+        events.run(3)
+        events.ingest(host[2048:3072])
+        events.run(3)
+        events.retire(0)
+        events.run(2)
+
+    sess, outputs, _ = _robust_session(cuda_device)
+    host = outputs.cpu()
+
+    class Lockstep:
+        def __init__(self):
+            self.st = sess.init_state(host[:2048])
+
+        def admit(self, q):
+            self.st, _ = sess.admit(self.st, q)
+
+        def ingest(self, rows):
+            self.st = sess.ingest(self.st, rows)
+
+        def run(self, n):
+            self.st, _ = sess.run(self.st, n, stop_when_exhausted=False)
+
+        def retire(self, slot):
+            self.st = sess.retire(self.st, slot)
+
+    lock = Lockstep()
+    trace(lock)  # also builds the scoring LUT and loads the kernel library
+    sess2, _, _ = _robust_session(cuda_device)
+    pipe = sess2.pipeline(sess2.init_state(host[:2048]), chunk_size=2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trace(pipe)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    state, history = pipe.finish()
+    assert len(history) == 8 and pipe.num_rows == int(state.num_rows) == 3072
+    assert state_digests(state) == state_digests(lock.st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["block", "spill"])
+def test_cuda_pinned_double_buffered_feed_equals_direct_ingest(cuda_device, policy):
+    """Eight micro-batches through two pinned staging tensors and a side
+    stream (each tensor reused three times), drained by the backpressure
+    callback: bitwise the direct ingest of the same rows."""
+    from repro_torch.ingest import IngestStream, PendingRing
+
+    sess, outputs, _ = _robust_session(cuda_device)
+    host = outputs.cpu()
+    direct = sess.ingest(sess.init_state(host[:2048]), host[2048:2048 + 1800])
+    box = {"st": sess.init_state(host[:2048]), "rows": 2048}
+    ring = PendingRing(sess, slot_rows=256, num_slots=2, policy=policy)
+
+    def drain():
+        box["st"], box["rows"], _ = ring.drain_into(sess, box["st"], box["rows"])
+
+    stream = IngestStream(ring, batch_rows=256, on_pressure=drain)
+    assert stream._staging[0].is_pinned() and stream._copy_stream is not None
+    assert stream.feed(host[2048:2048 + 1800]) == 1800  # 8 batches, the last of 8 rows
+    drain()
+    assert box["rows"] == 3848 and stream.batches_fed == 8
+    assert torch.equal(box["st"].bank_outputs, direct.bank_outputs)
+    assert state_digests(box["st"]) == state_digests(direct)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_checkpoints_restore_on_the_cpu_and_back(cuda_device, dtype, tmp_path):
+    from repro_torch.checkpoint import store
+    from repro_torch.core.durability import restore_session_checkpoint, save_session_checkpoint
+
+    card, outputs, preds = _robust_session(cuda_device, dtype)
+    st = card.init_state(outputs[:2048])
+    st, _ = card.admit(st, conjunction(preds[0], preds[2]))
+    st, _ = card.run(st, 3)
+    save_session_checkpoint(tmp_path / "card", 3, card, st)
+    cpu, _, _ = _robust_session("cpu", dtype)
+    on_cpu, _, _ = restore_session_checkpoint(cpu, tmp_path / "card")
+    for (k, a), (_, b) in zip(store._flatten_with_paths(st), store._flatten_with_paths(on_cpu)):
+        assert b.device.type == "cpu" and a.dtype == b.dtype and torch.equal(a.cpu(), b), k
+    save_session_checkpoint(tmp_path / "cpu", 3, cpu, on_cpu)
+    back, _, _ = restore_session_checkpoint(card, tmp_path / "cpu")
+    for (k, a), (_, b) in zip(store._flatten_with_paths(st), store._flatten_with_paths(back)):
+        assert b.device.type == "cuda" and torch.equal(a, b), k
+    a, _ = card.run(st, 2)
+    b, _ = card.run(back, 2)
+    assert state_digests(a) == state_digests(b)

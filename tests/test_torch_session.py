@@ -224,9 +224,12 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.core.baselines, repro_torch.enrich.simulated, repro_torch.quickstart\n"
         "import repro_torch.models.model, repro_torch.models.ssm, repro_torch.configs.archs\n"
         "import repro_torch.kernels.ssd_scan.ops, repro_torch.kernels.decode_attention.ops\n"
+        "import repro_torch.checkpoint.store, repro_torch.core.durability, repro_torch.ingest\n"
+        "import repro_torch.runtime.chaos, repro_torch.runtime.fault_tolerance\n"
+        "import repro_torch.runtime.supervisor\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "       or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes']\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO / "src"), str(REPO)]))
