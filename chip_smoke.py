@@ -39,7 +39,18 @@ in order; any failure raises and the script exits non-zero:
    the bound and the kernels the route did not pick (where they take the
    dtype and head dim; held against the twin too, and not counted: at the
    cascade's shape the short kernel must be no slower than the simt kernel
-   it replaced);
+   it replaced); then every attention shape phase 7b gives the kernels
+   (``ZOO_FA``: seamless's non-causal encoder, cross-attention and G 1
+   decoder, hymba's G 5 cascade trunk and prefill, the G 6 / 4 / 7 prefills
+   of nemotron, llava and grok-1 / arctic, h2o-danube's D 80 and gemma2's
+   D 256 local and global layers on the simt kernel), every decode shape of
+   it (``ZOO_DA``: the fused simt form at G 4 D 80 and G 2 D 256, at its 64
+   values a thread, in bf16 and f32; G 1 / 4 / 5 / 6 / 7 on the tc form)
+   and hymba's SSD at N 16 (simt at its prefill, packed in its cascade
+   trunk), each timed beside its bound and the library call that computes
+   the same function: SDPA (with a window mask), or for a softcap the
+   compiled ``flex_attention`` (a tanh score_mod, a causal / window block
+   mask);
 3. CPU vs GPU session: one churn trace at capacity 4096 with 4 tenants, in
    both scoring modes, through ``EngineSession(device="cpu")`` (plain path)
    and ``device="cuda"`` (kernels) — per-slot plans, merged plans,
@@ -63,8 +74,13 @@ in order; any failure raises and the script exits non-zero:
    512-token prefill) models, whose widths take the bf16 routes (flash
    "tc", the fused decode, SSD "tc": asserted), the card fed the CPU's
    greedy tokens, logits within 2x the CPU bf16 run's distance from f32;
-   then the cascade bank with the reduced bf16 qwen3 trunk (D 128, 2 query
-   heads over 1 KV head: the "short" route, asserted), built on the CPU and
+   the same for the model zoo's reduced bf16 gemma2 (D 256, local / global,
+   both softcaps), h2o-danube (D 80), hymba (GQA 5 beside SSD heads of state
+   16) and seamless (an encoder over 128 frames, cross-attention); the MoE
+   smoke models (grok-1, Arctic) CPU vs card in f32 with the router's
+   choices equal on every layer and step and logits within 2e-4 (in bf16
+   the choices that flip are printed only); then the cascade bank with the
+   reduced bf16 qwen3 trunk (D 128, 2 query heads over 1 KV head: the "short" route, asserted), built on the CPU and
    copied to the card, ``execute`` over the same merged plans on both and on
    an f32 CPU copy: the card's probabilities within 2x the bf16 CPU run's
    distance from f32;
@@ -109,6 +125,9 @@ in order; any failure raises and the script exits non-zero:
    every flash launch goes by the "short" route; then the same with the
    48-layer mamba2-370m trunk (d_model 1024): the SSD kernel launches 48
    times per trunk epoch, all by the "packed" route, the flash kernel never;
+   then with the 32-layer hymba-1.5b trunk (d_model 1600, 25 / 5 heads of
+   64 beside 50 SSD heads of state 16): 32 flash launches, all "short", and
+   32 SSD launches, all "packed", per trunk epoch;
 6. the operator main path at full size: the quickstart query and corpus at
    N = 1,048,576 (+1,024 rows to train on), ``OperatorConfig()`` defaults
    (plan size 256, table mode, exact answers), the ``preprocess_cheapest``
@@ -125,9 +144,20 @@ in order; any failure raises and the script exits non-zero:
    partials kernel) and mamba2-370m over 4,096 tokens x 2 (48 SSD launches
    in the prefill, all by the "tc" route; decode runs ``ssd_step``), with
    ms per prefill and per step and peak memory;
+7b. the model zoo at published widths (``ZOO_ARCHS``; random bf16 weights
+   built on the card one f32 matrix at a time, B 1, 16 greedy decode steps,
+   memory freed after each): nemotron-4-15b (32 layers, untied) over 2,048
+   tokens, gemma2-9b (42) and h2o-danube-1.8b (24) over 4,608 (past their
+   4,096-key window), hymba-1.5b (32) over 2,048, llava-next-mistral-7b (32)
+   over 2,880 random image embeds + 512 tokens, seamless-m4t-large-v2 (24 +
+   24) over 1,024 random frames + 512 tokens, and grok-1-314b and
+   arctic-480b at full width with the depth cut to what one 80 GB card
+   holds (4 of 64 and 2 of 35 layers) over 512 tokens: finite logits, every
+   launch on the route its head dim picks ("simt" at D 80 / 256), no plain
+   call; prefill ms (tokens/s), median step ms and peak memory;
 8. one JSON line of per-kernel numbers, one entry per kernel: the flash
-   kernel's three routes as ``flash_attention`` (simt: on no main path, its
-   launches are 0 and its numbers the cascade shape's, timed beside the
+   kernel's three routes as ``flash_attention`` (simt: on the zoo's main
+   paths at D 80 / 256; its numbers the cascade shape's, timed beside the
    short kernel), ``flash_attention_tc`` and ``flash_attention_short`` (the
    first also carries the tc kernel's prefill-shape ``prefill_ms``,
    ``prefill_bound_ms``, ``prefill_library_ms`` and the main paths'
@@ -135,9 +165,10 @@ in order; any failure raises and the script exits non-zero:
    (on no main path: its launches are 0), ``ssd_intra_chunk_tc`` and
    ``ssd_intra_chunk`` (the simt and packed kernels of ``ssd_scan.cu``, its
    numbers the packed kernel's at the cascade shape, with the simt
-   kernel's ``prefill_simt_ms`` and the ``routes``); every other kernel
-   must have launched on a main path; the ``nvidia-smi`` line, and the
-   final ``{"ok": true, ...}`` line.
+   kernel's ``prefill_simt_ms`` and the ``routes``); an entry timed at the
+   zoo's shapes carries them in ``shapes`` (each with its ms, plain ms,
+   bound and library ms); every other kernel must have launched on a main
+   path; the ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -145,6 +176,7 @@ It imports nothing of JAX or of the reference package ``repro``.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -207,17 +239,19 @@ COUNTED = {
 }
 # listed with their launches but on no main path: the partials route keeps
 # the reference's signature (splits over the cache length) for callers of it,
-# while the model's decode runs the fused kernel; the simt flash kernel takes
-# f32 and the head dims the tensor-core kernels do not, while the main paths'
-# attention is bf16 at D 128 ("short" in the cascade, "tc" in the prefill)
-OFF_PATH = {"decode_attention_partials", "flash_attention"}
+# while the model's decode runs the fused kernel.  (The simt flash kernel is
+# on the main paths: the zoo's head dims 80 and 256 take it.)
+OFF_PATH = {"decode_attention_partials"}
 # the mamba2-370m prefill (B 2, S 4096, chunk 256) and the cascade backbone's
 # 512 lanes x 8 tokens; H 32, P 64, N 128, bf16 x / B / C.  The cascade runs
 # without a final state (its last chunk's state is neither computed nor
 # written), the prefill with one; both forms are held against the twin.
-# b, s, chunk, final_state
-SSD_CASES = [(2, 4096, 256, True), (512, 8, 8, False), (512, 8, 8, True)]
-SSD_H, SSD_P, SSD_N = 32, 64, 128
+# The hymba-1.5b prefill (B 1, S 2048, chunk 256) and its cascade trunk
+# (512 lanes x 8 tokens): H 50, P 64, N 16 — the simt and packed routes.
+# b, s, chunk, final_state, heads, state_dim
+SSD_CASES = [(2, 4096, 256, True, 32, 128), (512, 8, 8, False, 32, 128),
+             (512, 8, 8, True, 32, 128), (1, 2048, 256, True, 50, 16), (512, 8, 8, False, 50, 16)]
+SSD_P = 64
 SSD_TOL = 1e-4  # relative to the output's largest magnitude: f32 sums in another order
 # qwen3-1.7b decode: B 8, H 16, KV 8, D 128, kv_len 2048 of a 4096 cache;
 # b, skv, h, kv, d, kv_len, window, softcap, dtype
@@ -226,12 +260,41 @@ DA_CASES = [
     (8, 4096, 16, 8, 128, 2048, None, None, "float32"),
     (8, 4096, 16, 8, 128, 2048, 512, 50.0, "bfloat16"),
 ]
+# then the model zoo's decode shapes (B 1, the mid step of a zoo prefill + 16
+# steps into a cache of prefill + 32 rows), each with the layers it serves:
+# the two at the simt form's FUSED_VALUES = 64 in bf16 and f32
+ZOO_DA = {
+    (1, 4640, 32, 8, 80, 4616, 4097, None, "bfloat16"): "h2o-danube (G 4, D 80)",
+    (1, 4640, 32, 8, 80, 4616, 4097, None, "float32"): "h2o-danube (G 4, D 80)",
+    (1, 4640, 16, 8, 256, 4616, 4097, 50.0, "bfloat16"): "gemma2 local (G 2, D 256)",
+    (1, 4640, 16, 8, 256, 4616, 4097, 50.0, "float32"): "gemma2 local (G 2, D 256)",
+    (1, 4640, 16, 8, 256, 4616, None, 50.0, "bfloat16"): "gemma2 global (G 2, D 256)",
+    (1, 2080, 25, 5, 64, 2056, None, None, "bfloat16"): "hymba (G 5, D 64)",
+    (1, 2080, 48, 8, 128, 2056, None, None, "bfloat16"): "nemotron (G 6, D 128)",
+    (1, 3424, 32, 8, 128, 3400, None, None, "bfloat16"): "llava (G 4, D 128)",
+    (1, 544, 48, 8, 128, 520, None, None, "bfloat16"): "grok-1 (G 6, D 128)",
+    (1, 544, 56, 8, 128, 520, None, None, "bfloat16"): "arctic (G 7, D 128)",
+    (1, 544, 16, 16, 64, 520, None, None, "bfloat16"): "seamless self-attention (G 1, D 64)",
+}
+DA_CASES += ZOO_DA
+DA_ROW = DA_CASES[0]  # the table's row: the qwen3-1.7b decode
 DA_TOL = 2e-5  # partials (m, l, acc): f32 sums in another order
 # the model serve paths at full width: (arch, batch, prompt, decode steps, cache)
 SERVE_PATHS = [("qwen3-1.7b", 8, 2048, 32, 4096), ("mamba2-370m", 2, 4096, 32, 4128)]
 SERVE_LOGIT_TOL = 1e-3  # reduced f32 models, CPU vs card: matmul sums in another order
 # the reduced bf16 models (configs/archs.py bf16_check): prompt, decode steps, batch
-BF16_CHECK = {"qwen3-1.7b": (96, 8, 2), "mamba2-370m": (512, 8, 2)}
+BF16_CHECK = {"qwen3-1.7b": (96, 8, 2), "mamba2-370m": (512, 8, 2), "gemma2-9b": (96, 8, 2),
+              "h2o-danube-1.8b": (96, 8, 2), "hymba-1.5b": (512, 8, 2),
+              "seamless-m4t-large-v2": (96, 8, 2)}
+# the MoE smoke models, CPU vs card in f32 (routing must be equal) and bf16
+# (routing flips only printed): prompt, decode steps, batch
+MOE_CHECK = {"grok-1-314b": (64, 8, 2), "arctic-480b": (64, 8, 2)}
+MOE_LOGIT_TOL = 2e-4  # f32: matmul sums in another order, through the same routing
+# phase 7b, the model zoo at published widths, at ``launch/profile.py``'s
+# MODEL_SHAPES (batch 1) and depth cuts (ONE_CARD_LAYERS), and its decode steps
+ZOO_ARCHS = ("nemotron-4-15b", "gemma2-9b", "h2o-danube-1.8b", "hymba-1.5b",
+             "llava-next-mistral-7b", "seamless-m4t-large-v2", "grok-1-314b", "arctic-480b")
+ZOO_STEPS = 16
 # card vs CPU, both bf16: at most this many times the CPU bf16 run's distance
 # from an f32 run of the same weights (bf16 rounds each activation to 2^-9
 # relative, and the card and the CPU round at other places: two bf16 runs lie
@@ -258,7 +321,37 @@ FA_CASES = [
     LONG_FA,
     PREFILL_FA,
 ]
-FA_TIMED = (BACKBONE_FA, FA_CASES[1], LONG_FA, PREFILL_FA)
+# the model zoo's attention at full width (phase 7b's shapes: a prefill's
+# queries at the end of its live rows of a cache 32 rows longer), each with
+# the layers it serves; D 80 and D 256 take the simt kernel
+ZOO_FA = {
+    (1, 1024, 1024, 16, 16, 64, False, None, None, "bfloat16", None, True):
+        "seamless encoder (non-causal, G 1)",
+    (1, 512, 1024, 16, 16, 64, False, None, None, "bfloat16", None, True):
+        "seamless cross-attention prefill (512 queries over 1,024 frames)",
+    (1, 1, 1024, 16, 16, 64, False, None, None, "bfloat16", None, True):
+        "seamless cross-attention decode (1 query)",
+    (1, 512, 544, 16, 16, 64, True, None, None, "bfloat16", 512, True):
+        "seamless decoder self-attention (G 1)",
+    (512, 8, 8, 25, 5, 64, False, None, None, "bfloat16", None, True):
+        "hymba cascade trunk (512 lanes x 8 tokens, G 5)",
+    (1, 2048, 2080, 25, 5, 64, True, None, None, "bfloat16", 2048, True):
+        "hymba prefill (G 5)",
+    (1, 2048, 2080, 48, 8, 128, True, None, None, "bfloat16", 2048, True):
+        "nemotron prefill (G 6)",
+    (1, 3392, 3424, 32, 8, 128, True, None, None, "bfloat16", 3392, True):
+        "llava prefill (2,880 image embeds + 512 tokens, G 4)",
+    (1, 512, 544, 48, 8, 128, True, None, None, "bfloat16", 512, True): "grok-1 prefill (G 6)",
+    (1, 512, 544, 56, 8, 128, True, None, None, "bfloat16", 512, True): "arctic prefill (G 7)",
+    (1, 4608, 4640, 32, 8, 80, True, 4096, None, "bfloat16", 4608, True):
+        "h2o-danube prefill (D 80, past its 4,096-key window)",
+    (1, 4608, 4640, 16, 8, 256, True, 4096, 50.0, "bfloat16", 4608, True):
+        "gemma2 local layers (D 256, window 4,096, softcap 50)",
+    (1, 4608, 4640, 16, 8, 256, True, None, 50.0, "bfloat16", 4608, True):
+        "gemma2 global layers (D 256, softcap 50)",
+}
+FA_CASES += ZOO_FA
+FA_TIMED = (BACKBONE_FA, FA_CASES[1], LONG_FA, PREFILL_FA, *ZOO_FA)
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the cascade bank with the reduced bf16 qwen3 trunk (bf16_check: head_dim
 # 128, 2 query heads over 1 KV head, so 16 query rows a (lane, kv head) at 8
@@ -692,7 +785,7 @@ def _fa_bound(case) -> tuple:
     kl = skv if kv_len is None else kv_len
     q_pos = np.arange(sq)[:, None] + (kl - sq if q_off else 0)
     k_pos = np.arange(skv)[None, :]
-    live = k_pos < kl
+    live = np.broadcast_to(k_pos < kl, (sq, skv))
     if causal:
         live = live & (k_pos <= q_pos)
     if window is not None:
@@ -702,6 +795,41 @@ def _fa_bound(case) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+_FLEX = []  # the compiled flex_attention, made on first use
+
+
+def _flex_call(q, k, v, *, causal, window, cap, q_base):
+    """The library call for a softcapped attention: ``flex_attention``
+    compiled (once, by its first call: that call is never timed) over q / k
+    / v [B, S, H, D], the tanh softcap as its score_mod and the causal /
+    window mask (query i at position ``q_base + i``; keys > position -
+    window) as its block mask -> a callable giving [B, H, Sq, D]."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    if not _FLEX:  # the compiler's caches inside the checkout's build directory
+        build = Path(__file__).resolve().parent / "build"
+        os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(build / "torchinductor"))
+        os.environ.setdefault("TRITON_CACHE_DIR", str(build / "triton"))
+        _FLEX.append(torch.compile(flex_attention, dynamic=False))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        pos = q_idx + q_base
+        ok = kv_idx <= pos if causal else kv_idx >= 0
+        return ok & (kv_idx > pos - window) if window is not None else ok
+
+    block_mask = None
+    if causal or window is not None:
+        block_mask = create_block_mask(mask_mod, None, None, qt.shape[2], kt.shape[2],
+                                       device=q.device)
+    return lambda: _FLEX[0](qt, kt, vt, score_mod=score_mod, block_mask=block_mask,
+                            enable_gqa=True)
 
 
 def phase_flash() -> dict:
@@ -747,25 +875,41 @@ def phase_flash() -> dict:
             print(f"[flash] {label} window={window} softcap={cap}: "
                   f"max abs diff {err:.3g} (tol {tol})", flush=True)
             continue
-        live = skv if kv_len is None else kv_len  # SDPA over the live keys
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k[:, :live], v[:, :live]))
-        assert not causal or not q_off or live == sq  # SDPA's causal queries start at key 0
+        live = skv if kv_len is None else kv_len  # the library call over the live keys
+        assert not causal or not q_off or live == sq  # its causal queries start at key 0
+        if cap is None:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k[:, :live], v[:, :live]))
+            mask = None
+            if window is not None:  # SDPA takes a window as a boolean mask (live == sq)
+                pos = torch.arange(live, device=dev)
+                mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
 
-        def library_call():
-            return tnf.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                    enable_gqa=True)
-
+            def library_call():
+                return tnf.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                        is_causal=causal and mask is None,
+                                                        enable_gqa=True)
+            lib_name = "sdpa"
+        else:  # SDPA does not softcap
+            library_call = _flex_call(q, k[:, :live], v[:, :live], causal=causal,
+                                      window=window, cap=cap, q_base=0)
+            lib_name = "flex_attention"
         lib = library_call().transpose(1, 2)
         torch.cuda.synchronize()
         if not torch.allclose(lib.float(), want.float(), rtol=tol, atol=tol):
-            raise AssertionError(f"scaled_dot_product_attention disagrees at {label}")
+            raise AssertionError(f"{lib_name} disagrees at {label}")
         ms, plain_ms, library_ms = (_time_ms(f) for f in (kernel_call, plain_call, library_call))
         bound_ms, bound_by = _fa_bound(case)
         row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=library_ms)
-        print(f"[flash] {label}: max abs diff {err:.3g} (tol {tol}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), {bound_ms / ms:.1%} of bound", flush=True)
+        print(f"[flash] {label} window={window} softcap={cap}: max abs diff {err:.3g} (tol "
+              f"{tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / ms:.1%} of bound", flush=True)
+        if case in ZOO_FA:  # the zoo's shapes: a row each beside the route's own
+            result.setdefault("shapes", []).append(dict(
+                row, case=label, serves=ZOO_FA[case], window=window, softcap=cap,
+                library=lib_name))
+            continue
         # the kernels the route did not pick, on the same inputs (uncounted): why
         # the route.  All three take bf16 at D 64 / 128; "simt" alone takes the rest.
         others = [r for r in kernel.ROUTE_NAMES if r != route and route != "simt"]
@@ -994,6 +1138,8 @@ def phase_serve_entry_points() -> dict:
 
 
 def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
+    """Phase 5: the cascade server at full width with the ``arch`` trunk
+    (qwen3-1.7b, mamba2-370m or hymba-1.5b) serves ``CASCADE_TRACE``."""
     import torch
 
     from repro_torch.kernels.enrich_score import ops as es_ops
@@ -1012,19 +1158,27 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     bank = session.bank
     trunk = bank.cascades[0][2].params[0]
     cfg = bank.cascades[0][2].cfg
+    s_cfg = cfg.ssm
     if arch == "qwen3-1.7b":
         assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                 cfg.d_ff) == (28, 2048, 16, 8, 128, 6144), cfg
         assert trunk["layers"][0]["attn"]["wq"].shape == (28, 2048, 16, 128)
-        kernel_name, width = "flash_attention", (
+        kernel_names, width = ("flash_attention",), (
             "28 layers, d_model 2048, 16/8 heads, D 128, bf16 trunk")
-    else:
-        s_cfg = cfg.ssm
+    elif arch == "mamba2-370m":
         assert (cfg.num_layers, cfg.d_model, s_cfg.state_dim, s_cfg.head_dim, s_cfg.expand,
                 s_cfg.conv_width, s_cfg.chunk_size) == (48, 1024, 128, 64, 2, 4, 256), cfg
         assert trunk["layers"][0]["ssm"]["in_proj"].shape == (48, 1024, 4384)
-        kernel_name, width = "ssd_intra_chunk", (
+        kernel_names, width = ("ssd_intra_chunk",), (
             "48 layers, d_model 1024, 32 SSD heads, P 64, N 128, bf16 trunk")
+    else:  # hymba: a flash and an SSD launch in every layer
+        assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                s_cfg.state_dim, s_cfg.head_dim, s_cfg.num_heads(cfg.d_model)) == (
+                    32, 1600, 25, 5, 64, 16, 64, 50), cfg
+        assert trunk["layers"][0]["ssm"]["in_proj"].shape == (32, 1600, 6482)
+        kernel_names, width = ("flash_attention", "ssd_intra_chunk"), (
+            "32 layers, d_model 1600, 25/5 heads of D 64 beside 50 SSD heads of P 64, N 16, "
+            "bf16 trunk")
     epoch_marks, trunk_marks = [], []
 
     def on_chunk():  # one chunk per epoch: time it and note the trunk
@@ -1050,8 +1204,9 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
 
     assert report.epochs == 96, report.epochs
     assert trunk_epochs >= 4, f"the trunk ran on {trunk_epochs} epochs (< 4)"
-    assert launches[kernel_name] == cfg.num_layers * trunk_epochs, (launches, trunk_epochs)
-    other = {"flash_attention", "ssd_intra_chunk"} - {kernel_name}
+    for name in kernel_names:
+        assert launches[name] == cfg.num_layers * trunk_epochs, (launches, trunk_epochs)
+    other = {"flash_attention", "ssd_intra_chunk"} - set(kernel_names)
     assert not any(launches[k] for k in other), launches
     # the cascade's 8-token blocks take the short flash kernel and the packed SSD kernel
     assert fa_ops.ROUTES == {"tc": 0, "short": launches["flash_attention"], "simt": 0}, (
@@ -1090,26 +1245,26 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     return launches
 
 
-def _ssd_inputs(b, s, dev, seed):
-    """Model-layout SSD operands at the mamba2-370m widths: x, B and C slices
+def _ssd_inputs(b, s, h, n, dev, seed):
+    """Model-layout SSD operands (H heads of P 64, state N): x, B and C slices
     of one bf16 projection, dt f32, a [H] read with a batch stride of 0."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    xbc = torch.randn((b, s, SSD_H * SSD_P + 2 * SSD_N), generator=g, device=dev)
+    xbc = torch.randn((b, s, h * SSD_P + 2 * n), generator=g, device=dev)
     xbc = xbc.to(torch.bfloat16)
-    x = xbc[..., :SSD_H * SSD_P].reshape(b, s, SSD_H, SSD_P)
-    bm, cm = xbc[..., SSD_H * SSD_P:SSD_H * SSD_P + SSD_N], xbc[..., SSD_H * SSD_P + SSD_N:]
-    dt = torch.rand((b, s, SSD_H), generator=g, device=dev) * 0.099 + 0.001
-    a = -torch.arange(1, SSD_H + 1, dtype=torch.float32, device=dev)  # -exp(A_log) at init
-    return x, dt, a[None].expand(b, SSD_H), bm, cm
+    x = xbc[..., :h * SSD_P].reshape(b, s, h, SSD_P)
+    bm, cm = xbc[..., h * SSD_P:h * SSD_P + n], xbc[..., h * SSD_P + n:]
+    dt = torch.rand((b, s, h), generator=g, device=dev) * 0.099 + 0.001
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)  # -exp(A_log) at init
+    return x, dt, a[None].expand(b, h), bm, cm
 
 
-def _ssd_bound(b, s, chunk, final_state) -> tuple:
+def _ssd_bound(b, s, chunk, final_state, h, n) -> tuple:
     """(bound_ms, bound_by): x, B, C (bf16), dt (f32) read once, y, the kept
     states and cumexp (f32) written once; the operations C.B^T and W.X over
     the live lower triangle and X^T.B for each kept state, at the bf16 rate."""
-    h, p, n = SSD_H, SSD_P, SSD_N
+    p = SSD_P
     nc = s // chunk
     kept = nc if final_state else nc - 1
     nbytes = (2 * b * s * h * p + 2 * 2 * b * s * n + 4 * b * s * h + 4 * h
@@ -1140,17 +1295,18 @@ def _ssd_hold(name, got, want, result) -> str:
 
 def phase_ssd() -> tuple:
     """Kernel 6 against its plain twin at the mamba2 prefill (the "tc" route,
-    and the "simt" kernel on the same inputs, uncounted) and the cascade
-    shapes (the "packed" route) -> (ssd_scan.cu results, tc results)."""
+    and the "simt" kernel on the same inputs, uncounted), the cascade shapes
+    (the "packed" route) and hymba's N 16 (its prefill on "simt", its cascade
+    trunk on "packed") -> (ssd_scan.cu results, tc results)."""
     import torch
 
     from repro_torch.kernels.ssd_scan import kernel, ops, ref
 
     dev = torch.device("cuda")
     results = {"ssd_intra_chunk": {"max_abs_err": 0.0}, "ssd_intra_chunk_tc": {"max_abs_err": 0.0}}
-    for b, s, chunk, final in SSD_CASES:
-        args = _ssd_inputs(b, s, dev, seed=s)
-        route = kernel.route(args[0].dtype, chunk, SSD_P, SSD_N)
+    for b, s, chunk, final, h, n in SSD_CASES:
+        args = _ssd_inputs(b, s, h, n, dev, seed=s + n)
+        route = kernel.route(args[0].dtype, chunk, SSD_P, n)
         name = "ssd_intra_chunk_tc" if route == "tc" else "ssd_intra_chunk"
 
         def kernel_call():
@@ -1163,17 +1319,19 @@ def phase_ssd() -> tuple:
         got, want = kernel_call(), plain_call()
         torch.cuda.synchronize()
         assert ops.ROUTES[route] == before + 1, (route, ops.ROUTES)
-        label = (f"B={b} S={s} H={SSD_H} P={SSD_P} N={SSD_N} chunk={chunk} bf16, final state "
+        label = (f"B={b} S={s} H={h} P={SSD_P} N={n} chunk={chunk} bf16, final state "
                  f"{final} ({route})")
         errs = _ssd_hold(label, got, want, results[name])
         ms, plain_ms = _time_ms(kernel_call), _time_ms(plain_call)
-        (bound_ms, bound_by), nbytes = _ssd_bound(b, s, chunk, final)
+        (bound_ms, bound_by), nbytes = _ssd_bound(b, s, chunk, final, h, n)
         print(f"[ssd] {label}: max abs diff {errs}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
               f"ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
               f"{bound_ms / ms:.1%} of bound", flush=True)
         row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=None)
-        if route == "tc":  # the prefill: the simt kernel on the same inputs, uncounted
+        if n != 128:  # hymba's shapes: a row each beside the route's own
+            results[name].setdefault("shapes", []).append(dict(row, case=label))
+        elif route == "tc":  # the prefill: the simt kernel on the same inputs, uncounted
             out = [torch.empty_like(t) for t in got]
 
             def simt_call():
@@ -1199,7 +1357,7 @@ def _da_bound(case, fused: bool) -> tuple:
     output (fused: [B, 1, H, D] in q's dtype) or the f32 partials (m, l, acc
     over ``default_num_splits``) written once; 4 * D operations per (query
     head, live key) at the inputs' type's peak rate."""
-    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention import ops, ref
 
     b, skv, h, kv, d, kv_len, window, _, dtype = case
     esize = 2 if dtype == "bfloat16" else 4
@@ -1208,7 +1366,8 @@ def _da_bound(case, fused: bool) -> tuple:
     if fused:
         nbytes += esize * b * h * d
     else:
-        nbytes += 4 * b * kv * ops.default_num_splits(b * kv, skv) * (h // kv) * (2 + d)
+        ns = ref.split_count(skv, ops.default_num_splits(b * kv, skv))
+        nbytes += 4 * b * kv * ns * (h // kv) * (2 + d)
     ops_ = 4.0 * d * b * h * live
     rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1217,9 +1376,10 @@ def _da_bound(case, fused: bool) -> tuple:
 
 
 def phase_decode() -> tuple:
-    """Kernel 5 at the qwen3-1.7b decode shape: the fused kernel (the model's
-    route) against its twin and the oracle, the partials kernel against its
-    twin -> (partials results, fused results)."""
+    """Kernel 5 at the qwen3-1.7b decode shape and the zoo's: the fused
+    kernel (the model's route) against its twin and the oracle, the partials
+    kernel against its twin where it takes the group -> (partials results,
+    fused results)."""
     import torch
     import torch.nn.functional as tnf
 
@@ -1234,11 +1394,14 @@ def phase_decode() -> tuple:
         q = torch.randn((b, 1, h, d), generator=g, device=dev).to(dt)
         k, v = (torch.randn((b, skv, kv, d), generator=g, device=dev).to(dt) for _ in range(2))
         kl = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
-        ns = ops.default_num_splits(b * kv, skv)
+        ns = ref.split_count(skv, ops.default_num_splits(b * kv, skv))  # as the public wrapper
         fns = ops.fused_num_splits(b * kv, skv, kernel.fused_route(dt, d))
         qm = q.reshape(b * kv, h // kv, d)
         km, vm = (t.transpose(1, 2).reshape(b * kv, skv, d).contiguous() for t in (k, v))
         kw = dict(softcap=cap, window=window)
+        # the partials kernel (off the main paths) takes G * D <= 512: not grok's
+        # or arctic's groups of 6 / 7 heads of 128
+        with_partials = kernel.supports(h // kv, d)
 
         def partials_call():
             return ops.cache_partials(qm, k, v, kl, ns, **kw)
@@ -1253,16 +1416,19 @@ def phase_decode() -> tuple:
             return ref.decode_attention_fused(q, k, v, kl, num_splits=fns, **kw)
 
         before = dict(ops.LAUNCHES)
-        got, want = partials_call(), partials_plain()
+        if with_partials:
+            got, want = partials_call(), partials_plain()
         out, twin = fused_call(), fused_plain()
         oracle = ref.reference_decode(q, k, v, kl, **kw)
         torch.cuda.synchronize()
-        assert ops.LAUNCHES == {n: c + 1 for n, c in before.items()}, ops.LAUNCHES
-        for name, x, y in zip(("m", "l", "acc"), got, want):
-            if not torch.allclose(x, y, rtol=DA_TOL, atol=DA_TOL):
-                raise AssertionError(f"decode_attention_partials {case}: {name} differs from "
-                                     f"the plain twin beyond {DA_TOL}")
-            part["max_abs_err"] = max(part["max_abs_err"], (x - y).abs().max().item())
+        assert ops.LAUNCHES == {ops.KERNEL: before[ops.KERNEL] + with_partials,
+                                ops.FUSED: before[ops.FUSED] + 1}, ops.LAUNCHES
+        if with_partials:
+            for name, x, y in zip(("m", "l", "acc"), got, want):
+                if not torch.allclose(x, y, rtol=DA_TOL, atol=DA_TOL):
+                    raise AssertionError(f"decode_attention_partials {case}: {name} differs "
+                                         f"from the plain twin beyond {DA_TOL}")
+                part["max_abs_err"] = max(part["max_abs_err"], (x - y).abs().max().item())
         tol = FA_TOL[dtype]
         err = (out.float() - oracle.float()).abs().max().item()
         twin_err = (out.float() - twin.float()).abs().max().item()
@@ -1272,46 +1438,66 @@ def phase_decode() -> tuple:
         fused["max_abs_err"] = max(fused["max_abs_err"], twin_err)
         label = (f"B={b} H={h} KV={kv} D={d} kv_len={kv_len} of {skv} window={window} "
                  f"softcap={cap} {dtype} (fused: {kernel.fused_route(dt, d)})")
-        if window is not None:
+        if window is not None and case not in ZOO_DA:
             print(f"[decode] {label}: partials ({ns} splits) within {DA_TOL} of the twin; "
                   f"fused ({fns} splits) within {twin_err:.3g} of its twin, {err:.3g} of the "
                   f"oracle (tol {tol})", flush=True)
             continue
-        qt = q.transpose(1, 2)  # sdpa over the live keys, GQA
-        kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
+        if cap is None:  # sdpa over the live keys, GQA
+            qt = q.transpose(1, 2)
+            kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
+            mask = None
+            if window is not None:  # the kernel's window: keys > kv_len - window
+                mask = (torch.arange(kv_len, device=dev) > kv_len - window)[None, :]
 
-        def library_call():
-            return tnf.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
-
+            def library_call():
+                return tnf.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                        enable_gqa=True)
+            lib_name = "sdpa"
+        else:  # SDPA does not softcap; the query sits at kv_len - 1
+            library_call = _flex_call(q, k[:, :kv_len], v[:, :kv_len], causal=False,
+                                      window=None if window is None else window - 1, cap=cap,
+                                      q_base=kv_len - 1)
+            lib_name = "flex_attention"
         lib = library_call().transpose(1, 2)
         torch.cuda.synchronize()
         assert torch.allclose(lib.float(), oracle.float(), rtol=tol, atol=tol), (
-            f"scaled_dot_product_attention disagrees at {label}")
-        ms, plain_ms, p_ms, p_plain_ms, library_ms = (
-            _time_ms(f) for f in (fused_call, fused_plain, partials_call, partials_plain,
-                                  library_call))
-        combine_ms = _time_ms(lambda: ref.combine_partials(*partials_call()))
+            f"{lib_name} disagrees at {label}")
+        timed = [fused_call, fused_plain, library_call]
+        if with_partials:
+            timed += [partials_call, partials_plain]
+        ms, plain_ms, library_ms, *p_ms = (_time_ms(f) for f in timed)
         host_ms = _host_ms(fused_call)
         bound_ms, bound_by = _da_bound(case, fused=True)
-        p_bound_ms, p_bound_by = _da_bound(case, fused=False)
-        print(f"[decode] {label}: fused ({fns} splits, one launch) {ms:.4f} ms ({host_ms:.4f} ms a "
-              f"call issued one after another from the host), within "
-              f"{twin_err:.3g} of its twin and {err:.3g} of the oracle, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound; partials "
-              f"({ns} splits) {p_ms:.4f} ms (with the PyTorch combine {combine_ms:.4f} ms), "
-              f"plain {p_plain_ms:.4f} ms, bound {p_bound_ms:.4f} ms ({p_bound_by}); sdpa "
-              f"{library_ms:.4f} ms", flush=True)
-        if dtype == "bfloat16":  # the model's dtype: the table's rows
-            fused.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=library_ms, host_ms=host_ms)
-            part.update(ms=p_ms, plain_ms=p_plain_ms, bound_ms=p_bound_ms, bound_by=p_bound_by,
+        sdpa = f"{lib_name} {library_ms:.4f} ms"
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms, host_ms=host_ms)
+        partials = ""
+        if with_partials:
+            combine_ms = _time_ms(lambda: ref.combine_partials(*partials_call()))
+            p_bound_ms, p_bound_by = _da_bound(case, fused=False)
+            partials = (f"; partials ({ns} splits) {p_ms[0]:.4f} ms (with the PyTorch combine "
+                        f"{combine_ms:.4f} ms), plain {p_ms[1]:.4f} ms, bound {p_bound_ms:.4f} "
+                        f"ms ({p_bound_by})")
+        print(f"[decode] {label}: fused ({fns} splits, one launch) {ms:.4f} ms ({host_ms:.4f} "
+              f"ms a call issued one after another from the host), within {twin_err:.3g} of "
+              f"its twin and {err:.3g} of the oracle, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound{partials}; {sdpa}",
+              flush=True)
+        if case == DA_ROW:  # the qwen3 decode in the model's dtype: the table's rows
+            fused.update(row)
+            part.update(ms=p_ms[0], plain_ms=p_ms[1], bound_ms=p_bound_ms, bound_by=p_bound_by,
                         library_ms=library_ms, with_combine_ms=combine_ms)
+        elif case in ZOO_DA:
+            fused.setdefault("shapes", []).append(dict(row, case=label, serves=ZOO_DA[case],
+                                                       library=lib_name))
     return part, fused
 
 
-def _generate(model, params, tokens, steps, max_len):
-    """Prefill then ``steps`` greedy decode steps -> (logits per step, tokens)."""
-    logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+def _generate(model, params, tokens, steps, max_len, extra=None):
+    """Prefill (with the batch's ``extra`` inputs: image embeds, frames) then
+    ``steps`` greedy decode steps -> (logits per step, tokens, cache)."""
+    logits, cache = model.prefill(params, {"tokens": tokens, **(extra or {})}, max_len)
     out, chosen = [logits], []
     for _ in range(steps):
         tok = logits.argmax(-1)
@@ -1359,26 +1545,26 @@ def _launches(fa_ops, da_ops, ssd_ops) -> dict:
             **{f"ssd_intra_chunk/{r}": n for r, n in ssd_ops.ROUTES.items()}}
 
 
-def _bf16_expected(arch, n):
-    """The launches a bf16-check run must make: {counter: count}."""
-    _, steps, _ = BF16_CHECK[arch]
-    qwen = arch == "qwen3-1.7b"
-    return {"flash_attention/tc": n if qwen else 0, "flash_attention/short": 0,
-            "flash_attention/simt": 0,
-            "decode_attention_fused": n * steps if qwen else 0, "decode_attention_partials": 0,
-            "ssd_intra_chunk/tc": 0 if qwen else n, "ssd_intra_chunk/simt": 0,
-            "ssd_intra_chunk/packed": 0}
+def _extra_inputs(cfg, b, gen) -> dict:
+    """A batch's frames (an encoder's input) on the CPU, from ``gen``."""
+    import torch
+
+    if cfg.encoder is None:
+        return {}
+    return {"frames": torch.randn((b, cfg.encoder.seq_len, cfg.d_model), generator=gen)}
 
 
 def phase_serve_bf16_cpu_vs_gpu():
-    """Reduced bf16 qwen3 (head_dim 128, GQA 2 / 1) and mamba2 (SSM head_dim
-    64, state 128, chunk 256) models whose widths route the card's bf16
-    kernels: the CPU (plain twins) greedy-decodes, and the card (kernels) and
-    an f32 CPU run of the same weights are fed the CPU's tokens
-    (teacher-forced, so no bf16 near-tie can fork the sequences).  The card
-    must stay within ``BF16_LOGIT_FACTOR`` times the bf16 CPU run's own
-    distance from f32: the kernels may add no more error than bf16 rounding
-    already makes."""
+    """Reduced bf16 models whose widths route the card's bf16 kernels — qwen3
+    (head_dim 128, GQA 2 / 1), mamba2 (SSM head_dim 64, state 128, chunk
+    256), gemma2 (head_dim 256, local / global, both softcaps), h2o-danube
+    (head_dim 80), hymba (GQA 5 / 1 beside SSD heads of state 16) and
+    seamless (an encoder over 128 frames, cross-attention): the CPU (plain
+    twins) greedy-decodes, and the card (kernels) and an f32 CPU run of the
+    same weights are fed the CPU's tokens (teacher-forced, so no bf16
+    near-tie can fork the sequences).  The card must stay within
+    ``BF16_LOGIT_FACTOR`` times the bf16 CPU run's own distance from f32:
+    the kernels may add no more error than bf16 rounding already makes."""
     import dataclasses
 
     import torch
@@ -1397,22 +1583,23 @@ def phase_serve_bf16_cpu_vs_gpu():
         model, params = random_model(cfg, seed=5, device="cpu")
         g = torch.Generator().manual_seed(6)
         tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=g)
+        extra = _extra_inputs(cfg, b, g)
         max_len = prompt + steps + 8
-        cpu, chosen, _ = _generate(model, params, tokens, steps, max_len)
+        cpu, chosen, _ = _generate(model, params, tokens, steps, max_len, extra)
         seq = torch.cat([tokens, *chosen], dim=1)
         f32_model, f32_params = (random_model(dataclasses.replace(cfg, dtype="float32"),
                                               seed=5, device="cpu")[0],
                                  map_tree(lambda t: t.float(), params))
-        ref, _ = teacher_forced(f32_model, f32_params, seq, prompt, max_len)
+        ref, _ = teacher_forced(f32_model, f32_params, seq, prompt, max_len, extra)
         for c in counted:
             c.reset_counts()
         gpu, cache = teacher_forced(model, map_tree(lambda t: t.to("cuda"), params), seq.cuda(),
-                                    prompt, max_len)
+                                    prompt, max_len, {k: v.cuda() for k, v in extra.items()})
         torch.cuda.synchronize()
         launches = _launches(fa_ops, da_ops, ssd_ops)
         plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
-        want = _bf16_expected(arch, cfg.num_layers)
-        assert {k: launches.get(k, 0) for k in want} == want, (arch, launches)
+        want = _zoo_expected(cfg, steps)
+        assert {k: launches.get(k, 0) for k in want} == want, (arch, launches, want)
         assert not any(plain.values()), f"plain path ran on the card: {plain}"
         assert int(cache.length) == prompt + steps
         gpu = [x.cpu() for x in gpu]
@@ -1427,10 +1614,72 @@ def phase_serve_bf16_cpu_vs_gpu():
                             f"({BF16_LOGIT_FACTOR} x the CPU's bf16-vs-f32 {bf16_err}); per step "
                             f"{per_step}")
         print(f"[serve-bf16] reduced bf16 {arch} ({cfg.num_layers} layers, d_model "
-              f"{cfg.d_model}): prefill {prompt} x {b} + {steps} teacher-forced steps; card vs "
-              f"CPU logits max abs {err:.4g} (tol {tol:.4g} = {BF16_LOGIT_FACTOR} x the CPU "
-              f"bf16 run's distance from f32 {bf16_err:.4g}; card vs f32 {gpu_f32:.4g}; logit "
-              f"scale {scale:.3g}); per step {per_step}; launches {launches}", flush=True)
+              f"{cfg.d_model}, D {cfg.head_dim}): prefill {prompt} x {b} + {steps} "
+              f"teacher-forced steps; card vs CPU logits max abs {err:.4g} (tol {tol:.4g} = "
+              f"{BF16_LOGIT_FACTOR} x the CPU bf16 run's distance from f32 {bf16_err:.4g}; card "
+              f"vs f32 {gpu_f32:.4g}; logit scale {scale:.3g}); per step {per_step}; launches "
+              f"{launches}", flush=True)
+
+
+def phase_moe_cpu_vs_gpu():
+    """The MoE smoke models (grok-1: 4 experts, geglu; Arctic: 8 experts with
+    the dense residual), prefill + greedy decode on the CPU and the card from
+    the same weights, teacher-forced on the CPU's tokens: in f32 the router's
+    choices must be equal on every layer and step and the logits within
+    ``MOE_LOGIT_TOL``; in bf16 the choices that flip (bf16 matmuls round
+    the router logits differently on the two devices) are only printed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.enrich.cascade import map_tree
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.model import random_model, teacher_forced
+    from repro_torch.models.moe import recording_routes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch, (prompt, steps, b) in MOE_CHECK.items():
+        flips = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+            model, params = random_model(cfg, seed=9, device="cpu")
+            g = torch.Generator().manual_seed(10)
+            tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=g)
+            max_len = prompt + steps + 8
+            runs = []
+            for dev in ("cpu", "cuda"):
+                with recording_routes() as seen:
+                    if dev == "cpu":
+                        out, chosen, _ = _generate(model, params, tokens, steps, max_len)
+                        seq = torch.cat([tokens, *chosen], dim=1)
+                    else:
+                        fa_ops.reset_counts()
+                        da_ops.reset_counts()
+                        out, _ = teacher_forced(model, map_tree(lambda t: t.to(dev), params),
+                                                seq.to(dev), prompt, max_len)
+                        torch.cuda.synchronize()
+                        assert not fa_ops.PLAIN_CALLS["flash_attention"] and not any(
+                            da_ops.PLAIN_CALLS.values()), "plain path ran on the card"
+                        # head_dim 16: the simt flash kernel in the prefill
+                        assert fa_ops.ROUTES["simt"] == cfg.num_layers, fa_ops.ROUTES
+                runs.append(([o.cpu() for o in out], seen))
+            (cpu, cpu_routes), (gpu, gpu_routes) = runs
+            assert len(cpu_routes) == len(gpu_routes) == cfg.num_layers * (steps + 1)
+            flipped = sum(int((a != c).any(-1).sum()) for a, c in zip(cpu_routes, gpu_routes))
+            tokens_routed = sum(a.shape[0] * a.shape[1] for a in cpu_routes)
+            err = max((a - c).abs().max().item() for a, c in zip(gpu, cpu))
+            if dtype == "float32":
+                assert flipped == 0, f"{arch} f32: {flipped} router choices differ CPU vs card"
+                assert err <= MOE_LOGIT_TOL, f"{arch} f32: logits differ by {err}"
+            flips[dtype] = (flipped, tokens_routed, err)
+        print(f"[moe-cpu-gpu] {arch} smoke ({cfg.num_layers} layers, {cfg.moe.num_experts} "
+              f"experts top-{cfg.moe.top_k}): prefill {prompt} x {b} + {steps} teacher-forced "
+              f"steps; f32: router choices equal ({flips['float32'][1]} tokens x layers), "
+              f"logits within {flips['float32'][2]:.3g} (<= {MOE_LOGIT_TOL}); bf16: "
+              f"{flips['bfloat16'][0]} of {flips['bfloat16'][1]} choices flip, logits within "
+              f"{flips['bfloat16'][2]:.3g}", flush=True)
 
 
 def phase_cascade_bf16_cpu_vs_gpu():
@@ -1558,6 +1807,125 @@ def phase_model_serve() -> dict:
         del params, cache, logits
         torch.cuda.empty_cache()
     return launches
+
+
+def _zoo_expected(cfg, steps: int) -> dict:
+    """The launches a bf16 run of ``cfg`` (prefill + ``steps`` decode steps)
+    must make: {counter: count}."""
+    n = cfg.num_layers
+    want = dict.fromkeys(("flash_attention/tc", "flash_attention/short", "flash_attention/simt",
+                          "decode_attention_partials", "decode_attention_fused",
+                          "ssd_intra_chunk/tc", "ssd_intra_chunk/simt",
+                          "ssd_intra_chunk/packed"), 0)
+    if cfg.layer_pattern == ("mamba",):  # SSD heads of state 128 alone: the tc route
+        want["ssd_intra_chunk/tc"] = n  # (a decode step runs ssd_step: no kernel)
+    else:  # the prefill's flash route by head dim (80 / 256 take "simt"), then
+        # one fused decode launch a layer and step
+        flash = "flash_attention/tc" if cfg.head_dim in (64, 128) else "flash_attention/simt"
+        want[flash] = n
+        want["decode_attention_fused"] = n * steps
+    if cfg.encoder is not None:  # the encoder's layers, then a cross-attention a layer
+        want[flash] += cfg.encoder.num_layers + n
+        want["flash_attention/short"] = n * steps  # a decode step's cross-attention, Sq 1
+    if "hymba" in cfg.layer_pattern:  # SSD heads of state 16: the simt route
+        want["ssd_intra_chunk/simt"] = n
+    want["flash_attention"] = sum(want[f"flash_attention/{r}"] for r in ("tc", "short", "simt"))
+    want["ssd_intra_chunk"] = sum(want[f"ssd_intra_chunk/{r}"] for r in ("tc", "simt", "packed"))
+    return want
+
+
+def phase_zoo_serve() -> dict:
+    """Phase 7b: the model zoo at published widths (random bf16 weights built
+    on the card, one f32 matrix at a time): each of ``ZOO_ARCHS`` prefills
+    its prompt (after llava's 2,880 image embeds; over seamless's 1,024
+    frames), then decodes 16 greedy steps, then frees its memory.  Finite
+    logits, the routes by head dim (D 80 / 256 on "simt"), the expected
+    launches and no plain call; prefill ms (tokens/s), median step ms and
+    peak memory are printed."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.profile import MODEL_SHAPES, model_batch, model_config
+    from repro_torch.models.model import random_model
+
+    counted = (fa_ops, da_ops, ssd_ops)
+    launches = {}
+    t_phase = time.perf_counter()
+    steps = ZOO_STEPS
+    for arch in ZOO_ARCHS:
+        cfg = model_config(arch)
+        b, prompt = MODEL_SHAPES[arch]
+        gc.collect()  # the earlier phases' sessions and banks, before a 55 GB build
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, params = random_model(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+        batch = model_batch(cfg, b, prompt, torch.Generator(device="cuda").manual_seed(1))
+        extra = {k: v for k, v in batch.items() if k != "tokens"}
+        n_img = cfg.num_image_tokens if "image_embeds" in batch else 0
+        max_len = n_img + prompt + 32
+        _generate(model, params, batch["tokens"], 2, max_len, extra)  # warm-up (cuBLAS)
+        torch.cuda.synchronize()
+        for c in counted:
+            c.reset_counts()
+        t1 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, max_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        routes = dict(fa_ops.ROUTES)
+        finite = bool(torch.isfinite(logits).all())
+        step_s = []
+        for _ in range(steps):
+            t2 = time.perf_counter()
+            logits, cache = model.decode_step(params, logits.argmax(-1), cache)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t2)
+            finite = finite and bool(torch.isfinite(logits).all())
+        run = _launches(fa_ops, da_ops, ssd_ops)
+        plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
+        peak = torch.cuda.max_memory_allocated()
+        want = _zoo_expected(cfg, steps)
+        assert {k: run.get(k, 0) for k in want} == want, (arch, run, want)
+        assert not any(plain.values()), f"plain path ran on the {arch} serve path: {plain}"
+        assert finite and logits.shape == (b, 1, cfg.vocab_size), arch
+        assert int(cache.length) == n_img + prompt + steps
+        for k, v in run.items():
+            launches[k] = launches.get(k, 0) + v
+        seq = b * (n_img + prompt)
+        inputs = f"{n_img} image embeds + {prompt} tokens" if n_img else (
+            f"{prompt} tokens over {cfg.encoder.seq_len} frames" if cfg.encoder else
+            f"{prompt} tokens")
+        print(f"[zoo] {arch} at full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.num_heads}/{cfg.num_kv_heads} heads of D {cfg.head_dim}, bf16, "
+              f"{weights / 1e9:.2f} GB of weights built in {build_s:.2f} s): prefill B={b} x "
+              f"{inputs} {prefill_s * 1e3:.2f} ms ({seq / prefill_s:.0f} tokens/s, flash routes "
+              f"{routes}); {steps} decode steps {statistics.median(step_s) * 1e3:.3f} ms "
+              f"median per step ({min(step_s) * 1e3:.3f}-{max(step_s) * 1e3:.3f}; host clock, "
+              f"synchronised per step); launches {run}; peak device memory "
+              f"{peak / 2**30:.3f} GiB", flush=True)
+        del model, params, batch, extra, logits, cache
+    torch.cuda.empty_cache()
+    print(f"[zoo] {len(ZOO_ARCHS)} architectures served in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 # ------------------------------------------------------- serving robustness --
@@ -1985,16 +2353,19 @@ def main() -> int:
     phase_operator_cpu_vs_gpu(quickstart)
     phase_serve_cpu_vs_gpu()
     phase_serve_bf16_cpu_vs_gpu()
+    phase_moe_cpu_vs_gpu()
     phase_cascade_bf16_cpu_vs_gpu()
     runs = [phase_main_path(), phase_serving_robustness(), phase_cascade_main_path("qwen3-1.7b"),
-            phase_cascade_main_path("mamba2-370m"), phase_operator_main_path(),
-            phase_serve_entry_points(), phase_model_serve()]
+            phase_cascade_main_path("mamba2-370m"), phase_cascade_main_path("hymba-1.5b"),
+            phase_operator_main_path(), phase_serve_entry_points(), phase_model_serve(),
+            phase_zoo_serve()]
     # launches: the sum over the main-path runs (each zeroes the counts first)
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
              launches=sum(run.get(key, 0) for run in runs for key in COUNTED.get(name, (name,))),
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r.get("library_ms"))
+             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r.get("library_ms"),
+             **({"shapes": r["shapes"]} if "shapes" in r else {}))
         for name, r in results.items()
     ]
     missing = [k["name"] for k in kernels if not k["launches"] and k["name"] not in OFF_PATH]

@@ -27,7 +27,11 @@ trunk then runs over all M lanes, as the reference's fixed shape does.
 Every forward-only pass (``execute``, ``execute_host``, evaluation) runs the
 trunk's sequence mixers through the ``"kernel"`` route: the CUDA
 flash-attention kernel for a qwen3 trunk, the CUDA SSD intra-chunk kernel
-for a mamba2 one (its final state is never computed: nothing reads it).
+for a mamba2 one (its final state is never computed: nothing reads it),
+both in every layer of a hymba one.  Any of the ten architectures can be
+the trunk, as in the reference: a MoE trunk's aux losses are dropped, and
+a seamless trunk skips its cross-attention blocks (the trunk passes no
+encoder output).
 Head training goes through the ``"dense"`` engine with the trunk frozen:
 the reference's own route there, since no kernel has a backward.  At any
 width the trunk keeps ONE copy of its projection matrices in the activation

@@ -5,8 +5,10 @@ hold arrays that ``numpy.array`` converts); this module turns such trees —
 dicts of numpy arrays, or objects with the same attribute names — into the
 port's ``CombineParams``, ``DecisionTable``, ``SessionState``,
 ``EnrichmentState``, ``MultiQueryState``, ``SimulatedBank``, model
-parameters (the ``[G]``-stacked ``layers`` of ``stack_init``, probes,
-backbone heads) and whole ``ModelCascadeBank``s, and back into nested dicts
+parameters (the ``[G]``-stacked ``layers`` of ``stack_init`` with every leaf
+the model zoo adds — ``moe``, ``cross`` / ``ln_cross``, ``enc_layers`` /
+``enc_ln``, ``unembed``, ``img_proj`` — probes, backbone heads) and whole
+``ModelCascadeBank``s over any of the ten trunks, and back into nested dicts
 of numpy arrays.  It imports neither JAX nor the reference package: bf16
 leaves travel as their raw 16-bit patterns (``ml_dtypes.bfloat16`` numpy
 arrays on the numpy side).

@@ -1,17 +1,16 @@
 """Where one epoch spends its time on the card.
 
     python -m repro_torch.launch.profile [--path session|operator|prefill|decode]
-        [--bank simulated|cascade] [--backbone qwen3-1.7b|mamba2-370m]
-        [--epochs 8] [--mode best|table]
+        [--bank simulated|cascade] [--backbone ARCH] [--epochs 8] [--mode best|table]
 
 ``--bank simulated`` (default) builds the main-path session (524,288 rows
 grown to 1,048,576 by one ingest, 8 tenant slots, bf16 substrate), admits
 the tenants and grows the state as ``chip_smoke.py``'s main path does.
 ``--bank cascade`` builds the cascade server at full width (the
-``--backbone`` trunk: 28-layer qwen3-1.7b by default, or the 48-layer
-mamba2-370m; 2,048 objects, 3 predicates, 8 tenant slots, f32 substrate,
-best mode), admits 8 tenants and runs epochs until the planner selects
-backbone lanes.  ``--path operator`` builds the paper's
+``--backbone`` trunk: 28-layer qwen3-1.7b by default, the 48-layer
+mamba2-370m, the 32-layer hymba-1.5b, ...; 2,048 objects, 3 predicates, 8
+tenant slots, f32 substrate, best mode), admits 8 tenants and runs epochs
+until the planner selects backbone lanes.  ``--path operator`` builds the paper's
 single-query operator on the quickstart query and corpus at 1,048,576
 objects (``repro_torch.quickstart``: 2 predicates, 4 functions, the
 ``preprocess_cheapest`` warm start, ``OperatorConfig()`` defaults) scoring
@@ -19,14 +18,19 @@ through ``ops.fused_benefits`` (the single-query kernel), and runs 2
 warm-up epochs.  ``--path prefill`` and ``--path decode`` build the
 ``--backbone`` model at its published width with random weights
 (``models.model.random_model``, the kernel route) at its serve shape
-(qwen3-1.7b: 8 x 2,048 prompt tokens; mamba2-370m: 2 x 4,096) and profile
-whole prefills, or decode steps after one prefill; an "epoch" below is then
-one prefill or one decode step.  Then ``--epochs`` epochs run under
-``torch.profiler`` and it prints: the wall time per epoch, the device-busy
-share of that wall time (sum of kernel times over wall time; kernels on one
-stream do not overlap), the device time by kind (attention, scoring,
-matmuls, sorts and scans, elementwise work, the rest), the kernels with the most device time
-and, for the cascade, the device idle right after each bank-boundary host
+(``MODEL_SHAPES``: qwen3-1.7b 8 x 2,048 prompt tokens; mamba2-370m 2 x
+4,096; gemma2-9b and h2o-danube-1.8b 1 x 4,608, past their 4,096-token
+window; llava-next-mistral-7b 2,880 random image embeds + 512 tokens;
+seamless-m4t-large-v2 512 tokens over 1,024 random frames; grok-1-314b and
+arctic-480b at full width cut to the depth one 80 GB card holds,
+``ONE_CARD_LAYERS``) and profile whole prefills, or decode steps after one
+prefill; an "epoch" below is then one prefill or one decode step.  Then
+``--epochs`` epochs run under ``torch.profiler`` and it prints: the wall
+time per epoch, the device-busy share of that wall time (sum of kernel
+times over wall time; kernels on one stream do not overlap), the device
+time by kind (attention, scoring, matmuls, sorts and scans, elementwise
+work, the rest), the kernels with the most device time and, for the
+cascade, the device idle right after each bank-boundary host
 read (from the end of its device-to-host copy to the start of the next
 kernel).  Needs a GPU; it has no CPU mode.
 """
@@ -34,13 +38,14 @@ kernel).  Needs a GPU; it has no CPU mode.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
 
 import torch
 
-from repro_torch.configs.archs import ARCHS
+from repro_torch.configs.archs import ARCHS, get_config
 from repro_torch.core.executor import EngineConfig
 from repro_torch.core.query import conjunction
 from repro_torch.core.session import EngineSession
@@ -62,7 +67,38 @@ KINDS = (  # (label, substrings of the kernel name), first match wins
 
 
 OPERATOR_OBJECTS = 1 << 20
-MODEL_SHAPES = {"qwen3-1.7b": (8, 2048), "mamba2-370m": (2, 4096)}  # batch, prompt tokens
+MODEL_SHAPES = {  # batch, prompt tokens (after a vision model's image embeds)
+    "qwen3-1.7b": (8, 2048), "mamba2-370m": (2, 4096), "nemotron-4-15b": (1, 2048),
+    "gemma2-9b": (1, 4608), "h2o-danube-1.8b": (1, 4608), "hymba-1.5b": (1, 2048),
+    "llava-next-mistral-7b": (1, 512), "seamless-m4t-large-v2": (1, 512),
+    "grok-1-314b": (1, 512), "arctic-480b": (1, 512),
+}
+# full width, depth cut to what one 80 GB card holds in bf16: grok-1 ~9.8 GB a
+# layer (8 experts of 3 x 6144 x 32768), arctic ~27 GB (128 of 3 x 7168 x 4864)
+ONE_CARD_LAYERS = {"grok-1-314b": 4, "arctic-480b": 2}
+
+
+def model_config(arch: str):
+    """The published config, depth cut to ``ONE_CARD_LAYERS`` where given."""
+    cfg = get_config(arch)
+    if arch in ONE_CARD_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=ONE_CARD_LAYERS[arch])
+    return cfg
+
+
+def model_batch(cfg, batch: int, prompt: int, gen: torch.Generator) -> dict:
+    """Random prompt tokens on the generator's device, plus random image
+    embeds (vision) or frames (an encoder's input) at their published counts."""
+    dev = gen.device
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                                   device=dev)}
+    if cfg.frontend == "vision":
+        out["image_embeds"] = torch.randn((batch, cfg.num_image_tokens, cfg.d_model),
+                                          generator=gen, device=dev)
+    if cfg.encoder is not None:
+        out["frames"] = torch.randn((batch, cfg.encoder.seq_len, cfg.d_model), generator=gen,
+                                    device=dev)
+    return out
 
 
 def _device_us(evt) -> float:
@@ -127,18 +163,18 @@ def _cascade(backbone: str):
 
 
 def _model(backbone: str, decode: bool):
-    from repro_torch.configs.archs import get_config
     from repro_torch.models.model import random_model
 
     b, prompt = MODEL_SHAPES[backbone]
-    model, params = random_model(get_config(backbone), seed=0, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    tokens = torch.randint(0, model.cfg.vocab_size, (b, prompt), generator=gen, device="cuda")
-    max_len = prompt + 512
+    cfg = model_config(backbone)
+    model, params = random_model(cfg, seed=0, device="cuda")
+    batch = model_batch(cfg, b, prompt, torch.Generator(device="cuda").manual_seed(1))
+    n_img = cfg.num_image_tokens if "image_embeds" in batch else 0
+    max_len = n_img + prompt + 512
 
     def prefill(st, n, stop_when_exhausted):
         for _ in range(n):
-            st = model.prefill(params, {"tokens": tokens}, max_len)
+            st = model.prefill(params, batch, max_len)
         return st, None
 
     def step(st, n, stop_when_exhausted):
@@ -151,9 +187,10 @@ def _model(backbone: str, decode: bool):
     if decode:
         state, _ = step(state, 2, False)
     kind = "decode step" if decode else "prefill"
+    extra = "".join(f", {batch[k].shape[1]} {k}" for k in ("image_embeds", "frames") if k in batch)
     return step if decode else prefill, state, None, (
-        f"{backbone} at full width, {kind}s at B={b}, prompt {prompt} tokens (bf16, kernel "
-        f"route; an 'epoch' is one {kind})")
+        f"{backbone} at full width ({cfg.num_layers} layers), {kind}s at B={b}, prompt "
+        f"{prompt} tokens{extra} (bf16, kernel route; an 'epoch' is one {kind})")
 
 
 def main(argv=None) -> int:

@@ -44,14 +44,17 @@ Session mode has two enrichment banks:
 * ``--bank cascade``: the model-cascade bank (linear probe, MLP probe and a
   transformer backbone head per predicate) runs its real forwards on every
   epoch's merged plan; a fixed corpus, so no ingest.  ``--backbone`` picks
-  the trunk (qwen3-1.7b, the default, or the attention-free mamba2-370m,
-  whose SSD mixer runs through the intra-chunk kernel).  The backbone is the
+  the trunk from the ten architectures of ``configs/archs.py`` (qwen3-1.7b,
+  the default; the attention-free mamba2-370m, whose SSD mixer runs through
+  the intra-chunk kernel; hymba-1.5b, attention and SSD heads in every
+  layer; the MoE grok-1-314b and arctic-480b; ...).  The backbone is the
   reference's reduced config unless ``--full-width`` asks for the published
-  one::
+  one (on the card: the f32 trunk and its bf16 copy, 6 bytes a parameter,
+  must fit)::
 
     python -m repro_torch.launch.serve --session --bank cascade --device cpu
     python -m repro_torch.launch.serve --session --bank cascade \\
-        --backbone mamba2-370m --device cpu
+        --backbone hymba-1.5b --device cpu
 
 The single and multi-tenant modes use the cascade bank; ``--backbone ""``
 drops its backbone level and ``--full-width`` builds it at the published
@@ -75,7 +78,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.archs import get_config
+from repro_torch.configs.archs import ARCHS, get_config
 from repro_torch.core.combine import auc_score, fit_combine_weights
 from repro_torch.core.decision_table import learn_decision_table
 from repro_torch.core.durability import SessionCheckpointer, restore_session_checkpoint
@@ -910,9 +913,8 @@ def main(argv=None) -> int:
                     help="session enrichment bank: 'simulated' (precomputed AUC-calibrated "
                          "outputs, ingest-capable) or 'cascade' (real model-cascade "
                          "forwards every epoch; fixed corpus, no ingest)")
-    ap.add_argument("--backbone", default="qwen3-1.7b",
-                    help="cascade backbone architecture: qwen3-1.7b or mamba2-370m ('' for "
-                         "probes only)")
+    ap.add_argument("--backbone", default="qwen3-1.7b", choices=sorted(ARCHS) + [""],
+                    help="cascade backbone architecture ('' for probes only)")
     ap.add_argument("--full-width", action="store_true",
                     help="cascade backbone at the published width (default: the "
                          "reference's reduced config)")

@@ -1,5 +1,6 @@
 """GQA attention with RoPE, qk-norm, logit softcap, causal / sliding-window
-/ non-causal masks and a KV cache (port of ``repro.models.attention``).
+/ non-causal (encoder, cross) masks and a KV cache (port of
+``repro.models.attention``).
 
 Score engines:
     dense   — materializes [.., Sq, Skv] scores (the reference's "dense");
@@ -9,7 +10,12 @@ Score engines:
               other call to ``kernels/flash_attention``.
 
 ``cfg.attn_impl``: "auto" (dense here: the reference's chunked engine for
-long sequences waits for the model-zoo slice) | "dense" | "kernel".
+long sequences waits for the training slice) | "dense" | "kernel".
+
+Cross-attention (``attn_apply(..., xk=enc_out)``, the encoder-decoder's
+decoder blocks) takes K and V from ``xk``, applies no RoPE on either side,
+reads and writes no cache and masks nothing: on the kernel route a
+non-causal flash call with ``kv_len=None`` (``Sq != Skv``), at decode too.
 
 The cache branch writes the new K/V rows into ``cache.k`` / ``cache.v`` at
 ``cache.length`` IN PLACE (``index_copy_`` at a device-side index: no host
@@ -36,6 +42,7 @@ class KVCache(NamedTuple):
 
 
 def attn_init(gen: torch.Generator, cfg) -> dict:
+    """Projections (and qk-norm weights); a cross-attention's are the same."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     params = {
         "wq": _dense_init(gen, (d, h, hd)),
@@ -95,7 +102,9 @@ def attention_engine(q, k, v, q_pos, kv_pos, *, causal, window, kv_len, cap, imp
                 q, k, v, kl, softcap=cap, window=None if window is None else window + 1)
         # The kernel derives positions itself: queries sit at the end of the
         # valid cache (q_base = kv_len - Sq), which is how attn_apply builds
-        # q_pos / kv_pos (contiguous aranges).
+        # q_pos / kv_pos (contiguous aranges).  Cross-attention (Sq != Skv,
+        # kv_len None) is neither causal nor windowed, so the offset the
+        # kernels derive there (Skv - Sq) bounds no key.
         return fa_ops.flash_attention(
             q, k, v, None if kv_len is None else kv_len.reshape(1).to(torch.int32),
             causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=True,
@@ -103,7 +112,7 @@ def attention_engine(q, k, v, q_pos, kv_pos, *, causal, window, kv_len, cap, imp
     if impl not in ("auto", "dense"):
         raise NotImplementedError(
             f"attention engine {impl!r}: the port runs 'dense' and 'kernel' (the "
-            "chunked engine waits for the model-zoo slice)"
+            "chunked engine waits for the training slice)"
         )
     return _dense_engine(q, k, v, q_pos, kv_pos, causal, window, kv_len, cap)
 
@@ -117,24 +126,29 @@ def attn_apply(
     cache: Optional[KVCache] = None,
     update_cache: bool = False,
     causal: bool = True,
+    xk: Optional[torch.Tensor] = None,  # cross-attention source [B, Skv, d]
 ):
-    """Self-attention -> (out [B, Sq, d], new_cache).  Projections run in x's
-    dtype; a weight already stored in that dtype is used as it is."""
+    """Self- or cross-attention -> (out [B, Sq, d], new_cache).  Projections
+    run in x's dtype; a weight already stored in that dtype is used as it is."""
     dt = x.dtype
     b, sq, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    is_cross = xk is not None
+    src = xk if is_cross else x
+    skv = src.shape[1]
     q = (x @ params["wq"].to(dt).reshape(d, h * hd)).reshape(b, sq, h, hd)
-    k = (x @ params["wk"].to(dt).reshape(d, kvh * hd)).reshape(b, sq, kvh, hd)
-    v = (x @ params["wv"].to(dt).reshape(d, kvh * hd)).reshape(b, sq, kvh, hd)
+    k = (src @ params["wk"].to(dt).reshape(d, kvh * hd)).reshape(b, skv, kvh, hd)
+    v = (src @ params["wv"].to(dt).reshape(d, kvh * hd)).reshape(b, skv, kvh, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"], cfg.rmsnorm_eps)
         k = rmsnorm(k, params["k_norm"], cfg.rmsnorm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if not is_cross:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window if mixer == "local" else None
-    kw = dict(causal=causal, window=window, cap=cfg.attn_logit_softcap, impl=cfg.attn_impl)
+    kw = dict(window=window, cap=cfg.attn_logit_softcap, impl=cfg.attn_impl)
     new_cache = cache
-    if cache is not None:
+    if cache is not None and not is_cross:
         if update_cache:
             rows = cache.length.to(torch.int64) + torch.arange(sq, device=x.device)
             cache.k.index_copy_(1, rows, k.to(cache.k.dtype))
@@ -143,10 +157,12 @@ def attn_apply(
         k_all, v_all = new_cache.k.to(dt), new_cache.v.to(dt)
         s_max = k_all.shape[1]
         kv_pos = torch.arange(s_max, device=x.device)[None, :].expand(b, s_max)
-        out = attention_engine(q, k_all, v_all, positions, kv_pos, kv_len=new_cache.length, **kw)
+        out = attention_engine(q, k_all, v_all, positions, kv_pos, causal=causal,
+                               kv_len=new_cache.length, **kw)
     else:
-        kv_pos = torch.arange(sq, device=x.device)[None, :].expand(b, sq)
-        out = attention_engine(q, k, v, positions, kv_pos, kv_len=None, **kw)
+        kv_pos = torch.arange(skv, device=x.device)[None, :].expand(b, skv)
+        out = attention_engine(q, k, v, positions, kv_pos, causal=causal and not is_cross,
+                               kv_len=None, **kw)
     out = out.reshape(b, sq, h * hd) @ params["wo"].to(dt).reshape(h * hd, d)
     return out, new_cache
 

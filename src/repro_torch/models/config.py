@@ -8,11 +8,13 @@ Layer mixers are a per-layer pattern cycled across depth:
     "mamba"   — Mamba-2 SSD mixer (attention-free)
     "hymba"   — parallel attention and Mamba-2 heads
 
-The port RUNS the attention mixers ("global", "local") with dense MLPs and
-the Mamba-2 mixer ("mamba", ``ssm=SSMConfig(...)``, ``mlp_type="none"``);
-``MoEConfig`` and ``EncoderConfig`` and the "hymba" mixer are carried as
-plain data so configurations and ``param_counts`` match the reference, and
-the layers refuse them (``check_supported``).
+MLPs: "swiglu" | "geglu" | "squared_relu" | "gelu" | "none" (mamba2 has
+no MLP), or a mixture of experts (``moe=MoEConfig(...)``, Arctic's with a
+dense residual MLP); ``encoder=EncoderConfig(...)`` adds an encoder tower
+and a cross-attention block to every decoder layer (seamless), and
+``frontend="vision"`` a projected image-embedding prefix (llava).  The port
+serves all of them; only the reference's chunked attention engine, a
+training-path engine, is refused (``check_supported``).
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ import torch
 # mixer), their plain twins on the CPU.  "auto" and "dense" run plain PyTorch
 # everywhere (the reference's dense attention engine and jnp SSD), the route
 # that head training differentiates through.  The reference's "chunked"
-# attention engine waits for the model-zoo slice.
+# attention engine waits for the training slice.
 ATTN_IMPLS = ("auto", "dense", "kernel")
+MIXERS = ("global", "local", "mamba", "hymba")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,10 +65,11 @@ class SSMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
-    """Encoder tower for enc-dec architectures (frontend is a stub)."""
+    """Encoder tower for enc-dec archs (seamless).  Frontend is a stub:
+    inputs are precomputed frame embeddings [B, S_enc, d_model]."""
 
     num_layers: int = 24
-    seq_len: int = 1024
+    seq_len: int = 1024  # default encoder length (audio frames)
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -109,20 +113,17 @@ class ModelConfig:
         return self.layer_pattern[i % len(self.layer_pattern)]
 
     def check_supported(self) -> None:
-        """Raise ``NotImplementedError`` for what this slice does not run."""
+        """Raise ``NotImplementedError`` for what the port does not run."""
         if self.attn_impl not in ATTN_IMPLS:
             raise NotImplementedError(
                 f"attn_impl={self.attn_impl!r}: the port runs {ATTN_IMPLS} (the "
-                "chunked engine waits for the model-zoo slice)"
+                "chunked engine waits for the training slice)"
             )
-        odd = sorted(set(self.layer_pattern) - {"global", "local", "mamba"})
+        odd = sorted(set(self.layer_pattern) - set(MIXERS))
         if odd:
-            raise NotImplementedError(f"mixers {odd} wait for the model-zoo slice")
-        if "mamba" in self.layer_pattern and self.ssm is None:
-            raise ValueError("the mamba mixer needs ssm=SSMConfig(...)")
-        for name in ("moe", "encoder"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(f"{name} layers wait for the model-zoo slice")
+            raise ValueError(f"unknown mixers {odd}; the zoo has {MIXERS}")
+        if {"mamba", "hymba"} & set(self.layer_pattern) and self.ssm is None:
+            raise ValueError("the mamba and hymba mixers need ssm=SSMConfig(...)")
 
     # ---- parameter counting (for the cascade's FLOP costs) ----
 

@@ -7,17 +7,40 @@ other numbers: tests carry weights across with ``repro_torch.interop``).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 
+# Where ``_dense_init`` hands the matrices it draws: unset, it returns them
+# as drawn; ``transformer.stack_init`` sets a sink (for the current thread or
+# task only) while it builds a stack in the serving dtype, so that each
+# matrix goes into its slot of a preallocated stack as soon as it is drawn.
+_SINK: contextvars.ContextVar = contextvars.ContextVar("matrix_sink", default=None)
+
+
+@contextlib.contextmanager
+def matrices_into(sink: Callable[[torch.Tensor], torch.Tensor]):
+    """Within the block, every ``_dense_init`` result goes through ``sink``
+    (which returns what the initialiser hands on)."""
+    token = _SINK.set(sink)
+    try:
+        yield
+    finally:
+        _SINK.reset(token)
+
+
 def _dense_init(gen: torch.Generator, shape, in_axis=0, dtype=torch.float32) -> torch.Tensor:
     fan_in = shape[in_axis] if isinstance(in_axis, int) else math.prod(shape[a] for a in in_axis)
     scale = 1.0 / math.sqrt(max(fan_in, 1))
-    return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+    # scaled in place: one f32 buffer per draw (an Arctic expert stack is 17.8 GB)
+    w = torch.randn(shape, generator=gen, device=gen.device).mul_(scale).to(dtype)
+    sink = _SINK.get()
+    return w if sink is None else sink(w)
 
 
 # ---------------------------------------------------------------- rmsnorm ---

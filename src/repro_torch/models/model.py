@@ -5,23 +5,33 @@
     decode_step(params, token, cache)   -> (logits, cache)       [serve decode]
 
 ``init_params`` gives the reference's parameter layout — ``embed``,
-``final_ln`` and the period-grouped ``layers`` stack — which the
-model-cascade bank also uses as its shared backbone trunk.  Batches are
-text only, ``{"tokens": [B, S] int}``; vision, audio and encoder inputs
-wait for the model-zoo slice, ``loss_fn`` for the training slice.
+``final_ln``, the period-grouped ``layers`` stack, and where the config asks
+for them an untied ``unembed``, an encoder's ``enc_layers`` / ``enc_ln``
+and a vision projector ``img_proj`` — which the model-cascade bank also uses
+as its shared backbone trunk.  Batches are dicts, as the reference's:
 
-``prefill`` and ``decode_step`` run on the device of their parameters.
-The cache's K/V rows and SSM state are written in place
-(``transformer.stack_apply``): a ``decode_step`` advances the cache it is
-given.  ``serving_params`` makes the copy of a parameter tree that serving
-reads, every matrix stored once in the activation dtype (bitwise what the
-per-call casts give), and ``random_model`` builds a model with random
-weights from a seed on the card (or, when asked, the CPU).
+    text    {"tokens": [B, S] int}
+    vision  + {"image_embeds": [B, n_img, d]} (anyres patch stub: projected
+              by ``img_proj`` and put before the tokens)
+    audio   + {"frames": [B, S_enc, d]} (the encoder's input: non-causal,
+              no cache; its output rides in the cache for decode)
+
+``loss_fn`` waits for the training slice.  ``prefill`` and ``decode_step``
+run on the device of their parameters.  The cache's K/V rows and SSM state
+are written in place (``transformer.stack_apply``): a ``decode_step``
+advances the cache it is given.  ``serving_params`` makes the copy of a
+parameter tree that serving reads, every matrix stored once in the
+activation dtype (bitwise what the per-call casts give), and
+``random_model`` builds that copy directly from a seed on the card (or,
+when asked, the CPU), one f32 matrix alive at a time, so a model whose f32
+tree does not fit beside it (nemotron-4-15b: 62.5 GB f32 + 31.3 GB bf16 on
+an 80 GB card) still builds.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -31,30 +41,64 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 
 
+def _encoder_config(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, layer_pattern=("global",), moe=None)
+
+
 class Model:
     def __init__(self, cfg: ModelConfig):
         cfg.check_supported()
-        if not cfg.tie_embeddings or cfg.frontend != "text":
-            raise NotImplementedError("untied embeddings and frontends wait for the model-zoo slice")
         self.cfg = cfg
 
-    def init_params(self, gen: torch.Generator) -> dict:
+    def init_params(self, gen: torch.Generator, dtype: Optional[torch.dtype] = None) -> dict:
+        """The f32 tree, or with ``dtype`` the serving tree
+        (``serving_params(init_params(gen), cfg)`` for ``dtype =
+        cfg.activation_dtype``: the same draws, cast as they are made)."""
         cfg = self.cfg
-        return {
-            "embed": nn.embedding_init(gen, cfg.vocab_size, cfg.d_model),
-            "final_ln": nn.rmsnorm_init(cfg.d_model, gen.device),
-            "layers": tf.stack_init(gen, cfg, cfg.num_layers),
-        }
+        dev = gen.device
+
+        def top(w):  # a top-level matrix, cast at once in the serving build
+            return w if dtype is None else w.to(dtype)
+
+        params = {"embed": top(nn.embedding_init(gen, cfg.vocab_size, cfg.d_model)),
+                  "final_ln": nn.rmsnorm_init(cfg.d_model, dev)}
+        is_encdec = cfg.encoder is not None
+        params["layers"] = tf.stack_init(gen, cfg, cfg.num_layers, cross=is_encdec, dtype=dtype)
+        if not cfg.tie_embeddings:
+            params["unembed"] = top(nn.embedding_init(gen, cfg.vocab_size, cfg.d_model))
+        if is_encdec:
+            params["enc_layers"] = tf.stack_init(gen, _encoder_config(cfg), cfg.encoder.num_layers,
+                                                 dtype=dtype)
+            params["enc_ln"] = nn.rmsnorm_init(cfg.d_model, dev)
+        if cfg.frontend == "vision":
+            # anyres tile projector stub: patch embeds arrive pre-projected; a
+            # single linear adapts them (LLaVA's mm_projector, simplified)
+            params["img_proj"] = top(nn._dense_init(gen, (cfg.d_model, cfg.d_model)))
+        return params
+
+    # ------------------------------------------------------------ encoder --
+
+    def _encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+        """frames [B, S_enc, d] -> the encoder output [B, S_enc, d] (non-causal)."""
+        cfg = self.cfg
+        b, s, _ = frames.shape
+        pos = torch.arange(s, device=frames.device)[None].expand(b, s)
+        x = frames.to(cfg.activation_dtype)
+        x, _ = tf.stack_apply(params["enc_layers"], _encoder_config(cfg), x, pos,
+                              cfg.encoder.num_layers, causal=False)
+        return nn.rmsnorm(x, params["enc_ln"], cfg.rmsnorm_eps)
 
     # ------------------------------------------------------------- embed ---
 
     def _embed_inputs(self, params: dict, batch: dict):
-        """-> (x [B, S, d], positions [B, S])."""
-        if set(batch) - {"tokens", "targets"}:
-            raise NotImplementedError(
-                f"inputs {sorted(set(batch) - {'tokens', 'targets'})} wait for the model-zoo slice")
+        """-> (x [B, S, d], positions [B, S]); a vision batch's image embeds
+        come first."""
         cfg = self.cfg
         x = nn.embed_tokens(params["embed"], batch["tokens"], cfg.activation_dtype)
+        if cfg.frontend == "vision" and "image_embeds" in batch:
+            img = batch["image_embeds"].to(cfg.activation_dtype)
+            img = img @ params["img_proj"].to(img.dtype)
+            x = torch.cat([img, x], dim=1)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         return x, positions
@@ -62,7 +106,8 @@ class Model:
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = nn.rmsnorm(x, params["final_ln"], cfg.rmsnorm_eps)
-        return nn.unembed(params["embed"], x, cfg.final_logit_softcap)
+        w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        return nn.unembed(w, x, cfg.final_logit_softcap)
 
     # -------------------------------------------------------------- serve --
 
@@ -70,11 +115,14 @@ class Model:
         """Run the prompt, materialize caches sized ``max_len`` ->
         (logits of the last position [B, 1, V] f32, cache)."""
         cfg = self.cfg
+        enc_out = None
+        if cfg.encoder is not None:
+            enc_out = self._encode(params, batch["frames"])
         x, positions = self._embed_inputs(params, batch)
         cache = tf.init_model_cache(cfg, x.shape[0], max_len, cfg.activation_dtype,
-                                    device=x.device)
+                                    device=x.device, enc_out=enc_out)
         x, cache = tf.stack_apply(params["layers"], cfg, x, positions, cfg.num_layers,
-                                  cache=cache, update_cache=True, causal=True)
+                                  cache=cache, update_cache=True, enc_out=enc_out, causal=True)
         return self._logits(params, x[:, -1:]), cache
 
     def decode_step(self, params: dict, token: torch.Tensor, cache: tf.ModelCache):
@@ -85,15 +133,19 @@ class Model:
         b = x.shape[0]
         positions = cache.length.to(torch.int64).reshape(1, 1).expand(b, 1)
         x, cache = tf.stack_apply(params["layers"], cfg, x, positions, cfg.num_layers,
-                                  cache=cache, update_cache=True, causal=True)
+                                  cache=cache, update_cache=True, enc_out=cache.enc_out,
+                                  causal=True)
         return self._logits(params, x), cache
 
 
-def teacher_forced(model: Model, params: dict, tokens: torch.Tensor, prompt: int, max_len: int):
-    """Prefill ``tokens[:, :prompt]``, then feed ``tokens[:, t]`` for each
-    ``t >= prompt`` as one decode step -> (logits after the prefill and after
-    each step, each [B, 1, V] f32; the cache)."""
-    logits, cache = model.prefill(params, {"tokens": tokens[:, :prompt]}, max_len)
+def teacher_forced(model: Model, params: dict, tokens: torch.Tensor, prompt: int, max_len: int,
+                   extra: Optional[dict] = None):
+    """Prefill ``tokens[:, :prompt]`` (with the batch's ``extra`` inputs:
+    image embeds, frames), then feed ``tokens[:, t]`` for each ``t >=
+    prompt`` as one decode step -> (logits after the prefill and after each
+    step, each [B, 1, V] f32; the cache)."""
+    logits, cache = model.prefill(params, {"tokens": tokens[:, :prompt], **(extra or {})},
+                                  max_len)
     out = [logits]
     for t in range(prompt, tokens.shape[1]):
         logits, cache = model.decode_step(params, tokens[:, t:t + 1], cache)
@@ -101,21 +153,29 @@ def teacher_forced(model: Model, params: dict, tokens: torch.Tensor, prompt: int
     return out, cache
 
 
+_TOP_MATRICES = ("embed", "unembed", "img_proj")
+
+
 def serving_params(params: dict, cfg: ModelConfig) -> dict:
-    """The tree serving reads: the embedding and the stack's matrices stored
-    in the activation dtype, norms and SSM vectors f32."""
+    """The tree serving reads: the embeddings, the projector and the stacks'
+    matrices stored in the activation dtype, norms and SSM vectors f32."""
     dt = cfg.activation_dtype
-    return dict(params, embed=params["embed"].to(dt),
-                layers=tf.cast_matrices(params["layers"], dt))
+    out = dict(params, layers=tf.cast_matrices(params["layers"], dt))
+    out.update({k: params[k].to(dt) for k in _TOP_MATRICES if k in params})
+    if "enc_layers" in params:
+        out["enc_layers"] = tf.cast_matrices(params["enc_layers"], dt)
+    return out
 
 
 def random_model(cfg: ModelConfig, seed: int = 0, device=None):
     """A model with random weights from ``seed`` on ``device`` (None means
     the card; no GPU raises unless ``device="cpu"``) -> (Model, serving
-    params).  Its attention and SSD run the kernel route: the hand-written
-    kernels on the card, their plain twins on the CPU."""
+    params), bitwise ``serving_params(init_params(gen), cfg)`` for the same
+    seed, built without the f32 tree.  Its attention and SSD run the kernel
+    route: the hand-written kernels on the card, their plain twins on the
+    CPU."""
     dev = resolve_device(device)
     cfg = dataclasses.replace(cfg, attn_impl="kernel")
     model = Model(cfg)
-    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
-    return model, serving_params(params, cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return model, model.init_params(gen, dtype=cfg.activation_dtype)

@@ -7,39 +7,60 @@ period``).  ``stack_apply`` walks the groups in a Python loop — the
 reference's ``lax.scan`` — and applies one full pattern period per group.
 Remat only matters under grad, so the serving stack has none.
 
+A block is a mixer — attention ("global", "local"), the Mamba-2 SSM
+("mamba") or both in parallel on the same normed input, mean-fused
+("hymba") — then, in an encoder-decoder's decoder, cross-attention over the
+encoder output, then an MLP or a mixture of experts (with Arctic's dense
+residual MLP beside it).  The reference's caveats are kept: a hymba layer
+calls its attention as "global", so its ``sliding_window`` is never
+applied; blocks run their cross-attention only when given ``enc_out`` (the
+cascade trunk gives none); the MoE aux losses are dropped here (serving
+reads none; ``moe.moe_apply`` returns them).
+
 Caches: ``ModelCache`` carries, per pattern position, group-stacked KV and/or
-SSM state tensors plus one length counter (an int32 tensor on the device, so
-a decode step reads nothing back to the host).  ``stack_apply(cache=...,
-update_cache=True)`` writes each layer's new K/V rows and SSM state INTO the
-stacks in place (the reference returns updated copies; its scan carries
-them for the same reason, to avoid double-buffering the cache) and returns
-a ``ModelCache`` over the same tensors with the new length.
+SSM state tensors, one length counter (an int32 tensor on the device, so a
+decode step reads nothing back to the host) and an encoder-decoder's
+encoder output.  ``stack_apply(cache=..., update_cache=True)`` writes each
+layer's new K/V rows and SSM state INTO the stacks in place (the reference
+returns updated copies; its scan carries them for the same reason, to avoid
+double-buffering the cache) and returns a ``ModelCache`` over the same
+tensors with the new length.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Optional
 
 import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as nn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 
-ATTN_MIXERS = ("global", "local")
+ATTN_MIXERS = ("global", "local", "hymba")
+SSM_MIXERS = ("mamba", "hymba")
 
 
-def block_init(gen: torch.Generator, cfg: ModelConfig, mixer: str) -> dict:
+def block_init(gen: torch.Generator, cfg: ModelConfig, mixer: str, cross: bool = False) -> dict:
     cfg.check_supported()
-    params = {"ln1": nn.rmsnorm_init(cfg.d_model, gen.device),
-              "ln2": nn.rmsnorm_init(cfg.d_model, gen.device)}
+    dev = gen.device
+    params = {"ln1": nn.rmsnorm_init(cfg.d_model, dev), "ln2": nn.rmsnorm_init(cfg.d_model, dev)}
     if mixer in ATTN_MIXERS:
         params["attn"] = attn_lib.attn_init(gen, cfg)
-    if mixer == "mamba":
+    if mixer in SSM_MIXERS:
         params["ssm"] = ssm_lib.ssm_init(gen, cfg)
-    if cfg.mlp_type != "none" and cfg.d_ff > 0:
+    if cross:
+        params["ln_cross"] = nn.rmsnorm_init(cfg.d_model, dev)
+        params["cross"] = attn_lib.attn_init(gen, cfg)
+    if cfg.moe is not None:
+        params["moe"] = moe_lib.moe_init(gen, cfg)
+        if cfg.moe.dense_residual:
+            params["mlp"] = nn.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type)
+    elif cfg.mlp_type != "none" and cfg.d_ff > 0:
         params["mlp"] = nn.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type)
     return params
 
@@ -47,30 +68,39 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, mixer: str) -> dict:
 def block_apply(params: dict, cfg: ModelConfig, mixer: str, x: torch.Tensor,
                 positions: torch.Tensor, kv_cache: Optional[attn_lib.KVCache] = None,
                 ssm_cache: Optional[ssm_lib.SSMCache] = None, update_cache: bool = False,
-                causal: bool = True):
+                enc_out: Optional[torch.Tensor] = None, causal: bool = True):
     """-> (x, new_ssm_cache); attention writes its K/V rows into
     ``kv_cache`` in place."""
     h = nn.rmsnorm(x, params["ln1"], cfg.rmsnorm_eps)
     new_ssm = ssm_cache
+    parts = []
     if mixer in ATTN_MIXERS:
-        mix, _ = attn_lib.attn_apply(
+        a, _ = attn_lib.attn_apply(
             params["attn"], cfg, h, positions, "local" if mixer == "local" else "global",
             cache=kv_cache, update_cache=update_cache, causal=causal,
         )
-    else:
-        mix, new_ssm = ssm_lib.ssm_apply(params["ssm"], cfg, h, cache=ssm_cache,
-                                         update_cache=update_cache)
+        parts.append(a)
+    if mixer in SSM_MIXERS:
+        s, new_ssm = ssm_lib.ssm_apply(params["ssm"], cfg, h, cache=ssm_cache,
+                                       update_cache=update_cache)
+        parts.append(s)
+    mix = parts[0] if len(parts) == 1 else (parts[0] + parts[1]) / len(parts)  # Hymba: mean
     x = x + mix
-    if "mlp" in params:
-        x = x + nn.mlp_apply(params["mlp"], nn.rmsnorm(x, params["ln2"], cfg.rmsnorm_eps),
-                             cfg.mlp_type)
+
+    if enc_out is not None and "cross" in params:
+        hc = nn.rmsnorm(x, params["ln_cross"], cfg.rmsnorm_eps)
+        c, _ = attn_lib.attn_apply(params["cross"], cfg, hc, positions, "global", xk=enc_out)
+        x = x + c
+
+    h2 = nn.rmsnorm(x, params["ln2"], cfg.rmsnorm_eps)
+    if "moe" in params:
+        ff, _ = moe_lib.moe_apply(params["moe"], cfg, h2)
+        if "mlp" in params:  # Arctic's dense residual
+            ff = ff + nn.mlp_apply(params["mlp"], h2, cfg.mlp_type)
+        x = x + ff
+    elif "mlp" in params:
+        x = x + nn.mlp_apply(params["mlp"], h2, cfg.mlp_type)
     return x, new_ssm
-
-
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
 
 
 def _slice(tree, g: int):
@@ -88,25 +118,68 @@ class ModelCache:
     ssm_conv: tuple  # per position: [G, B, W-1, C] or None
     ssm_h: tuple  # per position: [G, B, H, P, N] or None
     length: torch.Tensor  # [] int32, on the cache's device
+    enc_out: Optional[torch.Tensor] = None  # [B, S_enc, d] (enc-dec only)
 
 
-def stack_init(gen: torch.Generator, cfg: ModelConfig, num_layers: int) -> tuple:
+def _stack_drawn(make_block, groups: int, dtype: torch.dtype):
+    """``groups`` blocks from ``make_block`` stacked: every drawn matrix
+    written in ``dtype`` into its slot of a stack allocated at its first
+    draw (one f32 matrix alive at a time: ``cast_matrices`` of the f32
+    stack, bitwise), the rest (norms, SSM vectors) stacked f32."""
+    stacks, slot = [], {}  # the drawn matrices' stacks in draw order; id(group 0 view) -> index
+
+    def sink_of(g: int):
+        count = itertools.count()
+
+        def sink(w):
+            j = next(count)
+            if g == 0:
+                stacks.append(torch.empty((groups,) + tuple(w.shape), dtype=dtype,
+                                          device=w.device))
+            stacks[j][g].copy_(w)
+            view = stacks[j][g]
+            if g == 0:
+                slot[id(view)] = j
+            return view
+
+        return sink
+
+    blocks = []
+    for g in range(groups):
+        with nn.matrices_into(sink_of(g)):
+            blocks.append(make_block())
+    return _stack(blocks, stacks, slot)
+
+
+def _stack(trees: list, stacks: list, slot: dict):
+    """The groups' trees leaf by leaf: a drawn leaf is its stack, the others
+    are stacked.  (A module function: a nested recursive closure would hold
+    the stacks in a reference cycle until the cycle collector ran.)"""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees], stacks, slot) for k in trees[0]}
+    j = slot.get(id(trees[0]))
+    return torch.stack(trees) if j is None else stacks[j]
+
+
+def stack_init(gen: torch.Generator, cfg: ModelConfig, num_layers: int, cross: bool = False,
+               dtype: Optional[torch.dtype] = None) -> tuple:
     """Period-grouped stacked params: a tuple over pattern positions of dicts
-    whose leaves carry a leading [G] group axis."""
+    whose leaves carry a leading [G] group axis, f32; with ``dtype`` the
+    serving copy (``cast_matrices(stack_init(...), dtype)``) from the same
+    draws, without the f32 stack."""
     period = len(cfg.layer_pattern)
     if num_layers % period:
         raise ValueError(f"{num_layers} layers do not cycle pattern {cfg.layer_pattern}")
     groups = num_layers // period
-    return tuple(
-        _stack([block_init(gen, cfg, cfg.layer_pattern[pos]) for _ in range(groups)])
-        for pos in range(period)
-    )
+    dtype = torch.float32 if dtype is None else dtype
+    return tuple(_stack_drawn(lambda: block_init(gen, cfg, mixer, cross), groups, dtype)
+                 for mixer in cfg.layer_pattern)
 
 
 def stack_apply(stacked_params: tuple, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, num_layers: int,
                 cache: Optional[ModelCache] = None, update_cache: bool = False,
-                causal: bool = True):
+                enc_out: Optional[torch.Tensor] = None, causal: bool = True):
     """Apply the period-grouped stack -> (x [B, S, d], new_cache or None)."""
     cfg.check_supported()
     period = len(cfg.layer_pattern)
@@ -119,7 +192,7 @@ def stack_apply(stacked_params: tuple, cfg: ModelConfig, x: torch.Tensor,
                 ssm_c = ssm_lib.SSMCache(cache.ssm_conv[pos][g], cache.ssm_h[pos][g])
             x, nssm = block_apply(_slice(stacked_params[pos], g), cfg, cfg.layer_pattern[pos],
                                   x, positions, kv_cache=kv_c, ssm_cache=ssm_c,
-                                  update_cache=update_cache, causal=causal)
+                                  update_cache=update_cache, enc_out=enc_out, causal=causal)
             if ssm_c is not None and update_cache:
                 cache.ssm_conv[pos][g].copy_(nssm.conv)
                 cache.ssm_h[pos][g].copy_(nssm.h)
@@ -130,7 +203,9 @@ def stack_apply(stacked_params: tuple, cfg: ModelConfig, x: torch.Tensor,
 
 
 def init_model_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                     device=None) -> ModelCache:
+                     device=None, enc_out: Optional[torch.Tensor] = None) -> ModelCache:
+    """Zeroed caches: K / V for every attention position (hymba's too), the
+    conv tail and f32 state for every SSM position (hymba's too)."""
     period = len(cfg.layer_pattern)
     groups = cfg.num_layers // period
     kv_k, kv_v, ssm_conv, ssm_h = [], [], [], []
@@ -144,7 +219,7 @@ def init_model_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
         else:
             kv_k.append(None)
             kv_v.append(None)
-        if mixer == "mamba":
+        if mixer in SSM_MIXERS:
             di, nh = s.d_inner(cfg.d_model), s.num_heads(cfg.d_model)
             ssm_conv.append(torch.zeros((groups, batch, s.conv_width - 1, di + 2 * s.state_dim),
                                         dtype=dtype, device=device))
@@ -155,11 +230,12 @@ def init_model_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
             ssm_h.append(None)
     return ModelCache(kv_k=tuple(kv_k), kv_v=tuple(kv_v), ssm_conv=tuple(ssm_conv),
                       ssm_h=tuple(ssm_h),
-                      length=torch.zeros((), dtype=torch.int32, device=device))
+                      length=torch.zeros((), dtype=torch.int32, device=device), enc_out=enc_out)
 
 
 def cast_matrices(stacked_params: tuple, dtype: torch.dtype) -> tuple:
-    """A copy of the stack with every matrix in ``dtype`` (projections, and
+    """A copy of the stack with every matrix in ``dtype`` (projections, the
+    MoE's router and expert stacks, which the reference casts at use, and
     the SSM's depthwise ``conv_w``, which the mixer casts to the activation
     dtype itself) and the per-channel vectors left f32 (norm weights, the
     SSM's ``A_log``, ``D``, ``dt_bias``, ``norm_w``, ``conv_b``) — bitwise

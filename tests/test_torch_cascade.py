@@ -110,6 +110,28 @@ def test_backbone_bank_execute_matches_jax(dtype):
     assert fa_ops.PLAIN_CALLS["flash_attention"] == 0 and bank.bank_syncs == 2
 
 
+ZOO_TRUNKS = ["grok-1-314b", "arctic-480b", "gemma2-9b", "nemotron-4-15b", "h2o-danube-1.8b",
+              "seamless-m4t-large-v2", "hymba-1.5b", "llava-next-mistral-7b"]
+
+
+@pytest.mark.parametrize("arch", ZOO_TRUNKS)
+def test_backbone_bank_over_every_zoo_trunk_matches_jax(arch):
+    """A backbone level over each of the model zoo's other trunks (f32
+    smoke): the bank carried across (``cascade_bank_from_numpy`` holds its
+    FLOP cost, 2 x active parameters x 8 tokens, to the reference's) gives
+    the reference's probabilities.  The trunk passes no encoder output, so a
+    seamless trunk skips its cross blocks; the MoE aux is dropped."""
+    jbank = _backbone_jbank("float32", arch=arch)
+    jplan = _random_plan(jbank, m=24, seed=1)
+    bank, plan = _port_bank(jbank), _port_plan(jplan)
+    level = bank.cascades[0][2]
+    cfg = get_config(arch, smoke=True)
+    assert level.flops_per_object == 2.0 * cfg.param_counts()["active"] * cascade.N_BACKBONE_TOKENS
+    assert level.flops_per_object == float(jbank.cascades[0][2].flops_per_object)
+    np.testing.assert_allclose(bank.execute(plan).numpy(), np.asarray(jbank.execute(jplan)),
+                               atol=PROB_ATOL["float32"], rtol=0)
+
+
 def test_bank_to_another_dtype_runs_the_same_weights():
     """``ModelCascadeBank.to(device, dtype=)``: a bf16 bank's trunk run in f32
     is the reference's f32 bank of the same seed (its weights do not depend

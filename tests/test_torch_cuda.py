@@ -30,7 +30,13 @@ within 2e-5 (f32 sums in another order), dead splits and an empty cache
 included, and the fused decode kernel within 2e-5 of its twin in f32 and
 2e-2 of the oracle in bf16; the reduced f32 qwen3 and mamba2 models
 prefill and decode on the card as on the CPU, and the reduced bf16 ones
-(head_dim 128, SSM chunk 256) through the bf16 routes.  Serving
+(head_dim 128, SSM chunk 256) through the bf16 routes.  The model zoo:
+the flash kernels at its non-causal encoder and cross-attention shapes, a
+group of 5 heads and head dims 80 / 256 ("simt"), the fused decode at its
+groups and head dims, hymba's SSD at state 16; its reduced bf16 gemma2,
+h2o-danube, hymba and seamless CPU vs card through those routes; the MoE
+smoke models in f32 with the router's choices equal CPU vs card, and the
+MoE's top-k keeping ties in index order on the card.  Serving
 robustness: a session pipeline's event staging makes no host sync under
 ``set_sync_debug_mode("error")`` and ends bitwise equal to lockstep; a
 pinned, double-buffered ``IngestStream`` feed of eight micro-batches on a
@@ -54,6 +60,7 @@ from repro_torch.core.state import EnrichmentState
 from repro_torch.data.synthetic import make_corpus
 from repro_torch.kernels.enrich_score import ops, ref
 from repro_torch.kernels.enrich_score.kernel import SMEM_LIMIT
+from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -329,6 +336,10 @@ FA_TC_CASES = [
     (2, 200, 150, 4, 4, 128, False, None, 50.0, None, False),  # Sq > Skv, softcap
     (3, 384, 384, 16, 4, 128, False, None, None, None, False),  # 144 blocks: the grid wraps
     (2, 512, 512, 8, 4, 128, True, None, None, None, False),  # 64 causal blocks, 4 tiles
+    (1, 200, 232, 48, 8, 128, True, None, None, 200, True),  # G 6 (nemotron, grok-1)
+    (1, 200, 232, 56, 8, 128, True, None, None, 200, True),  # G 7 (arctic)
+    (1, 328, 360, 32, 8, 128, True, None, None, 328, True),  # G 4, a 72-row tail (llava)
+    (1, 200, 232, 16, 16, 64, True, None, None, 200, True),  # G 1, causal (seamless)
 ]
 
 
@@ -498,6 +509,8 @@ SSD_CASES = [
     (3, 64, 2, 16, 16, 16, torch.bfloat16, True),  # the smoke config: a part-filled block
     (1, 12, 5, 8, 8, 4, torch.float32, True),  # 16 heads a block, 5 of them live
     (2, 64, 3, 32, 24, 32, torch.float32, True),
+    (1, 512, 50, 64, 16, 256, torch.bfloat16, True),  # hymba's prefill: N 16 on "simt"
+    (16, 8, 50, 64, 16, 8, torch.bfloat16, False),  # hymba's cascade trunk: "packed"
 ]
 
 
@@ -643,6 +656,14 @@ FUSED_CASES = [
     (1, 999, 16, 2, 64, 999, None, 30.0, 7),  # GQA 8, a full cache, 7 splits
     (3, 333, 4, 2, 128, 300, 100, None, 3),
     (2, 96, 4, 2, 256, 90, None, None, 4),  # D 256
+    (1, 600, 32, 8, 80, 580, 257, None, 8),  # h2o-danube: G 4, D 80 (64 values a thread)
+    (1, 600, 16, 8, 256, 580, 257, 50.0, 8),  # gemma2: G 2, D 256, window + softcap
+    (1, 700, 25, 5, 64, 650, None, None, 8),  # hymba: G 5
+    (1, 300, 56, 8, 128, 280, None, None, 4),  # arctic: G 7
+    (1, 300, 48, 8, 128, 280, None, None, 4),  # nemotron, grok-1: G 6
+    (1, 300, 32, 8, 128, 280, None, None, 4),  # llava: G 4, D 128
+    (1, 300, 16, 16, 64, 280, None, None, 4),  # seamless's self-attention: G 1
+    (1, 600, 16, 8, 256, 580, None, 50.0, 8),  # gemma2's global layers: softcap, no window
 ]
 
 
@@ -652,12 +673,20 @@ FUSED_CASES = [
 def test_fused_decode_kernel_matches_its_twin(cuda_device, case, dtype):
     """One launch, no PyTorch combine: within 2e-5 of the twin in f32 (the
     same splits, f32 sums in another order) and within the flash kernel's
-    bf16 tolerance 2e-2 of the oracle in bf16 (the output rounds to bf16)."""
+    bf16 tolerance 2e-2 of the oracle in bf16 (the output rounds to bf16).
+    A group the simt form cannot hold (f32 at G 6 / 7, D 128: the models
+    serve these in bf16, on the tc form) is refused, launching nothing."""
     b, skv, h, kv, d, kv_len, window, cap, ns = case
     q, k, v = _fa_inputs(cuda_device, dtype, skv + d + ns, b, 1, skv, h, kv, d)
     kl = torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
     kw = dict(softcap=cap, window=window)
     before = dict(da_ops.LAUNCHES)
+    if not da_kernel.supports_fused(h // kv, d, dtype):
+        assert dtype == torch.float32 and h // kv * d > 512
+        with pytest.raises(ValueError, match="G \\* D <= 512"):
+            da_ops.decode_attention(q, k, v, kl, num_splits=ns, **kw)
+        assert da_ops.LAUNCHES == before
+        return
     out = da_ops.decode_attention(q, k, v, kl, num_splits=ns, **kw)
     torch.cuda.synchronize()
     assert da_ops.LAUNCHES == {**before, "decode_attention_fused":
@@ -778,6 +807,140 @@ def test_cuda_bf16_models_route_the_bf16_kernels(cuda_device, arch):
     bf16_err = max((c - r).abs().max().item() for c, r in zip(cpu, ref))
     err = max((g.cpu() - c).abs().max().item() for g, c in zip(gpu, cpu))
     assert err <= 2.0 * bf16_err, (err, bf16_err)
+
+
+# the model zoo's non-causal and odd-group attention: b, sq, skv, h, kv, d,
+# causal, window, softcap, kv_len (bf16; the route as kernel.route picks it)
+ZOO_FA_CASES = [
+    (1, 256, 256, 16, 16, 64, False, None, None, None),  # seamless's encoder (tc)
+    (2, 96, 200, 4, 4, 64, False, None, None, None),  # cross-attention prefill (tc)
+    (2, 1, 200, 4, 4, 64, False, None, None, None),  # cross-attention decode (short)
+    (64, 8, 8, 25, 5, 64, False, None, None, None),  # hymba's cascade trunk, G 5 (short)
+    (1, 200, 232, 25, 5, 64, True, None, None, 200),  # hymba's prefill, G 5 (tc)
+    (1, 300, 320, 32, 8, 80, True, 128, None, 300),  # h2o-danube, D 80 (simt)
+    (1, 300, 320, 16, 8, 256, True, 128, 50.0, 300),  # gemma2's local layers, D 256 (simt)
+    (1, 300, 320, 16, 8, 256, True, None, 50.0, 300),  # gemma2's global layers (simt)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ZOO_FA_CASES)
+def test_flash_zoo_shapes_match_plain_twin(cuda_device, case):
+    """Cross-attention (Sq != Skv, no kv_len, non-causal: the offset the
+    kernels derive bounds no key), a group of 5 heads, and the head dims the
+    tensor-core kernels do not take, within the bf16 tolerance of the twin."""
+    b, sq, skv, h, kv, d, causal, window, cap, kv_len = case
+    q, k, v = _fa_inputs(cuda_device, torch.bfloat16, sq + skv + d, b, sq, skv, h, kv, d)
+    kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32,
+                                                  device=cuda_device)
+    kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=True)
+    route = fa_kernel.route(torch.bfloat16, sq, d)
+    assert route == ("simt" if d not in (64, 128) else "tc" if sq >= 64 else "short")
+    before = dict(fa_ops.ROUTES)
+    out = fa_ops.flash_attention(q, k, v, kl, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.ROUTES == {**before, route: before[route] + 1}
+    want = fa_ops.plain_bshd(q, k, v, kl, **kw)
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def _teacher_forced_pair(cuda_device, cfg, prompt, steps, seed):
+    """The same weights and tokens through the CPU (plain twins) and the card
+    (kernels), teacher-forced -> (cpu logits, card logits, the card's cache)."""
+    from repro_torch.enrich.cascade import map_tree
+    from repro_torch.models.model import random_model, teacher_forced
+
+    model, params = random_model(cfg, seed=seed, device="cpu")
+    rng = np.random.default_rng(seed + 1)
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, prompt + steps)))
+    extra = {}
+    if cfg.encoder is not None:
+        extra["frames"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32))
+    max_len = prompt + steps + 8
+    cpu, _ = teacher_forced(model, params, seq, prompt, max_len, extra)
+    for counts in (fa_ops, da_ops, ssd_ops):
+        counts.reset_counts()
+    gpu, cache = teacher_forced(model, map_tree(lambda t: t.to(cuda_device), params),
+                                seq.to(cuda_device), prompt, max_len,
+                                {k: v.to(cuda_device) for k, v in extra.items()})
+    torch.cuda.synchronize()
+    assert not any({**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}.values())
+    return cpu, [g.cpu() for g in gpu], cache, (model, params, seq, max_len, extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-9b", "h2o-danube-1.8b", "hymba-1.5b",
+                                  "seamless-m4t-large-v2"])
+def test_cuda_zoo_bf16_models_route_the_kernels(cuda_device, arch):
+    """The zoo's reduced bf16 configs (``bf16_check``: head_dim 256 with both
+    softcaps, head_dim 80, GQA 5 beside SSD heads of state 16, an encoder
+    with cross-attention) CPU vs card, the routes asserted; the card within
+    2x the bf16 CPU run's own distance from an f32 run of the same weights."""
+    import dataclasses
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.enrich.cascade import map_tree
+    from repro_torch.models.model import Model, teacher_forced
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prompt, steps = (512 if arch == "hymba-1.5b" else 96), 4
+    cfg = get_config(arch, bf16_check=True)
+    cpu, gpu, cache, (model, params, seq, max_len, extra) = _teacher_forced_pair(
+        cuda_device, cfg, prompt, steps, seed=5)
+    n = cfg.num_layers
+    simt = cfg.head_dim not in (64, 128)
+    if arch == "seamless-m4t-large-v2":  # encoder + self + cross tc; a short cross a step
+        assert fa_ops.ROUTES == {"tc": 3 * n, "short": n * steps, "simt": 0}, fa_ops.ROUTES
+    else:
+        assert fa_ops.ROUTES == {"tc": 0 if simt else n, "short": 0, "simt": n if simt else 0}
+    assert da_ops.LAUNCHES == {"decode_attention_partials": 0,
+                               "decode_attention_fused": n * steps}, da_ops.LAUNCHES
+    assert ssd_ops.ROUTES == {"tc": 0, "simt": n if arch == "hymba-1.5b" else 0, "packed": 0}
+    assert int(cache.length) == prompt + steps
+    f32 = Model(dataclasses.replace(model.cfg, dtype="float32"))
+    ref, _ = teacher_forced(f32, map_tree(lambda t: t.float(), params), seq, prompt, max_len,
+                            extra)
+    bf16_err = max((c - r).abs().max().item() for c, r in zip(cpu, ref))
+    err = max((g - c).abs().max().item() for g, c in zip(gpu, cpu))
+    assert err <= 2.0 * bf16_err, (err, bf16_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "arctic-480b"])
+def test_cuda_moe_models_route_equally_in_f32(cuda_device, arch):
+    """The MoE smoke models in f32, CPU vs card: the router's choices (the
+    stable top-k) equal on every layer and step, the logits within 2e-4."""
+    import dataclasses
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models.moe import recording_routes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    with recording_routes() as seen:
+        cpu, gpu, cache, _ = _teacher_forced_pair(cuda_device, cfg, 64, 4, seed=9)
+    half = len(seen) // 2
+    assert half == cfg.num_layers * 5
+    for a, c in zip(seen[:half], seen[half:]):
+        assert torch.equal(a, c)
+    assert max((g - c).abs().max().item() for g, c in zip(gpu, cpu)) <= 2e-4
+
+
+@pytest.mark.cuda
+def test_cuda_moe_top_k_keeps_index_order_on_ties(cuda_device):
+    """``torch.topk`` promises no order among equal values on the card; the
+    MoE's selection (a stable sort) gives the CPU's, ``jax.lax.top_k``'s,
+    order: ties to the lower index, over a mostly-zero gate matrix."""
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.choice(np.array([0.0, 0.0, 0.0, 0.5, 1.0], np.float32),
+                                    size=(4, 8, 4096)))
+    for k in (2, 8, 640):
+        vals, idx = moe._top_k(x.to(cuda_device), k)
+        want_vals, want_idx = moe._top_k(x, k)
+        assert torch.equal(vals.cpu(), want_vals) and torch.equal(idx.cpu(), want_idx)
 
 
 # ------------------------------------------------------- serving robustness --

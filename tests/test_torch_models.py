@@ -28,7 +28,7 @@ from repro.models import layers as j_layers
 from repro.models import transformer as j_tf
 from repro.models.model import Model as JModel
 from repro_torch import interop
-from repro_torch.configs.archs import get_config, mamba2_370m, qwen3_1_7b
+from repro_torch.configs.archs import ARCHS, get_config, mamba2_370m, qwen3_1_7b
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -138,18 +138,28 @@ def test_port_init_matches_the_reference_layout_and_scale():
 
 
 def test_unsupported_pieces_raise():
+    """Only the chunked engine (the training slice's) is refused; the mixers,
+    MoE and encoder that were refused before the model zoo now build."""
     with pytest.raises(NotImplementedError, match="chunked"):
         dataclasses.replace(qwen3_1_7b(), attn_impl="chunked").check_supported()
-    with pytest.raises(NotImplementedError, match="hymba"):
+    with pytest.raises(ValueError, match="ssm=SSMConfig"):
         dataclasses.replace(qwen3_1_7b(), layer_pattern=("hymba",)).check_supported()
-    moe = dataclasses.replace(qwen3_1_7b(), moe=MoEConfig(num_experts=4))
-    with pytest.raises(NotImplementedError, match="moe"):
-        Model(moe)
+    hymba = dataclasses.replace(get_config("qwen3-1.7b", smoke=True), layer_pattern=("hymba",),
+                                ssm=get_config("hymba-1.5b", smoke=True).ssm)
+    moe = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                              moe=MoEConfig(num_experts=4, d_ff_expert=32))
+    gen = torch.Generator().manual_seed(0)
+    for cfg in (hymba, moe, get_config("seamless-m4t-large-v2", smoke=True)):
+        cfg.check_supported()
+        params = Model(cfg).init_params(gen)
+        assert ("moe" in params["layers"][0]) == (cfg.moe is not None)
+        assert ("ssm" in params["layers"][0]) == (cfg.ssm is not None)
+        assert ("enc_layers" in params) == (cfg.encoder is not None)
     assert isinstance(moe, ModelConfig) and moe.param_counts()["total"] > 0
 
 
 def test_model_config_from_holds_no_reference_objects():
-    for arch in ("qwen3-1.7b", "mamba2-370m"):
+    for arch in sorted(ARCHS):
         for smoke in (False, True):
             j_cfg = j_get_config(arch, smoke=smoke)
             cfg = interop.model_config_from(j_cfg)
@@ -157,8 +167,9 @@ def test_model_config_from_holds_no_reference_objects():
             for f in dataclasses.fields(cfg):
                 value = getattr(cfg, f.name)
                 assert not type(value).__module__.startswith("repro."), (f.name, type(value))
-            if cfg.ssm is not None:
-                assert type(cfg.ssm).__module__ == "repro_torch.models.config"
+            for nested in (cfg.ssm, cfg.moe, cfg.encoder):
+                if nested is not None:
+                    assert type(nested).__module__ == "repro_torch.models.config"
     moe = interop.model_config_from(dataclasses.replace(
         j_get_config("qwen3-1.7b", smoke=True), moe=j_get_config("grok-1-314b", smoke=True).moe))
     assert type(moe.moe) is MoEConfig
@@ -260,7 +271,8 @@ def test_random_model_needs_a_gpu_unless_asked_for_the_cpu():
         pytest.skip("this checks the CPU-only machine's refusal")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         random_model(get_config("mamba2-370m", smoke=True))
-    with pytest.raises(NotImplementedError, match="model-zoo"):
-        model, params = random_model(get_config("qwen3-1.7b", smoke=True), device="cpu")
-        model.prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.long),
-                               "image_embeds": torch.zeros((1, 2, 64))}, 8)
+    # a text model takes a vision batch as the reference does: it reads the tokens only
+    model, params = random_model(get_config("qwen3-1.7b", smoke=True), device="cpu")
+    _, cache = model.prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.long),
+                                      "image_embeds": torch.zeros((1, 2, 64))}, 8)
+    assert int(cache.length) == 4
