@@ -30,20 +30,29 @@ in order; any failure raises and the script exits non-zero:
    "simt" kernel on the same inputs, uncounted) and the cascade's (512
    lanes x 8 tokens, with and without the final state: the "packed"
    route), every output within 1e-4 of its largest magnitude.  The flash
-   cases run its three kernels, as ``kernel.route`` picks them: for bf16 at
-   D 64 or 128 "tc" (wgmma + TMA, >= 64 query rows) and "short" (mma.sync,
-   fewer rows: the cascade's 8-token blocks), else "simt" (f32, other head
-   dims), each within its tolerance of the twin; the cascade shape, the
-   causal S 4096 case and the qwen3-1.7b prefill shape (B 8, Sq 2048 over a
-   4096-row cache, kv_len 2048) are timed beside SDPA over the live keys,
-   the bound and the kernels the route did not pick (where they take the
-   dtype and head dim; held against the twin too, and not counted: at the
-   cascade's shape the short kernel must be no slower than the simt kernel
-   it replaced); then every attention shape phase 7b gives the kernels
+   cases run its three kernels, as ``kernel.route`` picks them: for bf16
+   "tc" (wgmma + TMA, >= 64 query rows, D 64 / 80 / 128 / 256) and "short"
+   (mma.sync, fewer rows at D 64 / 128: the cascade's 8-token blocks), else
+   "simt" (f32, other head dims), each within its tolerance of the twin
+   (ragged tc tiles and rows with no live key at every tc head dim; at D
+   80 / 128 / 256 and gemma2's global shape also with q scaled so that the
+   scores reach the softcap, where the tc kernel without its cap must
+   differ from the twin beyond the tolerance, and a tc build with
+   libdevice's accurate tanhf, uncounted, prints its distance too); the
+   cascade shape, the causal S 4096 case and the qwen3-1.7b prefill shape
+   (B 8, Sq 2048 over a 4096-row cache, kv_len 2048) are timed beside SDPA
+   over the live keys, the bound and the kernels the route did not pick
+   (where they take the dtype and head dim; held against the twin too, and
+   not counted: at the cascade's shape the short kernel must be no slower
+   than the simt kernel it replaced); then every attention shape phase 7b
+   gives the kernels
    (``ZOO_FA``: seamless's non-causal encoder, cross-attention and G 1
    decoder, hymba's G 5 cascade trunk and prefill, the G 6 / 4 / 7 prefills
    of nemotron, llava and grok-1 / arctic, h2o-danube's D 80 and gemma2's
-   D 256 local and global layers on the simt kernel), every decode shape of
+   D 256 local and global layers on the tc kernel, each beside the simt
+   kernel on the same inputs, and gemma2's global layer, at both q scales,
+   beside the tc kernel without its softcap and with the accurate tanhf,
+   all uncounted), every decode shape of
    it (``ZOO_DA``: the fused simt form at G 4 D 80 and G 2 D 256, at its 64
    values a thread, in bf16 and f32; G 1 / 4 / 5 / 6 / 7 on the tc form)
    and hymba's SSD at N 16 (simt at its prefill, packed in its cascade
@@ -153,11 +162,12 @@ in order; any failure raises and the script exits non-zero:
    24) over 1,024 random frames + 512 tokens, and grok-1-314b and
    arctic-480b at full width with the depth cut to what one 80 GB card
    holds (4 of 64 and 2 of 35 layers) over 512 tokens: finite logits, every
-   launch on the route its head dim picks ("simt" at D 80 / 256), no plain
-   call; prefill ms (tokens/s), median step ms and peak memory;
+   launch on the route its head dim picks (every prefill "tc", D 80 / 256
+   included), no plain call; prefill ms (tokens/s), median step ms and peak
+   memory;
 8. one JSON line of per-kernel numbers, one entry per kernel: the flash
-   kernel's three routes as ``flash_attention`` (simt: on the zoo's main
-   paths at D 80 / 256; its numbers the cascade shape's, timed beside the
+   kernel's three routes as ``flash_attention`` (simt: on no main path, so
+   its launches are 0; its numbers the cascade shape's, timed beside the
    short kernel), ``flash_attention_tc`` and ``flash_attention_short`` (the
    first also carries the tc kernel's prefill-shape ``prefill_ms``,
    ``prefill_bound_ms``, ``prefill_library_ms`` and the main paths'
@@ -175,6 +185,7 @@ It imports nothing of JAX or of the reference package ``repro``.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -239,9 +250,9 @@ COUNTED = {
 }
 # listed with their launches but on no main path: the partials route keeps
 # the reference's signature (splits over the cache length) for callers of it,
-# while the model's decode runs the fused kernel.  (The simt flash kernel is
-# on the main paths: the zoo's head dims 80 and 256 take it.)
-OFF_PATH = {"decode_attention_partials"}
+# while the model's decode runs the fused kernel; the simt flash kernel takes
+# f32 and head dims no main path has (the zoo's 80 and 256 run "tc")
+OFF_PATH = {"decode_attention_partials", "flash_attention"}
 # the mamba2-370m prefill (B 2, S 4096, chunk 256) and the cascade backbone's
 # 512 lanes x 8 tokens; H 32, P 64, N 128, bf16 x / B / C.  The cascade runs
 # without a final state (its last chunk's state is neither computed nor
@@ -300,7 +311,8 @@ ZOO_STEPS = 16
 # relative, and the card and the CPU round at other places: two bf16 runs lie
 # about sqrt(2) times one run's error apart, and under 2x it)
 BF16_LOGIT_FACTOR = 2.0
-# b, sq, skv, h, kv, d, causal, window, softcap, dtype, kv_len, q_offset_from_kv_len
+# b, sq, skv, h, kv, d, causal, window, softcap, dtype, kv_len, q_offset_from_kv_len[,
+# q_scale]: q is drawn unit-normal times q_scale (1 when left out)
 BACKBONE_FA = (512, 8, 8, 16, 8, 128, False, None, None, "bfloat16", None, True)
 LONG_FA = (1, 4096, 4096, 16, 8, 128, True, None, None, "bfloat16", None, False)
 # phase 7's qwen3-1.7b prefill: 8 x 2048 queries at the end of 2048 valid rows of a 4096 cache
@@ -315,6 +327,14 @@ FA_CASES = [
     (1, 256, 256, 4, 2, 32, True, None, None, "bfloat16", None, False),
     (1, 64, 256, 4, 2, 32, True, None, None, "float32", 100, True),  # partial kv_len
     (2, 200, 333, 4, 2, 128, True, 100, 30.0, "bfloat16", 300, True),  # ragged "tc" tiles
+    (2, 200, 333, 4, 2, 80, True, 100, 30.0, "bfloat16", 300, True),  # D 80: padded tiles
+    (2, 200, 333, 4, 2, 256, True, 100, 30.0, "bfloat16", 300, True),  # D 256: 64-key tiles
+    (1, 200, 256, 2, 1, 80, True, None, None, "bfloat16", 100, True),  # rows 0-99: no key
+    (1, 200, 256, 2, 1, 256, True, None, None, "bfloat16", 100, True),
+    # scores about N(0, 12^2) against a cap of 30: the softcap binds (|s / cap| up to ~2)
+    (2, 200, 333, 4, 2, 128, True, 100, 30.0, "bfloat16", 300, True, 12.0),
+    (2, 200, 333, 4, 2, 80, True, 100, 30.0, "bfloat16", 300, True, 12.0),
+    (2, 200, 333, 4, 2, 256, True, 100, 30.0, "bfloat16", 300, True, 12.0),
     (2, 33, 128, 8, 2, 128, True, 24, 30.0, "bfloat16", 100, True),  # "short": G*Sq = 132
     (4, 8, 64, 4, 2, 64, True, 4, 20.0, "bfloat16", 6, True),  # "short", D 64, dead rows
     (3, 8, 300, 4, 4, 128, True, 100, None, "bfloat16", 250, True),  # "short", 7 key tiles
@@ -323,7 +343,8 @@ FA_CASES = [
 ]
 # the model zoo's attention at full width (phase 7b's shapes: a prefill's
 # queries at the end of its live rows of a cache 32 rows longer), each with
-# the layers it serves; D 80 and D 256 take the simt kernel
+# the layers it serves; D 80 and D 256 take the tc kernel, timed beside the
+# simt kernel on the same inputs
 ZOO_FA = {
     (1, 1024, 1024, 16, 16, 64, False, None, None, "bfloat16", None, True):
         "seamless encoder (non-causal, G 1)",
@@ -351,6 +372,9 @@ ZOO_FA = {
         "gemma2 global layers (D 256, softcap 50)",
 }
 FA_CASES += ZOO_FA
+# gemma2's global layer with scores about N(0, 16^2) against its cap of 50
+GEMMA2_GLOBAL_CAPPED = (1, 4608, 4640, 16, 8, 256, True, None, 50.0, "bfloat16", 4608, True, 16.0)
+FA_CASES.append(GEMMA2_GLOBAL_CAPPED)
 FA_TIMED = (BACKBONE_FA, FA_CASES[1], LONG_FA, PREFILL_FA, *ZOO_FA)
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the cascade bank with the reduced bf16 qwen3 trunk (bf16_check: head_dim
@@ -439,7 +463,8 @@ def phase_build():
 
     t0 = time.perf_counter()
     builds = (es_kernel.build, fa_kernel.build, fa_kernel.build_tc, fa_kernel.build_short,
-              da_kernel.build, da_kernel.build_fused, ssd_kernel.build, ssd_kernel.build_tc)
+              da_kernel.build, da_kernel.build_fused, ssd_kernel.build, ssd_kernel.build_tc,
+              functools.partial(fa_kernel.build_tc, tanhf=True))  # phase 2's softcap check
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, all at once
         built = [f.result() for f in [pool.submit(b) for b in builds]]
     for load in (es_kernel.library, fa_kernel.library, fa_kernel.library_tc,
@@ -832,6 +857,62 @@ def _flex_call(q, k, v, *, causal, window, cap, q_base):
                             enable_gqa=True)
 
 
+def _fa_other_call(q, k, v, kl, kw, kind, tanhf=False):
+    """A call of the ``kind`` flash kernel (with ``tanhf``, the tc kernel
+    built with the accurate tanh) that no count sees -> (call, its output)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel
+
+    out = torch.empty_like(q)
+
+    def call():
+        kernel.launch(q, k, v, kl, out, causal=kw["causal"], window=kw["window"],
+                      softcap=kw["logit_softcap"], q_offset_from_kv_len=kw["q_offset_from_kv_len"],
+                      kind=kind, tanhf=tanhf)
+
+    return call, out
+
+
+def _softcap_check(q, k, v, kl, want, kw, label, q_scale, tol, ms: bool) -> dict:
+    """The tc kernel's softcap on these inputs, uncounted: its distance from
+    the twin ``want`` (max abs) and from the twin in f32 (mean abs: below the
+    bf16 output's rounding) as built (tanh.approx.f32), built with tanhf, and
+    without the cap; with
+    ``ms``, each one's time.  Where q is scaled so that the scores reach the
+    cap, the kernel without it must differ from the twin beyond ``tol`` (else
+    the case cannot tell a right softcap from a missing one) -> a row for the
+    JSON line."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    want_f32 = ops.plain_bshd(q.float(), k.float(), v.float(), kl, **kw)
+    row = {"case": label, "q_scale": q_scale}
+    runs = [("approx", False, kw), ("tanhf", True, kw),
+            ("no_softcap", False, {**kw, "logit_softcap": None})]
+    for name, tanhf, kw_run in runs:
+        call, out = _fa_other_call(q, k, v, kl, kw_run, "tc", tanhf=tanhf)
+        call()
+        torch.cuda.synchronize()
+        row[f"{name}_err"] = (out.float() - want.float()).abs().max().item()
+        row[f"{name}_mean_err_f32"] = (out.float() - want_f32).abs().mean().item()
+        within = torch.allclose(out.float(), want.float(), rtol=tol, atol=tol)
+        row[f"{name}_within_tol"] = within
+        if ms:
+            row[f"{name}_ms"] = _time_ms(call)
+    print(f"[flash] {label} softcap {kw['logit_softcap']}: max abs diff from the twin "
+          + ", ".join(f"{n} {row[f'{n}_err']:.3g} (mean from f32 {row[f'{n}_mean_err_f32']:.4g}"
+                      + (f", {row[f'{n}_ms']:.4f} ms)" if ms else ")") for n, _, _ in runs)
+          + f" (tol {tol})", flush=True)
+    assert row["approx_within_tol"], row  # the shipped build, as the counted call
+    if q_scale > 1:
+        assert not row["no_softcap_within_tol"], (
+            f"{label}: the tc kernel without its softcap stays within {tol} of the twin, so "
+            f"the cap does not bind here: {row}")
+    return row
+
+
 def phase_flash() -> dict:
     """The three flash kernels against the plain twin -> {route: results}."""
     import torch
@@ -842,10 +923,10 @@ def phase_flash() -> dict:
     dev = torch.device("cuda")
     results = {r: {"max_abs_err": 0.0} for r in kernel.ROUTE_NAMES}
     for case in FA_CASES:
-        b, sq, skv, h, kv, d, causal, window, cap, dtype, kv_len, q_off = case
+        b, sq, skv, h, kv, d, causal, window, cap, dtype, kv_len, q_off, q_scale = (*case, 1.0)[:13]
         dt = getattr(torch, dtype)
         g = torch.Generator(device=dev).manual_seed(sq * 131 + d)
-        q = torch.randn((b, sq, h, d), generator=g, device=dev).to(dt)
+        q = (torch.randn((b, sq, h, d), generator=g, device=dev) * q_scale).to(dt)
         k = torch.randn((b, skv, kv, d), generator=g, device=dev).to(dt)
         v = torch.randn((b, skv, kv, d), generator=g, device=dev).to(dt)
         kl = None if kv_len is None else torch.full((1,), kv_len, dtype=torch.int32, device=dev)
@@ -870,7 +951,11 @@ def phase_flash() -> dict:
         result = results[route]
         result["max_abs_err"] = max(result["max_abs_err"], err)
         label = (f"B={b} Sq={sq} Skv={skv} H={h} KV={kv} D={d} causal={causal} {dtype} "
-                 f"kv_len={kv_len} ({route})")
+                 f"kv_len={kv_len} q_scale={q_scale} ({route})")
+        if route == "tc" and cap is not None:  # the softcap's tanh formula at these scores
+            result.setdefault("softcap", []).append(
+                _softcap_check(q, k, v, kl, want, kw, label, q_scale, FA_TOL[dtype], ms=(
+                    d == 256 and window is None and sq == GEMMA2_GLOBAL_CAPPED[1])))
         if case not in FA_TIMED:
             print(f"[flash] {label} window={window} softcap={cap}: "
                   f"max abs diff {err:.3g} (tol {tol})", flush=True)
@@ -905,32 +990,36 @@ def phase_flash() -> dict:
               f"{tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
               f"{bound_ms / ms:.1%} of bound", flush=True)
-        if case in ZOO_FA:  # the zoo's shapes: a row each beside the route's own
-            result.setdefault("shapes", []).append(dict(
-                row, case=label, serves=ZOO_FA[case], window=window, softcap=cap,
-                library=lib_name))
-            continue
-        # the kernels the route did not pick, on the same inputs (uncounted): why
-        # the route.  All three take bf16 at D 64 / 128; "simt" alone takes the rest.
-        others = [r for r in kernel.ROUTE_NAMES if r != route and route != "simt"]
-        for other in others:
-            out_other = torch.empty_like(q)
 
-            def other_call():
-                kernel.launch(q, k, v, kl, out_other, causal=causal, window=window,
-                              softcap=cap, q_offset_from_kv_len=q_off, kind=other)
-
+        def time_other(kind):
+            """The ``kind`` kernel on the same inputs (uncounted), held against
+            the twin and timed -> ms."""
+            other_call, out_other = _fa_other_call(q, k, v, kl, kw, kind)
             other_call()
             torch.cuda.synchronize()
             other_err = (out_other.float() - want.float()).abs().max().item()
             if not torch.allclose(out_other.float(), want.float(), rtol=tol, atol=tol):
-                raise AssertionError(f"flash_attention {case} ({other}): differs from the "
+                raise AssertionError(f"flash_attention {case} ({kind}): differs from the "
                                      f"plain twin beyond {tol} (max abs diff {other_err})")
-            results[other]["max_abs_err"] = max(results[other]["max_abs_err"], other_err)
+            results[kind]["max_abs_err"] = max(results[kind]["max_abs_err"], other_err)
             other_ms = _time_ms(other_call)
-            print(f"[flash] {label}: the {other} kernel on the same inputs {other_ms:.4f} ms "
-                  f"(max abs diff {other_err:.3g}), {bound_ms / other_ms:.1%} of bound",
+            print(f"[flash] {label}: the {kind} kernel on the same inputs {other_ms:.4f} "
+                  f"ms (max abs diff {other_err:.3g}), {bound_ms / other_ms:.1%} of bound",
                   flush=True)
+            return other_ms
+
+        if case in ZOO_FA:  # the zoo's shapes: a row each beside the route's own
+            shape = dict(row, case=label, serves=ZOO_FA[case], window=window, softcap=cap,
+                         library=lib_name)
+            if route == "tc" and d not in kernel.SHORT_HEAD_DIMS:  # D 80 / 256: the simt
+                shape["simt_ms"] = time_other("simt")  # kernel that took them before
+            result.setdefault("shapes", []).append(shape)
+            continue
+        # the kernels the route did not pick, on the same inputs (uncounted): why
+        # the route.  All three take bf16 at D 64 / 128; "simt" alone takes f32.
+        others = [r for r in kernel.ROUTE_NAMES if r != route and route != "simt"]
+        for other in others:
+            other_ms = time_other(other)
             if case == BACKBONE_FA and other == "simt":  # its numbers at the cascade's shape
                 results["simt"].update(row, ms=other_ms)
                 assert ms <= other_ms, (
@@ -1819,9 +1908,9 @@ def _zoo_expected(cfg, steps: int) -> dict:
                           "ssd_intra_chunk/packed"), 0)
     if cfg.layer_pattern == ("mamba",):  # SSD heads of state 128 alone: the tc route
         want["ssd_intra_chunk/tc"] = n  # (a decode step runs ssd_step: no kernel)
-    else:  # the prefill's flash route by head dim (80 / 256 take "simt"), then
+    else:  # the prefill on "tc" at every zoo head dim (64, 80, 128, 256), then
         # one fused decode launch a layer and step
-        flash = "flash_attention/tc" if cfg.head_dim in (64, 128) else "flash_attention/simt"
+        flash = "flash_attention/tc"
         want[flash] = n
         want["decode_attention_fused"] = n * steps
     if cfg.encoder is not None:  # the encoder's layers, then a cross-attention a layer
@@ -1839,7 +1928,7 @@ def phase_zoo_serve() -> dict:
     on the card, one f32 matrix at a time): each of ``ZOO_ARCHS`` prefills
     its prompt (after llava's 2,880 image embeds; over seamless's 1,024
     frames), then decodes 16 greedy steps, then frees its memory.  Finite
-    logits, the routes by head dim (D 80 / 256 on "simt"), the expected
+    logits, the routes (every prefill on "tc"), the expected
     launches and no plain call; prefill ms (tokens/s), median step ms and
     peak memory are printed."""
     import gc
@@ -2377,6 +2466,7 @@ def main() -> int:
         prefill_library_ms=results["flash_attention"]["prefill_library_ms"],
         routes={r: sum(run.get(f"flash_attention/{r}", 0) for run in runs)
                 for r in ("tc", "short", "simt")})
+    by_name["flash_attention_tc"]["softcap"] = results["flash_attention_tc"]["softcap"]
     by_name["ssd_intra_chunk"].update(
         prefill_simt_ms=results["ssd_intra_chunk"]["prefill_simt_ms"],
         prefill_bound_ms=results["ssd_intra_chunk"]["prefill_bound_ms"],

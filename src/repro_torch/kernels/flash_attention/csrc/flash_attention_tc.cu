@@ -3,9 +3,10 @@
 // Replaces the reference's Pallas TPU kernel
 // src/repro/kernels/flash_attention/kernel.py:flash_attention_bhsd (body
 // _attn_kernel) for bf16 operands with at least 64 query rows and a head dim
-// of 64 or 128 (``kernel.route`` in kernel.py); flash_attention.cu keeps f32,
-// short query blocks (the cascade's 8 tokens) and other head dims.  It
-// computes the same function as that kernel:
+// of 64, 80, 128 or 256 (``kernel.route`` in kernel.py); flash_attention.cu
+// keeps f32 and the other head dims, flash_attention_short.cu short query
+// blocks (the cascade's 8 tokens).  It computes the same function as that
+// kernel:
 //
 //   s      = (q . k) * scale            scale = 1/sqrt(D)
 //   s      = softcap * tanh(s / softcap)                  (optional)
@@ -27,7 +28,7 @@
 //   * One block per (b, q head, tile of 128 query rows): two consumer
 //     warpgroups of 64 rows each and one producer warp (288 threads, one
 //     block an SM).  ptxas budgets registers by whole warpgroups, so the
-//     block gets 168 a thread (65,536 / 384); the kernel uses all 168 and
+//     block gets 168 a thread (65,536 / 384); the kernel uses 135-168 and
 //     spills none, which leaves no room for a second score tile in flight.
 //     Blocks are issued longest causal key range first.
 //   * The producer's one thread loads the Q tile once and K / V tiles of 128
@@ -52,6 +53,37 @@
 //     weighted by 0, as in the TPU kernel and the plain twin.
 //   * m, l and O are f32; a row with no live key writes 0 (the TPU kernel's
 //     l == 0 rule).  Rounding P to bf16 before P V is what SDPA does too.
+//
+// The other two head dims (h2o-danube-1.8b: D 80; gemma2-9b: D 256):
+//
+//   * D 80 runs the D 128 design on a tile padded by the TMA unit.  The maps
+//     have an inner extent of 80 and keep 64-column boxes, so the second box
+//     reads columns 64-127 and the hardware fills 80-127 with zeros (the
+//     mbarriers expect the whole box, zeros included).  S = Q K^T takes only
+//     the 5 k-steps of the real columns; O += P V runs at N 128 and the 48
+//     zero columns are discarded; the epilogue stores columns < 80 with a row
+//     stride of 80.  That spends (80 + 128) / (80 + 80) = 1.3x the needed
+//     operations: at most 77% of the bound.  Shared memory is the D 128
+//     layout (160 KB).
+//   * D 256 does not fit the D 128 design (Q + 2 stages of 128-key K / V
+//     tiles are 320 KB of shared memory; O alone is 128 registers a thread).
+//     It takes FlashAttention-3's shape for this head dim: key tiles of 64
+//     (Q 64 KB + 2 x (32 + 32) KB = 192 KB), S = Q K^T as m64n64k16, O +=
+//     P V as two m64n128k16 halves, and a producer warpgroup (384 threads)
+//     that gives its registers to the consumers with setmaxnreg (40 for the
+//     producer, 232 for each consumer thread).  ptxas: 168 registers at
+//     entry, 0 spill bytes.
+//   * The softcap (gemma2's 50) runs tanh.approx.f32 at every head dim.
+//     chip_smoke.py phase 2 holds it, and a build with libdevice's tanhf,
+//     against the plain twin where q is scaled so that |s / cap| reaches ~2
+//     (there the kernel without its cap misses the twin by more than 1):
+//     both stay within 2e-2, their mean distances from an f32 twin within
+//     0.3% of each other.  On an H100 the cap takes about 27% of the gemma2
+//     global layer's time with the accurate tanhf, about 7% with the
+//     approximation.  The kernel is built with and without the cap
+//     (kSoftcap), so that a layer without it runs none of its code: with one
+//     build for both, the D 64 / 128 code moved with the cap's formula (the
+//     approximation cost the qwen3 prefill 1.7%).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -62,27 +94,37 @@
 namespace {
 
 constexpr int kBlockM = 128;        // query rows a block: two warpgroups of 64
-constexpr int kBlockN = 128;        // keys a K / V tile
+constexpr int kBlockN = 128;        // keys a K / V tile (64 at D 256)
 constexpr int kStages = 2;          // K / V ring depth
 constexpr int kConsumers = 256;     // two consumer warpgroups
-constexpr int kThreads = kConsumers + 32;  // + the producer warp
 constexpr int kSwizzleBytes = 128;  // one row of a TMA box: 64 bf16 columns
+constexpr int kProducerRegs = 40;   // setmaxnreg at D 256: 128 x 40 + 256 x 232 <= 65,536
+constexpr int kConsumerRegs = 232;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory of one block, as offsets from a 1024-byte aligned base.  A
-// tile of 128 rows x D is D / 64 "halves" of 128 rows x 128 bytes (one TMA
-// box each); 8 rows of a half form one 1024-byte swizzle atom.
+// The tiling of head dim D, and the block's shared memory as offsets from a
+// 1024-byte aligned base.  A tile of R rows x kDP columns is kDP / 64
+// "halves" of R rows x 128 bytes (one TMA box each); 8 rows of a half form
+// one 1024-byte swizzle atom.
 template <int D>
-struct Smem {
-  static constexpr int kHalfBytes = kBlockN * kSwizzleBytes;  // 16 KB
-  static constexpr int kTileBytes = kBlockN * D * 2;
+struct Tile {
+  static constexpr int kDP = D == 80 ? 128 : D;          // columns held (D 80: 48 zeros)
+  static constexpr int kBN = D == 256 ? 64 : kBlockN;    // keys a K / V tile
+  static constexpr int kProducers = D == 256 ? 128 : 32;  // a warpgroup (setmaxnreg), or a warp
+  static constexpr int kThreads = kConsumers + kProducers;
+  static constexpr int kAccN = kDP >= 128 ? 128 : 64;    // O columns of one wgmma
+  static constexpr int kAccParts = kDP / kAccN;
+  static constexpr int kQHalf = kBlockM * kSwizzleBytes;
+  static constexpr int kKVHalf = kBN * kSwizzleBytes;
+  static constexpr int kQBytes = kBlockM * kDP * 2;
+  static constexpr int kKVBytes = kBN * kDP * 2;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTileBytes;
-  static constexpr int kV = kK + kStages * kTileBytes;
-  static constexpr int kBar = kV + kStages * kTileBytes;  // Q, then full K, full V, empty
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBar = kV + kStages * kKVBytes;  // Q, then full K, full V, empty
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;  // + alignment slack
 };
-static_assert(kBlockM == kBlockN, "the Q tile and a K / V tile share one size");
+static_assert(Tile<256>::kBytes <= 232448, "D 256 fits the 227 KB a block can use");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -113,6 +155,10 @@ __device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
   return done != 0;
 }
 
+// Out of line: a trap inlined into the consumers' code makes ptxas drop
+// their setmaxnreg budget (the D 256 instantiation then spills).
+__device__ __noinline__ void watchdog_trap() { __trap(); }
+
 // Waits for the phase of parity `parity` to complete.  A wait that lasts
 // kWatchdogNs traps (the launch then fails) instead of hanging the card.
 constexpr unsigned long long kWatchdogNs = 4000000000ull;
@@ -122,11 +168,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
   while (!mbar_try(bar, parity)) {
     asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-    if (now - t0 > kWatchdogNs) __trap();
+    if (now - t0 > kWatchdogNs) watchdog_trap();
   }
 }
 
-// One TMA box (64 columns x 128 rows) at (d0, head, row0, batch) into dst.
+// One TMA box (64 columns x rows) at (d0, head, row0, batch) into dst.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int d0, int head, int row0, int batch) {
   asm volatile(
@@ -167,6 +213,20 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// The softcap's tanh: tanh.approx.f32, one special-function op, relative
+// error about 2^-11.  Built with -DFLASH_TC_TANHF, libdevice's accurate tanhf
+// (many instructions a score) instead: chip_smoke.py builds both and holds
+// both against the plain twin where the scores reach the cap.
+__device__ __forceinline__ float softcap_tanh(float x) {
+#ifdef FLASH_TC_TANHF
+  return tanhf(x);
+#else
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+#endif
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -192,6 +252,21 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                     uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -231,21 +306,23 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+// kSoftcap: a build for each, so that a layer without the cap runs no code of it
+template <int D, bool kSoftcap>
+__global__ void __launch_bounds__(Tile<D>::kThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map,
                           __nv_bfloat16* __restrict__ o, const int* __restrict__ kv_len_ptr,
                           int sq, int skv, int heads, int kv_heads, int causal, int window,
-                          int has_softcap, float softcap, float scale, int q_offset_from_kv_len,
-                          int q_tiles, int batch_heads) {
-  using S = Smem<D>;
+                          float softcap, float scale, int q_offset_from_kv_len, int q_tiles,
+                          int batch_heads) {
+  using T = Tile<D>;
+  constexpr int BN = T::kBN;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = raw + ((1024u - (raw & 1023u)) & 1023u);
-  const uint32_t s_q = base + S::kQ, s_k = base + S::kK, s_v = base + S::kV;
-  const uint32_t bar_q = base + S::kBar;
+  const uint32_t s_q = base + T::kQ, s_k = base + T::kK, s_v = base + T::kV;
+  const uint32_t bar_q = base + T::kBar;
   auto bar_k = [&](int s) { return bar_q + 8u * (1 + s); };
   auto bar_v = [&](int s) { return bar_q + 8u * (1 + kStages + s); };
   auto bar_empty = [&](int s) { return bar_q + 8u * (1 + 2 * kStages + s); };
@@ -265,8 +342,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   if (causal) hi = min(hi, min(i0 + kBlockM, sq) - 1 + off + 1);
   int lo = 0;
   if (window >= 0) lo = max(0, i0 + off - window + 1);
-  const int t_hi = (hi + kBlockN - 1) / kBlockN;
-  const int n_tiles = hi > lo ? t_hi - lo / kBlockN : 0;
+  const int t_hi = (hi + BN - 1) / BN;
+  const int n_tiles = hi > lo ? t_hi - lo / BN : 0;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
@@ -280,33 +357,37 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   __syncthreads();
 
-  if (warp == kConsumers / 32) {  // ---------------------------- producer --
-    if (lane == 0 && n_tiles > 0) {
-      mbar_expect_tx(bar_q, S::kTileBytes);
+  if (warp >= kConsumers / 32) {  // ---------------------------- producer --
+    if constexpr (T::kProducers == 128)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers && n_tiles > 0) {
+      mbar_expect_tx(bar_q, T::kQBytes);  // whole boxes: D 80's zero-filled columns count
 #pragma unroll
-      for (int hf = 0; hf < D / 64; ++hf)
-        tma_load(s_q + hf * S::kHalfBytes, &q_map, bar_q, hf * 64, h, i0, b);
+      for (int hf = 0; hf < T::kDP / 64; ++hf)
+        tma_load(s_q + hf * T::kQHalf, &q_map, bar_q, hf * 64, h, i0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         const uint32_t phase = (it / kStages) & 1;
-        const int j0 = (t_hi - 1 - it) * kBlockN;
+        const int j0 = (t_hi - 1 - it) * BN;
         mbar_wait(bar_empty(s), phase ^ 1);  // the first pass of each stage is free
-        mbar_expect_tx(bar_k(s), S::kTileBytes);
+        mbar_expect_tx(bar_k(s), T::kKVBytes);
 #pragma unroll
-        for (int hf = 0; hf < D / 64; ++hf)
-          tma_load(s_k + s * S::kTileBytes + hf * S::kHalfBytes, &k_map, bar_k(s), hf * 64, kvh,
-                   j0, b);
-        mbar_expect_tx(bar_v(s), S::kTileBytes);
+        for (int hf = 0; hf < T::kDP / 64; ++hf)
+          tma_load(s_k + s * T::kKVBytes + hf * T::kKVHalf, &k_map, bar_k(s), hf * 64, kvh, j0,
+                   b);
+        mbar_expect_tx(bar_v(s), T::kKVBytes);
 #pragma unroll
-        for (int hf = 0; hf < D / 64; ++hf)
-          tma_load(s_v + s * S::kTileBytes + hf * S::kHalfBytes, &v_map, bar_v(s), hf * 64, kvh,
-                   j0, b);
+        for (int hf = 0; hf < T::kDP / 64; ++hf)
+          tma_load(s_v + s * T::kKVBytes + hf * T::kKVHalf, &v_map, bar_v(s), hf * 64, kvh, j0,
+                   b);
       }
     }
     return;
   }
 
   // ------------------------------------------------------------ consumers --
+  if constexpr (T::kProducers == 128)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   const int wg = warp / 4;  // rows [64 wg, 64 wg + 64) of the tile
   const int row_a = (warp % 4) * 16 + lane / 4;  // this thread's rows: row_a and row_a + 8
   const int ia = i0 + wg * 64 + row_a, ib = ia + 8;
@@ -317,29 +398,36 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   const float scale_log2 = scale * kLog2e;
   const float cap_log2 = softcap * kLog2e, inv_cap = scale / softcap;
 
-  float acc[D / 2];
+  // O in kAccParts wgmma accumulators of kAccN columns each
+  float acc[T::kAccParts][T::kAccN / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int p = 0; p < T::kAccParts; ++p)
+#pragma unroll
+    for (int e = 0; e < T::kAccN / 2; ++e) acc[p][e] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
 
   if (n_tiles > 0) mbar_wait(bar_q, 0);
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % kStages;
     const uint32_t phase = (it / kStages) & 1;
-    const int j0 = (t_hi - 1 - it) * kBlockN;
+    const int j0 = (t_hi - 1 - it) * BN;
 
-    // S = Q K^T over D in steps of 16 (32 bytes inside a swizzle row, then the next half)
-    float sc[64];
+    // S = Q K^T over the real columns in steps of 16 (32 bytes inside a
+    // swizzle row, then the next half): D 80's zero columns add nothing
+    float sc[BN / 2];
 #pragma unroll
-    for (int e = 0; e < 64; ++e) sc[e] = 0.f;
+    for (int e = 0; e < BN / 2; ++e) sc[e] = 0.f;
     mbar_wait(bar_k(s), phase);
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t koff = (kk / 4) * S::kHalfBytes + (kk % 4) * 32;
-      wgmma_m64n128k16_ss(sc, smem_desc(s_q + wg * 64 * kSwizzleBytes + koff, 16, 1024),
-                          smem_desc(s_k + s * S::kTileBytes + koff, 16, 1024), 1);
+      const uint64_t desc_q =
+          smem_desc(s_q + wg * 64 * kSwizzleBytes + (kk / 4) * T::kQHalf + (kk % 4) * 32, 16, 1024);
+      const uint64_t desc_k =
+          smem_desc(s_k + s * T::kKVBytes + (kk / 4) * T::kKVHalf + (kk % 4) * 32, 16, 1024);
+      if constexpr (BN == 128) wgmma_m64n128k16_ss(sc, desc_q, desc_k, 1);
+      else wgmma_m64n64k16_ss(sc, desc_q, desc_k, 1);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -347,18 +435,18 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 
     // scores in log2 units; accumulator element e sits at row (e / 2) % 2 ? b : a,
     // column 8 (e / 4) + col0 + e % 2
-    if (has_softcap) {
+    if constexpr (kSoftcap) {
 #pragma unroll
-      for (int e = 0; e < 64; ++e) sc[e] = cap_log2 * tanhf(sc[e] * inv_cap);
+      for (int e = 0; e < BN / 2; ++e) sc[e] = cap_log2 * softcap_tanh(sc[e] * inv_cap);
     } else {
 #pragma unroll
-      for (int e = 0; e < 64; ++e) sc[e] *= scale_log2;
+      for (int e = 0; e < BN / 2; ++e) sc[e] *= scale_log2;
     }
-    const bool boundary = j0 + kBlockN > kv_end || (causal && j0 + kBlockN - 1 > wg_first) ||
+    const bool boundary = j0 + BN > kv_end || (causal && j0 + BN - 1 > wg_first) ||
                           (window >= 0 && j0 <= wg_last - window);
     if (boundary) {
 #pragma unroll
-      for (int e = 0; e < 64; ++e) {
+      for (int e = 0; e < BN / 2; ++e) {
         const int key = j0 + 8 * (e / 4) + col0 + (e % 2);
         const int p = (e / 2) % 2 ? pb : pa;
         const bool live = key < kv_end && (!causal || key <= p) && (window < 0 || key > p - window);
@@ -367,7 +455,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-    for (int e = 0; e < 64; ++e) {
+    for (int e = 0; e < BN / 2; ++e) {
       if ((e / 2) % 2) mx_b = fmaxf(mx_b, sc[e]);
       else mx_a = fmaxf(mx_a, sc[e]);
     }
@@ -385,7 +473,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     m_b = new_b;
     float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-    for (int e = 0; e < 64; ++e) {
+    for (int e = 0; e < BN / 2; ++e) {
       if ((e / 2) % 2) {
         sc[e] = ex2(sc[e] - use_b);
         sum_b += sc[e];
@@ -397,30 +485,40 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     l_a = l_a * corr_a + sum_a;  // this thread's columns; summed over the row at the end
     l_b = l_b * corr_b + sum_b;
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) acc[e] *= (e / 2) % 2 ? corr_b : corr_a;
+    for (int p = 0; p < T::kAccParts; ++p)
+#pragma unroll
+      for (int e = 0; e < T::kAccN / 2; ++e) acc[p][e] *= (e / 2) % 2 ? corr_b : corr_a;
 
     // P in bf16: accumulator columns [16 kk, 16 kk + 16) are the A fragment of key step kk
-    uint32_t pf[kBlockN / 16][4];
+    uint32_t pf[BN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+    for (int kk = 0; kk < BN / 16; ++kk) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) pf[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
     }
 
-    // O += P V over the tile's keys in steps of 16 (two 8-row swizzle atoms)
+    // O += P V over the tile's keys in steps of 16 (two 8-row swizzle atoms);
+    // accumulator part p reads V's halves [p kAccN / 64, (p + 1) kAccN / 64)
     mbar_wait(bar_v(s), phase);
-    fence_regs(acc);
+#pragma unroll
+    for (int p = 0; p < T::kAccParts; ++p) fence_regs(acc[p]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint64_t desc_v =
-          smem_desc(s_v + s * S::kTileBytes + kk * 16 * kSwizzleBytes, S::kHalfBytes, 1024);
-      if constexpr (D == 128) wgmma_m64n128k16_rs(acc, pf[kk], desc_v, 1);
-      else wgmma_m64n64k16_rs(acc, pf[kk], desc_v, 1);
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+      for (int p = 0; p < T::kAccParts; ++p) {
+        const uint64_t desc_v =
+            smem_desc(s_v + s * T::kKVBytes + p * (T::kAccN / 64) * T::kKVHalf +
+                          kk * 16 * kSwizzleBytes,
+                      T::kKVHalf, 1024);
+        if constexpr (T::kAccN == 128) wgmma_m64n128k16_rs(acc[p], pf[kk], desc_v, 1);
+        else wgmma_m64n64k16_rs(acc[p], pf[kk], desc_v, 1);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(acc);
+#pragma unroll
+    for (int p = 0; p < T::kAccParts; ++p) fence_regs(acc[p]);
     mbar_arrive(bar_empty(s));
   }
 
@@ -431,16 +529,22 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
   const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+  // rows of D columns (the real head dim): D 80 drops its 48 padding columns
   __nv_bfloat16* o_a = o + (((long long)b * sq + ia) * heads + h) * D + col0;
   __nv_bfloat16* o_b = o_a + 8LL * heads * D;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    if (ia < sq)
-      *reinterpret_cast<__nv_bfloat162*>(o_a + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
-    if (ib < sq)
-      *reinterpret_cast<__nv_bfloat162*>(o_b + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
+  for (int p = 0; p < T::kAccParts; ++p) {
+#pragma unroll
+    for (int j = 0; j < T::kAccN / 8; ++j) {
+      const int c = p * T::kAccN + 8 * j;
+      if (c >= D) continue;
+      if (ia < sq)
+        *reinterpret_cast<__nv_bfloat162*>(o_a + c) =
+            __floats2bfloat162_rn(acc[p][4 * j] * inv_a, acc[p][4 * j + 1] * inv_a);
+      if (ib < sq)
+        *reinterpret_cast<__nv_bfloat162*>(o_b + c) =
+            __floats2bfloat162_rn(acc[p][4 * j + 2] * inv_b, acc[p][4 * j + 3] * inv_b);
+    }
   }
 }
 
@@ -467,16 +571,17 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D map (D, heads, rows, B) over a contiguous [B, rows, heads, D] bf16
-// tensor, boxes of 64 x 1 x 128 x 1 with 128-byte swizzle; reads outside the
-// tensor fill zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows, int nheads, int d) {
+// tensor, boxes of 64 x 1 x box_rows x 1 with 128-byte swizzle; reads outside
+// the tensor (columns past D, rows past `rows`) fill zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows, int nheads, int d,
+              int box_rows) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)nheads, (cuuint64_t)rows,
                               (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)nheads * d * 2,
                                  (cuuint64_t)rows * nheads * d * 2};
-  const cuuint32_t box[4] = {kSwizzleBytes / 2, 1, kBlockN, 1};
+  const cuuint32_t box[4] = {kSwizzleBytes / 2, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -484,19 +589,26 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows, int nheads
 }
 
 template <int D>
-cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o,
-                   const void* kv_len, int batch, int sq, int skv, int heads, int kv_heads,
-                   int causal, int window, int has_softcap, float softcap, float scale,
-                   int q_offset_from_kv_len, cudaStream_t stream) {
-  const int bytes = Smem<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_tc_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* kv_len,
+                   int batch, int sq, int skv, int heads, int kv_heads, int causal, int window,
+                   int has_softcap, float softcap, float scale, int q_offset_from_kv_len,
+                   cudaStream_t stream) {
+  using T = Tile<D>;
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, q, batch, sq, heads, D, kBlockM) ||
+      !make_map(&km, k, batch, skv, kv_heads, D, T::kBN) ||
+      !make_map(&vm, v, batch, skv, kv_heads, D, T::kBN))
+    return cudaErrorInvalidValue;
+  const auto kernel =
+      has_softcap ? flash_attention_tc_kernel<D, true> : flash_attention_tc_kernel<D, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes);
   if (err != cudaSuccess) return err;
   const int q_tiles = (sq + kBlockM - 1) / kBlockM;
   const unsigned blocks = (unsigned)((long long)q_tiles * batch * heads);
-  flash_attention_tc_kernel<D><<<blocks, kThreads, bytes, stream>>>(
+  kernel<<<blocks, T::kThreads, T::kBytes, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<const int*>(kv_len), sq, skv,
-      heads, kv_heads, causal, window, has_softcap, softcap, scale, q_offset_from_kv_len, q_tiles,
+      heads, kv_heads, causal, window, softcap, scale, q_offset_from_kv_len, q_tiles,
       batch * heads);
   return cudaGetLastError();
 }
@@ -504,9 +616,9 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorM
 }  // namespace
 
 // Returns 0 on success, else a cudaError_t (cudaErrorInvalidValue when the
-// tensor maps cannot be made or D is not 64 or 128).  The wrapper (kernel.py)
-// has checked devices, dtypes (bf16), shapes, contiguity, 16-byte alignment
-// and the route (D 64 or 128, Sq >= 64).
+// tensor maps cannot be made or D is not 64, 80, 128 or 256).  The wrapper
+// (kernel.py) has checked devices, dtypes (bf16), shapes, contiguity,
+// 16-byte alignment and the route (those head dims, Sq >= 64).
 extern "C" int flash_attention_tc_fwd(const void* q, const void* k, const void* v, void* o,
                                       const void* kv_len, int batch, int sq, int skv, int heads,
                                       int kv_heads, int d, int causal, int window,
@@ -514,16 +626,21 @@ extern "C" int flash_attention_tc_fwd(const void* q, const void* k, const void* 
                                       int q_offset_from_kv_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((long long)batch * sq * heads == 0) return 0;
-  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
+  if (d != 64 && d != 80 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
   if (skv == 0)  // no key at all: every row writes 0
     return (int)cudaMemsetAsync(o, 0, (size_t)batch * sq * heads * d * 2, s);
-  CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, batch, sq, heads, d) || !make_map(&km, k, batch, skv, kv_heads, d) ||
-      !make_map(&vm, v, batch, skv, kv_heads, d))
-    return (int)cudaErrorInvalidValue;
-  if (d == 128)
-    return (int)launch<128>(qm, km, vm, o, kv_len, batch, sq, skv, heads, kv_heads, causal,
-                            window, has_softcap, softcap, scale, q_offset_from_kv_len, s);
-  return (int)launch<64>(qm, km, vm, o, kv_len, batch, sq, skv, heads, kv_heads, causal, window,
-                         has_softcap, softcap, scale, q_offset_from_kv_len, s);
+  switch (d) {
+    case 64:
+      return (int)launch<64>(q, k, v, o, kv_len, batch, sq, skv, heads, kv_heads, causal, window,
+                             has_softcap, softcap, scale, q_offset_from_kv_len, s);
+    case 80:
+      return (int)launch<80>(q, k, v, o, kv_len, batch, sq, skv, heads, kv_heads, causal, window,
+                             has_softcap, softcap, scale, q_offset_from_kv_len, s);
+    case 128:
+      return (int)launch<128>(q, k, v, o, kv_len, batch, sq, skv, heads, kv_heads, causal,
+                              window, has_softcap, softcap, scale, q_offset_from_kv_len, s);
+    default:
+      return (int)launch<256>(q, k, v, o, kv_len, batch, sq, skv, heads, kv_heads, causal,
+                              window, has_softcap, softcap, scale, q_offset_from_kv_len, s);
+  }
 }

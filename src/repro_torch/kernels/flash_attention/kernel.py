@@ -3,7 +3,7 @@
 ``csrc/flash_attention.cu`` ("simt": f32 FMAs, 8 threads a query row,
 templated on f32 / bf16 and on the per-thread head-dim slice),
 ``csrc/flash_attention_tc.cu`` ("tc": Hopper tensor cores, wgmma and TMA,
-bf16 with >= 64 query rows and D 64 or 128) and
+bf16 with >= 64 query rows and D 64, 80, 128 or 256) and
 ``csrc/flash_attention_short.cu`` ("short": mma.sync over one 16-row tile
 a warp, bf16 with fewer query rows and D 64 or 128) each expose one
 ``extern "C"`` launcher.  Each is compiled with ``nvcc`` for ``sm_90a`` into
@@ -31,7 +31,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 SOURCE_TC = Path(__file__).resolve().parent / "csrc" / "flash_attention_tc.cu"
 SOURCE_SHORT = Path(__file__).resolve().parent / "csrc" / "flash_attention_short.cu"
 MAX_HEAD_DIM = 256
-TC_HEAD_DIMS = (64, 128)  # the tensor-core kernels' head dims ("tc" and "short")
+TC_HEAD_DIMS = (64, 80, 128, 256)  # the "tc" kernel's head dims
+SHORT_HEAD_DIMS = (64, 128)  # the "short" kernel's head dims
 TC_MIN_SQ = 64  # one consumer warpgroup's rows: shorter bf16 query blocks go "short"
 ROUTE_NAMES = ("tc", "short", "simt")
 
@@ -41,11 +42,15 @@ _F = ctypes.c_float
 
 
 def route(dtype: torch.dtype, sq: int, d: int) -> str:
-    """The kernel for a call: for bf16 with D in ``TC_HEAD_DIMS``, "tc"
-    (wgmma + TMA) with at least ``TC_MIN_SQ`` query rows and "short"
-    (mma.sync, one 16-row tile a warp) with fewer; else "simt"."""
-    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
-        return "tc" if sq >= TC_MIN_SQ else "short"
+    """The kernel for a call: for bf16, "tc" (wgmma + TMA) with at least
+    ``TC_MIN_SQ`` query rows and D in ``TC_HEAD_DIMS``, "short" (mma.sync,
+    one 16-row tile a warp) with fewer rows and D in ``SHORT_HEAD_DIMS``;
+    else "simt"."""
+    if dtype == torch.bfloat16:
+        if sq >= TC_MIN_SQ and d in TC_HEAD_DIMS:
+            return "tc"
+        if sq < TC_MIN_SQ and d in SHORT_HEAD_DIMS:
+            return "short"
     return "simt"
 
 
@@ -54,8 +59,13 @@ def build() -> tuple[Path, str, float]:
     return build_library(SOURCE, BASE_FLAGS, "flash_attention")
 
 
-def build_tc() -> tuple[Path, str, float]:
-    """Compile the tensor-core kernel if needed -> (library path, nvcc log, seconds)."""
+def build_tc(tanhf: bool = False) -> tuple[Path, str, float]:
+    """Compile the tensor-core kernel if needed -> (library path, nvcc log,
+    seconds).  With ``tanhf`` its softcap runs libdevice's accurate tanhf in
+    place of tanh.approx.f32: chip_smoke.py's comparison, on no main path."""
+    if tanhf:
+        return build_library(SOURCE_TC, (*BASE_FLAGS, "-DFLASH_TC_TANHF"),
+                             "flash_attention_tc_tanhf")
     return build_library(SOURCE_TC, BASE_FLAGS, "flash_attention_tc")
 
 
@@ -74,10 +84,10 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=1)
-def library_tc() -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def library_tc(tanhf: bool = False) -> ctypes.CDLL:
     """The loaded tensor-core kernel library (built on first use)."""
-    path, _, _ = build_tc()
+    path, _, _ = build_tc(tanhf)
     lib = ctypes.CDLL(str(path))
     lib.flash_attention_tc_fwd.argtypes = [_P] * 5 + [_I] * 9 + [_F, _F, _I, _P]
     lib.flash_attention_tc_fwd.restype = _I
@@ -106,9 +116,11 @@ def launch(
     softcap: Optional[float],
     q_offset_from_kv_len: bool,
     kind: str,
+    tanhf: bool = False,
 ) -> None:
     """Launch the ``kind`` kernel ("tc", "short" or "simt", see ``route``) on
-    the current stream (the caller validated operands)."""
+    the current stream (the caller validated operands); "tc" from its
+    ``build_tc(tanhf)`` library."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     args = [
@@ -121,7 +133,7 @@ def launch(
     ]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if kind == "tc":
-        err = library_tc().flash_attention_tc_fwd(*args, stream)
+        err = library_tc(tanhf).flash_attention_tc_fwd(*args, stream)
     elif kind == "short":
         err = library_short().flash_attention_short_fwd(*args, stream)
     elif kind == "simt":

@@ -5,10 +5,10 @@
 tensors: on the CPU it runs the plain PyTorch twin (``ref.py``); on a CUDA
 tensor it launches the hand-written kernel that ``kernel.route`` names from
 the dtype and shape — "tc" (wgmma + TMA) for bf16 blocks of >= 64 query
-rows, "short" (mma.sync) for shorter bf16 blocks such as the cascade's 8
-tokens, both at D 64 / 128; "simt" for f32 and the other head dims — or
-raises: it never falls back, to another kernel or to the twin, and reads no
-environment switch.  The three kernels read the [B, S, H, D] layout in
+rows at D 64 / 80 / 128 / 256, "short" (mma.sync) for shorter bf16 blocks
+such as the cascade's 8 tokens at D 64 / 128; "simt" for f32 and the rest —
+or raises: it never falls back, to another kernel or to the twin, and reads
+no environment switch.  The three kernels read the [B, S, H, D] layout in
 place, so the card path makes no transposed copies.
 
 ``LAUNCHES`` counts kernel launches, ``ROUTES`` them by kernel and

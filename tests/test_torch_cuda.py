@@ -11,9 +11,9 @@ every f32 op on its own (the kernels are built with ``--fmad=false``); the
 single-query kernel also drives a small operator run on the card, and the
 best-mode kernel (templated on F and on P <= 4) is held bitwise over P 1-5,
 F 1-8, Q 1-8 and ragged C.  The
-flash-attention kernels — "simt", and for bf16 at D 64 or 128 the tensor-core
-"tc" kernel (>= 64 query rows) and "short" kernel (fewer), as
-``kernel.route`` picks them — are
+flash-attention kernels — "simt", and for bf16 the tensor-core "tc" kernel
+(>= 64 query rows, D 64, 80, 128 or 256) and "short" kernel (fewer rows, D
+64 or 128), as ``kernel.route`` picks them — are
 held against their plain twin within the reference tests' tolerances (2e-5
 f32, 2e-2 bf16: the online softmax sums in another order, and the tensor-core
 kernels round P to bf16 before P.V), each call counted on its route, and a
@@ -32,7 +32,7 @@ included, and the fused decode kernel within 2e-5 of its twin in f32 and
 prefill and decode on the card as on the CPU, and the reduced bf16 ones
 (head_dim 128, SSM chunk 256) through the bf16 routes.  The model zoo:
 the flash kernels at its non-causal encoder and cross-attention shapes, a
-group of 5 heads and head dims 80 / 256 ("simt"), the fused decode at its
+group of 5 heads and head dims 80 / 256 ("tc"), the fused decode at its
 groups and head dims, hymba's SSD at state 16; its reduced bf16 gemma2,
 h2o-danube, hymba and seamless CPU vs card through those routes; the MoE
 smoke models in f32 with the router's choices equal CPU vs card, and the
@@ -324,7 +324,8 @@ def test_flash_kernel_matches_plain_twin(cuda_device, case, dtype, tol):
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
 
 
-# bf16 cases the tensor-core kernel takes (Sq >= 64, D 64 or 128); same columns
+# bf16 cases the tensor-core kernel takes (Sq >= 64, D 64, 80, 128 or 256);
+# same columns
 FA_TC_CASES = [
     (1, 64, 64, 2, 1, 128, False, None, None, None, False),  # Sq 64, GQA 2
     (1, 128, 128, 4, 1, 64, True, None, None, None, False),  # D 64, GQA 4, causal
@@ -340,6 +341,12 @@ FA_TC_CASES = [
     (1, 200, 232, 56, 8, 128, True, None, None, 200, True),  # G 7 (arctic)
     (1, 328, 360, 32, 8, 128, True, None, None, 328, True),  # G 4, a 72-row tail (llava)
     (1, 200, 232, 16, 16, 64, True, None, None, 200, True),  # G 1, causal (seamless)
+    (2, 200, 333, 4, 2, 80, True, 100, 30.0, 300, True),  # D 80: zero-padded tiles
+    (2, 200, 333, 4, 2, 256, True, 100, 30.0, 300, True),  # D 256: 64-key tiles
+    (1, 200, 256, 2, 1, 80, True, None, None, 100, True),  # rows 0-99 have no live key
+    (1, 200, 256, 2, 1, 256, True, None, None, 100, True),
+    (2, 128, 300, 4, 2, 80, False, 64, 20.0, None, True),  # window without causal
+    (2, 512, 512, 8, 4, 256, True, None, None, None, False),  # 8 key tiles through the ring
 ]
 
 
@@ -359,6 +366,43 @@ def test_flash_tc_kernel_matches_plain_twin(cuda_device, case):
     want = fa_ops.plain_bshd(q, k, v, kl, **kw)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+# tc cases whose scores reach the softcap: q drawn unit-normal times q_scale,
+# so s ~ N(0, q_scale^2) against the cap (|s / cap| up to ~2); same columns,
+# then q_scale.  Unit-normal q and k give scores near N(0, 1), which a cap of
+# 20-50 barely moves, so only these cases tell a right softcap from none.
+FA_TC_CAPPED_CASES = [
+    (2, 200, 333, 4, 2, 64, True, 100, 20.0, 300, True, 8.0),
+    (2, 200, 333, 4, 2, 80, True, 100, 30.0, 300, True, 12.0),
+    (2, 200, 333, 4, 2, 128, True, 100, 30.0, 300, True, 12.0),
+    (2, 200, 333, 4, 2, 256, True, 100, 30.0, 300, True, 12.0),
+    (1, 512, 544, 16, 8, 256, True, None, 50.0, 512, True, 16.0),  # gemma2 global, G 2
+    (2, 128, 300, 4, 2, 80, False, 64, 20.0, None, True, 8.0),  # window without causal
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_TC_CAPPED_CASES)
+def test_flash_tc_softcap_holds_where_it_binds(cuda_device, case):
+    b, sq, skv, h, kv, d, causal, window, cap, kv_len, q_off, q_scale = case
+    assert fa_kernel.route(torch.bfloat16, sq, d) == "tc"
+    q, k, v = _fa_inputs(cuda_device, torch.float32, sq * skv + d, b, sq, skv, h, kv, d)
+    q, k, v = (q * q_scale).bfloat16(), k.bfloat16(), v.bfloat16()
+    kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=q_off)
+    fa_ops.reset_counts()
+    out = fa_ops.flash_attention(q, k, v, kl, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.ROUTES == {"tc": 1, "short": 0, "simt": 0}
+    want = fa_ops.plain_bshd(q, k, v, kl, **kw)
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+    # the control: the same kernel without the cap misses the capped twin
+    uncapped = torch.empty_like(q)
+    fa_kernel.launch(q, k, v, kl, uncapped, causal=causal, window=window, softcap=None,
+                     q_offset_from_kv_len=q_off, kind="tc")
+    torch.cuda.synchronize()
+    assert not torch.allclose(uncapped.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
 # bf16 cases the short kernel takes (Sq < 64, D 64 or 128); same columns
@@ -396,7 +440,7 @@ def test_flash_short_kernel_matches_plain_twin(cuda_device, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,sq,d", [(torch.float32, 128, 128), (torch.float32, 200, 64),
                                         (torch.float32, 8, 128), (torch.bfloat16, 8, 96),
-                                        (torch.bfloat16, 128, 32), (torch.bfloat16, 128, 256)])
+                                        (torch.bfloat16, 128, 32), (torch.bfloat16, 32, 256)])
 def test_flash_f32_short_blocks_and_other_head_dims_take_simt(cuda_device, dtype, sq, d):
     q, k, v = _fa_inputs(cuda_device, dtype, sq + d, 2, sq, sq, 4, 2, d)
     fa_ops.reset_counts()
@@ -817,9 +861,9 @@ ZOO_FA_CASES = [
     (2, 1, 200, 4, 4, 64, False, None, None, None),  # cross-attention decode (short)
     (64, 8, 8, 25, 5, 64, False, None, None, None),  # hymba's cascade trunk, G 5 (short)
     (1, 200, 232, 25, 5, 64, True, None, None, 200),  # hymba's prefill, G 5 (tc)
-    (1, 300, 320, 32, 8, 80, True, 128, None, 300),  # h2o-danube, D 80 (simt)
-    (1, 300, 320, 16, 8, 256, True, 128, 50.0, 300),  # gemma2's local layers, D 256 (simt)
-    (1, 300, 320, 16, 8, 256, True, None, 50.0, 300),  # gemma2's global layers (simt)
+    (1, 300, 320, 32, 8, 80, True, 128, None, 300),  # h2o-danube, D 80 (tc)
+    (1, 300, 320, 16, 8, 256, True, 128, 50.0, 300),  # gemma2's local layers, D 256 (tc)
+    (1, 300, 320, 16, 8, 256, True, None, 50.0, 300),  # gemma2's global layers (tc)
 ]
 
 
@@ -827,15 +871,16 @@ ZOO_FA_CASES = [
 @pytest.mark.parametrize("case", ZOO_FA_CASES)
 def test_flash_zoo_shapes_match_plain_twin(cuda_device, case):
     """Cross-attention (Sq != Skv, no kv_len, non-causal: the offset the
-    kernels derive bounds no key), a group of 5 heads, and the head dims the
-    tensor-core kernels do not take, within the bf16 tolerance of the twin."""
+    kernels derive bounds no key), a group of 5 heads, and head dims 80 and
+    256 (the tc kernel's padded and 64-key tiles), within the bf16 tolerance
+    of the twin."""
     b, sq, skv, h, kv, d, causal, window, cap, kv_len = case
     q, k, v = _fa_inputs(cuda_device, torch.bfloat16, sq + skv + d, b, sq, skv, h, kv, d)
     kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32,
                                                   device=cuda_device)
     kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=True)
     route = fa_kernel.route(torch.bfloat16, sq, d)
-    assert route == ("simt" if d not in (64, 128) else "tc" if sq >= 64 else "short")
+    assert route == ("tc" if sq >= 64 else "short")
     before = dict(fa_ops.ROUTES)
     out = fa_ops.flash_attention(q, k, v, kl, **kw)
     torch.cuda.synchronize()
@@ -889,11 +934,10 @@ def test_cuda_zoo_bf16_models_route_the_kernels(cuda_device, arch):
     cpu, gpu, cache, (model, params, seq, max_len, extra) = _teacher_forced_pair(
         cuda_device, cfg, prompt, steps, seed=5)
     n = cfg.num_layers
-    simt = cfg.head_dim not in (64, 128)
     if arch == "seamless-m4t-large-v2":  # encoder + self + cross tc; a short cross a step
         assert fa_ops.ROUTES == {"tc": 3 * n, "short": n * steps, "simt": 0}, fa_ops.ROUTES
-    else:
-        assert fa_ops.ROUTES == {"tc": 0 if simt else n, "short": 0, "simt": n if simt else 0}
+    else:  # the prefill on tc at every head dim (64, 80, 256)
+        assert fa_ops.ROUTES == {"tc": n, "short": 0, "simt": 0}, fa_ops.ROUTES
     assert da_ops.LAUNCHES == {"decode_attention_partials": 0,
                                "decode_attention_fused": n * steps}, da_ops.LAUNCHES
     assert ssd_ops.ROUTES == {"tc": 0, "simt": n if arch == "hymba-1.5b" else 0, "packed": 0}

@@ -31,6 +31,9 @@ FA_CASES = [
     (1, 256, 256, 4, 2, 32, True, None, None, "bfloat16"),
     (16, 8, 8, 4, 2, 16, False, None, None, "float32"),  # backbone: 16 lanes x 8 tokens
     (16, 8, 8, 4, 2, 16, False, None, None, "bfloat16"),
+    (1, 128, 128, 4, 2, 80, True, None, None, "bfloat16"),  # h2o-danube's head dim
+    (1, 128, 128, 4, 1, 80, True, 48, 30.0, "bfloat16"),
+    (1, 128, 128, 4, 2, 256, True, 48, 50.0, "bfloat16"),  # gemma2's: window + softcap
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -106,6 +109,41 @@ def test_short_route_shapes_match_jax(case):
         assert not got[:, :sq - kv_len].any()
 
 
+# bf16 tc shapes whose scores reach the softcap: q drawn unit-normal times
+# q_scale, so s ~ N(0, q_scale^2) against the cap (|s / cap| up to ~2); unit
+# scores barely feel a cap of 30-50.  b, sq, skv, h, kv, d, window, softcap, q_scale
+CAPPED_CASES = [
+    (1, 128, 128, 4, 2, 80, 48, 30.0, 12.0),
+    (1, 128, 128, 4, 2, 128, None, 30.0, 12.0),
+    (1, 128, 128, 4, 2, 256, None, 50.0, 16.0),
+]
+
+
+@pytest.mark.parametrize("case", CAPPED_CASES)
+def test_plain_twin_matches_jax_where_the_softcap_binds(case):
+    b, sq, skv, h, kv, d, window, cap, q_scale = case
+    assert kernel.route(torch.bfloat16, sq, d) == "tc"
+    q, k, v = _inputs(sq * 3 + d, b, sq, skv, h, kv, d, "float32")
+    q, k, v = ((x * s).astype(ml_dtypes.bfloat16) for x, s in ((q, q_scale), (k, 1), (v, 1)))
+    kw = dict(causal=True, window=window, logit_softcap=cap)
+    out = ops.flash_attention(*(interop.to_torch(x) for x in (q, k, v)), **kw)
+    kv_len = jnp.asarray([skv], jnp.int32)
+    j_kernel = j_ops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_len,
+                                     block_q=64, block_kv=64, interpret=True, **kw)
+    j_plain = j_ref.reference_bhsd(jnp.asarray(_bhsd(q)), jnp.asarray(_bhsd(k)),
+                                   jnp.asarray(_bhsd(v)), kv_len, num_q_heads=h,
+                                   num_kv_heads=kv, causal=True, window=window, softcap=cap)
+    j_plain = np.transpose(_f32(j_plain).reshape(b, h, sq, d), (0, 2, 1, 3))
+    got = _f32(interop.to_numpy(out))
+    np.testing.assert_allclose(got, j_plain, rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+    np.testing.assert_allclose(got, _f32(j_kernel), rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+    # the cap binds: the same inputs without it give another answer
+    uncapped = ops.flash_attention(*(interop.to_torch(x) for x in (q, k, v)),
+                                   **{**kw, "logit_softcap": None})
+    assert not np.allclose(_f32(interop.to_numpy(uncapped)), j_plain,
+                           rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 40), (False, 60)])
 def test_partial_kv_len_queries_at_the_end_of_the_cache(causal, window):
     b, sq, skv, h, kv, d = 1, 64, 256, 4, 2, 32
@@ -159,10 +197,16 @@ def test_ops_refuses_mixed_devices_dtypes_and_shapes():
     (torch.bfloat16, 63, 128, "short"),
     (torch.bfloat16, 8, 64, "short"),
     (torch.bfloat16, 8, 96, "simt"),
+    (torch.bfloat16, 4096, 80, "tc"),  # the h2o-danube and gemma2 prefills
+    (torch.bfloat16, 4096, 256, "tc"),
+    (torch.bfloat16, 64, 80, "tc"),
+    (torch.bfloat16, 8, 256, "simt"),  # short blocks the short kernel does not take
+    (torch.bfloat16, 8, 80, "simt"),
+    (torch.bfloat16, 63, 256, "simt"),
     (torch.bfloat16, 4096, 32, "simt"),  # head dims the tc kernel does not take
     (torch.bfloat16, 4096, 96, "simt"),
-    (torch.bfloat16, 4096, 256, "simt"),
     (torch.float32, 4096, 128, "simt"),  # f32 keeps exact FMAs: no TF32
+    (torch.float32, 4096, 256, "simt"),
     (torch.float16, 4096, 128, "simt"),
 ])
 def test_route_picks_the_kernel_from_dtype_and_shape(dtype, sq, d, want):
