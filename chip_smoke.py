@@ -59,7 +59,13 @@ in order; any failure raises and the script exits non-zero:
    trunk), each timed beside its bound and the library call that computes
    the same function: SDPA (with a window mask), or for a softcap the
    compiled ``flex_attention`` (a tanh score_mod, a causal / window block
-   mask);
+   mask); and each softcap where it binds (q drawn x12 / x16 against caps
+   of 30 / 50, so |s / cap| reaches ~2): the short kernel at D 64 / 128,
+   the simt kernel in f32 and bf16, the fused decode kernel in its tc form
+   (bf16 D 64 / 128) and simt form (D 80 / 128 / 256, gemma2's local and
+   global shapes) and the partials kernel, each within its tolerance (f32's
+   scaled by q's factor: the scores' rounding grows with them) and the
+   same kernel without its cap (an uncounted launch) beyond it;
 3. CPU vs GPU session: one churn trace at capacity 4096 with 4 tenants, in
    both scoring modes, through ``EngineSession(device="cpu")`` (plain path)
    and ``device="cuda"`` (kernels) — per-slot plans, merged plans,
@@ -165,6 +171,22 @@ in order; any failure raises and the script exits non-zero:
    launch on the route its head dim picks (every prefill "tc", D 80 / 256
    included), no plain call; prefill ms (tokens/s), median step ms and peak
    memory;
+7c. training (no kernel runs: the wrappers refuse inputs that require
+   grad): the qwen3, mamba2 and grok-1 smoke models in f32 on the CPU and
+   the card from the same weights and batches — loss, metrics, grad norm,
+   every gradient leaf, then 2 AdamW steps through ``build_train_step``;
+   qwen3-1.7b at full width (28 layers, d 2,048, 1,720,451,072 random f32
+   parameters, bf16 activations) through ``launch.train.train_loop``: 4
+   AdamW steps of 8 x 4,096 tokens (train_4k's length; its batch of 256 cut
+   to 8, as 2 microbatches of 4) on the chunked attention engine with
+   remat — ms a step (host clock, synchronised; the median of steps 2-4),
+   tokens/s, peak memory and every loss, the losses finite and the last
+   below the first, no kernel launched, the chunked engine counted; then,
+   in a child process under ``torch.use_deterministic_algorithms(True)``
+   with ``CUBLAS_WORKSPACE_CONFIG`` set before cuBLAS starts, the same
+   width cut to 4 layers checkpointed at step 2 and resumed in a fresh
+   loop: steps 3-4 and every parameter and moment bitwise the uninterrupted
+   run's;
 8. one JSON line of per-kernel numbers, one entry per kernel: the flash
    kernel's three routes as ``flash_attention`` (simt: on no main path, so
    its launches are 0; its numbers the cascade shape's, timed beside the
@@ -177,7 +199,8 @@ in order; any failure raises and the script exits non-zero:
    numbers the packed kernel's at the cascade shape, with the simt
    kernel's ``prefill_simt_ms`` and the ``routes``); an entry timed at the
    zoo's shapes carries them in ``shapes`` (each with its ms, plain ms,
-   bound and library ms); every other kernel must have launched on a main
+   bound and library ms), and one whose softcap was checked where it binds
+   its rows in ``softcap``; every other kernel must have launched on a main
    path; the ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the reference package ``repro``.
@@ -288,6 +311,22 @@ ZOO_DA = {
     (1, 544, 16, 16, 64, 520, None, None, "bfloat16"): "seamless self-attention (G 1, D 64)",
 }
 DA_CASES += ZOO_DA
+# the decode kernels' softcap where it binds: q drawn x12 / x16 against caps of
+# 30 / 50, so |s / cap| reaches ~2 (unit-normal q barely feels a cap of 30-50);
+# the fused kernel in its tc form (bf16 D 64 / 128) and simt form (f32, D 80 /
+# 256), gemma2's local and global shapes, and the partials kernel where it
+# takes the group; without their cap (uncounted launches) each must miss.
+# b, skv, h, kv, d, kv_len, window, softcap, dtype, q_scale
+DA_BINDING = [
+    (8, 4096, 16, 8, 128, 2048, 512, 50.0, "bfloat16", 16.0),
+    (8, 4096, 16, 8, 128, 2048, 512, 50.0, "float32", 16.0),
+    (1, 1024, 16, 2, 64, 1000, None, 30.0, "bfloat16", 12.0),
+    (1, 4640, 32, 8, 80, 4616, 4097, 30.0, "bfloat16", 12.0),
+    (1, 4640, 32, 8, 80, 4616, 4097, 30.0, "float32", 12.0),
+    (1, 4640, 16, 8, 256, 4616, 4097, 50.0, "bfloat16", 16.0),
+    (1, 4640, 16, 8, 256, 4616, 4097, 50.0, "float32", 16.0),
+    (1, 4640, 16, 8, 256, 4616, None, 50.0, "bfloat16", 16.0),
+]
 DA_ROW = DA_CASES[0]  # the table's row: the qwen3-1.7b decode
 DA_TOL = 2e-5  # partials (m, l, acc): f32 sums in another order
 # the model serve paths at full width: (arch, batch, prompt, decode steps, cache)
@@ -372,11 +411,45 @@ ZOO_FA = {
         "gemma2 global layers (D 256, softcap 50)",
 }
 FA_CASES += ZOO_FA
+# the short and simt kernels' softcap where it binds (q x12 / x16; each
+# checked against the same kernel without its cap, uncounted)
+FA_CASES += [
+    (2, 33, 128, 8, 2, 128, True, 24, 30.0, "bfloat16", 100, True, 12.0),  # short, D 128
+    (2, 33, 128, 8, 2, 64, True, 24, 30.0, "bfloat16", 100, True, 12.0),  # short, D 64
+    (512, 8, 8, 16, 8, 128, False, None, 50.0, "bfloat16", None, True, 16.0),  # short, cascade
+    (2, 256, 256, 4, 4, 64, True, None, 50.0, "float32", None, False, 16.0),  # simt, f32
+    (2, 200, 333, 4, 2, 48, True, 100, 30.0, "bfloat16", 300, True, 12.0),  # simt, bf16 D 48
+    (1, 2048, 2048, 16, 8, 256, True, None, 50.0, "float32", None, False, 16.0),  # simt, D 256
+]
 # gemma2's global layer with scores about N(0, 16^2) against its cap of 50
 GEMMA2_GLOBAL_CAPPED = (1, 4608, 4640, 16, 8, 256, True, None, 50.0, "bfloat16", 4608, True, 16.0)
 FA_CASES.append(GEMMA2_GLOBAL_CAPPED)
 FA_TIMED = (BACKBONE_FA, FA_CASES[1], LONG_FA, PREFILL_FA, *ZOO_FA)
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _binding_tol(tol: float, dtype: str, q_scale: float) -> float:
+    """A case's tolerance at q drawn x ``q_scale``: f32 rounds each score to
+    ~2^-24 of its size, so the scores' absolute errors, and the outputs'
+    with them, are ``q_scale`` times the unit-normal case's; in bf16 the
+    output's own rounding (2^-8) dominates and the tolerance stays."""
+    return tol * q_scale if dtype == "float32" else tol
+# the train phase: the smoke configs in f32, CPU vs card (seq, batch,
+# microbatches, AdamW steps), each gradient leaf within TRAIN_GRAD_TOL of the
+# leaf's largest magnitude (f32 sums in another order), the parameters after
+# the steps within 2 * lr a step (a near-zero gradient whose sign differs moves
+# AdamW's early update by ~2 * lr) and all but 0.1% within 0.01 * lr
+TRAIN_CHECK = ("qwen3-1.7b", "mamba2-370m", "grok-1-314b")
+TRAIN_CHECK_SHAPE = (32, 4, 2, 2)
+TRAIN_GRAD_TOL = 1e-4
+# then qwen3-1.7b at full width: train_4k's 4,096 tokens, its batch of 256 cut to
+# 8 (2 microbatches of 4), 4 AdamW steps; the resume check runs the same at
+# full width with the depth cut to 4 of 28 layers (a 6.1 GB checkpoint, not
+# 20.6 GB: the full one took ~120 s to write and read), cut at step 2
+TRAIN_FULL = ("qwen3-1.7b", 4096, 8, 2, 4)
+TRAIN_RESUME_LAYERS = 4
+TRAIN_RESUME_AT = 2
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 # the cascade bank with the reduced bf16 qwen3 trunk (bf16_check: head_dim
 # 128, 2 query heads over 1 KV head, so 16 query rows a (lane, kv head) at 8
 # tokens): objects, predicates, merged plans of this many lanes
@@ -913,6 +986,25 @@ def _softcap_check(q, k, v, kl, want, kw, label, q_scale, tol, ms: bool) -> dict
     return row
 
 
+def _softcap_control(q, k, v, kl, want, kw, label, q_scale, tol, route) -> dict:
+    """The short or simt kernel without its softcap on inputs whose scores
+    reach the cap (uncounted): it must differ from the capped twin ``want``
+    beyond ``tol``, or the case could not tell a right softcap from a
+    missing one -> a row for the JSON line."""
+    import torch
+
+    call, out = _fa_other_call(q, k, v, kl, {**kw, "logit_softcap": None}, route)
+    call()
+    torch.cuda.synchronize()
+    miss = (out.float() - want.float()).abs().max().item()
+    print(f"[flash] {label} softcap {kw['logit_softcap']}: the {route} kernel without its cap "
+          f"misses the twin by {miss:.3g} (tol {tol})", flush=True)
+    assert not torch.allclose(out.float(), want.float(), rtol=tol, atol=tol), (
+        f"{label}: the {route} kernel without its softcap stays within {tol} of the twin: the "
+        "cap does not bind here")
+    return {"case": label, "q_scale": q_scale, "no_softcap_err": miss}
+
+
 def phase_flash() -> dict:
     """The three flash kernels against the plain twin -> {route: results}."""
     import torch
@@ -944,7 +1036,7 @@ def phase_flash() -> dict:
         torch.cuda.synchronize()
         assert ops.ROUTES[route] == before + 1, (case, route, ops.ROUTES)
         err = (out.float() - want.float()).abs().max().item()
-        tol = FA_TOL[dtype]
+        tol = _binding_tol(FA_TOL[dtype], dtype, q_scale)
         if not torch.allclose(out.float(), want.float(), rtol=tol, atol=tol):
             raise AssertionError(f"flash_attention {case} ({route}): differs from the plain "
                                  f"twin beyond {tol} (max abs diff {err})")
@@ -956,6 +1048,9 @@ def phase_flash() -> dict:
             result.setdefault("softcap", []).append(
                 _softcap_check(q, k, v, kl, want, kw, label, q_scale, FA_TOL[dtype], ms=(
                     d == 256 and window is None and sq == GEMMA2_GLOBAL_CAPPED[1])))
+        elif cap is not None and q_scale > 1:  # short / simt where the cap binds
+            result.setdefault("softcap", []).append(dict(
+                _softcap_control(q, k, v, kl, want, kw, label, q_scale, tol, route), err=err))
         if case not in FA_TIMED:
             print(f"[flash] {label} window={window} softcap={cap}: "
                   f"max abs diff {err:.3g} (tol {tol})", flush=True)
@@ -1464,6 +1559,66 @@ def _da_bound(case, fused: bool) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _decode_softcap_check(case) -> dict:
+    """The fused kernel (and the partials kernel where it takes the group)
+    on inputs whose scores reach the cap, with and without the cap
+    (uncounted launches): capped within the tolerance of the oracle (the
+    partials of their twin), uncapped beyond it -> a row for the JSON line."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel, ops, ref
+
+    b, skv, h, kv, d, kv_len, window, cap, dtype, q_scale = case
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(kv_len + d + 1)
+    q = (torch.randn((b, 1, h, d), generator=g, device=dev) * q_scale).to(dt)
+    k, v = (torch.randn((b, skv, kv, d), generator=g, device=dev).to(dt) for _ in range(2))
+    kl = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+    qm = q.reshape(b * kv, h // kv, d).contiguous()
+    form = kernel.fused_route(dt, d)
+    ns = ops.fused_num_splits(b * kv, skv, form)
+    oracle = ref.reference_decode(q, k, v, kl, softcap=cap, window=window).float()
+    tol, part_tol = (_binding_tol(t, dtype, q_scale) for t in (FA_TOL[dtype], DA_TOL))
+    label = (f"B={b} H={h} KV={kv} D={d} kv_len={kv_len} window={window} softcap={cap} "
+             f"{dtype} q_scale={q_scale} (fused: {form})")
+    row = {"case": label, "q_scale": q_scale}
+    for name, c in (("capped", cap), ("no_softcap", None)):
+        out = torch.empty_like(qm)
+        kernel.launch_fused(qm, k, v, kl, out, num_splits=ns, softcap=c, window=window)
+        torch.cuda.synchronize()
+        got = out.reshape(b, 1, h, d).float()
+        row[f"fused_{name}_err"] = (got - oracle).abs().max().item()
+        row[f"fused_{name}_within_tol"] = torch.allclose(got, oracle, rtol=tol, atol=tol)
+    partials = kernel.supports(h // kv, d)
+    if partials:
+        nsp = ref.split_count(skv, ops.default_num_splits(b * kv, skv))
+        km, vm = (t.transpose(1, 2).reshape(b * kv, skv, d).contiguous() for t in (k, v))
+        want = ref.decode_attention_partials(qm, km, vm, kl, num_splits=nsp, softcap=cap,
+                                             window=window)
+        for name, c in (("capped", cap), ("no_softcap", None)):
+            m, l = (torch.empty((b * kv, nsp, h // kv), dtype=torch.float32, device=dev)
+                    for _ in range(2))
+            acc = torch.empty((b * kv, nsp, h // kv, d), dtype=torch.float32, device=dev)
+            kernel.launch(qm, k, v, kl, m, l, acc, softcap=c, window=window)
+            torch.cuda.synchronize()
+            row[f"partials_{name}_err"] = max((x - y).abs().max().item()
+                                              for x, y in zip((m, l, acc), want))
+            row[f"partials_{name}_within_tol"] = all(
+                torch.allclose(x, y, rtol=part_tol, atol=part_tol)
+                for x, y in zip((m, l, acc), want))
+    print(f"[decode] softcap where it binds, {label}: fused capped {row['fused_capped_err']:.3g}, "
+          f"without the cap {row['fused_no_softcap_err']:.3g} from the oracle (tol {tol})"
+          + (f"; partials capped {row['partials_capped_err']:.3g}, without the cap "
+             f"{row['partials_no_softcap_err']:.3g} from the twin (tol {part_tol:.3g})"
+             if partials else ""), flush=True)
+    assert row["fused_capped_within_tol"], row
+    assert not row["fused_no_softcap_within_tol"], f"the cap does not bind: {row}"
+    if partials:
+        assert row["partials_capped_within_tol"], row
+        assert not row["partials_no_softcap_within_tol"], f"the cap does not bind: {row}"
+    return row
+
+
 def phase_decode() -> tuple:
     """Kernel 5 at the qwen3-1.7b decode shape and the zoo's: the fused
     kernel (the model's route) against its twin and the oracle, the partials
@@ -1580,6 +1735,8 @@ def phase_decode() -> tuple:
         elif case in ZOO_DA:
             fused.setdefault("shapes", []).append(dict(row, case=label, serves=ZOO_DA[case],
                                                        library=lib_name))
+    fused["softcap"] = [_decode_softcap_check(case) for case in DA_BINDING]
+    part["softcap"] = [r for r in fused["softcap"] if "partials_capped_err" in r]
     return part, fused
 
 
@@ -2006,6 +2163,231 @@ def phase_zoo_serve() -> dict:
     return launches
 
 
+def _train_grads(cfg, params, batch):
+    """loss_fn and autograd on ``params``' device -> (loss, metrics, every
+    gradient leaf)."""
+    import torch
+
+    from repro_torch.models.model import Model
+    from repro_torch.optim.tree import leaves, tree_map
+
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, metrics = Model(cfg).loss_fn(p, batch)
+    grads = torch.autograd.grad(loss, leaves(p), allow_unused=True, materialize_grads=True)
+    return loss.item(), {k: v.item() for k, v in metrics.items()}, grads
+
+
+def _all_counts() -> dict:
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.enrich_score import ops as es_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    return {**_launches(fa_ops, da_ops, ssd_ops), **es_ops.LAUNCHES,
+            **{f"plain/{k}": n for ops in (fa_ops, da_ops, ssd_ops, es_ops)
+               for k, n in ops.PLAIN_CALLS.items()}}
+
+
+def _reset_all_counts() -> None:
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.enrich_score import ops as es_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import attention
+
+    for ops in (fa_ops, da_ops, ssd_ops, es_ops, attention):
+        ops.reset_counts()
+
+
+def phase_train_cpu_vs_gpu() -> None:
+    """The smoke models in f32 from the same weights and batches on the CPU
+    and the card: the loss, metrics, grad norm and every gradient leaf, then
+    ``TRAIN_CHECK_SHAPE``'s AdamW steps through ``build_train_step``.  No
+    kernel launches (training runs the plain engines)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticTokenStream, TokenStreamConfig, to_device
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.optim.tree import leaves, tree_map
+
+    seq, rows, mb, n_steps = TRAIN_CHECK_SHAPE
+    dev = torch.device("cuda")
+    for arch in TRAIN_CHECK:
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+        params = Model(cfg).init_params(torch.Generator().manual_seed(0))
+        stream = SyntheticTokenStream(TokenStreamConfig(cfg.vocab_size, seq, rows))
+        _reset_all_counts()
+        cpu = _train_grads(cfg, params, to_device(stream.batch(0), "cpu"))
+        gpu = _train_grads(cfg, tree_map(lambda t: t.to(dev), params),
+                           to_device(stream.batch(0), dev))
+        assert abs(gpu[0] - cpu[0]) <= 1e-4 * abs(cpu[0]), (arch, gpu[0], cpu[0])
+        for k in cpu[1]:
+            assert abs(gpu[1][k] - cpu[1][k]) <= 1e-4 * abs(cpu[1][k]), (arch, k)
+        worst = 0.0
+        for gg, gc_ in zip(gpu[2], cpu[2]):
+            scale = max(gc_.abs().max().item(), 1e-12)
+            worst = max(worst, (gg.cpu() - gc_).abs().max().item() / scale)
+        assert worst <= TRAIN_GRAD_TOL, (arch, worst)
+        norms = [global_norm(list(g)).item() for g in (cpu[2], [t.cpu() for t in gpu[2]])]
+        built = build_train_step(cfg, ShapeSpec("check", "train", seq, rows), num_microbatches=mb,
+                                 donate=False)
+        runs = {}
+        for d in ("cpu", dev):
+            p = tree_map(lambda t: t.to(d), params)
+            s = built.optimizer.init(p)
+            losses = []
+            for step in range(n_steps):
+                p, s, m = built.fn(p, s, to_device(stream.batch(step), d))
+                losses.append(m["loss"].item())
+            runs[str(d)] = (losses, [t.cpu() for t in leaves(p)])
+        lr, loose, total, far = built.optimizer.lr, 0, 0, 0.0
+        for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+            diff = (a - b).abs()
+            far = max(far, diff.max().item())
+            loose += int((diff > 0.01 * lr).sum())
+            total += diff.numel()
+        counts = _all_counts()
+        moved = {k: n for k, n in counts.items() if n and not k.startswith("plain/")}
+        print(f"[train] {arch} smoke (f32) CPU vs card: loss {cpu[0]:.6f} / {gpu[0]:.6f}, grad "
+              f"norm {norms[0]:.6f} / {norms[1]:.6f}, every gradient leaf within {worst:.3g} of "
+              f"its scale (tol {TRAIN_GRAD_TOL}); after {n_steps} AdamW steps losses "
+              f"{runs['cpu'][0]} / {runs['cuda'][0]}, parameters within {far / lr:.4f} lr "
+              f"({loose} of {total} beyond 0.01 lr); kernel launches {moved or 0}", flush=True)
+        assert not moved, moved
+        np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+        assert far <= 2 * lr * n_steps and loose <= 1e-3 * total, (arch, far / lr, loose)
+
+
+def phase_train_main_path() -> dict:
+    """qwen3-1.7b at full width (28 layers, d 2,048, 1,720,451,072 parameters,
+    random f32 weights, bf16 activations) through ``launch.train.train_loop``:
+    ``TRAIN_FULL``'s AdamW steps on the chunked attention engine with remat.
+    Every loss finite and the last below the first, no kernel launched, the
+    chunked engine ran -> the numbers for the report."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import train
+    from repro_torch.models import attention
+
+    arch, seq, rows, mb, n_steps = TRAIN_FULL
+    cfg = get_config(arch)
+    assert (cfg.num_layers, cfg.d_model, cfg.param_counts()["total"]) == (28, 2048, 1_720_451_072)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    params, state, hist = train.train_loop(cfg, ShapeSpec("train_4k-cut", "train", seq, rows),
+                                           n_steps, device="cuda", num_microbatches=mb,
+                                           log_every=1)
+    wall = time.perf_counter() - t0
+    counts = _all_counts()
+    engine = dict(attention.ENGINE_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    step_ms = [h["sec"] * 1e3 for h in hist]
+    ms = statistics.median(step_ms[1:])
+    tokens_s = rows * seq / (ms / 1e3)
+    print(f"[train] {arch} at full width: {n_steps} AdamW steps of {rows} x {seq} tokens "
+          f"({mb} microbatches), losses {losses}; step ms {[round(t, 2) for t in step_ms]}, "
+          f"median of steps 2-{n_steps} {ms:.2f} ms = {tokens_s:.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.3f} GiB; attention engine calls {engine}; {wall:.1f} s in all",
+          flush=True)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert not any(counts.values()), {k: n for k, n in counts.items() if n}
+    assert engine["dense"] == 0 and engine["chunked"] >= cfg.num_layers * mb * n_steps * (
+        seq // attention.DEFAULT_Q_CHUNK), engine
+    return dict(losses=losses, step_ms=step_ms, ms=ms, tokens_s=tokens_s, peak_bytes=peak,
+                engine_calls=engine)
+
+
+def phase_train_resume() -> dict:
+    """``train_loop`` checkpointed at ``TRAIN_RESUME_AT`` and resumed in a
+    fresh loop equals the uninterrupted run bitwise (qwen3-1.7b at full
+    width, ``TRAIN_RESUME_LAYERS`` layers): run in a child process
+    that sets ``CUBLAS_WORKSPACE_CONFIG`` before cuBLAS starts and runs under
+    ``torch.use_deterministic_algorithms(True)``."""
+    import shutil
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--train-resume"],
+                          env=env, capture_output=True, text=True, timeout=900)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    sys.stdout.write(proc.stdout)
+    sys.stderr.write(proc.stderr[-4000:])
+    if proc.returncode:
+        raise AssertionError(f"the resume check exited {proc.returncode}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"[train] resume check passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    return result
+
+
+def train_resume_child() -> int:
+    """The child of ``phase_train_resume``: the uninterrupted run, then a run
+    cut at ``TRAIN_RESUME_AT`` that checkpoints, then a fresh loop that
+    restores and finishes; the resumed losses and every parameter and
+    optimiser-state leaf must equal the uninterrupted run's bitwise."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import train
+    from repro_torch.optim.tree import leaves
+
+    torch.use_deterministic_algorithms(True)
+    arch, seq, rows, mb, n_steps = TRAIN_FULL
+    cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_RESUME_LAYERS)
+    shape = ShapeSpec("train_4k-cut", "train", seq, rows)
+    kw = dict(device="cuda", num_microbatches=mb, log_every=n_steps)
+
+    def host(params, state):
+        return [t.cpu() for t in leaves((params, (state.step, state.mu, state.nu)))]
+
+    p, s, whole = train.train_loop(cfg, shape, n_steps, **kw)
+    want = host(p, s)
+    del p, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    p, s, first = train.train_loop(cfg, shape, TRAIN_RESUME_AT, ckpt_dir=str(TRAIN_DIR),
+                                   ckpt_every=TRAIN_RESUME_AT, **kw)
+    del p, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_bytes = sum(f.stat().st_size for f in TRAIN_DIR.rglob("*") if f.is_file())
+    p, s, rest = train.train_loop(cfg, shape, n_steps, ckpt_dir=str(TRAIN_DIR), **kw)
+    got = host(p, s)
+    losses = [h["loss"] for h in first + rest]
+    same = [h["loss"] for h in whole] == losses and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    print(f"[train] resume: uninterrupted losses {[h['loss'] for h in whole]}, cut at step "
+          f"{TRAIN_RESUME_AT} and resumed {losses}; {len(got)} leaves bitwise equal: {same}; "
+          f"checkpoint {ckpt_bytes / 1e9:.2f} GB", flush=True)
+    assert [h["step"] for h in rest] == list(range(TRAIN_RESUME_AT, n_steps))
+    assert same
+    print(json.dumps({"bitwise": same, "losses": losses, "checkpoint_bytes": ckpt_bytes}))
+    return 0
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2417,6 +2799,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--train-resume"]:  # phase_train_resume's child process
+        return train_resume_child()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch.quickstart import quickstart_world
@@ -2448,6 +2832,9 @@ def main() -> int:
             phase_cascade_main_path("mamba2-370m"), phase_cascade_main_path("hymba-1.5b"),
             phase_operator_main_path(), phase_serve_entry_points(), phase_model_serve(),
             phase_zoo_serve()]
+    phase_train_cpu_vs_gpu()
+    train_run = phase_train_main_path()
+    train_run["resume"] = phase_train_resume()
     # launches: the sum over the main-path runs (each zeroes the counts first)
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
@@ -2466,7 +2853,9 @@ def main() -> int:
         prefill_library_ms=results["flash_attention"]["prefill_library_ms"],
         routes={r: sum(run.get(f"flash_attention/{r}", 0) for run in runs)
                 for r in ("tc", "short", "simt")})
-    by_name["flash_attention_tc"]["softcap"] = results["flash_attention_tc"]["softcap"]
+    for name in ("flash_attention_tc", "flash_attention_short", "flash_attention",
+                 "decode_attention_fused", "decode_attention_partials"):
+        by_name[name]["softcap"] = results[name]["softcap"]
     by_name["ssd_intra_chunk"].update(
         prefill_simt_ms=results["ssd_intra_chunk"]["prefill_simt_ms"],
         prefill_bound_ms=results["ssd_intra_chunk"]["prefill_bound_ms"],
@@ -2475,6 +2864,7 @@ def main() -> int:
     by_name["decode_attention_partials"].update(
         with_combine_ms=results["decode_attention_partials"]["with_combine_ms"])
     by_name["decode_attention_fused"].update(host_ms=results["decode_attention_fused"]["host_ms"])
+    print(f"[train] {json.dumps(train_run)}", flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,7 +12,10 @@ The files are byte-compatible with the reference's: leaf keys are the
 strings ``jax.tree_util.tree_flatten_with_path`` prints for the reference's
 registered dataclasses (``.substrate/.func_probs``, ``.ledger/.archived``,
 ...; ``/`` becomes ``|`` inside the npz), built here from the dataclass
-field order; dtype names are numpy's (``float32``, ``bool``, ``int32``,
+field order, and for a training checkpoint's ``(params, opt_state)``
+(``0/embed``, ``0/layers/0/attn/wq``, ``1/.step``, ``1/.mu/embed``: a
+tuple's items by index, a ``NamedTuple``'s fields as ``.name``); dtype
+names are numpy's (``float32``, ``bool``, ``int32``,
 ``bfloat16``, ``uint32``); bf16 travels as its uint16 bytes
 (``t.view(torch.int16)`` out, ``torch.from_numpy(...).view(torch.bfloat16)``
 in), so no numpy bf16 type is needed.  A checkpoint written by either
@@ -74,23 +77,32 @@ def _is_leaf(x) -> bool:
 
 
 def _flatten_with_paths(tree, prefix: str = "") -> list:
-    """[(key, leaf)] in the reference's order and spelling: dataclass fields
-    in declaration order as ``.name``, dict keys sorted as ``key``, joined
-    by ``/``; None is an empty subtree."""
+    """[(key, leaf)] in the reference's order and spelling: dataclass and
+    ``NamedTuple`` fields in declaration order as ``.name``, dict keys
+    sorted as ``key``, tuple items as their index, joined by ``/``; None is
+    an empty subtree."""
     if tree is None:
         return []
     if _is_leaf(tree):
         return [(prefix, tree)]
     if dataclasses.is_dataclass(tree):
         items = [(f".{f.name}", getattr(tree, f.name)) for f in dataclasses.fields(tree)]
+    elif _is_namedtuple(tree):
+        items = [(f".{name}", getattr(tree, name)) for name in tree._fields]
     elif isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (tuple, list)):
+        items = [(str(i), sub) for i, sub in enumerate(tree)]
     else:
         raise TypeError(f"checkpoint leaves must be tensors or arrays, got {type(tree)}")
     out = []
     for name, sub in items:
         out.extend(_flatten_with_paths(sub, f"{prefix}/{name}" if prefix else name))
     return out
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(type(x), "_fields")
 
 
 def _unflatten(like, leaves: dict, prefix: str = ""):
@@ -108,6 +120,11 @@ def _unflatten(like, leaves: dict, prefix: str = ""):
             f.name: _unflatten(getattr(like, f.name), leaves, key(f".{f.name}"))
             for f in dataclasses.fields(like)
         })
+    if _is_namedtuple(like):
+        return type(like)(*(_unflatten(getattr(like, name), leaves, key(f".{name}"))
+                            for name in like._fields))
+    if isinstance(like, (tuple, list)):
+        return type(like)(_unflatten(sub, leaves, key(str(i))) for i, sub in enumerate(like))
     return {k: _unflatten(v, leaves, key(str(k))) for k, v in like.items()}
 
 

@@ -120,8 +120,8 @@ def _backbone_apply(cfg: ModelConfig, trunk: dict, head: dict, feats: torch.Tens
     x = feats @ head["proj"]  # [B, d_model]
     x = x[:, None, :].expand(b, N_BACKBONE_TOKENS, cfg.d_model).to(cfg.activation_dtype)
     pos = torch.arange(N_BACKBONE_TOKENS, device=feats.device)[None].expand(b, N_BACKBONE_TOKENS)
-    h, _ = tf.stack_apply(trunk["compute_layers"], cfg, x.contiguous(), pos, cfg.num_layers,
-                          causal=False)
+    h, _, _ = tf.stack_apply(trunk["compute_layers"], cfg, x.contiguous(), pos,
+                             cfg.num_layers, causal=False)
     pooled = torch.mean(h.float(), dim=1)
     return torch.sigmoid(pooled @ head["out"])[:, 0]
 
@@ -199,12 +199,12 @@ def _sgd(params: dict, loss_of, steps: int, lr: float) -> dict:
 def train_level(level: CascadeLevel, feats: torch.Tensor, labels: torch.Tensor,
                 steps: int = 200, lr: float = 0.05) -> CascadeLevel:
     """Fit a level to planted labels by NLL descent.  Backbone levels train
-    only the (proj, out) head, with the trunk frozen and its attention on
-    the dense engine."""
+    only the (proj, out) head, with the trunk frozen, its attention on the
+    dense engine and no remat (the trunk's activations are kept)."""
     y = labels.to(torch.float32)
     if level.name.startswith("backbone"):
         trunk, head = level.params
-        train_cfg = dataclasses.replace(level.cfg, attn_impl="dense")
+        train_cfg = dataclasses.replace(level.cfg, attn_impl="dense", remat=False)
         head = _sgd(head, lambda h: _nll(_backbone_apply(train_cfg, trunk, h, feats), y),
                     max(steps // 2, 50), lr)
         return dataclasses.replace(level, params=(trunk, head))
@@ -372,8 +372,8 @@ class ModelCascadeBank:
                 x = x.to(cfg.activation_dtype).contiguous()
                 pos = torch.arange(N_BACKBONE_TOKENS, device=x.device)[None].expand(
                     m, N_BACKBONE_TOKENS)
-                h, _ = tf.stack_apply(entry["trunk"]["compute_layers"], cfg, x, pos,
-                                      cfg.num_layers, causal=False)
+                h, _, _ = tf.stack_apply(entry["trunk"]["compute_layers"], cfg, x, pos,
+                                         cfg.num_layers, causal=False)
                 pooled = torch.mean(h.float(), dim=1)
                 logits = torch.einsum("mk,pko->pmo", pooled, heads["out"])
                 probs = torch.sigmoid(logits[s_prd, lane, 0])

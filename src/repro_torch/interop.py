@@ -8,10 +8,11 @@ port's ``CombineParams``, ``DecisionTable``, ``SessionState``,
 parameters (the ``[G]``-stacked ``layers`` of ``stack_init`` with every leaf
 the model zoo adds — ``moe``, ``cross`` / ``ln_cross``, ``enc_layers`` /
 ``enc_ln``, ``unembed``, ``img_proj`` — probes, backbone heads) and whole
-``ModelCascadeBank``s over any of the ten trunks, and back into nested dicts
-of numpy arrays.  It imports neither JAX nor the reference package: bf16
-leaves travel as their raw 16-bit patterns (``ml_dtypes.bfloat16`` numpy
-arrays on the numpy side).
+``ModelCascadeBank``s over any of the ten trunks, and the optimisers' states
+(``AdamWState``, ``AdafactorState``: a JAX train checkpoint's ``opt_state``),
+and back into nested dicts of numpy arrays.  It imports neither JAX nor the
+reference package: bf16 leaves travel as their raw 16-bit patterns
+(``ml_dtypes.bfloat16`` numpy arrays on the numpy side).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from repro_torch.core.state import EnrichmentState, PerQueryState, SharedSubstra
 from repro_torch.enrich import cascade as cascade_lib
 from repro_torch.enrich.simulated import SimulatedBank
 from repro_torch.models.config import EncoderConfig, ModelConfig, MoEConfig, SSMConfig
+from repro_torch.optim.adafactor import AdafactorState
+from repro_torch.optim.adamw import AdamWState
 
 
 def _field(obj, name: str):
@@ -224,3 +227,23 @@ def cascade_bank_from_numpy(cascades, features, device=None) -> cascade_lib.Mode
         cascades=[[level(lvl) for lvl in casc] for casc in cascades],
         features=to_torch(features, device).to(torch.float32),
     )
+
+
+# ------------------------------------------------------ optimiser states --
+
+_OPT_STATES = {AdamWState: ("mu", "nu"), AdafactorState: ("v_row", "v_col", "v_full")}
+
+
+def opt_state_from_numpy(cls, obj, device=None):
+    """A numpy optimiser state (the reference's ``AdamWState`` /
+    ``AdafactorState`` after ``jax.device_get``, or a dict with its field
+    names) -> the port's ``cls`` on ``device``."""
+    return cls(step=to_torch(_field(obj, "step"), device),
+               **{k: tree_from_numpy(_field(obj, k), device) for k in _OPT_STATES[cls]})
+
+
+def opt_state_to_numpy(state) -> dict:
+    """The port's ``AdamWState`` / ``AdafactorState`` -> a dict of numpy trees
+    keyed by its field names."""
+    return {"step": to_numpy(state.step),
+            **{k: tree_to_numpy(getattr(state, k)) for k in _OPT_STATES[type(state)]}}

@@ -10,7 +10,8 @@ k / v ``[BKV, Skv, D]``, splits over Skv, f32 partials out) on the partials
 kernel (``csrc/decode_attention.cu``).  They route by the device of their
 tensors: on the CPU the plain PyTorch twins (``ref.py``) run; on a CUDA
 tensor the kernel launches or the call raises — it never falls back and
-reads no environment switch.  On the card the kernels read the cache in its
+reads no environment switch.  The kernels have no backward pass: an input
+that requires grad under grad mode is refused (``kernels.autograd``).  On the card the kernels read the cache in its
 ``[B, S, KV, D]`` layout in place.
 
 The query sits at position ``kv_len`` and attends to keys ``< kv_len`` and,
@@ -39,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.autograd import refuse_grad
 from repro_torch.kernels.decode_attention import kernel, ref
 
 KERNEL = "decode_attention_partials"
@@ -93,6 +95,7 @@ def cache_partials(q, k, v, kv_len, ns, softcap, window):
     """The kernel's partials over a cache read in place (CUDA tensors only):
     q [BKV, G, D] contiguous, k / v [B, Skv, KV, D] with a unit innermost
     stride, ``ns`` splits -> (m, l, acc) as ``decode_attention_partials``."""
+    refuse_grad(KERNEL, q, k, v)
     bkv, g, d = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"cache_partials launches the CUDA kernel; q is on {q.device}")
@@ -124,6 +127,7 @@ def decode_attention_partials(
     num_splits: int = 8,
 ):
     """-> (m [BKV, ns, G] f32, l [BKV, ns, G] f32, acc [BKV, ns, G, D] f32)."""
+    refuse_grad(KERNEL, q, k, v)
     if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape or k.shape[0] != q.shape[0] or (
             k.shape[2] != q.shape[2]):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not "
@@ -155,6 +159,7 @@ def decode_attention(
     num_splits: Optional[int] = None,
 ) -> torch.Tensor:
     """One query token per batch row -> [B, 1, H, D] in q's dtype (f32 math)."""
+    refuse_grad(FUSED, q, k, v)
     if q.ndim != 4 or q.shape[1] != 1 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"decode_attention takes q [B, 1, H, D] and k, v [B, Skv, KV, D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

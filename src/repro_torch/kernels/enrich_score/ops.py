@@ -7,7 +7,9 @@ operator's ``benefit_fn`` route, ``[N, P]`` leaves) and
 leaves).  They route by the device of their tensors: on the CPU they run
 the plain PyTorch versions (``ref.py``); on CUDA tensors they launch the
 hand-written kernels or raise — they never fall back, read no environment
-switch, and refuse tensors on mixed devices.
+switch, and refuse tensors on mixed devices.  The kernels have no backward
+pass: an input that requires grad under grad mode is refused
+(``kernels.autograd``).
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-path calls,
 one plain integer per kernel, so a run can show that its main path went
@@ -24,6 +26,7 @@ from repro_torch.core.benefit import TripleBenefits
 from repro_torch.core.decision_table import DecisionTable
 from repro_torch.core.entropy import inverse_entropy_table
 from repro_torch.core.errors import SubstrateDtypeError
+from repro_torch.kernels.autograd import refuse_grad
 from repro_torch.kernels.enrich_score import kernel, ref
 
 KERNELS = ("enrich_score_table", "enrich_score_best", "enrich_score_single")
@@ -81,6 +84,7 @@ def fused_benefits(
     if not query.is_conjunctive:
         raise ValueError("fused_benefits covers the conjunctive fast path only")
     name = "enrich_score_single"
+    refuse_grad(name, state.pred_prob, state.uncertainty, state.joint_prob, costs)
     n, p = state.pred_prob.shape
     if candidate_mask is None:
         candidate_mask = ~state.in_answer
@@ -153,6 +157,8 @@ def fused_benefits_batched(
     exactly inside the kernel); mixed probability dtypes raise
     ``SubstrateDtypeError`` rather than promote.
     """
+    refuse_grad(KERNELS[function_selection == "best"], pred_prob, uncertainty, joint_prob,
+                costs)
     if not (pred_prob.dtype == uncertainty.dtype == joint_prob.dtype):
         raise SubstrateDtypeError(
             f"fused scoring needs one probability dtype; got pred_prob="

@@ -8,7 +8,9 @@ the dtype and shape — "tc" (wgmma + TMA) for bf16 blocks of >= 64 query
 rows at D 64 / 80 / 128 / 256, "short" (mma.sync) for shorter bf16 blocks
 such as the cascade's 8 tokens at D 64 / 128; "simt" for f32 and the rest —
 or raises: it never falls back, to another kernel or to the twin, and reads
-no environment switch.  The three kernels read the [B, S, H, D] layout in
+no environment switch.  The kernels have no backward pass: an input that
+requires grad under grad mode is refused (``kernels.autograd``), on either
+device.  The three kernels read the [B, S, H, D] layout in
 place, so the card path makes no transposed copies.
 
 ``LAUNCHES`` counts kernel launches, ``ROUTES`` them by kernel and
@@ -22,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.autograd import refuse_grad
 from repro_torch.kernels.flash_attention import kernel, ref
 
 KERNEL = "flash_attention"
@@ -88,6 +91,7 @@ def flash_attention(
     q_offset_from_kv_len: bool = False,
 ) -> torch.Tensor:
     """GQA attention -> [B, Sq, H, D] in q's dtype (f32 math inside)."""
+    refuse_grad(KERNEL, q, k, v)
     _check(q, k, v, kv_len)
     if kv_len is not None:
         kv_len = kv_len.reshape(1)

@@ -12,7 +12,8 @@ the hand-written kernel that ``kernel.route`` names launches — "tc" (bf16
 on the tensor cores: the mamba2 prefill's chunks of 256), "packed" (chunks
 of 4 to 32: the cascade's 8 tokens) or "simt" (f32 and the other shapes)
 — or the call raises: it never falls back and reads no environment
-switch.  The kernels read strided views, so the model passes x, B and C as
+switch.  The kernel has no backward pass: an input that requires grad
+under grad mode is refused (``kernels.autograd``).  The kernels read strided views, so the model passes x, B and C as
 slices of its projection and B / C with no H-fold copy.
 
 ``LAUNCHES`` counts kernel launches, ``ROUTES`` them by kernel, and
@@ -26,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.autograd import refuse_grad
 from repro_torch.kernels.ssd_scan import kernel, ref
 
 KERNEL = "ssd_intra_chunk"
@@ -88,6 +90,7 @@ def intra_chunk(x, dt, a, b, c, *, chunk: int, final_state: bool = True):
     """The intra-chunk term -> (y_intra [B, S, H, P] f32, s_contrib
     [B, H, nc', P, N] f32, cumexp [B, H, S] f32); ``final_state=False``
     leaves out the last chunk's state (nc' = nc - 1)."""
+    refuse_grad(KERNEL, x, dt, a, b, c)
     _check(x, dt, a, b, c, chunk)
     dev = x.device
     if dev.type == "cpu":

@@ -1,6 +1,6 @@
 """Where one epoch spends its time on the card.
 
-    python -m repro_torch.launch.profile [--path session|operator|prefill|decode]
+    python -m repro_torch.launch.profile [--path session|operator|prefill|decode|train]
         [--bank simulated|cascade] [--backbone ARCH] [--epochs 8] [--mode best|table]
 
 ``--bank simulated`` (default) builds the main-path session (524,288 rows
@@ -24,7 +24,14 @@ window; llava-next-mistral-7b 2,880 random image embeds + 512 tokens;
 seamless-m4t-large-v2 512 tokens over 1,024 random frames; grok-1-314b and
 arctic-480b at full width cut to the depth one 80 GB card holds,
 ``ONE_CARD_LAYERS``) and profile whole prefills, or decode steps after one
-prefill; an "epoch" below is then one prefill or one decode step.  Then
+prefill; an "epoch" below is then one prefill or one decode step.  ``--path
+train`` builds the ``--backbone`` model at its published width with random
+f32 weights and AdamW (``launch.steps.build_train_step``, the chunked
+attention engine and remat) and profiles whole train steps over
+``TRAIN_SHAPE`` (qwen3-1.7b: 4,096 tokens, a batch of 8 as 2 microbatches
+of 4; ``SyntheticTokenStream``'s batch); an "epoch" is one step, and it also
+times, with CUDA events, one cross-entropy chunk (forward and backward, at
+the step's [4, 1,024] positions) and one optimiser update alone.  Then
 ``--epochs`` epochs run under ``torch.profiler`` and it prints: the wall
 time per epoch, the device-busy share of that wall time (sum of kernel
 times over wall time; kernels on one stream do not overlap), the device
@@ -76,6 +83,9 @@ MODEL_SHAPES = {  # batch, prompt tokens (after a vision model's image embeds)
 # full width, depth cut to what one 80 GB card holds in bf16: grok-1 ~9.8 GB a
 # layer (8 experts of 3 x 6144 x 32768), arctic ~27 GB (128 of 3 x 7168 x 4864)
 ONE_CARD_LAYERS = {"grok-1-314b": 4, "arctic-480b": 2}
+# --path train: seq_len, global batch, microbatches (train_4k's 4,096 tokens;
+# its batch of 256 cut to 8)
+TRAIN_SHAPE = (4096, 8, 2)
 
 
 def model_config(arch: str):
@@ -193,15 +203,81 @@ def _model(backbone: str, decode: bool):
         f"{prompt} tokens{extra} (bf16, kernel route; an 'epoch' is one {kind})")
 
 
+def _train(backbone: str):
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticTokenStream, TokenStreamConfig, to_device
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import Model
+
+    seq, batch_rows, mb = TRAIN_SHAPE
+    cfg = model_config(backbone)
+    built = build_train_step(cfg, ShapeSpec("train_4k-cut", "train", seq, batch_rows),
+                             num_microbatches=mb)
+    params = Model(cfg).init_params(torch.Generator(device="cuda").manual_seed(0))
+    opt_state = built.optimizer.init(params)
+    batch = to_device(SyntheticTokenStream(TokenStreamConfig(cfg.vocab_size, seq, batch_rows))
+                      .batch(0), "cuda")
+
+    def run(st, n, stop_when_exhausted):
+        p, o = st
+        for _ in range(n):
+            p, o, _ = built.fn(p, o, batch)
+        return (p, o), None
+
+    state, _ = run((params, opt_state), 1, False)  # warm-up
+    return run, state, None, (
+        f"{backbone} train step at full width ({cfg.num_layers} layers), {batch_rows} x {seq} "
+        f"tokens as {mb} microbatches, f32 params + AdamW, {cfg.dtype} activations, chunked "
+        f"attention, remat (an 'epoch' is one step)")
+
+
+def _train_parts(backbone: str, state) -> None:
+    """One cross-entropy chunk (forward + backward) and one optimiser update,
+    each alone, timed with CUDA events (median of 5 after a warm-up)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = model_config(backbone)
+    params, opt_state = state
+    seq, batch_rows, mb = TRAIN_SHAPE
+    rows, chunk = batch_rows // mb, min(1024, seq)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((rows, chunk, cfg.d_model), generator=gen, device="cuda").to(
+        cfg.activation_dtype).requires_grad_(True)
+    tgt = torch.randint(0, cfg.vocab_size, (rows, chunk), generator=gen, device="cuda")
+    w = (params["embed"] if cfg.tie_embeddings else params["unembed"]).detach().requires_grad_(True)
+
+    def ce():
+        model_lib._ce_sum(w, x, tgt, cfg.final_logit_softcap).backward()
+
+    def opt():  # the parameters stand in for the gradients: same shapes, timing only
+        AdamW().update(params, opt_state, params, donate=True)
+
+    for name, fn, per_step in (("cross-entropy chunk (fwd + bwd)", ce, mb * seq // chunk),
+                               ("optimiser update (AdamW, in place)", opt, 1)):
+        fn()
+        times = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = sorted(times)[2]
+        print(f"[profile]   alone: {name} {ms:.3f} ms, x {per_step} a step = "
+              f"{ms * per_step:.3f} ms/epoch")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--path", default="session",
-                    choices=("session", "operator", "prefill", "decode"))
+                    choices=("session", "operator", "prefill", "decode", "train"))
     ap.add_argument("--bank", default="simulated", choices=("simulated", "cascade"),
                     help="the session path's bank")
     ap.add_argument("--backbone", default="qwen3-1.7b", choices=sorted(ARCHS),
                     help="the cascade bank's backbone, or the model of --path prefill / "
-                         "decode, at its published width")
+                         "decode / train, at its published width")
     ap.add_argument("--epochs", type=int, default=8)
     ap.add_argument("--mode", default="best", choices=("best", "table"),
                     help="scoring mode of the simulated bank (the cascade serves best mode)")
@@ -214,6 +290,8 @@ def main(argv=None) -> int:
         run, state, bank, label = _operator()
     elif args.path in ("prefill", "decode"):
         run, state, bank, label = _model(args.backbone, args.path == "decode")
+    elif args.path == "train":
+        run, state, bank, label = _train(args.backbone)
     elif args.bank == "cascade":
         run, state, bank, label = _cascade(args.backbone)
     else:
@@ -253,6 +331,9 @@ def main(argv=None) -> int:
     for e in sorted(events, key=_device_us, reverse=True)[: args.top]:
         print(f"[profile]   {_device_us(e) / 1e3 / n:9.4f} ms/epoch  "
               f"{e.count // max(n, 1):5d} calls/epoch  {e.key[:110]}")
+    if args.path == "train":
+        print(f"[profile] peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        _train_parts(args.backbone, state)
     if bank is not None:
         # device idle right after each host read: end of its DtoH copy -> next kernel start
         kernels = sorted(

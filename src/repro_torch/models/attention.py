@@ -4,13 +4,23 @@
 
 Score engines:
     dense   — materializes [.., Sq, Skv] scores (the reference's "dense");
+    chunked — a loop over query blocks, each against the whole K / V with
+              f32 scores (the reference's memory-efficient "chunked"
+              engine): peak scores memory [B, H, cq, Skv] instead of
+              [B, H, Sq, Skv]; under autograd each block is recomputed in
+              the backward pass (``torch.utils.checkpoint``, the
+              reference's ``jax.checkpoint(q_block)``), so its softmax
+              residuals are never all alive at once;
     kernel  — the hand-written CUDA kernels on the card, their plain twins on
               the CPU (the reference's "pallas"): one query token over a
               cache (``Sq == 1``) goes to ``kernels/decode_attention``, any
-              other call to ``kernels/flash_attention``.
+              other call to ``kernels/flash_attention``.  The kernels have
+              no backward: their wrappers refuse inputs that require grad.
 
-``cfg.attn_impl``: "auto" (dense here: the reference's chunked engine for
-long sequences waits for the training slice) | "dense" | "kernel".
+``cfg.attn_impl``: "auto" (dense below ``CHUNK_THRESHOLD`` = Sq * Skv,
+chunked from it, as the reference) | "dense" | "chunked" | "kernel".
+``ENGINE_CALLS`` counts the calls of each plain engine (a block recomputed
+in the backward pass counts again), so a run can show which one it took.
 
 Cross-attention (``attn_apply(..., xk=enc_out)``, the encoder-decoder's
 decoder blocks) takes K and V from ``xk``, applies no RoPE on either side,
@@ -29,10 +39,20 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import _dense_init, apply_rope, rmsnorm, softcap
+
+CHUNK_THRESHOLD = 2048 * 2048  # Sq * Skv from which "auto" takes the chunked engine
+DEFAULT_Q_CHUNK = 256
+ENGINE_CALLS = {"dense": 0, "chunked": 0}
+
+
+def reset_counts() -> None:
+    for name in ENGINE_CALLS:
+        ENGINE_CALLS[name] = 0
 
 
 class KVCache(NamedTuple):
@@ -78,6 +98,7 @@ def _block_bias(
 
 
 def _dense_engine(q, k, v, q_pos, kv_pos, causal, window, kv_len, cap):
+    ENGINE_CALLS["dense"] += 1
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, d)
@@ -88,6 +109,47 @@ def _dense_engine(q, k, v, q_pos, kv_pos, causal, window, kv_len, cap):
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(b, sq, h, d)
+
+
+def _q_block(qb, qpb, k, v, kv_pos, causal, window, kv_len, cap, scale):
+    """One query block [B, cq, KV, G, D] against the whole K / V -> its
+    output [B, cq, KV, G, D] in q's dtype; a row with no live key is 0."""
+    ENGINE_CALLS["chunked"] += 1
+    s = torch.einsum("bqkgd,bskd->bkgqs", qb, k).float()
+    s = softcap(s * scale, cap)
+    bias = _block_bias(qpb, kv_pos, causal, window, kv_len)
+    s = s + bias[:, None, None, :, :]  # [B, KV, G, cq, Skv]
+    m = torch.amax(s, dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(s - m)
+    p = torch.where(torch.isfinite(s), p, 0.0)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(qb.dtype), v)
+    out = pv.float() / torch.clamp(l, min=1e-20)
+    return torch.movedim(out, 3, 1).to(qb.dtype)  # [B, cq, KV, G, D]
+
+
+def _chunked_engine(q, k, v, q_pos, kv_pos, causal, window, kv_len, cap,
+                    q_chunk: int = DEFAULT_Q_CHUNK):
+    """Query blocks of ``q_chunk`` rows (the largest divisor of Sq up to it:
+    a vision prefix makes Sq no power of two), each against the whole K / V.
+    Only the query axis is blocked.  The causal upper triangle is computed
+    and then masked, as in the reference."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    cq = min(q_chunk, sq)
+    while sq % cq:
+        cq -= 1
+    scale = 1.0 / math.sqrt(d)
+    qr = q.reshape(b, sq // cq, cq, kvh, h // kvh, d)
+    qp = q_pos.reshape(b, sq // cq, cq)
+    remat = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    outs = []
+    for i in range(sq // cq):
+        args = (qr[:, i], qp[:, i], k, v, kv_pos, causal, window, kv_len, cap, scale)
+        outs.append(checkpoint(_q_block, *args, use_reentrant=False) if remat
+                    else _q_block(*args))
+    return torch.stack(outs, dim=1).reshape(b, sq, h, d)
 
 
 def attention_engine(q, k, v, q_pos, kv_pos, *, causal, window, kv_len, cap, impl="auto"):
@@ -109,11 +171,12 @@ def attention_engine(q, k, v, q_pos, kv_pos, *, causal, window, kv_len, cap, imp
             q, k, v, None if kv_len is None else kv_len.reshape(1).to(torch.int32),
             causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=True,
         )
-    if impl not in ("auto", "dense"):
-        raise NotImplementedError(
-            f"attention engine {impl!r}: the port runs 'dense' and 'kernel' (the "
-            "chunked engine waits for the training slice)"
-        )
+    if impl not in ("auto", "dense", "chunked"):
+        raise NotImplementedError(f"attention engine {impl!r}: the port runs 'auto', 'dense', "
+                                  "'chunked' and 'kernel'")
+    sq, skv = q.shape[1], k.shape[1]
+    if impl == "chunked" or (impl == "auto" and sq > 1 and sq * skv >= CHUNK_THRESHOLD):
+        return _chunked_engine(q, k, v, q_pos, kv_pos, causal, window, kv_len, cap)
     return _dense_engine(q, k, v, q_pos, kv_pos, causal, window, kv_len, cap)
 
 

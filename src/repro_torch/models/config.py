@@ -13,8 +13,7 @@ no MLP), or a mixture of experts (``moe=MoEConfig(...)``, Arctic's with a
 dense residual MLP); ``encoder=EncoderConfig(...)`` adds an encoder tower
 and a cross-attention block to every decoder layer (seamless), and
 ``frontend="vision"`` a projected image-embedding prefix (llava).  The port
-serves all of them; only the reference's chunked attention engine, a
-training-path engine, is refused (``check_supported``).
+serves and trains all of them.
 """
 
 from __future__ import annotations
@@ -27,11 +26,12 @@ import torch
 # "kernel" is the port's counterpart of the reference's "pallas": the
 # hand-written CUDA kernels on the card (flash attention, decode attention for
 # one query token over a cache, the SSD intra-chunk term of the Mamba-2
-# mixer), their plain twins on the CPU.  "auto" and "dense" run plain PyTorch
-# everywhere (the reference's dense attention engine and jnp SSD), the route
-# that head training differentiates through.  The reference's "chunked"
-# attention engine waits for the training slice.
-ATTN_IMPLS = ("auto", "dense", "kernel")
+# mixer), their plain twins on the CPU; the kernels have no backward, so
+# training cannot take it.  "dense" and "chunked" are the reference's plain
+# engines (the SSD mixer runs its plain closed form under both), and "auto"
+# picks between them by size as the reference does: the routes training
+# differentiates through.
+ATTN_IMPLS = ("auto", "dense", "chunked", "kernel")
 MIXERS = ("global", "local", "mamba", "hymba")
 
 
@@ -100,9 +100,9 @@ class ModelConfig:
     frontend: str = "text"  # "text" | "audio" | "vision"
     num_image_tokens: int = 0
     dtype: str = "bfloat16"
-    remat: bool = True  # carried for parity; the port serves without grad
+    remat: bool = True  # recompute each layer group in the backward pass (training)
     scan_layers: bool = True
-    attn_impl: str = "auto"  # "auto" (dense) | "dense" | "kernel" (the reference's "pallas")
+    attn_impl: str = "auto"  # "auto" | "dense" | "chunked" | "kernel" (the reference's "pallas")
     subquadratic: bool = False
 
     @property
@@ -115,10 +115,7 @@ class ModelConfig:
     def check_supported(self) -> None:
         """Raise ``NotImplementedError`` for what the port does not run."""
         if self.attn_impl not in ATTN_IMPLS:
-            raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r}: the port runs {ATTN_IMPLS} (the "
-                "chunked engine waits for the training slice)"
-            )
+            raise NotImplementedError(f"attn_impl={self.attn_impl!r}: the port runs {ATTN_IMPLS}")
         odd = sorted(set(self.layer_pattern) - set(MIXERS))
         if odd:
             raise ValueError(f"unknown mixers {odd}; the zoo has {MIXERS}")

@@ -1,6 +1,8 @@
-"""Model facade (port of ``repro.models.model``): parameters and serving.
+"""Model facade (port of ``repro.models.model``): parameters, the training
+loss and serving.
 
     init_params(gen)                    -> params
+    loss_fn(params, batch)              -> (loss, metrics)       [train step]
     prefill(params, batch, max_len)     -> (logits_last, cache)  [serve prefill]
     decode_step(params, token, cache)   -> (logits, cache)       [serve decode]
 
@@ -10,13 +12,17 @@ for them an untied ``unembed``, an encoder's ``enc_layers`` / ``enc_ln``
 and a vision projector ``img_proj`` — which the model-cascade bank also uses
 as its shared backbone trunk.  Batches are dicts, as the reference's:
 
-    text    {"tokens": [B, S] int}
+    text    {"tokens": [B, S] int, "targets": [B, S] int (the loss only)}
     vision  + {"image_embeds": [B, n_img, d]} (anyres patch stub: projected
               by ``img_proj`` and put before the tokens)
     audio   + {"frames": [B, S_enc, d]} (the encoder's input: non-causal,
               no cache; its output rides in the cache for decode)
 
-``loss_fn`` waits for the training slice.  ``prefill`` and ``decode_step``
+``loss_fn`` is the reference's next-token cross-entropy, differentiated by
+autograd: the vision prefix carries no loss, the logits are made one
+``loss_chunk`` of positions at a time (each chunk recomputed in the
+backward pass, so no [B, S, V] logits are kept), and a mixture of experts
+adds its load-balance and router-z losses.  ``prefill`` and ``decode_step``
 run on the device of their parameters.  The cache's K/V rows and SSM state
 are written in place (``transformer.stack_apply``): a ``decode_step``
 advances the cache it is given.  ``serving_params`` makes the copy of a
@@ -34,6 +40,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as nn
@@ -84,8 +91,8 @@ class Model:
         b, s, _ = frames.shape
         pos = torch.arange(s, device=frames.device)[None].expand(b, s)
         x = frames.to(cfg.activation_dtype)
-        x, _ = tf.stack_apply(params["enc_layers"], _encoder_config(cfg), x, pos,
-                              cfg.encoder.num_layers, causal=False)
+        x, _, _ = tf.stack_apply(params["enc_layers"], _encoder_config(cfg), x, pos,
+                                 cfg.encoder.num_layers, causal=False)
         return nn.rmsnorm(x, params["enc_ln"], cfg.rmsnorm_eps)
 
     # ------------------------------------------------------------- embed ---
@@ -109,6 +116,48 @@ class Model:
         w = params["embed"] if cfg.tie_embeddings else params["unembed"]
         return nn.unembed(w, x, cfg.final_logit_softcap)
 
+    # -------------------------------------------------------------- train --
+
+    def loss_fn(self, params: dict, batch: dict, loss_chunk: int = 1024):
+        """Mean next-token cross-entropy over ``batch["targets"]`` (plus the
+        MoE aux losses) -> (loss, metrics: ``ce``, ``lb_loss`` / ``z_loss``
+        for a mixture of experts, ``loss``), all f32 scalars."""
+        cfg = self.cfg
+        enc_out = None
+        if cfg.encoder is not None:
+            enc_out = self._encode(params, batch["frames"])
+        x, positions = self._embed_inputs(params, batch)
+        x, _, aux = tf.stack_apply(params["layers"], cfg, x, positions, cfg.num_layers,
+                                   enc_out=enc_out, causal=True)
+        x = nn.rmsnorm(x, params["final_ln"], cfg.rmsnorm_eps)
+
+        targets = batch["targets"]
+        n_img = x.shape[1] - targets.shape[1]
+        if n_img > 0:  # the vision prefix carries no LM loss
+            x = x[:, n_img:]
+        w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        b, s, _ = x.shape
+        chunk = min(loss_chunk, s)
+        if s % chunk:
+            raise ValueError(f"loss_chunk {chunk} does not divide the sequence length {s}")
+        remat = torch.is_grad_enabled()
+        total = None
+        for i in range(0, s, chunk):
+            args = (w, x[:, i:i + chunk], targets[:, i:i + chunk], cfg.final_logit_softcap)
+            part = (checkpoint(_ce_sum, *args, use_reentrant=False) if remat
+                    else _ce_sum(*args))
+            total = part if total is None else total + part
+        ce = total / (b * s)
+        loss = ce
+        metrics = {"ce": ce}
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.load_balance_loss * aux.lb_loss \
+                + cfg.moe.router_z_loss * aux.z_loss
+            metrics["lb_loss"] = aux.lb_loss
+            metrics["z_loss"] = aux.z_loss
+        metrics["loss"] = loss
+        return loss, metrics
+
     # -------------------------------------------------------------- serve --
 
     def prefill(self, params: dict, batch: dict, max_len: int):
@@ -121,8 +170,9 @@ class Model:
         x, positions = self._embed_inputs(params, batch)
         cache = tf.init_model_cache(cfg, x.shape[0], max_len, cfg.activation_dtype,
                                     device=x.device, enc_out=enc_out)
-        x, cache = tf.stack_apply(params["layers"], cfg, x, positions, cfg.num_layers,
-                                  cache=cache, update_cache=True, enc_out=enc_out, causal=True)
+        x, cache, _ = tf.stack_apply(params["layers"], cfg, x, positions, cfg.num_layers,
+                                     cache=cache, update_cache=True, enc_out=enc_out,
+                                     causal=True)
         return self._logits(params, x[:, -1:]), cache
 
     def decode_step(self, params: dict, token: torch.Tensor, cache: tf.ModelCache):
@@ -132,10 +182,20 @@ class Model:
         x = nn.embed_tokens(params["embed"], token, cfg.activation_dtype)
         b = x.shape[0]
         positions = cache.length.to(torch.int64).reshape(1, 1).expand(b, 1)
-        x, cache = tf.stack_apply(params["layers"], cfg, x, positions, cfg.num_layers,
-                                  cache=cache, update_cache=True, enc_out=cache.enc_out,
-                                  causal=True)
+        x, cache, _ = tf.stack_apply(params["layers"], cfg, x, positions, cfg.num_layers,
+                                     cache=cache, update_cache=True, enc_out=cache.enc_out,
+                                     causal=True)
         return self._logits(params, x), cache
+
+
+def _ce_sum(w: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
+            cap: Optional[float]) -> torch.Tensor:
+    """Summed cross-entropy of one chunk of positions: x [B, c, d] against
+    the unembedding ``w`` [V, d] -> logsumexp minus the gold logit, f32."""
+    logits = nn.unembed(w, x, cap)  # [B, c, V] f32
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.sum(lse - gold)
 
 
 def teacher_forced(model: Model, params: dict, tokens: torch.Tensor, prompt: int, max_len: int,

@@ -7,8 +7,9 @@ inter-chunk state recurrence.  ``ssd_chunked`` has two engines, chosen by
     kernel       — ``repro_torch.kernels.ssd_scan``: the hand-written CUDA
                    intra-chunk kernel on the card (its plain twin on the
                    CPU) and the recurrence as a PyTorch loop over chunks;
-    auto / dense — the kernel's plain twin and the same recurrence on any
-                   device (the reference's jnp closed form): the route head
+    auto / dense / chunked — the kernel's plain twin and the same
+                   recurrence on any device (the reference's jnp closed form,
+                   which it runs under every attention engine): the route
                    training differentiates through (the kernel has no
                    backward).
 
@@ -105,11 +106,12 @@ def ssd_chunked(
     kw = dict(chunk=chunk, final_state=final_state)
     if impl == "kernel":
         y, h = ssd_ops.ssd_bshp(x, dt.float(), a_bh, b_mat, c_mat, h0, **kw)
-    elif impl in ("auto", "dense"):
+    elif impl in ("auto", "dense", "chunked"):
         y, h = ssd_ops.inter_chunk(
             *ssd_ref.intra_chunk_bshp(x, dt.float(), a_bh, b_mat, c_mat, **kw), c_mat, h0, **kw)
     else:
-        raise NotImplementedError(f"SSD engine {impl!r}: the port runs 'dense' and 'kernel'")
+        raise NotImplementedError(f"SSD engine {impl!r}: the port runs 'auto', 'dense', "
+                                  "'chunked' and 'kernel'")
     return y.to(x.dtype), h
 
 

@@ -5,7 +5,11 @@ period-grouped as in the reference: a tuple over pattern positions of dicts
 whose leaves carry a leading ``[G]`` group axis (``G = num_layers /
 period``).  ``stack_apply`` walks the groups in a Python loop — the
 reference's ``lax.scan`` — and applies one full pattern period per group.
-Remat only matters under grad, so the serving stack has none.
+Under autograd (a parameter or the input requires grad) with
+``cfg.remat`` and no cache, each group runs under
+``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its scan
+body: the backward pass recomputes the group's activations instead of
+keeping them.  The serving stack runs without grad, so it has none.
 
 A block is a mixer — attention ("global", "local"), the Mamba-2 SSM
 ("mamba") or both in parallel on the same normed input, mean-fused
@@ -14,8 +18,9 @@ encoder output, then an MLP or a mixture of experts (with Arctic's dense
 residual MLP beside it).  The reference's caveats are kept: a hymba layer
 calls its attention as "global", so its ``sliding_window`` is never
 applied; blocks run their cross-attention only when given ``enc_out`` (the
-cascade trunk gives none); the MoE aux losses are dropped here (serving
-reads none; ``moe.moe_apply`` returns them).
+cascade trunk gives none).  ``stack_apply`` returns the MoE aux losses
+(``BlockAux``: load balance and router z, summed over blocks and groups) for
+the training loss; serving reads none.
 
 Caches: ``ModelCache`` carries, per pattern position, group-stacked KV and/or
 SSM state tensors, one length counter (an int32 tensor on the device, so a
@@ -31,9 +36,10 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as nn
@@ -43,6 +49,17 @@ from repro_torch.models.config import ModelConfig
 
 ATTN_MIXERS = ("global", "local", "hymba")
 SSM_MIXERS = ("mamba", "hymba")
+
+
+class BlockAux(NamedTuple):
+    lb_loss: torch.Tensor
+    z_loss: torch.Tensor
+
+
+def _add_aux(total: Optional[BlockAux], aux: Optional[BlockAux]) -> Optional[BlockAux]:
+    if aux is None or total is None:
+        return total if aux is None else aux
+    return BlockAux(total.lb_loss + aux.lb_loss, total.z_loss + aux.z_loss)
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, mixer: str, cross: bool = False) -> dict:
@@ -69,8 +86,9 @@ def block_apply(params: dict, cfg: ModelConfig, mixer: str, x: torch.Tensor,
                 positions: torch.Tensor, kv_cache: Optional[attn_lib.KVCache] = None,
                 ssm_cache: Optional[ssm_lib.SSMCache] = None, update_cache: bool = False,
                 enc_out: Optional[torch.Tensor] = None, causal: bool = True):
-    """-> (x, new_ssm_cache); attention writes its K/V rows into
-    ``kv_cache`` in place."""
+    """-> (x, new_ssm_cache, the MoE's ``BlockAux`` or None); attention
+    writes its K/V rows into ``kv_cache`` in place."""
+    aux = None
     h = nn.rmsnorm(x, params["ln1"], cfg.rmsnorm_eps)
     new_ssm = ssm_cache
     parts = []
@@ -94,13 +112,14 @@ def block_apply(params: dict, cfg: ModelConfig, mixer: str, x: torch.Tensor,
 
     h2 = nn.rmsnorm(x, params["ln2"], cfg.rmsnorm_eps)
     if "moe" in params:
-        ff, _ = moe_lib.moe_apply(params["moe"], cfg, h2)
+        ff, moe_aux = moe_lib.moe_apply(params["moe"], cfg, h2)
+        aux = BlockAux(moe_aux.load_balance_loss, moe_aux.router_z_loss)
         if "mlp" in params:  # Arctic's dense residual
             ff = ff + nn.mlp_apply(params["mlp"], h2, cfg.mlp_type)
         x = x + ff
     elif "mlp" in params:
         x = x + nn.mlp_apply(params["mlp"], h2, cfg.mlp_type)
-    return x, new_ssm
+    return x, new_ssm, aux
 
 
 def _slice(tree, g: int):
@@ -176,30 +195,68 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, num_layers: int, cross: b
                  for mixer in cfg.layer_pattern)
 
 
+def _any_requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_any_requires_grad(v) for v in tree.values())
+    if isinstance(tree, tuple):
+        return any(_any_requires_grad(v) for v in tree)
+    return tree.requires_grad
+
+
+def _group_apply(group_params: tuple, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, enc_out: Optional[torch.Tensor], causal: bool):
+    """One pattern period without a cache -> (x, its summed ``BlockAux`` or
+    None): the unit the backward pass recomputes under remat."""
+    total = None
+    for pos, params in enumerate(group_params):
+        x, _, aux = block_apply(params, cfg, cfg.layer_pattern[pos], x, positions,
+                                enc_out=enc_out, causal=causal)
+        total = _add_aux(total, aux)
+    return x, total
+
+
 def stack_apply(stacked_params: tuple, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, num_layers: int,
                 cache: Optional[ModelCache] = None, update_cache: bool = False,
                 enc_out: Optional[torch.Tensor] = None, causal: bool = True):
-    """Apply the period-grouped stack -> (x [B, S, d], new_cache or None)."""
+    """Apply the period-grouped stack -> (x [B, S, d], new_cache or None,
+    ``BlockAux`` summed over every block: zeros without a mixture of
+    experts)."""
     cfg.check_supported()
     period = len(cfg.layer_pattern)
-    for g in range(num_layers // period):
-        for pos in range(period):
-            kv_c = ssm_c = None
-            if cache is not None and cache.kv_k[pos] is not None:
-                kv_c = attn_lib.KVCache(cache.kv_k[pos][g], cache.kv_v[pos][g], cache.length)
-            if cache is not None and cache.ssm_conv[pos] is not None:
-                ssm_c = ssm_lib.SSMCache(cache.ssm_conv[pos][g], cache.ssm_h[pos][g])
-            x, nssm = block_apply(_slice(stacked_params[pos], g), cfg, cfg.layer_pattern[pos],
-                                  x, positions, kv_cache=kv_c, ssm_cache=ssm_c,
-                                  update_cache=update_cache, enc_out=enc_out, causal=causal)
-            if ssm_c is not None and update_cache:
-                cache.ssm_conv[pos][g].copy_(nssm.conv)
-                cache.ssm_h[pos][g].copy_(nssm.h)
+    groups = num_layers // period
+    total = None
     if cache is None:
-        return x, None
+        remat = cfg.remat and torch.is_grad_enabled() and (
+            x.requires_grad or _any_requires_grad(stacked_params))
+        for g in range(groups):
+            group_params = tuple(_slice(stacked_params[pos], g) for pos in range(period))
+            args = (group_params, cfg, x, positions, enc_out, causal)
+            x, aux = (checkpoint(_group_apply, *args, use_reentrant=False) if remat
+                      else _group_apply(*args))
+            total = _add_aux(total, aux)
+    else:
+        for g in range(groups):
+            for pos in range(period):
+                kv_c = ssm_c = None
+                if cache.kv_k[pos] is not None:
+                    kv_c = attn_lib.KVCache(cache.kv_k[pos][g], cache.kv_v[pos][g], cache.length)
+                if cache.ssm_conv[pos] is not None:
+                    ssm_c = ssm_lib.SSMCache(cache.ssm_conv[pos][g], cache.ssm_h[pos][g])
+                x, nssm, aux = block_apply(
+                    _slice(stacked_params[pos], g), cfg, cfg.layer_pattern[pos], x, positions,
+                    kv_cache=kv_c, ssm_cache=ssm_c, update_cache=update_cache, enc_out=enc_out,
+                    causal=causal)
+                if ssm_c is not None and update_cache:
+                    cache.ssm_conv[pos][g].copy_(nssm.conv)
+                    cache.ssm_h[pos][g].copy_(nssm.h)
+                total = _add_aux(total, aux)
+    aux = total if total is not None else BlockAux(
+        *torch.zeros((2,), dtype=torch.float32, device=x.device))
+    if cache is None:
+        return x, None, aux
     new_len = cache.length + (x.shape[1] if update_cache else 0)
-    return x, dataclasses.replace(cache, length=new_len)
+    return x, dataclasses.replace(cache, length=new_len), aux
 
 
 def init_model_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

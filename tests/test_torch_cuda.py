@@ -41,7 +41,14 @@ robustness: a session pipeline's event staging makes no host sync under
 ``set_sync_debug_mode("error")`` and ends bitwise equal to lockstep; a
 pinned, double-buffered ``IngestStream`` feed of eight micro-batches on a
 side stream equals direct ingest bitwise; and a checkpoint saved from the
-card restores on the CPU bitwise, and back.
+card restores on the CPU bitwise, and back.  Softcaps where they bind (q
+drawn x12 / x16 against caps of 30 / 50): the fused decode kernel (tc and
+simt forms), the partials kernel, the short and simt flash kernels, each
+within its tolerance and, without its cap, beyond it.  Training: every
+kernel wrapper refuses an input that requires grad on the card too, and
+two AdamW steps of the f32 smoke models match the CPU's (losses and grad
+norms within rtol 1e-4, parameters within 2 * lr a step and all but 0.1%
+within 0.01 * lr).
 """
 
 import functools
@@ -1101,3 +1108,166 @@ def test_cuda_checkpoints_restore_on_the_cpu_and_back(cuda_device, dtype, tmp_pa
     a, _ = card.run(st, 2)
     b, _ = card.run(back, 2)
     assert state_digests(a) == state_digests(b)
+
+
+# ----------------------------------------------- softcaps that bind (card) --
+# Scores of unit-normal q and k sit near N(0, 1), which a cap of 30-50 barely
+# moves: these cases draw q times 12 or 16, so |s / cap| reaches ~2, and each
+# carries the control — the same kernel without its cap must miss the capped
+# oracle beyond the tolerance.
+
+# b, skv, h, kv, d, kv_len, window, softcap, num_splits, q_scale (fused decode)
+FUSED_BINDING = [
+    (2, 4100, 16, 8, 128, 4099, 512, 50.0, 8, 16.0),  # tc form in bf16 (D 128)
+    (1, 999, 16, 2, 64, 999, None, 30.0, 7, 12.0),  # tc form in bf16 (D 64, G 8)
+    (2, 256, 4, 2, 128, 200, None, 30.0, 4, 12.0),  # simt at D 128 in f32
+    (1, 600, 32, 8, 80, 580, 257, 30.0, 8, 12.0),  # simt at D 80 (G 4)
+    (1, 600, 16, 8, 256, 580, 257, 50.0, 8, 16.0),  # gemma2 local: G 2, D 256
+    (1, 600, 16, 8, 256, 580, None, 50.0, 8, 16.0),  # gemma2 global
+]
+
+
+def _binding_decode(dev, case, dtype):
+    b, skv, h, kv, d, kv_len, window, cap, ns, q_scale = case
+    q, k, v = _fa_inputs(dev, torch.float32, skv + d + 7, b, 1, skv, h, kv, d)
+    q, k, v = (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
+    kl = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    return q, k, v, kl, dict(softcap=cap, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FUSED_BINDING)
+def test_fused_decode_softcap_holds_where_it_binds(cuda_device, case, dtype):
+    q, k, v, kl, kw = _binding_decode(cuda_device, case, dtype)
+    ns = case[8]
+    if not da_kernel.supports_fused(case[2] // case[3], case[4], dtype):
+        pytest.skip("a group the simt form does not hold in f32 (the models serve it in bf16)")
+    out = da_ops.decode_attention(q, k, v, kl, num_splits=ns, **kw)
+    uncapped = da_ops.decode_attention(q, k, v, kl, num_splits=ns, window=kw["window"])
+    torch.cuda.synchronize()
+    oracle = da_ref.reference_decode(q, k, v, kl, **kw).float()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), oracle, rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        twin = da_ref.decode_attention_fused(q, k, v, kl, num_splits=ns, **kw)
+        torch.testing.assert_close(out, twin, rtol=tol, atol=tol)
+    assert not torch.allclose(uncapped.float(), oracle, rtol=tol, atol=tol), (
+        f"the cap does not bind: uncapped misses by {(uncapped.float() - oracle).abs().max()}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c for c in FUSED_BINDING if c[4] * c[2] // c[3] <= 512])
+def test_partials_decode_softcap_holds_where_it_binds(cuda_device, case, dtype):
+    q, k, v, kl, kw = _binding_decode(cuda_device, case, dtype)
+    b, skv, h, kv, d = case[:5]
+    qm = q.reshape(b * kv, h // kv, d)
+    km, vm = (t.transpose(1, 2).reshape(b * kv, skv, d).contiguous() for t in (k, v))
+    got = da_ops.decode_attention_partials(qm, km, vm, kl, num_splits=8, **kw)
+    uncapped = da_ops.decode_attention_partials(qm, km, vm, kl, num_splits=8,
+                                                window=kw["window"])
+    torch.cuda.synchronize()
+    want = da_ref.decode_attention_partials(qm, km, vm, kl, num_splits=8, **kw)
+    for name, x, y in zip(("m", "l", "acc"), got, want):
+        torch.testing.assert_close(x, y, rtol=2e-5, atol=2e-5, msg=name)
+    assert (uncapped[0] - want[0]).abs().max() > 1.0  # the running max sees the cap
+
+
+# b, sq, skv, h, kv, d, causal, window, softcap, kv_len, q_offset, q_scale, dtype
+FLASH_BINDING = [
+    (2, 33, 77, 8, 2, 128, True, 24, 30.0, 60, True, 12.0, torch.bfloat16),  # short, D 128
+    (2, 33, 77, 8, 2, 64, True, 24, 30.0, 60, True, 12.0, torch.bfloat16),  # short, D 64
+    (64, 8, 8, 16, 8, 128, False, None, 50.0, None, True, 16.0, torch.bfloat16),  # short
+    (2, 256, 256, 4, 4, 64, True, None, 50.0, None, False, 16.0, torch.float32),  # simt
+    (3, 37, 53, 6, 3, 48, True, 20, 30.0, 41, True, 12.0, torch.float32),  # simt, D 48
+    (3, 37, 53, 6, 3, 48, True, 20, 30.0, 41, True, 12.0, torch.bfloat16),  # simt in bf16
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BINDING)
+def test_flash_short_and_simt_softcap_holds_where_it_binds(cuda_device, case):
+    b, sq, skv, h, kv, d, causal, window, cap, kv_len, q_off, q_scale, dtype = case
+    route = fa_kernel.route(dtype, sq, d)
+    assert route == ("short" if dtype == torch.bfloat16 and d in (64, 128) else "simt")
+    q, k, v = _fa_inputs(cuda_device, torch.float32, sq * skv + d + 3, b, sq, skv, h, kv, d)
+    q, k, v = (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
+    kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=q_off)
+    fa_ops.reset_counts()
+    out = fa_ops.flash_attention(q, k, v, kl, **kw)
+    uncapped = fa_ops.flash_attention(q, k, v, kl, **{**kw, "logit_softcap": None})
+    torch.cuda.synchronize()
+    assert fa_ops.ROUTES[route] == 2
+    want = fa_ops.plain_bshd(q, k, v, kl, **kw).float()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+    assert not torch.allclose(uncapped.float(), want, rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------- training (card) --
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_grad_on_the_card(cuda_device):
+    from repro_torch.kernels.autograd import NoBackwardError
+
+    q = torch.randn(1, 64, 2, 64, device=cuda_device, requires_grad=True)
+    k = torch.randn(1, 64, 2, 64, device=cuda_device)
+    kl = torch.tensor([64], dtype=torch.int32, device=cuda_device)
+    before = (dict(fa_ops.LAUNCHES), dict(da_ops.LAUNCHES), dict(ssd_ops.LAUNCHES))
+    with pytest.raises(NoBackwardError):
+        fa_ops.flash_attention(q, k, k)
+    with pytest.raises(NoBackwardError):
+        da_ops.decode_attention(q[:, :1], k, k, kl)
+    x = torch.randn(1, 64, 2, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(NoBackwardError):
+        ssd_ops.intra_chunk(x, torch.rand(1, 64, 2, device=cuda_device),
+                            -torch.ones(1, 2, device=cuda_device),
+                            torch.randn(1, 64, 16, device=cuda_device),
+                            torch.randn(1, 64, 16, device=cuda_device), chunk=32)
+    assert (dict(fa_ops.LAUNCHES), dict(da_ops.LAUNCHES), dict(ssd_ops.LAUNCHES)) == before
+    with torch.no_grad():
+        fa_ops.flash_attention(q, k, k)
+    assert fa_ops.LAUNCHES["flash_attention"] == before[0]["flash_attention"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-370m", "grok-1-314b"])
+def test_reduced_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
+    """Two AdamW steps of an f32 smoke model from the same weights and
+    batches on the CPU and the card: losses and grad norms within rtol
+    1e-4 (matmul sums in another order), parameters within 2 * lr a step
+    (a near-zero gradient whose sign differs moves AdamW's early update by
+    about 2 * lr) and all but 0.1% of them within 0.01 * lr."""
+    import dataclasses
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticTokenStream, TokenStreamConfig, to_device
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    built = build_train_step(cfg, ShapeSpec("t", "train", 32, 4), num_microbatches=2)
+    params = Model(cfg).init_params(torch.Generator().manual_seed(0))
+    stream = SyntheticTokenStream(TokenStreamConfig(cfg.vocab_size, 32, 4))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t: t.to(dev, copy=True), params)  # the step donates
+        s = built.optimizer.init(p)
+        hist = []
+        for step in range(2):
+            p, s, m = built.fn(p, s, to_device(stream.batch(step), dev))
+            hist.append((m["loss"].item(), m["grad_norm"].item()))
+        runs[str(dev)] = (hist, [t.cpu() for t in leaves(p)])
+    (h_cpu, p_cpu), (h_gpu, p_gpu) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(h_gpu, h_cpu, rtol=1e-4)
+    lr, loose, total = built.optimizer.lr, 0, 0
+    for a, b in zip(p_gpu, p_cpu):
+        d = (a - b).abs()
+        assert d.max().item() <= 2 * lr * 2
+        loose += int((d > 0.01 * lr).sum())
+        total += d.numel()
+    assert loose <= 1e-3 * total

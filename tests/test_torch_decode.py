@@ -309,3 +309,54 @@ def test_fused_split_count_and_its_refusals():
     for ns in (0, 9, 16):
         with pytest.raises(ValueError, match="1 to 8 splits"):
             ops.decode_attention(q, k, v, kl, num_splits=ns)
+
+
+# b, skv, h, kv, d, kv_len, window, softcap, num_splits, q_scale, dtype: q drawn
+# unit-normal times q_scale, so the scores (about N(0, q_scale^2)) reach
+# |s / cap| ~ 2, where the cap moves them by far more than the tolerance
+BINDING_CASES = [
+    (2, 256, 4, 2, 64, 200, 48, 30.0, 8, 12.0, jnp.float32),  # the tc form's D 64
+    (2, 256, 4, 2, 128, 200, None, 30.0, 8, 12.0, jnp.bfloat16),  # and D 128
+    (1, 300, 32, 8, 80, 280, 129, 30.0, 4, 12.0, jnp.float32),  # the simt form at D 80, G 4
+    (1, 600, 16, 8, 256, 580, 257, 50.0, 8, 16.0, jnp.bfloat16),  # gemma2 local: G 2, D 256
+    (1, 600, 16, 8, 256, 580, None, 50.0, 8, 16.0, jnp.float32),  # gemma2 global
+]
+
+
+@pytest.mark.parametrize("case", BINDING_CASES)
+def test_decode_softcap_holds_where_it_binds(case):
+    """The fused route's twin and the partials twin against JAX's Pallas
+    kernel (interpret mode) and ``reference_decode`` with scores that reach
+    the cap; the twin without its cap (the control) must miss JAX's capped
+    output beyond the tolerance, or the case could not tell a right softcap
+    from a missing one."""
+    b, skv, h, kv, d, kv_len, window, cap, ns, q_scale, dtype = case
+    q, k, v = _inputs(13, b, skv, h, kv, d, jnp.float32)
+    np_dt = ml_dtypes.bfloat16 if dtype == jnp.bfloat16 else np.float32
+    q, k, v = (q * q_scale).astype(np_dt), k.astype(np_dt), v.astype(np_dt)
+    kl = np.asarray([kv_len], np.int32)
+    jargs = [jnp.asarray(a) for a in (q, k, v, kl)]
+    want = _f32(j_ops.decode_attention(*jargs, softcap=cap, window=window, interpret=True))
+    np.testing.assert_allclose(want, _f32(j_ref.reference_decode(*jargs, softcap=cap,
+                                                                 window=window)),
+                               rtol=3e-2, atol=3e-2)
+    targs = [interop.to_torch(a) for a in (q, k, v)] + [torch.from_numpy(kl)]
+    tol = 3e-2 if dtype == jnp.bfloat16 else 2e-5
+    got = ops.decode_attention(*targs, softcap=cap, window=window, num_splits=ns)
+    np.testing.assert_allclose(_f32(got), want, rtol=tol, atol=tol)
+    uncapped = ops.decode_attention(*targs, softcap=None, window=window, num_splits=ns)
+    miss = np.abs(_f32(uncapped) - want).max()
+    assert miss > 10 * tol, f"the cap does not bind here: uncapped misses by only {miss}"
+    # the partials twin against the Pallas kernel, and its control
+    grouped = _grouped(q, k, v)
+    j_part = j_kernel.decode_attention_partials(*(jnp.asarray(a) for a in grouped),
+                                                jnp.asarray(kl), softcap=cap, window=window,
+                                                num_splits=ns, interpret=True)
+    t_grouped = [interop.to_torch(a) for a in grouped] + [torch.from_numpy(kl)]
+    part = ops.decode_attention_partials(*t_grouped, softcap=cap, window=window, num_splits=ns)
+    for name, g, w in zip(("m", "l", "acc"), part, j_part):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=PART_TOL, atol=PART_TOL,
+                                   err_msg=name)
+    part_uncapped = ops.decode_attention_partials(*t_grouped, softcap=None, window=window,
+                                                  num_splits=ns)
+    assert np.abs(part_uncapped[0].numpy() - np.asarray(j_part[0])).max() > 1.0  # the max score

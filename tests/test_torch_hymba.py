@@ -39,8 +39,8 @@ def test_hymba_block_matches_jax(dtype, tol, j_impl, impl):
     pos = jnp.broadcast_to(jnp.arange(32)[None], (2, 32))
     want, _, _, _ = j_tf.block_apply(p, j_cfg, "hymba", jx, pos)
     cfg = dataclasses.replace(interop.model_config_from(j_cfg), attn_impl=impl)
-    got, _ = tf.block_apply(interop.tree_from_numpy(jax.device_get(p)), cfg, "hymba",
-                            interop.to_torch(np.asarray(jx)), torch.from_numpy(np.array(pos)))
+    got, _, _ = tf.block_apply(interop.tree_from_numpy(jax.device_get(p)), cfg, "hymba",
+                               interop.to_torch(np.asarray(jx)), torch.from_numpy(np.array(pos)))
     assert got.dtype == cfg.activation_dtype
     np.testing.assert_allclose(as_np(interop.to_numpy(got)), as_np(want), rtol=tol, atol=tol)
 

@@ -103,14 +103,14 @@ def test_reduced_qwen3_trunk_matches_jax(dtype, tol, impl):
                                       attn_impl=impl)
     layers_t = interop.tree_from_numpy(params["layers"])
     xt = interop.to_torch(np.asarray(x))
-    got, _ = tf.stack_apply(layers_t, cfg, xt, torch.from_numpy(np.array(pos)), cfg.num_layers,
-                            causal=False)
+    got, _, _ = tf.stack_apply(layers_t, cfg, xt, torch.from_numpy(np.array(pos)),
+                               cfg.num_layers, causal=False)
     assert got.dtype == cfg.activation_dtype
     np.testing.assert_allclose(_np(interop.to_numpy(got)), _np(want), rtol=tol, atol=tol)
     # one stored copy of the matrices in the activation dtype gives the same bits
     cast = tf.cast_matrices(layers_t, cfg.activation_dtype)
-    again, _ = tf.stack_apply(cast, cfg, xt, torch.from_numpy(np.array(pos)), cfg.num_layers,
-                              causal=False)
+    again, _, _ = tf.stack_apply(cast, cfg, xt, torch.from_numpy(np.array(pos)),
+                                 cfg.num_layers, causal=False)
     assert torch.equal(again, got)
 
 
@@ -138,10 +138,12 @@ def test_port_init_matches_the_reference_layout_and_scale():
 
 
 def test_unsupported_pieces_raise():
-    """Only the chunked engine (the training slice's) is refused; the mixers,
-    MoE and encoder that were refused before the model zoo now build."""
-    with pytest.raises(NotImplementedError, match="chunked"):
-        dataclasses.replace(qwen3_1_7b(), attn_impl="chunked").check_supported()
+    """Only an engine the port does not have is refused; the chunked engine
+    (since the training slice) and the mixers, MoE and encoder that were
+    refused before the model zoo now build."""
+    with pytest.raises(NotImplementedError, match="'flash'"):
+        dataclasses.replace(qwen3_1_7b(), attn_impl="flash").check_supported()
+    dataclasses.replace(qwen3_1_7b(), attn_impl="chunked").check_supported()
     with pytest.raises(ValueError, match="ssm=SSMConfig"):
         dataclasses.replace(qwen3_1_7b(), layer_pattern=("hymba",)).check_supported()
     hymba = dataclasses.replace(get_config("qwen3-1.7b", smoke=True), layer_pattern=("hymba",),
