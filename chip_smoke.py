@@ -187,14 +187,36 @@ in order; any failure raises and the script exits non-zero:
    width cut to 4 layers checkpointed at step 2 and resumed in a fresh
    loop: steps 3-4 and every parameter and moment bitwise the uninterrupted
    run's;
-8. one JSON line of per-kernel numbers, one entry per kernel: the flash
+8. the model mesh, in a child process (so the main process holds no
+   process group): a one-rank NCCL group (never gloo on the card) and a
+   (1, 1) ("data", "model") mesh; qwen3-1.7b at full width (random bf16
+   weights, the kernel route) through ``build_prefill_step`` (8 x 2,048
+   into a 4,096-row cache: 28 tc flash launches on the local heads) and 32
+   ``build_decode_step``s fed the mesh-free run's greedy tokens (the cache
+   sharded on its rows: 28 x 32 partials launches, then the combine; no
+   fused launch), and mamba2-370m through ``build_prefill_step`` (2 x
+   4,096: 48 SSD tc launches), each against the mesh-free ``prefill`` /
+   ``decode_step`` on the same weights — logits within 2e-2 of their scale
+   (a decode step: or within 2x the mesh-free run's distance from an f32
+   run of the same draws: the fused kernel rounds P to bf16 on the tensor
+   cores, the partials kernel keeps f32), greedy tokens equal outside near
+   ties, bitwise printed; one ``build_train_step`` of qwen3-1.7b at full
+   width cut to 4 of 28 layers (time), 2 x 4,096 tokens, against the
+   one-device step (loss within rtol 1e-5, parameters within 2 lr, bitwise
+   printed); and, in a CPU-only child started after the build beside the
+   card phases, the suite's 2- and 4-rank gloo checks on the torch the
+   script runs under (``tests/_torch_mesh_worker.gloo_checks``); one ``[mesh] {...}``
+   line with the ms per prefill and decode step beside the mesh-free
+   path's (host clock, synchronised), peak memory, and the card's name and
+   power limit;
+9. one JSON line of per-kernel numbers, one entry per kernel: the flash
    kernel's three routes as ``flash_attention`` (simt: on no main path, so
    its launches are 0; its numbers the cascade shape's, timed beside the
    short kernel), ``flash_attention_tc`` and ``flash_attention_short`` (the
    first also carries the tc kernel's prefill-shape ``prefill_ms``,
    ``prefill_bound_ms``, ``prefill_library_ms`` and the main paths'
    ``routes``), ``decode_attention_fused`` and ``decode_attention_partials``
-   (on no main path: its launches are 0), ``ssd_intra_chunk_tc`` and
+   (its launches phase 8's mesh decode), ``ssd_intra_chunk_tc`` and
    ``ssd_intra_chunk`` (the simt and packed kernels of ``ssd_scan.cu``, its
    numbers the packed kernel's at the cascade shape, with the simt
    kernel's ``prefill_simt_ms`` and the ``routes``); an entry timed at the
@@ -208,6 +230,7 @@ It imports nothing of JAX or of the reference package ``repro``.
 
 from __future__ import annotations
 
+import atexit
 import functools
 import json
 import os
@@ -271,11 +294,11 @@ COUNTED = {
     "ssd_intra_chunk": ("ssd_intra_chunk/simt", "ssd_intra_chunk/packed"),
     "ssd_intra_chunk_tc": ("ssd_intra_chunk/tc",),
 }
-# listed with their launches but on no main path: the partials route keeps
-# the reference's signature (splits over the cache length) for callers of it,
-# while the model's decode runs the fused kernel; the simt flash kernel takes
-# f32 and head dims no main path has (the zoo's 80 and 256 run "tc")
-OFF_PATH = {"decode_attention_partials", "flash_attention"}
+# listed with its launches but on no main path: the simt flash kernel takes
+# f32 and head dims no main path has (the zoo's 80 and 256 run "tc").  The
+# partials kernel is on the model mesh's decode (phase 8: a cache sharded on
+# its rows), while the mesh-free decode runs the fused kernel.
+OFF_PATH = {"flash_attention"}
 # the mamba2-370m prefill (B 2, S 4096, chunk 256) and the cascade backbone's
 # 512 lanes x 8 tokens; H 32, P 64, N 128, bf16 x / B / C.  The cascade runs
 # without a final state (its last chunk's state is neither computed nor
@@ -2388,6 +2411,306 @@ def train_resume_child() -> int:
     return 0
 
 
+# phase 8, the model mesh on a one-rank NCCL group and a (1, 1) ("data",
+# "model") mesh: arch, batch, prompt, greedy decode steps, cache rows (phase
+# 7's serve paths; mamba2 runs its prefill only), and a train step of
+# qwen3-1.7b at full width cut to MESH_TRAIN's layers (the one-device step
+# beside it, in the same child: time, not memory, cuts the depth)
+MESH_SERVE = (("qwen3-1.7b", 8, 2048, 32, 4096), ("mamba2-370m", 2, 4096, 0, 4128))
+MESH_TRAIN = ("qwen3-1.7b", 4, 4096, 2)  # arch, layers, seq, batch
+MESH_LOGIT_TOL = 2e-2  # bf16 logits, of their largest magnitude
+MESH_LOSS_RTOL = 1e-5  # the train step's loss: f32
+MESH_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_serve(mesh, arch, b, prompt, steps, max_len) -> dict:
+    """``arch`` at full width (random bf16 weights, the kernel route) through
+    ``build_prefill_step`` and ``steps`` ``build_decode_step``s on ``mesh``,
+    beside the mesh-free ``Model.prefill`` / ``decode_step`` on the same
+    weights: the mesh decode is fed the mesh-free run's greedy tokens, and
+    each step's logits must agree within MESH_LOGIT_TOL of their scale and
+    pick the same token (unless the mesh-free run's top two are closer than
+    the two runs' distance)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.rules import rules_for_cell
+    from repro_torch.models.model import random_model
+
+    model, params = random_model(get_config(arch), seed=0, device="cuda")
+    cfg, n = model.cfg, model.cfg.num_layers
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=g, device="cuda")
+    _generate(model, params, tokens[:, :256], 2, 512)  # warm-up (cuBLAS, allocator)
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    timed(model.prefill, params, {"tokens": tokens}, max_len)  # its shapes' first call
+    (logits, cache), free_prefill_ms = timed(model.prefill, params, {"tokens": tokens}, max_len)
+    want, feed, free_step_ms = [logits.float()], [], []
+    for _ in range(steps):
+        feed.append(logits.argmax(-1))
+        (logits, cache), ms = timed(model.decode_step, params, feed[-1], cache)
+        want.append(logits.float())
+        free_step_ms.append(ms)
+    del cache, logits
+    anchor = _f32_anchor(cfg, tokens, feed, max_len) if steps else []
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rules = rules_for_cell(cfg, mesh, "prefill", b)
+    dparams = st.distribute_params(params, model.param_axes(), rules, mesh)
+    pshape = ShapeSpec("mesh", "prefill", max_len, b)
+    dshape = ShapeSpec("mesh", "decode", max_len, b)
+    prefill = st.build_prefill_step(cfg, pshape, mesh)
+    decode = st.build_decode_step(cfg, dshape, mesh)
+    batch = st.distribute_batch({"tokens": tokens}, cfg, pshape, mesh)
+    (_, first), first_prefill_ms = timed(prefill.fn, dparams, batch)  # DTensor's first call
+    del first
+    _reset_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (logits, cache), mesh_prefill_ms = timed(prefill.fn, dparams, batch)
+    prefill_counts = _all_counts()
+    routes = dict(fa_ops.ROUTES)
+    got, mesh_step_ms = [logits.full_tensor().float()], []
+    _reset_all_counts()
+    for tok in feed:
+        tok = st.distribute_batch({"token": tok}, cfg, dshape, mesh)["token"]
+        (logits, cache), ms = timed(decode.fn, dparams, tok, cache)
+        got.append(logits.full_tensor().float())
+        mesh_step_ms.append(ms)
+    decode_counts = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    worst, bitwise, flips, over, errs = 0.0, True, 0, [], []
+    for i, (w_, g_) in enumerate(zip(want, got)):
+        diff = float((w_ - g_).abs().max())
+        scale = float(w_.abs().max())
+        worst = max(worst, diff / scale)
+        errs.append(round(diff / scale, 5))
+        bitwise = bitwise and diff == 0.0
+        # a decode step may also stand within 2x the mesh-free bf16 run's own
+        # distance from the f32 run (the fused kernel rounds P to bf16 on the
+        # tensor cores, the partials kernel keeps f32; 28 layers compound it)
+        own = float((w_ - anchor[i]).abs().max()) / scale if i and anchor else 0.0
+        if diff / scale > max(MESH_LOGIT_TOL, 2 * own):
+            over.append((i, diff / scale, own))
+        top2 = w_.topk(2, dim=-1).values
+        near = (top2[..., 0] - top2[..., 1]) <= diff  # a near tie may flip
+        flips += int(((w_.argmax(-1) != g_.argmax(-1)) & ~near).sum())
+    moved = {k: v for k, v in {**prefill_counts, **decode_counts}.items() if v}
+    print(f"[mesh] {arch} at full width ({n} layers, bf16, kernel route) on {tuple(mesh.shape)} "
+          f"{mesh.mesh_dim_names}: prefill B={b} x {prompt} {mesh_prefill_ms:.2f} ms on the mesh "
+          f"(first call {first_prefill_ms:.2f} ms) vs {free_prefill_ms:.2f} ms mesh-free (each "
+          f"the second call at its shape); "
+          + (f"{steps} decode steps {statistics.median(mesh_step_ms):.3f} ms median vs "
+             f"{statistics.median(free_step_ms):.3f} ms; " if steps else "")
+          + f"logits within {worst:.3g} of scale (tol {MESH_LOGIT_TOL}, or for a decode step "
+          f"2x the mesh-free run's distance from f32; by step {errs}), bitwise {bitwise}, "
+          f"greedy flips outside near ties {flips}; flash routes {routes}; launches {moved}; "
+          f"peak memory {peak / 2**30:.3f} GiB", flush=True)
+    assert not over and flips == 0, (arch, over, flips)
+    assert all(torch.isfinite(x).all() for x in got)
+    plain = {k: v for k, v in {**prefill_counts, **decode_counts}.items()
+             if k.startswith("plain/") and v}
+    assert not plain, plain
+    if arch == "qwen3-1.7b":  # tc flash on the local heads, the partials on the kv_seq shard
+        assert prefill_counts["flash_attention/tc"] == n and routes["tc"] == n, prefill_counts
+        assert decode_counts["decode_attention_partials"] == n * steps, decode_counts
+        assert decode_counts["decode_attention_fused"] == 0, decode_counts
+    else:
+        assert prefill_counts["ssd_intra_chunk/tc"] == n, prefill_counts
+    launches = {k: prefill_counts.get(k, 0) + decode_counts.get(k, 0)
+                for k in ("flash_attention", "flash_attention/tc", "ssd_intra_chunk",
+                          "ssd_intra_chunk/tc", "decode_attention_partials")}
+    return dict(prefill_ms=mesh_prefill_ms, first_prefill_ms=first_prefill_ms,
+                free_prefill_ms=free_prefill_ms,
+                step_ms=statistics.median(mesh_step_ms) if steps else None,
+                free_step_ms=statistics.median(free_step_ms) if steps else None,
+                max_rel_err=worst, bitwise=bitwise, peak_bytes=peak, launches=launches)
+
+
+def _f32_anchor(cfg, tokens, feed, max_len) -> list:
+    """The same weights in f32 (the draws the bf16 tree was cast from) through
+    the mesh-free prefill and decode steps fed ``feed`` -> logits per step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import Model
+
+    model = Model(dataclasses.replace(cfg, dtype="float32"))
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+    out = [logits.float()]
+    for tok in feed:
+        logits, cache = model.decode_step(params, tok, cache)
+        out.append(logits.float())
+    return out
+
+
+def _mesh_train(mesh) -> dict:
+    """One AdamW step of qwen3-1.7b at full width (MESH_TRAIN's layers, f32
+    parameters, bf16 activations) through ``build_train_step`` on ``mesh``
+    and on one device, from the same parameters and batch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticTokenStream, TokenStreamConfig, to_device
+    from repro_torch.launch import steps as st
+    from repro_torch.models.model import Model
+    from repro_torch.optim.tree import leaves
+
+    arch, layers, seq, rows = MESH_TRAIN
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    shape = ShapeSpec("train_4k-cut", "train", seq, rows)
+    model = Model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    batch = to_device(SyntheticTokenStream(TokenStreamConfig(cfg.vocab_size, seq, rows)).batch(0),
+                      "cuda")
+    one = st.build_train_step(cfg, shape, donate=False)
+    on_mesh = st.build_train_step(cfg, shape, donate=False, mesh=mesh)
+    dparams = st.distribute_params(params, model.param_axes(), on_mesh.rules, mesh)
+    out = {}
+    for name, built, p, b in (("one", one, params, batch),
+                              ("mesh", on_mesh, dparams, st.distribute_batch(
+                                  batch, cfg, shape, mesh, on_mesh.rules))):
+        s = built.optimizer.init(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p2, _, m = built.fn(p, s, b)
+        torch.cuda.synchronize()
+        out[name] = (float(m["loss"]), [t.full_tensor() if hasattr(t, "full_tensor") else t
+                                        for t in leaves(p2)], (time.perf_counter() - t0) * 1e3)
+    lr = one.optimizer.lr
+    far = max(float((a - b_).abs().max()) for a, b_ in zip(out["one"][1], out["mesh"][1]))
+    bitwise = far == 0.0 and out["one"][0] == out["mesh"][0]
+    print(f"[mesh] {arch} train step at full width, {layers} of 28 layers, {rows} x {seq} tokens: "
+          f"loss {out['mesh'][0]:.6f} on the mesh vs {out['one'][0]:.6f} on one device, "
+          f"parameters within {far / lr:.4f} lr, bitwise {bitwise}; {out['mesh'][2]:.1f} ms "
+          f"(DTensor's first call) vs {out['one'][2]:.1f} ms", flush=True)
+    assert abs(out["mesh"][0] - out["one"][0]) <= MESH_LOSS_RTOL * abs(out["one"][0])
+    assert far <= 2 * lr, far / lr
+    return dict(loss=out["mesh"][0], one_loss=out["one"][0], far_lr=far / lr, bitwise=bitwise,
+                ms=out["mesh"][2], one_ms=out["one"][2])
+
+
+def model_mesh_child() -> int:
+    """Phase 8's child: a one-rank NCCL group (never gloo on the card), the
+    (1, 1) mesh, the serve paths and the train step on it."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if not dist.is_nccl_available():
+        raise RuntimeError("the model mesh phase runs on NCCL, which this torch lacks")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(model=1, device_type="cuda")
+        serve = {arch: _mesh_serve(mesh, arch, *rest) for arch, *rest in MESH_SERVE}
+        train = _mesh_train(mesh)
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"serve": serve, "train": train}))
+    return 0
+
+
+def mesh_gloo_child() -> int:
+    """The suite's 2- and 4-rank gloo checks of the mesh steps on the CPU,
+    under the torch the script runs with (``tests/_torch_mesh_worker.gloo_checks``)."""
+    import shutil
+
+    root = Path(__file__).resolve().parent
+    sys.path[:0] = [str(root / "src"), str(root / "tests")]
+    import _torch_mesh_worker
+
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        seconds = _torch_mesh_worker.gloo_checks(MESH_DIR)
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    print(json.dumps({"gloo_seconds": seconds}))
+    return 0
+
+
+def start_mesh_gloo():
+    """Start the gloo checks in a CPU-only child beside the card phases."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    log = open(Path(__file__).resolve().parent / "build" / "chip_smoke_mesh_gloo.log", "w")
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-gloo"],
+                            env=env, stdout=log, stderr=subprocess.STDOUT, text=True), log
+
+
+def phase_model_mesh(gloo) -> dict:
+    """Phase 8: the model mesh's child (the serve paths and the train step
+    on a one-rank NCCL mesh), then the gloo checks' child started with the
+    run -> the mesh run's launches."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--model-mesh"],
+                          capture_output=True, text=True, timeout=900)
+    sys.stdout.write(proc.stdout)
+    sys.stderr.write(proc.stderr[-4000:])
+    if proc.returncode:
+        raise AssertionError(f"the model mesh child exited {proc.returncode}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    mesh_s = time.perf_counter() - t0
+    child, log = gloo
+    code = child.wait(timeout=900)
+    log.close()
+    text = (Path(__file__).resolve().parent / "build" / "chip_smoke_mesh_gloo.log").read_text()
+    sys.stdout.write("".join(line for line in text.splitlines(True)
+                             if "Warning" not in line and "alltoall" not in line))
+    if code:
+        raise AssertionError(f"the gloo mesh checks exited {code}")
+    gloo_s = json.loads(text.strip().splitlines()[-1])["gloo_seconds"]
+    serve = result["serve"]
+    line = {"card": _nvidia_smi(), "mesh": [1, 1],
+            "qwen3-1.7b": {k: serve["qwen3-1.7b"][k] for k in (
+                "prefill_ms", "free_prefill_ms", "step_ms", "free_step_ms", "peak_bytes",
+                "max_rel_err", "bitwise")},
+            "mamba2-370m": {k: serve["mamba2-370m"][k] for k in (
+                "prefill_ms", "free_prefill_ms", "peak_bytes", "max_rel_err", "bitwise")},
+            "train": result["train"], "gloo_seconds": gloo_s, "phase_s": mesh_s}
+    print(f"[mesh] {json.dumps(line)}", flush=True)
+    launches = {}
+    for run in serve.values():
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2795,12 +3118,17 @@ def phase_serving_robustness() -> dict:
 def main() -> int:
     import torch
 
+    if sys.argv[1:] == ["--mesh-gloo"]:  # phase 8's CPU-only child (no card in its view)
+        return mesh_gloo_child()
+
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
               file=sys.stderr)
         return 2
     if sys.argv[1:] == ["--train-resume"]:  # phase_train_resume's child process
         return train_resume_child()
+    if sys.argv[1:] == ["--model-mesh"]:  # phase_model_mesh's child
+        return model_mesh_child()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch.quickstart import quickstart_world
@@ -2810,6 +3138,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
     phase_build()
+    gloo = start_mesh_gloo()  # phase 8's CPU checks, beside the card phases
+    atexit.register(lambda: gloo[0].poll() is None and gloo[0].kill())
     table, combine, costs, outputs = _small_world()
     results = phase_kernels(table, costs)
     quickstart = quickstart_world(4096, device="cpu")
@@ -2835,6 +3165,7 @@ def main() -> int:
     phase_train_cpu_vs_gpu()
     train_run = phase_train_main_path()
     train_run["resume"] = phase_train_resume()
+    runs.append(phase_model_mesh(gloo))
     # launches: the sum over the main-path runs (each zeroes the counts first)
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],

@@ -26,6 +26,13 @@ Round-trip contract: every leaf restores bitwise with its logical dtype,
 STRICT: a ``like`` leaf whose shape or dtype disagrees with the stored
 leaf, or a tree whose keys differ from the checkpoint's, is an error, never
 a silent cast.
+
+Over a mesh: a tree of DTensors is saved whole — every rank gathers each
+leaf, rank 0 writes, and all wait for the rename — so the files are the
+same whatever mesh wrote them; ``restore_checkpoint(..., shardings=,
+mesh=)`` places each leaf onto the CURRENT mesh in its placements (each
+rank keeps its own shard of the leaf it read), which may differ from the
+mesh that saved it.
 """
 
 from __future__ import annotations
@@ -132,6 +139,8 @@ def _to_storable(leaf) -> tuple:
     """-> (npz-serializable host array, logical dtype name); bf16 rides as
     its uint16 bytes."""
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):  # a DTensor: its whole value (a collective)
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -159,24 +168,28 @@ def save_checkpoint(root, step: int, tree: Any, extra: Optional[dict] = None) ->
     root = Path(root)
     final = root / f"step_{step:08d}"
     tmp = root / f"step_{step:08d}.tmp"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir(parents=True)
-
+    flat = _flatten_with_paths(tree)
     meta = {"step": step, "leaves": {}, "time": time.time()}
     if extra is not None:
         meta["extra"] = extra
     payload = {}
-    for key, leaf in _flatten_with_paths(tree):
+    for key, leaf in flat:  # DTensor leaves gather here, on every rank alike
         stored, logical_dtype = _to_storable(leaf)
         meta["leaves"][key] = {"shape": list(stored.shape), "dtype": logical_dtype}
         payload[key.replace("/", "|")] = stored
-    # one process: every leaf in proc0.npz; zero arrays still make a valid archive
-    np.savez(tmp / "proc0.npz", **payload)
-    (tmp / "meta.json").write_text(json.dumps(meta))
-    if final.exists():
-        shutil.rmtree(final)
-    os.rename(tmp, final)
+    distributed = any(hasattr(leaf, "full_tensor") for _, leaf in flat)
+    if not distributed or torch.distributed.get_rank() == 0:
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        # one process: every leaf in proc0.npz; zero arrays still make a valid archive
+        np.savez(tmp / "proc0.npz", **payload)
+        (tmp / "meta.json").write_text(json.dumps(meta))
+        if final.exists():
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    if distributed:
+        torch.distributed.barrier()
     return final
 
 
@@ -216,13 +229,17 @@ def load_meta(root, step: Optional[int] = None) -> dict:
     return meta
 
 
-def restore_checkpoint(root, step: Optional[int], like: Any, device=None) -> tuple:
+def restore_checkpoint(root, step: Optional[int], like: Any, device=None, shardings: Any = None,
+                       mesh=None) -> tuple:
     """Restore into the structure of ``like`` (a tree of tensors or
     ``LeafSpec``s) on ``device`` -> (tree, step).
 
     Strict: every ``like`` leaf must exist in the checkpoint with the same
     shape AND logical dtype, and checkpoint leaves absent from ``like`` are
     reported.  ``device=None`` means ``cuda`` (raises without a GPU).
+    ``shardings``: an optional tree of ``like``'s structure whose leaves are
+    DTensor placements (None leaves a leaf plain), to place the leaves onto
+    ``mesh``.
     """
     dev = resolve_device(device)
     root = Path(root)
@@ -257,7 +274,32 @@ def restore_checkpoint(root, step: Optional[int], like: Any, device=None) -> tup
                     "(restore is bitwise; cast after restoring if you mean it)"
                 )
             leaves[key] = _from_storable(stored, logical_dtype).to(dev)
-    return _unflatten(like, leaves), step
+    tree = _unflatten(like, leaves)
+    if shardings is not None:
+        if mesh is None:
+            raise ValueError("restore_checkpoint(shardings=) needs the mesh to place them on")
+        tree = _place(tree, shardings, mesh)
+    return tree, step
+
+
+def _place(tree, shardings, mesh):
+    """Each tensor leaf of ``tree`` placed onto ``mesh`` in its placements
+    from ``shardings`` (a tree of ``tree``'s structure)."""
+    from repro_torch.models.sharding import place_whole
+
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree if shardings is None else place_whole(tree, mesh, tuple(shardings))
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _place(getattr(tree, f.name), getattr(shardings, f.name), mesh)
+            for f in dataclasses.fields(tree)})
+    if _is_namedtuple(tree):
+        return type(tree)(*(_place(t, s, mesh) for t, s in zip(tree, shardings)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_place(t, s, mesh) for t, s in zip(tree, shardings))
+    return {k: _place(v, shardings[k], mesh) for k, v in tree.items()}
 
 
 def prune_old(root, keep: int = 3) -> list:

@@ -25,7 +25,9 @@ bitwise rather than merely close.
 The on-disk format is the reference's (``CHECKPOINT_FORMAT = 3``), so a
 session checkpoint written by either package restores in the other.
 Placing a restored state onto a device mesh (``shard_session_state``,
-``mesh=``) is ROADMAP queue 1 item 14 and not ported yet.
+``mesh=``) belongs to the session mesh, ROADMAP queue 1 item 14b, and is
+not ported yet (the model mesh, item 14a, restores model and train
+checkpoints onto a mesh: ``checkpoint.store.restore_checkpoint(shardings=)``).
 """
 
 from __future__ import annotations
@@ -158,8 +160,8 @@ def restore_session_checkpoint(
     """
     if mesh is not None:
         raise NotImplementedError(
-            "restoring onto a device mesh (mesh=, shard_session_state) is "
-            "ROADMAP queue 1 item 14, not ported yet"
+            "restoring a session onto a device mesh (mesh=, shard_session_state) is the "
+            "session mesh, ROADMAP queue 1 item 14b, not ported yet"
         )
     meta = store.load_meta(root, step)
     extra = meta.get("extra", {})

@@ -1,7 +1,10 @@
 """Enrichment state: capacity-padded structure-of-arrays tensors.
 
 Port of ``repro.core.state`` (all but the mesh placement helpers
-``shard_over_objects`` / ``shard_substrate``).  The shared substrate is the
+``shard_over_objects`` / ``shard_substrate``: the model mesh is ported —
+``launch/mesh.py``, ``launch/rules.py``, ``models/sharding.py`` — but the
+session mesh, a per-rank shard program for the superstep, is ROADMAP queue
+1 item 14b).  The shared substrate is the
 query-independent half of enrichment state:
 
     func_probs  [C, P, F]  raw tagging-function outputs (prior where unexecuted)

@@ -76,10 +76,20 @@ class PrefetchIterator:
     background thread, up to ``depth`` ahead.  On the card each batch is
     copied from pinned memory on a side stream; ``__next__`` makes the
     current stream wait for that copy.  An exception in the worker is raised
-    by ``__next__``."""
+    by ``__next__``.
 
-    def __init__(self, it: Iterator[dict], device=None, depth: int = 2):
+    ``shardings`` (with ``mesh``): a dict of DTensor placements per batch
+    key (``launch.steps.input_placements``); each batch then becomes
+    DTensors in them, every rank keeping its own shard of the batch it
+    drew (``sharding.place_whole``: no collective, so the thread may run
+    it beside the step's collectives)."""
+
+    def __init__(self, it: Iterator[dict], device=None, depth: int = 2, shardings=None,
+                 mesh=None):
+        if (shardings is None) != (mesh is None):
+            raise ValueError("PrefetchIterator takes shardings and mesh together")
         self.it = iter(it)
+        self.shardings, self.mesh = shardings, mesh
         self.device = resolve_device(device)
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.q: queue.Queue = queue.Queue(maxsize=depth)
@@ -88,6 +98,11 @@ class PrefetchIterator:
         self.thread.start()
 
     def _place(self, batch: dict):
+        if self.shardings is not None:
+            from repro_torch.models.sharding import place_whole
+
+            return {k: place_whole(torch.from_numpy(np.asarray(v)), self.mesh, self.shardings[k])
+                    for k, v in batch.items()}, None
         if self.stream is None:
             return to_device(batch, self.device), None
         with torch.cuda.stream(self.stream):

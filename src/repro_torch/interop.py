@@ -175,6 +175,21 @@ def tree_from_numpy(tree, device=None):
     return to_torch(tree, device)
 
 
+def params_from_numpy(tree, mesh=None, rules=None, axes=None, device=None):
+    """The reference's model parameters as numpy -> the port's tree on
+    ``device``; with a ``mesh`` (and the ``rules`` and logical ``axes`` of
+    the tree: ``Model.param_axes()``) DTensors in the placements the rules
+    give each leaf's axes, every rank passing the same arrays."""
+    params = tree_from_numpy(tree, device)
+    if mesh is None:
+        return params
+    if rules is None or axes is None:
+        raise ValueError("params_from_numpy over a mesh needs the rules and the axes tree")
+    from repro_torch.launch.steps import distribute_params
+
+    return distribute_params(params, axes, rules, mesh)
+
+
 def tree_to_numpy(tree):
     return cascade_lib.map_tree(to_numpy, tree)
 

@@ -148,6 +148,37 @@ def decode_attention_partials(
     return cache_partials(q, k[:, :, None], v[:, :, None], kv_len, ns, **kw)
 
 
+def decode_attention_split(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k: torch.Tensor,  # [B, Skv, KV, D]
+    v: torch.Tensor,  # [B, Skv, KV, D]
+    kv_len: torch.Tensor,  # [1] int32; may be <= 0 or > Skv
+    *,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    num_splits: Optional[int] = None,
+):
+    """The partials of one query token per batch row over a cache in its
+    ``[B, S, KV, D]`` layout -> (m [B, KV, ns, G], l [B, KV, ns, G], acc
+    [B, KV, ns, G, D]), f32: on the card the partials kernel reading the
+    cache in place (``cache_partials``), on the CPU its twin.  A ``kv_len``
+    past the cache's end admits every row (and bounds the window); one at or
+    below 0 admits none.  ``num_splits=None`` picks ``default_num_splits``."""
+    b, _, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qm = q.reshape(b * kvh, g, d).contiguous()
+    ns = ref.split_count(skv, default_num_splits(b * kvh, skv) if num_splits is None
+                         else num_splits)
+    kw = dict(softcap=softcap, window=window)
+    if q.device.type == "cpu":
+        km, vm = (t.transpose(1, 2).reshape(b * kvh, skv, d) for t in (k, v))
+        m, l, acc = decode_attention_partials(qm, km, vm, kv_len, num_splits=ns, **kw)
+    else:
+        m, l, acc = cache_partials(qm, k, v, _check_kv_len(kv_len, q.device), ns, **kw)
+    return m.reshape(b, kvh, ns, g), l.reshape(b, kvh, ns, g), acc.reshape(b, kvh, ns, g, d)
+
+
 def decode_attention(
     q: torch.Tensor,  # [B, 1, H, D]
     k: torch.Tensor,  # [B, Skv, KV, D]

@@ -50,6 +50,8 @@ def intra_chunk_bshp(
     y = torch.einsum("bcijh,bcjhp->bcihp", w, xf).reshape(bsz, s, nh, p)
     cumexp = torch.exp(cum).permute(0, 3, 1, 2).reshape(bsz, nh, s)
     kept = nc if final_state else nc - 1
+    if kept == 0:  # one chunk and no final state: no state leaves a chunk
+        return y, torch.zeros((bsz, nh, 0, p, n), dtype=torch.float32, device=x.device), cumexp
     tail = torch.exp(cum[:, :kept, -1:, :] - cum[:, :kept])  # [B, nc', Q, H]
     xw = xf[:, :kept] * (dtf[:, :kept] * tail)[..., None]
     s_contrib = torch.einsum("bcqhp,bcqn->bhcpn", xw, bf[:, :kept])

@@ -15,6 +15,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.activation_sharding import is_dtensor, pin, shard_act
+
 
 # Where ``_dense_init`` hands the matrices it draws: unset, it returns them
 # as drawn; ``transformer.stack_init`` sets a sink (for the current thread or
@@ -41,6 +43,27 @@ def _dense_init(gen: torch.Generator, shape, in_axis=0, dtype=torch.float32) -> 
     w = torch.randn(shape, generator=gen, device=gen.device).mul_(scale).to(dtype)
     sink = _SINK.get()
     return w if sink is None else sink(w)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., n] @ w [n, m]``.  A DTensor ``x`` is folded to [-1, n] first,
+    as ``torch.matmul`` folds a plain contiguous one, and the product's rows
+    are put back in ``x``'s row placements before it is unfolded: DTensor's
+    views can give a unit dim a stride that stops ``torch.matmul`` folding
+    (the batched product it takes then rounds otherwise), and its product
+    may split the rows over a mesh dim ``x`` did not, which the unfold's
+    backward view cannot take apart."""
+    if x.ndim < 3 or not is_dtensor(x):
+        return x @ w
+    from torch.distributed.tensor import Replicate
+
+    x2 = x.reshape(-1, x.shape[-1])
+    y2 = x2 @ w
+    rows = tuple(xp if xp.is_shard(0) else (yp if not yp.is_shard(0) else Replicate())
+                 for yp, xp in zip(y2.placements, x2.placements))
+    if rows != tuple(y2.placements):
+        y2 = y2.redistribute(y2.device_mesh, rows)
+    return pin(y2.reshape(x.shape[:-1] + (w.shape[-1],)))
 
 
 # ---------------------------------------------------------------- rmsnorm ---
@@ -98,23 +121,30 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str) -> di
     return {"wu": _dense_init(gen, (d_model, d_ff)), "wd": _dense_init(gen, (d_ff, d_model))}
 
 
+def mlp_axes(mlp_type: str) -> dict:
+    """Logical axes of ``mlp_init``'s tree."""
+    if mlp_type in ("swiglu", "geglu"):
+        return {"wg": ("embed", "mlp"), "wu": ("embed", "mlp"), "wd": ("mlp", "embed")}
+    return {"wu": ("embed", "mlp"), "wd": ("mlp", "embed")}
+
+
 def mlp_apply(params: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     """``jax.nn.gelu`` defaults to the tanh approximation, so gelu here is
     ``approximate="tanh"`` in both the geglu and the plain gelu MLP."""
     dt = x.dtype
     if mlp_type in ("swiglu", "geglu"):
-        g = x @ params["wg"].to(dt)
-        u = x @ params["wu"].to(dt)
+        g = shard_act(matmul(x, params["wg"].to(dt)), "batch", "act_seq", "act_ff")
+        u = shard_act(matmul(x, params["wu"].to(dt)), "batch", "act_seq", "act_ff")
         act = F.silu(g) if mlp_type == "swiglu" else F.gelu(g, approximate="tanh")
-        return (act * u) @ params["wd"].to(dt)
-    h = x @ params["wu"].to(dt)
+        return matmul(act * u, params["wd"].to(dt))
+    h = shard_act(matmul(x, params["wu"].to(dt)), "batch", "act_seq", "act_ff")
     if mlp_type == "squared_relu":
         h = torch.square(F.relu(h))
     elif mlp_type == "gelu":
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(mlp_type)
-    return h @ params["wd"].to(dt)
+    return matmul(h, params["wd"].to(dt))
 
 
 # -------------------------------------------------------------- embedding ---
@@ -124,11 +154,46 @@ def embedding_init(gen: torch.Generator, vocab: int, d_model: int) -> torch.Tens
     return torch.randn((vocab, d_model), generator=gen, device=gen.device) * (1.0 / math.sqrt(d_model))
 
 
+EMBEDDING_AXES = ("vocab", "embed")
+RMSNORM_AXES = ("embed_unsharded",)
+
+
 def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if is_dtensor(emb):
+        return _embed_on_mesh(emb, tokens, dtype)
     return emb[tokens].to(dtype)
+
+
+def _embed_on_mesh(emb, tokens, dtype):
+    """A vocab-parallel gather: each rank takes the rows of its vocab slice
+    (the table's embed dim gathered whole: the FSDP all-gather) for every
+    token it holds (the tokens gathered over the vocab's mesh dims), 0 for
+    the others, and the sum over the slices is left partial (one nonzero
+    term a token: exact)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    from repro_torch.models.activation_sharding import on_local_shards, sharded_dims
+    from repro_torch.models.sharding import local_box
+
+    mesh = emb.device_mesh
+    emb_pl = tuple(p if getattr(p, "dim", None) == 0 else Replicate() for p in emb.placements)
+    vocab = sharded_dims(emb_pl, 0)
+    shape, offset = local_box(emb.shape, mesh, emb_pl)
+    off, n = offset[0], shape[0]
+    tok_pl = tuple(Replicate() if i in vocab else p for i, p in enumerate(tokens.placements))
+    out_pl = tuple(Partial() if i in vocab else p for i, p in enumerate(tok_pl))
+
+    def local(e, t):
+        t = t.long() - off
+        here = (t >= 0) & (t < n)
+        rows = e[t.clamp(0, max(n - 1, 0))]
+        return torch.where(here[..., None], rows, torch.zeros((), dtype=e.dtype,
+                                                              device=e.device)).to(dtype)
+
+    return on_local_shards(local, out_pl, (emb_pl, tok_pl), emb, tokens)
 
 
 def unembed(emb_or_w: torch.Tensor, x: torch.Tensor, cap: Optional[float] = None) -> torch.Tensor:
     """-> f32 logits, softcapped when ``cap`` is set."""
-    logits = x @ emb_or_w.to(x.dtype).T
+    logits = matmul(x, emb_or_w.to(x.dtype).T)
     return softcap(logits.float(), cap)

@@ -44,7 +44,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as nn
+from repro_torch.models import activation_sharding as act_sh
 from repro_torch.models import transformer as tf
+from repro_torch.models.activation_sharding import shard_act
 from repro_torch.models.config import ModelConfig
 
 
@@ -83,6 +85,22 @@ class Model:
             params["img_proj"] = top(nn._dense_init(gen, (cfg.d_model, cfg.d_model)))
         return params
 
+    def param_axes(self) -> dict:
+        """The logical axes of ``init_params``' tree (the reference's
+        ``init_params(key)[1]``), leaf for leaf."""
+        cfg = self.cfg
+        is_encdec = cfg.encoder is not None
+        axes = {"embed": nn.EMBEDDING_AXES, "final_ln": nn.RMSNORM_AXES,
+                "layers": tf.stack_axes(cfg, cross=is_encdec)}
+        if not cfg.tie_embeddings:
+            axes["unembed"] = ("vocab", "embed")
+        if is_encdec:
+            axes["enc_layers"] = tf.stack_axes(_encoder_config(cfg))
+            axes["enc_ln"] = nn.RMSNORM_AXES
+        if cfg.frontend == "vision":
+            axes["img_proj"] = ("embed", "act_embed")
+        return axes
+
     # ------------------------------------------------------------ encoder --
 
     def _encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
@@ -93,7 +111,8 @@ class Model:
         x = frames.to(cfg.activation_dtype)
         x, _, _ = tf.stack_apply(params["enc_layers"], _encoder_config(cfg), x, pos,
                                  cfg.encoder.num_layers, causal=False)
-        return nn.rmsnorm(x, params["enc_ln"], cfg.rmsnorm_eps)
+        return shard_act(nn.rmsnorm(x, params["enc_ln"], cfg.rmsnorm_eps), "batch", None,
+                         "act_embed")
 
     # ------------------------------------------------------------- embed ---
 
@@ -104,9 +123,10 @@ class Model:
         x = nn.embed_tokens(params["embed"], batch["tokens"], cfg.activation_dtype)
         if cfg.frontend == "vision" and "image_embeds" in batch:
             img = batch["image_embeds"].to(cfg.activation_dtype)
-            img = img @ params["img_proj"].to(img.dtype)
+            img = nn.matmul(img, params["img_proj"].to(img.dtype))
             x = torch.cat([img, x], dim=1)
         b, s, _ = x.shape
+        x = shard_act(x, "batch", "seq", "act_embed")
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         return x, positions
 
@@ -130,6 +150,7 @@ class Model:
         x, _, aux = tf.stack_apply(params["layers"], cfg, x, positions, cfg.num_layers,
                                    enc_out=enc_out, causal=True)
         x = nn.rmsnorm(x, params["final_ln"], cfg.rmsnorm_eps)
+        x = shard_act(x, "batch", "act_seq", "act_embed")  # a mesh's sequence parallelism ends
 
         targets = batch["targets"]
         n_img = x.shape[1] - targets.shape[1]
@@ -192,10 +213,38 @@ def _ce_sum(w: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
             cap: Optional[float]) -> torch.Tensor:
     """Summed cross-entropy of one chunk of positions: x [B, c, d] against
     the unembedding ``w`` [V, d] -> logsumexp minus the gold logit, f32."""
-    logits = nn.unembed(w, x, cap)  # [B, c, V] f32
+    logits = shard_act(nn.unembed(w, x, cap), "batch", None, "act_ff")  # [B, c, V] f32
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    if act_sh.is_dtensor(logits):
+        gold = _gold_on_mesh(logits, targets)
+    else:
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return torch.sum(lse - gold)
+
+
+def _gold_on_mesh(logits, targets):
+    """The gold logit of vocab-sharded logits: each rank gathers the targets
+    that fall in its vocab slice (0 for the others), and the sum over the
+    slices is left partial (one nonzero term a position: exact)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    from repro_torch.models.sharding import local_box
+
+    rows = act_sh.placements("batch", None)
+    lg_pl = tuple(p if getattr(p, "dim", None) in (0, 2) else Replicate()
+                  for p in logits.placements)
+    vocab = act_sh.sharded_dims(lg_pl, 2)
+    shape, offset = local_box(logits.shape, logits.device_mesh, lg_pl)
+    off, n = offset[2], shape[2]
+    out_pl = tuple(Partial() if i in vocab else p for i, p in enumerate(rows))
+
+    def local(lg, tg):
+        t = tg.long() - off
+        here = (t >= 0) & (t < n)
+        picked = torch.gather(lg, -1, t.clamp(0, max(n - 1, 0))[..., None])[..., 0]
+        return torch.where(here, picked, torch.zeros((), dtype=lg.dtype, device=lg.device))
+
+    return act_sh.on_local_shards(local, out_pl, (lg_pl, rows), logits, targets)
 
 
 def teacher_forced(model: Model, params: dict, tokens: torch.Tensor, prompt: int, max_len: int,

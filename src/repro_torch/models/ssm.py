@@ -28,7 +28,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
-from repro_torch.models.layers import _dense_init, rmsnorm
+from repro_torch.models.activation_sharding import (is_dtensor, on_local_shards, pin,
+                                                      placements, shard_act)
+from repro_torch.models.layers import _dense_init, matmul, rmsnorm
 
 
 class SSMCache(NamedTuple):
@@ -57,6 +59,24 @@ def ssm_init(gen: torch.Generator, cfg) -> dict:
         "norm_w": torch.ones((di,), dtype=torch.float32, device=dev),
         "out_proj": _dense_init(gen, (di, d)),
     }
+
+
+def ssm_axes() -> dict:
+    """Logical axes of ``ssm_init``'s tree."""
+    return {
+        "in_proj": ("embed", "ssm_inner"),
+        "conv_w": ("conv", "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "norm_w": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "embed"),
+    }
+
+
+def ssm_cache_axes() -> SSMCache:
+    return SSMCache(conv=("batch", None, "ssm_inner"), h=("batch", "ssm_heads", None, "state"))
 
 
 def _split_proj(cfg, proj: torch.Tensor):
@@ -102,6 +122,19 @@ def ssd_chunked(
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"chunk {chunk} does not divide the sequence length {s}")
+    if is_dtensor(x):  # each rank: its batch rows and SSM heads, either engine
+        x_pl = placements("batch", None, "ssm_heads", None)
+        h_pl = placements("batch", "ssm_heads", None, None)
+        bn = placements("batch", None, None)
+
+        def local(xl, dtl, al, bl, cl, hl):
+            return ssd_chunked(xl, dtl, al, bl, cl, hl, chunk=chunk, impl=impl,
+                               final_state=final_state)
+
+        return on_local_shards(
+            local, (x_pl, h_pl if final_state else None),
+            (x_pl, placements("batch", None, "ssm_heads"), placements("ssm_heads"), bn, bn,
+             None if h0 is None else h_pl), x, dt, a, b_mat, c_mat, h0)
     a_bh = a.float()[None, :].expand(x.shape[0], a.shape[0])  # batch stride 0
     kw = dict(chunk=chunk, final_state=final_state)
     if impl == "kernel":
@@ -117,7 +150,15 @@ def ssd_chunked(
 
 def ssd_step(x, dt, a, b_vec, c_vec, h):
     """Single decode step of the recurrence: x [B, H, P], dt [B, H], a [H],
-    b_vec / c_vec [B, N], h [B, H, P, N] -> (y [B, H, P], h_new)."""
+    b_vec / c_vec [B, N], h [B, H, P, N] -> (y [B, H, P], h_new); under a
+    mesh on each rank's batch rows and SSM heads."""
+    if is_dtensor(x):
+        x_pl, h_pl = placements("batch", "ssm_heads", None), placements("batch", "ssm_heads",
+                                                                         None, None)
+        bn = placements("batch", None)
+        return on_local_shards(ssd_step, (x_pl, h_pl),
+                               (x_pl, placements("batch", "ssm_heads"), placements("ssm_heads"),
+                                bn, bn, h_pl), x, dt, a, b_vec, c_vec, h)
     dtf = dt.float()
     decay = torch.exp(dtf * a)  # [B, H]
     h_new = h * decay[:, :, None, None] + torch.einsum(
@@ -137,7 +178,7 @@ def ssm_apply(params: dict, cfg, x: torch.Tensor, cache: Optional[SSMCache] = No
     dt_in = x.dtype
     bsz, seq, _ = x.shape
 
-    proj = x @ params["in_proj"].to(dt_in)
+    proj = shard_act(matmul(x, params["in_proj"].to(dt_in)), "batch", "act_seq", "ssm_inner")
     z, xbc, dt_raw = _split_proj(cfg, proj)
     conv_tail = cache.conv if cache is not None else None
     xbc, new_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"], conv_tail)
@@ -154,9 +195,9 @@ def ssm_apply(params: dict, cfg, x: torch.Tensor, cache: Optional[SSMCache] = No
         y, h_new = ssd_chunked(x_in, dt, a, b_mat, c_mat, h0, chunk=s_cfg.chunk_size,
                                impl=cfg.attn_impl, final_state=cache is not None)
     y = y + x_in * params["D"].to(dt_in)[None, None, :, None]
-    y = y.reshape(bsz, seq, di)
+    y = pin(y.reshape(bsz, seq, di))
     y = rmsnorm(y * F.silu(z), params["norm_w"], cfg.rmsnorm_eps)
-    out = y @ params["out_proj"].to(dt_in)
+    out = shard_act(matmul(y, params["out_proj"].to(dt_in)), "batch", "act_seq", "act_embed")
 
     new_cache = cache
     if cache is not None and update_cache:

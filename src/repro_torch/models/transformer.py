@@ -42,6 +42,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import activation_sharding as act_sh
+from repro_torch.models.activation_sharding import shard_act
 from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -82,6 +84,29 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, mixer: str, cross: bool =
     return params
 
 
+def block_axes(cfg: ModelConfig, mixer: str, cross: bool = False) -> dict:
+    """Logical axes of ``block_init``'s tree."""
+    axes = {"ln1": nn.RMSNORM_AXES, "ln2": nn.RMSNORM_AXES}
+    if mixer in ATTN_MIXERS:
+        axes["attn"] = attn_lib.attn_axes(cfg)
+    if mixer in SSM_MIXERS:
+        axes["ssm"] = ssm_lib.ssm_axes()
+    if cross:
+        axes["ln_cross"] = nn.RMSNORM_AXES
+        axes["cross"] = attn_lib.attn_axes(cfg)
+    if cfg.moe is not None:
+        axes["moe"] = moe_lib.moe_axes(cfg)
+        if cfg.moe.dense_residual:
+            axes["mlp"] = nn.mlp_axes(cfg.mlp_type)
+    elif cfg.mlp_type != "none" and cfg.d_ff > 0:
+        axes["mlp"] = nn.mlp_axes(cfg.mlp_type)
+    return axes
+
+
+def _seq_whole(h: torch.Tensor) -> torch.Tensor:
+    return shard_act(h, "batch", "act_seq", "act_embed")
+
+
 def block_apply(params: dict, cfg: ModelConfig, mixer: str, x: torch.Tensor,
                 positions: torch.Tensor, kv_cache: Optional[attn_lib.KVCache] = None,
                 ssm_cache: Optional[ssm_lib.SSMCache] = None, update_cache: bool = False,
@@ -89,7 +114,11 @@ def block_apply(params: dict, cfg: ModelConfig, mixer: str, x: torch.Tensor,
     """-> (x, new_ssm_cache, the MoE's ``BlockAux`` or None); attention
     writes its K/V rows into ``kv_cache`` in place."""
     aux = None
-    h = nn.rmsnorm(x, params["ln1"], cfg.rmsnorm_eps)
+    # Under a mesh whose rules shard the residual's seq (training's sequence
+    # parallelism), each mixer and MLP takes its input with the seq whole:
+    # the all-gather XLA inserts before them is stated here (a no-op where
+    # seq is not sharded, and without a mesh).
+    h = _seq_whole(nn.rmsnorm(x, params["ln1"], cfg.rmsnorm_eps))
     new_ssm = ssm_cache
     parts = []
     if mixer in ATTN_MIXERS:
@@ -106,11 +135,11 @@ def block_apply(params: dict, cfg: ModelConfig, mixer: str, x: torch.Tensor,
     x = x + mix
 
     if enc_out is not None and "cross" in params:
-        hc = nn.rmsnorm(x, params["ln_cross"], cfg.rmsnorm_eps)
+        hc = _seq_whole(nn.rmsnorm(x, params["ln_cross"], cfg.rmsnorm_eps))
         c, _ = attn_lib.attn_apply(params["cross"], cfg, hc, positions, "global", xk=enc_out)
         x = x + c
 
-    h2 = nn.rmsnorm(x, params["ln2"], cfg.rmsnorm_eps)
+    h2 = _seq_whole(nn.rmsnorm(x, params["ln2"], cfg.rmsnorm_eps))
     if "moe" in params:
         ff, moe_aux = moe_lib.moe_apply(params["moe"], cfg, h2)
         aux = BlockAux(moe_aux.load_balance_loss, moe_aux.router_z_loss)
@@ -195,6 +224,16 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, num_layers: int, cross: b
                  for mixer in cfg.layer_pattern)
 
 
+def stack_axes(cfg: ModelConfig, cross: bool = False) -> tuple:
+    """Logical axes of ``stack_init``'s tree: every leaf leads with "layers"."""
+    def lead(tree):
+        if isinstance(tree, dict):
+            return {k: lead(v) for k, v in tree.items()}
+        return ("layers",) + tree
+
+    return tuple(lead(block_axes(cfg, mixer, cross)) for mixer in cfg.layer_pattern)
+
+
 def _any_requires_grad(tree) -> bool:
     if isinstance(tree, dict):
         return any(_any_requires_grad(v) for v in tree.values())
@@ -208,6 +247,7 @@ def _group_apply(group_params: tuple, cfg: ModelConfig, x: torch.Tensor,
     """One pattern period without a cache -> (x, its summed ``BlockAux`` or
     None): the unit the backward pass recomputes under remat."""
     total = None
+    x = shard_act(x, "batch", "seq", "act_embed")
     for pos, params in enumerate(group_params):
         x, _, aux = block_apply(params, cfg, cfg.layer_pattern[pos], x, positions,
                                 enc_out=enc_out, causal=causal)
@@ -237,6 +277,7 @@ def stack_apply(stacked_params: tuple, cfg: ModelConfig, x: torch.Tensor,
             total = _add_aux(total, aux)
     else:
         for g in range(groups):
+            x = shard_act(x, "batch", "seq", "act_embed")
             for pos in range(period):
                 kv_c = ssm_c = None
                 if cache.kv_k[pos] is not None:
@@ -262,32 +303,63 @@ def stack_apply(stacked_params: tuple, cfg: ModelConfig, x: torch.Tensor,
 def init_model_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                      device=None, enc_out: Optional[torch.Tensor] = None) -> ModelCache:
     """Zeroed caches: K / V for every attention position (hymba's too), the
-    conv tail and f32 state for every SSM position (hymba's too)."""
+    conv tail and f32 state for every SSM position (hymba's too).  Under an
+    active mesh (``activation_sharding``) every leaf is a DTensor of zeros in
+    the placements the rules give ``model_cache_axes(cfg, shard_kv_seq=True)``
+    (the decode layout, so a prefill's cache feeds the decode step), and only
+    the local shards are allocated."""
     period = len(cfg.layer_pattern)
     groups = cfg.num_layers // period
     kv_k, kv_v, ssm_conv, ssm_h = [], [], [], []
     s = cfg.ssm
+    axes = model_cache_axes(cfg, shard_kv_seq=True)
+
+    def zeros(shape, dtype, ax):
+        if act_sh.active() is None:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        import torch.distributed.tensor as dtensor
+
+        return dtensor.zeros(shape, dtype=dtype, device_mesh=act_sh.active()[0],
+                             placements=act_sh.placements(*ax))
+
     for pos in range(period):
         mixer = cfg.layer_pattern[pos]
         if mixer in ATTN_MIXERS:
             shape = (groups, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-            kv_k.append(torch.zeros(shape, dtype=dtype, device=device))
-            kv_v.append(torch.zeros(shape, dtype=dtype, device=device))
+            kv_k.append(zeros(shape, dtype, axes.kv_k[pos]))
+            kv_v.append(zeros(shape, dtype, axes.kv_v[pos]))
         else:
             kv_k.append(None)
             kv_v.append(None)
         if mixer in SSM_MIXERS:
             di, nh = s.d_inner(cfg.d_model), s.num_heads(cfg.d_model)
-            ssm_conv.append(torch.zeros((groups, batch, s.conv_width - 1, di + 2 * s.state_dim),
-                                        dtype=dtype, device=device))
-            ssm_h.append(torch.zeros((groups, batch, nh, s.head_dim, s.state_dim),
-                                     dtype=torch.float32, device=device))
+            ssm_conv.append(zeros((groups, batch, s.conv_width - 1, di + 2 * s.state_dim), dtype,
+                                  axes.ssm_conv[pos]))
+            ssm_h.append(zeros((groups, batch, nh, s.head_dim, s.state_dim), torch.float32,
+                               axes.ssm_h[pos]))
         else:
             ssm_conv.append(None)
             ssm_h.append(None)
     return ModelCache(kv_k=tuple(kv_k), kv_v=tuple(kv_v), ssm_conv=tuple(ssm_conv),
                       ssm_h=tuple(ssm_h),
                       length=torch.zeros((), dtype=torch.int32, device=device), enc_out=enc_out)
+
+
+def model_cache_axes(cfg: ModelConfig, shard_kv_seq: bool = False) -> ModelCache:
+    """Logical axes matching ``init_model_cache``'s tree."""
+    kv_ax = ("layers", "batch", "kv_seq" if shard_kv_seq else None, "kv_heads", "head_dim")
+    conv_ax = ("layers", "batch", None, "ssm_inner")
+    h_ax = ("layers", "batch", "ssm_heads", None, "state")
+    att = [m in ATTN_MIXERS for m in cfg.layer_pattern]
+    ssm = [m in SSM_MIXERS for m in cfg.layer_pattern]
+    return ModelCache(
+        kv_k=tuple(kv_ax if a else None for a in att),
+        kv_v=tuple(kv_ax if a else None for a in att),
+        ssm_conv=tuple(conv_ax if s else None for s in ssm),
+        ssm_h=tuple(h_ax if s else None for s in ssm),
+        length=(),
+        enc_out=("batch", None, "act_embed") if cfg.encoder is not None else None,
+    )
 
 
 def cast_matrices(stacked_params: tuple, dtype: torch.dtype) -> tuple:

@@ -21,7 +21,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.optim.tree import leaves, tree_map, unflatten
+from repro_torch.optim.tree import leaves, tree_map, unflatten, zeros_for
 
 CHUNK_ELEMS = 32 * 1024 * 1024
 
@@ -48,7 +48,7 @@ class Adafactor:
 
     def init(self, params) -> AdafactorState:
         def zeros(shape, p):
-            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+            return zeros_for(p, shape, torch.float32)
 
         def vr(p):
             return zeros(p.shape[:-1] if self._factored(p) else (1,), p)

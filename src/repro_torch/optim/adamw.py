@@ -21,7 +21,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.optim.tree import leaves, tree_map, unflatten
+from repro_torch.optim.tree import leaves, tree_map, unflatten, zeros_for
 
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -48,7 +48,7 @@ class AdamW:
 
     def init(self, params) -> AdamWState:
         def zeros(p):
-            return torch.zeros(p.shape, dtype=self._sdt(p), device=p.device)
+            return zeros_for(p, p.shape, self._sdt(p))
 
         step = torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)
         return AdamWState(step=step, mu=tree_map(zeros, params), nu=tree_map(zeros, params))

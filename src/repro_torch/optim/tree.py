@@ -27,6 +27,23 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def zeros_for(p, shape, dtype):
+    """Zeros of ``shape`` and ``dtype`` beside parameter ``p``: on its
+    device, or for a DTensor ``p`` a DTensor on its mesh — in its placements
+    when the shape is its own (a moment that mirrors it), else replicated
+    (a factor or a placeholder)."""
+    import torch
+
+    if type(p) is torch.Tensor or not hasattr(p, "device_mesh"):
+        return torch.zeros(shape, dtype=dtype, device=p.device)
+    if tuple(shape) == tuple(p.shape):
+        return torch.zeros_like(p, dtype=dtype)
+    import torch.distributed.tensor as dtensor
+
+    return dtensor.zeros(shape, dtype=dtype, device_mesh=p.device_mesh,
+                         placements=[dtensor.Replicate()] * p.device_mesh.ndim)
+
+
 def unflatten(like, values: list):
     """A tree of ``like``'s structure whose leaves, in ``leaves`` order, are
     ``values``."""

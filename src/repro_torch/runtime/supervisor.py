@@ -40,7 +40,8 @@ detection to the first post-restore chunk dispatch.
 Port of ``repro.runtime.supervisor``: the same state machine, breaker and
 ``summary()`` keys.  The resharded session and the restored state live on
 the supervised session's device.  Placing the restored state on a device
-mesh is ROADMAP queue 1 item 14, so the reference's ``mesh=`` is not taken.
+mesh is the session mesh, ROADMAP queue 1 item 14b, so the reference's
+``mesh=`` is not taken.
 """
 
 from __future__ import annotations

@@ -1271,3 +1271,69 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
         loose += int((d > 0.01 * lr).sum())
         total += d.numel()
     assert loose <= 1e-3 * total
+
+
+@pytest.mark.cuda
+def test_one_rank_mesh_steps_on_the_card(cuda_device):
+    """The model mesh on a one-rank NCCL group, (1, 1) ("data", "model"): a
+    reduced bf16 qwen3 (head_dim 128, the kernel route) through
+    ``build_prefill_step`` (tc flash on the local heads) and
+    ``build_decode_step`` (the cache sharded on its rows: the partials
+    kernel, then the combine) against the mesh-free prefill and fused
+    decode on the same weights: logits within 2e-2 of their scale, every
+    launch counted on its kernel and no plain twin run."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.rules import rules_for_cell
+    from repro_torch.models.model import random_model
+
+    if not dist.is_nccl_available():
+        pytest.fail("a card mesh runs on NCCL, which this torch lacks")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(model=1, device_type="cuda")
+        model, params = random_model(get_config("qwen3-1.7b", bf16_check=True), seed=0,
+                                     device=cuda_device)
+        cfg, b, prompt, max_len, steps = model.cfg, 2, 128, 256, 3
+        tokens = torch.randint(0, cfg.vocab_size, (b, prompt + steps), device=cuda_device,
+                               generator=torch.Generator(device=cuda_device).manual_seed(1))
+        want, cache = [], None
+        logits, cache = model.prefill(params, {"tokens": tokens[:, :prompt]}, max_len)
+        want.append(logits.float())
+        for t in range(prompt, prompt + steps):
+            logits, cache = model.decode_step(params, tokens[:, t:t + 1], cache)
+            want.append(logits.float())
+        pshape = ShapeSpec("p", "prefill", max_len, b)
+        dshape = ShapeSpec("d", "decode", max_len, b)
+        dparams = st.distribute_params(params, model.param_axes(),
+                                       rules_for_cell(cfg, mesh, "prefill", b), mesh)
+        for ops in (fa_ops, da_ops):
+            ops.reset_counts()
+        prefill, decode = st.build_prefill_step(cfg, pshape, mesh), st.build_decode_step(
+            cfg, dshape, mesh)
+        logits, cache = prefill.fn(dparams, st.distribute_batch(
+            {"tokens": tokens[:, :prompt]}, cfg, pshape, mesh))
+        got = [logits.full_tensor().float()]
+        for t in range(prompt, prompt + steps):
+            tok = st.distribute_batch({"token": tokens[:, t:t + 1]}, cfg, dshape, mesh)["token"]
+            logits, cache = decode.fn(dparams, tok, cache)
+            got.append(logits.full_tensor().float())
+        n = cfg.num_layers
+        assert fa_ops.ROUTES["tc"] == n and not fa_ops.PLAIN_CALLS[fa_ops.KERNEL]
+        assert da_ops.LAUNCHES[da_ops.KERNEL] == n * steps and da_ops.LAUNCHES[da_ops.FUSED] == 0
+        assert not any(da_ops.PLAIN_CALLS.values())
+        for w, g in zip(want, got):
+            assert (w - g).abs().max().item() <= 2e-2 * w.abs().max().item()
+    finally:
+        dist.destroy_process_group()
