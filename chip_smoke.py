@@ -209,7 +209,24 @@ in order; any failure raises and the script exits non-zero:
    line with the ms per prefill and decode step beside the mesh-free
    path's (host clock, synchronised), peak memory, and the card's name and
    power limit;
-9. one JSON line of per-kernel numbers, one entry per kernel: the flash
+9. the session mesh, in a child process: a one-rank NCCL group, the (1, 1)
+   ("data", "model") mesh; phase 4's world placed with
+   ``shard_session_state`` serves ``MAIN_TRACE`` through
+   ``serve_session_trace`` (the per-rank program, ``core.shard_program``:
+   the scoring kernels on the rank's rows, the collectives over the object
+   axis) and the grown state runs 8 table-mode epochs, beside the
+   mesh-free run in the same child: 24 best-mode and 8 table-mode
+   launches, no plain call, ``cost_hex`` / ``bills_hex`` /
+   ``answer_digest`` equal after the trace and after the table epochs;
+   the pipeline's staging of the trace on the mesh under
+   ``set_sync_debug_mode("error")``, its digests equal; ``kill:w1@chunk:4``
+   on 2 plan shards through ``Supervisor(mesh=)`` with the digests and
+   summary of its mesh-free twin; epochs/s of both, collectives per epoch
+   and peak memory beside the card's name and power limit (one
+   ``[session-mesh] {...}`` line); the gloo child of phase 8 also runs the
+   suite's 2- and 4-rank session-mesh checks
+   (``tests/_torch_session_mesh_worker.gloo_checks``);
+10. one JSON line of per-kernel numbers, one entry per kernel: the flash
    kernel's three routes as ``flash_attention`` (simt: on no main path, so
    its launches are 0; its numbers the cascade shape's, timed beside the
    short kernel), ``flash_attention_tc`` and ``flash_attention_short`` (the
@@ -2642,20 +2659,26 @@ def model_mesh_child() -> int:
 
 
 def mesh_gloo_child() -> int:
-    """The suite's 2- and 4-rank gloo checks of the mesh steps on the CPU,
-    under the torch the script runs with (``tests/_torch_mesh_worker.gloo_checks``)."""
+    """The suite's 2- and 4-rank gloo checks of the mesh steps and of the
+    session mesh on the CPU, under the torch the script runs with
+    (``tests/_torch_mesh_worker.gloo_checks``,
+    ``tests/_torch_session_mesh_worker.gloo_checks``)."""
     import shutil
 
     root = Path(__file__).resolve().parent
     sys.path[:0] = [str(root / "src"), str(root / "tests")]
     import _torch_mesh_worker
+    import _torch_session_mesh_worker
 
     MESH_DIR.mkdir(parents=True, exist_ok=True)
     try:
         seconds = _torch_mesh_worker.gloo_checks(MESH_DIR)
+        session_seconds = _torch_session_mesh_worker.gloo_checks(MESH_DIR)
     finally:
         shutil.rmtree(MESH_DIR, ignore_errors=True)
-    print(json.dumps({"gloo_seconds": seconds}))
+    print(f"[session-mesh] gloo: the 2- and 4-rank session-mesh checks passed in "
+          f"{session_seconds} s", flush=True)
+    print(json.dumps({"gloo_seconds": seconds, "session_gloo_seconds": session_seconds}))
     return 0
 
 
@@ -2709,6 +2732,189 @@ def phase_model_mesh(gloo) -> dict:
         for k, v in run["launches"].items():
             launches[k] = launches.get(k, 0) + v
     return launches
+
+
+# ------------------------------------------------------- the session mesh --
+
+SESSION_MESH_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_session_mesh"
+SESSION_ROWS = 1 << 20  # phase 4's world after MAIN_TRACE's ingest
+
+
+def _session_serve(mesh, plan_shards: int = 1) -> dict:
+    """Phase 4's world (placed on ``mesh`` unless it is None) serves
+    MAIN_TRACE, then its grown state runs 8 table-mode epochs -> the two
+    reports' digests, times, launches and collectives."""
+    import torch
+
+    from repro_torch.core import shard_program
+    from repro_torch.core.durability import shard_session_state
+    from repro_torch.core.executor import EngineConfig
+    from repro_torch.core.session import EngineSession
+    from repro_torch.kernels.enrich_score import ops
+    from repro_torch.launch import serve
+
+    session, state, pool, preds = _robust_world(plan_shards)
+    if mesh is not None:
+        state = shard_session_state(state, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    shard_program.reset_counts()
+    rep = serve.serve_session_trace(session, state, serve.parse_trace(MAIN_TRACE), pool=pool,
+                                    preds=preds)
+    trace_coll = dict(shard_program.COLLECTIVES)
+    table = EngineSession(
+        session.global_predicates, session.table, session.combine_params, session.costs,
+        capacity=rep.state.capacity, max_tenants=8, device="cuda",
+        config=EngineConfig(plan_size=64, substrate_dtype="bfloat16"))
+    shard_program.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, hist = table.run(rep.state, 8, stop_when_exhausted=False)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    assert not any(plain.values()), f"the plain path ran: {plain}"
+    assert launches == {"enrich_score_table": 8, "enrich_score_best": 24,
+                        "enrich_score_single": 0}, launches
+    runs = {k: session.program.program_runs[k] + table.program.program_runs[k]
+            for k in session.program.program_runs}
+    want = "device" if mesh is None else "per_rank"
+    assert runs[want] > 0 and sum(runs.values()) == runs[want], runs
+    assert rep.epochs == 24 and len(hist) == 8 and rep.num_rows == SESSION_ROWS
+    return dict(trace=serve.state_digests(rep.state), table=serve.state_digests(final),
+                trace_eps=rep.epochs / rep.wall_s, table_eps=8 / table_s,
+                trace_collectives=trace_coll, table_collectives=dict(shard_program.COLLECTIVES),
+                peak_bytes=torch.cuda.max_memory_allocated(), launches=launches, runs=runs)
+
+
+def _session_staged(mesh, want) -> None:
+    """The pipeline's staging of MAIN_TRACE on the placed state (host pool:
+    the pinned copy path) under sync debug mode "error": no host sync on
+    the mesh path either; its digests equal the lockstep run's."""
+    import torch
+
+    from repro_torch.core.durability import shard_session_state
+    from repro_torch.launch import serve
+
+    session, state, pool, preds = _robust_world()
+    pipe = session.pipeline(shard_session_state(state, mesh))
+    host_pool = pool.cpu()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _stage_trace(pipe, serve.parse_trace(MAIN_TRACE), host_pool, preds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    grown, _ = pipe.finish()
+    assert serve.state_digests(grown) == want, "the staged mesh pipeline's digests differ"
+
+
+def _session_supervised(mesh) -> dict:
+    """``kill:w1@chunk:4`` on 2 plan shards, supervised on ``mesh`` (or
+    without one) -> (summary without latencies, digests, launches)."""
+    import shutil
+
+    from repro_torch.core.durability import shard_session_state
+    from repro_torch.kernels.enrich_score import ops
+    from repro_torch.launch import serve
+    from repro_torch.runtime.chaos import parse_fault_spec
+    from repro_torch.runtime.supervisor import Supervisor, SupervisorConfig
+
+    root = SESSION_MESH_DIR / ("mesh" if mesh is not None else "free")
+    shutil.rmtree(root, ignore_errors=True)
+    session, state, pool, preds = _robust_world(plan_shards=2)
+    if mesh is not None:
+        state = shard_session_state(state, mesh)
+    sup = Supervisor(session, state, serve.parse_trace(MAIN_TRACE), pool=pool, preds=preds,
+                     checkpoint_dir=root, chunk_size=2, fault_plan=parse_fault_spec(
+                         "kill:w1@chunk:4"), mesh=mesh,
+                     config=SupervisorConfig(heartbeat_timeout=2.0, checkpoint_every=2,
+                                             checkpoint_keep=3))
+    ops.reset_counts()
+    rep = sup.serve()
+    launches = dict(ops.LAUNCHES)
+    assert not any(ops.PLAIN_CALLS.values()), dict(ops.PLAIN_CALLS)
+    shutil.rmtree(root, ignore_errors=True)
+    summary = {k: v for k, v in sup.summary().items() if k != "recovery_latency_s"}
+    assert not rep.preempted and summary["shrinks"] == [[2, 1]], summary
+    assert summary["final_state"] == "healthy" and summary["restarts"] == 1, summary
+    runs = sup.session.program.program_runs
+    assert runs["per_rank" if mesh is not None else "device"] > 0, runs
+    return dict(summary=summary, digests=(rep.cost_hex, rep.bills_hex, rep.answer_digest),
+                launches=launches)
+
+
+def session_mesh_child() -> int:
+    """Phase 9's child: a one-rank NCCL group, the (1, 1) mesh, phase 4's
+    world on and off it."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if not dist.is_nccl_available():
+        raise RuntimeError("the session mesh phase runs on NCCL, which this torch lacks")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(model=1, device_type="cuda")
+        # in turns, each on a fresh world: the first run also builds the kernels
+        turns = [(name, _session_serve(mesh if name == "mesh" else None))
+                 for name in ("free", "mesh", "mesh", "free")]
+        for name, run in turns:
+            for key in ("trace", "table"):
+                assert run[key] == turns[0][1][key], (name, key, run[key], turns[0][1][key])
+        on_mesh = turns[1][1]
+        _session_staged(mesh, on_mesh["trace"])
+        sup_free, sup_mesh = _session_supervised(None), _session_supervised(mesh)
+        assert sup_mesh["summary"] == sup_free["summary"], (sup_mesh["summary"],
+                                                            sup_free["summary"])
+        assert sup_mesh["digests"] == sup_free["digests"] == on_mesh["trace"], "supervised"
+    finally:
+        dist.destroy_process_group()
+    coll = on_mesh["table_collectives"]
+
+    def both(key):  # the two runs of each, in the order they ran
+        return {kind: [run[key] for name, run in turns if name == kind]
+                for kind in ("mesh", "free")}
+
+    line = {
+        "card": _nvidia_smi(), "mesh": [1, 1], "rows": SESSION_ROWS,
+        "turns": [name for name, _ in turns],
+        "trace_epochs_per_s": both("trace_eps"), "table_epochs_per_s": both("table_eps"),
+        "collectives_per_table_epoch": {k: v / 8 for k, v in coll.items()},
+        "trace_collectives": on_mesh["trace_collectives"],
+        "peak_bytes": both("peak_bytes"),
+        "cost_hex": on_mesh["trace"][0], "answer_digest": on_mesh["trace"][2][:16],
+        "supervised": {"shrinks": sup_mesh["summary"]["shrinks"],
+                       "restored_steps": sup_mesh["summary"]["restored_steps"]},
+    }
+    print(f"[session-mesh] {json.dumps(line)}", flush=True)
+    launches = {k: on_mesh["launches"][k] + sup_mesh["launches"][k] for k in on_mesh["launches"]}
+    print(json.dumps({"launches": launches}))
+    return 0
+
+
+def phase_session_mesh() -> dict:
+    """Phase 9: the session mesh's child -> the mesh runs' launches."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--session-mesh"],
+                          capture_output=True, text=True, timeout=600)
+    sys.stdout.write(proc.stdout)
+    sys.stderr.write(proc.stderr[-4000:])
+    if proc.returncode:
+        raise AssertionError(f"the session mesh child exited {proc.returncode}")
+    print(f"[session-mesh] phase 9 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])["launches"]
 
 
 def _leaves(tree):
@@ -3129,6 +3335,8 @@ def main() -> int:
         return train_resume_child()
     if sys.argv[1:] == ["--model-mesh"]:  # phase_model_mesh's child
         return model_mesh_child()
+    if sys.argv[1:] == ["--session-mesh"]:  # phase_session_mesh's child
+        return session_mesh_child()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch.quickstart import quickstart_world
@@ -3166,6 +3374,7 @@ def main() -> int:
     train_run = phase_train_main_path()
     train_run["resume"] = phase_train_resume()
     runs.append(phase_model_mesh(gloo))
+    runs.append(phase_session_mesh())
     # launches: the sum over the main-path runs (each zeroes the counts first)
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],

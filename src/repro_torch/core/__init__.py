@@ -50,6 +50,7 @@ from repro_torch.core.durability import (
     restore_session_checkpoint,
     save_session_checkpoint,
     session_state_spec,
+    shard_session_state,
 )
 
 __all__ = [
@@ -64,7 +65,7 @@ __all__ = [
     "OperatorConfig", "EpochStats", "ProgressiveQueryOperator",
     "EngineConfig", "EpochProgram", "SessionState", "EngineSession", "SessionPipeline",
     "SessionCheckpointer", "save_session_checkpoint", "restore_session_checkpoint",
-    "session_state_spec",
+    "session_state_spec", "shard_session_state",
     "MultiQueryEngine", "MultiQueryConfig", "MultiQueryState", "MultiEpochStats",
     "QuerySet", "build_query_set",
     "StaticOrderEvaluator",

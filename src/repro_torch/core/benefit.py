@@ -17,7 +17,7 @@ any leading slot axes.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -58,13 +58,15 @@ def candidate_mask(
     strategy: str,
     pred_mask: Optional[torch.Tensor] = None,  # [..., P] bool
     row_valid: Optional[torch.Tensor] = None,  # [N] bool
+    gather: Optional[Callable] = None,
 ) -> torch.Tensor:
     """[..., N] bool candidate restriction (§4.1 + the "auto" widening).
 
     ``"auto"`` additionally admits inside-answer objects whose mean
     entropy over the query's own predicate columns is at least the median
     over valid rows (floored at 0.35), so precision errors inside a diffuse
-    early answer set can still be fixed.
+    early answer set can still be fixed.  ``gather`` takes the rows given
+    here to all rows (a session on a mesh: the median is over every rank's).
     """
     if strategy == "all":
         return torch.ones_like(in_answer)
@@ -77,7 +79,10 @@ def candidate_mask(
             mean_h = mean_h / denom[..., None]
         if row_valid is None:
             row_valid = torch.ones(mean_h.shape[-1], dtype=torch.bool, device=mean_h.device)
-        med = _masked_median(mean_h, row_valid)
+        if gather is None:
+            med = _masked_median(mean_h, row_valid)
+        else:
+            med = _masked_median(gather(mean_h), gather(row_valid))
         return (~in_answer) | (mean_h >= torch.clamp_min(med, 0.35)[..., None])
     return ~in_answer  # "outside_answer" — paper section 4.1
 
@@ -86,13 +91,16 @@ def restrict_benefits(
     benefit: torch.Tensor,  # [..., N, P]
     cand: torch.Tensor,  # [..., N] bool
     plan_size: int,
+    reduce: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Apply the candidate restriction with a starvation guard: never leave
     fewer valid triples than one plan; widen back to all objects when the
-    restriction would."""
+    restriction would.  ``reduce`` sums the counts of the rows given here
+    over all rows (a session on a mesh)."""
     restricted = torch.where(cand[..., None], benefit, NEG_INF)
-    n_valid = torch.isfinite(restricted).sum((-2, -1))
-    n_all = torch.isfinite(benefit).sum((-2, -1))
+    counts = torch.stack(
+        [torch.isfinite(restricted).sum((-2, -1)), torch.isfinite(benefit).sum((-2, -1))])
+    n_valid, n_all = counts if reduce is None else reduce(counts)
     use = n_valid >= torch.clamp_max(n_all, plan_size)
     return torch.where(use[..., None, None], restricted, benefit)
 

@@ -24,10 +24,12 @@ bitwise rather than merely close.
 
 The on-disk format is the reference's (``CHECKPOINT_FORMAT = 3``), so a
 session checkpoint written by either package restores in the other.
-Placing a restored state onto a device mesh (``shard_session_state``,
-``mesh=``) belongs to the session mesh, ROADMAP queue 1 item 14b, and is
-not ported yet (the model mesh, item 14a, restores model and train
-checkpoints onto a mesh: ``checkpoint.store.restore_checkpoint(shardings=)``).
+
+``shard_session_state`` places a state onto a device mesh, and
+``restore_session_checkpoint(mesh=)`` restores onto one: a checkpoint
+written on any topology (the files are the same whatever wrote them: a
+placed state is gathered and rank 0 writes) lands on a mesh of any size,
+where the session runs it as a per-rank program (``core.shard_program``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 
 from repro_torch.checkpoint import store
 from repro_torch.checkpoint.store import LeafSpec
+from repro_torch.core import shard_program
 from repro_torch.core.errors import CapacityError
 from repro_torch.core.executor import SessionDerived, SessionState
 from repro_torch.core.ledger import CostLedger, migrate_ledger
@@ -92,6 +95,7 @@ def _session_extra(session: EngineSession, state: SessionState) -> dict:
     the host shadows a serving loop needs before touching array data (the one
     host read of a save)."""
     capacity = state.capacity
+    state = shard_program.local_view(state)[1]  # the replicated leaves' local copies
     q = state.quarantined.cpu().numpy()
     return {
         "format": CHECKPOINT_FORMAT,
@@ -146,6 +150,21 @@ def _target_capacity(session: EngineSession, saved_capacity: int) -> int:
     )
 
 
+def shard_session_state(state: SessionState, mesh) -> SessionState:
+    """Place a (restored) session state onto a device mesh.
+
+    Row-axis leaves shard over the mesh's object axes — the substrate, bank
+    outputs and shared derived maps on axis 0, the per-slot ``[S, C]``
+    leaves on axis 1 — while the slot-axis leaves (``pred_mask``,
+    ``active``), scalars, the ledger and the quarantine replicate
+    explicitly: the axis-0 rule of ``state.shard_over_objects`` would split
+    ``pred_mask`` over tenant slots, which is never the serving layout.
+    Save-time placement is irrelevant (a save gathers to the host), so this
+    is how a checkpoint written on one topology lands on another.
+    """
+    return shard_program.place_state(state, mesh)
+
+
 def restore_session_checkpoint(
     session: EngineSession, root, step: Optional[int] = None, mesh=None
 ) -> tuple:
@@ -155,14 +174,10 @@ def restore_session_checkpoint(
     ``extra["host"]`` holds the serving loop's shadows ``save_session_checkpoint``
     was given.  The checkpoint loads at its saved capacity (strict shape /
     dtype match), then pads onto the session's smallest holding tier
-    (``migrate_ledger`` replayed inside).  No ``refresh``: derived state is
-    the saved bits.
+    (``migrate_ledger`` replayed inside), then, with ``mesh``, is placed on
+    it (``shard_session_state``).  No ``refresh``: derived state is the
+    saved bits.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "restoring a session onto a device mesh (mesh=, shard_session_state) is the "
-            "session mesh, ROADMAP queue 1 item 14b, not ported yet"
-        )
     meta = store.load_meta(root, step)
     extra = meta.get("extra", {})
     fmt = extra.get("format")
@@ -196,6 +211,8 @@ def restore_session_checkpoint(
     else:
         # a same-tier restore still routes the ledger through the audited hop
         migrate_ledger(state.ledger, session.max_tenants)
+    if mesh is not None:
+        state = shard_session_state(state, mesh)
     return state, step, extra
 
 
@@ -230,7 +247,14 @@ class SessionCheckpointer:
         self.saves += 1
         self.last_step = step
         self._boundaries = 0
-        store.prune_old(self.root, keep=self.keep)
+        if shard_program.mesh_of(state) is None:
+            store.prune_old(self.root, keep=self.keep)
+        else:  # every rank saw the rename: rank 0 prunes, the others wait for it
+            import torch.distributed as dist
+
+            if dist.get_rank() == 0:
+                store.prune_old(self.root, keep=self.keep)
+            dist.barrier()
         return path
 
     def maybe_save(

@@ -17,6 +17,12 @@ merge) and its chunked driver:
 7. ledger attribution;
 8. Theorem-1 answer selection.
 
+A state placed on a device mesh (``durability.shard_session_state``) runs
+the same superstep as a per-rank program over its own rows
+(``core.shard_program``): each method takes the state's layout, which is
+``OneDevice`` for a plain state, and every read across rows goes through
+it.  ``program_runs`` counts the chunks each program ran.
+
 ``lax.scan`` becomes a per-chunk Python loop.  The superstep makes no host
 sync (no ``.item()``, no boolean-mask indexing, no ``nonzero``): its stats
 stay on the device and cross to the host once per run.  ``superstep_traces``
@@ -38,6 +44,7 @@ import torch
 from repro_torch.core import benefit as benefit_lib
 from repro_torch.core import ledger as ledger_lib
 from repro_torch.core import plan as plan_lib
+from repro_torch.core import shard_program
 from repro_torch.core import state as state_lib
 from repro_torch.core import threshold as threshold_lib
 from repro_torch.core.benefit import NEG_INF, TripleBenefits
@@ -270,6 +277,8 @@ class EpochProgram:
             )
         self.bank = bank
         self._programs: set = set()  # (capacity, length, collect_masks) built
+        # chunks dispatched by program: one device, replicated on a mesh, per rank
+        self.program_runs = dict.fromkeys(("device", "replicated", "per_rank"), 0)
 
     @property
     def num_predicates(self) -> int:
@@ -316,19 +325,31 @@ class EpochProgram:
             return threshold_lib.AnswerSelection(*(torch.stack(x) for x in zip(*sels)))
         return threshold_lib.select_answer(joint_prob, self.config.alpha)
 
+    def _answers(self, joint: torch.Tensor, state: SessionState, rows):
+        """Theorem-1 selection over the whole [S, C] joint -> (selection,
+        the [S, C] answer mask: active slots, valid rows)."""
+        sel = self._select_answers(rows.gather(joint))
+        mask = sel.mask & state.active[:, None] & rows.all_valid(state.num_rows)[None, :]
+        return sel, mask
+
     def refresh(self, state: SessionState) -> SessionState:
         """Recompute all derived state from the substrate + masks (the warm
         start of every churn event)."""
-        row_valid = state.row_valid()
-        pp, unc, joint = self._derive(state.substrate, state.pred_mask, state.active, row_valid)
-        sel = self._select_answers(joint)
-        mask = sel.mask & state.active[:, None] & row_valid[None, :]
-        derived = SessionDerived(pred_prob=pp, uncertainty=unc, joint_prob=joint, in_answer=mask)
+        rows, state = shard_program.local_view(state)
+        return rows.place(self.refresh_rows(state, rows))
+
+    def refresh_rows(self, state: SessionState, rows) -> SessionState:
+        """``refresh`` of a state on ``rows``' rows (``local_view``)."""
+        pp, unc, joint = self._derive(
+            state.substrate, state.pred_mask, state.active, rows.valid(state.num_rows))
+        _, mask = self._answers(joint, state, rows)
+        derived = SessionDerived(pred_prob=pp, uncertainty=unc, joint_prob=joint,
+                                 in_answer=rows.local(mask))
         return dataclasses.replace(state, derived=derived)
 
     # ---- scoring + planning ------------------------------------------------
 
-    def _benefits(self, state: SessionState, row_valid: torch.Tensor) -> TripleBenefits:
+    def _benefits(self, state: SessionState, row_valid: torch.Tensor, rows) -> TripleBenefits:
         """Masked Eq. 11 over [S, C, P]: inactive slots and invalid rows get
         -inf, so they never win top-k."""
         cfg = self.config
@@ -355,18 +376,24 @@ class EpochProgram:
         benefit = torch.where(valid, benefit, NEG_INF)
         cand = benefit_lib.candidate_mask(
             der.uncertainty.to(torch.float32), der.in_answer, cfg.candidate_strategy,
-            pred_mask=state.pred_mask, row_valid=row_valid,
+            pred_mask=state.pred_mask, row_valid=row_valid, gather=rows.gather,
         )  # [S, C]
-        benefit = benefit_lib.restrict_benefits(benefit, cand, cfg.plan_size)
+        benefit = benefit_lib.restrict_benefits(benefit, cand, cfg.plan_size, reduce=rows.sum)
         return TripleBenefits(benefit=benefit, next_fn=nf, est_joint=est_joint, cost=cost)
 
-    def _plan_part(self, state: SessionState):
+    def _plan_part(self, state: SessionState, rows=None):
         """The superstep up to the bank boundary: score, select, dedup-merge."""
         cfg = self.config
-        benefits = self._benefits(state, state.row_valid())
-        plans = select_plans_batched(
-            benefits, cfg.plan_size, cfg.num_shards, self.num_predicates
-        )
+        if rows is None:
+            rows = shard_program.OneDevice(state.capacity)
+        benefits = self._benefits(state, rows.valid(state.num_rows), rows)
+        if rows.per_rank:
+            plans = rows.select_plans(benefits, cfg.plan_size, cfg.num_shards,
+                                      self.num_predicates)
+        else:
+            plans = select_plans_batched(
+                benefits, cfg.plan_size, cfg.num_shards, self.num_predicates
+            )
         merged, want_bits = plan_lib.merge_plans_dedup_wants(
             plans,
             self.num_predicates,
@@ -374,41 +401,43 @@ class EpochProgram:
             num_slots=state.num_slots,
             capacity=cfg.merged_capacity,
             cost_budget=cfg.epoch_cost_budget,
-            num_objects=state.capacity,
+            num_objects=rows.capacity,
         )
         if state.quarantined is not None:
             merged = plan_lib.quarantine_filter(merged, state.quarantined)
         return plans, merged, want_bits
 
-    def _gather_outputs(self, state: SessionState, merged: plan_lib.Plan) -> torch.Tensor:
+    def _gather_outputs(self, state: SessionState, merged: plan_lib.Plan, rows) -> torch.Tensor:
         """The bank boundary.  An attached bank executes the merged plan and
         its f32 probabilities are quantised to the substrate dtype HERE, the
         boundary ``ingest`` quantises at.  Otherwise outputs gather from the
-        capacity-padded buffer (invalid lanes read row 0 and stay inert)."""
+        capacity-padded buffer (invalid lanes, and on a mesh the lanes of
+        other ranks' rows, read row 0 and stay inert)."""
         if self.bank is not None:
             return self.bank.execute(merged).to(state.substrate.func_probs.dtype)
-        obj = plan_lib.gather_object_idx(merged, state.capacity)
+        obj, _ = rows.localize(plan_lib.gather_object_idx(merged, rows.capacity), merged.valid)
         return state.bank_outputs[obj, merged.pred_idx, torch.clamp_min(merged.func_idx, 0)]
 
-    def _apply_part(self, state, plans, merged, want_bits, outputs):
+    def _apply_part(self, state, plans, merged, want_bits, outputs, rows):
         """Charge, apply, attribute, re-derive, select -> (state, stats)."""
-        row_valid = state.row_valid()
-        chargeable = state_lib.chargeable_mask(
-            state.substrate, merged.object_idx, merged.pred_idx, merged.func_idx, merged.valid
-        )
+        row_valid = rows.valid(state.num_rows)
+        obj, mine = rows.localize(merged.object_idx, merged.valid)
+        chargeable = rows.any_rank(state_lib.chargeable_mask(
+            state.substrate, obj, merged.pred_idx, merged.func_idx, mine
+        ))
         prev_cost = state.substrate.cost_spent
         sub = state_lib.apply_outputs_to_substrate(
-            state.substrate, merged.object_idx, merged.pred_idx, merged.func_idx,
-            outputs, merged.cost, merged.valid,
+            state.substrate, obj, merged.pred_idx, merged.func_idx,
+            outputs, merged.cost, mine, chargeable=chargeable,
         )
         ledger = ledger_lib.attribute_epoch(state.ledger, merged, want_bits, chargeable)
         pp, unc, joint = self._derive(sub, state.pred_mask, state.active, row_valid)
-        sel = self._select_answers(joint)
-        mask = sel.mask & state.active[:, None] & row_valid[None, :]
+        sel, mask = self._answers(joint, state, rows)
         new_state = dataclasses.replace(
             state,
             substrate=sub,
-            derived=SessionDerived(pred_prob=pp, uncertainty=unc, joint_prob=joint, in_answer=mask),
+            derived=SessionDerived(pred_prob=pp, uncertainty=unc, joint_prob=joint,
+                                   in_answer=rows.local(mask)),
             ledger=ledger,
         )
         stats = dict(
@@ -428,14 +457,19 @@ class EpochProgram:
             stats["true_f"] = true_f_alpha(mask, self.truth_masks, self.config.alpha)
         return new_state, stats
 
-    def superstep(self, state: SessionState, collect_masks: bool = False):
-        """One plan -> execute -> apply -> attribute epoch (no host sync)."""
-        plans, merged, want_bits = self._plan_part(state)
-        outputs = self._gather_outputs(state, merged)
-        new_state, stats = self._apply_part(state, plans, merged, want_bits, outputs)
+    def _superstep(self, state: SessionState, rows, collect_masks: bool):
+        plans, merged, want_bits = self._plan_part(state, rows)
+        outputs = self._gather_outputs(state, merged, rows)
+        new_state, stats = self._apply_part(state, plans, merged, want_bits, outputs, rows)
         if not collect_masks:
             del stats["answer_mask"]
         return new_state, stats
+
+    def superstep(self, state: SessionState, collect_masks: bool = False):
+        """One plan -> execute -> apply -> attribute epoch (no host sync)."""
+        rows, state = shard_program.local_view(state)
+        state, stats = self._superstep(state, rows, collect_masks)
+        return rows.place(state), stats
 
     # ---- drivers -----------------------------------------------------------
 
@@ -456,12 +490,14 @@ class EpochProgram:
     def dispatch_scan(self, state: SessionState, length: int, collect_masks: bool):
         """Enqueue ONE chunk of ``length`` supersteps without a host sync ->
         (state, stats with a leading [length] axis, on the device)."""
-        self._programs.add((state.capacity, length, collect_masks))
+        rows, state = shard_program.local_view(state)
+        self._programs.add((rows.capacity, length, collect_masks))
+        self.program_runs[rows.kind] += 1
         steps = []
         for _ in range(length):
-            state, stats = self.superstep(state, collect_masks)
+            state, stats = self._superstep(state, rows, collect_masks)
             steps.append(stats)
-        return state, {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+        return rows.place(state), {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
 
     def run_scan(
         self,

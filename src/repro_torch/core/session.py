@@ -32,6 +32,11 @@ through pinned memory with a non-blocking copy.
 
 The session runs on the card unless ``device="cpu"`` is passed; without a
 GPU and without an explicit ``"cpu"`` it raises.
+
+Every event takes a state placed on a device mesh as well
+(``durability.shard_session_state``): it runs on each rank's rows
+(``core.shard_program``) and returns the state placed as it came; a tier
+change gathers the state, pads it and places it again on the same mesh.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ledger as ledger_lib
+from repro_torch.core import shard_program
 from repro_torch.core import state as state_lib
 from repro_torch.core.errors import CapacityError, SlotActiveError, SlotsExhaustedError
 from repro_torch.core.executor import (
@@ -104,6 +110,14 @@ def pad_session_state(state: SessionState, capacity: int, prior: float) -> Sessi
         bank_outputs=state_lib.pad_rows(state.bank_outputs, capacity, prior),
         ledger=ledger_lib.migrate_ledger(state.ledger, state.num_slots),
     )
+
+
+def _host_rows(state: SessionState, num_rows: Optional[int]) -> int:
+    """The host-known row count, else read from the device (a placed
+    state's local replica)."""
+    if num_rows is not None:
+        return int(num_rows)
+    return int(shard_program.local_view(state)[1].num_rows)
 
 
 class EngineSession:
@@ -303,6 +317,7 @@ class EngineSession:
         the device).
         """
         cols = self._query_columns(query)
+        rows, state = shard_program.local_view(state)
         active_np = np.asarray(state.active.cpu() if active is None else active)
         if slot is None:
             free = np.flatnonzero(~active_np)
@@ -329,13 +344,14 @@ class EngineSession:
         state = dataclasses.replace(
             state, pred_mask=pred_mask, active=act, ledger=ledger_lib.reset_slot(state.ledger, slot)
         )
-        return self.program.refresh(state), slot
+        return rows.place(self.program.refresh_rows(state, rows)), slot
 
     def retire(self, state: SessionState, slot: int, *, active=None) -> SessionState:
         """Retire a tenant slot between supersteps (mask bits off; its ledger
         row keeps the final bill until the slot is recycled)."""
         if not 0 <= slot < self.max_tenants:
             raise ValueError(f"slot {slot} out of range [0, {self.max_tenants})")
+        rows, state = shard_program.local_view(state)
         occupied = bool(state.active[slot]) if active is None else bool(np.asarray(active)[slot])
         if not occupied:
             raise ValueError(f"slot {slot} is not active")
@@ -343,7 +359,8 @@ class EngineSession:
         pred_mask[slot] = False
         act = state.active.clone()
         act[slot:slot + 1] = False
-        return self.program.refresh(dataclasses.replace(state, pred_mask=pred_mask, active=act))
+        state = dataclasses.replace(state, pred_mask=pred_mask, active=act)
+        return rows.place(self.program.refresh_rows(state, rows))
 
     def refresh(self, state: SessionState) -> SessionState:
         """Recompute all derived state from the substrate + masks."""
@@ -358,7 +375,8 @@ class EngineSession:
         want = (self.num_predicates, self.num_functions)
         if tuple(q.shape) != want:
             raise ValueError(f"quarantine mask must be {want}; got {tuple(q.shape)}")
-        return dataclasses.replace(state, quarantined=q)
+        rows, state = shard_program.local_view(state)
+        return rows.place(dataclasses.replace(state, quarantined=q))
 
     def quarantine(self, state: SessionState, pred: int, func: int) -> SessionState:
         """Mask function ``func`` of predicate ``pred`` out of plan selection."""
@@ -374,9 +392,10 @@ class EngineSession:
                 f"(pred={pred}, func={func}) outside "
                 f"[P={self.num_predicates}, F={self.num_functions}]"
             )
+        rows, state = shard_program.local_view(state)
         q = state.quarantined.clone()
         q[pred, func:func + 1] = value
-        return dataclasses.replace(state, quarantined=q)
+        return rows.place(dataclasses.replace(state, quarantined=q))
 
     def reshard(self, num_shards: int) -> "EngineSession":
         """A new session over the same world, planning across ``num_shards``.
@@ -413,7 +432,12 @@ class EngineSession:
             return state
         target = self._tier_for(min_rows, used=used, requested=min_rows - used)
         self.growths += 1
-        return pad_session_state(state, target, self.config.prior)
+        mesh = shard_program.mesh_of(state)
+        if mesh is None:
+            return pad_session_state(state, target, self.config.prior)
+        # rows change owners: gather, pad, place on the same mesh (a rare event)
+        grown = pad_session_state(shard_program.whole(state), target, self.config.prior)
+        return shard_program.place_state(grown, mesh)
 
     def grow(
         self, state: SessionState, min_rows: int, *, num_rows: Optional[int] = None
@@ -429,7 +453,7 @@ class EngineSession:
         """
         if min_rows <= state.capacity:
             return state
-        used = int(state.num_rows) if num_rows is None else int(num_rows)
+        used = _host_rows(state, num_rows)
         return self.program.refresh(self._grow_padded(state, min_rows, used))
 
     def ingest(
@@ -443,7 +467,7 @@ class EngineSession:
         ``CapacityError``.  ``num_rows`` may carry the host-known row count.
         """
         outputs = self._as_outputs(outputs)
-        nr = int(state.num_rows) if num_rows is None else int(num_rows)
+        nr = _host_rows(state, num_rows)
         m = outputs.shape[0]
         if nr + m > self.max_capacity:
             raise CapacityError(
@@ -454,10 +478,10 @@ class EngineSession:
                 capacity=self.max_capacity,
                 requested=m,
             )
-        state = self._grow_padded(state, nr + m, nr)
-        bank, new_rows = state_lib.ingest_rows(state.bank_outputs, state.num_rows, outputs)
+        rows, state = shard_program.local_view(self._grow_padded(state, nr + m, nr))
+        bank, new_rows = rows.ingest(state.bank_outputs, state.num_rows, outputs)
         state = dataclasses.replace(state, bank_outputs=bank, num_rows=new_rows)
-        return self.program.refresh(state) if refresh else state
+        return rows.place(self.program.refresh_rows(state, rows) if refresh else state)
 
     # ---- driver --------------------------------------------------------------
 
@@ -538,8 +562,9 @@ class SessionPipeline:
         self.boundary_hook = boundary_hook
         self.preempted = False  # a chunk-boundary poll saw should_stop
         # the pipeline's ONE upfront host read: the shadows
-        self.num_rows = int(state.num_rows)
-        self.active = state.active.cpu().numpy().copy()
+        local = shard_program.local_view(state)[1]
+        self.num_rows = int(local.num_rows)
+        self.active = local.active.cpu().numpy().copy()
         self._cuda = state.device.type == "cuda"
         self._chunks = []  # (epoch_base_within_run, length, stats, collect, done_event)
         self.epochs_dispatched = 0

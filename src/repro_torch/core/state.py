@@ -1,10 +1,6 @@
 """Enrichment state: capacity-padded structure-of-arrays tensors.
 
-Port of ``repro.core.state`` (all but the mesh placement helpers
-``shard_over_objects`` / ``shard_substrate``: the model mesh is ported —
-``launch/mesh.py``, ``launch/rules.py``, ``models/sharding.py`` — but the
-session mesh, a per-rank shard program for the superstep, is ROADMAP queue
-1 item 14b).  The shared substrate is the
+Port of ``repro.core.state``.  The shared substrate is the
 query-independent half of enrichment state:
 
     func_probs  [C, P, F]  raw tagging-function outputs (prior where unexecuted)
@@ -25,6 +21,10 @@ raises ``SubstrateDtypeError`` instead of promoting or quantizing silently.
 Every function here returns new tensors and leaves its inputs untouched, so
 a caller may keep an older state alive (chunked vs monolithic replays,
 grown vs pre-allocated sessions).
+
+``shard_over_objects`` / ``shard_substrate`` place a state's object axis
+over a ``torch.distributed`` ``DeviceMesh`` as DTensors, leaf by leaf by
+the reference's rule; ``core.shard_program`` runs a placed session.
 """
 
 from __future__ import annotations
@@ -198,8 +198,13 @@ def apply_outputs_to_substrate(
     probs: torch.Tensor,  # [K] at the substrate's storage dtype
     cost: torch.Tensor,  # [K] f32
     valid: torch.Tensor,  # [K] bool
+    chargeable: Optional[torch.Tensor] = None,  # [K] bool, default chargeable_mask(...)
 ) -> SharedSubstrate:
     """Scatter executed triples into the substrate with write-once charging.
+
+    ``chargeable`` may carry the charged lanes when they are known beyond
+    the lanes scattered here (a session on a mesh: every rank charges the
+    lanes of all ranks, in the one-device order, and scatters its own).
 
     The reference drops invalid lanes by scattering them out of range.  An
     out-of-range index is a device-side assert on CUDA, and ``index_put_``
@@ -211,7 +216,8 @@ def apply_outputs_to_substrate(
     _check_float_dtype(substrate.func_probs, probs, "apply_outputs_to_substrate")
     c, p, f = substrate.func_probs.shape
     dump = c * p * f
-    chargeable = chargeable_mask(substrate, object_idx, pred_idx, func_idx, valid)
+    if chargeable is None:
+        chargeable = chargeable_mask(substrate, object_idx, pred_idx, func_idx, valid)
     flat = (object_idx.long() * p + pred_idx.long()) * f + func_idx.long()
     flat = torch.where(valid, flat, dump)
 
@@ -360,6 +366,82 @@ def apply_function_outputs(
         state.substrate, object_idx, pred_idx, func_idx, probs, cost, valid
     )
     return refresh_derived(state.with_substrate(sub), query, combine_params)
+
+
+def object_spec(mesh, shape, axis_names=("pod", "data"), object_axis: int = 0):
+    """The reference's placement rule for one leaf of ``shape`` -> its
+    ``PartitionSpec``: the ``object_axis`` over the mesh axes of
+    ``axis_names`` that ``mesh`` has, when the leaf has that axis, the axis
+    divides over their devices and is at least as long; otherwise
+    replicated (``PartitionSpec()``).  ``mesh`` may be a ``DeviceMesh`` or a
+    stand-in with ``axis_names`` and a ``shape`` dict."""
+    from repro_torch.models.sharding import PartitionSpec, mesh_axis_names, mesh_axis_sizes
+
+    names, sizes = mesh_axis_names(mesh), mesh_axis_sizes(mesh)
+    present = tuple(a for a in axis_names if a in names)
+    n_devices = 1
+    for a in present:
+        n_devices *= sizes[a]
+    shape = tuple(shape)
+    if (present and len(shape) > object_axis and shape[object_axis] % n_devices == 0
+            and shape[object_axis] >= n_devices):
+        spec = [None] * len(shape)
+        spec[object_axis] = present
+        return PartitionSpec(*spec)
+    return PartitionSpec()
+
+
+def map_tensors(fn, tree):
+    """``fn`` over every tensor leaf of a tree of dataclasses, named tuples,
+    tuples, lists and dicts (None stays None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: map_tensors(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)})
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        return type(tree)(*(map_tensors(fn, x) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_tensors(fn, x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    raise TypeError(f"not a tree of tensors: {type(tree)}")
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A leaf's whole value as a plain tensor: a DTensor's ``full_tensor()``
+    (a collective when it is sharded), a plain tensor itself."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def shard_over_objects(tree, mesh, axis_names: tuple = ("pod", "data"), object_axis: int = 0):
+    """Place a state tree's object axis over the given mesh axes.
+
+    Every tensor leaf becomes a DTensor on ``mesh`` (the counterpart of the
+    reference's ``NamedSharding``) in the placements ``object_spec`` gives
+    it: the ``object_axis`` split over whichever of ``axis_names`` the mesh
+    has (a pod-scale mesh both "pod" and "data", a host mesh "data"), each
+    rank a contiguous block of rows; scalars and leaves too small or not
+    divisible replicate.  Per-query stacks pass ``object_axis=1``.  Each
+    rank keeps its own slice of the leaf it holds whole: no collective
+    (a leaf that is already a DTensor is gathered first).
+    """
+    from repro_torch.models.sharding import place_whole, spec_placements
+
+    def place(x):
+        x = whole(x)
+        spec = object_spec(mesh, x.shape, axis_names, object_axis)
+        return place_whole(x, mesh, spec_placements(mesh, spec))
+
+    return map_tensors(place, tree)
+
+
+def shard_substrate(substrate: SharedSubstrate, mesh, axis_names=("pod", "data")):
+    """``shard_over_objects`` for the shared substrate: its [C, P, F] leaves
+    split on C, the cost scalar replicated."""
+    return shard_over_objects(substrate, mesh, axis_names, object_axis=0)
 
 
 def with_cached_state(

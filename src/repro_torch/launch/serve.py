@@ -79,6 +79,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.archs import ARCHS, get_config
+from repro_torch.core import shard_program
 from repro_torch.core.combine import auc_score, fit_combine_weights
 from repro_torch.core.decision_table import learn_decision_table
 from repro_torch.core.durability import SessionCheckpointer, restore_session_checkpoint
@@ -477,7 +478,8 @@ class StreamingIngest:
 
     def attach_lockstep(self, state) -> None:
         self._state = state
-        self._num_rows = int(state.num_rows)  # one host read, at attach time
+        # one host read, at attach time (a placed state: its local replica)
+        self._num_rows = int(shard_program.local_view(state)[1].num_rows)
 
     def begin(self, state) -> None:
         """Lockstep only: adopt the loop's current state before feed / drain."""
@@ -589,6 +591,7 @@ def state_digests(state: SessionState) -> tuple:
     """(cost_hex, bills_hex, answer_digest): the report's bitwise diff
     surface — ``float.hex`` of the spend and of each invoice, and the sha256
     of the answer masks over the occupied rows (tier-free)."""
+    state = shard_program.whole(state)  # a placed state: gathered (a collective)
     rows = int(state.num_rows)
     answers = np.ascontiguousarray(state.derived.in_answer[:, :rows].cpu().numpy())
     return (
@@ -828,22 +831,23 @@ def serve_session_trace(
         torch.cuda.synchronize(state.device)
     wall = time.perf_counter() - t0
     last = history[-1] if history else None
-    num_rows = int(state.num_rows)
-    cost = float(state.cost_spent)
-    cost_hex, bills_hex, answer_digest = state_digests(state)
+    view = shard_program.whole(state)  # a placed state's leaves, whole (a collective)
+    num_rows = int(view.num_rows)
+    cost = float(view.cost_spent)
+    cost_hex, bills_hex, answer_digest = state_digests(view)
     quarantined = []
-    if state.quarantined is not None:
-        qm = state.quarantined.cpu().numpy()
+    if view.quarantined is not None:
+        qm = view.quarantined.cpu().numpy()
         quarantined = [[int(i), int(j)] for i, j in zip(*np.nonzero(qm))]
     return SessionServeReport(
         epochs=len(history),
         events=[dict(kind=k, arg=a) for k, a in events],
         cost_spent=cost,
         mean_expected_f=last.mean_expected_f if last else 0.0,
-        active_tenants=int(state.active.sum()),
+        active_tenants=int(view.active.sum()),
         num_rows=num_rows,
-        attributed=[float(x) for x in state.ledger.attributed.cpu()],
-        unattributed=float(state.ledger.unattributed),
+        attributed=[float(x) for x in view.ledger.attributed.cpu()],
+        unattributed=float(view.ledger.unattributed),
         superstep_traces=session.superstep_traces,
         wall_s=wall,
         history=history,

@@ -39,9 +39,9 @@ detection to the first post-restore chunk dispatch.
 
 Port of ``repro.runtime.supervisor``: the same state machine, breaker and
 ``summary()`` keys.  The resharded session and the restored state live on
-the supervised session's device.  Placing the restored state on a device
-mesh is the session mesh, ROADMAP queue 1 item 14b, so the reference's
-``mesh=`` is not taken.
+the supervised session's device; with ``mesh=`` every restore places the
+state on that same mesh (the session runs it as a per-rank program), so a
+worker death reshards the plan shards and keeps the mesh.
 """
 
 from __future__ import annotations
@@ -143,6 +143,7 @@ class Supervisor:
         external: Optional[PreemptionHandler] = None,
         chunk_size: Optional[int] = None,
         overlap: bool = False,
+        mesh=None,  # the device mesh every restore places the state on
     ):
         if checkpoint_dir is None:
             raise ValueError(
@@ -160,6 +161,7 @@ class Supervisor:
         self.cfg = config if config is not None else SupervisorConfig()
         self.chunk_size = chunk_size
         self.overlap = overlap
+        self.mesh = mesh
         self._stop = SupervisedStop(external)
 
         self.num_workers = int(session.config.num_shards)
@@ -350,7 +352,7 @@ class Supervisor:
             self._pending_failed = set()
             self._init_workers(new_shards)
             self.checkpointer = self._new_checkpointer()
-        state, step, extra = restore_session_checkpoint(self.session, self.dir)
+        state, step, extra = restore_session_checkpoint(self.session, self.dir, mesh=self.mesh)
         self.restored_steps.append(step)
         resume = extra.get("host")
         if resume is None:

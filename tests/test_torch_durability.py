@@ -340,12 +340,38 @@ def test_format_2_restores_into_an_f32_session_only(tmp_path):
         assert a.dtype == b.dtype and torch.equal(a, b), k
     with pytest.raises(ValueError, match="substrate_dtype"):
         restore_session_checkpoint(_tsession("bfloat16"), tmp_path)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        restore_session_checkpoint(sess, tmp_path, mesh=object())
+    _restore_onto_a_one_rank_mesh(sess, tmp_path, st)
     meta["extra"]["format"] = 1
     (path / "meta.json").write_text(json.dumps(meta))
     with pytest.raises(ValueError, match="format"):
         restore_session_checkpoint(sess, tmp_path)
+
+
+def _restore_onto_a_one_rank_mesh(sess, root, want):
+    """``restore_session_checkpoint(mesh=)`` on a one-rank gloo group in
+    this process: every leaf restores bitwise, the row leaves sharded on
+    their row axis and the rest replicated, as ``shard_session_state``
+    places them."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(root / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        placed, step, _ = restore_session_checkpoint(sess, root, mesh=make_host_mesh(
+            device_type="cpu"))
+        assert step == 0
+        rows = {".substrate/.func_probs": 0, ".substrate/.exec_mask": 0, ".bank_outputs": 0,
+                ".derived/.pred_prob": 0, ".derived/.uncertainty": 0,
+                ".derived/.joint_prob": 1, ".derived/.in_answer": 1}
+        for (k, a), (_, b) in zip(t_store._flatten_with_paths(placed),
+                                  t_store._flatten_with_paths(want)):
+            assert torch.equal(a.full_tensor(), b), k
+            shard = [p.dim for p in a.placements if p.is_shard()]
+            assert shard == ([rows[k]] if k in rows else []), (k, a.placements)
+    finally:
+        dist.destroy_process_group()
 
 
 def _churn(sess, st, outputs, upto_checkpoint):
