@@ -30,9 +30,12 @@ in order; any failure raises and the script exits non-zero:
    "simt" kernel on the same inputs, uncounted) and the cascade's (512
    lanes x 8 tokens, with and without the final state: the "packed"
    route), every output within 1e-4 of its largest magnitude.  The flash
-   cases run its three kernels, as ``kernel.route`` picks them: for bf16
-   "tc" (wgmma + TMA, >= 64 query rows, D 64 / 80 / 128 / 256) and "short"
-   (mma.sync, fewer rows at D 64 / 128: the cascade's 8-token blocks), else
+   cases run its four kernels, as ``kernel.route`` picks them: for bf16
+   "tc" (wgmma + TMA, >= 64 query rows, D 64 / 80 / 128 / 256), and at D
+   64 / 128 with fewer rows "split" (at most 8 query rows a kv head over
+   more than 64 keys: the keys over a cluster of blocks; held against its
+   own twin, the shares' partials and their combine) and "short"
+   (mma.sync, one 16-row tile a warp: the cascade's 8-token blocks), else
    "simt" (f32, other head dims), each within its tolerance of the twin
    (ragged tc tiles and rows with no live key at every tc head dim; at D
    80 / 128 / 256 and gemma2's global shape also with q scaled so that the
@@ -46,24 +49,29 @@ in order; any failure raises and the script exits non-zero:
    not counted: at the cascade's shape the short kernel must be no slower
    than the simt kernel it replaced); then every attention shape phase 7b
    gives the kernels
-   (``ZOO_FA``: seamless's non-causal encoder, cross-attention and G 1
-   decoder, hymba's G 5 cascade trunk and prefill, the G 6 / 4 / 7 prefills
+   (``ZOO_FA``: seamless's non-causal encoder, cross-attention prefill,
+   cross-attention decode on "split" (beside the short kernel on the same
+   inputs, uncounted: split must be the faster) and G 1 decoder, hymba's G
+   5 cascade trunk and prefill, the G 6 / 4 / 7 prefills
    of nemotron, llava and grok-1 / arctic, h2o-danube's D 80 and gemma2's
    D 256 local and global layers on the tc kernel, each beside the simt
    kernel on the same inputs, and gemma2's global layer, at both q scales,
    beside the tc kernel without its softcap and with the accurate tanhf,
    all uncounted), every decode shape of
-   it (``ZOO_DA``: the fused simt form at G 4 D 80 and G 2 D 256, at its 64
-   values a thread, in bf16 and f32; G 1 / 4 / 5 / 6 / 7 on the tc form)
+   it (``ZOO_DA``: the fused kernel's tc form at G 4 D 80 and G 2 D 256 in
+   bf16, each beside the simt form on the same inputs, uncounted, which
+   must be the slower, and the simt form in f32 at its 64 values a thread;
+   G 1 / 4 / 5 / 6 / 7 on the tc form)
    and hymba's SSD at N 16 (simt at its prefill, packed in its cascade
    trunk), each timed beside its bound and the library call that computes
    the same function: SDPA (with a window mask), or for a softcap the
    compiled ``flex_attention`` (a tanh score_mod, a causal / window block
    mask); and each softcap where it binds (q drawn x12 / x16 against caps
-   of 30 / 50, so |s / cap| reaches ~2): the short kernel at D 64 / 128,
-   the simt kernel in f32 and bf16, the fused decode kernel in its tc form
-   (bf16 D 64 / 128) and simt form (D 80 / 128 / 256, gemma2's local and
-   global shapes) and the partials kernel, each within its tolerance (f32's
+   of 30 / 50, so |s / cap| reaches ~2): the short and split kernels at D
+   64 / 128, the simt kernel in f32 and bf16, the fused decode kernel in
+   its tc form (bf16 D 64 / 80 / 128 / 256, gemma2's local and global
+   shapes) and simt form (f32 D 80 / 128 / 256) and the partials kernel,
+   each within its tolerance (f32's
    scaled by q's factor: the scores' rounding grows with them) and the
    same kernel without its cap (an uncounted launch) beyond it;
 3. CPU vs GPU session: one churn trace at capacity 4096 with 4 tenants, in
@@ -169,8 +177,10 @@ in order; any failure raises and the script exits non-zero:
    arctic-480b at full width with the depth cut to what one 80 GB card
    holds (4 of 64 and 2 of 35 layers) over 512 tokens: finite logits, every
    launch on the route its head dim picks (every prefill "tc", D 80 / 256
-   included), no plain call; prefill ms (tokens/s), median step ms and peak
-   memory;
+   included; every decode step's self-attention on the fused kernel's tc
+   form, gemma2's and h2o-danube's included; seamless's cross-attention a
+   step on "split"), no plain call; prefill ms (tokens/s), median step ms
+   and peak memory;
 7c. training (no kernel runs: the wrappers refuse inputs that require
    grad): the qwen3, mamba2 and grok-1 smoke models in f32 on the CPU and
    the card from the same weights and batches — loss, metrics, grad norm,
@@ -227,9 +237,11 @@ in order; any failure raises and the script exits non-zero:
    suite's 2- and 4-rank session-mesh checks
    (``tests/_torch_session_mesh_worker.gloo_checks``);
 10. one JSON line of per-kernel numbers, one entry per kernel: the flash
-   kernel's three routes as ``flash_attention`` (simt: on no main path, so
+   kernel's four routes as ``flash_attention`` (simt: on no main path, so
    its launches are 0; its numbers the cascade shape's, timed beside the
-   short kernel), ``flash_attention_tc`` and ``flash_attention_short`` (the
+   short kernel), ``flash_attention_tc``, ``flash_attention_short`` and
+   ``flash_attention_split`` (its numbers seamless's cross-attention
+   decode's, with the short kernel's ``short_ms`` on the same inputs) (the
    first also carries the tc kernel's prefill-shape ``prefill_ms``,
    ``prefill_bound_ms``, ``prefill_library_ms`` and the main paths'
    ``routes``), ``decode_attention_fused`` and ``decode_attention_partials``
@@ -283,6 +295,8 @@ SOURCES = {
     "flash_attention_tc": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu",
     "flash_attention_short":
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention_short.cu",
+    "flash_attention_split":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention_split.cu",
     "decode_attention_partials":
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
     "decode_attention_fused":
@@ -297,6 +311,7 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:122",
     "flash_attention_tc": "src/repro/kernels/flash_attention/kernel.py:122",
     "flash_attention_short": "src/repro/kernels/flash_attention/kernel.py:122",
+    "flash_attention_split": "src/repro/kernels/flash_attention/kernel.py:122",
     "decode_attention_partials": "src/repro/kernels/decode_attention/kernel.py:65",
     "decode_attention_fused": "src/repro/kernels/decode_attention/kernel.py:65",
     "ssd_intra_chunk": "src/repro/kernels/ssd_scan/kernel.py:72",
@@ -308,6 +323,7 @@ COUNTED = {
     "flash_attention": ("flash_attention/simt",),
     "flash_attention_tc": ("flash_attention/tc",),
     "flash_attention_short": ("flash_attention/short",),
+    "flash_attention_split": ("flash_attention/split",),
     "ssd_intra_chunk": ("ssd_intra_chunk/simt", "ssd_intra_chunk/packed"),
     "ssd_intra_chunk_tc": ("ssd_intra_chunk/tc",),
 }
@@ -336,7 +352,8 @@ DA_CASES = [
 ]
 # then the model zoo's decode shapes (B 1, the mid step of a zoo prefill + 16
 # steps into a cache of prefill + 32 rows), each with the layers it serves:
-# the two at the simt form's FUSED_VALUES = 64 in bf16 and f32
+# bf16 on the tc form (at D 80 / 256 beside the simt form, uncounted), and
+# the two D 80 / 256 shapes in f32 on the simt form (its FUSED_VALUES = 64)
 ZOO_DA = {
     (1, 4640, 32, 8, 80, 4616, 4097, None, "bfloat16"): "h2o-danube (G 4, D 80)",
     (1, 4640, 32, 8, 80, 4616, 4097, None, "float32"): "h2o-danube (G 4, D 80)",
@@ -353,9 +370,10 @@ ZOO_DA = {
 DA_CASES += ZOO_DA
 # the decode kernels' softcap where it binds: q drawn x12 / x16 against caps of
 # 30 / 50, so |s / cap| reaches ~2 (unit-normal q barely feels a cap of 30-50);
-# the fused kernel in its tc form (bf16 D 64 / 128) and simt form (f32, D 80 /
-# 256), gemma2's local and global shapes, and the partials kernel where it
-# takes the group; without their cap (uncounted launches) each must miss.
+# the fused kernel in its tc form (bf16 D 64 / 80 / 128 / 256: gemma2's local
+# and global shapes) and simt form (f32, D 80 / 128 / 256), and the partials
+# kernel where it takes the group; without their cap (uncounted launches) each
+# must miss.
 # b, skv, h, kv, d, kv_len, window, softcap, dtype, q_scale
 DA_BINDING = [
     (8, 4096, 16, 8, 128, 2048, 512, 50.0, "bfloat16", 16.0),
@@ -416,7 +434,10 @@ FA_CASES = [
     (2, 200, 333, 4, 2, 256, True, 100, 30.0, "bfloat16", 300, True, 12.0),
     (2, 33, 128, 8, 2, 128, True, 24, 30.0, "bfloat16", 100, True),  # "short": G*Sq = 132
     (4, 8, 64, 4, 2, 64, True, 4, 20.0, "bfloat16", 6, True),  # "short", D 64, dead rows
-    (3, 8, 300, 4, 4, 128, True, 100, None, "bfloat16", 250, True),  # "short", 7 key tiles
+    (3, 8, 300, 8, 4, 128, True, 100, None, "bfloat16", 250, True),  # "short", G 2, 7 key tiles
+    (3, 8, 300, 4, 4, 128, True, 100, None, "bfloat16", 250, True),  # "split": G 1 x Sq 8
+    (2, 4, 300, 8, 4, 128, True, 100, None, "bfloat16", 250, True),  # "split": G 2 x Sq 4
+    (1, 8, 256, 1, 1, 64, True, None, None, "bfloat16", 4, True),  # "split": rows 0-3 dead
     LONG_FA,
     PREFILL_FA,
 ]
@@ -451,12 +472,14 @@ ZOO_FA = {
         "gemma2 global layers (D 256, softcap 50)",
 }
 FA_CASES += ZOO_FA
-# the short and simt kernels' softcap where it binds (q x12 / x16; each
+# the short, split and simt kernels' softcap where it binds (q x12 / x16; each
 # checked against the same kernel without its cap, uncounted)
 FA_CASES += [
     (2, 33, 128, 8, 2, 128, True, 24, 30.0, "bfloat16", 100, True, 12.0),  # short, D 128
     (2, 33, 128, 8, 2, 64, True, 24, 30.0, "bfloat16", 100, True, 12.0),  # short, D 64
     (512, 8, 8, 16, 8, 128, False, None, 50.0, "bfloat16", None, True, 16.0),  # short, cascade
+    (2, 4, 300, 8, 4, 128, True, 100, 30.0, "bfloat16", 250, True, 12.0),  # split, D 128
+    (1, 1, 1024, 16, 16, 64, False, None, 30.0, "bfloat16", None, True, 12.0),  # split, D 64
     (2, 256, 256, 4, 4, 64, True, None, 50.0, "float32", None, False, 16.0),  # simt, f32
     (2, 200, 333, 4, 2, 48, True, 100, 30.0, "bfloat16", 300, True, 12.0),  # simt, bf16 D 48
     (1, 2048, 2048, 16, 8, 256, True, None, 50.0, "float32", None, False, 16.0),  # simt, D 256
@@ -576,12 +599,14 @@ def phase_build():
 
     t0 = time.perf_counter()
     builds = (es_kernel.build, fa_kernel.build, fa_kernel.build_tc, fa_kernel.build_short,
-              da_kernel.build, da_kernel.build_fused, ssd_kernel.build, ssd_kernel.build_tc,
+              fa_kernel.build_split, da_kernel.build, da_kernel.build_fused, ssd_kernel.build,
+              ssd_kernel.build_tc,
               functools.partial(fa_kernel.build_tc, tanhf=True))  # phase 2's softcap check
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, all at once
         built = [f.result() for f in [pool.submit(b) for b in builds]]
     for load in (es_kernel.library, fa_kernel.library, fa_kernel.library_tc,
-                 fa_kernel.library_short, da_kernel.library, da_kernel.library_fused,
+                 fa_kernel.library_short, fa_kernel.library_split, da_kernel.library,
+                 da_kernel.library_fused,
                  ssd_kernel.library, ssd_kernel.library_tc):
         load()
     for path, log, nvcc_s in built:
@@ -1027,7 +1052,7 @@ def _softcap_check(q, k, v, kl, want, kw, label, q_scale, tol, ms: bool) -> dict
 
 
 def _softcap_control(q, k, v, kl, want, kw, label, q_scale, tol, route) -> dict:
-    """The short or simt kernel without its softcap on inputs whose scores
+    """The short, split or simt kernel without its softcap on inputs whose scores
     reach the cap (uncounted): it must differ from the capped twin ``want``
     beyond ``tol``, or the case could not tell a right softcap from a
     missing one -> a row for the JSON line."""
@@ -1046,7 +1071,9 @@ def _softcap_control(q, k, v, kl, want, kw, label, q_scale, tol, route) -> dict:
 
 
 def phase_flash() -> dict:
-    """The three flash kernels against the plain twin -> {route: results}."""
+    """The four flash kernels against the plain twin (the split kernel
+    against its own: the shares' partials, then their combine) -> {route:
+    results}."""
     import torch
     import torch.nn.functional as tnf
 
@@ -1064,13 +1091,15 @@ def phase_flash() -> dict:
         kl = None if kv_len is None else torch.full((1,), kv_len, dtype=torch.int32, device=dev)
         kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=q_off)
 
+        route = kernel.route(q.dtype, sq, d, h // kv, skv)
+        ns = kernel.split_num_splits(b * kv, skv) if route == "split" else None
+
         def kernel_call():
             return ops.flash_attention(q, k, v, kl, **kw)
 
         def plain_call():
-            return ops.plain_bshd(q, k, v, kl, **kw)
+            return ops.plain_bshd(q, k, v, kl, num_splits=ns, **kw)
 
-        route = kernel.route(q.dtype, sq, d)
         before = ops.ROUTES[route]
         out, want = kernel_call(), plain_call()
         torch.cuda.synchronize()
@@ -1088,7 +1117,7 @@ def phase_flash() -> dict:
             result.setdefault("softcap", []).append(
                 _softcap_check(q, k, v, kl, want, kw, label, q_scale, FA_TOL[dtype], ms=(
                     d == 256 and window is None and sq == GEMMA2_GLOBAL_CAPPED[1])))
-        elif cap is not None and q_scale > 1:  # short / simt where the cap binds
+        elif cap is not None and q_scale > 1:  # short / split / simt where the cap binds
             result.setdefault("softcap", []).append(dict(
                 _softcap_control(q, k, v, kl, want, kw, label, q_scale, tol, route), err=err))
         if case not in FA_TIMED:
@@ -1148,11 +1177,18 @@ def phase_flash() -> dict:
                          library=lib_name)
             if route == "tc" and d not in kernel.SHORT_HEAD_DIMS:  # D 80 / 256: the simt
                 shape["simt_ms"] = time_other("simt")  # kernel that took them before
+            if route == "split":  # seamless's cross-attention decode: the short kernel
+                shape["short_ms"] = time_other("short")  # took it before
+                assert ms < shape["short_ms"], (
+                    f"the split kernel ({ms:.4f} ms) is slower than the short kernel "
+                    f"({shape['short_ms']:.4f} ms) at {label}")
+                result.update(row, short_ms=shape["short_ms"])  # its JSON numbers
             result.setdefault("shapes", []).append(shape)
             continue
         # the kernels the route did not pick, on the same inputs (uncounted): why
-        # the route.  All three take bf16 at D 64 / 128; "simt" alone takes f32.
-        others = [r for r in kernel.ROUTE_NAMES if r != route and route != "simt"]
+        # the route.  tc, short and simt take bf16 at D 64 / 128 ("split" at most
+        # 8 rows a kv head); "simt" alone takes f32.
+        others = [r for r in kernel.ROUTE_NAMES if r not in (route, "split") and route != "simt"]
         for other in others:
             other_ms = time_other(other)
             if case == BACKBONE_FA and other == "simt":  # its numbers at the cascade's shape
@@ -1166,7 +1202,9 @@ def phase_flash() -> dict:
             result.update(row)
             results["simt"].update(prefill_ms=ms, prefill_bound_ms=bound_ms,
                                    prefill_library_ms=library_ms)
-    assert kernel.route(torch.bfloat16, BACKBONE_FA[1], BACKBONE_FA[5]) == "short"
+    b, sq, skv, h, kv, d = BACKBONE_FA[:6]
+    assert kernel.route(torch.bfloat16, sq, d, h // kv, skv) == "short"
+    assert "ms" in results["split"], "no split case at seamless's cross-attention decode"
     return results
 
 
@@ -1433,8 +1471,8 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     other = {"flash_attention", "ssd_intra_chunk"} - set(kernel_names)
     assert not any(launches[k] for k in other), launches
     # the cascade's 8-token blocks take the short flash kernel and the packed SSD kernel
-    assert fa_ops.ROUTES == {"tc": 0, "short": launches["flash_attention"], "simt": 0}, (
-        fa_ops.ROUTES)
+    assert fa_ops.ROUTES == {"tc": 0, "short": launches["flash_attention"], "split": 0,
+                             "simt": 0}, fa_ops.ROUTES
     assert ssd_ops.ROUTES == {"tc": 0, "simt": 0, "packed": launches["ssd_intra_chunk"]}, (
         ssd_ops.ROUTES)
     assert launches["enrich_score_best"] == report.epochs and not launches["enrich_score_table"]
@@ -1659,6 +1697,34 @@ def _decode_softcap_check(case) -> dict:
     return row
 
 
+def _decode_simt_ms(q, k, v, kl, oracle, kw, label) -> float:
+    """The fused kernel's simt form on inputs its tc form serves (bf16 at D
+    80 / 256, which the simt form took before), uncounted: held within the
+    bf16 tolerance of the oracle, then timed -> ms."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel, ops
+
+    b, _, h, d = q.shape
+    kv = k.shape[2]
+    qm = q.reshape(b * kv, h // kv, d)
+    out = torch.empty_like(qm)
+    ns = ops.fused_num_splits(b * kv, k.shape[1], "simt")
+
+    def call():
+        kernel.launch_fused(qm, k, v, kl, out, num_splits=ns, form="simt", **kw)
+
+    call()
+    torch.cuda.synchronize()
+    tol = FA_TOL["bfloat16"]
+    err = (out.reshape(q.shape).float() - oracle.float()).abs().max().item()
+    assert err <= tol, f"the simt form at {label} is {err} from the oracle (tol {tol})"
+    ms = _time_ms(call)
+    print(f"[decode] {label}: the simt form on the same inputs ({ns} splits) {ms:.4f} ms, "
+          f"{err:.3g} from the oracle", flush=True)
+    return ms
+
+
 def phase_decode() -> tuple:
     """Kernel 5 at the qwen3-1.7b decode shape and the zoo's: the fused
     kernel (the model's route) against its twin and the oracle, the partials
@@ -1773,8 +1839,13 @@ def phase_decode() -> tuple:
             part.update(ms=p_ms[0], plain_ms=p_ms[1], bound_ms=p_bound_ms, bound_by=p_bound_by,
                         library_ms=library_ms, with_combine_ms=combine_ms)
         elif case in ZOO_DA:
-            fused.setdefault("shapes", []).append(dict(row, case=label, serves=ZOO_DA[case],
-                                                       library=lib_name))
+            shape = dict(row, case=label, serves=ZOO_DA[case], library=lib_name)
+            if kernel.fused_route(dt, d) == "tc" and d not in (64, 128):
+                shape["simt_ms"] = _decode_simt_ms(q, k, v, kl, oracle, kw, label)
+                assert ms < shape["simt_ms"], (
+                    f"the fused kernel's tc form ({ms:.4f} ms) is slower than its simt form "
+                    f"({shape['simt_ms']:.4f} ms) at {label}")
+            fused.setdefault("shapes", []).append(shape)
     fused["softcap"] = [_decode_softcap_check(case) for case in DA_BINDING]
     part["softcap"] = [r for r in fused["softcap"] if "partials_capped_err" in r]
     return part, fused
@@ -1825,9 +1896,11 @@ def phase_serve_cpu_vs_gpu():
 
 
 def _launches(fa_ops, da_ops, ssd_ops) -> dict:
-    """The kernel counters, the flash and SSD launches split by route."""
+    """The kernel counters, the flash and SSD launches split by route, the
+    fused decode launches by form."""
     return {**fa_ops.LAUNCHES, **da_ops.LAUNCHES, **ssd_ops.LAUNCHES,
             **{f"flash_attention/{r}": n for r, n in fa_ops.ROUTES.items()},
+            **{f"decode_attention_fused/{r}": n for r, n in da_ops.ROUTES.items()},
             **{f"ssd_intra_chunk/{r}": n for r, n in ssd_ops.ROUTES.items()}}
 
 
@@ -2001,7 +2074,7 @@ def phase_cascade_bf16_cpu_vs_gpu():
     gpu = [gpu_bank.execute(pl.map(lambda t: t.to("cuda"))).cpu() for pl in plans]
     torch.cuda.synchronize()
     routes = dict(fa_ops.ROUTES)
-    assert routes == {"tc": 0, "short": cfg.num_layers * count, "simt": 0}, routes
+    assert routes == {"tc": 0, "short": cfg.num_layers * count, "split": 0, "simt": 0}, routes
     assert not fa_ops.PLAIN_CALLS["flash_attention"], fa_ops.PLAIN_CALLS
     cpu = [bank.execute(pl) for pl in plans]
     ref = [f32_bank.execute(pl) for pl in plans]
@@ -2066,15 +2139,17 @@ def phase_model_serve() -> dict:
         peak = torch.cuda.max_memory_allocated()
         n = cfg.num_layers
         idle = {"decode_attention_partials": 0, "decode_attention_fused": 0,
+                "decode_attention_fused/tc": 0, "decode_attention_fused/simt": 0,
                 "ssd_intra_chunk": 0, "flash_attention": 0, "flash_attention/simt": 0,
-                "flash_attention/tc": 0, "flash_attention/short": 0, "ssd_intra_chunk/tc": 0,
-                "ssd_intra_chunk/simt": 0,
+                "flash_attention/tc": 0, "flash_attention/short": 0, "flash_attention/split": 0,
+                "ssd_intra_chunk/tc": 0, "ssd_intra_chunk/simt": 0,
                 "ssd_intra_chunk/packed": 0}
         if arch == "qwen3-1.7b":
             # the prefill on the tensor cores; one fused decode launch a layer and step
             assert run == {**idle, "flash_attention": n, "flash_attention/tc": n}, run
-            assert routes == {"tc": n, "short": 0, "simt": 0}, routes
-            assert run_all == {**run, "decode_attention_fused": n * steps}, run_all
+            assert routes == {"tc": n, "short": 0, "split": 0, "simt": 0}, routes
+            assert run_all == {**run, "decode_attention_fused": n * steps,
+                               "decode_attention_fused/tc": n * steps}, run_all
         else:
             assert run == {**idle, "ssd_intra_chunk": n, "ssd_intra_chunk/tc": n}, run
             assert run_all == run, run_all  # decode steps run ssd_step, no kernel
@@ -2099,23 +2174,25 @@ def _zoo_expected(cfg, steps: int) -> dict:
     """The launches a bf16 run of ``cfg`` (prefill + ``steps`` decode steps)
     must make: {counter: count}."""
     n = cfg.num_layers
-    want = dict.fromkeys(("flash_attention/tc", "flash_attention/short", "flash_attention/simt",
-                          "decode_attention_partials", "decode_attention_fused",
-                          "ssd_intra_chunk/tc", "ssd_intra_chunk/simt",
-                          "ssd_intra_chunk/packed"), 0)
+    want = dict.fromkeys(("flash_attention/tc", "flash_attention/short", "flash_attention/split",
+                          "flash_attention/simt", "decode_attention_partials",
+                          "decode_attention_fused", "decode_attention_fused/tc",
+                          "decode_attention_fused/simt", "ssd_intra_chunk/tc",
+                          "ssd_intra_chunk/simt", "ssd_intra_chunk/packed"), 0)
     if cfg.layer_pattern == ("mamba",):  # SSD heads of state 128 alone: the tc route
         want["ssd_intra_chunk/tc"] = n  # (a decode step runs ssd_step: no kernel)
     else:  # the prefill on "tc" at every zoo head dim (64, 80, 128, 256), then
-        # one fused decode launch a layer and step
+        # one fused decode launch a layer and step, on the tc form at each of them
         flash = "flash_attention/tc"
         want[flash] = n
-        want["decode_attention_fused"] = n * steps
+        want["decode_attention_fused"] = want["decode_attention_fused/tc"] = n * steps
     if cfg.encoder is not None:  # the encoder's layers, then a cross-attention a layer
         want[flash] += cfg.encoder.num_layers + n
-        want["flash_attention/short"] = n * steps  # a decode step's cross-attention, Sq 1
+        want["flash_attention/split"] = n * steps  # a decode step's cross-attention, Sq 1
     if "hymba" in cfg.layer_pattern:  # SSD heads of state 16: the simt route
         want["ssd_intra_chunk/simt"] = n
-    want["flash_attention"] = sum(want[f"flash_attention/{r}"] for r in ("tc", "short", "simt"))
+    want["flash_attention"] = sum(want[f"flash_attention/{r}"]
+                                  for r in ("tc", "short", "split", "simt"))
     want["ssd_intra_chunk"] = sum(want[f"ssd_intra_chunk/{r}"] for r in ("tc", "simt", "packed"))
     return want
 
@@ -3354,7 +3431,7 @@ def main() -> int:
     results["enrich_score_single"] = phase_single_kernel(quickstart["table"])
     flash = phase_flash()
     for route, name in (("simt", "flash_attention"), ("tc", "flash_attention_tc"),
-                        ("short", "flash_attention_short")):
+                        ("short", "flash_attention_short"), ("split", "flash_attention_split")):
         results[name] = flash[route]
     results["decode_attention_partials"], results["decode_attention_fused"] = phase_decode()
     results["ssd_intra_chunk"], results["ssd_intra_chunk_tc"] = phase_ssd()
@@ -3392,9 +3469,9 @@ def main() -> int:
         prefill_bound_ms=results["flash_attention"]["prefill_bound_ms"],
         prefill_library_ms=results["flash_attention"]["prefill_library_ms"],
         routes={r: sum(run.get(f"flash_attention/{r}", 0) for run in runs)
-                for r in ("tc", "short", "simt")})
-    for name in ("flash_attention_tc", "flash_attention_short", "flash_attention",
-                 "decode_attention_fused", "decode_attention_partials"):
+                for r in ("tc", "short", "split", "simt")})
+    for name in ("flash_attention_tc", "flash_attention_short", "flash_attention_split",
+                 "flash_attention", "decode_attention_fused", "decode_attention_partials"):
         by_name[name]["softcap"] = results[name]["softcap"]
     by_name["ssd_intra_chunk"].update(
         prefill_simt_ms=results["ssd_intra_chunk"]["prefill_simt_ms"],
@@ -3403,7 +3480,11 @@ def main() -> int:
                 for r in ("tc", "simt", "packed")})
     by_name["decode_attention_partials"].update(
         with_combine_ms=results["decode_attention_partials"]["with_combine_ms"])
-    by_name["decode_attention_fused"].update(host_ms=results["decode_attention_fused"]["host_ms"])
+    by_name["decode_attention_fused"].update(
+        host_ms=results["decode_attention_fused"]["host_ms"],
+        routes={r: sum(run.get(f"decode_attention_fused/{r}", 0) for run in runs)
+                for r in ("tc", "simt")})
+    by_name["flash_attention_split"].update(short_ms=results["flash_attention_split"]["short_ms"])
     print(f"[train] {json.dumps(train_run)}", flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -52,10 +52,21 @@
 //     cluster.sync()), each block combining a slice of the G*D outputs and
 //     writing them in q's dtype.  No f32 partial reaches device memory.
 //   * kv_len = 0 gives 0 (the combine's m = -1e30, l = 0, acc = 0 algebra).
-//   * bf16 at head dim 64 or 128 takes the tensor-core form
+//   * bf16 at head dim 64, 80, 128 or 256 takes the tensor-core form
 //     (decode_fused_tc_kernel, chosen by kernel.py fused_route): the same
-//     shares, ring and combine, with Q.K^T and P.V as mma.sync; f32 and the
-//     other head dims take the form above, which keeps f32 math for f32.
+//     shares, ring and combine, with K.Q^T and V^T.P^T as mma.sync (the
+//     G <= 8 query rows on the n8 side, so no tile row is padding); f32 and
+//     the other head dims take the form above, which keeps f32 math for
+//     f32.  At D 80 a row is 88 halves (176 B: 16-byte aligned, and the
+//     eight rows of an ldmatrix start 12 banks apart, so none conflict):
+//     5 k-steps and 5 output slices of 16 columns, no operand padded.  At
+//     D 256 the 3-stage ring of 64-key tiles takes 3 x 2 x 64 x 264 x 2 =
+//     202,752 B, which with the result floats stays under the 227 KB a
+//     block may use (one block an SM, as fused_num_splits assumes); a
+//     thread holds 64 f32 accumulators and 32 registers of Q fragments
+//     (160 registers, no spill).  In the simt form bf16 at D 80 / 256
+//     reached 12% / 27% of its bound: 8-thread teams of FMAs and 3 shuffles
+//     a score.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -135,6 +146,12 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
+}
+// the 8 x 8 b16 matrix whose row lane / 4 this lane holds (2 values), transposed
+__device__ __forceinline__ unsigned movmatrix_t(unsigned x) {
+  unsigned y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 // d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
 __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
@@ -432,12 +449,17 @@ __global__ void __launch_bounds__(kThreads) decode_fused_kernel(Args a) {
   merge_and_store<T, MAXG>(a, res, wm, wl, wacc, bkv, cluster);
 }
 
-// The tensor-core form (bf16, D 64 or 128, G <= 8): the same shares and
-// combine, a 3-stage ring of 64-key tiles, and Q.K^T and P.V as mma.sync
-// m16n8k16 (bf16 in, f32 accumulate).  The G query rows fill the top of a 16-row A tile (the rest
-// zero); a block-tile is 64 keys, 16 a warp; each warp keeps its own online
-// softmax over its keys (one update a tile), with P rounded to bf16 for P.V
-// as the tensor-core flash kernel does.
+// The tensor-core form (bf16, D 64, 80, 128 or 256, G <= 8): the same shares
+// and combine, a 3-stage ring of 64-key tiles, 16 keys a warp, each warp its
+// own online softmax (one update a tile), and the products on mma.sync
+// m16n8k16 (bf16 in, f32 accumulate) with the operands swapped so that the
+// <= 8 query rows are the n8 side: S^T = K Q^T (A = 16 keys x 16 of D from
+// the K tile, B = Q^T from registers) and O^T = V^T P^T (A = V^T by the
+// transposing ldmatrix, B = P^T).  No tile row is padding: one mma a k-step
+// for S and one a 16-column slice of D for O, and a thread holds D / 4 f32
+// accumulators (64 at D 256).  P is rounded to bf16 (as the tensor-core
+// flash kernel does) and moved from the S^T accumulator layout to the B
+// operand's by movmatrix's 8 x 8 transpose.
 template <int D>
 __global__ void __launch_bounds__(kThreads) decode_fused_tc_kernel(Args a) {
   typedef __nv_bfloat16 bf16;
@@ -445,6 +467,7 @@ __global__ void __launch_bounds__(kThreads) decode_fused_tc_kernel(Args a) {
   constexpr int MAXG = 8;
   constexpr int LD = D + 8;      // a padded row (halves): conflict-free ldmatrix
   constexpr int CH = D / 8;      // 16-byte chunks of a row
+  constexpr int KS = D / 16;     // k-steps of S^T, and 16-column slices of O^T
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int ns = a.ns, g = a.g;
@@ -484,16 +507,17 @@ __global__ void __launch_bounds__(kThreads) decode_fused_tc_kernel(Args a) {
   };
   for (int t = 0; t < kTcStages - 1; ++t) issue(t);
 
-  // Q as A fragments: row gq (< G) of the group; rows gq + 8 are zero
-  unsigned qf[D / 16][2];
+  // Q^T as B fragments (k: D, n: the query row gq < G; rows past G are zero)
+  unsigned qf[KS][2];
   const bf16* qrow = static_cast<const bf16*>(a.q) + (bkv * g + gq) * D;
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     qf[ks][0] = gq < g ? *reinterpret_cast<const unsigned*>(qrow + 16 * ks + 2 * t4) : 0u;
     qf[ks][1] = gq < g ? *reinterpret_cast<const unsigned*>(qrow + 16 * ks + 8 + 2 * t4) : 0u;
   }
-  float o[D / 8][4] = {};
-  float m = kNegInf, l = 0.f;  // row gq; l sums this lane's keys
+  // O^T: slice i holds columns 16 i + gq (+ 8) of the query rows 2 t4, 2 t4 + 1
+  float o[KS][4] = {};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows 2 t4 + j; l: this lane's keys
 
   for (int t = 0; t < ntiles; ++t) {
     cp_async_wait<kTcStages - 2>();  // tile t has landed
@@ -503,69 +527,79 @@ __global__ void __launch_bounds__(kThreads) decode_fused_tc_kernel(Args a) {
     const bf16* kt = kbuf + (st * kTcTile + 16 * warp) * LD;
     const bf16* vt = vbuf + (st * kTcTile + 16 * warp) * LD;
     const int key0 = s_lo + t * kTcTile + 16 * warp;
-    float sc[2][4] = {};  // S: 16 rows x the warp's 16 keys
+    float sc[2][4] = {};  // S^T over even / odd k-steps: keys key0 + gq (+ 8) x rows 2 t4 + j
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      unsigned bfr[4];
-      ldsm_x4(bfr, kt + ((lane & 7) + ((lane >> 4) << 3)) * LD + 16 * ks + ((lane >> 3) & 1) * 8);
-      const unsigned af[4] = {qf[ks][0], 0u, qf[ks][1], 0u};
-      mma(sc[0], af, bfr[0], bfr[1]);
-      mma(sc[1], af, bfr[2], bfr[3]);
+    for (int ks = 0; ks < KS; ++ks) {
+      unsigned af[4];
+      ldsm_x4(af, kt + (lane & 15) * LD + 16 * ks + (lane >> 4) * 8);
+      mma(sc[ks & 1], af, qf[ks][0], qf[ks][1]);
     }
-    float x[4];  // row gq at keys key0 + 8 * nt + 2 * t4 + j
-    float tm = -INFINITY;
+    float x[4];  // [2 h + j]: key key0 + gq + 8 h, row 2 t4 + j; log2 units, -inf past the share
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float v = sc[nt][j] * a.scale;
-        if (a.has_softcap) v = a.softcap * tanhf(v / a.softcap);
-        x[2 * nt + j] = key0 + 8 * nt + 2 * t4 + j < s_hi ? v * kLog2e : -INFINITY;  // mask before exp
-        tm = fmaxf(tm, x[2 * nt + j]);
-      }
+    for (int e = 0; e < 4; ++e) {
+      float v = (sc[0][e] + sc[1][e]) * a.scale;
+      if (a.has_softcap) v = a.softcap * tanhf(v / a.softcap);
+      x[e] = key0 + gq + 8 * (e >> 1) < s_hi ? v * kLog2e : -INFINITY;  // mask before exp
     }
-    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
-    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
-    const float m_new = fmaxf(m, tm);
-    const float corr = exp2f(m - m_new);  // 0 on the warp's first live tile
-    m = m_new;
+    float corr[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {  // a row's keys lie across the lanes of one t4
+      float tm = fmaxf(x[j], x[2 + j]);
+      tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 4));
+      tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 8));
+      tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 16));
+      const float m_new = fmaxf(m[j], tm);
+      corr[j] = exp2f(m[j] - m_new);  // 0 on the warp's first live tile
+      m[j] = m_new;
+    }
     float p[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = exp2f(x[i] - m_new);
-    l = fmaf(l, corr, (p[0] + p[1]) + (p[2] + p[3]));
+    for (int e = 0; e < 4; ++e) p[e] = exp2f(x[e] - m[e & 1]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) l[j] = fmaf(l[j], corr[j], p[j] + p[2 + j]);
+    // P^T as the B operand: rows 2 t4 + j of keys gq (+ 8), transposed 8 x 8
     const __nv_bfloat162 p01 = __floats2bfloat162_rn(p[0], p[1]);
     const __nv_bfloat162 p23 = __floats2bfloat162_rn(p[2], p[3]);
-    const unsigned pa[4] = {*reinterpret_cast<const unsigned*>(&p01), 0u,
-                            *reinterpret_cast<const unsigned*>(&p23), 0u};
+    const unsigned pb0 = movmatrix_t(*reinterpret_cast<const unsigned*>(&p01));
+    const unsigned pb1 = movmatrix_t(*reinterpret_cast<const unsigned*>(&p23));
 #pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      unsigned bfr[4];
-      ldsm_x4_t(bfr, vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + 16 * np + (lane >> 4) * 8);
-      o[2 * np][0] *= corr;
-      o[2 * np][1] *= corr;
-      o[2 * np + 1][0] *= corr;
-      o[2 * np + 1][1] *= corr;
-      mma(o[2 * np], pa, bfr[0], bfr[1]);
-      mma(o[2 * np + 1], pa, bfr[2], bfr[3]);
+    for (int i = 0; i < KS; ++i) {
+      unsigned vf[4];
+      ldsm_x4_t(vf, vt + ((lane & 7) + ((lane >> 4) << 3)) * LD + 16 * i + ((lane >> 3) & 1) * 8);
+      o[i][0] *= corr[0];
+      o[i][1] *= corr[1];
+      o[i][2] *= corr[0];
+      o[i][3] *= corr[1];
+      mma(o[i], vf, pb0, pb1);
     }
   }
   cp_async_wait<0>();  // the trailing (empty) groups
   __syncthreads();     // the ring is free for the merge
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 4);
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 8);
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 16);
+  }
 
   float* wm = reinterpret_cast<float*>(kbuf);  // [kWarps][MAXG]
   float* wl = wm + kWarps * MAXG;               // [kWarps][MAXG]
   float* wacc = wl + kWarps * MAXG;             // [kWarps][g * D]
-  if (gq < g) {
-    if (t4 == 0) {
-      wm[warp * MAXG + gq] = m;
-      wl[warp * MAXG + gq] = l;
-    }
 #pragma unroll
-    for (int n8 = 0; n8 < D / 8; ++n8)
-      *reinterpret_cast<float2*>(wacc + warp * g * D + gq * D + 8 * n8 + 2 * t4) =
-          make_float2(o[n8][0], o[n8][1]);
+  for (int j = 0; j < 2; ++j) {
+    const int row = 2 * t4 + j;
+    if (row < g) {
+      if (gq == 0) {
+        wm[warp * MAXG + row] = m[j];
+        wl[warp * MAXG + row] = l[j];
+      }
+      float* dst = wacc + (warp * g + row) * D + gq;
+#pragma unroll
+      for (int i = 0; i < KS; ++i) {
+        dst[16 * i] = o[i][j];
+        dst[16 * i + 8] = o[i][2 + j];
+      }
+    }
   }
   merge_and_store<bf16, MAXG>(a, res, wm, wl, wacc, bkv, cluster);
 }
@@ -639,7 +673,9 @@ cudaError_t launch_tc(const Args& a, long long bkv, cudaStream_t stream) {
   if (bkv == 0) return cudaSuccess;
   if (a.ns < 1 || a.ns > kMaxSplits || bkv > 65535 || a.g > 8) return cudaErrorInvalidValue;
   if (a.d == 64) return launch_one(decode_fused_tc_kernel<64>, a, bkv, smem_tc(a, 64), stream);
+  if (a.d == 80) return launch_one(decode_fused_tc_kernel<80>, a, bkv, smem_tc(a, 80), stream);
   if (a.d == 128) return launch_one(decode_fused_tc_kernel<128>, a, bkv, smem_tc(a, 128), stream);
+  if (a.d == 256) return launch_one(decode_fused_tc_kernel<256>, a, bkv, smem_tc(a, 256), stream);
   return cudaErrorInvalidValue;
 }
 
@@ -649,7 +685,8 @@ cudaError_t launch_tc(const Args& a, long long bkv, cudaStream_t stream) {
 // (kernel.py) has checked devices, dtypes, shapes and strides: D a multiple
 // of 16 up to 256, G <= 8, the registers a thread holds (kernel.py
 // supports_fused), 16-byte aligned rows, 1 <= ns <= 8; tc: the tensor-core
-// form (kernel.py fused_route: bf16, D 64 or 128).
+// form (kernel.py fused_route: bf16, D 64, 80, 128 or 256); the simt form
+// takes any dtype, so a caller may time it on the tc form's inputs.
 extern "C" int decode_attention_fused_fwd(
     const void* q, const void* k, const void* v, const void* kv_len, void* out, long long bkv,
     int kv_heads, int g, int d, int skv, int ns, long long skb, long long sks, long long skh,

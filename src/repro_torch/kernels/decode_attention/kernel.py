@@ -2,8 +2,8 @@
 
 ``csrc/decode_attention_fused.cu`` ("fused": splits over the live keys,
 their combine through a thread-block cluster, one launch from the query to
-the output rows; Q.K^T and P.V on the tensor cores for bf16 at head dim 64
-or 128, ``fused_route``) serves the model's decode route; ``csrc/decode_attention.cu``
+the output rows; Q.K^T and P.V on the tensor cores for bf16 at head dim 64,
+80, 128 or 256, ``fused_route``) serves the model's decode route; ``csrc/decode_attention.cu``
 ("partials": the reference's signature, splits over the cache length, f32
 partials out) serves ``decode_attention_partials``.  Each exposes one
 ``extern "C"`` launcher (templated inside on f32 / bf16 and on the
@@ -33,7 +33,8 @@ SOURCE_FUSED = Path(__file__).resolve().parent / "csrc" / "decode_attention_fuse
 INSTANTIATED = {(2, 2), (2, 4), (2, 8), (4, 2), (4, 4), (4, 8), (8, 2), (8, 4), (16, 2)}
 MAX_SPLITS = 8  # the fused kernel's cluster: the portable cluster size
 FUSED_VALUES = 64  # query values a thread of the fused simt form holds, at most
-TC_HEAD_DIMS = (64, 128)  # the fused kernel's tensor-core form: bf16 at these head dims
+TC_HEAD_DIMS = (64, 80, 128, 256)  # the fused kernel's tensor-core form: bf16 at these head dims
+FORMS = ("tc", "simt")
 
 
 def fused_route(dtype: torch.dtype, d: int) -> str:
@@ -59,13 +60,17 @@ def supports(g: int, d: int) -> bool:
 
 def supports_fused(g: int, d: int, dtype: torch.dtype) -> bool:
     """Whether the fused kernel takes a group of ``g`` <= 8 query rows of head
-    dim ``d``: the tc form takes them all; in the simt form a thread holds
-    16-byte chunks of each row (one in eight of them, rounded up to a power
-    of two) for the rows rounded up to 2, 4 or 8, at most 64 values."""
+    dim ``d`` in the form ``fused_route`` names: the tc form takes them all,
+    the simt form those ``fits_simt`` admits."""
     if d % 16 or not 16 <= d <= 256 or not 1 <= g <= 8:
         return False
-    if fused_route(dtype, d) == "tc":
-        return True
+    return fused_route(dtype, d) == "tc" or fits_simt(g, d, dtype)
+
+
+def fits_simt(g: int, d: int, dtype: torch.dtype) -> bool:
+    """Whether the simt form holds the group: a thread holds 16-byte chunks
+    of each row (one in eight of them, rounded up to a power of two) for the
+    rows rounded up to 2, 4 or 8, at most ``FUSED_VALUES``."""
     vec = 16 // (2 if dtype == torch.bfloat16 else 4)
     chunks = d // vec
     nch = 1 if chunks <= 8 else 2 if chunks <= 16 else 4 if chunks <= 32 else 8
@@ -115,10 +120,16 @@ def launch_fused(
     num_splits: int,
     softcap: Optional[float],
     window: Optional[int],
+    form: Optional[str] = None,
 ) -> None:
-    """Launch the fused kernel, in the form ``fused_route`` names, on the
-    current stream (the caller validated operands): ``num_splits`` blocks,
-    one cluster, per (b, kv head)."""
+    """Launch the fused kernel on the current stream (the caller validated
+    operands): ``num_splits`` blocks, one cluster, per (b, kv head), in the
+    ``form`` given ("simt" takes every dtype and head dim the wrapper
+    allows; chip_smoke.py times it on the tc form's inputs) or, by default,
+    the one ``fused_route`` names."""
+    form = fused_route(q.dtype, q.shape[2]) if form is None else form
+    if form not in FORMS or (form == "tc" and fused_route(q.dtype, q.shape[2]) != "tc"):
+        raise ValueError(f"the fused kernel has no {form!r} form for {q.dtype} at D {q.shape[2]}")
     bkv, g, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     err = library_fused().decode_attention_fused_fwd(
@@ -128,7 +139,7 @@ def launch_fused(
         -1 if window is None else int(window),
         int(softcap is not None), 0.0 if softcap is None else float(softcap),
         1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
-        int(fused_route(q.dtype, d) == "tc"), torch.cuda.current_stream(q.device).cuda_stream,
+        int(form == "tc"), torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(err, "decode_attention_fused")
 

@@ -23,15 +23,17 @@ whose window admits ``k > q - window`` passes ``window + 1``.
 halved while a split would cover fewer than ``MIN_SPLIT_KEYS`` cache rows
 or the (b * kv, split) blocks would outnumber what the 132 SMs of an H100
 hold at once in the kernel's form (one a SM for the tensor-core form's
-108 KB ring, two for the simt form): at the qwen3 decode shape, B 8 x KV
-8, that is 2 splits for bf16 and 4 for f32, the fastest on the card.
+ring, 108 KB at D 128 and 203 KB at D 256, two for the simt form): at the
+qwen3 decode shape, B 8 x KV 8, that is 2 splits for bf16 and 4 for f32,
+the fastest on the card.
 ``default_num_splits`` is the partials route's count over the cache
 length: at least the reference's 8, doubled while the blocks are fewer
 than four per SM of an H100 (132 SMs) and a split keeps at least 64 keys;
 the reference's rule (halve until it divides Skv) applies to any count.
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-path calls,
-one key per kernel (``reset_counts`` zeroes both).
+one key per kernel, and ``ROUTES`` the fused kernel's launches by form
+("tc" or "simt", ``kernel.fused_route``); ``reset_counts`` zeroes all three.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ KERNEL = "decode_attention_partials"
 FUSED = "decode_attention_fused"
 LAUNCHES = {KERNEL: 0, FUSED: 0}
 PLAIN_CALLS = {KERNEL: 0, FUSED: 0}
+ROUTES = dict.fromkeys(kernel.FORMS, 0)
 DTYPES = (torch.float32, torch.bfloat16)
 SMS = 132  # streaming multiprocessors of an H100 SXM
 FILL_BLOCKS = 4 * SMS
@@ -54,7 +57,7 @@ MIN_SPLIT_KEYS = 64
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, PLAIN_CALLS, ROUTES):
         for name in counts:
             counts[name] = 0
 
@@ -231,4 +234,5 @@ def decode_attention(
     out = torch.empty_like(qm)
     kernel.launch_fused(qm, k, v, kv_len, out, **kw)
     LAUNCHES[FUSED] += 1
+    ROUTES[route] += 1
     return out.reshape(b, 1, h, d)

@@ -1,11 +1,14 @@
-"""Build and bind the three hand-written CUDA flash-attention kernels.
+"""Build and bind the four hand-written CUDA flash-attention kernels.
 
 ``csrc/flash_attention.cu`` ("simt": f32 FMAs, 8 threads a query row,
 templated on f32 / bf16 and on the per-thread head-dim slice),
 ``csrc/flash_attention_tc.cu`` ("tc": Hopper tensor cores, wgmma and TMA,
-bf16 with >= 64 query rows and D 64, 80, 128 or 256) and
+bf16 with >= 64 query rows and D 64, 80, 128 or 256),
 ``csrc/flash_attention_short.cu`` ("short": mma.sync over one 16-row tile
-a warp, bf16 with fewer query rows and D 64 or 128) each expose one
+a warp, bf16 with fewer query rows and D 64 or 128) and
+``csrc/flash_attention_split.cu`` ("split": mma.sync, the keys split over
+a cluster of blocks per (b, kv head), bf16 with at most 8 query rows a kv
+head over more than 64 keys, D 64 or 128) each expose one
 ``extern "C"`` launcher.  Each is compiled with ``nvcc`` for ``sm_90a`` into
 a shared library of its own at first use (``kernels/build.py``) and loaded
 with ``ctypes``.  ``route``
@@ -26,32 +29,49 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import BASE_FLAGS, build_library, check_launch
+from repro_torch.kernels.decode_attention.ops import fused_num_splits
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 SOURCE_TC = Path(__file__).resolve().parent / "csrc" / "flash_attention_tc.cu"
 SOURCE_SHORT = Path(__file__).resolve().parent / "csrc" / "flash_attention_short.cu"
+SOURCE_SPLIT = Path(__file__).resolve().parent / "csrc" / "flash_attention_split.cu"
 MAX_HEAD_DIM = 256
 TC_HEAD_DIMS = (64, 80, 128, 256)  # the "tc" kernel's head dims
-SHORT_HEAD_DIMS = (64, 128)  # the "short" kernel's head dims
+SHORT_HEAD_DIMS = (64, 128)  # the "short" and "split" kernels' head dims
 TC_MIN_SQ = 64  # one consumer warpgroup's rows: shorter bf16 query blocks go "short"
-ROUTE_NAMES = ("tc", "short", "simt")
+SPLIT_MAX_ROWS = 8  # G * Sq of the "split" kernel: the top half of one m16 A tile
+SPLIT_MIN_KEYS = 64  # the "split" kernel takes more keys than this; "short" the rest
+ROUTE_NAMES = ("tc", "short", "split", "simt")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def route(dtype: torch.dtype, sq: int, d: int) -> str:
-    """The kernel for a call: for bf16, "tc" (wgmma + TMA) with at least
-    ``TC_MIN_SQ`` query rows and D in ``TC_HEAD_DIMS``, "short" (mma.sync,
-    one 16-row tile a warp) with fewer rows and D in ``SHORT_HEAD_DIMS``;
-    else "simt"."""
+def route(dtype: torch.dtype, sq: int, d: int, g: int, skv: int) -> str:
+    """The kernel for a call of ``sq`` query tokens, ``g`` query heads a kv
+    head and ``skv`` keys: for bf16, "tc" (wgmma + TMA) with at least
+    ``TC_MIN_SQ`` query rows and D in ``TC_HEAD_DIMS``; with fewer rows and D
+    in ``SHORT_HEAD_DIMS``, "split" (the keys over a cluster of blocks) when
+    the ``g * sq`` rows of a kv head number at most ``SPLIT_MAX_ROWS`` over
+    more than ``SPLIT_MIN_KEYS`` keys, else "short" (mma.sync, one 16-row
+    tile a warp); else "simt"."""
     if dtype == torch.bfloat16:
         if sq >= TC_MIN_SQ and d in TC_HEAD_DIMS:
             return "tc"
         if sq < TC_MIN_SQ and d in SHORT_HEAD_DIMS:
+            if g * sq <= SPLIT_MAX_ROWS and skv > SPLIT_MIN_KEYS:
+                return "split"
             return "short"
     return "simt"
+
+
+def split_num_splits(bkv: int, skv: int) -> int:
+    """The split kernel's blocks per (b, kv head): the fused decode kernel's
+    rule (``decode_attention.ops.fused_num_splits`` for its tensor-core
+    form, whose ring of 64-key tiles this kernel shares): 8, halved while a
+    split would cover fewer than 64 keys or the blocks outnumber the SMs."""
+    return fused_num_splits(bkv, skv, "tc")
 
 
 def build() -> tuple[Path, str, float]:
@@ -72,6 +92,11 @@ def build_tc(tanhf: bool = False) -> tuple[Path, str, float]:
 def build_short() -> tuple[Path, str, float]:
     """Compile the short-block kernel if needed -> (library path, nvcc log, seconds)."""
     return build_library(SOURCE_SHORT, BASE_FLAGS, "flash_attention_short")
+
+
+def build_split() -> tuple[Path, str, float]:
+    """Compile the split-key kernel if needed -> (library path, nvcc log, seconds)."""
+    return build_library(SOURCE_SPLIT, BASE_FLAGS, "flash_attention_split")
 
 
 @functools.lru_cache(maxsize=1)
@@ -104,6 +129,16 @@ def library_short() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=1)
+def library_split() -> ctypes.CDLL:
+    """The loaded split-key kernel library (built on first use)."""
+    path, _, _ = build_split()
+    lib = ctypes.CDLL(str(path))
+    lib.flash_attention_split_fwd.argtypes = [_P] * 5 + [_I] * 9 + [_F, _F, _I, _I, _P]
+    lib.flash_attention_split_fwd.restype = _I
+    return lib
+
+
 def launch(
     q: torch.Tensor,  # [B, Sq, H, D]
     k: torch.Tensor,  # [B, Skv, KV, D]
@@ -118,9 +153,10 @@ def launch(
     kind: str,
     tanhf: bool = False,
 ) -> None:
-    """Launch the ``kind`` kernel ("tc", "short" or "simt", see ``route``) on
-    the current stream (the caller validated operands); "tc" from its
-    ``build_tc(tanhf)`` library."""
+    """Launch the ``kind`` kernel ("tc", "short", "split" or "simt", see
+    ``route``) on the current stream (the caller validated operands); "tc"
+    from its ``build_tc(tanhf)`` library, "split" over
+    ``split_num_splits`` blocks a (b, kv head)."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     args = [
@@ -136,6 +172,9 @@ def launch(
         err = library_tc(tanhf).flash_attention_tc_fwd(*args, stream)
     elif kind == "short":
         err = library_short().flash_attention_short_fwd(*args, stream)
+    elif kind == "split":
+        ns = split_num_splits(b * kvh, skv)
+        err = library_split().flash_attention_split_fwd(*args, ns, stream)
     elif kind == "simt":
         err = library().flash_attention_fwd(*args, int(q.dtype == torch.bfloat16), stream)
     else:

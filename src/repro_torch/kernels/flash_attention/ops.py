@@ -5,13 +5,16 @@
 tensors: on the CPU it runs the plain PyTorch twin (``ref.py``); on a CUDA
 tensor it launches the hand-written kernel that ``kernel.route`` names from
 the dtype and shape — "tc" (wgmma + TMA) for bf16 blocks of >= 64 query
-rows at D 64 / 80 / 128 / 256, "short" (mma.sync) for shorter bf16 blocks
-such as the cascade's 8 tokens at D 64 / 128; "simt" for f32 and the rest —
-or raises: it never falls back, to another kernel or to the twin, and reads
-no environment switch.  The kernels have no backward pass: an input that
-requires grad under grad mode is refused (``kernels.autograd``), on either
-device.  The three kernels read the [B, S, H, D] layout in
-place, so the card path makes no transposed copies.
+rows at D 64 / 80 / 128 / 256; at D 64 / 128 for shorter bf16 blocks
+"split" (the keys over a cluster of blocks) where at most 8 query rows a kv
+head meet more than 64 keys, such as a cross-attention's one query at a
+decode step, else "short" (mma.sync, one 16-row tile a warp), such as the
+cascade's 8 tokens; "simt" for f32 and the rest — or raises: it never
+falls back, to another kernel or to the twin, and reads no environment
+switch.  The kernels have no backward pass: an input that requires grad
+under grad mode is refused (``kernels.autograd``), on either device.  The
+four kernels read the [B, S, H, D] layout in place, so the card path makes
+no transposed copies.
 
 ``LAUNCHES`` counts kernel launches, ``ROUTES`` them by kernel and
 ``PLAIN_CALLS`` plain-path calls, so a run can show that its main path went
@@ -41,18 +44,25 @@ def reset_counts() -> None:
         ROUTES[r] = 0
 
 
-def plain_bshd(q, k, v, kv_len, *, causal, window, logit_softcap, q_offset_from_kv_len):
-    """The plain twin in the [B, S, H, D] layout (not counted)."""
+def plain_bshd(q, k, v, kv_len, *, causal, window, logit_softcap, q_offset_from_kv_len,
+               num_splits=None):
+    """The plain twin in the [B, S, H, D] layout (not counted); with
+    ``num_splits``, the split kernel's twin (``ref.split_bhsd``) over that
+    many shares of the live keys."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     if kv_len is None:
         kv_len = torch.tensor([skv], dtype=torch.int32, device=q.device)
-    out = ref.reference_bhsd(
+    kw = dict(num_q_heads=h, num_kv_heads=kvh, causal=causal, window=window,
+              softcap=logit_softcap, q_offset_from_kv_len=q_offset_from_kv_len)
+    twin = ref.reference_bhsd
+    if num_splits is not None:
+        twin, kw["num_splits"] = ref.split_bhsd, num_splits
+    out = twin(
         q.transpose(1, 2).reshape(b * h, sq, d),
         k.transpose(1, 2).reshape(b * kvh, skv, d),
         v.transpose(1, 2).reshape(b * kvh, skv, d),
-        kv_len, num_q_heads=h, num_kv_heads=kvh, causal=causal, window=window,
-        softcap=logit_softcap, q_offset_from_kv_len=q_offset_from_kv_len,
+        kv_len, **kw,
     )
     return out.reshape(b, h, sq, d).transpose(1, 2)
 
@@ -113,7 +123,7 @@ def flash_attention(
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     out = torch.empty_like(q)
-    kind = kernel.route(q.dtype, q.shape[1], d)
+    kind = kernel.route(q.dtype, q.shape[1], d, q.shape[2] // k.shape[2], k.shape[1])
     kernel.launch(q, k, v, kv_len, out, causal=causal, window=window,
                   softcap=logit_softcap, q_offset_from_kv_len=q_offset_from_kv_len, kind=kind)
     LAUNCHES[KERNEL] += 1

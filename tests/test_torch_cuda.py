@@ -16,7 +16,10 @@ flash-attention kernels — "simt", and for bf16 the tensor-core "tc" kernel
 64 or 128), as ``kernel.route`` picks them — are
 held against their plain twin within the reference tests' tolerances (2e-5
 f32, 2e-2 bf16: the online softmax sums in another order, and the tensor-core
-kernels round P to bf16 before P.V), each call counted on its route, and a
+kernels round P to bf16 before P.V), each call counted on its route; the
+"split" kernel (at most 8 query rows a kv head over more than 64 keys, D 64
+or 128: a cross-attention decode) against its own twin (the shares of the
+live keys, then the combine) and the whole-softmax twin; and a
 small model-cascade session with a bf16 head_dim-128 trunk serves through
 the short kernel on the card, whose probabilities stay within 2x the bf16
 CPU run's distance from f32.
@@ -28,7 +31,8 @@ operands split into bf16 hi + lo lose ~2^-16) on ragged chunks, strided
 model-layout operands and both state forms; the decode partials kernel
 within 2e-5 (f32 sums in another order), dead splits and an empty cache
 included, and the fused decode kernel within 2e-5 of its twin in f32 and
-2e-2 of the oracle in bf16; the reduced f32 qwen3 and mamba2 models
+2e-2 of the oracle in bf16 (bf16 at D 64 / 80 / 128 / 256 on its tensor-core
+form, each launch counted by form, the simt form held on the same inputs); the reduced f32 qwen3 and mamba2 models
 prefill and decode on the card as on the CPU, and the reduced bf16 ones
 (head_dim 128, SSM chunk 256) through the bf16 routes.  The model zoo:
 the flash kernels at its non-causal encoder and cross-attention shapes, a
@@ -43,7 +47,7 @@ pinned, double-buffered ``IngestStream`` feed of eight micro-batches on a
 side stream equals direct ingest bitwise; and a checkpoint saved from the
 card restores on the CPU bitwise, and back.  Softcaps where they bind (q
 drawn x12 / x16 against caps of 30 / 50): the fused decode kernel (tc and
-simt forms), the partials kernel, the short and simt flash kernels, each
+simt forms), the partials kernel, the short, split and simt flash kernels, each
 within its tolerance and, without its cap, beyond it.  Training: every
 kernel wrapper refuses an input that requires grad on the card too, and
 two AdamW steps of the f32 smoke models match the CPU's (losses and grad
@@ -320,7 +324,7 @@ def test_flash_kernel_matches_plain_twin(cuda_device, case, dtype, tol):
     q, k, v = _fa_inputs(cuda_device, dtype, sq * skv + d, b, sq, skv, h, kv, d)
     kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
     kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=q_off)
-    route = fa_kernel.route(dtype, sq, d)
+    route = fa_kernel.route(dtype, sq, d, h // kv, skv)
     before, routed = fa_ops.LAUNCHES["flash_attention"], fa_ops.ROUTES[route]
     out = fa_ops.flash_attention(q, k, v, kl, **kw)
     torch.cuda.synchronize()
@@ -361,14 +365,14 @@ FA_TC_CASES = [
 @pytest.mark.parametrize("case", FA_TC_CASES)
 def test_flash_tc_kernel_matches_plain_twin(cuda_device, case):
     b, sq, skv, h, kv, d, causal, window, cap, kv_len, q_off = case
-    assert fa_kernel.route(torch.bfloat16, sq, d) == "tc"
+    assert fa_kernel.route(torch.bfloat16, sq, d, h // kv, skv) == "tc"
     q, k, v = _fa_inputs(cuda_device, torch.bfloat16, sq * skv + d, b, sq, skv, h, kv, d)
     kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
     kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=q_off)
     fa_ops.reset_counts()
     out = fa_ops.flash_attention(q, k, v, kl, **kw)
     torch.cuda.synchronize()
-    assert fa_ops.ROUTES == {"tc": 1, "short": 0, "simt": 0}
+    assert fa_ops.ROUTES == {"tc": 1, "short": 0, "split": 0, "simt": 0}
     assert fa_ops.LAUNCHES["flash_attention"] == 1
     want = fa_ops.plain_bshd(q, k, v, kl, **kw)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
@@ -393,7 +397,7 @@ FA_TC_CAPPED_CASES = [
 @pytest.mark.parametrize("case", FA_TC_CAPPED_CASES)
 def test_flash_tc_softcap_holds_where_it_binds(cuda_device, case):
     b, sq, skv, h, kv, d, causal, window, cap, kv_len, q_off, q_scale = case
-    assert fa_kernel.route(torch.bfloat16, sq, d) == "tc"
+    assert fa_kernel.route(torch.bfloat16, sq, d, h // kv, skv) == "tc"
     q, k, v = _fa_inputs(cuda_device, torch.float32, sq * skv + d, b, sq, skv, h, kv, d)
     q, k, v = (q * q_scale).bfloat16(), k.bfloat16(), v.bfloat16()
     kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
@@ -401,7 +405,7 @@ def test_flash_tc_softcap_holds_where_it_binds(cuda_device, case):
     fa_ops.reset_counts()
     out = fa_ops.flash_attention(q, k, v, kl, **kw)
     torch.cuda.synchronize()
-    assert fa_ops.ROUTES == {"tc": 1, "short": 0, "simt": 0}
+    assert fa_ops.ROUTES == {"tc": 1, "short": 0, "split": 0, "simt": 0}
     want = fa_ops.plain_bshd(q, k, v, kl, **kw)
     torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
     # the control: the same kernel without the cap misses the capped twin
@@ -419,7 +423,7 @@ FA_SHORT_CASES = [
     (16, 8, 8, 8, 4, 64, False, None, None, None, True),  # D 64
     (2, 33, 77, 8, 2, 128, True, 24, 30.0, 60, True),  # G * Sq = 132: ragged last tile
     (2, 33, 77, 8, 2, 64, True, 24, 30.0, 60, True),
-    (3, 8, 300, 4, 4, 128, True, 100, None, 250, True),  # 7 key tiles through the ring
+    (3, 8, 300, 8, 4, 128, True, 100, None, 250, True),  # G 2: 7 key tiles through the ring
     (2, 63, 63, 2, 2, 64, True, None, None, None, False),  # Sq 63, G 1
     (1, 5, 9, 2, 1, 128, True, None, None, 3, True),  # rows with no live key
     (2, 12, 16, 6, 2, 128, False, 5, 20.0, None, False),  # window without causal
@@ -430,18 +434,61 @@ FA_SHORT_CASES = [
 @pytest.mark.parametrize("case", FA_SHORT_CASES)
 def test_flash_short_kernel_matches_plain_twin(cuda_device, case):
     b, sq, skv, h, kv, d, causal, window, cap, kv_len, q_off = case
-    assert fa_kernel.route(torch.bfloat16, sq, d) == "short"
+    assert fa_kernel.route(torch.bfloat16, sq, d, h // kv, skv) == "short"
     q, k, v = _fa_inputs(cuda_device, torch.bfloat16, sq * skv + d, b, sq, skv, h, kv, d)
     kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
     kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=q_off)
     fa_ops.reset_counts()
     out = fa_ops.flash_attention(q, k, v, kl, **kw)
     torch.cuda.synchronize()
-    assert fa_ops.ROUTES == {"tc": 0, "short": 1, "simt": 0}
+    assert fa_ops.ROUTES == {"tc": 0, "short": 1, "split": 0, "simt": 0}
     assert fa_ops.LAUNCHES["flash_attention"] == 1
     want = fa_ops.plain_bshd(q, k, v, kl, **kw)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+# bf16 cases the split kernel takes (G * Sq <= 8 rows over > 64 keys, D 64 or
+# 128); same columns
+FA_SPLIT_CASES = [
+    (1, 1, 1024, 16, 16, 64, False, None, None, None, True),  # seamless's cross decode
+    (2, 1, 200, 4, 4, 64, False, None, None, None, True),  # a ragged last tile
+    (3, 8, 300, 4, 4, 128, True, 100, None, 250, True),  # G 1 x Sq 8: causal rows, window
+    (2, 4, 300, 8, 4, 128, True, 100, 30.0, 250, True),  # G 2 x Sq 4, softcap
+    (1, 1, 4096, 8, 1, 128, False, None, None, 3000, True),  # G 8, kv_len < Skv
+    (4, 2, 777, 16, 4, 64, True, None, None, 700, False),  # G 4 x Sq 2 at positions 0-1
+    (1, 8, 256, 1, 1, 64, True, None, None, 4, True),  # rows 0-3 have no live key
+    (1, 1, 128, 4, 4, 64, False, None, None, 0, True),  # kv_len 0: every row 0
+    (1, 1, 65, 2, 2, 64, False, None, None, None, True),  # 65 keys: one split
+    (64, 1, 512, 8, 8, 64, False, 100, None, 400, True),  # 512 (b, kv head)s: one split each
+    (2, 2, 999, 6, 2, 128, False, 300, 20.0, None, True),  # G 3 x Sq 2, window without causal
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_SPLIT_CASES)
+def test_flash_split_kernel_matches_plain_twin(cuda_device, case):
+    """Within the bf16 tolerance of its own twin (partials over the same
+    shares of the live keys, then the combine) and of the whole-softmax
+    twin; a row with no live key writes 0."""
+    b, sq, skv, h, kv, d, causal, window, cap, kv_len, q_off = case
+    assert fa_kernel.route(torch.bfloat16, sq, d, h // kv, skv) == "split"
+    q, k, v = _fa_inputs(cuda_device, torch.bfloat16, sq * skv + d + 1, b, sq, skv, h, kv, d)
+    kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=q_off)
+    fa_ops.reset_counts()
+    out = fa_ops.flash_attention(q, k, v, kl, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.ROUTES == {"tc": 0, "short": 0, "split": 1, "simt": 0}
+    assert fa_ops.LAUNCHES["flash_attention"] == 1
+    ns = fa_kernel.split_num_splits(b * kv, skv)
+    twin = fa_ops.plain_bshd(q, k, v, kl, num_splits=ns, **kw)
+    want = fa_ops.plain_bshd(q, k, v, kl, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), twin.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+    if kv_len is not None and kv_len < sq and q_off:  # rows before key 0: 0
+        assert (out[:, :sq - kv_len] == 0).all()
 
 
 @pytest.mark.cuda
@@ -453,7 +500,7 @@ def test_flash_f32_short_blocks_and_other_head_dims_take_simt(cuda_device, dtype
     fa_ops.reset_counts()
     out = fa_ops.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert fa_ops.ROUTES == {"tc": 0, "short": 0, "simt": 1}
+    assert fa_ops.ROUTES == {"tc": 0, "short": 0, "split": 0, "simt": 1}
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), fa_ops.plain_bshd(
         q, k, v, None, causal=True, window=None, logit_softcap=None,
@@ -495,7 +542,8 @@ def test_cuda_cascade_session_runs_the_trunk_through_the_kernel(cuda_device):
     assert report.epochs == 16 and trunk_epochs > 0
     # the reduced trunk has 2 layers: one flash launch per layer per trunk epoch
     assert fa_ops.LAUNCHES["flash_attention"] == 2 * trunk_epochs
-    assert fa_ops.ROUTES == {"tc": 0, "short": 2 * trunk_epochs, "simt": 0}  # 8 tokens a lane
+    assert fa_ops.ROUTES == {"tc": 0, "short": 2 * trunk_epochs, "split": 0,
+                             "simt": 0}  # 8 tokens a lane
     assert ops.LAUNCHES["enrich_score_best"] == 16
     assert not fa_ops.PLAIN_CALLS["flash_attention"] and not any(ops.PLAIN_CALLS.values())
     probs = report.state.substrate.func_probs
@@ -537,8 +585,8 @@ def test_cuda_bf16_cascade_bank_routes_the_short_kernel(cuda_device):
     fa_ops.reset_counts()
     gpu = [gpu_bank.execute(pl.map(lambda t: t.to(cuda_device))).cpu() for pl in plans]
     torch.cuda.synchronize()
-    assert fa_ops.ROUTES == {"tc": 0, "short": cfg.num_layers * len(plans), "simt": 0}, (
-        fa_ops.ROUTES)
+    assert fa_ops.ROUTES == {"tc": 0, "short": cfg.num_layers * len(plans), "split": 0,
+                             "simt": 0}, fa_ops.ROUTES
     assert not fa_ops.PLAIN_CALLS["flash_attention"]
     cpu = [bank.execute(pl) for pl in plans]
     ref = [f32_bank.execute(pl) for pl in plans]
@@ -715,6 +763,9 @@ FUSED_CASES = [
     (1, 300, 32, 8, 128, 280, None, None, 4),  # llava: G 4, D 128
     (1, 300, 16, 16, 64, 280, None, None, 4),  # seamless's self-attention: G 1
     (1, 600, 16, 8, 256, 580, None, 50.0, 8),  # gemma2's global layers: softcap, no window
+    (1, 700, 64, 8, 256, 650, None, 30.0, 8),  # D 256, G 8: the tc form's largest smem
+    (2, 300, 8, 8, 80, 0, None, None, 4),  # D 80: an empty cache
+    (1, 333, 8, 1, 80, 300, 100, None, 3),  # D 80, G 8, a window, 3 splits
 ]
 
 
@@ -724,8 +775,11 @@ FUSED_CASES = [
 def test_fused_decode_kernel_matches_its_twin(cuda_device, case, dtype):
     """One launch, no PyTorch combine: within 2e-5 of the twin in f32 (the
     same splits, f32 sums in another order) and within the flash kernel's
-    bf16 tolerance 2e-2 of the oracle in bf16 (the output rounds to bf16).
-    A group the simt form cannot hold (f32 at G 6 / 7, D 128: the models
+    bf16 tolerance 2e-2 of the oracle in bf16 (the output rounds to bf16),
+    counted on the form ``fused_route`` names (bf16 at D 64 / 80 / 128 /
+    256: "tc"); where the simt form also takes a bf16 group, it is held to
+    the same tolerance on the same inputs (uncounted).  A group the simt
+    form cannot hold in f32 (G 6 / 7 / 8 at D 80 / 128 / 256: the models
     serve these in bf16, on the tc form) is refused, launching nothing."""
     b, skv, h, kv, d, kv_len, window, cap, ns = case
     q, k, v = _fa_inputs(cuda_device, dtype, skv + d + ns, b, 1, skv, h, kv, d)
@@ -738,10 +792,12 @@ def test_fused_decode_kernel_matches_its_twin(cuda_device, case, dtype):
             da_ops.decode_attention(q, k, v, kl, num_splits=ns, **kw)
         assert da_ops.LAUNCHES == before
         return
+    form, forms = da_kernel.fused_route(dtype, d), dict(da_ops.ROUTES)
     out = da_ops.decode_attention(q, k, v, kl, num_splits=ns, **kw)
     torch.cuda.synchronize()
     assert da_ops.LAUNCHES == {**before, "decode_attention_fused":
                                before["decode_attention_fused"] + 1}
+    assert da_ops.ROUTES == {**forms, form: forms[form] + 1}
     assert out.dtype == dtype and out.shape == q.shape and torch.isfinite(out).all()
     twin = da_ref.decode_attention_fused(q, k, v, kl, num_splits=ns, **kw)
     oracle = da_ref.reference_decode(q, k, v, kl, **kw)
@@ -753,6 +809,14 @@ def test_fused_decode_kernel_matches_its_twin(cuda_device, case, dtype):
     else:
         torch.testing.assert_close(out.float(), oracle.float(), rtol=2e-2, atol=2e-2)
         torch.testing.assert_close(out.float(), twin.float(), rtol=2e-2, atol=2e-2)
+    g = h // kv
+    if form == "tc" and da_kernel.fits_simt(g, d, dtype):
+        simt = torch.empty_like(out).reshape(b * kv, g, d)
+        da_kernel.launch_fused(q.reshape(b * kv, g, d), k, v, kl, simt, num_splits=ns,
+                               form="simt", **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(simt.reshape(out.shape).float(), twin.float(), rtol=2e-2,
+                                   atol=2e-2)  # the twin: 0 for an empty cache
 
 
 @pytest.mark.cuda
@@ -848,9 +912,10 @@ def test_cuda_bf16_models_route_the_bf16_kernels(cuda_device, arch):
     torch.cuda.synchronize()
     n = cfg.num_layers
     if arch == "qwen3-1.7b":
-        assert fa_ops.ROUTES == {"tc": n, "short": 0, "simt": 0}, fa_ops.ROUTES
+        assert fa_ops.ROUTES == {"tc": n, "short": 0, "split": 0, "simt": 0}, fa_ops.ROUTES
         assert da_ops.LAUNCHES == {"decode_attention_partials": 0,
                                    "decode_attention_fused": n * steps}, da_ops.LAUNCHES
+        assert da_ops.ROUTES == {"tc": n * steps, "simt": 0}, da_ops.ROUTES
     else:
         assert ssd_ops.ROUTES == {"tc": n, "simt": 0, "packed": 0}, ssd_ops.ROUTES
     assert not any({**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}.values())
@@ -865,7 +930,7 @@ def test_cuda_bf16_models_route_the_bf16_kernels(cuda_device, arch):
 ZOO_FA_CASES = [
     (1, 256, 256, 16, 16, 64, False, None, None, None),  # seamless's encoder (tc)
     (2, 96, 200, 4, 4, 64, False, None, None, None),  # cross-attention prefill (tc)
-    (2, 1, 200, 4, 4, 64, False, None, None, None),  # cross-attention decode (short)
+    (2, 1, 200, 4, 4, 64, False, None, None, None),  # cross-attention decode (split)
     (64, 8, 8, 25, 5, 64, False, None, None, None),  # hymba's cascade trunk, G 5 (short)
     (1, 200, 232, 25, 5, 64, True, None, None, 200),  # hymba's prefill, G 5 (tc)
     (1, 300, 320, 32, 8, 80, True, 128, None, 300),  # h2o-danube, D 80 (tc)
@@ -886,8 +951,8 @@ def test_flash_zoo_shapes_match_plain_twin(cuda_device, case):
     kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32,
                                                   device=cuda_device)
     kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=True)
-    route = fa_kernel.route(torch.bfloat16, sq, d)
-    assert route == ("tc" if sq >= 64 else "short")
+    route = fa_kernel.route(torch.bfloat16, sq, d, h // kv, skv)
+    assert route == ("tc" if sq >= 64 else "split" if h // kv * sq <= 8 else "short")
     before = dict(fa_ops.ROUTES)
     out = fa_ops.flash_attention(q, k, v, kl, **kw)
     torch.cuda.synchronize()
@@ -941,12 +1006,14 @@ def test_cuda_zoo_bf16_models_route_the_kernels(cuda_device, arch):
     cpu, gpu, cache, (model, params, seq, max_len, extra) = _teacher_forced_pair(
         cuda_device, cfg, prompt, steps, seed=5)
     n = cfg.num_layers
-    if arch == "seamless-m4t-large-v2":  # encoder + self + cross tc; a short cross a step
-        assert fa_ops.ROUTES == {"tc": 3 * n, "short": n * steps, "simt": 0}, fa_ops.ROUTES
+    if arch == "seamless-m4t-large-v2":  # encoder + self + cross tc; a split cross a step
+        assert fa_ops.ROUTES == {"tc": 3 * n, "short": 0, "split": n * steps, "simt": 0}, (
+            fa_ops.ROUTES)
     else:  # the prefill on tc at every head dim (64, 80, 256)
-        assert fa_ops.ROUTES == {"tc": n, "short": 0, "simt": 0}, fa_ops.ROUTES
+        assert fa_ops.ROUTES == {"tc": n, "short": 0, "split": 0, "simt": 0}, fa_ops.ROUTES
     assert da_ops.LAUNCHES == {"decode_attention_partials": 0,
                                "decode_attention_fused": n * steps}, da_ops.LAUNCHES
+    assert da_ops.ROUTES == {"tc": n * steps, "simt": 0}, da_ops.ROUTES  # D 64 / 80 / 256
     assert ssd_ops.ROUTES == {"tc": 0, "simt": n if arch == "hymba-1.5b" else 0, "packed": 0}
     assert int(cache.length) == prompt + steps
     f32 = Model(dataclasses.replace(model.cfg, dtype="float32"))
@@ -1121,9 +1188,10 @@ FUSED_BINDING = [
     (2, 4100, 16, 8, 128, 4099, 512, 50.0, 8, 16.0),  # tc form in bf16 (D 128)
     (1, 999, 16, 2, 64, 999, None, 30.0, 7, 12.0),  # tc form in bf16 (D 64, G 8)
     (2, 256, 4, 2, 128, 200, None, 30.0, 4, 12.0),  # simt at D 128 in f32
-    (1, 600, 32, 8, 80, 580, 257, 30.0, 8, 12.0),  # simt at D 80 (G 4)
-    (1, 600, 16, 8, 256, 580, 257, 50.0, 8, 16.0),  # gemma2 local: G 2, D 256
+    (1, 600, 32, 8, 80, 580, 257, 30.0, 8, 12.0),  # D 80 (G 4): tc in bf16, simt in f32
+    (1, 600, 16, 8, 256, 580, 257, 50.0, 8, 16.0),  # gemma2 local: G 2, D 256 (the same)
     (1, 600, 16, 8, 256, 580, None, 50.0, 8, 16.0),  # gemma2 global
+    (1, 333, 16, 4, 80, 300, 100, 30.0, 3, 12.0),  # D 80, 3 splits: tc in bf16, simt in f32
 ]
 
 
@@ -1182,6 +1250,8 @@ FLASH_BINDING = [
     (2, 256, 256, 4, 4, 64, True, None, 50.0, None, False, 16.0, torch.float32),  # simt
     (3, 37, 53, 6, 3, 48, True, 20, 30.0, 41, True, 12.0, torch.float32),  # simt, D 48
     (3, 37, 53, 6, 3, 48, True, 20, 30.0, 41, True, 12.0, torch.bfloat16),  # simt in bf16
+    (2, 4, 300, 8, 4, 128, True, 100, 30.0, 250, True, 12.0, torch.bfloat16),  # split, D 128
+    (1, 1, 1024, 16, 16, 64, False, None, 30.0, None, True, 12.0, torch.bfloat16),  # split
 ]
 
 
@@ -1189,8 +1259,9 @@ FLASH_BINDING = [
 @pytest.mark.parametrize("case", FLASH_BINDING)
 def test_flash_short_and_simt_softcap_holds_where_it_binds(cuda_device, case):
     b, sq, skv, h, kv, d, causal, window, cap, kv_len, q_off, q_scale, dtype = case
-    route = fa_kernel.route(dtype, sq, d)
-    assert route == ("short" if dtype == torch.bfloat16 and d in (64, 128) else "simt")
+    route = fa_kernel.route(dtype, sq, d, h // kv, skv)
+    short = "split" if h // kv * sq <= 8 and skv > 64 else "short"
+    assert route == (short if dtype == torch.bfloat16 and d in (64, 128) else "simt")
     q, k, v = _fa_inputs(cuda_device, torch.float32, sq * skv + d + 3, b, sq, skv, h, kv, d)
     q, k, v = (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
     kl = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)

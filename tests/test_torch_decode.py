@@ -303,12 +303,32 @@ def test_fused_split_count_and_its_refusals():
     assert ops.fused_num_splits(64, 128, "simt") == 2 and ops.fused_num_splits(4, 16, "tc") == 1
     assert ops.fused_num_splits(1024, 4096, "simt") == 1 and ops.fused_num_splits(100, 4096, "simt") == 2
     assert kernel.fused_route(torch.bfloat16, 128) == "tc" and kernel.fused_route(torch.float32, 128) == "simt"
-    assert kernel.fused_route(torch.bfloat16, 256) == "simt" and kernel.fused_route(torch.bfloat16, 64) == "tc"
+    assert kernel.fused_route(torch.bfloat16, 256) == "tc" and kernel.fused_route(torch.bfloat16, 64) == "tc"
     q, k, v = (torch.from_numpy(a) for a in _inputs(13, 1, 32, 4, 2, 16, jnp.float32))
     kl = torch.tensor([8], dtype=torch.int32)
     for ns in (0, 9, 16):
         with pytest.raises(ValueError, match="1 to 8 splits"):
             ops.decode_attention(q, k, v, kl, num_splits=ns)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 80, "tc"),  # h2o-danube's head dim
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 256, "tc"),  # gemma2's
+    (torch.bfloat16, 32, "simt"), (torch.bfloat16, 48, "simt"), (torch.bfloat16, 96, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 80, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 256, "simt"),  # f32 keeps f32 FMAs
+])
+def test_fused_route_picks_the_form_from_dtype_and_head_dim(dtype, d, want):
+    """The fused kernel's tensor-core form takes bf16 at D 64, 80, 128 and
+    256, every group of at most 8 heads; the simt form the rest.  A CPU call
+    runs the twin and counts no form."""
+    assert kernel.fused_route(dtype, d) == want
+    if want == "tc":
+        assert all(kernel.supports_fused(g, d, dtype) for g in range(1, 9))
+    q, k, v = (torch.from_numpy(a) for a in _inputs(3, 1, 32, 4, 2, 16, jnp.float32))
+    ops.reset_counts()
+    ops.decode_attention(q, k, v, torch.tensor([8], dtype=torch.int32))
+    assert ops.ROUTES == {"tc": 0, "simt": 0} and ops.PLAIN_CALLS[ops.FUSED] == 1
 
 
 # b, skv, h, kv, d, kv_len, window, softcap, num_splits, q_scale, dtype: q drawn

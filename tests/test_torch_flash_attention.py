@@ -5,9 +5,12 @@ Inputs are drawn with numpy and handed to both packages.  The port's
 it is held against the reference's ``reference_bhsd`` and against the
 reference's Pallas kernel in interpret mode, on the reference tests' cases
 (``tests/test_kernels.py``), the partial ``kv_len`` case and the cascade
-backbone's shape (16 lanes x 8 tokens).  Tolerances are the reference
-tests' own: 2e-5 in f32 (sums in another order), 2e-2 in bf16 (the output
-rounds to bf16 once in each package, at places that can differ by an ulp).
+backbone's shape (16 lanes x 8 tokens).  The split kernel's twin
+(``ref.split_bhsd``: partials over shares of the live keys, then the
+combine) is held against both at 1, 2, 3 and 8 shares.  Tolerances are the
+reference tests' own: 2e-5 in f32 (sums in another order), 2e-2 in bf16
+(the output rounds to bf16 once in each package, at places that can differ
+by an ulp).
 """
 
 import jax.numpy as jnp
@@ -89,7 +92,7 @@ SHORT_CASES = [
 @pytest.mark.parametrize("case", SHORT_CASES)
 def test_short_route_shapes_match_jax(case):
     b, sq, skv, h, kv, d, kv_len, window, cap = case
-    assert kernel.route(torch.bfloat16, sq, d) == "short"
+    assert kernel.route(torch.bfloat16, sq, d, h // kv, skv) == "short"
     q, k, v = _inputs(sq * 7 + d, b, sq, skv, h, kv, d, "bfloat16")
     kw = dict(causal=True, window=window, logit_softcap=cap, q_offset_from_kv_len=True)
     out = ops.flash_attention(*(interop.to_torch(x) for x in (q, k, v)),
@@ -122,7 +125,7 @@ CAPPED_CASES = [
 @pytest.mark.parametrize("case", CAPPED_CASES)
 def test_plain_twin_matches_jax_where_the_softcap_binds(case):
     b, sq, skv, h, kv, d, window, cap, q_scale = case
-    assert kernel.route(torch.bfloat16, sq, d) == "tc"
+    assert kernel.route(torch.bfloat16, sq, d, h // kv, skv) == "tc"
     q, k, v = _inputs(sq * 3 + d, b, sq, skv, h, kv, d, "float32")
     q, k, v = ((x * s).astype(ml_dtypes.bfloat16) for x, s in ((q, q_scale), (k, 1), (v, 1)))
     kw = dict(causal=True, window=window, logit_softcap=cap)
@@ -142,6 +145,63 @@ def test_plain_twin_matches_jax_where_the_softcap_binds(case):
                                    **{**kw, "logit_softcap": None})
     assert not np.allclose(_f32(interop.to_numpy(uncapped)), j_plain,
                            rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+# the split route's shapes (G * Sq <= 8 rows over > 64 keys, D 64 / 128), the
+# whole mask contract: b, sq, skv, h, kv, d, causal, window, softcap, kv_len,
+# q_scale, dtype (queries at the end of the valid cache)
+SPLIT_CASES = [
+    (1, 1, 256, 4, 4, 64, False, None, None, None, 1.0, "float32"),  # 1 query, G 1
+    (1, 1, 256, 4, 4, 64, False, None, None, None, 1.0, "bfloat16"),
+    (2, 4, 256, 8, 4, 128, True, 48, None, 200, 1.0, "float32"),  # G 2 x Sq 4: causal rows
+    (1, 2, 256, 8, 2, 64, True, None, 30.0, 256, 12.0, "bfloat16"),  # the softcap binds
+    (1, 8, 256, 1, 1, 64, True, 100, None, 4, 1.0, "float32"),  # rows 0-3: no live key
+]
+
+
+@pytest.mark.parametrize("num_splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_twin_matches_jax(case, num_splits):
+    b, sq, skv, h, kv, d, causal, window, cap, kv_len, q_scale, dtype = case
+    assert kernel.route(torch.bfloat16, sq, d, h // kv, skv) == "split"
+    q, k, v = _inputs(sq * 5 + d + skv, b, sq, skv, h, kv, d, "float32")
+    np_dt = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float32
+    q, k, v = ((x * s).astype(np_dt) for x, s in ((q, q_scale), (k, 1), (v, 1)))
+    kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset_from_kv_len=True)
+    kl = skv if kv_len is None else kv_len
+    args = [interop.to_torch(x) for x in (q, k, v)] + [torch.tensor([kl], dtype=torch.int32)]
+    got = _f32(interop.to_numpy(ops.plain_bshd(*args, num_splits=num_splits, **kw)))
+    j_kv_len = jnp.asarray([kl], jnp.int32)
+    j_kernel = j_ops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), j_kv_len,
+                                     block_q=64, block_kv=64, interpret=True, **kw)
+    j_plain = j_ref.reference_bhsd(jnp.asarray(_bhsd(q)), jnp.asarray(_bhsd(k)),
+                                   jnp.asarray(_bhsd(v)), j_kv_len, num_q_heads=h,
+                                   num_kv_heads=kv, causal=causal, window=window, softcap=cap,
+                                   q_offset_from_kv_len=True)
+    j_plain = np.transpose(_f32(j_plain).reshape(b, h, sq, d), (0, 2, 1, 3))
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got, j_plain, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got, _f32(j_kernel), rtol=tol, atol=tol)
+    if kl < sq:  # rows before key 0 see no key: 0 (the l == 0 rule)
+        assert not got[:, :sq - kl].any() and got[:, sq - kl:].any()
+    if q_scale > 1:  # the cap binds: the twin without it gives another answer
+        uncapped = ops.plain_bshd(*args, num_splits=num_splits,
+                                  **{**kw, "logit_softcap": None})
+        assert not np.allclose(_f32(interop.to_numpy(uncapped)), j_plain, rtol=tol, atol=tol)
+
+
+def test_split_bounds_share_the_union_of_the_live_keys():
+    """Shares of [first token's lo, last token's hi), differing by at most one
+    key; none live, or fewer keys than shares, leaves empty shares."""
+    kw = dict(causal=True, window=48, q_offset_from_kv_len=True)
+    assert ref.split_bounds(200, 256, 4, 3, **kw) == [(149, 166), (166, 183), (183, 200)]
+    assert ref.split_bounds(4, 256, 8, 2, **{**kw, "window": None}) == [(0, 2), (2, 4)]
+    assert ref.split_bounds(0, 256, 1, 2, **kw) == [(0, 0), (0, 0)]
+    assert ref.split_bounds(300, 256, 1, 8, causal=False, window=None,
+                            q_offset_from_kv_len=True)[-1] == (224, 256)
+    shares = ref.split_bounds(3, 256, 1, 8, causal=False, window=None,
+                              q_offset_from_kv_len=False)
+    assert sum(e - s for s, e in shares) == 3 and sum(s == e for s, e in shares) == 5
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 40), (False, 60)])
@@ -189,33 +249,43 @@ def test_ops_refuses_mixed_devices_dtypes_and_shapes():
         ops.flash_attention(q, k, v, torch.tensor([8]))
 
 
-@pytest.mark.parametrize("dtype,sq,d,want", [
-    (torch.bfloat16, 2048, 128, "tc"),  # the qwen3-1.7b prefill
-    (torch.bfloat16, 64, 64, "tc"),
-    (torch.bfloat16, 200, 128, "tc"),
-    (torch.bfloat16, 8, 128, "short"),  # the cascade's 8 tokens a lane
-    (torch.bfloat16, 63, 128, "short"),
-    (torch.bfloat16, 8, 64, "short"),
-    (torch.bfloat16, 8, 96, "simt"),
-    (torch.bfloat16, 4096, 80, "tc"),  # the h2o-danube and gemma2 prefills
-    (torch.bfloat16, 4096, 256, "tc"),
-    (torch.bfloat16, 64, 80, "tc"),
-    (torch.bfloat16, 8, 256, "simt"),  # short blocks the short kernel does not take
-    (torch.bfloat16, 8, 80, "simt"),
-    (torch.bfloat16, 63, 256, "simt"),
-    (torch.bfloat16, 4096, 32, "simt"),  # head dims the tc kernel does not take
-    (torch.bfloat16, 4096, 96, "simt"),
-    (torch.float32, 4096, 128, "simt"),  # f32 keeps exact FMAs: no TF32
-    (torch.float32, 4096, 256, "simt"),
-    (torch.float16, 4096, 128, "simt"),
+@pytest.mark.parametrize("dtype,sq,d,g,skv,want", [
+    (torch.bfloat16, 2048, 128, 2, 4096, "tc"),  # the qwen3-1.7b prefill
+    (torch.bfloat16, 64, 64, 1, 64, "tc"),
+    (torch.bfloat16, 200, 128, 2, 333, "tc"),
+    (torch.bfloat16, 8, 128, 2, 8, "short"),  # the cascade's 8 tokens a lane
+    (torch.bfloat16, 8, 64, 5, 8, "short"),  # the hymba trunk's: 40 rows a kv head
+    (torch.bfloat16, 63, 128, 1, 4096, "short"),
+    (torch.bfloat16, 8, 64, 2, 300, "short"),  # 16 rows a kv head over 300 keys
+    (torch.bfloat16, 1, 64, 1, 1024, "split"),  # seamless's cross-attention decode
+    (torch.bfloat16, 8, 128, 1, 300, "split"),  # G * Sq = 8
+    (torch.bfloat16, 4, 64, 2, 65, "split"),
+    (torch.bfloat16, 1, 128, 8, 4096, "split"),
+    (torch.bfloat16, 1, 64, 1, 64, "short"),  # 64 keys or fewer stay "short"
+    (torch.bfloat16, 9, 128, 1, 4096, "short"),  # 9 rows a kv head
+    (torch.bfloat16, 1, 80, 1, 1024, "simt"),  # head dims neither short kernel takes
+    (torch.bfloat16, 1, 256, 2, 1024, "simt"),
+    (torch.float32, 1, 64, 1, 1024, "simt"),
+    (torch.bfloat16, 8, 96, 2, 8, "simt"),
+    (torch.bfloat16, 4096, 80, 4, 4640, "tc"),  # the h2o-danube and gemma2 prefills
+    (torch.bfloat16, 4096, 256, 2, 4640, "tc"),
+    (torch.bfloat16, 64, 80, 4, 64, "tc"),
+    (torch.bfloat16, 8, 256, 2, 8, "simt"),  # short blocks the short kernel does not take
+    (torch.bfloat16, 8, 80, 4, 8, "simt"),
+    (torch.bfloat16, 63, 256, 2, 63, "simt"),
+    (torch.bfloat16, 4096, 32, 2, 4096, "simt"),  # head dims the tc kernel does not take
+    (torch.bfloat16, 4096, 96, 2, 4096, "simt"),
+    (torch.float32, 4096, 128, 2, 4096, "simt"),  # f32 keeps exact FMAs: no TF32
+    (torch.float32, 4096, 256, 2, 4096, "simt"),
+    (torch.float16, 4096, 128, 2, 4096, "simt"),
 ])
-def test_route_picks_the_kernel_from_dtype_and_shape(dtype, sq, d, want):
-    assert kernel.route(dtype, sq, d) == want
+def test_route_picks_the_kernel_from_dtype_and_shape(dtype, sq, d, g, skv, want):
+    assert kernel.route(dtype, sq, d, g, skv) == want
 
 
 def test_cpu_calls_count_no_route():
     q, k, v = _inputs(3, 1, 64, 64, 4, 2, 64, "bfloat16")
     ops.reset_counts()
     ops.flash_attention(*(interop.to_torch(x) for x in (q, k, v)))
-    assert ops.ROUTES == {"tc": 0, "short": 0, "simt": 0}
+    assert ops.ROUTES == {"tc": 0, "short": 0, "split": 0, "simt": 0}
     assert ops.PLAIN_CALLS["flash_attention"] == 1

@@ -50,7 +50,7 @@ def main() -> int:
     dev = torch.device("cuda")
     calls = {}
     for name, (b, sq, skv, h, kv, d, causal, kv_len, q_off) in SHAPES.items():
-        assert kernel.route(torch.bfloat16, sq, d) == "tc"
+        assert kernel.route(torch.bfloat16, sq, d, h // kv, skv) == "tc"
         g = torch.Generator(device=dev).manual_seed(sq * 131 + d)
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
                    for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
