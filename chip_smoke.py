@@ -23,11 +23,15 @@ in order; any failure raises and the script exits non-zero:
    softcap case): the fused kernel (the model's route: splits over the
    live keys, the combine through a cluster, one launch) within 2e-5 of
    its twin in f32 and 2e-2 of the oracle in bf16, the partials kernel
-   (splits over the cache length) within 2e-5 of its twin, each timed
-   beside its own bound, with SDPA over the live keys as the yardstick;
-   and the SSD intra-chunk kernels at the mamba2-370m prefill shape (B 2,
-   S 4096, H 32, P 64, N 128, chunk 256, bf16: the "tc" route, and the
-   "simt" kernel on the same inputs, uncounted) and the cascade's (512
+   (splits over the cache length; the model mesh's decode route) within
+   2e-5 of its twin in the form ``partials_route`` names — "tc" for bf16
+   at D 64 / 80 / 128 / 256 (the fused kernel's tensor-core body, P in
+   three bf16 terms), "simt" otherwise — and on the tc form's inputs its
+   simt form (uncounted), each timed beside its own bound, with SDPA over
+   the live keys as the yardstick; and the SSD intra-chunk kernels at the
+   mamba2-370m prefill shape (B 2, S 4096, H 32, P 64, N 128, chunk 256,
+   bf16: the "tc" route, and the "simt" kernel on the same inputs,
+   uncounted, which must be the slower) and the cascade's (512
    lanes x 8 tokens, with and without the final state: the "packed"
    route), every output within 1e-4 of its largest magnitude.  The flash
    cases run its four kernels, as ``kernel.route`` picks them: for bf16
@@ -61,17 +65,21 @@ in order; any failure raises and the script exits non-zero:
    it (``ZOO_DA``: the fused kernel's tc form at G 4 D 80 and G 2 D 256 in
    bf16, each beside the simt form on the same inputs, uncounted, which
    must be the slower, and the simt form in f32 at its 64 values a thread;
-   G 1 / 4 / 5 / 6 / 7 on the tc form)
-   and hymba's SSD at N 16 (simt at its prefill, packed in its cascade
-   trunk), each timed beside its bound and the library call that computes
+   G 1 / 4 / 5 / 6 / 7 on the tc form; the partials kernel at every one of
+   these groups, G 6 / 7 at D 128 included, in its route's form beside its
+   simt form, uncounted)
+   and hymba's SSD at N 16 (tc at its prefill, beside the simt kernel on
+   the same inputs, uncounted, which must be the slower; packed in its
+   cascade trunk), each timed beside its bound and the library call that computes
    the same function: SDPA (with a window mask), or for a softcap the
    compiled ``flex_attention`` (a tanh score_mod, a causal / window block
    mask); and each softcap where it binds (q drawn x12 / x16 against caps
    of 30 / 50, so |s / cap| reaches ~2): the short and split kernels at D
    64 / 128, the simt kernel in f32 and bf16, the fused decode kernel in
    its tc form (bf16 D 64 / 80 / 128 / 256, gemma2's local and global
-   shapes) and simt form (f32 D 80 / 128 / 256) and the partials kernel,
-   each within its tolerance (f32's
+   shapes) and simt form (f32 D 80 / 128 / 256) and the partials kernel
+   (its route's form and, on tc inputs, its simt form), each within its
+   tolerance (f32's
    scaled by q's factor: the scores' rounding grows with them) and the
    same kernel without its cap (an uncounted launch) beyond it;
 3. CPU vs GPU session: one churn trace at capacity 4096 with 4 tenants, in
@@ -179,8 +187,9 @@ in order; any failure raises and the script exits non-zero:
    launch on the route its head dim picks (every prefill "tc", D 80 / 256
    included; every decode step's self-attention on the fused kernel's tc
    form, gemma2's and h2o-danube's included; seamless's cross-attention a
-   step on "split"), no plain call; prefill ms (tokens/s), median step ms
-   and peak memory;
+   step on "split"; hymba's 32 prefill SSD launches on "tc", none on
+   "simt"), no plain call; prefill ms (tokens/s), median step ms and peak
+   memory;
 7c. training (no kernel runs: the wrappers refuse inputs that require
    grad): the qwen3, mamba2 and grok-1 smoke models in f32 on the CPU and
    the card from the same weights and batches — loss, metrics, grad norm,
@@ -203,14 +212,18 @@ in order; any failure raises and the script exits non-zero:
    weights, the kernel route) through ``build_prefill_step`` (8 x 2,048
    into a 4,096-row cache: 28 tc flash launches on the local heads) and 32
    ``build_decode_step``s fed the mesh-free run's greedy tokens (the cache
-   sharded on its rows: 28 x 32 partials launches, then the combine; no
+   sharded on its rows: 28 x 32 partials launches, all on the tc form,
+   then the combine; no
    fused launch), and mamba2-370m through ``build_prefill_step`` (2 x
    4,096: 48 SSD tc launches), each against the mesh-free ``prefill`` /
-   ``decode_step`` on the same weights — logits within 2e-2 of their scale
-   (a decode step: or within 2x the mesh-free run's distance from an f32
-   run of the same draws: the fused kernel rounds P to bf16 on the tensor
-   cores, the partials kernel keeps f32), greedy tokens equal outside near
-   ties, bitwise printed; one ``build_train_step`` of qwen3-1.7b at full
+   ``decode_step`` on the same weights, and nemotron-4-15b at its published
+   width cut to 2 of 32 layers (B 1 x 2,048 into a 2,080-row cache, 4
+   decode steps: a G 6, D 128 group, which the partials kernel refused
+   before) — logits within 2e-2 of their scale (a decode step: or within
+   2x the mesh-free run's distance from an f32 run of the same draws: the
+   fused kernel rounds P to bf16 on the tensor cores, the partials kernel
+   keeps f32; the f32 run on the plain engines), every partials launch on
+   its tc form, greedy tokens equal outside near ties, bitwise printed; one ``build_train_step`` of qwen3-1.7b at full
    width cut to 4 of 28 layers (time), 2 x 4,096 tokens, against the
    one-device step (loss within rtol 1e-5, parameters within 2 lr, bitwise
    printed); and, in a CPU-only child started after the build beside the
@@ -244,8 +257,12 @@ in order; any failure raises and the script exits non-zero:
    decode's, with the short kernel's ``short_ms`` on the same inputs) (the
    first also carries the tc kernel's prefill-shape ``prefill_ms``,
    ``prefill_bound_ms``, ``prefill_library_ms`` and the main paths'
-   ``routes``), ``decode_attention_fused`` and ``decode_attention_partials``
-   (its launches phase 8's mesh decode), ``ssd_intra_chunk_tc`` and
+   ``routes``), ``decode_attention_fused``, ``decode_attention_partials_tc``
+   (the partials' tc form: its launches phase 8's mesh decodes, its
+   ``shapes`` every zoo group beside the simt form's ``simt_ms``) and
+   ``decode_attention_partials`` (the simt form, on no main path: 0
+   launches; its numbers the qwen3 row's on the tc form's inputs),
+   ``ssd_intra_chunk_tc`` and
    ``ssd_intra_chunk`` (the simt and packed kernels of ``ssd_scan.cu``, its
    numbers the packed kernel's at the cascade shape, with the simt
    kernel's ``prefill_simt_ms`` and the ``routes``); an entry timed at the
@@ -269,6 +286,7 @@ import sys
 import time
 from pathlib import Path
 
+T_START = time.perf_counter()  # the script's own start, for its time limit
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -299,6 +317,8 @@ SOURCES = {
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention_split.cu",
     "decode_attention_partials":
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+    "decode_attention_partials_tc":
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention_fused.cu",
     "decode_attention_fused":
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention_fused.cu",
     "ssd_intra_chunk": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
@@ -313,6 +333,7 @@ REPLACES = {
     "flash_attention_short": "src/repro/kernels/flash_attention/kernel.py:122",
     "flash_attention_split": "src/repro/kernels/flash_attention/kernel.py:122",
     "decode_attention_partials": "src/repro/kernels/decode_attention/kernel.py:65",
+    "decode_attention_partials_tc": "src/repro/kernels/decode_attention/kernel.py:65",
     "decode_attention_fused": "src/repro/kernels/decode_attention/kernel.py:65",
     "ssd_intra_chunk": "src/repro/kernels/ssd_scan/kernel.py:72",
     "ssd_intra_chunk_tc": "src/repro/kernels/ssd_scan/kernel.py:72",
@@ -326,18 +347,22 @@ COUNTED = {
     "flash_attention_split": ("flash_attention/split",),
     "ssd_intra_chunk": ("ssd_intra_chunk/simt", "ssd_intra_chunk/packed"),
     "ssd_intra_chunk_tc": ("ssd_intra_chunk/tc",),
+    "decode_attention_partials": ("decode_attention_partials/simt",),
+    "decode_attention_partials_tc": ("decode_attention_partials/tc",),
 }
-# listed with its launches but on no main path: the simt flash kernel takes
-# f32 and head dims no main path has (the zoo's 80 and 256 run "tc").  The
-# partials kernel is on the model mesh's decode (phase 8: a cache sharded on
-# its rows), while the mesh-free decode runs the fused kernel.
-OFF_PATH = {"flash_attention"}
+# listed with their launches but on no main path: the simt flash kernel takes
+# f32 and head dims no main path has (the zoo's 80 and 256 run "tc"), and the
+# partials kernel's simt form f32 and head dims outside 64 / 80 / 128 / 256.
+# The partials kernel is on the model mesh's decode (phase 8: a cache sharded
+# on its rows) in its tc form, while the mesh-free decode runs the fused
+# kernel.
+OFF_PATH = {"flash_attention", "decode_attention_partials"}
 # the mamba2-370m prefill (B 2, S 4096, chunk 256) and the cascade backbone's
 # 512 lanes x 8 tokens; H 32, P 64, N 128, bf16 x / B / C.  The cascade runs
 # without a final state (its last chunk's state is neither computed nor
 # written), the prefill with one; both forms are held against the twin.
 # The hymba-1.5b prefill (B 1, S 2048, chunk 256) and its cascade trunk
-# (512 lanes x 8 tokens): H 50, P 64, N 16 — the simt and packed routes.
+# (512 lanes x 8 tokens): H 50, P 64, N 16 — the tc and packed routes.
 # b, s, chunk, final_state, heads, state_dim
 SSD_CASES = [(2, 4096, 256, True, 32, 128), (512, 8, 8, False, 32, 128),
              (512, 8, 8, True, 32, 128), (1, 2048, 256, True, 50, 16), (512, 8, 8, False, 50, 16)]
@@ -1556,10 +1581,11 @@ def _ssd_hold(name, got, want, result) -> str:
 
 
 def phase_ssd() -> tuple:
-    """Kernel 6 against its plain twin at the mamba2 prefill (the "tc" route,
-    and the "simt" kernel on the same inputs, uncounted), the cascade shapes
-    (the "packed" route) and hymba's N 16 (its prefill on "simt", its cascade
-    trunk on "packed") -> (ssd_scan.cu results, tc results)."""
+    """Kernel 6 against its plain twin at the mamba2 and hymba prefills (the
+    "tc" route at N 128 and N 16, each beside the "simt" kernel on the same
+    inputs, uncounted, which must be the slower), the cascade shapes (the
+    "packed" route) and hymba's cascade trunk ("packed") -> (ssd_scan.cu
+    results, tc results)."""
     import torch
 
     from repro_torch.kernels.ssd_scan import kernel, ops, ref
@@ -1591,9 +1617,7 @@ def phase_ssd() -> tuple:
               f"{bound_ms / ms:.1%} of bound", flush=True)
         row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=None)
-        if n != 128:  # hymba's shapes: a row each beside the route's own
-            results[name].setdefault("shapes", []).append(dict(row, case=label))
-        elif route == "tc":  # the prefill: the simt kernel on the same inputs, uncounted
+        if route == "tc":  # a prefill: the simt kernel on the same inputs, uncounted
             out = [torch.empty_like(t) for t in got]
 
             def simt_call():
@@ -1602,12 +1626,18 @@ def phase_ssd() -> tuple:
             simt_call()
             torch.cuda.synchronize()
             simt_errs = _ssd_hold(f"{label} (simt)", out, want, results["ssd_intra_chunk"])
-            simt_ms = _time_ms(simt_call)
-            print(f"[ssd] {label}: the simt kernel on the same inputs {simt_ms:.4f} ms "
+            row["simt_ms"] = _time_ms(simt_call)
+            print(f"[ssd] {label}: the simt kernel on the same inputs {row['simt_ms']:.4f} ms "
                   f"(max abs diff {simt_errs}), bound {bound_ms:.4f} ms ({bound_by}), "
-                  f"{bound_ms / simt_ms:.1%} of bound", flush=True)
+                  f"{bound_ms / row['simt_ms']:.1%} of bound", flush=True)
+            assert ms < row["simt_ms"], (
+                f"the tc kernel ({ms:.4f} ms) is slower than the simt kernel "
+                f"({row['simt_ms']:.4f} ms) at {label}")
+        if n != 128:  # hymba's shapes: a row each beside the route's own
+            results[name].setdefault("shapes", []).append(dict(row, case=label))
+        elif route == "tc":  # the mamba2 prefill: the table's row
             results[name].update(row)
-            results["ssd_intra_chunk"].update(prefill_simt_ms=simt_ms,
+            results["ssd_intra_chunk"].update(prefill_simt_ms=row["simt_ms"],
                                               prefill_bound_ms=bound_ms)
         elif not final:  # the cascade's main-path form: the table's row
             results[name].update(row)
@@ -1617,9 +1647,11 @@ def phase_ssd() -> tuple:
 def _da_bound(case, fused: bool) -> tuple:
     """(bound_ms, bound_by): q and the live K / V rows read once, and the
     output (fused: [B, 1, H, D] in q's dtype) or the f32 partials (m, l, acc
-    over ``default_num_splits``) written once; 4 * D operations per (query
+    over ``default_num_splits`` for its form) written once; 4 * D operations per (query
     head, live key) at the inputs' type's peak rate."""
-    from repro_torch.kernels.decode_attention import ops, ref
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel, ops, ref
 
     b, skv, h, kv, d, kv_len, window, _, dtype = case
     esize = 2 if dtype == "bfloat16" else 4
@@ -1628,7 +1660,8 @@ def _da_bound(case, fused: bool) -> tuple:
     if fused:
         nbytes += esize * b * h * d
     else:
-        ns = ref.split_count(skv, ops.default_num_splits(b * kv, skv))
+        route = kernel.partials_route(getattr(torch, dtype), d)
+        ns = ref.split_count(skv, ops.default_num_splits(b * kv, skv, route))
         nbytes += 4 * b * kv * ns * (h // kv) * (2 + d)
     ops_ = 4.0 * d * b * h * live
     rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
@@ -1638,10 +1671,12 @@ def _da_bound(case, fused: bool) -> tuple:
 
 
 def _decode_softcap_check(case) -> dict:
-    """The fused kernel (and the partials kernel where it takes the group)
-    on inputs whose scores reach the cap, with and without the cap
-    (uncounted launches): capped within the tolerance of the oracle (the
-    partials of their twin), uncapped beyond it -> a row for the JSON line."""
+    """The fused kernel and the partials kernel (in the form its route names
+    and, on the tc form's inputs, the simt form) on inputs whose scores
+    reach the cap, with and without the cap (uncounted launches): capped
+    within the tolerance of the oracle (the partials of their twin),
+    uncapped beyond it -> a row for the JSON line (the partials' forms
+    under ``partials``)."""
     import torch
 
     from repro_torch.kernels.decode_attention import kernel, ops, ref
@@ -1659,7 +1694,7 @@ def _decode_softcap_check(case) -> dict:
     tol, part_tol = (_binding_tol(t, dtype, q_scale) for t in (FA_TOL[dtype], DA_TOL))
     label = (f"B={b} H={h} KV={kv} D={d} kv_len={kv_len} window={window} softcap={cap} "
              f"{dtype} q_scale={q_scale} (fused: {form})")
-    row = {"case": label, "q_scale": q_scale}
+    row = {"case": label, "q_scale": q_scale, "partials": {}}
     for name, c in (("capped", cap), ("no_softcap", None)):
         out = torch.empty_like(qm)
         kernel.launch_fused(qm, k, v, kl, out, num_splits=ns, softcap=c, window=window)
@@ -1667,33 +1702,33 @@ def _decode_softcap_check(case) -> dict:
         got = out.reshape(b, 1, h, d).float()
         row[f"fused_{name}_err"] = (got - oracle).abs().max().item()
         row[f"fused_{name}_within_tol"] = torch.allclose(got, oracle, rtol=tol, atol=tol)
-    partials = kernel.supports(h // kv, d)
-    if partials:
-        nsp = ref.split_count(skv, ops.default_num_splits(b * kv, skv))
-        km, vm = (t.transpose(1, 2).reshape(b * kv, skv, d).contiguous() for t in (k, v))
-        want = ref.decode_attention_partials(qm, km, vm, kl, num_splits=nsp, softcap=cap,
-                                             window=window)
+    route = kernel.partials_route(dt, d)
+    nsp = ref.split_count(skv, ops.default_num_splits(b * kv, skv, route))
+    km, vm = (t.transpose(1, 2).reshape(b * kv, skv, d).contiguous() for t in (k, v))
+    want = ref.decode_attention_partials(qm, km, vm, kl, num_splits=nsp, softcap=cap,
+                                         window=window)
+    for pform in (route, "simt") if route == "tc" else (route,):
+        prow = row["partials"][pform] = {}
         for name, c in (("capped", cap), ("no_softcap", None)):
-            m, l = (torch.empty((b * kv, nsp, h // kv), dtype=torch.float32, device=dev)
-                    for _ in range(2))
-            acc = torch.empty((b * kv, nsp, h // kv, d), dtype=torch.float32, device=dev)
-            kernel.launch(qm, k, v, kl, m, l, acc, softcap=c, window=window)
+            m, l, acc = (torch.empty(t.shape, device=dev) for t in want)  # contiguous
+            kernel.launch(qm, k, v, kl, m, l, acc, softcap=c, window=window, form=pform)
             torch.cuda.synchronize()
-            row[f"partials_{name}_err"] = max((x - y).abs().max().item()
-                                              for x, y in zip((m, l, acc), want))
-            row[f"partials_{name}_within_tol"] = all(
+            prow[f"{name}_err"] = max((x - y).abs().max().item()
+                                      for x, y in zip((m, l, acc), want))
+            prow[f"{name}_within_tol"] = all(
                 torch.allclose(x, y, rtol=part_tol, atol=part_tol)
                 for x, y in zip((m, l, acc), want))
+    parts = "; ".join(f"partials {f} capped {p['capped_err']:.3g}, without the cap "
+                      f"{p['no_softcap_err']:.3g} from the twin"
+                      for f, p in row["partials"].items())
     print(f"[decode] softcap where it binds, {label}: fused capped {row['fused_capped_err']:.3g}, "
-          f"without the cap {row['fused_no_softcap_err']:.3g} from the oracle (tol {tol})"
-          + (f"; partials capped {row['partials_capped_err']:.3g}, without the cap "
-             f"{row['partials_no_softcap_err']:.3g} from the twin (tol {part_tol:.3g})"
-             if partials else ""), flush=True)
+          f"without the cap {row['fused_no_softcap_err']:.3g} from the oracle (tol {tol}); "
+          f"{parts} (tol {part_tol:.3g})", flush=True)
     assert row["fused_capped_within_tol"], row
     assert not row["fused_no_softcap_within_tol"], f"the cap does not bind: {row}"
-    if partials:
-        assert row["partials_capped_within_tol"], row
-        assert not row["partials_no_softcap_within_tol"], f"the cap does not bind: {row}"
+    for p in row["partials"].values():
+        assert p["capped_within_tol"], row
+        assert not p["no_softcap_within_tol"], f"the cap does not bind: {row}"
     return row
 
 
@@ -1728,15 +1763,17 @@ def _decode_simt_ms(q, k, v, kl, oracle, kw, label) -> float:
 def phase_decode() -> tuple:
     """Kernel 5 at the qwen3-1.7b decode shape and the zoo's: the fused
     kernel (the model's route) against its twin and the oracle, the partials
-    kernel against its twin where it takes the group -> (partials results,
-    fused results)."""
+    kernel (the mesh decode's route) in the form ``partials_route`` names
+    against its twin, and on the tc form's inputs its simt form (uncounted)
+    -> (partials simt results, partials tc results, fused results)."""
     import torch
     import torch.nn.functional as tnf
 
     from repro_torch.kernels.decode_attention import kernel, ops, ref
 
     dev = torch.device("cuda")
-    part, fused = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    part = {"simt": {"max_abs_err": 0.0}, "tc": {"max_abs_err": 0.0}}
+    fused = {"max_abs_err": 0.0}
     for case in DA_CASES:
         b, skv, h, kv, d, kv_len, window, cap, dtype = case
         dt = getattr(torch, dtype)
@@ -1744,17 +1781,25 @@ def phase_decode() -> tuple:
         q = torch.randn((b, 1, h, d), generator=g, device=dev).to(dt)
         k, v = (torch.randn((b, skv, kv, d), generator=g, device=dev).to(dt) for _ in range(2))
         kl = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
-        ns = ref.split_count(skv, ops.default_num_splits(b * kv, skv))  # as the public wrapper
+        form = kernel.partials_route(dt, d)
+        ns = ref.split_count(skv, ops.default_num_splits(b * kv, skv, form))  # as the wrapper
         fns = ops.fused_num_splits(b * kv, skv, kernel.fused_route(dt, d))
         qm = q.reshape(b * kv, h // kv, d)
         km, vm = (t.transpose(1, 2).reshape(b * kv, skv, d).contiguous() for t in (k, v))
         kw = dict(softcap=cap, window=window)
-        # the partials kernel (off the main paths) takes G * D <= 512: not grok's
-        # or arctic's groups of 6 / 7 heads of 128
-        with_partials = kernel.supports(h // kv, d)
+        # the partials kernel takes every group here (G 6 / 7 at D 128 too); its
+        # route's form, and on the tc form's inputs the simt form at its own
+        # split count (the route's before the tc form), uncounted
+        ns_simt = ref.split_count(skv, ops.default_num_splits(b * kv, skv, "simt"))
+        simt_out = [torch.empty((b * kv, ns_simt, h // kv), device=dev) for _ in range(2)]
+        simt_out.append(torch.empty((b * kv, ns_simt, h // kv, d), device=dev))
 
         def partials_call():
             return ops.cache_partials(qm, k, v, kl, ns, **kw)
+
+        def partials_simt():
+            kernel.launch(qm, k, v, kl, *simt_out, form="simt", **kw)
+            return simt_out
 
         def partials_plain():
             return ref.decode_attention_partials(qm, km, vm, kl, num_splits=ns, **kw)
@@ -1765,20 +1810,26 @@ def phase_decode() -> tuple:
         def fused_plain():
             return ref.decode_attention_fused(q, k, v, kl, num_splits=fns, **kw)
 
-        before = dict(ops.LAUNCHES)
-        if with_partials:
-            got, want = partials_call(), partials_plain()
+        before, forms = dict(ops.LAUNCHES), dict(ops.PARTIAL_ROUTES)
+        got, want = partials_call(), partials_plain()
         out, twin = fused_call(), fused_plain()
         oracle = ref.reference_decode(q, k, v, kl, **kw)
         torch.cuda.synchronize()
-        assert ops.LAUNCHES == {ops.KERNEL: before[ops.KERNEL] + with_partials,
+        assert ops.LAUNCHES == {ops.KERNEL: before[ops.KERNEL] + 1,
                                 ops.FUSED: before[ops.FUSED] + 1}, ops.LAUNCHES
-        if with_partials:
-            for name, x, y in zip(("m", "l", "acc"), got, want):
+        assert ops.PARTIAL_ROUTES == {**forms, form: forms[form] + 1}, ops.PARTIAL_ROUTES
+        held = {form: (got, want)}
+        if form == "tc":
+            held["simt"] = ([t.clone() for t in partials_simt()], want if ns_simt == ns else
+                            ref.decode_attention_partials(qm, km, vm, kl, num_splits=ns_simt, **kw))
+            torch.cuda.synchronize()
+        for f, (got_f, want_f) in held.items():
+            for name, x, y in zip(("m", "l", "acc"), got_f, want_f):
                 if not torch.allclose(x, y, rtol=DA_TOL, atol=DA_TOL):
-                    raise AssertionError(f"decode_attention_partials {case}: {name} differs "
-                                         f"from the plain twin beyond {DA_TOL}")
-                part["max_abs_err"] = max(part["max_abs_err"], (x - y).abs().max().item())
+                    raise AssertionError(f"decode_attention_partials ({f}) {case}: {name} "
+                                         f"differs from the plain twin by "
+                                         f"{(x - y).abs().max().item()} (tol {DA_TOL})")
+                part[f]["max_abs_err"] = max(part[f]["max_abs_err"], (x - y).abs().max().item())
         tol = FA_TOL[dtype]
         err = (out.float() - oracle.float()).abs().max().item()
         twin_err = (out.float() - twin.float()).abs().max().item()
@@ -1787,11 +1838,11 @@ def phase_decode() -> tuple:
             assert torch.allclose(out, twin, rtol=DA_TOL, atol=DA_TOL), (case, twin_err)
         fused["max_abs_err"] = max(fused["max_abs_err"], twin_err)
         label = (f"B={b} H={h} KV={kv} D={d} kv_len={kv_len} of {skv} window={window} "
-                 f"softcap={cap} {dtype} (fused: {kernel.fused_route(dt, d)})")
+                 f"softcap={cap} {dtype} (fused: {kernel.fused_route(dt, d)}, partials: {form})")
         if window is not None and case not in ZOO_DA:
-            print(f"[decode] {label}: partials ({ns} splits) within {DA_TOL} of the twin; "
-                  f"fused ({fns} splits) within {twin_err:.3g} of its twin, {err:.3g} of the "
-                  f"oracle (tol {tol})", flush=True)
+            print(f"[decode] {label}: partials ({ns} splits, {', '.join(held)}) within {DA_TOL} "
+                  f"of the twin; fused ({fns} splits) within {twin_err:.3g} of its twin, "
+                  f"{err:.3g} of the oracle (tol {tol})", flush=True)
             continue
         if cap is None:  # sdpa over the live keys, GQA
             qt = q.transpose(1, 2)
@@ -1813,31 +1864,35 @@ def phase_decode() -> tuple:
         torch.cuda.synchronize()
         assert torch.allclose(lib.float(), oracle.float(), rtol=tol, atol=tol), (
             f"{lib_name} disagrees at {label}")
-        timed = [fused_call, fused_plain, library_call]
-        if with_partials:
-            timed += [partials_call, partials_plain]
-        ms, plain_ms, library_ms, *p_ms = (_time_ms(f) for f in timed)
+        timed = [fused_call, fused_plain, library_call, partials_call, partials_plain]
+        if form == "tc":
+            timed.append(partials_simt)
+        ms, plain_ms, library_ms, p_ms, p_plain_ms, *simt_ms = (_time_ms(f) for f in timed)
         host_ms = _host_ms(fused_call)
         bound_ms, bound_by = _da_bound(case, fused=True)
+        p_bound_ms, p_bound_by = _da_bound(case, fused=False)
+        combine_ms = _time_ms(lambda: ref.combine_partials(*partials_call()))
         sdpa = f"{lib_name} {library_ms:.4f} ms"
         row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=library_ms, host_ms=host_ms)
-        partials = ""
-        if with_partials:
-            combine_ms = _time_ms(lambda: ref.combine_partials(*partials_call()))
-            p_bound_ms, p_bound_by = _da_bound(case, fused=False)
-            partials = (f"; partials ({ns} splits) {p_ms[0]:.4f} ms (with the PyTorch combine "
-                        f"{combine_ms:.4f} ms), plain {p_ms[1]:.4f} ms, bound {p_bound_ms:.4f} "
-                        f"ms ({p_bound_by})")
+        p_row = dict(ms=p_ms, plain_ms=p_plain_ms, bound_ms=p_bound_ms, bound_by=p_bound_by,
+                     library_ms=library_ms, with_combine_ms=combine_ms, splits=ns)
+        if simt_ms:
+            p_row.update(simt_ms=simt_ms[0], simt_splits=ns_simt)
+        partials = (f"partials {form} ({ns} splits) {p_ms:.4f} ms (with the PyTorch combine "
+                    f"{combine_ms:.4f} ms), plain {p_plain_ms:.4f} ms, bound {p_bound_ms:.4f} "
+                    f"ms ({p_bound_by}), {p_bound_ms / p_ms:.1%} of bound"
+                    + (f"; the simt form on the same inputs ({ns_simt} splits) {simt_ms[0]:.4f} ms"
+                       if simt_ms else ""))
         print(f"[decode] {label}: fused ({fns} splits, one launch) {ms:.4f} ms ({host_ms:.4f} "
               f"ms a call issued one after another from the host), within {twin_err:.3g} of "
               f"its twin and {err:.3g} of the oracle, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound{partials}; {sdpa}",
-              flush=True)
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound; {partials}; "
+              f"{sdpa}", flush=True)
         if case == DA_ROW:  # the qwen3 decode in the model's dtype: the table's rows
             fused.update(row)
-            part.update(ms=p_ms[0], plain_ms=p_ms[1], bound_ms=p_bound_ms, bound_by=p_bound_by,
-                        library_ms=library_ms, with_combine_ms=combine_ms)
+            part["tc"].update(p_row)
+            part["simt"].update(p_row, ms=simt_ms[0], tc_ms=p_ms, splits=ns_simt)
         elif case in ZOO_DA:
             shape = dict(row, case=label, serves=ZOO_DA[case], library=lib_name)
             if kernel.fused_route(dt, d) == "tc" and d not in (64, 128):
@@ -1846,9 +1901,13 @@ def phase_decode() -> tuple:
                     f"the fused kernel's tc form ({ms:.4f} ms) is slower than its simt form "
                     f"({shape['simt_ms']:.4f} ms) at {label}")
             fused.setdefault("shapes", []).append(shape)
+            part[form].setdefault("shapes", []).append(
+                dict(p_row, case=label, serves=ZOO_DA[case], library=lib_name))
     fused["softcap"] = [_decode_softcap_check(case) for case in DA_BINDING]
-    part["softcap"] = [r for r in fused["softcap"] if "partials_capped_err" in r]
-    return part, fused
+    for f in ("tc", "simt"):
+        part[f]["softcap"] = [dict(r["partials"][f], case=r["case"], q_scale=r["q_scale"])
+                              for r in fused["softcap"] if f in r["partials"]]
+    return part["simt"], part["tc"], fused
 
 
 def _generate(model, params, tokens, steps, max_len, extra=None):
@@ -1897,10 +1956,11 @@ def phase_serve_cpu_vs_gpu():
 
 def _launches(fa_ops, da_ops, ssd_ops) -> dict:
     """The kernel counters, the flash and SSD launches split by route, the
-    fused decode launches by form."""
+    fused and partials decode launches by form."""
     return {**fa_ops.LAUNCHES, **da_ops.LAUNCHES, **ssd_ops.LAUNCHES,
             **{f"flash_attention/{r}": n for r, n in fa_ops.ROUTES.items()},
             **{f"decode_attention_fused/{r}": n for r, n in da_ops.ROUTES.items()},
+            **{f"decode_attention_partials/{r}": n for r, n in da_ops.PARTIAL_ROUTES.items()},
             **{f"ssd_intra_chunk/{r}": n for r, n in ssd_ops.ROUTES.items()}}
 
 
@@ -2140,6 +2200,7 @@ def phase_model_serve() -> dict:
         n = cfg.num_layers
         idle = {"decode_attention_partials": 0, "decode_attention_fused": 0,
                 "decode_attention_fused/tc": 0, "decode_attention_fused/simt": 0,
+                "decode_attention_partials/tc": 0, "decode_attention_partials/simt": 0,
                 "ssd_intra_chunk": 0, "flash_attention": 0, "flash_attention/simt": 0,
                 "flash_attention/tc": 0, "flash_attention/short": 0, "flash_attention/split": 0,
                 "ssd_intra_chunk/tc": 0, "ssd_intra_chunk/simt": 0,
@@ -2176,6 +2237,7 @@ def _zoo_expected(cfg, steps: int) -> dict:
     n = cfg.num_layers
     want = dict.fromkeys(("flash_attention/tc", "flash_attention/short", "flash_attention/split",
                           "flash_attention/simt", "decode_attention_partials",
+                          "decode_attention_partials/tc", "decode_attention_partials/simt",
                           "decode_attention_fused", "decode_attention_fused/tc",
                           "decode_attention_fused/simt", "ssd_intra_chunk/tc",
                           "ssd_intra_chunk/simt", "ssd_intra_chunk/packed"), 0)
@@ -2189,8 +2251,8 @@ def _zoo_expected(cfg, steps: int) -> dict:
     if cfg.encoder is not None:  # the encoder's layers, then a cross-attention a layer
         want[flash] += cfg.encoder.num_layers + n
         want["flash_attention/split"] = n * steps  # a decode step's cross-attention, Sq 1
-    if "hymba" in cfg.layer_pattern:  # SSD heads of state 16: the simt route
-        want["ssd_intra_chunk/simt"] = n
+    if "hymba" in cfg.layer_pattern:  # SSD heads of state 16: the tc route
+        want["ssd_intra_chunk/tc"] = n
     want["flash_attention"] = sum(want[f"flash_attention/{r}"]
                                   for r in ("tc", "short", "split", "simt"))
     want["ssd_intra_chunk"] = sum(want[f"ssd_intra_chunk/{r}"] for r in ("tc", "simt", "packed"))
@@ -2510,7 +2572,11 @@ def train_resume_child() -> int:
 # 7's serve paths; mamba2 runs its prefill only), and a train step of
 # qwen3-1.7b at full width cut to MESH_TRAIN's layers (the one-device step
 # beside it, in the same child: time, not memory, cuts the depth)
-MESH_SERVE = (("qwen3-1.7b", 8, 2048, 32, 4096), ("mamba2-370m", 2, 4096, 0, 4128))
+# and nemotron-4-15b at its published width cut to 2 of 32 layers (a G 6, D
+# 128 decode group: the partials kernel's tc form at 6 query rows a kv head);
+# arch, batch, prompt, decode steps, cache, layers (None: the published depth)
+MESH_SERVE = (("qwen3-1.7b", 8, 2048, 32, 4096, None), ("mamba2-370m", 2, 4096, 0, 4128, None),
+              ("nemotron-4-15b", 1, 2048, 4, 2080, 2))
 MESH_TRAIN = ("qwen3-1.7b", 4, 4096, 2)  # arch, layers, seq, batch
 MESH_LOGIT_TOL = 2e-2  # bf16 logits, of their largest magnitude
 MESH_LOSS_RTOL = 1e-5  # the train step's loss: f32
@@ -2525,28 +2591,31 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _mesh_serve(mesh, arch, b, prompt, steps, max_len) -> dict:
-    """``arch`` at full width (random bf16 weights, the kernel route) through
+def _mesh_serve(mesh, arch, b, prompt, steps, max_len, layers) -> dict:
+    """``arch`` at full width (random bf16 weights, the kernel route; depth
+    cut to ``layers`` when given) through
     ``build_prefill_step`` and ``steps`` ``build_decode_step``s on ``mesh``,
     beside the mesh-free ``Model.prefill`` / ``decode_step`` on the same
     weights: the mesh decode is fed the mesh-free run's greedy tokens, and
     each step's logits must agree within MESH_LOGIT_TOL of their scale and
     pick the same token (unless the mesh-free run's top two are closer than
     the two runs' distance)."""
+    import dataclasses
     import gc
 
     import torch
 
     from repro_torch.configs.archs import get_config
     from repro_torch.configs.shapes import ShapeSpec
-    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch import steps as st
     from repro_torch.launch.rules import rules_for_cell
     from repro_torch.models.model import random_model
 
-    model, params = random_model(get_config(arch), seed=0, device="cuda")
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model, params = random_model(cfg, seed=0, device="cuda")
     cfg, n = model.cfg, model.cfg.num_layers
     g = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=g, device="cuda")
@@ -2612,7 +2681,8 @@ def _mesh_serve(mesh, arch, b, prompt, steps, max_len) -> dict:
         near = (top2[..., 0] - top2[..., 1]) <= diff  # a near tie may flip
         flips += int(((w_.argmax(-1) != g_.argmax(-1)) & ~near).sum())
     moved = {k: v for k, v in {**prefill_counts, **decode_counts}.items() if v}
-    print(f"[mesh] {arch} at full width ({n} layers, bf16, kernel route) on {tuple(mesh.shape)} "
+    print(f"[mesh] {arch} at full width ({n} layers, bf16, kernel route, G "
+          f"{cfg.num_heads // max(cfg.num_kv_heads, 1)}) on {tuple(mesh.shape)} "
           f"{mesh.mesh_dim_names}: prefill B={b} x {prompt} {mesh_prefill_ms:.2f} ms on the mesh "
           f"(first call {first_prefill_ms:.2f} ms) vs {free_prefill_ms:.2f} ms mesh-free (each "
           f"the second call at its shape); "
@@ -2627,15 +2697,18 @@ def _mesh_serve(mesh, arch, b, prompt, steps, max_len) -> dict:
     plain = {k: v for k, v in {**prefill_counts, **decode_counts}.items()
              if k.startswith("plain/") and v}
     assert not plain, plain
-    if arch == "qwen3-1.7b":  # tc flash on the local heads, the partials on the kv_seq shard
+    if cfg.num_heads:  # tc flash on the local heads, the partials on the kv_seq shard,
+        # every partials launch on the tc form (bf16, D 128; G 2 and G 6)
         assert prefill_counts["flash_attention/tc"] == n and routes["tc"] == n, prefill_counts
         assert decode_counts["decode_attention_partials"] == n * steps, decode_counts
+        assert decode_counts["decode_attention_partials/tc"] == n * steps, decode_counts
         assert decode_counts["decode_attention_fused"] == 0, decode_counts
     else:
         assert prefill_counts["ssd_intra_chunk/tc"] == n, prefill_counts
     launches = {k: prefill_counts.get(k, 0) + decode_counts.get(k, 0)
                 for k in ("flash_attention", "flash_attention/tc", "ssd_intra_chunk",
-                          "ssd_intra_chunk/tc", "decode_attention_partials")}
+                          "ssd_intra_chunk/tc", "decode_attention_partials",
+                          "decode_attention_partials/tc", "decode_attention_partials/simt")}
     return dict(prefill_ms=mesh_prefill_ms, first_prefill_ms=first_prefill_ms,
                 free_prefill_ms=free_prefill_ms,
                 step_ms=statistics.median(mesh_step_ms) if steps else None,
@@ -2645,14 +2718,16 @@ def _mesh_serve(mesh, arch, b, prompt, steps, max_len) -> dict:
 
 def _f32_anchor(cfg, tokens, feed, max_len) -> list:
     """The same weights in f32 (the draws the bf16 tree was cast from) through
-    the mesh-free prefill and decode steps fed ``feed`` -> logits per step."""
+    the mesh-free prefill and decode steps fed ``feed``, on the plain
+    engines ("auto": the fused decode kernel's simt form does not hold a
+    group of 6 heads of 128 in f32) -> logits per step."""
     import dataclasses
 
     import torch
 
     from repro_torch.models.model import Model
 
-    model = Model(dataclasses.replace(cfg, dtype="float32"))
+    model = Model(dataclasses.replace(cfg, dtype="float32", attn_impl="auto"))
     params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
     logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
     out = [logits.float()]
@@ -2802,6 +2877,9 @@ def phase_model_mesh(gloo) -> dict:
                 "max_rel_err", "bitwise")},
             "mamba2-370m": {k: serve["mamba2-370m"][k] for k in (
                 "prefill_ms", "free_prefill_ms", "peak_bytes", "max_rel_err", "bitwise")},
+            "nemotron-4-15b": {k: serve["nemotron-4-15b"][k] for k in (
+                "prefill_ms", "free_prefill_ms", "step_ms", "free_step_ms", "peak_bytes",
+                "max_rel_err", "bitwise")},
             "train": result["train"], "gloo_seconds": gloo_s, "phase_s": mesh_s}
     print(f"[mesh] {json.dumps(line)}", flush=True)
     launches = {}
@@ -3433,7 +3511,8 @@ def main() -> int:
     for route, name in (("simt", "flash_attention"), ("tc", "flash_attention_tc"),
                         ("short", "flash_attention_short"), ("split", "flash_attention_split")):
         results[name] = flash[route]
-    results["decode_attention_partials"], results["decode_attention_fused"] = phase_decode()
+    (results["decode_attention_partials"], results["decode_attention_partials_tc"],
+     results["decode_attention_fused"]) = phase_decode()
     results["ssd_intra_chunk"], results["ssd_intra_chunk_tc"] = phase_ssd()
     phase_cpu_vs_gpu(table, combine, costs, outputs)
     phase_cascade_cpu_vs_gpu("qwen3-1.7b")
@@ -3471,22 +3550,27 @@ def main() -> int:
         routes={r: sum(run.get(f"flash_attention/{r}", 0) for run in runs)
                 for r in ("tc", "short", "split", "simt")})
     for name in ("flash_attention_tc", "flash_attention_short", "flash_attention_split",
-                 "flash_attention", "decode_attention_fused", "decode_attention_partials"):
+                 "flash_attention", "decode_attention_fused", "decode_attention_partials",
+                 "decode_attention_partials_tc"):
         by_name[name]["softcap"] = results[name]["softcap"]
     by_name["ssd_intra_chunk"].update(
         prefill_simt_ms=results["ssd_intra_chunk"]["prefill_simt_ms"],
         prefill_bound_ms=results["ssd_intra_chunk"]["prefill_bound_ms"],
         routes={r: sum(run.get(f"ssd_intra_chunk/{r}", 0) for run in runs)
                 for r in ("tc", "simt", "packed")})
-    by_name["decode_attention_partials"].update(
-        with_combine_ms=results["decode_attention_partials"]["with_combine_ms"])
+    by_name["decode_attention_partials_tc"].update(
+        with_combine_ms=results["decode_attention_partials_tc"]["with_combine_ms"],
+        simt_ms=results["decode_attention_partials_tc"]["simt_ms"])
+    by_name["decode_attention_partials"].update(  # the simt form at the tc form's row
+        tc_ms=results["decode_attention_partials"]["tc_ms"])
     by_name["decode_attention_fused"].update(
         host_ms=results["decode_attention_fused"]["host_ms"],
         routes={r: sum(run.get(f"decode_attention_fused/{r}", 0) for run in runs)
                 for r in ("tc", "simt")})
     by_name["flash_attention_split"].update(short_ms=results["flash_attention_split"]["short_ms"])
     print(f"[train] {json.dumps(train_run)}", flush=True)
-    print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s (the script: "
+          f"{time.perf_counter() - T_START:.1f} s of its 1,200)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,22 +29,35 @@
 // at 3.35 TB/s).
 //
 // Design:
-//   * One 128-thread block per (b*kv, split): 16 teams of 8 threads.  A team
-//     walks keys lo + team, lo + team + 16, ...; each thread holds D/8 of the
-//     G query rows and of the G f32 accumulators in registers, as interleaved
-//     pairs (neighbouring threads on neighbouring addresses), and scores are
-//     reduced over the team with three xor shuffles.
+//   * One 128-thread block per (b*kv, split, sub-group of query rows): 16
+//     teams of 8 threads.  A team walks keys lo + team, lo + team + 16, ...;
+//     each thread holds D/8 of the sub-group's query rows and of its f32
+//     accumulators in registers, as interleaved pairs (neighbouring threads
+//     on neighbouring addresses), and scores are reduced over the team with
+//     three xor shuffles.
+//   * A sub-group holds at most min(8, 32 / MAXP) rows, MAXP = D / 16 rounded
+//     up to a power of two (8 rows at D <= 64, 4 at D 128, 2 at D 256), so
+//     the rows fit the registers and the teams' G * D <= kMaxGD merge area:
+//     a group of more rows (G 6 / 7 at D 128: nemotron, grok-1, arctic)
+//     runs as 2 sub-groups in grid.y.  Each row's (m, l, acc) depends on no
+//     other row, so the split is exact.
 //   * Each team runs its own online softmax; the 16 teams' (m, l, acc) then
 //     merge in shared memory with the same logsumexp algebra.
 //   * A split that lies wholly at or beyond kv_len, or outside the window,
 //     loads nothing and writes m = -1e30, l = 0, acc = 0, the TPU kernel's
 //     outputs for such a split.  Keys past kv_len in a live split are never
 //     loaded either.
+//   * bf16 at head dim 64, 80, 128 or 256 takes the tensor-core form instead
+//     (decode_partials_tc_kernel in decode_attention_fused.cu, chosen by
+//     kernel.py partials_route); this kernel keeps f32 math for f32 and the
+//     other head dims, and runs on bf16 only for comparisons.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "decode_span.cuh"
 
 namespace {
 
@@ -52,7 +65,7 @@ constexpr int kTeam = 8;
 constexpr int kThreads = 128;
 constexpr int kTeams = kThreads / kTeam;
 constexpr float kNegInf = -1e30f;  // the reference kernel's NEG_INF
-constexpr int kMaxGD = 512;        // G * D held per team in shared memory
+constexpr int kMaxGD = 512;        // a sub-group's rows * D, held per team in shared memory
 
 template <typename T>
 struct Pair;
@@ -72,14 +85,15 @@ struct Pair<__nv_bfloat16> {
 };
 
 // MAXP: the most dimension pairs one thread holds (D / 16 rounded up to a
-// power of two); MAXG: the most query rows of a group (G rounded up).
+// power of two); MAXG: the most query rows of a sub-group (rounded up).
+// The block takes rows [blockIdx.y * gsub, + gsub) of the group's g.
 template <typename T, int MAXP, int MAXG>
 __global__ void __launch_bounds__(kThreads)
 decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ kv_len_ptr,
                        float* __restrict__ m_out, float* __restrict__ l_out,
-                       float* __restrict__ acc_out, int kv_heads, int g, int d, int skv,
-                       int ns, long long skb, long long sks, long long skh, long long svb,
+                       float* __restrict__ acc_out, int kv_heads, int g, int gsub, int d,
+                       int skv, int ns, long long skb, long long sks, long long skh, long long svb,
                        long long svs, long long svh, int window, int has_softcap,
                        float softcap, float scale) {
   __shared__ float sm_m[kTeams][MAXG];
@@ -90,31 +104,30 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long bkv = blockIdx.x / ns;
   const long long b = bkv / kv_heads;
   const int kvh = (int)(bkv % kv_heads);
+  const int g0 = blockIdx.y * gsub;  // this block's rows of the group
+  const int gn = min(gsub, g - g0);
   const int team = threadIdx.x / kTeam;
   const int lane = threadIdx.x % kTeam;
   const unsigned mask = 0xFFu << ((threadIdx.x & 31) & ~(kTeam - 1));
   const int np = d / (2 * kTeam);
-  const int ck = skv / ns;
 
-  const int kvl = *kv_len_ptr;
-  int lo = split * ck;
-  const int hi = min(lo + ck, min(kvl, skv));
-  if (window >= 0) lo = max(lo, kvl - window + 1);
+  const KeySpan span = cache_split(live_keys(*kv_len_ptr, skv, window), split, skv / ns);
+  const int lo = span.lo, hi = span.hi;
 
   const long long out_row = bkv * ns + split;
-  float* m_o = m_out + out_row * g;
-  float* l_o = l_out + out_row * g;
-  float* acc_o = acc_out + out_row * g * d;
+  float* m_o = m_out + out_row * g + g0;
+  float* l_o = l_out + out_row * g + g0;
+  float* acc_o = acc_out + (out_row * g + g0) * d;
   if (lo >= hi) {  // a dead split: nothing loaded
-    for (int e = threadIdx.x; e < g; e += kThreads) {
+    for (int e = threadIdx.x; e < gn; e += kThreads) {
       m_o[e] = kNegInf;
       l_o[e] = 0.f;
     }
-    for (int e = threadIdx.x; e < g * d; e += kThreads) acc_o[e] = 0.f;
+    for (int e = threadIdx.x; e < gn * d; e += kThreads) acc_o[e] = 0.f;
     return;
   }
 
-  const T* q_base = q + bkv * g * d;
+  const T* q_base = q + (bkv * g + g0) * d;
   const T* k_base = k + b * skb + (long long)kvh * skh;
   const T* v_base = v + b * svb + (long long)kvh * svh;
 
@@ -126,7 +139,7 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int p = 0; p < MAXP; ++p) {
       float2 x = make_float2(0.f, 0.f);
-      if (gg < g && p < np) x = Pair<T>::load(q_base + gg * d + 2 * (p * kTeam + lane));
+      if (gg < gn && p < np) x = Pair<T>::load(q_base + gg * d + 2 * (p * kTeam + lane));
       qr[gg][2 * p] = x.x;
       qr[gg][2 * p + 1] = x.y;
       acc[gg][2 * p] = 0.f;
@@ -183,7 +196,7 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // merge the 16 teams' partials (a team with no key holds -1e30, 0, 0)
 #pragma unroll
   for (int gg = 0; gg < MAXG; ++gg) {
-    if (gg < g) {
+    if (gg < gn) {
       if (lane == 0) {
         sm_m[team][gg] = m[gg];
         sm_l[team][gg] = l[gg];
@@ -199,7 +212,7 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < g * d; e += kThreads) {
+  for (int e = threadIdx.x; e < gn * d; e += kThreads) {
     const int gg = e / d;
     float mx = kNegInf;
     for (int t = 0; t < kTeams; ++t) mx = fmaxf(mx, sm_m[t][gg]);
@@ -219,15 +232,16 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int MAXP, int MAXG>
 cudaError_t launch_one(const void* q, const void* k, const void* v, const void* kv_len, void* m,
-                       void* l, void* acc, long long bkv, int kv_heads, int g, int d, int skv,
-                       int ns, long long skb, long long sks, long long skh, long long svb,
-                       long long svs, long long svh, int window, int has_softcap, float softcap,
-                       float scale, cudaStream_t stream) {
-  decode_partials_kernel<T, MAXP, MAXG><<<(unsigned)(bkv * ns), kThreads, 0, stream>>>(
+                       void* l, void* acc, long long bkv, int kv_heads, int g, int gsub, int d,
+                       int skv, int ns, long long skb, long long sks, long long skh,
+                       long long svb, long long svs, long long svh, int window, int has_softcap,
+                       float softcap, float scale, cudaStream_t stream) {
+  const dim3 grid((unsigned)(bkv * ns), (unsigned)((g + gsub - 1) / gsub), 1);
+  decode_partials_kernel<T, MAXP, MAXG><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(kv_len), static_cast<float*>(m), static_cast<float*>(l),
-      static_cast<float*>(acc), kv_heads, g, d, skv, ns, skb, sks, skh, svb, svs, svh, window,
-      has_softcap, softcap, scale);
+      static_cast<float*>(acc), kv_heads, g, gsub, d, skv, ns, skb, sks, skh, svb, svs, svh,
+      window, has_softcap, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -238,14 +252,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_l
                    long long svs, long long svh, int window, int has_softcap, float softcap,
                    float scale, cudaStream_t stream) {
   if (bkv * ns == 0) return cudaSuccess;
+  if (g < 1 || g > 8 || d % 16 || d > 256 || bkv * ns > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int np = d / (2 * kTeam);
   const int maxp = np <= 2 ? 2 : np <= 4 ? 4 : np <= 8 ? 8 : 16;
-  const int maxg = g <= 2 ? 2 : g <= 4 ? 4 : 8;
-#define DA_LAUNCH(P, G)                                                                      \
-  if (maxp == P && maxg == G)                                                                \
-  return launch_one<T, P, G>(q, k, v, kv_len, m, l, acc, bkv, kv_heads, g, d, skv, ns, skb,  \
-                             sks, skh, svb, svs, svh, window, has_softcap, softcap, scale, \
-                             stream)
+  const int gsub = min(g, min(8, 32 / maxp));  // rows a block: gsub * d <= kMaxGD
+  const int maxg = gsub <= 2 ? 2 : gsub <= 4 ? 4 : 8;
+#define DA_LAUNCH(P, G)                                                                       \
+  if (maxp == P && maxg == G)                                                                 \
+  return launch_one<T, P, G>(q, k, v, kv_len, m, l, acc, bkv, kv_heads, g, gsub, d, skv, ns,  \
+                             skb, sks, skh, svb, svs, svh, window, has_softcap, softcap,      \
+                             scale, stream)
   DA_LAUNCH(2, 2);
   DA_LAUNCH(2, 4);
   DA_LAUNCH(2, 8);
@@ -256,14 +272,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_l
   DA_LAUNCH(8, 4);
   DA_LAUNCH(16, 2);
 #undef DA_LAUNCH
-  return cudaErrorInvalidValue;  // the wrapper refuses these shapes first
+  return cudaErrorInvalidValue;  // unreachable: every (maxp, maxg) above is instantiated
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success).  The wrapper
 // (kernel.py) has checked devices, dtypes, shapes and strides: D a multiple
-// of 16 up to 256, G <= 8, G * D <= 512 in the instantiated pairs, Skv a
+// of 16 up to 256, G <= 8 (any G: the rows run in sub-groups), Skv a
 // multiple of ns.
 extern "C" int decode_attention_partials_fwd(
     const void* q, const void* k, const void* v, const void* kv_len, void* m, void* l, void* acc,

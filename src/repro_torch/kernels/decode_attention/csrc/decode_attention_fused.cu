@@ -67,12 +67,25 @@
 //     (160 registers, no spill).  In the simt form bf16 at D 80 / 256
 //     reached 12% / 27% of its bound: 8-thread teams of FMAs and 3 shuffles
 //     a score.
+//
+// The partials' tensor-core form (decode_partials_tc_kernel; kernel.py
+// partials_route: bf16 at D 64, 80, 128 or 256) is the reference kernel's
+// function (split i over the cache rows [i*ck, (i+1)*ck) that are live, f32
+// (m, l, acc) of exp(s - m) out, the combine left to the caller) on the tc
+// form's body (tc_block): the same ring, mma.sync operands and warp merge,
+// but no cluster: grid (ns, B*KV), each block writes its merged partials to
+// device memory.  Held within 2e-5 of its f32 twin, so it keeps natural
+// units (expf) and runs V^T.P^T three times, on three bf16 terms of P.  The
+// shares and splits are decode_span.cuh's, which decode_attention.cu reads
+// too.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "decode_span.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -153,6 +166,19 @@ __device__ __forceinline__ unsigned movmatrix_t(unsigned x) {
   asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
   return y;
 }
+// (v0, v1) -> three bf16 pairs whose sum is v to ~2^-24: hi = bf16(v), mid =
+// bf16(v - hi), lo = bf16(v - hi - mid) (each difference exact in f32); v0
+// in the low half of each pair.  Two terms leave up to 2^-16 of v.
+__device__ __forceinline__ void split3(float v0, float v1, unsigned (&t)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+    const float2 hf = __bfloat1622float2(h);
+    t[i] = *reinterpret_cast<const unsigned*>(&h);
+    v0 -= hf.x;
+    v1 -= hf.y;
+  }
+}
 // d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
 __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
                                     unsigned b1) {
@@ -163,6 +189,10 @@ __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsig
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The fused kernels' parameters: 128 bytes.  On the H100 the fused tc form
+// ran slower a call once its parameters passed 128 bytes (three more
+// pointers, wherever they sat in the struct), so the partials' tc form has
+// its own 128-byte struct, PartialsArgs.
 struct Args {
   const void* q;
   const void* k;
@@ -175,23 +205,56 @@ struct Args {
   float softcap, scale;
 };
 
+// The partials' tc form's parameters (128 bytes): the outputs m, l [BKV, ns,
+// G] and acc [BKV, ns, G, D] in place of `out`; the softcap's flag folded
+// into softcap > 0, and the scale 1 / sqrt(D) a constant of the template
+// (cap_of, scale_of).  32-bit strides would fit too, but ran slower on the
+// card than these.
+struct PartialsArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* kv_len;
+  float *m_out, *l_out, *acc_out;
+  long long skb, sks, skh, svb, svs, svh;
+  int kv_heads, g, skv, ns, window;
+  float softcap;  // > 0: s = softcap * tanh(s / softcap)
+};
+static_assert(sizeof(Args) <= 128 && sizeof(PartialsArgs) <= 128, "kernel parameters");
+
+__device__ __forceinline__ bool cap_of(const Args& a) { return a.has_softcap; }
+__device__ __forceinline__ bool cap_of(const PartialsArgs& a) { return a.softcap > 0.f; }
+template <int D>
+__device__ __forceinline__ float scale_of(const Args& a) { return a.scale; }
+template <int D>
+__device__ __forceinline__ float scale_of(const PartialsArgs&) {  // the host's float(1 / sqrt(D))
+  return static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
+}
+
 // Shared memory: the block's merged (m, l, acc) first (read by the cluster's
 // other blocks), then the K / V ring, which the warps' merge reuses.
 __host__ __device__ inline size_t result_floats(int maxg, int g, int d) {
   return ((2 * maxg + g * d + 3) / 4) * 4;
 }
 
-// The warps' partials (wm, wl [kWarps][MAXG], wacc [kWarps][G * D], in
-// log2 units) merge into the block's (res: m[MAXG], l[MAXG], acc[G * D]);
-// then the cluster's ns blocks merge through distributed shared memory, each
-// block a slice of the G * D outputs, written in T.  Every thread calls it.
-template <typename T, int MAXG>
-__device__ void merge_and_store(const Args& a, float* res, const float* wm, const float* wl,
-                                const float* wacc, long long bkv, cg::cluster_group& cluster) {
-  const int tid = threadIdx.x, g = a.g, d = a.d, ns = a.ns;
-  const int rank = static_cast<int>(cluster.block_rank());
+// exp in the units the scores are kept in: log2 (the fused kernel: log2(e)
+// folded into the scores, exp2) or natural (the partials, whose m and l
+// leave the chip and must be those of exp(s - m)).
+template <bool NATURAL>
+__device__ __forceinline__ float exp_units(float x) {
+  return NATURAL ? expf(x) : exp2f(x);
+}
+
+// The warps' partials (wm, wl [kWarps][MAXG], wacc [kWarps][g * d]) merge
+// into one (m [g], l [g], acc [g * d]) at m_dst, l_dst, acc_dst (shared or
+// device memory).  A warp that saw no live key holds (-1e30, 0, 0) and adds
+// nothing; no live key at all gives (-1e30, 0, 0).  Every thread calls it.
+template <int MAXG, bool NATURAL>
+__device__ __forceinline__ void merge_warps(int g, int d, const float* wm, const float* wl,
+                                            const float* wacc, float* m_dst, float* l_dst,
+                                            float* acc_dst) {
   __syncthreads();
-  for (int e = tid; e < g * d; e += kThreads) {
+  for (int e = threadIdx.x; e < g * d; e += kThreads) {
     const int gg = e / d;
     float mx = kNegInf;
 #pragma unroll
@@ -199,16 +262,28 @@ __device__ void merge_and_store(const Args& a, float* res, const float* wm, cons
     float num = 0.f, den = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float wt = exp2f(wm[w * MAXG + gg] - mx);
+      const float wt = exp_units<NATURAL>(wm[w * MAXG + gg] - mx);
       num = fmaf(wacc[w * g * d + e], wt, num);
       den = fmaf(wl[w * MAXG + gg], wt, den);
     }
-    res[2 * MAXG + e] = num;
+    acc_dst[e] = num;
     if (e % d == 0) {
-      res[gg] = mx;
-      res[MAXG + gg] = den;
+      m_dst[gg] = mx;
+      l_dst[gg] = den;
     }
   }
+}
+
+// The warps' partials (in log2 units) merge into the block's (res: m[MAXG],
+// l[MAXG], acc[G * D]); then the cluster's ns blocks merge through
+// distributed shared memory, each block a slice of the G * D outputs, written
+// in T.  Every thread calls it.
+template <typename T, int MAXG>
+__device__ void merge_and_store(const Args& a, float* res, const float* wm, const float* wl,
+                                const float* wacc, long long bkv, cg::cluster_group& cluster) {
+  const int tid = threadIdx.x, g = a.g, d = a.d, ns = a.ns;
+  const int rank = static_cast<int>(cluster.block_rank());
+  merge_warps<MAXG, false>(g, d, wm, wl, wacc, res, res + MAXG, res + 2 * MAXG);
   cluster.sync();
   const float* peers[kMaxSplits];
 #pragma unroll
@@ -257,12 +332,8 @@ __global__ void __launch_bounds__(kThreads) decode_fused_kernel(Args a) {
   T* vbuf = kbuf + kStages * kTile * d;
 
   // ---- this block's share of the live keys
-  const int kvl = *a.kv_len;
-  const int hi = min(kvl, a.skv);
-  const int lo = a.window >= 0 ? max(0, kvl - a.window + 1) : 0;
-  const long long live = max(hi - lo, 0);
-  const int s_lo = lo + static_cast<int>(rank * live / ns);
-  const int s_hi = lo + static_cast<int>((rank + 1) * live / ns);
+  const KeySpan share = live_share(live_keys(*a.kv_len, a.skv, a.window), rank, ns);
+  const int s_lo = share.lo, s_hi = share.hi;
   const int ntiles = s_hi > s_lo ? (s_hi - s_lo + kTile - 1) / kTile : 0;
 
   const T* k_base = static_cast<const T*>(a.k) + b * a.skb + (long long)kvh * a.skh;
@@ -449,44 +520,47 @@ __global__ void __launch_bounds__(kThreads) decode_fused_kernel(Args a) {
   merge_and_store<T, MAXG>(a, res, wm, wl, wacc, bkv, cluster);
 }
 
-// The tensor-core form (bf16, D 64, 80, 128 or 256, G <= 8): the same shares
-// and combine, a 3-stage ring of 64-key tiles, 16 keys a warp, each warp its
-// own online softmax (one update a tile), and the products on mma.sync
-// m16n8k16 (bf16 in, f32 accumulate) with the operands swapped so that the
-// <= 8 query rows are the n8 side: S^T = K Q^T (A = 16 keys x 16 of D from
-// the K tile, B = Q^T from registers) and O^T = V^T P^T (A = V^T by the
-// transposing ldmatrix, B = P^T).  No tile row is padding: one mma a k-step
-// for S and one a 16-column slice of D for O, and a thread holds D / 4 f32
-// accumulators (64 at D 256).  P is rounded to bf16 (as the tensor-core
-// flash kernel does) and moved from the S^T accumulator layout to the B
-// operand's by movmatrix's 8 x 8 transpose.
-template <int D>
-__global__ void __launch_bounds__(kThreads) decode_fused_tc_kernel(Args a) {
+// The tensor-core body (bf16, D 64, 80, 128 or 256, G <= 8), shared by the
+// fused kernel's tc form and the partials' tc form: the block's keys [s_lo,
+// s_hi) through a 3-stage ring of 64-key tiles at `ring`, 16 keys a warp,
+// each warp its own online softmax (one update a tile), and the products on
+// mma.sync m16n8k16 (bf16 in, f32 accumulate) with the operands swapped so
+// that the <= 8 query rows are the n8 side: S^T = K Q^T (A = 16 keys x 16
+// of D from the K tile, B = Q^T from registers) and O^T = V^T P^T (A = V^T
+// by the transposing ldmatrix, B = P^T).  No tile row is padding: one mma a
+// k-step for S and one a 16-column slice of D for O, and a thread holds
+// D / 4 f32 accumulators (64 at D 256).  P moves from the S^T accumulator
+// layout to the B operand's by movmatrix's 8 x 8 transpose.  The warps'
+// partials (wm, wl [kWarps][8], wacc [kWarps][g * D]) are left in shared
+// memory over the ring for merge_warps.
+//   EXACT = false (the fused kernel): scores in log2 units (log2(e) folded
+//     in after the softcap, exp2), P rounded to bf16 for V^T.P^T, as the
+//     tensor-core flash kernel does.
+//   EXACT = true (the partials, held within 2e-5 of their f32 twin): scores
+//     in natural units with expf, and P split into three bf16 terms
+//     (split3: hi, mid, lo) with the three products summed into the same
+//     accumulators, which leaves ~2^-24 of p; l sums the unrounded f32 p.
+//     Two terms (hi + lo) leave up to 2^-16 of p, and at the qwen3 decode
+//     shape (256 keys a split) that missed 2e-5 on the card.  The extra
+//     products reuse the V^T fragments and the accumulators: 4 more
+//     registers, not D / 2.
+template <int D, bool EXACT, typename A>
+__device__ __forceinline__ void tc_block(const A& a, long long bkv, int s_lo, int s_hi,
+                                         unsigned char* ring) {
   typedef __nv_bfloat16 bf16;
-  extern __shared__ __align__(16) unsigned char smem[];
   constexpr int MAXG = 8;
   constexpr int LD = D + 8;      // a padded row (halves): conflict-free ldmatrix
   constexpr int CH = D / 8;      // 16-byte chunks of a row
   constexpr int KS = D / 16;     // k-steps of S^T, and 16-column slices of O^T
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int ns = a.ns, g = a.g;
-  const long long bkv = blockIdx.y;
+  const int g = a.g;
   const long long b = bkv / a.kv_heads;
   const int kvh = static_cast<int>(bkv % a.kv_heads);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, t4 = lane & 3;  // fragment row and column pair
+  const float units = EXACT ? 1.f : kLog2e;
 
-  float* res = reinterpret_cast<float*>(smem);
-  bf16* kbuf = reinterpret_cast<bf16*>(smem + result_floats(MAXG, g, D) * sizeof(float));
+  bf16* kbuf = reinterpret_cast<bf16*>(ring);
   bf16* vbuf = kbuf + kTcStages * kTcTile * LD;
-
-  const int kvl = *a.kv_len;
-  const int hi = min(kvl, a.skv);
-  const int lo = a.window >= 0 ? max(0, kvl - a.window + 1) : 0;
-  const long long live = max(hi - lo, 0);
-  const int s_lo = lo + static_cast<int>(rank * live / ns);
-  const int s_hi = lo + static_cast<int>((rank + 1) * live / ns);
   const int ntiles = s_hi > s_lo ? (s_hi - s_lo + kTcTile - 1) / kTcTile : 0;
 
   const bf16* k_base = static_cast<const bf16*>(a.k) + b * a.skb + (long long)kvh * a.skh;
@@ -534,12 +608,12 @@ __global__ void __launch_bounds__(kThreads) decode_fused_tc_kernel(Args a) {
       ldsm_x4(af, kt + (lane & 15) * LD + 16 * ks + (lane >> 4) * 8);
       mma(sc[ks & 1], af, qf[ks][0], qf[ks][1]);
     }
-    float x[4];  // [2 h + j]: key key0 + gq + 8 h, row 2 t4 + j; log2 units, -inf past the share
+    float x[4];  // [2 h + j]: key key0 + gq + 8 h, row 2 t4 + j; -inf past the share
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float v = (sc[0][e] + sc[1][e]) * a.scale;
-      if (a.has_softcap) v = a.softcap * tanhf(v / a.softcap);
-      x[e] = key0 + gq + 8 * (e >> 1) < s_hi ? v * kLog2e : -INFINITY;  // mask before exp
+      float v = (sc[0][e] + sc[1][e]) * scale_of<D>(a);
+      if (cap_of(a)) v = a.softcap * tanhf(v / a.softcap);
+      x[e] = key0 + gq + 8 * (e >> 1) < s_hi ? v * units : -INFINITY;  // mask before exp
     }
     float corr[2];
 #pragma unroll
@@ -549,19 +623,33 @@ __global__ void __launch_bounds__(kThreads) decode_fused_tc_kernel(Args a) {
       tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 8));
       tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 16));
       const float m_new = fmaxf(m[j], tm);
-      corr[j] = exp2f(m[j] - m_new);  // 0 on the warp's first live tile
+      corr[j] = exp_units<EXACT>(m[j] - m_new);  // 0 on the warp's first live tile
       m[j] = m_new;
     }
     float p[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) p[e] = exp2f(x[e] - m[e & 1]);
+    for (int e = 0; e < 4; ++e) p[e] = exp_units<EXACT>(x[e] - m[e & 1]);
 #pragma unroll
     for (int j = 0; j < 2; ++j) l[j] = fmaf(l[j], corr[j], p[j] + p[2 + j]);
-    // P^T as the B operand: rows 2 t4 + j of keys gq (+ 8), transposed 8 x 8
-    const __nv_bfloat162 p01 = __floats2bfloat162_rn(p[0], p[1]);
-    const __nv_bfloat162 p23 = __floats2bfloat162_rn(p[2], p[3]);
-    const unsigned pb0 = movmatrix_t(*reinterpret_cast<const unsigned*>(&p01));
-    const unsigned pb1 = movmatrix_t(*reinterpret_cast<const unsigned*>(&p23));
+    // P^T as the B operand: rows 2 t4 + j of keys gq (+ 8), transposed 8 x 8;
+    // NP bf16 terms of P (EXACT: split3's three, else P rounded once)
+    constexpr int NP = EXACT ? 3 : 1;
+    unsigned pb[NP][2];
+    if constexpr (EXACT) {
+      unsigned t01[3], t23[3];
+      split3(p[0], p[1], t01);
+      split3(p[2], p[3], t23);
+#pragma unroll
+      for (int u = 0; u < NP; ++u) {
+        pb[u][0] = movmatrix_t(t01[u]);
+        pb[u][1] = movmatrix_t(t23[u]);
+      }
+    } else {
+      const __nv_bfloat162 p01 = __floats2bfloat162_rn(p[0], p[1]);
+      const __nv_bfloat162 p23 = __floats2bfloat162_rn(p[2], p[3]);
+      pb[0][0] = movmatrix_t(*reinterpret_cast<const unsigned*>(&p01));
+      pb[0][1] = movmatrix_t(*reinterpret_cast<const unsigned*>(&p23));
+    }
 #pragma unroll
     for (int i = 0; i < KS; ++i) {
       unsigned vf[4];
@@ -570,11 +658,12 @@ __global__ void __launch_bounds__(kThreads) decode_fused_tc_kernel(Args a) {
       o[i][1] *= corr[1];
       o[i][2] *= corr[0];
       o[i][3] *= corr[1];
-      mma(o[i], vf, pb0, pb1);
+#pragma unroll
+      for (int u = 0; u < NP; ++u) mma(o[i], vf, pb[u][0], pb[u][1]);
     }
   }
   cp_async_wait<0>();  // the trailing (empty) groups
-  __syncthreads();     // the ring is free for the merge
+  __syncthreads();     // the ring is free for the warps' partials
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     l[j] += __shfl_xor_sync(0xffffffffu, l[j], 4);
@@ -582,7 +671,7 @@ __global__ void __launch_bounds__(kThreads) decode_fused_tc_kernel(Args a) {
     l[j] += __shfl_xor_sync(0xffffffffu, l[j], 16);
   }
 
-  float* wm = reinterpret_cast<float*>(kbuf);  // [kWarps][MAXG]
+  float* wm = reinterpret_cast<float*>(ring);  // [kWarps][MAXG]
   float* wl = wm + kWarps * MAXG;               // [kWarps][MAXG]
   float* wacc = wl + kWarps * MAXG;             // [kWarps][g * D]
 #pragma unroll
@@ -601,7 +690,56 @@ __global__ void __launch_bounds__(kThreads) decode_fused_tc_kernel(Args a) {
       }
     }
   }
-  merge_and_store<bf16, MAXG>(a, res, wm, wl, wacc, bkv, cluster);
+}
+
+// The fused kernel's tensor-core form: the block's share of the live keys
+// through tc_block, then the combine through the cluster.
+template <int D>
+__global__ void __launch_bounds__(kThreads) decode_fused_tc_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int MAXG = 8;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long bkv = blockIdx.y;
+  float* res = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + result_floats(MAXG, a.g, D) * sizeof(float);
+  const KeySpan share = live_share(live_keys(*a.kv_len, a.skv, a.window), rank, a.ns);
+  tc_block<D, false>(a, bkv, share.lo, share.hi, ring);
+  const float* wm = reinterpret_cast<const float*>(ring);  // tc_block's warp partials
+  merge_and_store<__nv_bfloat16, MAXG>(a, res, wm, wm + kWarps * MAXG, wm + 2 * kWarps * MAXG,
+                                       bkv, cluster);
+}
+
+// The partials' tensor-core form (bf16, D 64, 80, 128 or 256, G <= 8): the
+// reference's signature and splits.  Block (split, bkv) takes the cache rows
+// [split * ck, (split + 1) * ck), ck = Skv / ns, that are live, through
+// tc_block (EXACT: natural units, P in three bf16 terms), merges its 4 warps and
+// writes (m, l, acc) of exp(s - m) to device memory: m [BKV, ns, G], l
+// [BKV, ns, G], acc [BKV, ns, G, D], f32.  A split with no live key loads
+// nothing and writes (-1e30, 0, 0).  No cluster: the combine is the
+// caller's.  kv_len is read on the device.
+template <int D>
+__global__ void __launch_bounds__(kThreads) decode_partials_tc_kernel(PartialsArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int MAXG = 8;
+  const int split = blockIdx.x, g = a.g;
+  const long long bkv = blockIdx.y;
+  const KeySpan span = cache_split(live_keys(*a.kv_len, a.skv, a.window), split, a.skv / a.ns);
+  const long long out_row = bkv * a.ns + split;
+  float* m_o = a.m_out + out_row * g;
+  float* l_o = a.l_out + out_row * g;
+  float* acc_o = a.acc_out + out_row * g * D;
+  if (span.lo >= span.hi) {  // a dead split: nothing loaded
+    for (int e = threadIdx.x; e < g; e += kThreads) {
+      m_o[e] = kNegInf;
+      l_o[e] = 0.f;
+    }
+    for (int e = threadIdx.x; e < g * D; e += kThreads) acc_o[e] = 0.f;
+    return;
+  }
+  tc_block<D, true>(a, bkv, span.lo, span.hi, smem);
+  const float* wm = reinterpret_cast<const float*>(smem);  // tc_block's warp partials
+  merge_warps<MAXG, true>(g, D, wm, wm + kWarps * MAXG, wm + 2 * kWarps * MAXG, m_o, l_o, acc_o);
 }
 
 // Dynamic shared memory: the block's merged (m, l, acc), then the larger of
@@ -616,6 +754,13 @@ size_t smem_tc(const Args& a, int d) {
   const size_t ring = static_cast<size_t>(kTcStages) * 2 * kTcTile * (d + 8) * 2;
   const size_t merge = static_cast<size_t>(kWarps) * (2 * 8 + a.g * d) * sizeof(float);
   return result_floats(8, a.g, d) * sizeof(float) + (ring > merge ? ring : merge);
+}
+
+// The partials' tc form: the larger of the ring and the warps' partials.
+size_t smem_partials_tc(const PartialsArgs& a, int d) {
+  const size_t ring = static_cast<size_t>(kTcStages) * 2 * kTcTile * (d + 8) * 2;
+  const size_t merge = static_cast<size_t>(kWarps) * (2 * 8 + a.g * d) * sizeof(float);
+  return ring > merge ? ring : merge;
 }
 
 // One cluster of ns blocks per (b, kv head).
@@ -679,6 +824,31 @@ cudaError_t launch_tc(const Args& a, long long bkv, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+// Grid (ns, B * KV), no cluster.
+template <int D>
+cudaError_t launch_partials_one(const PartialsArgs& a, long long bkv, cudaStream_t stream) {
+  auto kern = decode_partials_tc_kernel<D>;
+  const size_t smem = smem_partials_tc(a, D);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<dim3(static_cast<unsigned>(a.ns), static_cast<unsigned>(bkv), 1), kThreads, smem,
+         stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_partials_tc(const PartialsArgs& a, int d, long long bkv, cudaStream_t stream) {
+  if (bkv == 0 || a.ns == 0) return cudaSuccess;
+  if (a.ns < 1 || bkv > 65535 || a.g < 1 || a.g > 8 || a.skv % a.ns) return cudaErrorInvalidValue;
+  if (d == 64) return launch_partials_one<64>(a, bkv, stream);
+  if (d == 80) return launch_partials_one<80>(a, bkv, stream);
+  if (d == 128) return launch_partials_one<128>(a, bkv, stream);
+  if (d == 256) return launch_partials_one<256>(a, bkv, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success).  The wrapper
@@ -692,7 +862,7 @@ extern "C" int decode_attention_fused_fwd(
     int kv_heads, int g, int d, int skv, int ns, long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh, int window, int has_softcap, float softcap,
     float scale, int is_bf16, int tc, void* stream) {
-  Args a;
+  Args a = {};
   a.q = q;
   a.k = k;
   a.v = v;
@@ -713,4 +883,34 @@ extern "C" int decode_attention_fused_fwd(
   if (tc) return static_cast<int>(is_bf16 ? launch_tc(a, bkv, s) : cudaErrorInvalidValue);
   if (is_bf16) return static_cast<int>(launch<__nv_bfloat16>(a, bkv, s));
   return static_cast<int>(launch<float>(a, bkv, s));
+}
+
+// The partials' tensor-core form (decode_partials_tc_kernel): the same
+// operands as decode_attention_partials_fwd in decode_attention.cu.  The
+// wrapper (kernel.py partials_route) has checked: bf16, D 64, 80, 128 or
+// 256, 1 <= G <= 8, B * KV <= 65535, 16-byte aligned rows, ns dividing
+// Skv, a positive softcap, scale = 1 / sqrt(D).
+extern "C" int decode_attention_partials_tc_fwd(
+    const void* q, const void* k, const void* v, const void* kv_len, void* m, void* l, void* acc,
+    long long bkv, int kv_heads, int g, int d, int skv, int ns, long long skb, long long sks,
+    long long skh, long long svb, long long svs, long long svh, int window, int has_softcap,
+    float softcap, float scale, void* stream) {
+  PartialsArgs a = {};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.m_out = static_cast<float*>(m);
+  a.l_out = static_cast<float*>(l);
+  a.acc_out = static_cast<float*>(acc);
+  a.skb = skb; a.sks = sks; a.skh = skh;
+  a.svb = svb; a.svs = svs; a.svh = svh;
+  a.kv_heads = kv_heads;
+  a.g = g;
+  a.skv = skv;
+  a.ns = ns;
+  a.window = window;
+  a.softcap = has_softcap ? softcap : 0.f;  // the wrapper's caps are positive
+  (void)scale;  // 1 / sqrt(D): scale_of<D>
+  return static_cast<int>(launch_partials_tc(a, d, bkv, static_cast<cudaStream_t>(stream)));
 }

@@ -7,7 +7,12 @@ the model's decode route calls: on the card ONE launch of the fused kernel
 no PyTorch combine.  ``decode_attention_partials`` keeps the reference's
 signature (``repro/kernels/decode_attention/kernel.py``: q ``[BKV, G, D]``,
 k / v ``[BKV, Skv, D]``, splits over Skv, f32 partials out) on the partials
-kernel (``csrc/decode_attention.cu``).  They route by the device of their
+kernel, and ``decode_attention_split`` (the mesh decode's route over a
+cache sharded on its rows) gives its partials over a ``[B, S, KV, D]``
+cache.  The partials kernel runs in the form ``kernel.partials_route``
+names: "tc" (bf16 at D 64 / 80 / 128 / 256, on the fused kernel's
+tensor-core body) or "simt" (``csrc/decode_attention.cu``), each taking
+every group of G <= 8 rows.  They route by the device of their
 tensors: on the CPU the plain PyTorch twins (``ref.py``) run; on a CUDA
 tensor the kernel launches or the call raises — it never falls back and
 reads no environment switch.  The kernels have no backward pass: an input
@@ -26,14 +31,18 @@ hold at once in the kernel's form (one a SM for the tensor-core form's
 ring, 108 KB at D 128 and 203 KB at D 256, two for the simt form): at the
 qwen3 decode shape, B 8 x KV 8, that is 2 splits for bf16 and 4 for f32,
 the fastest on the card.
-``default_num_splits`` is the partials route's count over the cache
+``default_num_splits`` is the partials kernel's count over the cache
 length: at least the reference's 8, doubled while the blocks are fewer
-than four per SM of an H100 (132 SMs) and a split keeps at least 64 keys;
-the reference's rule (halve until it divides Skv) applies to any count.
+than the SMs of an H100 (132) hold at once in the kernel's form — four a
+SM in the simt form, two in the tc form (its 104 KB ring at D 128) — and a
+split keeps at least 64 keys: at the qwen3 decode shape 8 splits in bf16
+(the fastest of 4 / 8 / 16 / 32 on the card) and 16 in f32; the
+reference's rule (halve until it divides Skv) applies to any count.
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-path calls,
-one key per kernel, and ``ROUTES`` the fused kernel's launches by form
-("tc" or "simt", ``kernel.fused_route``); ``reset_counts`` zeroes all three.
+one key per kernel, ``ROUTES`` the fused kernel's launches by form ("tc"
+or "simt", ``kernel.fused_route``) and ``PARTIAL_ROUTES`` the partials
+kernel's (``kernel.partials_route``); ``reset_counts`` zeroes all four.
 """
 
 from __future__ import annotations
@@ -50,21 +59,24 @@ FUSED = "decode_attention_fused"
 LAUNCHES = {KERNEL: 0, FUSED: 0}
 PLAIN_CALLS = {KERNEL: 0, FUSED: 0}
 ROUTES = dict.fromkeys(kernel.FORMS, 0)
+PARTIAL_ROUTES = dict.fromkeys(kernel.FORMS, 0)
 DTYPES = (torch.float32, torch.bfloat16)
 SMS = 132  # streaming multiprocessors of an H100 SXM
-FILL_BLOCKS = 4 * SMS
+FILL_BLOCKS = 4 * SMS  # the partials' simt form: blocks the SMs hold at once
+TC_FILL_BLOCKS = 2 * SMS  # ... and its tc form
 MIN_SPLIT_KEYS = 64
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS, ROUTES):
+    for counts in (LAUNCHES, PLAIN_CALLS, ROUTES, PARTIAL_ROUTES):
         for name in counts:
             counts[name] = 0
 
 
-def default_num_splits(bkv: int, skv: int) -> int:
+def default_num_splits(bkv: int, skv: int, route: str = "simt") -> int:
+    fill = FILL_BLOCKS if route == "simt" else TC_FILL_BLOCKS
     ns = 8
-    while bkv * ns < FILL_BLOCKS and skv // (2 * ns) >= MIN_SPLIT_KEYS:
+    while bkv * ns < fill and skv // (2 * ns) >= MIN_SPLIT_KEYS:
         ns *= 2
     return ns
 
@@ -97,25 +109,31 @@ def _check_cache(k, v, row_align: Optional[int] = None) -> None:
 def cache_partials(q, k, v, kv_len, ns, softcap, window):
     """The kernel's partials over a cache read in place (CUDA tensors only):
     q [BKV, G, D] contiguous, k / v [B, Skv, KV, D] with a unit innermost
-    stride, ``ns`` splits -> (m, l, acc) as ``decode_attention_partials``."""
+    stride, ``ns`` splits -> (m, l, acc) as ``decode_attention_partials``,
+    in the form ``kernel.partials_route`` names."""
     refuse_grad(KERNEL, q, k, v)
     bkv, g, d = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"cache_partials launches the CUDA kernel; q is on {q.device}")
     if q.dtype not in DTYPES:
         raise TypeError(f"decode attention takes {DTYPES}, got {q.dtype}")
-    if not kernel.supports(g, d):
-        raise ValueError(f"the kernel takes head_dim a multiple of 16 up to 256 and at most 8 "
-                         f"query rows per kv head with G * D <= 512; got G {g}, D {d}")
+    if not kernel.supports_partials(g, d, q.dtype):
+        raise ValueError(f"the partials kernel takes head_dim a multiple of 16 up to 256 and "
+                         f"at most 8 query rows per kv head; got G {g}, D {d}")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
-    _check_cache(k, v, row_align=2)
+    form = kernel.partials_route(q.dtype, d)
+    if form == "tc" and (bkv > 65535 or (softcap is not None and not softcap > 0)):
+        raise ValueError(f"the partials kernel's tc form takes at most 65535 (batch, kv head) "
+                         f"groups and a positive softcap; got {bkv} groups, softcap {softcap}")
+    _check_cache(k, v, row_align=None if form == "tc" else 2)  # tc: 16-byte cp.async rows
     dev = q.device
     m = torch.empty((bkv, ns, g), dtype=torch.float32, device=dev)
     l = torch.empty((bkv, ns, g), dtype=torch.float32, device=dev)
     acc = torch.empty((bkv, ns, g, d), dtype=torch.float32, device=dev)
     kernel.launch(q, k, v, kv_len, m, l, acc, softcap=softcap, window=window)
     LAUNCHES[KERNEL] += 1
+    PARTIAL_ROUTES[form] += 1
     return m, l, acc
 
 
@@ -166,12 +184,14 @@ def decode_attention_split(
     [B, KV, ns, G, D]), f32: on the card the partials kernel reading the
     cache in place (``cache_partials``), on the CPU its twin.  A ``kv_len``
     past the cache's end admits every row (and bounds the window); one at or
-    below 0 admits none.  ``num_splits=None`` picks ``default_num_splits``."""
+    below 0 admits none.  ``num_splits=None`` picks ``default_num_splits`` for
+    the form ``kernel.partials_route`` names, on either device."""
     b, _, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     qm = q.reshape(b * kvh, g, d).contiguous()
-    ns = ref.split_count(skv, default_num_splits(b * kvh, skv) if num_splits is None
+    route = kernel.partials_route(q.dtype, d)
+    ns = ref.split_count(skv, default_num_splits(b * kvh, skv, route) if num_splits is None
                          else num_splits)
     kw = dict(softcap=softcap, window=window)
     if q.device.type == "cpu":

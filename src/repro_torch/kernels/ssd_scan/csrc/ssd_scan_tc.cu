@@ -2,9 +2,10 @@
 //
 // Replaces the reference's Pallas TPU kernel
 // src/repro/kernels/ssd_scan/kernel.py:ssd_intra_chunk (body _ssd_kernel)
-// for bf16 x, B and C, chunks of 64, 128 or 256 positions, head dim P and
-// state dim N of 64 or 128.  It computes that kernel's function; for one
-// (batch, head, chunk) of Q positions, with a < 0 the head's decay rate:
+// for bf16 x, B and C, chunks of 64, 128 or 256 positions, head dim P of 64
+// or 128 and state dim N of 16, 64 or 128.  It computes that kernel's
+// function; for one (batch, head, chunk) of Q positions, with a < 0 the
+// head's decay rate:
 //
 //   cum_i     = sum_{t <= i} dt_t * a                       (inclusive scan)
 //   y_i       = sum_{j <= i} exp(cum_i - cum_j) (C_i . B_j) dt_j x_j
@@ -55,6 +56,17 @@
 //   * The chunk's state: for each head, xw^T (ldmatrix.trans of X, scaled
 //     and split in registers) times B over the Q positions, P / 16 warps a
 //     head, 16 rows of P and all N columns a warp, double-buffered too.
+//   * N 16 (hymba's SSD heads): C.B^T is one k16 step and the state two n8
+//     tiles; a row of C or B is 24 halves (48 B: the eight rows of an
+//     ldmatrix start 12 banks apart, so none conflict).  C.B^T is then ~1/8
+//     of a head's W.X products, so sharing it over many heads saves little,
+//     and the head group shrinks to heads_a_block(P, 16) = SSD_TC_HEADS_N16
+//     = 2 heads, two blocks an SM (blocks_an_sm: 128 registers a thread):
+//     at hymba's prefill (S 2,048, H 50, P 64: 1 x 8 chunks x 25 groups =
+//     200 blocks, one wave on 132 SMs) 0.046 ms on an H100, against 0.054
+//     with 4 heads (104 blocks, one an SM) and 0.071 with 1 (400 blocks).
+//     With one head a block the 8 warps of the y loop split P in two
+//     halves instead of the heads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,8 +82,19 @@ constexpr int kLdt = kT + 8;  // a C.B^T tile's padded f32 row
 constexpr int kMaxChunk = 256;
 
 // Heads a block: the y accumulators of a 64-row i-tile for all of them, 64
-// values a thread (4 heads at P 64, 2 at P 128).
-__host__ __device__ constexpr int heads_a_block(int p) { return 256 / p; }
+// values a thread (4 heads at P 64, 2 at P 128); at N 16 at most
+// SSD_TC_HEADS_N16 (1, 2 or 4; a build flag, so that the three can be timed).
+#ifndef SSD_TC_HEADS_N16
+#define SSD_TC_HEADS_N16 2
+#endif
+__host__ __device__ constexpr int heads_a_block(int p, int n) {
+  return n == 16 && SSD_TC_HEADS_N16 < 256 / p ? SSD_TC_HEADS_N16 : 256 / p;
+}
+// Blocks an SM holds: two where a thread's y accumulators are 32 floats or
+// fewer (a smaller head group at N 16; 128 registers a thread), else one.
+__host__ __device__ constexpr int blocks_an_sm(int p, int n) {
+  return heads_a_block(p, n) * p <= 128 ? 2 : 1;
+}
 
 typedef __nv_bfloat16 bf16;
 
@@ -145,7 +168,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src, lo
 }
 
 __host__ __device__ inline size_t smem_bytes(int p, int n, int q) {
-  const int hg = heads_a_block(p);
+  const int hg = heads_a_block(p, n);
   return 3 * (size_t)kT * (n + 8) * sizeof(bf16)        // C i-tile, two B j-tiles
          + (size_t)kT * kLdt * sizeof(float)            // one C.B^T tile
          + 2 * (size_t)hg * kT * (p + 8) * sizeof(bf16)  // two X j-tiles of each head
@@ -153,11 +176,14 @@ __host__ __device__ inline size_t smem_bytes(int p, int n, int q) {
 }
 
 template <int P, int N>
-__global__ void __launch_bounds__(kThreads, 1) ssd_intra_chunk_tc_kernel(Args g) {
+__global__ void __launch_bounds__(kThreads, blocks_an_sm(P, N)) ssd_intra_chunk_tc_kernel(Args g) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int LDN = N + 8, LDP = P + 8;
-  constexpr int kHG = heads_a_block(P);  // heads a block
-  constexpr int kHW = kHG / 2;            // heads a warp in the y loop
+  constexpr int kHG = heads_a_block(P, N);  // heads a block
+  // the y loop's warps: 4 row groups x 2 halves of the group's heads, or of
+  // P's columns when the group is one head
+  constexpr int kHW = kHG >= 2 ? kHG / 2 : 1;  // heads a warp
+  constexpr int kPW = kHG >= 2 ? P : P / 2;     // columns of P a warp
   const int Q = g.chunk;
   bf16* Cs = reinterpret_cast<bf16*>(smem);  // [kT][LDN]: the C i-tile
   bf16* Bt = Cs + kT * LDN;                  // [2][kT][LDN]: the ring of B j-tiles
@@ -236,9 +262,10 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_intra_chunk_tc_kernel(Args g)
   // the group, then W.X for every head; the next j-tile's B and X are in
   // flight meanwhile.  Warps: 4 row groups x 2 head sets of kHW heads.
   const int rg = warp & 3, hs = warp >> 2, cgp = warp >> 2;
+  const int pc = kHG >= 2 ? 0 : hs * kPW;  // this warp's first column of P
   for (int it = 0; it < nt; ++it) {
     const int i_a = it * kT + 16 * rg + gq, i_b = i_a + 8;  // this thread's rows
-    float yacc[kHW][P / 8][4] = {};
+    float yacc[kHW][kPW / 8][4] = {};
     __syncthreads();  // Cs and the ring are free
     load_tile<N>(Cs, LDN, C + (long long)it * kT * g.sct, g.sct, kT);
     load_b(0);
@@ -281,7 +308,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_intra_chunk_tc_kernel(Args g)
       __syncthreads();  // the C.B^T tile is whole
 #pragma unroll
       for (int u = 0; u < kHW; ++u) {
-        const int hh = hs * kHW + u;
+        const int hh = kHG >= 2 ? hs * kHW + u : 0;
         if (hh >= nh) break;
         const float* cumh = cum + hh * Q;
         const float* dth = dts + hh * Q;
@@ -308,10 +335,10 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_intra_chunk_tc_kernel(Args g)
             split2(wb0, wb1, ahi[2 * half + 1], alo[2 * half + 1]);
           }
 #pragma unroll
-          for (int np = 0; np < P / 16; ++np) {
+          for (int np = 0; np < kPW / 16; ++np) {
             unsigned bfr[4];
-            ldsm_x4_t(bfr, xs + (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) * LDP + 16 * np +
-                               (lane >> 4) * 8);
+            ldsm_x4_t(bfr, xs + (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) * LDP + pc +
+                               16 * np + (lane >> 4) * 8);
             mma(yacc[u][2 * np], ahi, bfr[0], bfr[1]);
             mma(yacc[u][2 * np], alo, bfr[0], bfr[1]);
             mma(yacc[u][2 * np + 1], ahi, bfr[2], bfr[3]);
@@ -323,12 +350,12 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_intra_chunk_tc_kernel(Args g)
     const long long row = (long long)g.heads * P;
 #pragma unroll
     for (int u = 0; u < kHW; ++u) {
-      const int hh = hs * kHW + u;
+      const int hh = kHG >= 2 ? hs * kHW + u : 0;
       if (hh >= nh) break;
       float* y = g.y + ((b * g.seq + t0) * g.heads + h0 + hh) * P;
 #pragma unroll
-      for (int n8 = 0; n8 < P / 8; ++n8) {
-        const int p = 8 * n8 + 2 * t4;
+      for (int n8 = 0; n8 < kPW / 8; ++n8) {
+        const int p = pc + 8 * n8 + 2 * t4;
         *reinterpret_cast<float2*>(y + i_a * row + p) =
             make_float2(yacc[u][n8][0], yacc[u][n8][1]);
         *reinterpret_cast<float2*>(y + i_b * row + p) =
@@ -402,15 +429,17 @@ template <int P, int N>
 cudaError_t launch(const Args& g, int batch, cudaStream_t st) {
   auto kern = ssd_intra_chunk_tc_kernel<P, N>;
   const size_t smem = smem_bytes(P, N, g.chunk);
-  static size_t opted = 48 * 1024;  // dynamic shared memory this instantiation may use
+  // dynamic shared memory this instantiation may use: set on first use, since
+  // the static warp_total counts against the 48 KB default too
+  static size_t opted = 0;
   if (smem > opted) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     opted = smem;
   }
-  const long long blocks =
-      (long long)batch * g.nc * ((g.heads + heads_a_block(P) - 1) / heads_a_block(P));
+  constexpr int hg = heads_a_block(P, N);
+  const long long blocks = (long long)batch * g.nc * ((g.heads + hg - 1) / hg);
   if (blocks == 0) return cudaSuccess;
   kern<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(g);
   return cudaGetLastError();
@@ -420,8 +449,8 @@ cudaError_t launch(const Args& g, int batch, cudaStream_t st) {
 
 // Returns cudaGetLastError() after the launch (0 on success).  The wrapper
 // (kernel.py) has checked devices, dtypes, shapes and strides: bf16 x, B and
-// C with 16-byte aligned rows, chunk in {64, 128, 256} dividing seq, P and N
-// in {64, 128}, f32 dt and a.
+// C with 16-byte aligned rows, chunk in {64, 128, 256} dividing seq, P in
+// {64, 128}, N in {16, 64, 128}, f32 dt and a.
 extern "C" int ssd_intra_chunk_tc_fwd(
     const void* x, const void* dt, const void* a, const void* b, const void* c, void* y,
     void* s, void* ce, int batch, int seq, int heads, int p, int n, int chunk, int nc_state,
@@ -450,6 +479,8 @@ extern "C" int ssd_intra_chunk_tc_fwd(
   g.scb = scb; g.sct = sct;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
+  if (p == 64 && n == 16) err = launch<64, 16>(g, batch, st);
+  if (p == 128 && n == 16) err = launch<128, 16>(g, batch, st);
   if (p == 64 && n == 64) err = launch<64, 64>(g, batch, st);
   if (p == 64 && n == 128) err = launch<64, 128>(g, batch, st);
   if (p == 128 && n == 64) err = launch<128, 64>(g, batch, st);

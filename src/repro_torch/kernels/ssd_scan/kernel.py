@@ -1,7 +1,7 @@
 """Build and bind the hand-written CUDA SSD intra-chunk kernels.
 
 ``csrc/ssd_scan_tc.cu`` ("tc": Hopper tensor cores, mma.sync on bf16 x, B
-and C, chunks of 64 / 128 / 256, P and N of 64 or 128) and
+and C, chunks of 64 / 128 / 256, P of 64 or 128, N of 16, 64 or 128) and
 ``csrc/ssd_scan.cu`` ("simt": f32 CUDA-core products for any other chunk up
 to 256 and for f32 inputs; "packed": chunks of 4 to 32, one block a lane
 over all heads) each expose one ``extern "C"`` launcher, compiled with
@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -29,7 +30,8 @@ MAX_CHUNK = 256
 MAX_HEAD_DIM = 128
 PACKED_CHUNKS = (4, 8, 16, 32)
 TC_CHUNKS = (64, 128, 256)
-TC_DIMS = (64, 128)  # the tc kernel's head dims P and state dims N
+TC_DIMS = (64, 128)  # the tc kernel's head dims P
+TC_STATE_DIMS = (16, 64, 128)  # and its state dims N (16: hymba's SSD heads)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,11 +40,11 @@ _L = ctypes.c_longlong
 
 def route(dtype: torch.dtype, chunk: int, p: int, n: int) -> str:
     """The kernel for a call: "packed" for chunks in ``PACKED_CHUNKS``, "tc"
-    (tensor cores) for bf16 with a chunk in ``TC_CHUNKS`` and P, N in
-    ``TC_DIMS``, else "simt"."""
+    (tensor cores) for bf16 with a chunk in ``TC_CHUNKS``, P in ``TC_DIMS``
+    and N in ``TC_STATE_DIMS``, else "simt"."""
     if chunk in PACKED_CHUNKS:
         return "packed"
-    if dtype == torch.bfloat16 and chunk in TC_CHUNKS and p in TC_DIMS and n in TC_DIMS:
+    if dtype == torch.bfloat16 and chunk in TC_CHUNKS and p in TC_DIMS and n in TC_STATE_DIMS:
         return "tc"
     return "simt"
 
@@ -52,8 +54,14 @@ def build() -> tuple[Path, str, float]:
     return build_library(SOURCE, BASE_FLAGS, "ssd_scan")
 
 
-def build_tc() -> tuple[Path, str, float]:
-    """Compile the tensor-core kernel if needed -> (library path, nvcc log, seconds)."""
+def build_tc(heads_n16: Optional[int] = None) -> tuple[Path, str, float]:
+    """Compile the tensor-core kernel if needed -> (library path, nvcc log,
+    seconds).  ``heads_n16`` (1, 2 or 4) builds it with that many heads a
+    block at N 16 in place of the shipped choice: ``tools/ssd_tc_heads.py``
+    times the three, on no main path."""
+    if heads_n16 is not None:
+        return build_library(SOURCE_TC, (*BASE_FLAGS, f"-DSSD_TC_HEADS_N16={int(heads_n16)}"),
+                             f"ssd_scan_tc_heads{int(heads_n16)}")
     return build_library(SOURCE_TC, BASE_FLAGS, "ssd_scan_tc")
 
 
@@ -67,10 +75,10 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=1)
-def library_tc() -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def library_tc(heads_n16: Optional[int] = None) -> ctypes.CDLL:
     """The loaded tensor-core kernel library (built on first use)."""
-    path, _, _ = build_tc()
+    path, _, _ = build_tc(heads_n16)
     lib = ctypes.CDLL(str(path))
     lib.ssd_intra_chunk_tc_fwd.argtypes = [_P] * 8 + [_I] * 7 + [_L] * 12 + [_P]
     lib.ssd_intra_chunk_tc_fwd.restype = _I
@@ -83,9 +91,11 @@ def rows_aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(s % step == 0 for s in t.stride()[:-1])
 
 
-def launch(x, dt, a, b, c, y, s, ce, *, chunk: int, kind: str) -> None:
+def launch(x, dt, a, b, c, y, s, ce, *, chunk: int, kind: str,
+           heads_n16: Optional[int] = None) -> None:
     """Launch the ``kind`` kernel ("tc", "simt" or "packed", see ``route``)
-    on the current stream (the caller validated operands).
+    on the current stream (the caller validated operands); "tc" from its
+    ``build_tc(heads_n16)`` library.
 
     x [B, S, H, P], dt [B, S, H], a [B, H], b / c [B, S, N] as strided
     views; y [B, S, H, P], s [B, H, nc', P, N] and ce [B, H, S] contiguous
@@ -105,7 +115,7 @@ def launch(x, dt, a, b, c, y, s, ce, *, chunk: int, kind: str) -> None:
     ]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if kind == "tc":
-        err = library_tc().ssd_intra_chunk_tc_fwd(*args, stream)
+        err = library_tc(heads_n16).ssd_intra_chunk_tc_fwd(*args, stream)
     else:
         vec_x = rows_aligned(x) and p % (16 // x.element_size()) == 0
         err = library().ssd_intra_chunk_fwd(*args, int(x.dtype == torch.bfloat16), int(vec_x),

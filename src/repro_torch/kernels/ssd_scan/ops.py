@@ -9,7 +9,8 @@ loop over chunks, as the reference runs it in a jnp scan,
 two steps.  They route by the device of their tensors: on the CPU the
 intra-chunk term is the plain PyTorch twin (``ref.py``); on a CUDA tensor
 the hand-written kernel that ``kernel.route`` names launches — "tc" (bf16
-on the tensor cores: the mamba2 prefill's chunks of 256), "packed" (chunks
+on the tensor cores: the mamba2 and hymba prefills' chunks of 256, state
+dims 128 and 16), "packed" (chunks
 of 4 to 32: the cascade's 8 tokens) or "simt" (f32 and the other shapes)
 — or the call raises: it never falls back and reads no environment
 switch.  The kernel has no backward pass: an input that requires grad

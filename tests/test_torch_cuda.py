@@ -28,11 +28,16 @@ to 256), "packed" (chunks of 4 to 32) and "simt" — are held against their
 plain twin within 1e-4 (f32 products summed over the chunk and the state in
 another order, the cumsum scanned in another order; the tc kernel's f32
 operands split into bf16 hi + lo lose ~2^-16) on ragged chunks, strided
-model-layout operands and both state forms; the decode partials kernel
-within 2e-5 (f32 sums in another order), dead splits and an empty cache
-included, and the fused decode kernel within 2e-5 of its twin in f32 and
-2e-2 of the oracle in bf16 (bf16 at D 64 / 80 / 128 / 256 on its tensor-core
-form, each launch counted by form, the simt form held on the same inputs); the reduced f32 qwen3 and mamba2 models
+model-layout operands and both state forms (the tc kernel at N 16 too:
+hymba's 50 heads, a ragged head group); the decode partials kernel within
+2e-5 (f32 sums in another order), dead splits and an empty cache
+included, in both forms — "tc" (bf16 at D 64 / 80 / 128 / 256: P split
+into bf16 hi + lo for P.V) and "simt" — and at G 6 / 7 (nemotron, grok-1,
+arctic: the simt form in row sub-groups), and the fused decode kernel
+within 2e-5 of its twin in f32 and 2e-2 of the oracle in bf16 (bf16 at D
+64 / 80 / 128 / 256 on its tensor-core form, each launch counted by form,
+the simt form held on the same inputs); the reduced f32 qwen3 and mamba2
+models
 prefill and decode on the card as on the CPU, and the reduced bf16 ones
 (head_dim 128, SSM chunk 256) through the bf16 routes.  The model zoo:
 the flash kernels at its non-causal encoder and cross-attention shapes, a
@@ -608,7 +613,7 @@ SSD_CASES = [
     (3, 64, 2, 16, 16, 16, torch.bfloat16, True),  # the smoke config: a part-filled block
     (1, 12, 5, 8, 8, 4, torch.float32, True),  # 16 heads a block, 5 of them live
     (2, 64, 3, 32, 24, 32, torch.float32, True),
-    (1, 512, 50, 64, 16, 256, torch.bfloat16, True),  # hymba's prefill: N 16 on "simt"
+    (1, 512, 50, 64, 16, 256, torch.bfloat16, True),  # hymba's prefill: N 16 on "tc"
     (16, 8, 50, 64, 16, 8, torch.bfloat16, False),  # hymba's cascade trunk: "packed"
 ]
 
@@ -654,14 +659,40 @@ def test_ssd_kernel_matches_plain_twin(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("final", [True, False])
-@pytest.mark.parametrize("p,n", [(64, 64), (64, 128), (128, 64), (128, 128)])
+@pytest.mark.parametrize("p,n", [(64, 64), (64, 128), (128, 64), (128, 128), (64, 16),
+                                 (128, 16)])
 @pytest.mark.parametrize("chunk", [64, 128, 256])
 def test_ssd_tc_kernel_matches_plain_twin(cuda_device, chunk, p, n, final):
     """The tensor-core route on the model's strided slices, 5 heads (a group
-    of 4 and a group of 1), two chunks."""
+    of 4 and a group of 1; at N 16 groups of heads_a_block(P, 16), the last
+    ragged), two chunks."""
     args = _ssd_inputs(cuda_device, torch.bfloat16, chunk + p + n, 2, 2 * chunk, 5, p, n)
     assert ssd_kernel.route(torch.bfloat16, chunk, p, n) == "tc"
     _ssd_check(args, chunk, final, "tc")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("final", [True, False])
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+def test_ssd_tc_kernel_at_state_dim_16_holds_hymbas_heads(cuda_device, chunk, final):
+    """hymba-1.5b's SSD (H 50, P 64, N 16) on "tc": x, B and C as strided
+    views of its conv output ([B, S, 50 * 64 + 2 * 16] = 3,232 halves a row,
+    B and C at 6,400 / 6,432 bytes), 50 heads, so that a group of 4 (and of
+    3 or 1) heads is ragged; held against the twin, then the simt kernel on
+    the same inputs (uncounted) against the same twin within 1e-4 of each
+    output's largest magnitude (chip_smoke.py's SSD_TOL: the simt kernel's
+    state sums run in another order)."""
+    args = _ssd_inputs(cuda_device, torch.bfloat16, chunk + 50, 1, 4 * chunk, 50, 64, 16)
+    assert args[0].stride()[1] == 3232 and args[3].storage_offset() == 3200
+    assert ssd_kernel.route(torch.bfloat16, chunk, 64, 16) == "tc"
+    _ssd_check(args, chunk, final, "tc")
+    want = ssd_ref.intra_chunk_bshp(*args, chunk=chunk, final_state=final)
+    out = [torch.empty(t.shape, device=cuda_device) for t in want]  # the kernel's layouts
+    ssd_kernel.launch(*args, *out, chunk=chunk, kind="simt")
+    torch.cuda.synchronize()
+    for name, g, w in zip(("y_intra", "s_contrib", "cumexp"), out, want):
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        assert err <= 1e-4 * max(scale, 1.0), (f"simt {name}", err, scale)
 
 
 @pytest.mark.cuda
@@ -742,6 +773,57 @@ def test_decode_kernel_matches_plain_twin(cuda_device, case, dtype, tol):
         assert (out == 0).all()
     else:
         torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol, atol=tol)
+
+
+# then the groups of more than 512 values (the simt form's sub-groups): G 6 /
+# 7 at D 128 (nemotron, grok-1, arctic), D 80 and D 256
+PARTIALS_CASES = DA_CASES + [
+    (1, 2080, 48, 8, 128, 2056, None, None, 16),  # nemotron: G 6, D 128
+    (1, 544, 56, 8, 128, 520, None, None, 8),  # arctic: G 7, D 128
+    (2, 600, 48, 8, 80, 577, 257, None, 8),  # G 6 at D 80: a window, a ragged split
+    (1, 640, 56, 8, 80, 0, None, None, 8),  # G 7 at D 80: an empty cache
+    (1, 512, 48, 8, 256, 300, None, 50.0, 8),  # G 6 at D 256, a softcap
+    (1, 512, 56, 8, 256, 511, 100, None, 4),  # G 7 at D 256, a window
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PARTIALS_CASES)
+def test_partials_kernel_forms_match_their_twin(cuda_device, case, dtype):
+    """Both forms of the partials kernel within 2e-5 of the twin: the form
+    ``partials_route`` names (counted in ``PARTIAL_ROUTES``), and where that
+    is "tc" the simt form on the same inputs (uncounted); then
+    ``decode_attention_split`` on the cache's [B, S, KV, D] layout (the
+    mesh decode's call) against the same partials.  Every group of <= 8
+    rows is taken: G 6 / 7 at D 128 raised before the simt form ran its
+    rows in sub-groups."""
+    b, skv, h, kv, d, kv_len, window, cap, ns = case
+    q, k, v = _fa_inputs(cuda_device, dtype, skv + d + h, b, 1, skv, h, kv, d)
+    kl = torch.tensor([kv_len], dtype=torch.int32, device=cuda_device)
+    g = h // kv
+    assert da_kernel.supports_partials(g, d, dtype)
+    qm = q.reshape(b * kv, g, d)
+    km, vm = (t.transpose(1, 2).reshape(b * kv, skv, d).contiguous() for t in (k, v))
+    kw = dict(softcap=cap, window=window)
+    form, forms = da_kernel.partials_route(dtype, d), dict(da_ops.PARTIAL_ROUTES)
+    got = da_ops.decode_attention_partials(qm, km, vm, kl, num_splits=ns, **kw)
+    torch.cuda.synchronize()
+    assert da_ops.PARTIAL_ROUTES == {**forms, form: forms[form] + 1}, da_ops.PARTIAL_ROUTES
+    want = da_ref.decode_attention_partials(qm, km, vm, kl, num_splits=ns, **kw)
+    outs = {form: got}
+    if form == "tc":
+        outs["simt"] = [torch.empty_like(t) for t in got]
+        da_kernel.launch(qm, km[:, :, None], vm[:, :, None], kl, *outs["simt"], form="simt",
+                         **kw)
+    split = da_ops.decode_attention_split(q, k, v, kl, num_splits=ns, **kw)
+    torch.cuda.synchronize()
+    outs["split"] = [t.reshape(w.shape) for t, w in zip(split, want)]
+    for label, out in outs.items():
+        for name, x, y in zip(("m", "l", "acc"), out, want):
+            torch.testing.assert_close(x, y, rtol=2e-5, atol=2e-5, msg=f"{label} {name}")
+    if kv_len == 0:
+        assert (got[0] == da_ref.NEG_INF).all() and (got[1] == 0).all() and (got[2] == 0).all()
 
 
 # b, skv, h, kv, d, kv_len, window, softcap, num_splits (the fused route's)
@@ -991,7 +1073,8 @@ def _teacher_forced_pair(cuda_device, cfg, prompt, steps, seed):
                                   "seamless-m4t-large-v2"])
 def test_cuda_zoo_bf16_models_route_the_kernels(cuda_device, arch):
     """The zoo's reduced bf16 configs (``bf16_check``: head_dim 256 with both
-    softcaps, head_dim 80, GQA 5 beside SSD heads of state 16, an encoder
+    softcaps, head_dim 80, GQA 5 beside SSD heads of state 16 on the tc SSD
+    kernel, an encoder
     with cross-attention) CPU vs card, the routes asserted; the card within
     2x the bf16 CPU run's own distance from an f32 run of the same weights."""
     import dataclasses
@@ -1014,7 +1097,7 @@ def test_cuda_zoo_bf16_models_route_the_kernels(cuda_device, arch):
     assert da_ops.LAUNCHES == {"decode_attention_partials": 0,
                                "decode_attention_fused": n * steps}, da_ops.LAUNCHES
     assert da_ops.ROUTES == {"tc": n * steps, "simt": 0}, da_ops.ROUTES  # D 64 / 80 / 256
-    assert ssd_ops.ROUTES == {"tc": 0, "simt": n if arch == "hymba-1.5b" else 0, "packed": 0}
+    assert ssd_ops.ROUTES == {"tc": n if arch == "hymba-1.5b" else 0, "simt": 0, "packed": 0}
     assert int(cache.length) == prompt + steps
     f32 = Model(dataclasses.replace(model.cfg, dtype="float32"))
     ref, _ = teacher_forced(f32, map_tree(lambda t: t.float(), params), seq, prompt, max_len,
@@ -1226,20 +1309,28 @@ def test_fused_decode_softcap_holds_where_it_binds(cuda_device, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", [c for c in FUSED_BINDING if c[4] * c[2] // c[3] <= 512])
+@pytest.mark.parametrize("case", FUSED_BINDING)
 def test_partials_decode_softcap_holds_where_it_binds(cuda_device, case, dtype):
+    """The partials kernel in the form ``partials_route`` names (bf16 at D
+    64 / 80 / 128 / 256: "tc") and, on the tc form's inputs, the simt form,
+    each within 2e-5 of the twin where the cap binds, and each without its
+    cap beyond it (the running max sees the cap)."""
     q, k, v, kl, kw = _binding_decode(cuda_device, case, dtype)
     b, skv, h, kv, d = case[:5]
     qm = q.reshape(b * kv, h // kv, d)
     km, vm = (t.transpose(1, 2).reshape(b * kv, skv, d).contiguous() for t in (k, v))
-    got = da_ops.decode_attention_partials(qm, km, vm, kl, num_splits=8, **kw)
-    uncapped = da_ops.decode_attention_partials(qm, km, vm, kl, num_splits=8,
-                                                window=kw["window"])
-    torch.cuda.synchronize()
     want = da_ref.decode_attention_partials(qm, km, vm, kl, num_splits=8, **kw)
-    for name, x, y in zip(("m", "l", "acc"), got, want):
-        torch.testing.assert_close(x, y, rtol=2e-5, atol=2e-5, msg=name)
-    assert (uncapped[0] - want[0]).abs().max() > 1.0  # the running max sees the cap
+    route = da_kernel.partials_route(dtype, d)
+    for form in (route, "simt") if route == "tc" else (route,):
+        got, uncapped = ([torch.empty(t.shape, device=cuda_device) for t in want]
+                         for _ in range(2))
+        for out, cap in ((got, kw["softcap"]), (uncapped, None)):
+            da_kernel.launch(qm, km[:, :, None], vm[:, :, None], kl, *out, softcap=cap,
+                             window=kw["window"], form=form)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("m", "l", "acc"), got, want):
+            torch.testing.assert_close(x, y, rtol=2e-5, atol=2e-5, msg=f"{form} {name}")
+        assert (uncapped[0] - want[0]).abs().max() > 1.0, form  # the running max sees the cap
 
 
 # b, sq, skv, h, kv, d, causal, window, softcap, kv_len, q_offset, q_scale, dtype

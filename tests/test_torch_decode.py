@@ -31,6 +31,7 @@ from repro.kernels.decode_attention import ops as j_ops
 from repro.kernels.decode_attention import ref as j_ref
 from repro.models import attention as j_attn
 from repro_torch import interop
+from repro_torch.configs.archs import ARCHS, get_config
 from repro_torch.kernels.decode_attention import kernel, ops, ref
 from repro_torch.models import attention
 from test_torch_threads import one_torch_thread  # noqa: F401
@@ -218,6 +219,78 @@ def test_decode_wrapper_refuses_bad_operands():
     with pytest.raises(ValueError, match="B, 1, H, D"):
         ops.decode_attention(q.expand(1, 2, 4, 16), k, v, kl)
     assert ops.default_num_splits(64, 4096) == 16 and ops.default_num_splits(1024, 4096) == 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", sorted(a for a in ARCHS if ARCHS[a]().num_heads))
+def test_partials_kernel_takes_every_zoo_decode_group(arch, dtype):
+    """The partials kernel (the mesh decode's route over a row-sharded cache)
+    takes every decode group the port's architectures give it, G = H / KV
+    heads of head dim D, in both dtypes: G 6 / 7 at D 128 (nemotron, grok-1,
+    arctic) included, which the kernel once refused on the card (its simt
+    form held at most 512 query values a block) while the reference's
+    Pallas kernel computes them.  The form is "tc" exactly for bf16 at the
+    tensor-core head dims."""
+    cfg = get_config(arch)  # every architecture with attention heads (not mamba2)
+    g, d = cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
+    assert kernel.supports_partials(g, d, dtype), (arch, g, d, dtype)
+    want = "tc" if dtype == torch.bfloat16 and d in kernel.TC_HEAD_DIMS else "simt"
+    assert kernel.partials_route(dtype, d) == want
+
+
+def test_partials_split_count_fills_the_sms_in_each_form():
+    """``default_num_splits`` doubles the reference's 8 while the blocks are
+    fewer than the SMs hold at once in the partials kernel's form (four a SM
+    in simt, two in tc) and a split keeps 64 keys; ``decode_attention_split``
+    takes the count of the form its dtype and head dim route to, on the CPU
+    as on the card, so the twin's splits are the kernel's."""
+    assert ops.default_num_splits(64, 4096) == ops.default_num_splits(64, 4096, "simt") == 16
+    assert ops.default_num_splits(64, 4096, "tc") == 8  # qwen3-1.7b decode in bf16
+    assert ops.default_num_splits(8, 2080, "tc") == 32 and ops.default_num_splits(8, 544, "tc") == 8
+    q, k, v = (interop.to_torch(a) for a in _inputs(15, 8, 4096, 8, 8, 64, jnp.bfloat16))
+    kl = torch.tensor([2048], dtype=torch.int32)
+    m, _, acc = ops.decode_attention_split(q, k, v, kl)  # bf16 at D 64: the tc form's count
+    assert m.shape == (8, 8, 8, 1) and acc.shape == (8, 8, 8, 1, 64)
+    m, _, _ = ops.decode_attention_split(q.float(), k.float(), v.float(), kl)
+    assert m.shape == (8, 8, 16, 1)
+
+
+# b, skv, h, kv, d, kv_len, window, softcap, num_splits: the groups over 512
+# values a block that the simt form runs as row sub-groups (nemotron, grok-1:
+# G 6; arctic: G 7), at D 128
+WIDE_GROUP_CASES = [
+    (1, 256, 48, 8, 128, 200, None, None, 4),
+    (1, 256, 56, 8, 128, 231, 64, 30.0, 8),
+    (2, 128, 56, 8, 128, 128, None, None, 2),
+]
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("case", WIDE_GROUP_CASES)
+def test_split_partials_at_wide_groups_match_the_pallas_kernel(case, dtype):
+    """``decode_attention_split`` (the mesh decode's call, on the cache's
+    [B, S, KV, D] layout) at G 6 / 7, D 128 against the reference's Pallas
+    kernel in interpret mode on the grouped layout, and its combine against
+    the reference's jnp combine, at 2e-5."""
+    b, skv, h, kv, d, kv_len, window, cap, ns = case
+    q, k, v = _inputs(14, b, skv, h, kv, d, dtype)
+    kl = np.asarray([kv_len], np.int32)
+    ops.reset_counts()
+    m, l, acc = ops.decode_attention_split(*(interop.to_torch(a) for a in (q, k, v)),
+                                           torch.from_numpy(kl), softcap=cap, window=window,
+                                           num_splits=ns)
+    assert ops.PLAIN_CALLS[ops.KERNEL] == 1 and not any(ops.PARTIAL_ROUTES.values())
+    g = h // kv
+    assert m.shape == (b, kv, ns, g) and acc.shape == (b, kv, ns, g, d)
+    jm, jl, jacc = j_kernel.decode_attention_partials(
+        *(jnp.asarray(a) for a in _grouped(q, k, v)), jnp.asarray(kl), softcap=cap,
+        window=window, num_splits=ns, interpret=True)
+    for name, got, want in zip(("m", "l", "acc"), (m, l, acc), (jm, jl, jacc)):
+        np.testing.assert_allclose(got.reshape(want.shape).numpy(), np.asarray(want),
+                                   rtol=PART_TOL, atol=PART_TOL, err_msg=name)
+    np.testing.assert_allclose(
+        ref.combine_partials(m, l, acc).reshape(b * kv, g, d).numpy(),
+        np.asarray(j_ops.combine_partials(jm, jl, jacc)), rtol=PART_TOL, atol=PART_TOL)
 
 
 # b, skv, h, kv, d, kv_len, window, softcap, num_splits (the fused route's live-key splits)

@@ -217,6 +217,43 @@ def test_intra_chunk_refuses_bad_operands():
         ops.intra_chunk(x, dt[:, :4], a, b, b, chunk=4)
 
 
+@pytest.mark.parametrize("chunk,final", [(64, True), (128, False)])
+def test_state_dim_16_twin_over_a_ragged_head_group_matches_the_pallas_kernel(chunk, final):
+    """hymba's SSD shape cut down (P 64, N 16, bf16) in the model's layout:
+    x, B and C strided views of one projection, 6 heads, so that the tc
+    kernel's head groups of 4 (or 2 and 1) leave a ragged group; the port's
+    intra-chunk term (the twin on the CPU) against the reference's Pallas
+    kernel in interpret mode over the [B*H, ...] layout, B and C broadcast."""
+    bsz, s, nh, p, n = 1, 256, 6, 64, 16
+    rng = np.random.default_rng(chunk)
+    xbc = rng.standard_normal((bsz, s, nh * p + 2 * n)).astype(np.float32)
+    xbc = xbc.astype(ml_dtypes.bfloat16)
+    dt = rng.uniform(0.001, 0.1, (bsz, s, nh)).astype(np.float32)
+    a = -rng.uniform(1.0, 32.0, nh).astype(np.float32)
+    txbc = interop.to_torch(xbc)
+    x = txbc[..., :nh * p].reshape(bsz, s, nh, p)
+    b, c = txbc[..., nh * p:nh * p + n], txbc[..., nh * p + n:]
+    assert kernel.route(torch.bfloat16, chunk, p, n) == "tc"
+    ops.reset_counts()
+    got = ops.intra_chunk(x, torch.from_numpy(dt), torch.from_numpy(a)[None].expand(bsz, nh),
+                          b, c, chunk=chunk, final_state=final)
+    assert ops.PLAIN_CALLS[ops.KERNEL] == 1 and not any(ops.ROUTES.values())
+    xj = np.transpose(xbc[..., :nh * p].reshape(bsz, s, nh, p), (0, 2, 1, 3)).reshape(-1, s, p)
+    bj, cj = (np.broadcast_to(t[:, None], (bsz, nh, s, n)).reshape(-1, s, n)
+              for t in (xbc[..., nh * p:nh * p + n], xbc[..., nh * p + n:]))
+    jy, js, jce = j_kernel.ssd_intra_chunk(
+        jnp.asarray(xj), jnp.asarray(np.transpose(dt, (0, 2, 1)).reshape(-1, s)),
+        jnp.asarray(np.broadcast_to(a, (bsz, nh)).reshape(-1)), jnp.asarray(bj),
+        jnp.asarray(cj), chunk=chunk, interpret=True)
+    nc = s // chunk
+    want = (np.transpose(np.asarray(jy).reshape(bsz, nh, s, p), (0, 2, 1, 3)),
+            np.asarray(js).reshape(bsz, nh, nc, p, n)[:, :, :nc if final else nc - 1],
+            np.asarray(jce).reshape(bsz, nh, s))
+    for name, g, w in zip(("y_intra", "s_contrib", "cumexp"), got, want):
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=INTRA_TOL, atol=INTRA_TOL, err_msg=name)
+
+
 @pytest.mark.parametrize("dtype,chunk,p,n,want", [
     (torch.bfloat16, 256, 64, 128, "tc"),  # the mamba2-370m prefill
     (torch.bfloat16, 64, 128, 64, "tc"),
@@ -224,7 +261,9 @@ def test_intra_chunk_refuses_bad_operands():
     (torch.float32, 256, 64, 128, "simt"),  # f32 stays on the CUDA cores
     (torch.bfloat16, 50, 64, 128, "simt"),  # a chunk the tensor-core tiles do not take
     (torch.bfloat16, 256, 32, 128, "simt"),  # a head dim they do not take
-    (torch.bfloat16, 256, 64, 16, "simt"),  # a state dim they do not take
+    (torch.bfloat16, 256, 64, 16, "tc"),  # hymba's prefill: state dim 16
+    (torch.float32, 256, 64, 16, "simt"),  # ... in f32: the CUDA cores
+    (torch.bfloat16, 256, 64, 32, "simt"),  # a state dim the tensor-core tiles do not take
     (torch.bfloat16, 8, 64, 128, "packed"),  # the cascade's 8 tokens
     (torch.float32, 32, 16, 16, "packed"),
     (torch.bfloat16, 4, 64, 128, "packed"),
