@@ -15,9 +15,19 @@ in order; any failure raises and the script exits non-zero:
    kernel at the operator's shape (N = 1<<20 objects, P = 2, F = 4, the
    quickstart's learned table and an edge-bin fixture, ~30% of objects no
    candidates) — ``next_fn``, ``cost``, ``benefit`` and ``est_joint`` must be
-   bitwise equal — and their times (CUDA events around runs of 10 calls
-   enqueued behind a device sleep, so that host launch overhead does not
-   pace them; median of 25 runs after warm-up) beside the bound; the flash kernel
+   bitwise equal — and their times; then each scoring kernel's "global"
+   table route (``GLOBAL_CASES``, 10 bins: best mode at C 1M, P 4, F 8, Q 8
+   in bf16 and f32 with the 8-function world's learned table, table mode
+   at C 262,144, P 16, F 8, Q 8, the single-query kernel at N 1M, P 11, F
+   8, and best mode's wide kernel at C 1M, P 4, F 10, Q 8 in bf16 and f32
+   with the analytic fallback table), bitwise against the plain twin on plain and edge-bin rows and timed
+   beside its bound (the table read once) and the plain twin, and both
+   routes on the same inputs, uncounted, at the main paths' shapes and the
+   largest tables that still fit (``ROUTE_PAIR_CASES``); all timed with
+   CUDA events around runs of 10 calls enqueued behind a device sleep, so
+   that host launch overhead does not pace them (median of 25 runs after
+   warm-up; a plain twin of the global route 5 runs of 2), beside the
+   bound; the flash kernel
    (``FA_CASES``); the decode kernels at qwen3-1.7b decode (B 8, H 16, KV 8,
    D 128, kv_len 2048 of a 4096 cache, bf16 and f32, and a window +
    softcap case): the fused kernel (the model's route: splits over the
@@ -127,6 +137,13 @@ in order; any failure raises and the script exits non-zero:
    (Mean E(F) itself FALLS over these epochs, as it does in the reference:
    the 0.5 prior overstates 0.3-selective predicates, so early enrichment
    mostly moves probability mass down.);
+4a. eight tagging functions, whose best-mode table (P 4, 2^8 states, 10
+   bins: 327,680 B) outgrows a block's shared memory and takes the scoring
+   kernel's "global" table route: phase 3's churn trace through a CPU and
+   a card session (plans, want-bits, answers and ``answer_digest`` equal),
+   then the session server at 1,048,576 rows serves
+   ``admit:2;admit:3;admit:2;run:4``: every launch on the global route, no
+   plain call, invoices folding bit for bit, every epoch charging;
 4b. serving robustness at the same size (phase 4's world, ``MAIN_TRACE``),
    each part against a lockstep control from the same seed: ``overlap=True``
    in turns with lockstep (digests equal, no more chunk programs, epochs/s
@@ -265,7 +282,10 @@ in order; any failure raises and the script exits non-zero:
    ``ssd_intra_chunk_tc`` and
    ``ssd_intra_chunk`` (the simt and packed kernels of ``ssd_scan.cu``, its
    numbers the packed kernel's at the cascade shape, with the simt
-   kernel's ``prefill_simt_ms`` and the ``routes``); an entry timed at the
+   kernel's ``prefill_simt_ms`` and the ``routes``); the scoring kernels
+   carry their launches by table route (``routes``: "smem", "global") and
+   the global route's phase 2 numbers (``global_route``, best mode's F 10
+   case under its ``wide``); an entry timed at the
    zoo's shapes carries them in ``shapes`` (each with its ms, plain ms,
    bound and library ms), and one whose softcap was checked where it binds
    its rows in ``softcap``; every other kernel must have launched on a main
@@ -304,6 +324,27 @@ CASCADE_TRACE = "admit:2;admit:3;admit:2;run:8;retire:0;admit:2;run:88"
 CASCADE_SMOKE_TRACE = [("admit", (0, 1)), ("admit", (1, 2)), ("run", 6), ("admit", (0, 2)),
                        ("run", 6), ("retire", 0), ("run", 8)]
 N_OP, P_OP, F_OP = 1 << 20, 2, 4  # the operator's main path: the quickstart at 1M objects
+# the scoring kernels' "global" table route (tables outgrowing a block's
+# shared memory at 10 bins): best mode at the session's width with eight
+# functions (327,680 B), table mode at P 16 (C x P: the session's 4M lanes),
+# the single-query kernel at P 11, and best mode past eight functions (F 10:
+# the wide kernel, chunks of 8 and a masked tail of 2).  kernel, C, P, F, Q
+GLOBAL_CASES = (("enrich_score_best", 1 << 20, 4, 8, 8), ("enrich_score_table", 1 << 18, 16, 8, 8),
+                ("enrich_score_single", 1 << 20, 11, 8, 1), ("enrich_score_best", 1 << 20, 4, 10, 8))
+# both routes on the same inputs (uncounted): the main paths' shapes, and
+# beside GLOBAL_CASES the largest P whose table still fits shared memory at
+# F 8.  kernel, C, P, F, Q
+ROUTE_PAIR_CASES = (("enrich_score_best", 1 << 20, 4, 4, 8),
+                    ("enrich_score_best", 1 << 21, 2, 8, 8),
+                    ("enrich_score_table", 1 << 20, 4, 4, 8),
+                    ("enrich_score_table", 1 << 18, 10, 8, 8),
+                    ("enrich_score_single", 1 << 20, 2, 4, 1),
+                    ("enrich_score_single", 1 << 20, 9, 8, 1))
+# eight tagging functions of rising quality and cost: the 8-function session
+SESSION8_AUCS = (0.60, 0.70, 0.78, 0.84, 0.88, 0.91, 0.93, 0.97)
+SESSION8_COSTS = (0.01, 0.02, 0.035, 0.05, 0.08, 0.12, 0.2, 0.5)
+SESSION8_TRACE = "admit:2;admit:3;admit:2;run:4"
+SESSION8_EPOCHS = 4
 OP_EPOCHS = 32
 SOURCES = {
     "enrich_score_table": "src/repro_torch/kernels/enrich_score/csrc/enrich_score.cu",
@@ -611,6 +652,18 @@ def _bound(mode: str, prob_bytes: int, c: int, p: int, f: int, q: int, table_byt
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _es_counts(ops) -> dict:
+    """The scoring kernels' launches by kernel and by "kernel/table route"."""
+    return {**ops.LAUNCHES, **{f"{k}/{r}": n for (k, r), n in ops.TABLE_ROUTES.items()}}
+
+
+def _es_expect(table: int = 0, best: int = 0, single: int = 0) -> dict:
+    """``_es_counts`` of a run whose every scoring launch took the smem route."""
+    want = {"enrich_score_table": table, "enrich_score_best": best, "enrich_score_single": single}
+    return {**want, **{f"{k}/smem": n for k, n in want.items()},
+            **{f"{k}/global": 0 for k in want}}
+
+
 # ------------------------------------------------------------------ phases --
 
 
@@ -646,8 +699,9 @@ def phase_build():
     print(f"[build] all kernels ready in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def _small_world():
-    """A learned table + combine params + corpus outputs, made on the CPU."""
+def _small_world(aucs=None, costs=None):
+    """A learned table + combine params + corpus outputs, made on the CPU
+    (the session's four functions unless ``aucs`` / ``costs`` name others)."""
     import torch
 
     from repro_torch.core.combine import fit_combine_weights
@@ -657,28 +711,43 @@ def _small_world():
 
     gen = torch.Generator().manual_seed(1)
     corpus = make_corpus(gen, 512 + 4096, list(range(P)), [1] * P, selectivity=[0.3] * P,
-                         aucs=SESSION_AUCS, costs=SESSION_COSTS)
+                         aucs=aucs or SESSION_AUCS, costs=costs or SESSION_COSTS)
     train, evalc = split_corpus(corpus, 512)
     combine = fit_combine_weights(train.func_probs, train.truth_pred.float(), steps=150)
     table = learn_decision_table(train.func_probs, combine, num_bins=10)
     return table, combine, evalc.costs, evalc.func_probs
 
 
-def _kernel_inputs(dev, dtype, edge: bool, seed: int):
+def _kernel_inputs(dev, dtype, edge: bool, seed: int, c=C_FULL, p=P, f=F, q=Q):
     import torch
 
     from repro_torch.core.entropy import binary_entropy
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    pp = torch.rand((C_FULL, P), generator=g, device=dev) * 0.96 + 0.02
-    sid = torch.randint(0, 2**F, (C_FULL, P), generator=g, device=dev, dtype=torch.int32)
+    pp = torch.rand((c, p), generator=g, device=dev) * 0.96 + 0.02
+    sid = torch.randint(0, 2**f, (c, p), generator=g, device=dev, dtype=torch.int32)
     if edge:  # h ~ 0 (saturated), h ~ 1 (coin flips), exhausted rows
-        third = C_FULL // 3
-        pp[:third] = torch.rand((third, P), generator=g, device=dev) * 1e-4 + 1e-6
-        pp[third:2 * third] = 0.5 + (torch.rand((third, P), generator=g, device=dev) - 0.5) * 2e-5
-        sid[2 * third:] = 2**F - 1
-    joint = torch.rand((Q, C_FULL), generator=g, device=dev)
+        third = c // 3
+        pp[:third] = torch.rand((third, p), generator=g, device=dev) * 1e-4 + 1e-6
+        pp[third:2 * third] = 0.5 + (torch.rand((third, p), generator=g, device=dev) - 0.5) * 2e-5
+        sid[2 * third:] = 2**f - 1
+    joint = torch.rand((q, c), generator=g, device=dev)
     return pp.to(dtype), binary_entropy(pp).to(dtype), sid, joint.to(dtype)
+
+
+def _hold_bitwise(label: str, got, want, result: dict) -> None:
+    """All four outputs bitwise equal to the plain version's; the largest
+    finite difference (0) into ``result["max_abs_err"]``."""
+    import torch
+
+    for field, a, b in zip(("benefit", "next_fn", "est_joint", "cost"), got, want):
+        if not torch.equal(a, b):
+            diff = (a.double() - b.double()).abs().nan_to_num(0.0).max().item()
+            raise AssertionError(f"{label}: {field} differs from the plain version "
+                                 f"(max abs diff {diff})")
+        fin = torch.isfinite(a.double()) & torch.isfinite(b.double())
+        result["max_abs_err"] = max(result["max_abs_err"],
+                                    (a.double() - b.double()).abs()[fin].max().item())
 
 
 def phase_kernels(table, costs) -> dict:
@@ -710,16 +779,7 @@ def phase_kernels(table, costs) -> dict:
 
                 out, want = kernel_call(), plain_call()
                 torch.cuda.synchronize()
-                labels = ("benefit", "next_fn", "est_joint", "cost")
-                for label, a, b in zip(labels, out, want):
-                    if not torch.equal(a, b):
-                        diff = (a.double() - b.double()).abs().nan_to_num(0.0).max().item()
-                        raise AssertionError(
-                            f"{name} {dtype} edge={edge}: {label} differs from the plain "
-                            f"version (max abs diff {diff})")
-                    fin = torch.isfinite(a.double()) & torch.isfinite(b.double())
-                    err = (a.double() - b.double()).abs()[fin].max().item()
-                    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+                _hold_bitwise(f"{name} {dtype} edge={edge}", out, want, results[name])
                 if edge:
                     assert (out.next_fn[:, 2 * (C_FULL // 3):] == -1).all()
                     continue
@@ -736,13 +796,13 @@ def phase_kernels(table, costs) -> dict:
     return results
 
 
-def _single_bound(table_bytes: int) -> tuple:
+def _single_bound(table_bytes: int, n: int = N_OP, p: int = P_OP) -> tuple:
     """(bound_ms, bound_by) of one single-query launch: pred_prob, unc and
     state_id [N, P] (4 B each), joint [N] (4 B) and cand [N] (1 B) read once,
     the four [N, P] outputs that fused_benefits returns (4 B each, the
     unfloored cost among them) written once; ~18 f32 operations a lane."""
-    lanes = N_OP * P_OP
-    nbytes = lanes * 12 + N_OP * 5 + table_bytes + lanes * 16
+    lanes = n * p
+    nbytes = lanes * 12 + n * 5 + table_bytes + lanes * 16
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = lanes * 18 / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -787,7 +847,7 @@ def phase_single_kernel(table) -> dict:
                     for dt in (torch.float32, torch.int32, torch.float32, torch.float32))
 
         def kernel_call():
-            kernel.launch_single(*args, raw)
+            kernel.launch_single(*args, raw, "smem")
 
         def plain_call():
             return ref.enrich_score_single_ref(*args)
@@ -796,17 +856,8 @@ def phase_single_kernel(table) -> dict:
         kernel_call()
         want = plain_call()
         torch.cuda.synchronize()
-        labels = ("benefit", "next_fn", "est_joint", "cost")
-        for label, a, b in zip(labels, raw, want):
-            if not torch.equal(a, b):
-                diff = (a.double() - b.double()).abs().nan_to_num(0.0).max().item()
-                raise AssertionError(f"enrich_score_single edge={edge}: {label} differs from "
-                                     f"the plain version (max abs diff {diff})")
-            fin = torch.isfinite(a.double()) & torch.isfinite(b.double())
-            result["max_abs_err"] = max(result["max_abs_err"],
-                                        (a.double() - b.double()).abs()[fin].max().item())
-        for label, a, b in zip(labels, wrapped, want):
-            assert torch.equal(a, b), f"fused_benefits {label} differs from the plain version"
+        _hold_bitwise(f"enrich_score_single edge={edge}", raw, want, result)
+        _hold_bitwise(f"fused_benefits edge={edge}", wrapped, want, result)
         assert torch.isneginf(raw[0][st.in_answer]).all()
         if edge:
             assert (raw[1][2 * (N_OP // 3):] == -1).all()
@@ -823,6 +874,216 @@ def phase_single_kernel(table) -> dict:
     return result
 
 
+def phase_global_tables(table8, costs8) -> dict:
+    """Each scoring kernel's "global" table route (tables outgrowing a
+    block's shared memory) against its plain twin at ``GLOBAL_CASES``: all
+    four outputs bitwise on plain and edge-bin rows, each wrapper launch
+    counted on the route; timed beside the bound (the table read once) and
+    the plain twin.  Best mode at F 8 scores with ``table8``, the
+    8-function session world's learned table; best mode at F 10 (the wide
+    kernel), table mode and the single-query kernel with the analytic
+    fallback table.  -> {kernel: {...}}, a best-mode case past F 8 under
+    the kernel's ``"wide"``"""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.decision_table import fallback_decision_table
+    from repro_torch.core.query import Predicate, conjunction
+    from repro_torch.core.state import EnrichmentState
+    from repro_torch.kernels.enrich_score import kernel, ops, ref
+
+    dev = torch.device("cuda")
+    lut = ops._lut(4096, dev)
+    results = {}
+    for name, c, p, f, q in GLOBAL_CASES:
+        mode = name.rsplit("_", 1)[1]
+        wide = mode == "best" and f > kernel.SMEM_MAX_FUNCTIONS
+        if mode == "best" and not wide:
+            table, costs = table8.to(dev), costs8.to(dev)
+        else:
+            table = fallback_decision_table(p, f, torch.linspace(0.6, 0.9, f)).to(dev)
+            costs = torch.tensor(np.tile(np.linspace(0.05, 0.9, f), (p, 1)), dtype=torch.float32,
+                                 device=dev)
+        table_bytes = 4 * ((table.delta_h_all.numel() if mode == "best" else
+                            2 * table.delta_h.numel()) + costs.numel() + lut.numel())
+        assert table.delta_h.shape == (p, 2**f, 10), table.delta_h.shape
+        assert kernel.table_route(mode, p, 2**f, 10, f, 4096) == "global"
+        result = {"max_abs_err": 0.0, "c": c, "p": p, "f": f, "q": q, "bins": 10,
+                  "table_bytes": table_bytes}
+        dtypes = (torch.float32,) if mode == "single" else (torch.bfloat16, torch.float32)
+        for dtype in dtypes:
+            for edge in (False, True):
+                pp, unc, sid, joint = _kernel_inputs(dev, dtype, edge, 31 + edge, c, p, f, q)
+                label = f"{name} global F{f} {str(dtype)[6:]} edge={edge}"
+                before = ops.TABLE_ROUTES[(name, "global")]
+                if mode == "single":
+                    g = torch.Generator(device=dev).manual_seed(37 + edge)
+                    bits = (sid[..., None] >> torch.arange(f, device=dev)) & 1
+                    st = EnrichmentState(
+                        func_probs=torch.full((c, p, f), 0.5, device=dev),
+                        exec_mask=bits.bool(), pred_prob=pp, uncertainty=unc,
+                        joint_prob=joint[0].contiguous(),
+                        in_answer=torch.rand((c,), generator=g, device=dev) < 0.3,
+                        cost_spent=torch.zeros((), device=dev))
+                    args = (pp, unc, sid, st.joint_prob, (~st.in_answer).contiguous(),
+                            table.delta_h, table.next_fn, costs, lut)
+                    raw = tuple(torch.empty((c, p), dtype=dt, device=dev) for dt in
+                                (torch.float32, torch.int32, torch.float32, torch.float32))
+                    wrapped = ops.fused_benefits(st, conjunction(*[Predicate(i, 1)
+                                                                   for i in range(p)]),
+                                                 table, costs)
+
+                    def kernel_call():
+                        kernel.launch_single(*args, raw, "global")
+
+                    def plain_call():
+                        return ref.enrich_score_single_ref(*args)
+
+                    kernel_call()
+                    got, fn_rows = raw, raw[1][2 * (c // 3):]
+                else:
+                    def kernel_call():
+                        return ops.fused_benefits_batched(pp, unc, sid, joint, table, costs,
+                                                          mode)
+
+                    def plain_call():
+                        if mode == "best":
+                            return ref.enrich_score_best_ref(pp, unc, sid, joint,
+                                                             table.delta_h_all, costs, lut)
+                        return ref.enrich_score_table_ref(pp, unc, sid, joint, table.delta_h,
+                                                          table.next_fn, costs, lut)
+
+                    got = kernel_call()
+                    fn_rows = got[1][:, 2 * (c // 3):]
+                want = plain_call()
+                torch.cuda.synchronize()
+                assert ops.TABLE_ROUTES[(name, "global")] == before + 1, ops.TABLE_ROUTES
+                _hold_bitwise(label, got, want, result)
+                if mode == "single":  # the raw launch above, and the counted wrapper
+                    _hold_bitwise(f"{label} (wrapper)", wrapped, want, result)
+                if edge:
+                    assert (fn_rows == -1).all(), f"{label}: exhausted rows chose a function"
+                    continue
+                ms, plain_ms = _time_ms(kernel_call), _time_ms(plain_call, reps=5, inner=2)
+                bound_ms, bound_by = (_single_bound(table_bytes, c, p) if mode == "single" else
+                                      _bound(mode, pp.element_size(), c, p, f, q, table_bytes))
+                result[str(dtype)[6:]] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                              bound_by=bound_by)
+                print(f"[kernels] {name}{' (wide)' * wide} global route {str(dtype)[6:]} "
+                      f"C={c} P={p} F={f} "
+                      f"Q={q}, 10 bins (table {table_bytes} B): bitwise equal to plain "
+                      f"(benefit, next_fn, est_joint, cost); kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                      f"{bound_ms / ms:.1%} of bound", flush=True)
+        if wide:
+            results[name]["wide"] = result
+        else:
+            results[name] = result
+    for name, c, p, f, q in ROUTE_PAIR_CASES:
+        results[name].setdefault("same_inputs", []).append(
+            dict(c=c, p=p, f=f, q=q, **_route_pair(name, c, p, f, q, lut)))
+    return results
+
+
+def _route_pair(name, c, p, f, q, lut) -> dict:
+    """One kernel's smem and global routes on the same inputs (f32 rows, the
+    fallback table, uncounted launches) at a shape whose table still fits
+    shared memory: what reading the table from device memory costs, apart
+    from the shape -> {route: ms}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.decision_table import fallback_decision_table
+    from repro_torch.kernels.enrich_score import kernel
+
+    dev = lut.device
+    mode = name.rsplit("_", 1)[1]
+    assert kernel.table_route(mode, p, 2**f, 10, f, 4096) == "smem"
+    table = fallback_decision_table(p, f, torch.linspace(0.6, 0.9, f)).to(dev)
+    costs = torch.tensor(np.tile(np.linspace(0.05, 0.9, f), (p, 1)), dtype=torch.float32,
+                         device=dev)
+    pp, unc, sid, joint = _kernel_inputs(dev, torch.float32, False, 41, c, p, f, q)
+    shape = (c, p) if mode == "single" else (q, c, p)
+    outs = {r: tuple(torch.empty(shape, dtype=dt, device=dev) for dt in
+                     (torch.float32, torch.int32, torch.float32, torch.float32))
+            for r in kernel.ROUTES}
+    cand = torch.rand((c,), device=dev) > 0.3
+
+    def call(route):
+        if mode == "best":
+            kernel.launch_best(pp, unc, sid, joint, table.delta_h_all, costs, lut, outs[route],
+                               route)
+        elif mode == "table":
+            kernel.launch_table(pp, unc, sid, joint, table.delta_h, table.next_fn, costs, lut,
+                                outs[route], route)
+        else:
+            kernel.launch_single(pp, unc, sid, joint[0], cand, table.delta_h, table.next_fn,
+                                 costs, lut, outs[route], route)
+
+    for route in kernel.ROUTES:
+        call(route)
+    torch.cuda.synchronize()
+    for a, b in zip(*outs.values()):
+        assert torch.equal(a, b), f"{name}: the two routes differ at P {p} F {f}"
+    ms = {route: _time_ms(functools.partial(call, route)) for route in kernel.ROUTES}
+    print(f"[kernels] {name} both routes on the same inputs (f32, C={c} P={p} F={f} Q={q}, "
+          f"10 bins, uncounted): smem {ms['smem']:.4f} ms, global {ms['global']:.4f} ms "
+          f"({ms['global'] / ms['smem']:.3f}x), outputs equal", flush=True)
+    return ms
+
+
+def phase_session_8fn(world8) -> dict:
+    """Best mode with eight tagging functions, whose table (P 4, 2^8 states,
+    10 bins) takes the "global" route: phase 3's churn trace through a CPU
+    and a card session (plans, want-bits, answers and answer digest equal),
+    then the session server at 1,048,576 rows for a few epochs, counts zeroed
+    just before and read just after."""
+    import torch
+
+    from repro_torch.kernels.enrich_score import kernel, ops
+    from repro_torch.launch import serve
+
+    table, combine, costs, outputs = world8
+    t0 = time.perf_counter()
+    ops.reset_counts()
+    epochs, cpu_cost, gpu_cost = _run_trace_pair(table, combine, costs, outputs, "best")
+    small = _es_counts(ops)
+    assert small["enrich_score_best/global"] == small["enrich_score_best"] > 0, small
+    print(f"[session-8fn] CPU and card sessions agree over {epochs} best-mode epochs with 8 "
+          f"functions (plans, merged plans, want-bits, answers, answer digest equal; spend "
+          f"{cpu_cost!r} vs {gpu_cost!r}); card launches {small} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    session, state, pool, preds = serve.build_session_server(
+        num_objects=SESSION_ROWS, capacity=SESSION_ROWS, num_preds=P, max_tenants=8,
+        substrate_dtype="bfloat16", device="cuda", aucs=SESSION8_AUCS, costs=SESSION8_COSTS)
+    setup_s = time.perf_counter() - t0
+    d_all = session.table.delta_h_all
+    assert d_all.shape == (P, 256, 10, 8), d_all.shape
+    assert kernel.table_route("best", P, 256, 10, 8, 4096) == "global"
+    ops.reset_counts()
+    report = serve.serve_session_trace(session, state, serve.parse_trace(SESSION8_TRACE),
+                                       pool=pool, preds=preds)
+    launches, plain = _es_counts(ops), dict(ops.PLAIN_CALLS)
+    hist = report.history
+    assert not any(plain.values()), f"plain path ran on the 8-function session: {plain}"
+    assert launches["enrich_score_best"] == report.epochs == SESSION8_EPOCHS, launches
+    assert launches["enrich_score_best/global"] == report.epochs, launches
+    spent = [h.cost_spent for h in hist]
+    assert all(b > a for a, b in zip(spent, spent[1:])), "an epoch charged nothing"
+    for h in hist:
+        assert all(f == f and 0.0 <= f <= 1.0 for f in h.expected_f), h.expected_f
+    assert torch.isfinite(report.state.derived.pred_prob.float()).all()
+    assert _fold(report.state), "invoices do not fold to cost_spent"
+    print(f"[session-8fn] server at {report.num_rows} rows, 8 functions (delta_h_all "
+          f"{d_all.numel() * 4} B): setup {setup_s:.2f} s; trace {SESSION8_TRACE!r}: "
+          f"{report.epochs} epochs in {report.wall_s:.2f} s wall; cost_spent "
+          f"{report.cost_spent!r}; mean E(F) {hist[0].mean_expected_f!r} -> "
+          f"{hist[-1].mean_expected_f!r}; launches {launches}", flush=True)
+    return launches
+
+
 def _run_trace_pair(table, combine, costs, outputs, mode):
     """The smoke churn trace through a CPU and a CUDA session, epoch by epoch."""
     import numpy as np
@@ -831,6 +1092,7 @@ def _run_trace_pair(table, combine, costs, outputs, mode):
     from repro_torch.core.executor import EngineConfig
     from repro_torch.core.query import Predicate, conjunction
     from repro_torch.core.session import EngineSession
+    from repro_torch.launch.serve import state_digests
 
     preds = [Predicate(i, 1) for i in range(P)]
     sessions, states = [], []
@@ -873,6 +1135,8 @@ def _run_trace_pair(table, combine, costs, outputs, mode):
             epochs += 1
     bills = [st.ledger.bills(st.cost_spent) for st in states]
     np.testing.assert_allclose(bills[1], bills[0], rtol=1e-5, atol=1e-6)
+    digests = [state_digests(st)[2] for st in states]
+    assert digests[0] == digests[1], f"{mode}: answer digests differ: {digests}"
     return epochs, hc.cost_spent, hg.cost_spent
 
 
@@ -925,15 +1189,14 @@ def phase_main_path() -> dict:
     t1 = time.perf_counter()
     final, table_hist = table_session.run(grown, 8, stop_when_exhausted=False)
     table_s = time.perf_counter() - t1
-    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    launches, plain = _es_counts(ops), dict(ops.PLAIN_CALLS)
     assert not fa_ops.LAUNCHES["flash_attention"] and not fa_ops.PLAIN_CALLS["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
 
     hist = report.history
     assert report.epochs == 24 and len(table_hist) == 8
     assert grown.capacity == 1 << 20 and report.num_rows == 1 << 20 and report.growths == 1
-    assert launches == {"enrich_score_table": 8, "enrich_score_best": 24,
-                        "enrich_score_single": 0}, launches
+    assert launches == _es_expect(table=8, best=24), launches  # P 4, F 4: the smem route
     assert not any(plain.values()), f"plain path ran on the main path: {plain}"
     assert report.superstep_traces <= session.retrace_bound, report.superstep_traces
     assert _fold(grown) and _fold(final), "invoices do not fold to cost_spent"
@@ -1358,7 +1621,7 @@ def phase_operator_main_path() -> dict:
     world = quickstart_world(N_OP, train_size=1024, device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    launches = dict.fromkeys(ops.KERNELS, 0)
+    launches = dict.fromkeys(_es_counts(ops), 0)
     lines = []
     for fused in (True, False):
         op, st0 = quickstart_operator(world, fused, device="cuda")
@@ -1368,15 +1631,14 @@ def phase_operator_main_path() -> dict:
         final, hist = op.run(N_OP, OP_EPOCHS, state=st0, stop_when_exhausted=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        run_launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        run_launches, plain = _es_counts(ops), dict(ops.PLAIN_CALLS)
         assert len(hist) == OP_EPOCHS, len(hist)
         assert not any(plain.values()), f"plain path ran on the operator path: {plain}"
+        # P 2, F 4: the smem route
         if fused:
-            assert run_launches == {"enrich_score_table": 0, "enrich_score_best": 0,
-                                    "enrich_score_single": OP_EPOCHS}, run_launches
+            assert run_launches == _es_expect(single=OP_EPOCHS), run_launches
         else:
-            assert run_launches == {"enrich_score_table": OP_EPOCHS, "enrich_score_best": 0,
-                                    "enrich_score_single": 0}, run_launches
+            assert run_launches == _es_expect(table=OP_EPOCHS), run_launches
         for k, v in run_launches.items():
             launches[k] += v
         live = [h for h in hist if h.plan_valid > 0]
@@ -1408,7 +1670,7 @@ def phase_serve_entry_points() -> dict:
     from repro_torch.kernels.enrich_score import ops
     from repro_torch.launch import serve
 
-    launches = dict.fromkeys(ops.KERNELS, 0)
+    launches = dict.fromkeys(_es_counts(ops), 0)
     base = ["--objects", "512", "--preds", "2", "--epochs", "8", "--backbone", ""]
     for extra in ([], ["--queries", "4"]):
         ops.reset_counts()
@@ -1417,7 +1679,7 @@ def phase_serve_entry_points() -> dict:
         assert not any(ops.PLAIN_CALLS.values()), ops.PLAIN_CALLS
         if extra:  # the multi-query server scores in best mode
             assert ops.LAUNCHES["enrich_score_best"] > 0, ops.LAUNCHES
-        for k, v in ops.LAUNCHES.items():
+        for k, v in _es_counts(ops).items():
             launches[k] += v
         print(f"[serve] {' '.join(base + extra)!r}: rc 0, launches {dict(ops.LAUNCHES)}",
               flush=True)
@@ -1481,7 +1743,7 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     trunk_marks.append(trunk0)
     report = serve.serve_session_trace(session, state, serve.parse_trace(CASCADE_TRACE),
                                        preds=preds, chunk_size=1, boundary_hook=on_chunk)
-    launches = {**es_ops.LAUNCHES, **fa_ops.LAUNCHES, **ssd_ops.LAUNCHES,
+    launches = {**_es_counts(es_ops), **fa_ops.LAUNCHES, **ssd_ops.LAUNCHES,
                 **{f"flash_attention/{r}": n for r, n in fa_ops.ROUTES.items()},
                 **{f"ssd_intra_chunk/{r}": n for r, n in ssd_ops.ROUTES.items()}}
     plain = {**es_ops.PLAIN_CALLS, **fa_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
@@ -1501,6 +1763,7 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     assert ssd_ops.ROUTES == {"tc": 0, "simt": 0, "packed": launches["ssd_intra_chunk"]}, (
         ssd_ops.ROUTES)
     assert launches["enrich_score_best"] == report.epochs and not launches["enrich_score_table"]
+    assert launches["enrich_score_best/smem"] == report.epochs, launches  # P 3, F 3
     assert not any(plain.values()), f"plain path ran on the cascade main path: {plain}"
     assert bank.bank_syncs - syncs0 == report.epochs  # the one host read per epoch
     bound = max(len(report.scan_lengths), 1) * (report.growths + 1)
@@ -2362,7 +2625,7 @@ def _all_counts() -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    return {**_launches(fa_ops, da_ops, ssd_ops), **es_ops.LAUNCHES,
+    return {**_launches(fa_ops, da_ops, ssd_ops), **_es_counts(es_ops),
             **{f"plain/{k}": n for ops in (fa_ops, da_ops, ssd_ops, es_ops)
                for k, n in ops.PLAIN_CALLS.items()}}
 
@@ -2928,10 +3191,9 @@ def _session_serve(mesh, plan_shards: int = 1) -> dict:
     final, hist = table.run(rep.state, 8, stop_when_exhausted=False)
     torch.cuda.synchronize()
     table_s = time.perf_counter() - t0
-    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    launches, plain = _es_counts(ops), dict(ops.PLAIN_CALLS)
     assert not any(plain.values()), f"the plain path ran: {plain}"
-    assert launches == {"enrich_score_table": 8, "enrich_score_best": 24,
-                        "enrich_score_single": 0}, launches
+    assert launches == _es_expect(table=8, best=24), launches
     runs = {k: session.program.program_runs[k] + table.program.program_runs[k]
             for k in session.program.program_runs}
     want = "device" if mesh is None else "per_rank"
@@ -2988,7 +3250,7 @@ def _session_supervised(mesh) -> dict:
                                              checkpoint_keep=3))
     ops.reset_counts()
     rep = sup.serve()
-    launches = dict(ops.LAUNCHES)
+    launches = _es_counts(ops)
     assert not any(ops.PLAIN_CALLS.values()), dict(ops.PLAIN_CALLS)
     shutil.rmtree(root, ignore_errors=True)
     summary = {k: v for k, v in sup.summary().items() if k != "recovery_latency_s"}
@@ -3129,7 +3391,7 @@ def _stage_trace(pipe, events, pool, preds, seed: int = 0) -> None:
 
 
 def _robust_counts(ops, what: str, best: int = None, table: int = 0) -> dict:
-    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    launches, plain = _es_counts(ops), dict(ops.PLAIN_CALLS)
     assert not any(plain.values()), f"{what}: the plain path ran: {plain}"
     if best is not None:
         assert launches["enrich_score_best"] == best, (what, launches)
@@ -3148,7 +3410,7 @@ def _robust_overlap(ops, serve, events) -> dict:
     from repro_torch.core.executor import EngineConfig
     from repro_torch.core.session import EngineSession
 
-    launches = dict.fromkeys(ops.KERNELS, 0)
+    launches = dict.fromkeys(_es_counts(ops), 0)
     reports = {}
     for name in ("lockstep", "overlap", "overlap ", "lockstep "):  # in turns
         session, state, pool, preds = _robust_world()
@@ -3220,7 +3482,7 @@ def _robust_streaming(ops, serve, events, control) -> dict:
 
     from repro_torch.ingest import IngestStream, PendingRing
 
-    launches = dict.fromkeys(ops.KERNELS, 0)
+    launches = dict.fromkeys(_es_counts(ops), 0)
     for slots, policy, overlap in ((4, "block", True), (2, "spill", False)):
         session, state, pool, preds = _robust_world()
         streaming = serve.StreamingIngest(session, batch_rows=ROBUST_BATCH, num_slots=slots,
@@ -3291,7 +3553,7 @@ def _robust_resume(ops, serve, events, control) -> dict:
     from repro_torch.core.durability import SessionCheckpointer, restore_session_checkpoint
     from repro_torch.runtime.fault_tolerance import PreemptionHandler
 
-    launches = dict.fromkeys(ops.KERNELS, 0)
+    launches = dict.fromkeys(_es_counts(ops), 0)
     root = ROBUST_DIR / "resume"
     shutil.rmtree(root, ignore_errors=True)
     session, state, pool, preds = _robust_world()
@@ -3339,7 +3601,7 @@ def _robust_supervised(ops, serve, events, control) -> dict:
     from repro_torch.runtime.chaos import parse_fault_spec
     from repro_torch.runtime.supervisor import Supervisor, SupervisorConfig
 
-    launches = dict.fromkeys(ops.KERNELS, 0)
+    launches = dict.fromkeys(_es_counts(ops), 0)
     session, state, pool, preds = _robust_world(plan_shards=2)
     ops.reset_counts()
     control2 = serve.serve_session_trace(session, state, events, pool=pool, preds=preds,
@@ -3470,7 +3732,7 @@ def phase_serving_robustness() -> dict:
     runs.append(_robust_supervised(ops, serve, events, control))
     _robust_cpu_vs_gpu(serve)
     shutil.rmtree(ROBUST_DIR, ignore_errors=True)
-    total = {k: sum(r.get(k, 0) for r in runs) for k in ops.KERNELS}
+    total = {k: sum(r.get(k, 0) for r in runs) for k in _es_counts(ops)}
     print(f"[robust] all parts passed in {time.perf_counter() - t0:.1f} s; launches {total}",
           flush=True)
     return total
@@ -3507,6 +3769,8 @@ def main() -> int:
     results = phase_kernels(table, costs)
     quickstart = quickstart_world(4096, device="cpu")
     results["enrich_score_single"] = phase_single_kernel(quickstart["table"])
+    world8 = _small_world(SESSION8_AUCS, SESSION8_COSTS)  # eight functions: "global" tables
+    global_route = phase_global_tables(world8[0], world8[2])
     flash = phase_flash()
     for route, name in (("simt", "flash_attention"), ("tc", "flash_attention_tc"),
                         ("short", "flash_attention_short"), ("split", "flash_attention_split")):
@@ -3522,7 +3786,8 @@ def main() -> int:
     phase_serve_bf16_cpu_vs_gpu()
     phase_moe_cpu_vs_gpu()
     phase_cascade_bf16_cpu_vs_gpu()
-    runs = [phase_main_path(), phase_serving_robustness(), phase_cascade_main_path("qwen3-1.7b"),
+    runs = [phase_main_path(), phase_session_8fn(world8), phase_serving_robustness(),
+            phase_cascade_main_path("qwen3-1.7b"),
             phase_cascade_main_path("mamba2-370m"), phase_cascade_main_path("hymba-1.5b"),
             phase_operator_main_path(), phase_serve_entry_points(), phase_model_serve(),
             phase_zoo_serve()]
@@ -3543,6 +3808,10 @@ def main() -> int:
     missing = [k["name"] for k in kernels if not k["launches"] and k["name"] not in OFF_PATH]
     assert not missing, f"kernels of the main paths launched no time there: {missing}"
     by_name = {k["name"]: k for k in kernels}
+    for name, glob in global_route.items():  # the scoring kernels' launches by table route
+        routes = {r: sum(run.get(f"{name}/{r}", 0) for run in runs) for r in ("smem", "global")}
+        assert sum(routes.values()) == by_name[name]["launches"], (name, routes)
+        by_name[name].update(routes=routes, global_route=glob)
     by_name["flash_attention"].update(
         prefill_ms=results["flash_attention"]["prefill_ms"],
         prefill_bound_ms=results["flash_attention"]["prefill_bound_ms"],

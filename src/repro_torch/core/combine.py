@@ -6,7 +6,8 @@ Port of ``repro.core.combine``: masked logistic pooling
 
 with per-function reliability weights ``w_f``, learned offline by gradient
 descent on NLL (``fit_combine_weights``, ``torch.autograd`` in a plain loop)
-or set from AUCs in closed form (``default_combine_params``).
+or set from AUCs in closed form (``default_combine_params``); and Platt
+scaling of one function's raw scores (``calibrate_platt`` / ``apply_platt``).
 """
 
 from __future__ import annotations
@@ -114,6 +115,33 @@ def fit_combine_weights(
             theta = [(t - lr * g).requires_grad_(True) for t, g in zip(theta, grads)]
     with torch.no_grad():
         return unpack(*(t.detach() for t in theta))
+
+
+def calibrate_platt(
+    raw_scores: torch.Tensor, labels: torch.Tensor, steps: int = 300, lr: float = 0.1
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Platt scaling (paper section 6.1 calibrates functions this way).
+
+    Fits (a, b) minimizing the NLL of sigmoid(a * logit(s) + b) by plain
+    gradient descent from (1, 0), one ``torch.autograd.grad`` per step, as
+    the reference runs it under ``lax.scan``.  Returns (a, b).
+    """
+    raw_scores = raw_scores.to(torch.float32)
+    labels = labels.to(torch.float32)
+    logit = _logit(raw_scores)
+    ab = torch.tensor([1.0, 0.0], device=raw_scores.device, requires_grad=True)
+    for _ in range(steps):
+        p = torch.clamp(torch.sigmoid(ab[0] * logit + ab[1]), 1e-6, 1 - 1e-6)
+        nll = -(labels * torch.log(p) + (1 - labels) * torch.log(1 - p)).mean()
+        (g,) = torch.autograd.grad(nll, ab)
+        with torch.no_grad():
+            ab = (ab - lr * g).requires_grad_(True)
+    ab = ab.detach()
+    return ab[0], ab[1]
+
+
+def apply_platt(raw_scores: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(a * _logit(raw_scores) + b)
 
 
 def auc_score(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -80,6 +80,11 @@ def inverse_entropy_upper(h: torch.Tensor, bins: int = 4096) -> torch.Tensor:
     return lut_lerp(torch.clamp(h, 0.0, 1.0), inverse_entropy_table(bins, h.device))
 
 
+def inverse_entropy_lower(h: torch.Tensor, bins: int = 4096) -> torch.Tensor:
+    """Lower root p <= 0.5 of H(p) = h (the pessimistic solution of Eq. 8)."""
+    return 1.0 - inverse_entropy_upper(h, bins)
+
+
 def uncertainty_bin(h: torch.Tensor, num_bins: int) -> torch.Tensor:
     """Map uncertainty h in [0,1] to a decision-table bin index (paper Table 3)."""
     b = torch.floor(torch.clamp(h, 0.0, 1.0 - 1e-7) * num_bins).to(torch.int64)

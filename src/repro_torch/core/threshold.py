@@ -102,3 +102,15 @@ def select_answer_approx(
         expected_recall=s / torch.clamp_min(k, 1e-9),
         size=n_sel,
     )
+
+
+def expected_f_of_mask(
+    joint_prob: torch.Tensor, mask: torch.Tensor, alpha: float = 1.0
+) -> torch.Tensor:
+    """E(F_alpha) of an arbitrary candidate answer set (Eq. 6), summed at
+    ``joint_prob``'s dtype over all its elements, as the reference sums."""
+    mask = mask.to(torch.bool)
+    s = torch.where(mask, joint_prob, 0.0).sum()
+    size = torch.clamp_min(mask.sum(), 1)
+    k = joint_prob.sum()
+    return (1.0 + alpha) * s / (alpha * k + size)

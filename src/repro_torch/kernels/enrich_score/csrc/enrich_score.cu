@@ -69,6 +69,25 @@
 //     (st.global.cs; 16 bytes at P = 4).  What remains
 //     per (lane, tenant, function) is one multiply, a clip and the
 //     benefit's IEEE division.  P > 4 keeps one thread per lane.
+//   * Two table routes, picked by the wrapper (kernel.table_route), each
+//     kernel templated on it.  "smem": the tables staged in shared memory,
+//     as above, where they fit a block's 227 KB (and, in best mode, F <= 8).
+//     "global": every larger table the reference scores.  A table has 2^F
+//     states, so at 10 bins best mode outgrows shared memory at F 8 with
+//     P >= 3 and table mode at F 8 with P >= 11.  Only the LUT and the
+//     [P, F] costs are staged; each lane reads its one table entry (table
+//     mode) or its contiguous [F] row (best mode) from device memory
+//     through the read-only path, indexed in int64.  Tables of 0.3-10 MB
+//     stay resident in the 50 MB L2, and the arithmetic is the smem
+//     form's, op for op: only the load source differs.  Best mode on this
+//     route runs one thread a lane at every P.
+//   * Best mode past F 8 (global route only; on no main path): one thread
+//     a lane, a runtime F walked in register chunks of kChunk functions
+//     per tenant, the running (benefit, fn, est, cost) carried across
+//     chunks with the same strict compare in function order, so ties keep
+//     the first maximum.  A chunk's p_hat is recomputed for every tenant
+//     (an LUT lerp per lane, tenant and function) instead of held for all F
+//     functions in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,7 +97,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxFunctions = 8;
+constexpr int kMaxFunctions = 8;  // unrolled best-mode kernels: F 1..8
+constexpr int kChunk = 8;  // functions a chunk past kMaxFunctions
 // f32 roundings of the double constants the reference applies to f32 data
 constexpr float kClipHi = (float)(1.0 - 1e-7);
 constexpr float kMinP = (float)1e-12;
@@ -114,28 +134,40 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
-// The decision-table mode's shared-memory tables: [P*S*B] deltas and
-// next functions, [P*F] costs, the LUT.
-struct TableSmem {
+// The decision-table mode's tables: [P*S*B] deltas and next functions, [P*F]
+// costs, the LUT.  The "smem" route stages all four in shared memory; the
+// "global" route stages the costs and the LUT and leaves the deltas and next
+// functions in device memory.
+struct TableRefs {
   const float* delta;
   const int32_t* next;
   const float* cost;
   const float* lut;
 };
 
-__device__ __forceinline__ TableSmem stage_table(
+template <bool GLOBAL>
+__device__ __forceinline__ TableRefs stage_table(
     float* smem, const float* delta_tab, const int32_t* next_tab, const float* cost_tab,
-    const float* lut, int tsize, int PF, int lut_bins) {
-  float* s_delta = smem;
-  int32_t* s_next = reinterpret_cast<int32_t*>(s_delta + tsize);
-  float* s_cost = reinterpret_cast<float*>(s_next + tsize);
-  float* s_lut = s_cost + PF;
-  stage(s_delta, delta_tab, tsize);
-  for (int i = threadIdx.x; i < tsize; i += blockDim.x) s_next[i] = next_tab[i];
-  stage(s_cost, cost_tab, PF);
-  stage(s_lut, lut, lut_bins);
-  __syncthreads();
-  return TableSmem{s_delta, s_next, s_cost, s_lut};
+    const float* lut, int P, int num_states, int num_bins, int F, int lut_bins) {
+  const int PF = P * F;
+  if constexpr (GLOBAL) {
+    stage(smem, cost_tab, PF);
+    stage(smem + PF, lut, lut_bins);
+    __syncthreads();
+    return TableRefs{delta_tab, next_tab, smem, smem + PF};
+  } else {
+    const int tsize = P * num_states * num_bins;
+    float* s_delta = smem;
+    int32_t* s_next = reinterpret_cast<int32_t*>(s_delta + tsize);
+    float* s_cost = reinterpret_cast<float*>(s_next + tsize);
+    float* s_lut = s_cost + PF;
+    stage(s_delta, delta_tab, tsize);
+    for (int i = threadIdx.x; i < tsize; i += blockDim.x) s_next[i] = next_tab[i];
+    stage(s_cost, cost_tab, PF);
+    stage(s_lut, lut, lut_bins);
+    __syncthreads();
+    return TableRefs{s_delta, s_next, s_cost, s_lut};
+  }
 }
 
 // Everything of one (object, predicate) lane that no joint probability
@@ -146,12 +178,21 @@ struct TableLane {
   float cost;
 };
 
-__device__ __forceinline__ TableLane table_lane(TableSmem t, float h, int p, int state,
+template <bool GLOBAL>
+__device__ __forceinline__ TableLane table_lane(TableRefs t, float h, int p, int state,
                                                 int num_states, int num_bins, int F, int lut_bins) {
-  const int k = (p * num_states + state) * num_bins + bin_of(h, num_bins);
   TableLane r;
-  r.fn = t.next[k];
-  r.p_hat = lut_lerp(clip01(__fadd_rn(h, t.delta[k])), t.lut, lut_bins);
+  float delta;
+  if constexpr (GLOBAL) {  // one entry from device memory (read-only path)
+    const int64_t k = ((int64_t)p * num_states + state) * num_bins + bin_of(h, num_bins);
+    r.fn = __ldg(t.next + k);
+    delta = __ldg(t.delta + k);
+  } else {
+    const int k = (p * num_states + state) * num_bins + bin_of(h, num_bins);
+    r.fn = t.next[k];
+    delta = t.delta[k];
+  }
+  r.p_hat = lut_lerp(clip01(__fadd_rn(h, delta)), t.lut, lut_bins);
   r.cost = fmaxf(t.cost[p * F + max(r.fn, 0)], kMinCost);
   return r;
 }
@@ -160,7 +201,7 @@ __device__ __forceinline__ float benefit_of(float j, float est, float cost) {
   return __fdiv_rn(__fmul_rn(j, est), cost);  // (j * est) / cost, in that order
 }
 
-template <typename T>
+template <typename T, bool GLOBAL>
 __global__ void __launch_bounds__(kThreads) enrich_score_table_kernel(
     const T* __restrict__ pred_prob, const T* __restrict__ unc,
     const int32_t* __restrict__ state_id, const T* __restrict__ joint,
@@ -170,16 +211,16 @@ __global__ void __launch_bounds__(kThreads) enrich_score_table_kernel(
     float* __restrict__ est_out, float* __restrict__ cost_out,
     int64_t num_rows, int P, int Q, int num_states, int num_bins, int F, int lut_bins) {
   extern __shared__ float smem[];
-  const TableSmem tab = stage_table(smem, delta_tab, next_tab, cost_tab, lut,
-                                    P * num_states * num_bins, P * F, lut_bins);
+  const TableRefs tab = stage_table<GLOBAL>(smem, delta_tab, next_tab, cost_tab, lut, P,
+                                            num_states, num_bins, F, lut_bins);
   const int64_t lanes = num_rows * P;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes; i += stride) {
     const int64_t c = i / P;
     const int p = (int)(i - c * P);
     const float pp = load_prob(pred_prob, i);
-    const TableLane s = table_lane(tab, load_prob(unc, i), p, state_id[i], num_states,
-                                   num_bins, F, lut_bins);
+    const TableLane s = table_lane<GLOBAL>(tab, load_prob(unc, i), p, state_id[i], num_states,
+                                           num_bins, F, lut_bins);
     for (int q = 0; q < Q; ++q) {
       const float j = load_prob(joint, (int64_t)q * num_rows + c);
       const float est = est_joint(j, pp, s.p_hat);
@@ -196,6 +237,7 @@ __global__ void __launch_bounds__(kThreads) enrich_score_table_kernel(
 // a function remains AND its object is a candidate.  next_fn, est_joint and
 // cost are written as computed for every lane, as the TPU kernel does; cost
 // is the table entry unfloored, the one the function returns.
+template <bool GLOBAL>
 __global__ void __launch_bounds__(kThreads) enrich_score_single_kernel(
     const float* __restrict__ pred_prob, const float* __restrict__ unc,
     const int32_t* __restrict__ state_id, const float* __restrict__ joint,
@@ -206,15 +248,15 @@ __global__ void __launch_bounds__(kThreads) enrich_score_single_kernel(
     float* __restrict__ est_out, float* __restrict__ cost_out,
     int64_t num_rows, int P, int num_states, int num_bins, int F, int lut_bins) {
   extern __shared__ float smem[];
-  const TableSmem tab = stage_table(smem, delta_tab, next_tab, cost_tab, lut,
-                                    P * num_states * num_bins, P * F, lut_bins);
+  const TableRefs tab = stage_table<GLOBAL>(smem, delta_tab, next_tab, cost_tab, lut, P,
+                                            num_states, num_bins, F, lut_bins);
   const int64_t lanes = num_rows * P;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes; i += stride) {
     const int64_t c = i / P;
     const int p = (int)(i - c * P);
-    const TableLane s = table_lane(tab, unc[i], p, state_id[i], num_states, num_bins, F,
-                                   lut_bins);
+    const TableLane s = table_lane<GLOBAL>(tab, unc[i], p, state_id[i], num_states, num_bins,
+                                           F, lut_bins);
     const float j = joint[c];
     const float est = est_joint(j, pred_prob[i], s.p_hat);
     benefit[i] = (s.fn >= 0 && cand[c]) ? benefit_of(j, est, s.cost) : -INFINITY;
@@ -234,16 +276,29 @@ struct BestLane {
   bool ok[F];
 };
 
-template <int F>
-__device__ __forceinline__ BestLane<F> best_lane(const float* s_delta, const float* s_lut,
+// The start of a lane's [F] row in a [P, S, B, F] delta_all table (in
+// shared or device memory), indexed in int64.
+__device__ __forceinline__ const float* delta_row(const float* delta_all, int p, int state,
+                                                  float h, int num_states, int num_bins, int F) {
+  return delta_all + (((int64_t)p * num_states + state) * num_bins + bin_of(h, num_bins)) * F;
+}
+
+// The lane's [F] row of the table: in shared memory, or (GLOBAL) in device
+// memory, read through the read-only path.
+template <int F, bool GLOBAL>
+__device__ __forceinline__ BestLane<F> best_lane(const float* delta_all, const float* s_lut,
                                                  float h, int p, int state, int num_states,
                                                  int num_bins, int lut_bins) {
-  const float* d =
-      s_delta + ((int64_t)(p * num_states + state) * num_bins + bin_of(h, num_bins)) * F;
+  const float* d = delta_row(delta_all, p, state, h, num_states, num_bins, F);
   BestLane<F> r;
 #pragma unroll
   for (int f = 0; f < F; ++f) {
-    const float delta = d[f];
+    float delta;
+    if constexpr (GLOBAL) {
+      delta = __ldg(d + f);
+    } else {
+      delta = d[f];
+    }
     r.ok[f] = !isinf(delta);  // +inf: the function already ran
     r.p_hat[f] = lut_lerp(clip01(__fadd_rn(h, r.ok[f] ? delta : 0.0f)), s_lut, lut_bins);
   }
@@ -257,39 +312,66 @@ struct BestOut {
   float cost;
 };
 
-// Eq. 11 for every remaining function of one lane and one tenant: the first
-// strict maximum (cost: the floored cost of the chosen function, of function
-// 0 when none remains).  r = j / max(pp, 1e-12) once for all F functions:
-// the plain version's (j / max(pp)) * p_hat, bitwise.
-template <int F>
-__device__ __forceinline__ BestOut best_of(const BestLane<F>& s, const float* cost, float j,
-                                           float pp) {
-  const float r = __fdiv_rn(j, fmaxf(pp, kMinP));
-  BestOut o{-INFINITY, -1, 0.0f, cost[0]};
+// Eq. 11 for W functions f0 .. f0 + W - 1 of one lane and one tenant, folded
+// into the running best o in function order (strict: ties keep the FIRST
+// maximum).  cost[] is floored and starts at function f0; r = j / max(pp,
+// 1e-12), once for all functions: the plain version's (j / max(pp)) *
+// p_hat, bitwise.
+template <int W>
+__device__ __forceinline__ void best_fold(const BestLane<W>& s, const float* cost, float j,
+                                          float r, float pp, int f0, BestOut& o) {
 #pragma unroll
-  for (int f = 0; f < F; ++f) {
+  for (int f = 0; f < W; ++f) {
     if (s.ok[f]) {
       const float est = pp > 0.0f ? clip01(__fmul_rn(r, s.p_hat[f])) : 0.0f;
       const float ben = benefit_of(j, est, cost[f]);
-      if (ben > o.benefit) {  // strict: ties keep the FIRST maximum
+      if (ben > o.benefit) {
         o.benefit = ben;
-        o.fn = f;
+        o.fn = f0 + f;
         o.est = est;
         o.cost = cost[f];
       }
     }
   }
+}
+
+// The first strict maximum over all F functions (cost: the floored cost of
+// the chosen function, of function 0 when none remains).
+template <int F>
+__device__ __forceinline__ BestOut best_of(const BestLane<F>& s, const float* cost, float j,
+                                           float pp) {
+  BestOut o{-INFINITY, -1, 0.0f, cost[0]};
+  best_fold<F>(s, cost, j, __fdiv_rn(j, fmaxf(pp, kMinP)), pp, 0, o);
   return o;
 }
 
-// The best mode's shared-memory tables: [P*S*B*F] deltas, [P*F] costs, the LUT.
-__device__ __forceinline__ void stage_best(float* smem, const float* delta_all,
-                                           const float* cost_tab, const float* lut, int tsize,
-                                           int PF, int lut_bins) {
-  stage(smem, delta_all, tsize);
-  stage(smem + tsize, cost_tab, PF);
-  stage(smem + tsize + PF, lut, lut_bins);
-  __syncthreads();
+// The best mode's tables: [P*S*B*F] deltas (staged by the "smem" route, left
+// in device memory by the "global" one), [P*F] costs, the LUT.
+struct BestTables {
+  const float* delta;
+  const float* cost;
+  const float* lut;
+};
+
+template <bool GLOBAL>
+__device__ __forceinline__ BestTables stage_best(float* smem, const float* delta_all,
+                                                 const float* cost_tab, const float* lut, int P,
+                                                 int num_states, int num_bins, int F,
+                                                 int lut_bins) {
+  const int PF = P * F;
+  if constexpr (GLOBAL) {
+    stage(smem, cost_tab, PF);
+    stage(smem + PF, lut, lut_bins);
+    __syncthreads();
+    return BestTables{delta_all, smem, smem + PF};
+  } else {
+    const int tsize = P * num_states * num_bins * F;
+    stage(smem, delta_all, tsize);
+    stage(smem + tsize, cost_tab, PF);
+    stage(smem + tsize + PF, lut, lut_bins);
+    __syncthreads();
+    return BestTables{smem, smem + tsize, smem + tsize + PF};
+  }
 }
 
 // [P] values of row c of a [C, P] tensor, widened to f32 (16 bytes for P = 4
@@ -377,15 +459,13 @@ __global__ void __launch_bounds__(kThreads) enrich_score_best_kernel(
     float* __restrict__ est_out, float* __restrict__ cost_out,
     int64_t num_rows, int Q, int num_states, int num_bins, int lut_bins) {
   extern __shared__ float smem[];
-  const int tsize = P * num_states * num_bins * F;
-  stage_best(smem, delta_all, cost_tab, lut, tsize, P * F, lut_bins);
-  const float* s_delta = smem;
-  const float* s_lut = smem + tsize + P * F;
+  const BestTables t = stage_best<false>(smem, delta_all, cost_tab, lut, P, num_states,
+                                         num_bins, F, lut_bins);
   float cost[P][F];  // floored, the same for every object
 #pragma unroll
   for (int p = 0; p < P; ++p)
 #pragma unroll
-    for (int f = 0; f < F; ++f) cost[p][f] = fmaxf(smem[tsize + p * F + f], kMinCost);
+    for (int f = 0; f < F; ++f) cost[p][f] = fmaxf(t.cost[p * F + f], kMinCost);
 
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; c < num_rows; c += stride) {
@@ -397,7 +477,8 @@ __global__ void __launch_bounds__(kThreads) enrich_score_best_kernel(
     BestLane<F> lane[P];
 #pragma unroll
     for (int p = 0; p < P; ++p)
-      lane[p] = best_lane<F>(s_delta, s_lut, h[p], p, sid[p], num_states, num_bins, lut_bins);
+      lane[p] = best_lane<F, false>(t.delta, t.lut, h[p], p, sid[p], num_states, num_bins,
+                                    lut_bins);
     for (int q = 0; q < Q; ++q) {
       const float j = load_prob(joint, (int64_t)q * num_rows + c);
       BestOut r[P];
@@ -408,8 +489,19 @@ __global__ void __launch_bounds__(kThreads) enrich_score_best_kernel(
   }
 }
 
-// P > 4: one thread per (object, predicate) lane, looping over the tenants.
-template <typename T, int F>
+__device__ __forceinline__ void store_lane(float* benefit, int32_t* next_fn, float* est_out,
+                                           float* cost_out, int64_t o, const BestOut& r) {
+  __stcs(benefit + o, r.benefit);
+  __stcs(next_fn + o, r.fn);
+  __stcs(est_out + o, r.est);
+  __stcs(cost_out + o, r.cost);
+}
+
+// P > 4, and every P on the global route: one thread per (object,
+// predicate) lane, looping over the tenants.  The global route meets P <= 4
+// only at F 8 (at 10 bins), where one thread an object holds P x F p_hat
+// and cost registers and loses occupancy; one thread a lane holds F.
+template <typename T, int F, bool GLOBAL>
 __global__ void __launch_bounds__(kThreads) enrich_score_best_lane_kernel(
     const T* __restrict__ pred_prob, const T* __restrict__ unc,
     const int32_t* __restrict__ state_id, const T* __restrict__ joint,
@@ -419,27 +511,70 @@ __global__ void __launch_bounds__(kThreads) enrich_score_best_lane_kernel(
     float* __restrict__ est_out, float* __restrict__ cost_out,
     int64_t num_rows, int P, int Q, int num_states, int num_bins, int lut_bins) {
   extern __shared__ float smem[];
-  const int tsize = P * num_states * num_bins * F;
-  stage_best(smem, delta_all, cost_tab, lut, tsize, P * F, lut_bins);
-  const float* s_lut = smem + tsize + P * F;
+  const BestTables t = stage_best<GLOBAL>(smem, delta_all, cost_tab, lut, P, num_states,
+                                          num_bins, F, lut_bins);
   const int64_t lanes = num_rows * P;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes; i += stride) {
     const int64_t c = i / P;
     const int p = (int)(i - c * P);
     const float pp = load_prob(pred_prob, i);
-    const BestLane<F> lane = best_lane<F>(smem, s_lut, load_prob(unc, i), p, state_id[i],
-                                          num_states, num_bins, lut_bins);
+    const BestLane<F> lane = best_lane<F, GLOBAL>(t.delta, t.lut, load_prob(unc, i), p,
+                                                  state_id[i], num_states, num_bins, lut_bins);
     float cost[F];
 #pragma unroll
-    for (int f = 0; f < F; ++f) cost[f] = fmaxf(smem[tsize + p * F + f], kMinCost);
+    for (int f = 0; f < F; ++f) cost[f] = fmaxf(t.cost[p * F + f], kMinCost);
     for (int q = 0; q < Q; ++q) {
       const BestOut r = best_of<F>(lane, cost, load_prob(joint, (int64_t)q * num_rows + c), pp);
-      const int64_t o = (int64_t)q * lanes + i;
-      __stcs(benefit + o, r.benefit);
-      __stcs(next_fn + o, r.fn);
-      __stcs(est_out + o, r.est);
-      __stcs(cost_out + o, r.cost);
+      store_lane(benefit, next_fn, est_out, cost_out, (int64_t)q * lanes + i, r);
+    }
+  }
+}
+
+// F > kMaxFunctions, global tables: one thread per lane, a runtime F in
+// chunks of kChunk functions.  For each tenant the chunks are folded in
+// order into one running best; a chunk's deltas (L1 / L2 hits after the
+// first tenant) and p_hat are recomputed per tenant, so registers hold one
+// chunk, whatever F is.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) enrich_score_best_wide_kernel(
+    const T* __restrict__ pred_prob, const T* __restrict__ unc,
+    const int32_t* __restrict__ state_id, const T* __restrict__ joint,
+    const float* __restrict__ delta_all, const float* __restrict__ cost_tab,
+    const float* __restrict__ lut,
+    float* __restrict__ benefit, int32_t* __restrict__ next_fn,
+    float* __restrict__ est_out, float* __restrict__ cost_out,
+    int64_t num_rows, int P, int Q, int num_states, int num_bins, int F, int lut_bins) {
+  extern __shared__ float smem[];
+  const BestTables t = stage_best<true>(smem, delta_all, cost_tab, lut, P, num_states,
+                                        num_bins, F, lut_bins);
+  const int64_t lanes = num_rows * P;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes; i += stride) {
+    const int64_t c = i / P;
+    const int p = (int)(i - c * P);
+    const float pp = load_prob(pred_prob, i);
+    const float h = load_prob(unc, i);
+    const float* d = delta_row(delta_all, p, state_id[i], h, num_states, num_bins, F);
+    const float* cost_p = t.cost + p * F;
+    for (int q = 0; q < Q; ++q) {
+      const float j = load_prob(joint, (int64_t)q * num_rows + c);
+      const float r = __fdiv_rn(j, fmaxf(pp, kMinP));
+      BestOut o{-INFINITY, -1, 0.0f, fmaxf(cost_p[0], kMinCost)};
+      for (int f0 = 0; f0 < F; f0 += kChunk) {
+        BestLane<kChunk> s;
+        float cost[kChunk];
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u) {
+          const bool in = f0 + u < F;  // the last chunk's tail: no function
+          const float delta = in ? __ldg(d + f0 + u) : INFINITY;
+          s.ok[u] = !isinf(delta);
+          s.p_hat[u] = lut_lerp(clip01(__fadd_rn(h, s.ok[u] ? delta : 0.0f)), t.lut, lut_bins);
+          cost[u] = in ? fmaxf(cost_p[f0 + u], kMinCost) : kMinCost;
+        }
+        best_fold<kChunk>(s, cost, j, r, pp, f0, o);
+      }
+      store_lane(benefit, next_fn, est_out, cost_out, (int64_t)q * lanes + i, o);
     }
   }
 }
@@ -461,18 +596,21 @@ cudaError_t launch_grid(K kernel, size_t smem, int64_t lanes, int* grid) {
   return cudaSuccess;
 }
 
-// Dynamic shared memory of each kernel (the Python wrapper refuses tables
-// above the 227 KB a block may use before it launches).
-size_t table_smem(int P, int num_states, int num_bins, int F, int lut_bins) {
-  return sizeof(float) * ((size_t)P * num_states * num_bins * 2 + (size_t)P * F + lut_bins);
+// Dynamic shared memory of each kernel (the Python wrapper picks the route
+// and refuses what even the global route's costs and LUT cannot hold).
+size_t table_smem(int P, int num_states, int num_bins, int F, int lut_bins, bool global) {
+  const size_t tables = global ? 0 : (size_t)P * num_states * num_bins * 2;
+  return sizeof(float) * (tables + (size_t)P * F + lut_bins);
 }
 
-size_t best_smem(int P, int num_states, int num_bins, int F, int lut_bins) {
-  return sizeof(float) * ((size_t)P * num_states * num_bins * F + (size_t)P * F + lut_bins);
+size_t best_smem(int P, int num_states, int num_bins, int F, int lut_bins, bool global) {
+  const size_t tables = global ? 0 : (size_t)P * num_states * num_bins * F;
+  return sizeof(float) * (tables + (size_t)P * F + lut_bins);
 }
 
-// The best-mode launch: F (1..8) and, for P <= 4, P are template
-// parameters of the kernel.
+// The best-mode launch: F (1..8), the route and, for P <= 4 on the smem
+// route, P are template parameters of the kernel; past F 8 the wide kernel
+// takes a runtime F.
 struct BestArgs {
   const void *pred_prob, *unc, *state_id, *joint, *delta_all, *cost_tab, *lut;
   void *benefit, *next_fn, *est_joint, *cost;
@@ -484,7 +622,7 @@ struct BestArgs {
 template <typename T, int P, int F>
 cudaError_t launch_best_obj(const BestArgs& a) {
   auto k = enrich_score_best_kernel<T, P, F>;
-  const size_t smem = best_smem(P, a.num_states, a.num_bins, F, a.lut_bins);
+  const size_t smem = best_smem(P, a.num_states, a.num_bins, F, a.lut_bins, false);
   int grid = 0;
   cudaError_t err = launch_grid(k, smem, a.num_rows, &grid);
   if (err != cudaSuccess) return err;
@@ -498,10 +636,10 @@ cudaError_t launch_best_obj(const BestArgs& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int F>
+template <typename T, int F, bool GLOBAL>
 cudaError_t launch_best_lanes(const BestArgs& a) {
-  auto k = enrich_score_best_lane_kernel<T, F>;
-  const size_t smem = best_smem(a.P, a.num_states, a.num_bins, F, a.lut_bins);
+  auto k = enrich_score_best_lane_kernel<T, F, GLOBAL>;
+  const size_t smem = best_smem(a.P, a.num_states, a.num_bins, F, a.lut_bins, GLOBAL);
   int grid = 0;
   cudaError_t err = launch_grid(k, smem, a.num_rows * a.P, &grid);
   if (err != cudaSuccess) return err;
@@ -515,72 +653,125 @@ cudaError_t launch_best_lanes(const BestArgs& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int F>
+template <typename T>
+cudaError_t launch_best_wide(const BestArgs& a) {
+  auto k = enrich_score_best_wide_kernel<T>;
+  const size_t smem = best_smem(a.P, a.num_states, a.num_bins, a.F, a.lut_bins, true);
+  int grid = 0;
+  cudaError_t err = launch_grid(k, smem, a.num_rows * a.P, &grid);
+  if (err != cudaSuccess) return err;
+  k<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.pred_prob), static_cast<const T*>(a.unc),
+      static_cast<const int32_t*>(a.state_id), static_cast<const T*>(a.joint),
+      static_cast<const float*>(a.delta_all), static_cast<const float*>(a.cost_tab),
+      static_cast<const float*>(a.lut), static_cast<float*>(a.benefit),
+      static_cast<int32_t*>(a.next_fn), static_cast<float*>(a.est_joint),
+      static_cast<float*>(a.cost), a.num_rows, a.P, a.Q, a.num_states, a.num_bins, a.F,
+      a.lut_bins);
+  return cudaGetLastError();
+}
+
+template <typename T, int F, bool GLOBAL>
 cudaError_t best_dispatch_p(const BestArgs& a) {
-  switch (a.P) {
-    case 1: return launch_best_obj<T, 1, F>(a);
-    case 2: return launch_best_obj<T, 2, F>(a);
-    case 3: return launch_best_obj<T, 3, F>(a);
-    case 4: return launch_best_obj<T, 4, F>(a);
-    default: return launch_best_lanes<T, F>(a);
+  if constexpr (GLOBAL) {
+    return launch_best_lanes<T, F, true>(a);
+  } else {
+    switch (a.P) {
+      case 1: return launch_best_obj<T, 1, F>(a);
+      case 2: return launch_best_obj<T, 2, F>(a);
+      case 3: return launch_best_obj<T, 3, F>(a);
+      case 4: return launch_best_obj<T, 4, F>(a);
+      default: return launch_best_lanes<T, F, false>(a);
+    }
+  }
+}
+
+template <typename T, bool GLOBAL>
+cudaError_t best_dispatch_f(const BestArgs& a) {
+  switch (a.F) {
+    case 1: return best_dispatch_p<T, 1, GLOBAL>(a);
+    case 2: return best_dispatch_p<T, 2, GLOBAL>(a);
+    case 3: return best_dispatch_p<T, 3, GLOBAL>(a);
+    case 4: return best_dispatch_p<T, 4, GLOBAL>(a);
+    case 5: return best_dispatch_p<T, 5, GLOBAL>(a);
+    case 6: return best_dispatch_p<T, 6, GLOBAL>(a);
+    case 7: return best_dispatch_p<T, 7, GLOBAL>(a);
+    default: return best_dispatch_p<T, 8, GLOBAL>(a);
   }
 }
 
 template <typename T>
-cudaError_t best_dispatch_f(const BestArgs& a) {
-  switch (a.F) {
-    case 1: return best_dispatch_p<T, 1>(a);
-    case 2: return best_dispatch_p<T, 2>(a);
-    case 3: return best_dispatch_p<T, 3>(a);
-    case 4: return best_dispatch_p<T, 4>(a);
-    case 5: return best_dispatch_p<T, 5>(a);
-    case 6: return best_dispatch_p<T, 6>(a);
-    case 7: return best_dispatch_p<T, 7>(a);
-    default: return best_dispatch_p<T, 8>(a);
-  }
+cudaError_t best_dispatch(const BestArgs& a, bool global) {
+  if (a.F > kMaxFunctions) return global ? launch_best_wide<T>(a) : cudaErrorInvalidValue;
+  return global ? best_dispatch_f<T, true>(a) : best_dispatch_f<T, false>(a);
+}
+
+// The table-mode and single-query launches, templated on the probability
+// type and the route (cand: the single-query kernel's candidate mask).
+struct TableArgs {
+  const void *pred_prob, *unc, *state_id, *joint, *cand, *delta_tab, *next_tab, *cost_tab, *lut;
+  void *benefit, *next_fn, *est_joint, *cost;
+  int64_t num_rows;
+  int P, Q, num_states, num_bins, F, lut_bins;
+  cudaStream_t stream;
+};
+
+template <typename T, bool GLOBAL>
+cudaError_t launch_table(const TableArgs& a) {
+  auto k = enrich_score_table_kernel<T, GLOBAL>;
+  const size_t smem = table_smem(a.P, a.num_states, a.num_bins, a.F, a.lut_bins, GLOBAL);
+  int grid = 0;
+  cudaError_t err = launch_grid(k, smem, a.num_rows * a.P, &grid);
+  if (err != cudaSuccess) return err;
+  k<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.pred_prob), static_cast<const T*>(a.unc),
+      static_cast<const int32_t*>(a.state_id), static_cast<const T*>(a.joint),
+      static_cast<const float*>(a.delta_tab), static_cast<const int32_t*>(a.next_tab),
+      static_cast<const float*>(a.cost_tab), static_cast<const float*>(a.lut),
+      static_cast<float*>(a.benefit), static_cast<int32_t*>(a.next_fn),
+      static_cast<float*>(a.est_joint), static_cast<float*>(a.cost),
+      a.num_rows, a.P, a.Q, a.num_states, a.num_bins, a.F, a.lut_bins);
+  return cudaGetLastError();
+}
+
+template <bool GLOBAL>
+cudaError_t launch_single(const TableArgs& a) {
+  auto k = enrich_score_single_kernel<GLOBAL>;
+  const size_t smem = table_smem(a.P, a.num_states, a.num_bins, a.F, a.lut_bins, GLOBAL);
+  int grid = 0;
+  cudaError_t err = launch_grid(k, smem, a.num_rows * a.P, &grid);
+  if (err != cudaSuccess) return err;
+  k<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.pred_prob), static_cast<const float*>(a.unc),
+      static_cast<const int32_t*>(a.state_id), static_cast<const float*>(a.joint),
+      static_cast<const bool*>(a.cand), static_cast<const float*>(a.delta_tab),
+      static_cast<const int32_t*>(a.next_tab), static_cast<const float*>(a.cost_tab),
+      static_cast<const float*>(a.lut), static_cast<float*>(a.benefit),
+      static_cast<int32_t*>(a.next_fn), static_cast<float*>(a.est_joint),
+      static_cast<float*>(a.cost), a.num_rows, a.P, a.num_states, a.num_bins, a.F, a.lut_bins);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 == success).
+// Each returns cudaGetLastError() after the launch (0 == success).  global:
+// the route (0 "smem", 1 "global"), as kernel.table_route picks it.
 int enrich_score_table(const void* pred_prob, const void* unc, const void* state_id,
                        const void* joint, const void* delta_tab, const void* next_tab,
                        const void* cost_tab, const void* lut, void* benefit, void* next_fn,
                        void* est_joint, void* cost, int64_t num_rows, int P, int Q,
-                       int num_states, int num_bins, int F, int lut_bins, int bf16,
+                       int num_states, int num_bins, int F, int lut_bins, int bf16, int global,
                        void* stream) {
-  const int64_t lanes = num_rows * P;
-  if (lanes == 0 || Q == 0) return (int)cudaSuccess;
-  const size_t smem = table_smem(P, num_states, num_bins, F, lut_bins);
-  auto s = static_cast<cudaStream_t>(stream);
-  int grid = 0;
-  cudaError_t err;
-  if (bf16) {
-    auto k = enrich_score_table_kernel<__nv_bfloat16>;
-    if ((err = launch_grid(k, smem, lanes, &grid)) != cudaSuccess) return (int)err;
-    k<<<grid, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(pred_prob), static_cast<const __nv_bfloat16*>(unc),
-        static_cast<const int32_t*>(state_id), static_cast<const __nv_bfloat16*>(joint),
-        static_cast<const float*>(delta_tab), static_cast<const int32_t*>(next_tab),
-        static_cast<const float*>(cost_tab), static_cast<const float*>(lut),
-        static_cast<float*>(benefit), static_cast<int32_t*>(next_fn),
-        static_cast<float*>(est_joint), static_cast<float*>(cost),
-        num_rows, P, Q, num_states, num_bins, F, lut_bins);
-  } else {
-    auto k = enrich_score_table_kernel<float>;
-    if ((err = launch_grid(k, smem, lanes, &grid)) != cudaSuccess) return (int)err;
-    k<<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(pred_prob), static_cast<const float*>(unc),
-        static_cast<const int32_t*>(state_id), static_cast<const float*>(joint),
-        static_cast<const float*>(delta_tab), static_cast<const int32_t*>(next_tab),
-        static_cast<const float*>(cost_tab), static_cast<const float*>(lut),
-        static_cast<float*>(benefit), static_cast<int32_t*>(next_fn),
-        static_cast<float*>(est_joint), static_cast<float*>(cost),
-        num_rows, P, Q, num_states, num_bins, F, lut_bins);
-  }
-  return (int)cudaGetLastError();
+  if (num_rows * P == 0 || Q == 0) return (int)cudaSuccess;
+  TableArgs a{pred_prob, unc, state_id, joint, nullptr, delta_tab, next_tab, cost_tab, lut,
+              benefit, next_fn, est_joint, cost, num_rows, P, Q, num_states, num_bins, F,
+              lut_bins, static_cast<cudaStream_t>(stream)};
+  if (bf16)
+    return (int)(global ? launch_table<__nv_bfloat16, true>(a)
+                        : launch_table<__nv_bfloat16, false>(a));
+  return (int)(global ? launch_table<float, true>(a) : launch_table<float, false>(a));
 }
 
 int enrich_score_single(const void* pred_prob, const void* unc, const void* state_id,
@@ -588,35 +779,26 @@ int enrich_score_single(const void* pred_prob, const void* unc, const void* stat
                         const void* next_tab, const void* cost_tab, const void* lut,
                         void* benefit, void* next_fn, void* est_joint, void* cost,
                         int64_t num_rows, int P, int num_states, int num_bins, int F,
-                        int lut_bins, void* stream) {
-  const int64_t lanes = num_rows * P;
-  if (lanes == 0) return (int)cudaSuccess;
-  const size_t smem = table_smem(P, num_states, num_bins, F, lut_bins);
-  int grid = 0;
-  cudaError_t err = launch_grid(enrich_score_single_kernel, smem, lanes, &grid);
-  if (err != cudaSuccess) return (int)err;
-  enrich_score_single_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pred_prob), static_cast<const float*>(unc),
-      static_cast<const int32_t*>(state_id), static_cast<const float*>(joint),
-      static_cast<const bool*>(cand), static_cast<const float*>(delta_tab),
-      static_cast<const int32_t*>(next_tab), static_cast<const float*>(cost_tab),
-      static_cast<const float*>(lut), static_cast<float*>(benefit),
-      static_cast<int32_t*>(next_fn), static_cast<float*>(est_joint),
-      static_cast<float*>(cost), num_rows, P, num_states, num_bins, F, lut_bins);
-  return (int)cudaGetLastError();
+                        int lut_bins, int global, void* stream) {
+  if (num_rows * P == 0) return (int)cudaSuccess;
+  TableArgs a{pred_prob, unc, state_id, joint, cand, delta_tab, next_tab, cost_tab, lut,
+              benefit, next_fn, est_joint, cost, num_rows, P, 1, num_states, num_bins, F,
+              lut_bins, static_cast<cudaStream_t>(stream)};
+  return (int)(global ? launch_single<true>(a) : launch_single<false>(a));
 }
 
 int enrich_score_best(const void* pred_prob, const void* unc, const void* state_id,
                       const void* joint, const void* delta_all, const void* cost_tab,
                       const void* lut, void* benefit, void* next_fn, void* est_joint,
                       void* cost, int64_t num_rows, int P, int Q, int num_states,
-                      int num_bins, int F, int lut_bins, int bf16, void* stream) {
+                      int num_bins, int F, int lut_bins, int bf16, int global, void* stream) {
   if (num_rows * P == 0 || Q == 0) return (int)cudaSuccess;
-  if (F < 1 || F > kMaxFunctions) return (int)cudaErrorInvalidValue;
+  if (F < 1) return (int)cudaErrorInvalidValue;
   BestArgs a{pred_prob, unc, state_id, joint, delta_all, cost_tab, lut, benefit, next_fn,
              est_joint, cost, num_rows, P, Q, num_states, num_bins, F, lut_bins,
              static_cast<cudaStream_t>(stream)};
-  return (int)(bf16 ? best_dispatch_f<__nv_bfloat16>(a) : best_dispatch_f<float>(a));
+  return (int)(bf16 ? best_dispatch<__nv_bfloat16>(a, global != 0)
+                    : best_dispatch<float>(a, global != 0));
 }
 
 }  // extern "C"

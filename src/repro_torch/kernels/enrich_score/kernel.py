@@ -2,7 +2,11 @@
 
 ``csrc/enrich_score.cu`` exposes three ``extern "C"`` launchers: the
 batched table and best modes (each templated on f32 / bf16 probabilities)
-and the single-query table mode with a candidate mask (f32).  They are compiled
+and the single-query table mode with a candidate mask (f32).  Each takes
+the table route that ``table_route`` picks from the shapes alone: "smem"
+(the decision table staged in shared memory) where the table fits a block
+and, in best mode, F <= 8; "global" (the table read from device memory)
+for every larger table.  They are compiled
 with ``nvcc`` for ``sm_90a`` into a shared library at first use
 (``kernels/build.py``) and loaded with ``ctypes``.
 
@@ -24,6 +28,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "enrich_score.cu"
 # every f32 op rounds on its own, as in the plain version: bitwise agreement
 NVCC_FLAGS = BASE_FLAGS + ("--fmad=false",)
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
+ROUTES = ("smem", "global")
+MODES = ("table", "best", "single")
+SMEM_MAX_FUNCTIONS = 8  # best mode's smem kernels are unrolled for F 1..8
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -40,11 +47,11 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
-    lib.enrich_score_table.argtypes = [_P] * 12 + [_I64] + [_I] * 7 + [_P]
+    lib.enrich_score_table.argtypes = [_P] * 12 + [_I64] + [_I] * 8 + [_P]
     lib.enrich_score_table.restype = _I
-    lib.enrich_score_best.argtypes = [_P] * 11 + [_I64] + [_I] * 7 + [_P]
+    lib.enrich_score_best.argtypes = [_P] * 11 + [_I64] + [_I] * 8 + [_P]
     lib.enrich_score_best.restype = _I
-    lib.enrich_score_single.argtypes = [_P] * 13 + [_I64] + [_I] * 5 + [_P]
+    lib.enrich_score_single.argtypes = [_P] * 13 + [_I64] + [_I] * 6 + [_P]
     lib.enrich_score_single.restype = _I
     return lib
 
@@ -57,9 +64,30 @@ def best_smem_bytes(p: int, s: int, b: int, f: int, lut_bins: int) -> int:
     return 4 * (p * s * b * f + p * f + lut_bins)
 
 
-def launch_table(pred_prob, unc, state_id, joint, delta_tab, next_tab, costs, lut, out):
-    """Launch the table-mode kernel on the current stream; ``out`` is the
-    (benefit, next_fn, est_joint, cost) tuple of preallocated [Q, C, P]."""
+def global_smem_bytes(p: int, f: int, lut_bins: int) -> int:
+    """Shared memory of the "global" route: the [P, F] costs and the LUT."""
+    return 4 * (p * f + lut_bins)
+
+
+def table_route(mode: str, p: int, num_states: int, num_bins: int, f: int,
+                lut_bins: int) -> str:
+    """"smem" where the mode's tables fit one block's shared memory (and, in
+    best mode, F <= 8), else "global".  ``mode``: "table", "best" or
+    "single"."""
+    if mode not in MODES:
+        raise ValueError(f"unknown scoring mode: {mode!r}")
+    if mode == "best":
+        fits = (f <= SMEM_MAX_FUNCTIONS
+                and best_smem_bytes(p, num_states, num_bins, f, lut_bins) <= SMEM_LIMIT)
+    else:
+        fits = table_smem_bytes(p, num_states, num_bins, f, lut_bins) <= SMEM_LIMIT
+    return ROUTES[not fits]
+
+
+def launch_table(pred_prob, unc, state_id, joint, delta_tab, next_tab, costs, lut, out, route):
+    """Launch the table-mode kernel on the current stream on ``route`` (one
+    of ``ROUTES``); ``out`` is the (benefit, next_fn, est_joint, cost) tuple
+    of preallocated [Q, C, P]."""
     c, p = pred_prob.shape
     _, s, b = delta_tab.shape
     err = library().enrich_score_table(
@@ -67,14 +95,14 @@ def launch_table(pred_prob, unc, state_id, joint, delta_tab, next_tab, costs, lu
         delta_tab.data_ptr(), next_tab.data_ptr(), costs.data_ptr(), lut.data_ptr(),
         *(t.data_ptr() for t in out),
         c, p, joint.shape[0], s, b, costs.shape[1], lut.shape[0],
-        int(pred_prob.dtype == torch.bfloat16),
+        int(pred_prob.dtype == torch.bfloat16), ROUTES.index(route),
         torch.cuda.current_stream(pred_prob.device).cuda_stream,
     )
     check_launch(err, "enrich_score_table")
 
 
-def launch_best(pred_prob, unc, state_id, joint, delta_all, costs, lut, out):
-    """Launch the best-mode kernel on the current stream."""
+def launch_best(pred_prob, unc, state_id, joint, delta_all, costs, lut, out, route):
+    """Launch the best-mode kernel on the current stream on ``route``."""
     c, p = pred_prob.shape
     _, s, b, f = delta_all.shape
     err = library().enrich_score_best(
@@ -82,22 +110,24 @@ def launch_best(pred_prob, unc, state_id, joint, delta_all, costs, lut, out):
         delta_all.data_ptr(), costs.data_ptr(), lut.data_ptr(),
         *(t.data_ptr() for t in out),
         c, p, joint.shape[0], s, b, f, lut.shape[0],
-        int(pred_prob.dtype == torch.bfloat16),
+        int(pred_prob.dtype == torch.bfloat16), ROUTES.index(route),
         torch.cuda.current_stream(pred_prob.device).cuda_stream,
     )
     check_launch(err, "enrich_score_best")
 
 
-def launch_single(pred_prob, unc, state_id, joint, cand, delta_tab, next_tab, costs, lut, out):
-    """Launch the single-query kernel on the current stream; ``out`` is the
-    (benefit, next_fn, est_joint, cost) tuple of preallocated [N, P]."""
+def launch_single(pred_prob, unc, state_id, joint, cand, delta_tab, next_tab, costs, lut, out,
+                  route):
+    """Launch the single-query kernel on the current stream on ``route``;
+    ``out`` is the (benefit, next_fn, est_joint, cost) tuple of preallocated
+    [N, P]."""
     n, p = pred_prob.shape
     _, s, b = delta_tab.shape
     err = library().enrich_score_single(
         pred_prob.data_ptr(), unc.data_ptr(), state_id.data_ptr(), joint.data_ptr(),
         cand.data_ptr(), delta_tab.data_ptr(), next_tab.data_ptr(), costs.data_ptr(),
         lut.data_ptr(), *(t.data_ptr() for t in out),
-        n, p, s, b, costs.shape[1], lut.shape[0],
+        n, p, s, b, costs.shape[1], lut.shape[0], ROUTES.index(route),
         torch.cuda.current_stream(pred_prob.device).cuda_stream,
     )
     check_launch(err, "enrich_score_single")

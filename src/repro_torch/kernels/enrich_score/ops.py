@@ -11,9 +11,14 @@ switch, and refuse tensors on mixed devices.  The kernels have no backward
 pass: an input that requires grad under grad mode is refused
 (``kernels.autograd``).
 
+Every table the reference scores is taken: ``kernel.table_route`` picks
+the "smem" route (the table staged in shared memory) or the "global" route
+(the table read from device memory) from the shapes alone.
+
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-path calls,
 one plain integer per kernel, so a run can show that its main path went
-through the kernels (``reset_counts`` zeroes both).
+through the kernels; ``TABLE_ROUTES[(kernel, route)]`` counts the launches
+by table route (``reset_counts`` zeroes all three).
 """
 
 from __future__ import annotations
@@ -32,13 +37,25 @@ from repro_torch.kernels.enrich_score import kernel, ref
 KERNELS = ("enrich_score_table", "enrich_score_best", "enrich_score_single")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
+TABLE_ROUTES = {(k, route): 0 for k in KERNELS for route in kernel.ROUTES}
 PROB_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_counts() -> None:
-    for k in KERNELS:
-        LAUNCHES[k] = 0
-        PLAIN_CALLS[k] = 0
+    for counts in (LAUNCHES, PLAIN_CALLS, TABLE_ROUTES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _pick_route(name, mode, p, s, b, f, lut_bins) -> str:
+    route = kernel.table_route(mode, p, s, b, f, lut_bins)
+    smem = kernel.global_smem_bytes(p, f, lut_bins)
+    if route == "global" and smem > kernel.SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: the [P, F] costs and the LUT need {smem} bytes of shared memory, more "
+            f"than the {kernel.SMEM_LIMIT} a Hopper block can use"
+        )
+    return route
 
 
 @functools.lru_cache(maxsize=8)
@@ -119,12 +136,7 @@ def fused_benefits(
             "delta_h": (table.delta_h, (torch.float32,), (p, s, b)),
             "next_fn": (table.next_fn, (torch.int32,), (p, s, b)),
         })
-        smem = kernel.table_smem_bytes(p, s, b, f, lut_bins)
-        if smem > kernel.SMEM_LIMIT:
-            raise ValueError(
-                f"{name}: tables need {smem} bytes of shared memory, more than the "
-                f"{kernel.SMEM_LIMIT} a Hopper block can use"
-            )
+        route = _pick_route(name, "single", p, s, b, f, lut_bins)
         out = (
             torch.empty((n, p), dtype=torch.float32, device=dev),
             torch.empty((n, p), dtype=torch.int32, device=dev),
@@ -132,8 +144,9 @@ def fused_benefits(
             torch.empty((n, p), dtype=torch.float32, device=dev),
         )
         kernel.launch_single(pp, unc, sid, joint, cand, table.delta_h, table.next_fn,
-                             costs, lut, out)
+                             costs, lut, out, route)
         LAUNCHES[name] += 1
+        TABLE_ROUTES[(name, route)] += 1
         benefit, nf, est, cost = out
     else:
         raise ValueError(f"fused_benefits runs on cpu or cuda, not {dev}")
@@ -207,20 +220,13 @@ def fused_benefits_batched(
     }
     if best:
         operands["delta_h_all"] = (tab, (torch.float32,), (p, s, b, f))
-        smem = kernel.best_smem_bytes(p, s, b, f, lut_bins)
     else:
         operands["delta_h"] = (tab, (torch.float32,), (p, s, b))
         operands["next_fn"] = (table.next_fn, (torch.int32,), (p, s, b))
-        smem = kernel.table_smem_bytes(p, s, b, f, lut_bins)
     _check_cuda_operands(dev, operands)
-    if smem > kernel.SMEM_LIMIT:
-        raise ValueError(
-            f"{name}: tables need {smem} bytes of shared memory, more than the "
-            f"{kernel.SMEM_LIMIT} a Hopper block can use"
-        )
-    if best and f > 8:
-        raise ValueError(f"{name} supports at most 8 functions, got {f}")
-    if best and p in (2, 4):  # the kernel reads an object's [P] row as one vector
+    route = _pick_route(name, function_selection, p, s, b, f, lut_bins)
+    if best and route == "smem" and p in (2, 4):
+        # the smem route's kernel reads an object's [P] row as one vector
         for label, t in (("pred_prob", pred_prob), ("uncertainty", uncertainty),
                          ("state_id", state_id)):
             width = p * t.element_size()
@@ -234,10 +240,13 @@ def fused_benefits_batched(
         torch.empty((q, n, p), dtype=torch.float32, device=dev),
     )
     if best:
-        kernel.launch_best(pred_prob, uncertainty, state_id, joint_prob, tab, costs, lut, out)
+        kernel.launch_best(pred_prob, uncertainty, state_id, joint_prob, tab, costs, lut, out,
+                           route)
     else:
         kernel.launch_table(
-            pred_prob, uncertainty, state_id, joint_prob, tab, table.next_fn, costs, lut, out
+            pred_prob, uncertainty, state_id, joint_prob, tab, table.next_fn, costs, lut, out,
+            route,
         )
     LAUNCHES[name] += 1
+    TABLE_ROUTES[(name, route)] += 1
     return TripleBenefits(*out)

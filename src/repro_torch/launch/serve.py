@@ -114,12 +114,17 @@ def build_session_server(
     max_capacity: Optional[int] = None,
     substrate_dtype: str = "float32",
     device=None,
+    aucs=SESSION_AUCS,
+    costs=SESSION_COSTS,
 ):
     """Long-lived serving session over a simulated corpus.
 
-    Offline phase on the target device: draw the corpus, fit the combine
-    weights and learn the decision table on a training split, then open the
-    session over ``num_objects`` rows.  -> (session, state, ingest_pool,
+    Offline phase on the target device: draw the corpus (one tagging
+    function per entry of ``aucs`` / ``costs``), fit the combine weights and
+    learn the decision table on a training split, then open the session over
+    ``num_objects`` rows.  ``aucs`` / ``costs`` are for tests that need
+    another bank of functions (the 8-function session of the on-card smoke
+    test); no command-line flag sets them.  -> (session, state, ingest_pool,
     preds): ``ingest_pool`` holds the remaining outputs (up to
     ``max(capacity, max_capacity)`` rows) for ``ingest`` events.
     """
@@ -131,7 +136,7 @@ def build_session_server(
     gen = torch.Generator(device=dev).manual_seed(seed)
     corpus = make_corpus(
         gen, limit + train_size, [p.tag_type for p in preds], [p.tag for p in preds],
-        selectivity=[0.3] * num_preds, aucs=SESSION_AUCS, costs=SESSION_COSTS,
+        selectivity=[0.3] * num_preds, aucs=aucs, costs=costs,
     )
     train, evalc = split_corpus(corpus, train_size)
     combine = fit_combine_weights(train.func_probs, train.truth_pred.to(torch.float32), steps=150)

@@ -11,7 +11,12 @@ Parity contract, with the reason for every tolerance:
   inputs — so binary entropy, the combine function and AUC carry rtol 1e-5;
 * learned artefacts (``fit_combine_weights``, ``learn_decision_table``)
   compound those ulps through gradient steps and per-bin means: atol 1e-4
-  on the fitted parameters and the tables' deltas.
+  on the fitted parameters and the tables' deltas; the Platt fit
+  (``calibrate_platt``: two parameters, 300 steps over one mean NLL)
+  carries atol 1e-5 on (a, b);
+* the lower entropy root is ``1 - `` the upper one, bitwise within the
+  port; against the reference it carries the upper root's lerp drift
+  (4 ulp of a value <= 1) as atol 5e-7.
 """
 
 import dataclasses
@@ -40,6 +45,7 @@ from test_torch_threads import one_torch_thread  # noqa: F401
 
 TRANSCENDENTAL_RTOL = 1e-5
 LEARNED_ATOL = 1e-4
+PLATT_ATOL = 1e-5
 
 
 def _np(x):
@@ -95,6 +101,18 @@ def test_binary_entropy_and_inverse_match():
         )
 
 
+def test_inverse_entropy_lower_matches():
+    rng = np.random.default_rng(3)
+    h = np.concatenate([[0.0, 1.0, 0.5], rng.uniform(-0.1, 1.1, size=4000)]).astype(np.float32)
+    for bins in (4096, 513):
+        t = t_entropy.inverse_entropy_lower(_t(h), bins).numpy()
+        np.testing.assert_array_equal(
+            t, (1.0 - t_entropy.inverse_entropy_upper(_t(h), bins)).numpy())
+        np.testing.assert_allclose(
+            t, _np(j_entropy.inverse_entropy_lower(jnp.asarray(h), bins)), rtol=0, atol=5e-7)
+        assert (t <= 0.5).all() and (t >= 0.0).all()
+
+
 # ---------------------------------------------------------------- combine --
 
 
@@ -123,6 +141,27 @@ def test_fit_combine_weights_matches():
         np.testing.assert_allclose(
             getattr(t, name).numpy(), _np(getattr(j, name)), rtol=0, atol=LEARNED_ATOL
         )
+
+
+def test_calibrate_and_apply_platt_match():
+    """Overconfident scores (the reference's own Platt test), numpy-made."""
+    rng = np.random.default_rng(4)
+    n = 4096
+    y = (rng.uniform(size=n) < 0.4).astype(np.float32)
+    raw = (1 / (1 + np.exp(-(6.0 * (2 * y - 1) + 3.0 * rng.normal(size=n))))).astype(np.float32)
+    ja, jb = j_combine.calibrate_platt(jnp.asarray(raw), jnp.asarray(y))
+    ta, tb = t_combine.calibrate_platt(_t(raw), _t(y))
+    np.testing.assert_allclose([float(ta), float(tb)], [float(ja), float(jb)], rtol=0,
+                               atol=PLATT_ATOL)
+    got = t_combine.apply_platt(_t(raw), ta, tb).numpy()
+    want = _np(j_combine.apply_platt(jnp.asarray(raw), ja, jb))
+    np.testing.assert_allclose(got, want, rtol=TRANSCENDENTAL_RTOL, atol=PLATT_ATOL)
+
+    def nll(p):
+        p = np.clip(p.astype(np.float64), 1e-6, 1 - 1e-6)
+        return -np.mean(y * np.log(p) + (1 - y) * np.log(1 - p))
+
+    assert nll(got) < nll(raw)
 
 
 def test_auc_score_matches():

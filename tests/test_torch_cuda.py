@@ -74,6 +74,7 @@ from repro_torch.core.query import Predicate, conjunction
 from repro_torch.core.session import EngineSession
 from repro_torch.core.state import EnrichmentState
 from repro_torch.data.synthetic import make_corpus
+from repro_torch.kernels.enrich_score import kernel as es_kernel
 from repro_torch.kernels.enrich_score import ops, ref
 from repro_torch.kernels.enrich_score.kernel import SMEM_LIMIT
 from repro_torch.kernels.decode_attention import kernel as da_kernel
@@ -185,6 +186,72 @@ def test_best_kernel_matches_plain_bitwise_over_shapes(cuda_device, p, f, q, n, 
                 assert (out.next_fn[:, 2 * n // 3:] == -1).all()
 
 
+@functools.lru_cache(maxsize=None)
+def _default_bin_tables(p, f, dev):
+    """(fallback, learned) tables at the default 10 bins on ``dev``, learned
+    there (2^F states: F 12 takes most of a minute on a few CPU cores)."""
+    costs = torch.tensor(np.tile(np.linspace(0.05, 0.9, f), (p, 1)), dtype=torch.float32)
+    gen = torch.Generator().manual_seed(13)
+    corpus = make_corpus(gen, 256, list(range(p)), [1] * p, aucs=np.linspace(0.6, 0.95, f),
+                         costs=np.linspace(0.05, 0.9, f))
+    learned = learn_decision_table(corpus.func_probs.to(dev),
+                                   default_combine_params(corpus.aucs).to(dev))
+    fallback = fallback_decision_table(p, f, torch.linspace(0.6, 0.9, f))
+    return [(t.to(dev), costs.to(dev)) for t in (fallback, learned)]
+
+
+GLOBAL_CASES = ([("best", p, f, dt) for p in (1, 2, 3, 4, 5) for f in (8, 9, 12)
+                 for dt in ("float32", "bfloat16")]
+                + [("table", 11, 8, "float32"), ("table", 16, 8, "bfloat16"),
+                   ("single", 11, 8, "float32")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,p,f,dtype", GLOBAL_CASES)
+def test_global_table_route_matches_plain_bitwise(cuda_device, mode, p, f, dtype):
+    """Tables at the default 10 bins that a block's shared memory does not
+    hold, or best mode past F 8: the "global" route (the table read from
+    device memory; F > 8 in chunks of 8 functions), all four outputs bitwise
+    against the plain version, plain and edge-bin rows, each launch counted
+    on the route ``kernel.table_route`` names."""
+    name = {"table": "enrich_score_table", "best": "enrich_score_best",
+            "single": "enrich_score_single"}[mode]
+    # best mode at F 8 with P <= 2 still fits shared memory: the smem route
+    route = "smem" if (mode, f) == ("best", 8) and p <= 2 else "global"
+    assert es_kernel.table_route(mode, p, 2**f, 10, f, 4096) == route
+    other = "smem" if route == "global" else "global"
+    dt = getattr(torch, dtype)
+    for table, costs in _default_bin_tables(p, f, cuda_device):
+        assert table.num_bins == 10
+        for edge in (False, True):
+            n = 1030  # ragged (not a multiple of 4), thirds for the edge rows
+            pp, unc, sid, joint = _rows(cuda_device, n + p + f, n, p, f, 3, edge)
+            past8 = mode == "best" and f > 8 and not edge
+            if past8:  # functions 0-7 ran on these rows: only the later chunks remain
+                sid[: n // 8] = 2**8 - 1
+            before = dict(ops.TABLE_ROUTES)
+            if mode == "single":
+                st = _single_state(cuda_device, n + p + f, n, p, f)
+                query = conjunction(*[Predicate(i, 1) for i in range(p)])
+                out = ops.fused_benefits(st, query, table, costs)
+                want = ref.enrich_score_single_ref(
+                    st.pred_prob, st.uncertainty, st.state_id(), st.joint_prob, ~st.in_answer,
+                    table.delta_h, table.next_fn, costs, ops._lut(4096, cuda_device))
+            else:
+                pp, unc, joint = pp.to(dt), unc.to(dt), joint.to(dt)
+                out = ops.fused_benefits_batched(pp, unc, sid, joint, table, costs, mode)
+                want = _plain(mode, pp, unc, sid, joint, table, costs)
+            torch.cuda.synchronize()
+            assert ops.TABLE_ROUTES[(name, route)] == before[(name, route)] + 1
+            assert ops.TABLE_ROUTES[(name, other)] == before[(name, other)]
+            for a, b in zip(out, want):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+            if past8:
+                assert (out.next_fn[:, : n // 8] >= 8).all()
+            if edge and mode != "single":
+                assert (out.next_fn[:, 2 * n // 3:] == -1).all()
+
+
 @pytest.mark.cuda
 def test_wrapper_refuses_bad_operands(cuda_device):
     (table, costs), _ = _tables(cuda_device, 2, 4)
@@ -257,11 +324,9 @@ def test_single_query_kernel_matches_plain_bitwise(cuda_device, n, p, f):
         assert torch.equal(out.cost, costs[pred, out.next_fn.clamp_min(0).long()])  # unfloored
         # the launcher alone writes what the wrapper returns
         raw = tuple(torch.empty_like(x) for x in want)
-        from repro_torch.kernels.enrich_score import kernel
-
-        kernel.launch_single(st.pred_prob, st.uncertainty, st.state_id(), st.joint_prob,
-                             (~st.in_answer).contiguous(), table.delta_h, table.next_fn,
-                             costs, lut, raw)
+        es_kernel.launch_single(st.pred_prob, st.uncertainty, st.state_id(), st.joint_prob,
+                                (~st.in_answer).contiguous(), table.delta_h, table.next_fn,
+                                costs, lut, raw, "smem")
         torch.cuda.synchronize()
         for a, b in zip(raw, want):
             assert torch.equal(a, b)

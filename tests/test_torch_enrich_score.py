@@ -195,3 +195,41 @@ def test_cpu_tensors_take_the_plain_path_and_count_it():
     t_ops.fused_benefits_batched(pp, unc, sid, joint, ttable, torch.from_numpy(costs), "best")
     assert t_ops.PLAIN_CALLS["enrich_score_best"] == before["enrich_score_best"] + 1
     assert t_ops.LAUNCHES == launches
+
+
+# Shapes whose decision tables outgrow a Hopper block's shared memory at the
+# default 10 bins (a table has 2^F states), or (best mode) F > 8: the CUDA
+# wrappers take the "global" table route there; the main paths' shapes (the
+# session's P 4 F 4, the cascade's P 3 F 3, the operator's P 2 F 4) stay on
+# "smem".
+GLOBAL_ROUTE_SHAPES = (
+    [("best", p, 8) for p in (3, 4, 5)] + [("best", 7, 7), ("best", 15, 6)]
+    + [("best", p, f) for f in (9, 10, 11, 12) for p in (1, 2, 3, 4, 5)]
+    + [(mode, p, 8) for mode in ("table", "single") for p in (11, 16)]
+)
+SMEM_ROUTE_SHAPES = [(mode, p, f) for mode in ("table", "best", "single")
+                     for p, f in ((4, 4), (3, 3), (2, 4))]
+
+
+@pytest.mark.parametrize("mode,p,f,route",
+                         [(*s, "global") for s in GLOBAL_ROUTE_SHAPES]
+                         + [(*s, "smem") for s in SMEM_ROUTE_SHAPES])
+def test_table_route_takes_every_table(mode, p, f, route):
+    from repro_torch.kernels.enrich_score import kernel
+
+    assert kernel.table_route(mode, p, 2**f, 10, f, 4096) == route
+    # the wrappers' one check past the route: the global route's costs and LUT fit
+    assert kernel.global_smem_bytes(p, f, 4096) <= kernel.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p,f", [(3, 8), (2, 9)])
+def test_best_mode_matches_jax_on_global_route_tables(p, f, dtype):
+    """Best mode where the card takes the "global" route: P 3 F 8 (the
+    table outgrows shared memory) and P 2 F 9 (past the unrolled F 8), at
+    the default 10 bins, C = 67."""
+    table, costs = _fallback(p, f)
+    assert table.num_bins == 10
+    jb, tb = _both(_rows(p * 10 + f, 67, p, f, 3), table, costs, "best", dtype)
+    assert _assert_parity(jb, tb).any()
+    assert f == 8 or (tb[1] >= 8).any()  # past F 8, some lanes choose a function >= 8

@@ -233,6 +233,34 @@ def test_select_answer_tie_rule():
     assert float(ta.threshold) == float(ja.threshold)
 
 
+def test_expected_f_of_mask_matches():
+    """Eq. 6 over arbitrary masks: random, empty, full, a block of tied
+    joints, and a [Q, N] batch (summed over every element, as the reference
+    sums); f32 sums in another order: SUM_RTOL."""
+    rng = np.random.default_rng(8)
+    joint = rng.uniform(size=500).astype(np.float32)
+    joint[100:300] = np.float32(0.375)  # a tied block
+    tied = joint == np.float32(0.375)
+    masks = [rng.uniform(size=500) < 0.3, np.zeros(500, bool), np.ones(500, bool), tied,
+             tied | (joint > 0.9)]
+    for alpha in (1.0, 0.5):
+        for mask in masks:
+            t = t_thr.expected_f_of_mask(_t(joint), _t(mask), alpha)
+            j = j_thr.expected_f_of_mask(jnp.asarray(joint), jnp.asarray(mask), alpha)
+            assert t.dtype == torch.float32
+            np.testing.assert_allclose(float(t), float(j), rtol=SUM_RTOL)
+        assert float(t_thr.expected_f_of_mask(_t(joint), _t(masks[1]), alpha)) == 0.0
+    batch = rng.uniform(size=(3, 200)).astype(np.float32)
+    bmask = rng.uniform(size=(3, 200)) < 0.5
+    np.testing.assert_allclose(
+        float(t_thr.expected_f_of_mask(_t(batch), _t(bmask))),
+        float(j_thr.expected_f_of_mask(jnp.asarray(batch), jnp.asarray(bmask))), rtol=SUM_RTOL)
+    # the selected answer's own E(F), through the mask
+    sel = t_thr.select_answer(_t(joint))
+    np.testing.assert_allclose(float(t_thr.expected_f_of_mask(_t(joint), sel.mask)),
+                               float(sel.expected_f), rtol=SUM_RTOL)
+
+
 def test_candidate_mask_and_restrict_match():
     rng = np.random.default_rng(6)
     s, n, p = 3, 50, 4
