@@ -19,11 +19,15 @@ in order; any failure raises and the script exits non-zero:
    table route (``GLOBAL_CASES``, 10 bins: best mode at C 1M, P 4, F 8, Q 8
    in bf16 and f32 with the 8-function world's learned table, table mode
    at C 262,144, P 16, F 8, Q 8, the single-query kernel at N 1M, P 11, F
-   8, and best mode's wide kernel at C 1M, P 4, F 10, Q 8 in bf16 and f32
-   with the analytic fallback table), bitwise against the plain twin on plain and edge-bin rows and timed
-   beside its bound (the table read once) and the plain twin, and both
-   routes on the same inputs, uncounted, at the main paths' shapes and the
-   largest tables that still fit (``ROUTE_PAIR_CASES``); all timed with
+   8, and best mode past eight functions at C 1M, P 4, Q 8 in bf16 and f32
+   with the analytic fallback table: F 10 on the unrolled lane kernel, F 11
+   on the wide kernel), bitwise against the plain twin on plain and edge-bin rows and timed
+   beside its bound (the table read once) and the plain twin, best mode's
+   with the benefit divisions its division screen does on those inputs
+   (``ref.best_screen``, the kernels' computation in PyTorch), and both
+   routes on the same inputs, uncounted, at the main paths' shapes, the
+   largest tables that still fit and each side of each mode's crossover
+   (``ROUTE_PAIR_CASES``); all timed with
    CUDA events around runs of 10 calls enqueued behind a device sleep, so
    that host launch overhead does not pace them (median of 25 runs after
    warm-up; a plain twin of the global route 5 runs of 2), beside the
@@ -143,7 +147,9 @@ in order; any failure raises and the script exits non-zero:
    a card session (plans, want-bits, answers and ``answer_digest`` equal),
    then the session server at 1,048,576 rows serves
    ``admit:2;admit:3;admit:2;run:4``: every launch on the global route, no
-   plain call, invoices folding bit for bit, every epoch charging;
+   plain call, invoices folding bit for bit, every epoch charging; then the
+   same with ten tagging functions (``SESSION10_*``, a table of 2^10 states:
+   1,638,400 B), every best-mode launch on the global route at F 10;
 4b. serving robustness at the same size (phase 4's world, ``MAIN_TRACE``),
    each part against a lockstep control from the same seed: ``overlap=True``
    in turns with lockstep (digests equal, no more chunk programs, epochs/s
@@ -285,7 +291,9 @@ in order; any failure raises and the script exits non-zero:
    kernel's ``prefill_simt_ms`` and the ``routes``); the scoring kernels
    carry their launches by table route (``routes``: "smem", "global") and
    the global route's phase 2 numbers (``global_route``, best mode's F 10
-   case under its ``wide``); an entry timed at the
+   and F 11 cases under its ``past_f8`` as ``F10`` and ``F11``, each naming
+   its ``kernel``, each best-mode case with its ``divisions``); an
+   entry timed at the
    zoo's shapes carries them in ``shapes`` (each with its ms, plain ms,
    bound and library ms), and one whose softcap was checked where it binds
    its rows in ``softcap``; every other kernel must have launched on a main
@@ -327,24 +335,36 @@ N_OP, P_OP, F_OP = 1 << 20, 2, 4  # the operator's main path: the quickstart at 
 # the scoring kernels' "global" table route (tables outgrowing a block's
 # shared memory at 10 bins): best mode at the session's width with eight
 # functions (327,680 B), table mode at P 16 (C x P: the session's 4M lanes),
-# the single-query kernel at P 11, and best mode past eight functions (F 10:
-# the wide kernel, chunks of 8 and a masked tail of 2).  kernel, C, P, F, Q
+# the single-query kernel at P 11, and best mode past eight functions on each
+# side of its choice of kernel (F 10: the lane kernel unrolled to 10; F 11:
+# the wide kernel).  kernel, C, P, F, Q
 GLOBAL_CASES = (("enrich_score_best", 1 << 20, 4, 8, 8), ("enrich_score_table", 1 << 18, 16, 8, 8),
-                ("enrich_score_single", 1 << 20, 11, 8, 1), ("enrich_score_best", 1 << 20, 4, 10, 8))
-# both routes on the same inputs (uncounted): the main paths' shapes, and
-# beside GLOBAL_CASES the largest P whose table still fits shared memory at
-# F 8.  kernel, C, P, F, Q
+                ("enrich_score_single", 1 << 20, 11, 8, 1), ("enrich_score_best", 1 << 20, 4, 10, 8),
+                ("enrich_score_best", 1 << 20, 4, 11, 8))
+# both routes on the same inputs (uncounted): the main paths' shapes, beside
+# GLOBAL_CASES the largest P whose table still fits shared memory at F 8,
+# and one table on each side of each mode's crossover (``kernel.GLOBAL_FROM``).
+# kernel, C, P, F, Q
 ROUTE_PAIR_CASES = (("enrich_score_best", 1 << 20, 4, 4, 8),
                     ("enrich_score_best", 1 << 21, 2, 8, 8),
+                    ("enrich_score_best", 1 << 21, 2, 6, 8),  # 47,200 B: smem
+                    ("enrich_score_best", 1 << 22, 1, 7, 8),  # 52,280 B: global
                     ("enrich_score_table", 1 << 20, 4, 4, 8),
                     ("enrich_score_table", 1 << 18, 10, 8, 8),
+                    ("enrich_score_table", 1 << 20, 4, 6, 8),  # 36,960 B: smem
+                    ("enrich_score_table", 838_860, 5, 6, 8),  # 42,104 B: global
                     ("enrich_score_single", 1 << 20, 2, 4, 1),
-                    ("enrich_score_single", 1 << 20, 9, 8, 1))
+                    ("enrich_score_single", 1 << 20, 9, 8, 1),
+                    ("enrich_score_single", 1 << 20, 4, 5, 1),  # 26,704 B: smem
+                    ("enrich_score_single", 1 << 20, 3, 6, 1))  # 31,816 B: global
 # eight tagging functions of rising quality and cost: the 8-function session
 SESSION8_AUCS = (0.60, 0.70, 0.78, 0.84, 0.88, 0.91, 0.93, 0.97)
 SESSION8_COSTS = (0.01, 0.02, 0.035, 0.05, 0.08, 0.12, 0.2, 0.5)
 SESSION8_TRACE = "admit:2;admit:3;admit:2;run:4"
 SESSION8_EPOCHS = 4
+# ten: a richer bank per tag, past the smem route's F 8
+SESSION10_AUCS = (0.60, 0.66, 0.70, 0.74, 0.78, 0.84, 0.88, 0.91, 0.93, 0.97)
+SESSION10_COSTS = (0.01, 0.015, 0.02, 0.035, 0.05, 0.08, 0.12, 0.2, 0.35, 0.5)
 OP_EPOCHS = 32
 SOURCES = {
     "enrich_score_table": "src/repro_torch/kernels/enrich_score/csrc/enrich_score.cu",
@@ -699,9 +719,11 @@ def phase_build():
     print(f"[build] all kernels ready in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def _small_world(aucs=None, costs=None):
+def _small_world(aucs=None, costs=None, learn_on="cpu"):
     """A learned table + combine params + corpus outputs, made on the CPU
-    (the session's four functions unless ``aucs`` / ``costs`` name others)."""
+    (the session's four functions unless ``aucs`` / ``costs`` name others);
+    the table learned on ``learn_on`` (2^F states: ten functions take ~30 s
+    on a few CPU cores) and returned on the CPU."""
     import torch
 
     from repro_torch.core.combine import fit_combine_weights
@@ -714,7 +736,8 @@ def _small_world(aucs=None, costs=None):
                          aucs=aucs or SESSION_AUCS, costs=costs or SESSION_COSTS)
     train, evalc = split_corpus(corpus, 512)
     combine = fit_combine_weights(train.func_probs, train.truth_pred.float(), steps=150)
-    table = learn_decision_table(train.func_probs, combine, num_bins=10)
+    table = learn_decision_table(train.func_probs.to(learn_on), combine.to(learn_on),
+                                 num_bins=10).to("cpu")
     return table, combine, evalc.costs, evalc.func_probs
 
 
@@ -880,10 +903,10 @@ def phase_global_tables(table8, costs8) -> dict:
     four outputs bitwise on plain and edge-bin rows, each wrapper launch
     counted on the route; timed beside the bound (the table read once) and
     the plain twin.  Best mode at F 8 scores with ``table8``, the
-    8-function session world's learned table; best mode at F 10 (the wide
-    kernel), table mode and the single-query kernel with the analytic
-    fallback table.  -> {kernel: {...}}, a best-mode case past F 8 under
-    the kernel's ``"wide"``"""
+    8-function session world's learned table; best mode at F 10 and 11,
+    table mode and the single-query kernel with the analytic fallback
+    table.  -> {kernel: {...}}, a best-mode case past F 8 under the
+    kernel's ``"past_f8"`` as ``"F<f>"``, with the CUDA kernel that ran it"""
     import numpy as np
     import torch
 
@@ -897,8 +920,8 @@ def phase_global_tables(table8, costs8) -> dict:
     results = {}
     for name, c, p, f, q in GLOBAL_CASES:
         mode = name.rsplit("_", 1)[1]
-        wide = mode == "best" and f > kernel.SMEM_MAX_FUNCTIONS
-        if mode == "best" and not wide:
+        past8 = mode == "best" and f > kernel.SMEM_MAX_FUNCTIONS
+        if mode == "best" and not past8:
             table, costs = table8.to(dev), costs8.to(dev)
         else:
             table = fallback_decision_table(p, f, torch.linspace(0.6, 0.9, f)).to(dev)
@@ -910,6 +933,10 @@ def phase_global_tables(table8, costs8) -> dict:
         assert kernel.table_route(mode, p, 2**f, 10, f, 4096) == "global"
         result = {"max_abs_err": 0.0, "c": c, "p": p, "f": f, "q": q, "bins": 10,
                   "table_bytes": table_bytes}
+        if past8:
+            result["kernel"] = ("enrich_score_best_lane_kernel"
+                                if f <= kernel.LANE_MAX_FUNCTIONS else
+                                "enrich_score_best_wide_kernel")
         dtypes = (torch.float32,) if mode == "single" else (torch.bfloat16, torch.float32)
         for dtype in dtypes:
             for edge in (False, True):
@@ -969,14 +996,17 @@ def phase_global_tables(table8, costs8) -> dict:
                                       _bound(mode, pp.element_size(), c, p, f, q, table_bytes))
                 result[str(dtype)[6:]] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                               bound_by=bound_by)
-                print(f"[kernels] {name}{' (wide)' * wide} global route {str(dtype)[6:]} "
-                      f"C={c} P={p} F={f} "
-                      f"Q={q}, 10 bins (table {table_bytes} B): bitwise equal to plain "
+                if mode == "best":
+                    result[str(dtype)[6:]]["divisions"] = _screen_divisions(
+                        pp, unc, sid, joint, table.delta_h_all, costs, lut, want)
+                which = f" ({result['kernel']})" if past8 else ""
+                print(f"[kernels] {name}{which} global route {str(dtype)[6:]} "
+                      f"C={c} P={p} F={f} Q={q}, 10 bins (table {table_bytes} B): bitwise equal to plain "
                       f"(benefit, next_fn, est_joint, cost); kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                       f"{bound_ms / ms:.1%} of bound", flush=True)
-        if wide:
-            results[name]["wide"] = result
+        if past8:
+            results[name].setdefault("past_f8", {})[f"F{f}"] = result
         else:
             results[name] = result
     for name, c, p, f, q in ROUTE_PAIR_CASES:
@@ -985,11 +1015,31 @@ def phase_global_tables(table8, costs8) -> dict:
     return results
 
 
+def _screen_divisions(pp, unc, sid, joint, delta_all, costs, lut, want) -> dict:
+    """The benefit divisions best mode's lane kernels do on these inputs
+    (``ref.best_screen``, whose outputs must be ``want``'s) beside the
+    functions that remain (what a fold without the screen divides), per
+    (tenant, lane)."""
+    import torch
+
+    from repro_torch.kernels.enrich_score import ref
+
+    out, divisions = ref.best_screen(pp, unc, sid, joint, delta_all, costs, lut)
+    for a, b in zip(out, want):
+        assert torch.equal(a, b), "the screen's PyTorch twin differs from the plain version"
+    rows = delta_all[torch.arange(pp.shape[1], device=pp.device)[None, :], sid.long(),
+                     ref._bins(unc.float(), delta_all.shape[2])]
+    lane_tenants = joint.shape[0] * pp.numel()
+    return {"per_lane_tenant": divisions / lane_tenants,
+            "remaining_per_lane_tenant": int(torch.isfinite(rows).sum()) * joint.shape[0]
+            / lane_tenants}
+
+
 def _route_pair(name, c, p, f, q, lut) -> dict:
     """One kernel's smem and global routes on the same inputs (f32 rows, the
     fallback table, uncounted launches) at a shape whose table still fits
     shared memory: what reading the table from device memory costs, apart
-    from the shape -> {route: ms}."""
+    from the shape -> {route: ms, "picked": the route table_route takes}."""
     import numpy as np
     import torch
 
@@ -998,7 +1048,10 @@ def _route_pair(name, c, p, f, q, lut) -> dict:
 
     dev = lut.device
     mode = name.rsplit("_", 1)[1]
-    assert kernel.table_route(mode, p, 2**f, 10, f, 4096) == "smem"
+    picked = kernel.table_route(mode, p, 2**f, 10, f, 4096)
+    smem = (kernel.best_smem_bytes if mode == "best" else kernel.table_smem_bytes)(
+        p, 2**f, 10, f, 4096)
+    assert smem <= kernel.SMEM_LIMIT, (name, p, f, smem)
     table = fallback_decision_table(p, f, torch.linspace(0.6, 0.9, f)).to(dev)
     costs = torch.tensor(np.tile(np.linspace(0.05, 0.9, f), (p, 1)), dtype=torch.float32,
                          device=dev)
@@ -1027,29 +1080,32 @@ def _route_pair(name, c, p, f, q, lut) -> dict:
         assert torch.equal(a, b), f"{name}: the two routes differ at P {p} F {f}"
     ms = {route: _time_ms(functools.partial(call, route)) for route in kernel.ROUTES}
     print(f"[kernels] {name} both routes on the same inputs (f32, C={c} P={p} F={f} Q={q}, "
-          f"10 bins, uncounted): smem {ms['smem']:.4f} ms, global {ms['global']:.4f} ms "
-          f"({ms['global'] / ms['smem']:.3f}x), outputs equal", flush=True)
-    return ms
+          f"10 bins, {smem} B, uncounted): smem {ms['smem']:.4f} ms, global "
+          f"{ms['global']:.4f} ms ({ms['global'] / ms['smem']:.3f}x), outputs equal; "
+          f"table_route: {picked}", flush=True)
+    return {**ms, "picked": picked, "smem_bytes": smem}
 
 
-def phase_session_8fn(world8) -> dict:
-    """Best mode with eight tagging functions, whose table (P 4, 2^8 states,
-    10 bins) takes the "global" route: phase 3's churn trace through a CPU
-    and a card session (plans, want-bits, answers and answer digest equal),
-    then the session server at 1,048,576 rows for a few epochs, counts zeroed
-    just before and read just after."""
+def phase_session_functions(world, f: int) -> dict:
+    """Best mode with ``f`` (8 or 10) tagging functions, whose table (P 4,
+    2^f states, 10 bins) takes the "global" route: phase 3's churn trace through a CPU and a card session (plans,
+    want-bits, answers and answer digest equal), then the session server
+    at 1,048,576 rows for a few epochs, counts zeroed just before and read
+    just after."""
     import torch
 
     from repro_torch.kernels.enrich_score import kernel, ops
     from repro_torch.launch import serve
 
-    table, combine, costs, outputs = world8
+    aucs, costs_f = {8: (SESSION8_AUCS, SESSION8_COSTS), 10: (SESSION10_AUCS, SESSION10_COSTS)}[f]
+    tag = f"[session-{f}fn]"
+    table, combine, costs, outputs = world
     t0 = time.perf_counter()
     ops.reset_counts()
     epochs, cpu_cost, gpu_cost = _run_trace_pair(table, combine, costs, outputs, "best")
     small = _es_counts(ops)
     assert small["enrich_score_best/global"] == small["enrich_score_best"] > 0, small
-    print(f"[session-8fn] CPU and card sessions agree over {epochs} best-mode epochs with 8 "
+    print(f"{tag} CPU and card sessions agree over {epochs} best-mode epochs with {f} "
           f"functions (plans, merged plans, want-bits, answers, answer digest equal; spend "
           f"{cpu_cost!r} vs {gpu_cost!r}); card launches {small} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1057,26 +1113,26 @@ def phase_session_8fn(world8) -> dict:
     t0 = time.perf_counter()
     session, state, pool, preds = serve.build_session_server(
         num_objects=SESSION_ROWS, capacity=SESSION_ROWS, num_preds=P, max_tenants=8,
-        substrate_dtype="bfloat16", device="cuda", aucs=SESSION8_AUCS, costs=SESSION8_COSTS)
+        substrate_dtype="bfloat16", device="cuda", aucs=aucs, costs=costs_f)
     setup_s = time.perf_counter() - t0
     d_all = session.table.delta_h_all
-    assert d_all.shape == (P, 256, 10, 8), d_all.shape
-    assert kernel.table_route("best", P, 256, 10, 8, 4096) == "global"
+    assert d_all.shape == (P, 2**f, 10, f), d_all.shape
+    assert kernel.table_route("best", P, 2**f, 10, f, 4096) == "global"
     ops.reset_counts()
     report = serve.serve_session_trace(session, state, serve.parse_trace(SESSION8_TRACE),
                                        pool=pool, preds=preds)
     launches, plain = _es_counts(ops), dict(ops.PLAIN_CALLS)
     hist = report.history
-    assert not any(plain.values()), f"plain path ran on the 8-function session: {plain}"
+    assert not any(plain.values()), f"plain path ran on the {f}-function session: {plain}"
     assert launches["enrich_score_best"] == report.epochs == SESSION8_EPOCHS, launches
     assert launches["enrich_score_best/global"] == report.epochs, launches
     spent = [h.cost_spent for h in hist]
     assert all(b > a for a, b in zip(spent, spent[1:])), "an epoch charged nothing"
     for h in hist:
-        assert all(f == f and 0.0 <= f <= 1.0 for f in h.expected_f), h.expected_f
+        assert all(x == x and 0.0 <= x <= 1.0 for x in h.expected_f), h.expected_f
     assert torch.isfinite(report.state.derived.pred_prob.float()).all()
     assert _fold(report.state), "invoices do not fold to cost_spent"
-    print(f"[session-8fn] server at {report.num_rows} rows, 8 functions (delta_h_all "
+    print(f"{tag} server at {report.num_rows} rows, {f} functions (delta_h_all "
           f"{d_all.numel() * 4} B): setup {setup_s:.2f} s; trace {SESSION8_TRACE!r}: "
           f"{report.epochs} epochs in {report.wall_s:.2f} s wall; cost_spent "
           f"{report.cost_spent!r}; mean E(F) {hist[0].mean_expected_f!r} -> "
@@ -3771,6 +3827,7 @@ def main() -> int:
     results["enrich_score_single"] = phase_single_kernel(quickstart["table"])
     world8 = _small_world(SESSION8_AUCS, SESSION8_COSTS)  # eight functions: "global" tables
     global_route = phase_global_tables(world8[0], world8[2])
+    world10 = _small_world(SESSION10_AUCS, SESSION10_COSTS, learn_on="cuda")  # ten functions
     flash = phase_flash()
     for route, name in (("simt", "flash_attention"), ("tc", "flash_attention_tc"),
                         ("short", "flash_attention_short"), ("split", "flash_attention_split")):
@@ -3786,7 +3843,9 @@ def main() -> int:
     phase_serve_bf16_cpu_vs_gpu()
     phase_moe_cpu_vs_gpu()
     phase_cascade_bf16_cpu_vs_gpu()
-    runs = [phase_main_path(), phase_session_8fn(world8), phase_serving_robustness(),
+    runs = [phase_main_path(), phase_session_functions(world8, 8),
+            phase_session_functions(world10, 10),
+            phase_serving_robustness(),
             phase_cascade_main_path("qwen3-1.7b"),
             phase_cascade_main_path("mamba2-370m"), phase_cascade_main_path("hymba-1.5b"),
             phase_operator_main_path(), phase_serve_entry_points(), phase_model_serve(),

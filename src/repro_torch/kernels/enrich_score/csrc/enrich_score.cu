@@ -71,23 +71,64 @@
 //     benefit's IEEE division.  P > 4 keeps one thread per lane.
 //   * Two table routes, picked by the wrapper (kernel.table_route), each
 //     kernel templated on it.  "smem": the tables staged in shared memory,
-//     as above, where they fit a block's 227 KB (and, in best mode, F <= 8).
-//     "global": every larger table the reference scores.  A table has 2^F
-//     states, so at 10 bins best mode outgrows shared memory at F 8 with
-//     P >= 3 and table mode at F 8 with P >= 11.  Only the LUT and the
-//     [P, F] costs are staged; each lane reads its one table entry (table
-//     mode) or its contiguous [F] row (best mode) from device memory
-//     through the read-only path, indexed in int64.  Tables of 0.3-10 MB
-//     stay resident in the 50 MB L2, and the arithmetic is the smem
-//     form's, op for op: only the load source differs.  Best mode on this
-//     route runs one thread a lane at every P.
-//   * Best mode past F 8 (global route only; on no main path): one thread
-//     a lane, a runtime F walked in register chunks of kChunk functions
-//     per tenant, the running (benefit, fn, est, cost) carried across
-//     chunks with the same strict compare in function order, so ties keep
-//     the first maximum.  A chunk's p_hat is recomputed for every tenant
-//     (an LUT lerp per lane, tenant and function) instead of held for all F
-//     functions in registers.
+//     as above; "global": the table read from device memory, where it does
+//     not fit a block's 227 KB, or past F 8 in best mode, or where the
+//     smem route would be the slower (kernel.py's GLOBAL_FROM: a block that
+//     stages a large table holds its SM with few warps).  A table has 2^F
+//     states.  The global route stages only the LUT and the [P, F] costs;
+//     each lane reads its one table entry (table mode) or its contiguous
+//     [F] row (best mode) through the read-only path, indexed in int64.
+//     Tables of 0.3-10 MB stay resident in the 50 MB L2.
+//   * Best mode on the global route (and on the smem route at P > 4) runs
+//     one thread a lane: enrich_score_best_lane_kernel<T, F, ROUTE>, unrolled
+//     for F <= 10 (global past F 8: F 9 and 10, the ten-function session's
+//     bank), p_hat and the reciprocal costs in registers;
+//     enrich_score_best_wide_kernel<T> past F 10 (a runtime F <= 32: the
+//     lane's p_hat and reciprocals computed once into its thread's columns of
+//     shared memory, [F][256]).  A lane's remaining functions are one 32-bit
+//     mask.  At F 10 the unrolled form ran faster on the card than the wide
+//     kernel, and unrolling the wide kernel itself to 16 or 32 slots with a
+//     masked tail did not help: its per-function shared-memory reads, not
+//     its loop, cost it.  Past F 10 no served path scores, so one kernel
+//     takes every F there.
+//     Everything no tenant enters is hoisted: per block the floored costs
+//     and their correctly rounded reciprocals, staged function-major beside
+//     the LUT; per (lane, function) the delta, whether it remains and p_hat.
+//     Per tenant the divisions are screened (best_screened): the first form
+//     did one IEEE division per (lane, tenant, function), 64 a lane at F 8
+//     with 8 tenants, and was issue-bound at 40% of its bound.
+//   * The screen, and why it is bitwise.  Per remaining function f, with u =
+//     2^-24: a_f = RN(j * est_f) exactly as the plain version rounds it,
+//     c_f the floored cost, benefit b_f = RN(q_f) with q_f = a_f / c_f, and
+//     the estimate e_f = RN(a_f * RN(1 / c_f)).  g is the first function
+//     with the largest estimate e1, e2 the largest estimate of any other.
+//     Claim: if c_f <= 2^126 for every f, 2^-125 <= e1 <= 2^125 and e2 <
+//     t = RN(e1 * k), k = 1 - 2^-20, then b_f < b_g for every f != g, so g
+//     is the plain version's first strict maximum and its benefit is the
+//     one division RN(a_g / c_g).  Proof: 1 / c_f >= 2^-126 is normal, so
+//     RN(1 / c_f) = (1 / c_f)(1 + d), |d| <= u.  e1 is normal, so q_g >=
+//     e1 / (1 + u)^2 > 2^-126 is normal and b_g >= q_g (1 - u) >= e1 (1 -
+//     u) / (1 + u)^2.  For f != g, e_f <= e2 < t <= e1 k (1 + u).  If e_f
+//     is normal, q_f <= e_f / (1 - u)^2 and b_f <= q_f (1 + u) < e1 k (1 +
+//     u)^2 / (1 - u)^2 <= b_g, since k = 1 - 16u <= (1 - u)^3 / (1 + u)^4;
+//     if e_f < 2^-126, a_f RN(1 / c_f) < 2^-126 and b_f <= 2^-126 (1 + 2u)
+//     < 2^-125 (1 - u) / (1 + u)^2 <= b_g.  Monotone rounding does the rest;
+//     e1 <= 2^125 keeps every product finite.  Where every a_f is zero each
+//     benefit is a signed zero and the first remaining function wins (its
+//     division gives the sign).  Anywhere else (a near tie, e1 out of range,
+//     a cost past 2^126) the lane and tenant take the exact fold: every
+//     division, in function order, as before.  ref.best_screen is the same
+//     computation in PyTorch: it counts the divisions and lets the CPU tests
+//     hold the screen's choice against the plain version.  On chip_smoke.py
+//     phase 2's inputs (C 1M, P 4, Q 8) it counts 0.993 benefit divisions a
+//     (lane, tenant) at F 8 and 0.999 at F 10, where the fold without the
+//     screen divided once per remaining function: 3.97 and 5.00.
+//   * A running screen (divide when a function may beat the running best)
+//     was not taken: a warp divides wherever any of its 32 lanes must, and
+//     at F 8 in random order a lane's best changes at function f with
+//     probability 1 / (f + 1), so nearly every warp would divide at every
+//     function.  Keeping the top two estimates and deciding at the end
+//     costs one division per (lane, tenant) outside near ties.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,12 +138,20 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxFunctions = 8;  // unrolled best-mode kernels: F 1..8
-constexpr int kChunk = 8;  // functions a chunk past kMaxFunctions
+constexpr int kMaxFunctions = 8;  // the smem route's best-mode kernels: F 1..8
+constexpr int kMaxLane = 10;  // the global route's unrolled lane kernels: F 1..10
+constexpr int kMaxWide = 32;  // the wide kernel: a lane's remaining functions in one mask
 // f32 roundings of the double constants the reference applies to f32 data
 constexpr float kClipHi = (float)(1.0 - 1e-7);
 constexpr float kMinP = (float)1e-12;
 constexpr float kMinCost = (float)1e-9;
+// The screen (header): an estimate below e1 * (1 - 2^-20) cannot be a new
+// maximum; it applies where e1 lies in [2^-125, 2^125] and every floored cost
+// is <= 2^126 (so its reciprocal is normal).
+constexpr float kScreen = 1.0f - 0x1p-20f;
+constexpr float kScreenLo = 0x1p-125f;
+constexpr float kScreenHi = 0x1p125f;
+constexpr float kCostHi = 0x1p126f;
 
 __device__ __forceinline__ float load_prob(const float* p, int64_t i) { return p[i]; }
 __device__ __forceinline__ float load_prob(const __nv_bfloat16* p, int64_t i) {
@@ -312,66 +361,63 @@ struct BestOut {
   float cost;
 };
 
-// Eq. 11 for W functions f0 .. f0 + W - 1 of one lane and one tenant, folded
-// into the running best o in function order (strict: ties keep the FIRST
-// maximum).  cost[] is floored and starts at function f0; r = j / max(pp,
-// 1e-12), once for all functions: the plain version's (j / max(pp)) *
-// p_hat, bitwise.
-template <int W>
-__device__ __forceinline__ void best_fold(const BestLane<W>& s, const float* cost, float j,
-                                          float r, float pp, int f0, BestOut& o) {
+// The first strict maximum of Eq. 11 over the remaining functions of one
+// lane and one tenant, in function order (strict: ties keep the FIRST
+// maximum; cost: the floored cost of the chosen function, of function 0 when
+// none remains): every division.  phat(f), cost(f): p_hat and the floored
+// cost of function f; bit f of ok: whether it remains; r = j / max(pp,
+// 1e-12), once for all functions: the plain version's (j / max(pp)) * p_hat,
+// bitwise.  W > 0 unrolls W functions; W == 0 walks a runtime F.
+template <int W, typename PHat, typename Cost>
+__device__ __forceinline__ BestOut best_fold(PHat phat, Cost cost, uint32_t ok, int F, float j,
+                                             float r, float pp) {
+  BestOut o{-INFINITY, -1, 0.0f, cost(0)};
 #pragma unroll
-  for (int f = 0; f < W; ++f) {
-    if (s.ok[f]) {
-      const float est = pp > 0.0f ? clip01(__fmul_rn(r, s.p_hat[f])) : 0.0f;
-      const float ben = benefit_of(j, est, cost[f]);
+  for (int f = 0; f < (W > 0 ? W : F); ++f) {
+    if (ok >> f & 1u) {
+      const float est = pp > 0.0f ? clip01(__fmul_rn(r, phat(f))) : 0.0f;
+      const float ben = benefit_of(j, est, cost(f));
       if (ben > o.benefit) {
         o.benefit = ben;
-        o.fn = f0 + f;
+        o.fn = f;
         o.est = est;
-        o.cost = cost[f];
+        o.cost = cost(f);
       }
     }
   }
-}
-
-// The first strict maximum over all F functions (cost: the floored cost of
-// the chosen function, of function 0 when none remains).
-template <int F>
-__device__ __forceinline__ BestOut best_of(const BestLane<F>& s, const float* cost, float j,
-                                           float pp) {
-  BestOut o{-INFINITY, -1, 0.0f, cost[0]};
-  best_fold<F>(s, cost, j, __fdiv_rn(j, fmaxf(pp, kMinP)), pp, 0, o);
   return o;
 }
 
-// The best mode's tables: [P*S*B*F] deltas (staged by the "smem" route, left
-// in device memory by the "global" one), [P*F] costs, the LUT.
+// The object kernel's fold over all F functions of a lane (cost[] floored).
+template <int F>
+__device__ __forceinline__ BestOut best_of(const BestLane<F>& s, const float* cost, float j,
+                                           float pp) {
+  uint32_t ok = 0;
+#pragma unroll
+  for (int f = 0; f < F; ++f) ok |= (uint32_t)s.ok[f] << f;
+  return best_fold<F>([&](int f) { return s.p_hat[f]; }, [&](int f) { return cost[f]; }, ok, F,
+                      j, __fdiv_rn(j, fmaxf(pp, kMinP)), pp);
+}
+
+// The object kernel's tables, staged in shared memory: [P*S*B*F] deltas,
+// [P*F] costs, the LUT.
 struct BestTables {
   const float* delta;
   const float* cost;
   const float* lut;
 };
 
-template <bool GLOBAL>
 __device__ __forceinline__ BestTables stage_best(float* smem, const float* delta_all,
                                                  const float* cost_tab, const float* lut, int P,
                                                  int num_states, int num_bins, int F,
                                                  int lut_bins) {
   const int PF = P * F;
-  if constexpr (GLOBAL) {
-    stage(smem, cost_tab, PF);
-    stage(smem + PF, lut, lut_bins);
-    __syncthreads();
-    return BestTables{delta_all, smem, smem + PF};
-  } else {
-    const int tsize = P * num_states * num_bins * F;
-    stage(smem, delta_all, tsize);
-    stage(smem + tsize, cost_tab, PF);
-    stage(smem + tsize + PF, lut, lut_bins);
-    __syncthreads();
-    return BestTables{smem, smem + tsize, smem + tsize + PF};
-  }
+  const int tsize = P * num_states * num_bins * F;
+  stage(smem, delta_all, tsize);
+  stage(smem + tsize, cost_tab, PF);
+  stage(smem + tsize + PF, lut, lut_bins);
+  __syncthreads();
+  return BestTables{smem, smem + tsize, smem + tsize + PF};
 }
 
 // [P] values of row c of a [C, P] tensor, widened to f32 (16 bytes for P = 4
@@ -459,8 +505,8 @@ __global__ void __launch_bounds__(kThreads) enrich_score_best_kernel(
     float* __restrict__ est_out, float* __restrict__ cost_out,
     int64_t num_rows, int Q, int num_states, int num_bins, int lut_bins) {
   extern __shared__ float smem[];
-  const BestTables t = stage_best<false>(smem, delta_all, cost_tab, lut, P, num_states,
-                                         num_bins, F, lut_bins);
+  const BestTables t = stage_best(smem, delta_all, cost_tab, lut, P, num_states, num_bins, F,
+                                  lut_bins);
   float cost[P][F];  // floored, the same for every object
 #pragma unroll
   for (int p = 0; p < P; ++p)
@@ -497,12 +543,113 @@ __device__ __forceinline__ void store_lane(float* benefit, int32_t* next_fn, flo
   __stcs(cost_out + o, r.cost);
 }
 
-// P > 4, and every P on the global route: one thread per (object,
-// predicate) lane, looping over the tenants.  The global route meets P <= 4
-// only at F 8 (at 10 bins), where one thread an object holds P x F p_hat
-// and cost registers and loses occupancy; one thread a lane holds F.
+// ---- the screened fold (the lane and wide kernels; see the header) -------
+
+// The lane kernels' per-block tables: the floored costs and their correctly
+// rounded reciprocals, function-major ([F][P]: a warp's P predicates read
+// neighbouring banks), and the LUT; the smem route also stages the deltas.
+// screen: every floored cost is <= 2^126, so every reciprocal is a normal
+// number, as the screen's proof needs; else every lane takes the exact fold.
+struct ScreenTables {
+  const float* delta;
+  const float* cost;
+  const float* inv;
+  const float* lut;
+  bool screen;
+};
+
+template <bool GLOBAL>
+__device__ __forceinline__ ScreenTables stage_screen(float* smem, const float* delta_all,
+                                                     const float* cost_tab, const float* lut,
+                                                     int P, int num_states, int num_bins, int F,
+                                                     int lut_bins) {
+  const int PF = P * F;
+  const int tsize = GLOBAL ? 0 : P * num_states * num_bins * F;
+  float* s_cost = smem + tsize;
+  float* s_inv = s_cost + PF;
+  float* s_lut = s_inv + PF;
+  if constexpr (!GLOBAL) stage(smem, delta_all, tsize);
+  bool normal = true;
+  for (int i = threadIdx.x; i < PF; i += blockDim.x) {
+    const int f = i / P;
+    const float c = fmaxf(cost_tab[(i - f * P) * F + f], kMinCost);
+    s_cost[i] = c;
+    s_inv[i] = __frcp_rn(c);
+    normal = normal && c <= kCostHi;
+  }
+  stage(s_lut, lut, lut_bins);
+  const bool screen = __syncthreads_and(normal) != 0;
+  return ScreenTables{GLOBAL ? delta_all : smem, s_cost, s_inv, s_lut, screen};
+}
+
+// The running state of the screen over one lane and tenant: the largest
+// estimate e1 (its first function g, with g's exact a = j * est and est) and
+// the largest estimate of any other function e2.  A function that no longer
+// remains has the reciprocal -inf: its estimate is -inf (or NaN where a is
+// 0), which never becomes e1; a NaN may raise e2 to e1, which only sends the
+// tenant to the exact fold.  Branch-free: min / max and selects.
+struct Screen {
+  float e1 = -INFINITY, e2 = -INFINITY, a1 = 0.0f, est1 = 0.0f;
+  int g = -1;
+
+  __device__ __forceinline__ void add(int f, float est, float a, float inv) {
+    const float e = __fmul_rn(a, inv);  // a / cost within (1 + 2^-24)^2
+    e2 = fmaxf(e2, fminf(e, e1));
+    const bool up = e > e1;
+    e1 = up ? e : e1;
+    g = up ? f : g;
+    a1 = up ? a : a1;
+    est1 = up ? est : est1;
+  }
+
+  // The proof's condition (header): g is the first strict maximum.
+  __device__ __forceinline__ bool decided(bool screen) const {
+    return screen && e1 >= kScreenLo && e1 <= kScreenHi && e2 < __fmul_rn(e1, kScreen);
+  }
+};
+
+// Best mode for one lane and tenant: the screen over the remaining functions
+// (bit f of ok), then ONE correctly rounded division for the chosen function;
+// where the screen cannot decide, the exact fold in function order (strict:
+// ties keep the first maximum).  phat(f): p_hat of function f; inv(f): its
+// reciprocal cost, -inf where it no longer remains; cost: the lane's column
+// of the [F][P] floored costs.  W > 0 unrolls W functions; W == 0 walks a
+// runtime F.
+template <int W, typename PHat, typename Inv>
+__device__ __forceinline__ BestOut best_screened(PHat phat, Inv inv, uint32_t ok,
+                                                 const float* cost, int P, int F, float j,
+                                                 float pp, bool screen) {
+  const int n = W > 0 ? W : F;
+  const bool live = pp > 0.0f;  // else est = 0 (the plain version's where)
+  const float r = __fdiv_rn(j, fmaxf(pp, kMinP));  // the plain version's j / max(pp), bitwise
+  Screen s;
+#pragma unroll
+  for (int f = 0; f < n; ++f) {
+    const float est = live ? clip01(__fmul_rn(r, phat(f))) : 0.0f;
+    s.add(f, est, __fmul_rn(j, est), inv(f));
+  }
+  if (ok == 0) return BestOut{-INFINITY, -1, 0.0f, cost[0]};  // no function remains
+  // Every a = j * est is a signed zero (j zero, or est zero for every
+  // function with j finite): each benefit is that zero, the first remaining
+  // function wins and g is it (its estimate 0 is the first above -inf).
+  const bool zero = j == 0.0f || (!live && fabsf(j) < INFINITY);
+  if (s.g >= 0 && (zero || s.decided(screen))) {
+    const float c = cost[s.g * P];
+    return BestOut{__fdiv_rn(s.a1, c), s.g, s.est1, c};
+  }
+  // a near tie: every division, in order
+  return best_fold<W>(phat, [&](int f) { return cost[f * P]; }, ok, F, j, r, pp);
+}
+
+// P > 4 on the smem route, and every P on the global route (F <= 10): one
+// thread per (object, predicate) lane, looping over the tenants.  The
+// lane's p_hat and reciprocal costs live in registers; per tenant the
+// screen, then one division.  Unbounded, ptxas leaves room for only 3
+// blocks an SM at F 8; from F 8 it is held to 64 registers (4 blocks),
+// which ran faster on the card at F 8 and slower at F 4.
 template <typename T, int F, bool GLOBAL>
-__global__ void __launch_bounds__(kThreads) enrich_score_best_lane_kernel(
+__global__ void __launch_bounds__(kThreads, F >= kMaxFunctions ? 4 : 1)
+    enrich_score_best_lane_kernel(
     const T* __restrict__ pred_prob, const T* __restrict__ unc,
     const int32_t* __restrict__ state_id, const T* __restrict__ joint,
     const float* __restrict__ delta_all, const float* __restrict__ cost_tab,
@@ -511,8 +658,8 @@ __global__ void __launch_bounds__(kThreads) enrich_score_best_lane_kernel(
     float* __restrict__ est_out, float* __restrict__ cost_out,
     int64_t num_rows, int P, int Q, int num_states, int num_bins, int lut_bins) {
   extern __shared__ float smem[];
-  const BestTables t = stage_best<GLOBAL>(smem, delta_all, cost_tab, lut, P, num_states,
-                                          num_bins, F, lut_bins);
+  const ScreenTables t = stage_screen<GLOBAL>(smem, delta_all, cost_tab, lut, P, num_states,
+                                              num_bins, F, lut_bins);
   const int64_t lanes = num_rows * P;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes; i += stride) {
@@ -521,21 +668,30 @@ __global__ void __launch_bounds__(kThreads) enrich_score_best_lane_kernel(
     const float pp = load_prob(pred_prob, i);
     const BestLane<F> lane = best_lane<F, GLOBAL>(t.delta, t.lut, load_prob(unc, i), p,
                                                   state_id[i], num_states, num_bins, lut_bins);
-    float cost[F];
+    float inv[F];  // -inf where the function no longer remains
+    uint32_t ok = 0;
 #pragma unroll
-    for (int f = 0; f < F; ++f) cost[f] = fmaxf(t.cost[p * F + f], kMinCost);
-    for (int q = 0; q < Q; ++q) {
-      const BestOut r = best_of<F>(lane, cost, load_prob(joint, (int64_t)q * num_rows + c), pp);
+    for (int f = 0; f < F; ++f) {
+      inv[f] = lane.ok[f] ? t.inv[f * P + p] : -INFINITY;
+      ok |= (uint32_t)lane.ok[f] << f;
+    }
+    float j = load_prob(joint, c);
+    for (int q = 0; q < Q; ++q) {  // the next tenant's joint loads while this one scores
+      const float j_next = q + 1 < Q ? load_prob(joint, (int64_t)(q + 1) * num_rows + c) : 0.0f;
+      const BestOut r = best_screened<F>(
+          [&](int f) { return lane.p_hat[f]; }, [&](int f) { return inv[f]; }, ok, t.cost + p,
+          P, F, j, pp, t.screen);
       store_lane(benefit, next_fn, est_out, cost_out, (int64_t)q * lanes + i, r);
+      j = j_next;
     }
   }
 }
 
-// F > kMaxFunctions, global tables: one thread per lane, a runtime F in
-// chunks of kChunk functions.  For each tenant the chunks are folded in
-// order into one running best; a chunk's deltas (L1 / L2 hits after the
-// first tenant) and p_hat are recomputed per tenant, so registers hold one
-// chunk, whatever F is.
+// F > kMaxLane (global route only): one thread per lane, a runtime F (<=
+// kMaxWide).  The lane's p_hat and reciprocal costs are computed once (F
+// lerps, not F per tenant) into the thread's two columns of shared memory,
+// [F][kThreads] each, and its remaining functions into one 32-bit mask; per
+// tenant the screen reads both columns, then one division.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) enrich_score_best_wide_kernel(
     const T* __restrict__ pred_prob, const T* __restrict__ unc,
@@ -546,8 +702,12 @@ __global__ void __launch_bounds__(kThreads) enrich_score_best_wide_kernel(
     float* __restrict__ est_out, float* __restrict__ cost_out,
     int64_t num_rows, int P, int Q, int num_states, int num_bins, int F, int lut_bins) {
   extern __shared__ float smem[];
-  const BestTables t = stage_best<true>(smem, delta_all, cost_tab, lut, P, num_states,
-                                        num_bins, F, lut_bins);
+  const ScreenTables t = stage_screen<true>(smem, delta_all, cost_tab, lut, P, num_states,
+                                            num_bins, F, lut_bins);
+  // this thread's columns: p_hat, then the reciprocal costs (-inf where the
+  // function no longer remains)
+  float* row = smem + 2 * P * F + lut_bins + threadIdx.x;
+  float* row_inv = row + F * kThreads;
   const int64_t lanes = num_rows * P;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes; i += stride) {
@@ -555,26 +715,24 @@ __global__ void __launch_bounds__(kThreads) enrich_score_best_wide_kernel(
     const int p = (int)(i - c * P);
     const float pp = load_prob(pred_prob, i);
     const float h = load_prob(unc, i);
-    const float* d = delta_row(delta_all, p, state_id[i], h, num_states, num_bins, F);
-    const float* cost_p = t.cost + p * F;
+    const float* d = delta_row(t.delta, p, state_id[i], h, num_states, num_bins, F);
+    uint32_t ok = 0;
+    for (int f = 0; f < F; ++f) {
+      const float delta = __ldg(d + f);
+      const bool remains = !isinf(delta);  // +inf: the function already ran
+      ok |= (uint32_t)remains << f;
+      row[f * kThreads] = lut_lerp(clip01(__fadd_rn(h, remains ? delta : 0.0f)), t.lut,
+                                   lut_bins);
+      row_inv[f * kThreads] = remains ? t.inv[f * P + p] : -INFINITY;
+    }
+    float j = load_prob(joint, c);
     for (int q = 0; q < Q; ++q) {
-      const float j = load_prob(joint, (int64_t)q * num_rows + c);
-      const float r = __fdiv_rn(j, fmaxf(pp, kMinP));
-      BestOut o{-INFINITY, -1, 0.0f, fmaxf(cost_p[0], kMinCost)};
-      for (int f0 = 0; f0 < F; f0 += kChunk) {
-        BestLane<kChunk> s;
-        float cost[kChunk];
-#pragma unroll
-        for (int u = 0; u < kChunk; ++u) {
-          const bool in = f0 + u < F;  // the last chunk's tail: no function
-          const float delta = in ? __ldg(d + f0 + u) : INFINITY;
-          s.ok[u] = !isinf(delta);
-          s.p_hat[u] = lut_lerp(clip01(__fadd_rn(h, s.ok[u] ? delta : 0.0f)), t.lut, lut_bins);
-          cost[u] = in ? fmaxf(cost_p[f0 + u], kMinCost) : kMinCost;
-        }
-        best_fold<kChunk>(s, cost, j, r, pp, f0, o);
-      }
-      store_lane(benefit, next_fn, est_out, cost_out, (int64_t)q * lanes + i, o);
+      const float j_next = q + 1 < Q ? load_prob(joint, (int64_t)(q + 1) * num_rows + c) : 0.0f;
+      const BestOut r = best_screened<0>(
+          [&](int f) { return row[f * kThreads]; },
+          [&](int f) { return row_inv[f * kThreads]; }, ok, t.cost + p, P, F, j, pp, t.screen);
+      store_lane(benefit, next_fn, est_out, cost_out, (int64_t)q * lanes + i, r);
+      j = j_next;
     }
   }
 }
@@ -603,14 +761,22 @@ size_t table_smem(int P, int num_states, int num_bins, int F, int lut_bins, bool
   return sizeof(float) * (tables + (size_t)P * F + lut_bins);
 }
 
-size_t best_smem(int P, int num_states, int num_bins, int F, int lut_bins, bool global) {
-  const size_t tables = global ? 0 : (size_t)P * num_states * num_bins * F;
-  return sizeof(float) * (tables + (size_t)P * F + lut_bins);
+size_t best_smem(int P, int num_states, int num_bins, int F, int lut_bins) {
+  return sizeof(float) * ((size_t)P * num_states * num_bins * F + (size_t)P * F + lut_bins);
 }
 
-// The best-mode launch: F (1..8), the route and, for P <= 4 on the smem
-// route, P are template parameters of the kernel; past F 8 the wide kernel
-// takes a runtime F.
+// The lane kernels: the staged deltas (smem route), costs and reciprocals,
+// the LUT and, in the wide kernel, two columns of F floats a thread.
+size_t lane_smem(int P, int num_states, int num_bins, int F, int lut_bins, bool global,
+                 bool wide) {
+  const size_t tables = global ? 0 : (size_t)P * num_states * num_bins * F;
+  const size_t rows = wide ? 2 * (size_t)kThreads * F : 0;
+  return sizeof(float) * (tables + 2 * (size_t)P * F + lut_bins + rows);
+}
+
+// The best-mode launch: F (1..10), the route and, for P <= 4 on the smem
+// route, P are template parameters of the kernel; past F 10 the wide kernel
+// takes a runtime F (<= kMaxWide).
 struct BestArgs {
   const void *pred_prob, *unc, *state_id, *joint, *delta_all, *cost_tab, *lut;
   void *benefit, *next_fn, *est_joint, *cost;
@@ -622,7 +788,7 @@ struct BestArgs {
 template <typename T, int P, int F>
 cudaError_t launch_best_obj(const BestArgs& a) {
   auto k = enrich_score_best_kernel<T, P, F>;
-  const size_t smem = best_smem(P, a.num_states, a.num_bins, F, a.lut_bins, false);
+  const size_t smem = best_smem(P, a.num_states, a.num_bins, F, a.lut_bins);
   int grid = 0;
   cudaError_t err = launch_grid(k, smem, a.num_rows, &grid);
   if (err != cudaSuccess) return err;
@@ -639,7 +805,7 @@ cudaError_t launch_best_obj(const BestArgs& a) {
 template <typename T, int F, bool GLOBAL>
 cudaError_t launch_best_lanes(const BestArgs& a) {
   auto k = enrich_score_best_lane_kernel<T, F, GLOBAL>;
-  const size_t smem = best_smem(a.P, a.num_states, a.num_bins, F, a.lut_bins, GLOBAL);
+  const size_t smem = lane_smem(a.P, a.num_states, a.num_bins, F, a.lut_bins, GLOBAL, false);
   int grid = 0;
   cudaError_t err = launch_grid(k, smem, a.num_rows * a.P, &grid);
   if (err != cudaSuccess) return err;
@@ -656,7 +822,7 @@ cudaError_t launch_best_lanes(const BestArgs& a) {
 template <typename T>
 cudaError_t launch_best_wide(const BestArgs& a) {
   auto k = enrich_score_best_wide_kernel<T>;
-  const size_t smem = best_smem(a.P, a.num_states, a.num_bins, a.F, a.lut_bins, true);
+  const size_t smem = lane_smem(a.P, a.num_states, a.num_bins, a.F, a.lut_bins, true, true);
   int grid = 0;
   cudaError_t err = launch_grid(k, smem, a.num_rows * a.P, &grid);
   if (err != cudaSuccess) return err;
@@ -700,9 +866,21 @@ cudaError_t best_dispatch_f(const BestArgs& a) {
   }
 }
 
+// Past F 8 (global route): unrolled lane kernels to F 10, then the wide kernel.
+template <typename T>
+cudaError_t best_dispatch_wide(const BestArgs& a) {
+  static_assert(kMaxLane == 10, "one case per F up to kMaxLane");
+  switch (a.F) {
+    case 9: return launch_best_lanes<T, 9, true>(a);
+    case 10: return launch_best_lanes<T, 10, true>(a);
+    default: return launch_best_wide<T>(a);
+  }
+}
+
 template <typename T>
 cudaError_t best_dispatch(const BestArgs& a, bool global) {
-  if (a.F > kMaxFunctions) return global ? launch_best_wide<T>(a) : cudaErrorInvalidValue;
+  if (a.F > kMaxFunctions)
+    return global && a.F <= kMaxWide ? best_dispatch_wide<T>(a) : cudaErrorInvalidValue;
   return global ? best_dispatch_f<T, true>(a) : best_dispatch_f<T, false>(a);
 }
 

@@ -48,11 +48,14 @@ def reset_counts() -> None:
 
 
 def _pick_route(name, mode, p, s, b, f, lut_bins) -> str:
+    if mode == "best" and f > kernel.WIDE_MAX_FUNCTIONS:
+        raise ValueError(f"{name}: best mode takes at most {kernel.WIDE_MAX_FUNCTIONS} "
+                         f"functions, not {f}")
     route = kernel.table_route(mode, p, s, b, f, lut_bins)
     smem = kernel.global_smem_bytes(p, f, lut_bins)
     if route == "global" and smem > kernel.SMEM_LIMIT:
         raise ValueError(
-            f"{name}: the [P, F] costs and the LUT need {smem} bytes of shared memory, more "
+            f"{name}: the global route's costs and LUT need {smem} bytes of shared memory, more "
             f"than the {kernel.SMEM_LIMIT} a Hopper block can use"
         )
     return route

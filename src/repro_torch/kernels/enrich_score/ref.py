@@ -27,6 +27,9 @@ from repro_torch.core.entropy import lut_lerp
 CLIP_HI = 1.0 - 1e-7  # rounds to the f32 bin-clip bound when applied to f32
 MIN_P = 1e-12
 MIN_COST = 1e-9
+# the lane kernels' screen (csrc/enrich_score.cu, header): margin and range
+SCREEN = 1.0 - 2.0**-20
+SCREEN_LO, SCREEN_HI, SCREEN_COST_HI = 2.0**-125, 2.0**125, 2.0**126
 
 
 def _bins(h: torch.Tensor, num_bins: int) -> torch.Tensor:
@@ -130,3 +133,57 @@ def enrich_score_best_ref(
         best_ej = torch.where(better, est, best_ej)
     cost = torch.clamp_min(costs[pred, torch.clamp_min(best_fn, 0).long()], MIN_COST)
     return best_ben, best_fn, best_ej, cost
+
+
+def best_screen(
+    pred_prob: torch.Tensor,  # [C, P] f32 | bf16
+    unc: torch.Tensor,  # [C, P]
+    state_id: torch.Tensor,  # [C, P] int32
+    joint: torch.Tensor,  # [Q, C]
+    delta_all: torch.Tensor,  # [P, S, B, F] f32, +inf where unavailable
+    costs: torch.Tensor,  # [P, F] f32
+    lut: torch.Tensor,  # [L] f32
+):
+    """Best mode the way the lane kernels compute it (``best_screened`` in
+    ``csrc/enrich_score.cu``), op for op: per (tenant, lane) and function in
+    order the estimate ``e = (j * est) * inv`` (``inv`` = RN(1 / cost), -inf
+    where the function no longer remains), the largest ``e1`` (its first
+    function ``g``) and the runner-up ``e2 = fmax(e2, fmin(e, e1))``; where
+    every ``j * est`` is zero, or ``e2 < e1 * (1 - 2^-20)`` with ``e1`` in
+    [2^-125, 2^125] and every floored cost <= 2^126, one division for ``g``,
+    else the exact fold.  -> ((benefit, next_fn, est_joint, cost), benefit
+    divisions).  Bitwise ``enrich_score_best_ref`` wherever the screen's
+    proof holds, which the CPU tests check; the count is the kernels' exact
+    divisions on these inputs."""
+    h, p, j = unc.float(), pred_prob.float(), joint.float()
+    np_, f = p.shape[1], costs.shape[1]
+    pred = torch.arange(np_, device=p.device)[None, :]
+    deltas = delta_all[pred, state_id.long(), _bins(h, delta_all.shape[2])]  # [C, P, F]
+    ok = ~torch.isinf(deltas)
+    p_hat = lut_lerp(torch.clamp(h[..., None] + torch.where(ok, deltas, 0.0), 0.0, 1.0), lut)
+    cost_pf = torch.clamp_min(costs, MIN_COST)
+    inv = torch.where(ok, 1.0 / cost_pf, float("-inf"))  # [C, P, F]
+    live = p > 0
+    jq = j[:, :, None].expand(-1, -1, np_)  # [Q, C, P]
+    r = jq / torch.clamp_min(p, MIN_P)
+    e1 = torch.full_like(r, float("-inf"))
+    e2, a1, est1 = e1.clone(), torch.zeros_like(r), torch.zeros_like(r)
+    g = torch.full(r.shape, -1, dtype=torch.long, device=p.device)
+    for fi in range(f):
+        est = torch.where(live, torch.clamp(r * p_hat[..., fi], 0.0, 1.0), 0.0)
+        a = jq * est
+        e = a * inv[..., fi]
+        e2 = torch.fmax(e2, torch.fmin(e, e1))
+        up = e > e1
+        e1, a1, est1 = torch.where(up, e, e1), torch.where(up, a, a1), torch.where(up, est, est1)
+        g = torch.where(up, fi, g)
+    screen = bool((cost_pf <= SCREEN_COST_HI).all())
+    zero = (jq == 0) | (~live & torch.isfinite(jq))
+    decided = ok.any(-1) & (g >= 0) & (zero | (screen & (e1 >= SCREEN_LO) & (e1 <= SCREEN_HI)
+                                              & (e2 < e1 * SCREEN)))
+    exact = enrich_score_best_ref(pred_prob, unc, state_id, joint, delta_all, costs, lut)
+    cost_g = cost_pf[pred, g.clamp_min(0)]
+    screened = (a1 / cost_g, g.to(torch.int32), est1, cost_g)
+    out = tuple(torch.where(decided, s_, x) for s_, x in zip(screened, exact))
+    divisions = torch.where(decided, 1, ok.sum(-1).expand_as(g)).sum()
+    return out, int(divisions)

@@ -67,7 +67,8 @@ import pytest
 import torch
 
 from repro_torch.core.combine import default_combine_params
-from repro_torch.core.decision_table import fallback_decision_table, learn_decision_table
+from repro_torch.core.decision_table import (DecisionTable, fallback_decision_table,
+                                              learn_decision_table)
 from repro_torch.core.entropy import binary_entropy
 from repro_torch.core.executor import EngineConfig
 from repro_torch.core.query import Predicate, conjunction
@@ -86,6 +87,7 @@ from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.launch.serve import state_digests
+from _torch_screen_world import SCREEN_KINDS, screen_world
 
 
 @pytest.fixture
@@ -204,20 +206,25 @@ GLOBAL_CASES = ([("best", p, f, dt) for p in (1, 2, 3, 4, 5) for f in (8, 9, 12)
                  for dt in ("float32", "bfloat16")]
                 + [("table", 11, 8, "float32"), ("table", 16, 8, "bfloat16"),
                    ("single", 11, 8, "float32")])
+# each side of each mode's crossover (kernel.GLOBAL_FROM): the last ladder
+# rung on "smem", the first on "global"
+CROSSOVER_SMEM = (("best", 2, 6), ("table", 4, 6), ("single", 4, 5))
+CROSSOVER_CASES = [(m, p, f, "float32") for m, p, f in
+                   CROSSOVER_SMEM + (("best", 1, 7), ("table", 5, 6), ("single", 3, 6))]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,p,f,dtype", GLOBAL_CASES)
+@pytest.mark.parametrize("mode,p,f,dtype", GLOBAL_CASES + CROSSOVER_CASES)
 def test_global_table_route_matches_plain_bitwise(cuda_device, mode, p, f, dtype):
     """Tables at the default 10 bins that a block's shared memory does not
-    hold, or best mode past F 8: the "global" route (the table read from
-    device memory; F > 8 in chunks of 8 functions), all four outputs bitwise
-    against the plain version, plain and edge-bin rows, each launch counted
-    on the route ``kernel.table_route`` names."""
+    hold, that reach the mode's crossover, or best mode past F 8: the
+    "global" route (the table read from device memory), and the last shape
+    below each crossover on "smem"; all four
+    outputs bitwise against the plain version, plain and edge-bin rows, each
+    launch counted on the route ``kernel.table_route`` names."""
     name = {"table": "enrich_score_table", "best": "enrich_score_best",
             "single": "enrich_score_single"}[mode]
-    # best mode at F 8 with P <= 2 still fits shared memory: the smem route
-    route = "smem" if (mode, f) == ("best", 8) and p <= 2 else "global"
+    route = "smem" if (mode, p, f) in CROSSOVER_SMEM else "global"
     assert es_kernel.table_route(mode, p, 2**f, 10, f, 4096) == route
     other = "smem" if route == "global" else "global"
     dt = getattr(torch, dtype)
@@ -250,6 +257,53 @@ def test_global_table_route_matches_plain_bitwise(cuda_device, mode, p, f, dtype
                 assert (out.next_fn[:, : n // 8] >= 8).all()
             if edge and mode != "single":
                 assert (out.next_fn[:, 2 * n // 3:] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,p,f", [(k, p, f) for k in SCREEN_KINDS for p in (1, 4, 5)
+                                      for f in (3, 8, 10)]
+                         + [("random", p, f) for p in (1, 2, 3, 4, 5) for f in range(9, 17)]
+                         + [("random", 1, 20), ("random", 2, 17)])
+def test_best_screen_holds_bitwise_on_both_routes(cuda_device, kind, p, f, dtype):
+    """The lane kernels' division screen (best mode: one thread a lane, the
+    global route and the smem route at P > 4) where it is pressed hardest —
+    exact ties, benefits an ulp apart, zero and subnormal joints, pred_prob
+    0, every function exhausted — and F 9-16 at P 1-5 (F 9 and 10 on the
+    unrolled lane kernels past F 8, F 11-16 on the wide kernel), F 17 and 20
+    (the wide kernel):
+    all four outputs bitwise against the plain version on each route that
+    takes the shape, the wrapper's launch counted on the route
+    ``table_route`` names."""
+    dt = getattr(torch, dtype)
+    pp, unc, sid, joint, delta, costs = screen_world(cuda_device, kind, p, f, dt,
+                                                     p * 100 + f * 7 + len(kind))
+    lut = ops._lut(4096, cuda_device)
+    want = ref.enrich_score_best_ref(pp, unc, sid, joint, delta, costs, lut)
+    # best mode reads delta_h_all alone
+    table = DecisionTable(next_fn=torch.zeros((p, 1, 1), dtype=torch.int32, device=cuda_device),
+                          delta_h=torch.zeros((p, 1, 1), device=cuda_device), delta_h_all=delta,
+                          num_bins=delta.shape[2])
+    route = es_kernel.table_route("best", p, 2**f, delta.shape[2], f, 4096)
+    before = ops.TABLE_ROUTES[("enrich_score_best", route)]
+    outs = {route: ops.fused_benefits_batched(pp, unc, sid, joint, table, costs, "best")}
+    assert ops.TABLE_ROUTES[("enrich_score_best", route)] == before + 1
+    fits = es_kernel.best_smem_bytes(p, 2**f, delta.shape[2], f, 4096) <= SMEM_LIMIT
+    if f <= es_kernel.SMEM_MAX_FUNCTIONS and fits:  # the other route, uncounted
+        other = "global" if route == "smem" else "smem"
+        outs[other] = tuple(torch.empty_like(x) for x in want)
+        es_kernel.launch_best(pp, unc, sid, joint, delta, costs, lut, outs[other], other)
+    torch.cuda.synchronize()
+    for r, out in outs.items():
+        for name, a, b in zip(("benefit", "next_fn", "est_joint", "cost"), out, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (r, name)
+    if kind == "exhausted":
+        assert (want[1] == -1).all()
+    if kind == "tie":  # exact ties keep the first remaining function
+        first = torch.isfinite(delta[torch.arange(p, device=cuda_device)[None, :], sid.long(),
+                                     ref._bins(unc.float(), delta.shape[2])]).int().argmax(-1)
+        live = want[1] >= 0
+        assert torch.equal(want[1][live], first.to(torch.int32).expand_as(want[1])[live])
 
 
 @pytest.mark.cuda

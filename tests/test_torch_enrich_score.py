@@ -34,6 +34,8 @@ from repro_torch import interop
 from repro_torch.core.benefit import compute_benefits_batched as t_compute_batched
 from repro_torch.core.errors import SubstrateDtypeError
 from repro_torch.kernels.enrich_score import ops as t_ops
+from repro_torch.kernels.enrich_score import ref as t_ref
+from _torch_screen_world import SCREEN_KINDS, screen_world
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 BENEFIT_RTOL = 5e-7  # 4 ulp of f32: the lerp's possible FMA contraction under XLA
@@ -198,17 +200,20 @@ def test_cpu_tensors_take_the_plain_path_and_count_it():
 
 
 # Shapes whose decision tables outgrow a Hopper block's shared memory at the
-# default 10 bins (a table has 2^F states), or (best mode) F > 8: the CUDA
-# wrappers take the "global" table route there; the main paths' shapes (the
+# default 10 bins (a table has 2^F states), or (best mode) F > 8, or reach
+# the mode's measured crossover (``kernel.GLOBAL_FROM``): the CUDA wrappers
+# take the "global" table route there; the main paths' shapes (the
 # session's P 4 F 4, the cascade's P 3 F 3, the operator's P 2 F 4) stay on
-# "smem".
+# "smem", as does the last ladder rung below each crossover.
 GLOBAL_ROUTE_SHAPES = (
     [("best", p, 8) for p in (3, 4, 5)] + [("best", 7, 7), ("best", 15, 6)]
     + [("best", p, f) for f in (9, 10, 11, 12) for p in (1, 2, 3, 4, 5)]
     + [(mode, p, 8) for mode in ("table", "single") for p in (11, 16)]
+    + [("best", 1, 7), ("best", 1, 8), ("best", 2, 8), ("table", 5, 6), ("single", 3, 6)]
 )
 SMEM_ROUTE_SHAPES = [(mode, p, f) for mode in ("table", "best", "single")
-                     for p, f in ((4, 4), (3, 3), (2, 4))]
+                     for p, f in ((4, 4), (3, 3), (2, 4))] + [
+    ("best", 2, 6), ("table", 4, 6), ("single", 4, 5)]
 
 
 @pytest.mark.parametrize("mode,p,f,route",
@@ -223,13 +228,43 @@ def test_table_route_takes_every_table(mode, p, f, route):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("p,f", [(3, 8), (2, 9)])
+@pytest.mark.parametrize("p,f", [(3, 8), (2, 9), (4, 10), (4, 12)])
 def test_best_mode_matches_jax_on_global_route_tables(p, f, dtype):
     """Best mode where the card takes the "global" route: P 3 F 8 (the
-    table outgrows shared memory) and P 2 F 9 (past the unrolled F 8), at
-    the default 10 bins, C = 67."""
+    table outgrows shared memory) and P 2 / 4 at F 9, 10 and 12 (past the
+    smem route's F 8), at the default 10 bins, C = 67."""
     table, costs = _fallback(p, f)
     assert table.num_bins == 10
-    jb, tb = _both(_rows(p * 10 + f, 67, p, f, 3), table, costs, "best", dtype)
+    pp, unc, sid, joint = _rows(p * 10 + f, 67, p, f, 3)
+    if f > 9:  # functions 0-7 ran on the first rows: only the later ones remain
+        sid = sid.copy()
+        sid[:16] |= 0xFF
+    jb, tb = _both((pp, unc, sid, joint), table, costs, "best", dtype)
     assert _assert_parity(jb, tb).any()
     assert f == 8 or (tb[1] >= 8).any()  # past F 8, some lanes choose a function >= 8
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,p,f", [(k, p, f) for k in SCREEN_KINDS + ("random",)
+                                      for p in (1, 4, 5) for f in (3, 8, 10)])
+def test_best_screen_twin_picks_the_plain_versions_function(kind, p, f, dtype):
+    """The lane kernels' division screen, computed in PyTorch
+    (``ref.best_screen``: one division per (tenant, lane) where the
+    estimates decide, the exact fold elsewhere) on inputs that press on it
+    (exact ties, benefits an ulp apart, zero and subnormal joints, pred_prob
+    0, every function exhausted): all four outputs bitwise the plain
+    version's, and never more divisions than the functions that remain."""
+    dev = torch.device("cpu")
+    pp, unc, sid, joint, delta, costs = screen_world(dev, kind, p, f, getattr(torch, dtype),
+                                                     p * 100 + f * 7 + len(kind))
+    lut = t_ops._lut(4096, dev)
+    out, divisions = t_ref.best_screen(pp, unc, sid, joint, delta, costs, lut)
+    want = t_ref.enrich_score_best_ref(pp, unc, sid, joint, delta, costs, lut)
+    for name, a, b in zip(("benefit", "next_fn", "est_joint", "cost"), out, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    pred = torch.arange(p)[None, :]
+    rows = delta[pred, sid.long(), t_ref._bins(unc.float(), delta.shape[2])]
+    left = torch.isfinite(rows).sum(-1)  # [C, P]: the exact fold's divisions per tenant
+    assert divisions <= int(left.sum()) * joint.shape[0]
+    if kind in ("random", "pp0"):  # one division per (tenant, lane) with a function left
+        assert divisions == int((left > 0).sum()) * joint.shape[0]

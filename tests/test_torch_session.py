@@ -90,6 +90,24 @@ def _port_session(mode, dtype, capacity=128, max_capacity=256, **cfg):
     )
 
 
+# ten tagging functions (chip_smoke's SESSION10_*): best mode's lane kernel at F 10 on the card
+AUCS10 = (0.60, 0.66, 0.70, 0.74, 0.78, 0.84, 0.88, 0.91, 0.93, 0.97)
+COSTS10 = (0.01, 0.015, 0.02, 0.035, 0.05, 0.08, 0.12, 0.2, 0.35, 0.5)
+TRACE10 = [("admit", 0), ("admit", 1), ("run", 2), ("admit", 2), ("run", 2)]
+
+
+@functools.lru_cache(maxsize=None)
+def _world10():
+    preds = [JPredicate(i, 1) for i in range(P)]
+    corpus = make_corpus(
+        jax.random.PRNGKey(5), 256 + 96, [p.tag_type for p in preds], [p.tag for p in preds],
+        selectivity=[0.3] * P, aucs=list(AUCS10), costs=list(COSTS10),
+    )
+    combine = default_combine_params(corpus.aucs)
+    table = learn_decision_table(corpus.func_probs[:256], combine, num_bins=10)
+    return preds, corpus, combine, table, np.array(corpus.func_probs[256:])
+
+
 def _canon(plan, np_of):
     v = np_of(plan.valid)
     return [v] + [np.where(v, np_of(x).astype(np.int64), -1)
@@ -163,6 +181,53 @@ def test_churn_trace_matches_jax_epoch_by_epoch(mode, dtype):
     for b in bills:
         acc = np.float32(acc + b)
     assert acc == np.float32(tst.cost_spent)
+
+
+def test_ten_function_session_matches_jax_epoch_by_epoch():
+    """Best mode with ten tagging functions (a table of 2^10 states: past the
+    card's smem route, its global lane kernel at F 10), f32, 96 objects: per-slot plans,
+    merged plans, want-bits and answers equal the reference's epoch by
+    epoch, spend within SUM_RTOL."""
+    preds, corpus, combine, table, outputs = _world10()
+    assert table.delta_h_all.shape == (P, 2**10, 10, 10)
+    cfg = dict(capacity=96, max_tenants=SLOTS, max_capacity=96)
+    js = JSession([p.positive() for p in preds], table, combine, corpus.costs,
+                  config=MultiQueryConfig(plan_size=16, function_selection="best",
+                                          backend="pallas", pallas_interpret=True), **cfg)
+    ts = TSession([TPredicate(i, 1) for i in range(P)],
+                  interop.decision_table_from_numpy(jax.device_get(table)),
+                  interop.combine_params_from_numpy(jax.device_get(combine)),
+                  np.array(corpus.costs), device="cpu",
+                  config=EngineConfig(plan_size=16, function_selection="best"), **cfg)
+    jst = js.init_state(jnp.asarray(outputs))
+    tst = ts.init_state(torch.from_numpy(outputs))
+    j_plan_part = jax.jit(js.program._plan_part)
+    epochs, picked = 0, set()
+    for kind, arg in TRACE10:
+        if kind == "admit":
+            cols = QUERIES[arg]
+            jst, js_slot = js.admit(jst, j_conjunction(*[preds[c] for c in cols]))
+            tst, ts_slot = ts.admit(tst, t_conjunction(*[TPredicate(c, 1) for c in cols]))
+            assert ts_slot == js_slot
+            continue
+        for _ in range(arg):
+            jplans, jmerged, jwant = j_plan_part(jst)
+            tplans, tmerged, twant = ts.program._plan_part(tst)
+            for a, b in zip(_canon(tplans, lambda x: x.numpy()), _canon(jplans, _np)):
+                np.testing.assert_array_equal(a, b)
+            for a, b in zip(_canon(tmerged, lambda x: x.numpy()), _canon(jmerged, _np)):
+                np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(twant.numpy(), _np(jwant).astype(np.int64))
+            picked |= set(tmerged.func_idx[tmerged.valid].tolist())
+            jst, (jh,) = js.run(jst, 1, collect_masks=True, stop_when_exhausted=False)
+            tst, (th,) = ts.run(tst, 1, collect_masks=True, stop_when_exhausted=False)
+            np.testing.assert_array_equal(th.answer_mask, jh.answer_mask)
+            assert (th.merged_valid, th.plan_valid, th.answer_size) == (
+                jh.merged_valid, jh.plan_valid, jh.answer_size)
+            np.testing.assert_allclose(th.cost_spent, jh.cost_spent, rtol=SUM_RTOL)
+            np.testing.assert_allclose(th.attributed, jh.attributed, rtol=SUM_RTOL, atol=1e-7)
+            epochs += 1
+    assert epochs == 4 and picked and all(0 <= f < 10 for f in picked)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
