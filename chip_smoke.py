@@ -272,6 +272,34 @@ in order; any failure raises and the script exits non-zero:
    ``[session-mesh] {...}`` line); the gloo child of phase 8 also runs the
    suite's 2- and 4-rank session-mesh checks
    (``tests/_torch_session_mesh_worker.gloo_checks``);
+9b. the reference's serve cells on one card (``launch/cells.py``
+   ``SERVE_CELLS``: qwen3-1.7b and mamba2-370m at ``prefill_32k`` and
+   ``decode_32k``; hymba-1.5b, h2o-danube-1.8b, gemma2-9b and mamba2-370m
+   at ``long_500k``), each at the batch and depth ``one_card_cell``
+   reckons for one 80 GB card: first ``rope_frequencies`` / ``apply_rope``
+   on the card against the CPU at positions 0 to 524,287, and each kernel
+   at the shape a cell gives it against its plain version — the fused
+   decode kernel and the split route (the partials' tc form + the combine;
+   ``ops.decode_route`` takes it from ``SPLIT_FROM`` keys a fused block) at
+   qwen3 B 16 x 32,768, hymba and gemma2's global layer at 524,288 keys,
+   and gemma2's and danube's windows at position 524,287 (``CELL_DA``: both
+   routes timed, the oracle, the twins, SDPA or ``flex_attention``), the tc
+   flash kernel at the qwen3 prefill_32k layer (its twin one query block at
+   a time), each with q drawn x 12 or x 16 so that a few keys carry each
+   output, and rows planted among the last keys that carry a share of it
+   (``_plant_last_rows``): the same kernel without the last 256 keys must
+   miss the tolerance (the planted control), and on gemma2's two 2^30-element
+   slices this is the index audit; then the tc SSD kernel at the mamba2
+   prefill_32k layer (128 chunks; its twin two batch rows at a time); then
+   each cell at full width (random bf16
+   weights) through ``build_prefill_step`` / ``build_decode_step`` without
+   a mesh (a decode from a ``fill_cache``d cache at ``seq_len - 1``: every
+   step writes the last free row and attends over all ``seq_len`` keys):
+   the launches by route, ms a prefill or step (median), tokens/s and peak
+   memory, then the gate: at the cell's length and one pattern period (two
+   layers where the period is one), the kernel route's logits within 2e-2
+   (qwen3, mamba2) or 4e-2 (the zoo) of the plain engines' on the same
+   weights and cache;
 10. one JSON line of per-kernel numbers, one entry per kernel: the flash
    kernel's four routes as ``flash_attention`` (simt: on no main path, so
    its launches are 0; its numbers the cascade shape's, timed beside the
@@ -295,7 +323,9 @@ in order; any failure raises and the script exits non-zero:
    its ``kernel``, each best-mode case with its ``divisions``); an
    entry timed at the
    zoo's shapes carries them in ``shapes`` (each with its ms, plain ms,
-   bound and library ms), and one whose softcap was checked where it binds
+   bound and library ms; phase 9b's cells' shapes too, with ``serves``
+   naming the cell and, for the decode kernels, both routes' ms), and one
+   whose softcap was checked where it binds
    its rows in ``softcap``; every other kernel must have launched on a main
    path; the ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 
@@ -616,6 +646,9 @@ def _nvidia_smi() -> str:
 SLEEP_CYCLES = 10_000_000  # ~5.7 ms of device time at 1.755 GHz
 
 
+ALONE_MS = 1.0  # _time_ms: a call at least this long is timed one call a run
+
+
 def _time_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 10) -> float:
     """Median over ``reps`` CUDA-event timings of a run of ``inner`` calls of
     ``fn``, per call, after warm-up.  Each run is enqueued behind a device
@@ -623,11 +656,21 @@ def _time_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 10) -> float:
     calls run back to back on the card and a kernel shorter than its
     wrapper's host overhead (tens of microseconds a call from Python) is
     timed as the card runs it.  A call that synchronises (a plain twin that
-    reads a device scalar) is timed with its host gaps, as it runs."""
+    reads a device scalar) is timed with its host gaps, as it runs.  A call
+    that takes ``ALONE_MS`` or more runs alone (``inner`` 1): its launch
+    overhead is under 1% of it, and ten calls a run would add seconds to the
+    script for no gain in what is measured."""
     import torch
 
     for _ in range(warmup):
         fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    if start.elapsed_time(end) >= ALONE_MS:
+        inner = 1
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -2519,7 +2562,7 @@ def phase_model_serve() -> dict:
         n = cfg.num_layers
         idle = {"decode_attention_partials": 0, "decode_attention_fused": 0,
                 "decode_attention_fused/tc": 0, "decode_attention_fused/simt": 0,
-                "decode_attention_partials/tc": 0, "decode_attention_partials/simt": 0,
+                "decode_attention_fused/split": 0, "decode_attention_partials/tc": 0, "decode_attention_partials/simt": 0,
                 "ssd_intra_chunk": 0, "flash_attention": 0, "flash_attention/simt": 0,
                 "flash_attention/tc": 0, "flash_attention/short": 0, "flash_attention/split": 0,
                 "ssd_intra_chunk/tc": 0, "ssd_intra_chunk/simt": 0,
@@ -2558,7 +2601,8 @@ def _zoo_expected(cfg, steps: int) -> dict:
                           "flash_attention/simt", "decode_attention_partials",
                           "decode_attention_partials/tc", "decode_attention_partials/simt",
                           "decode_attention_fused", "decode_attention_fused/tc",
-                          "decode_attention_fused/simt", "ssd_intra_chunk/tc",
+                          "decode_attention_fused/simt", "decode_attention_fused/split",
+                          "ssd_intra_chunk/tc",
                           "ssd_intra_chunk/simt", "ssd_intra_chunk/packed"), 0)
     if cfg.layer_pattern == ("mamba",):  # SSD heads of state 128 alone: the tc route
         want["ssd_intra_chunk/tc"] = n  # (a decode step runs ssd_step: no kernel)
@@ -2659,6 +2703,526 @@ def phase_zoo_serve() -> dict:
     print(f"[zoo] {len(ZOO_ARCHS)} architectures served in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches
+
+
+# ------------------------------------------------- phase 9b: the long cells --
+
+# The reference's serve cells on one card (launch/cells.py SERVE_CELLS, each at
+# one_card_cell's batch and depth).  Prefills: 1 untimed (one row) + CELL_PREFILLS
+# timed; decodes: 1 untimed + CELL_STEPS timed steps, each from the cache at
+# seq_len - 1.
+CELL_PREFILLS = 3
+CELL_STEPS = 5
+CELL_GATE_TOL = {"qwen3-1.7b": 2e-2, "mamba2-370m": 2e-2}  # the bf16 serve gates (phase 8)
+ZOO_GATE_TOL = 4e-2  # the zoo trunk's bf16 tolerance (hymba, danube, gemma2)
+ROPE_TOL = 2e-5  # apply_rope, card vs CPU, f32: of the input's largest magnitude
+ROPE_CASES = ((64, 1e4), (80, 1e4), (128, 1e6), (256, 1e4))
+ROPE_POSITIONS = (0, 4095, 32767, 524287)
+# kernel 5 at the long cells' decode shapes: b, skv, h, kv, d, kv_len, window (the
+# kernel's: the model's + 1), softcap, dtype, q_scale -> the cell it serves.  q is
+# drawn unit-normal x q_scale (phase 2's DA_BINDING scales): scores ~N(0, q_scale^2)
+# against the log of 524,288 keys' ~13, so a few keys carry each output at any
+# length and its values stay ~N(0, 1): FA_TOL binds.
+CELL_DA = {
+    (16, 32768, 16, 8, 128, 32768, None, None, "bfloat16", 12.0): "qwen3-1.7b decode_32k (B 16)",
+    (1, 524288, 25, 5, 64, 524288, None, None, "bfloat16", 12.0): "hymba-1.5b long_500k",
+    (1, 524288, 16, 8, 256, 524288, None, 50.0, "bfloat16", 16.0):
+        "gemma2-9b long_500k, a global layer (K and V 2^30 elements each)",
+    (1, 524288, 16, 8, 256, 524288, 4097, 50.0, "bfloat16", 16.0):
+        "gemma2-9b long_500k, a local layer (window 4,096 at the end of the 2^30-element slice)",
+    (1, 524288, 32, 8, 80, 524288, 4097, None, "bfloat16", 12.0):
+        "h2o-danube-1.8b long_500k (window 4,096 at position 524,287)",
+}
+CELL_FA_Q_SCALE = 12.0  # the flash case's q, as the decode cases'
+# the planted control: the kernel over all but the last CONTROL_ROWS keys (one
+# KV tile and more of every route) must miss the tolerance that it passes
+CONTROL_ROWS = 256
+FA_BLOCK = 256  # the flash twin's query block: scores [B H, 256, <= 32,768] f32
+SSD_BLOCK = 2  # the SSD twin's batch rows at a time
+
+
+def _plant_last_rows(q, k, v, lo: int, hi: int) -> None:
+    """Rows planted among the last live keys, in place: for each batch row
+    and query head r (of kv head j = r // G), row ``hi - 1 - r`` of kv head
+    j takes a copy of the key in ``[lo, hi - H)`` that scores highest
+    against r's query (``q`` [B, H, D]) and the value 2 + r / 16 in every
+    column.  It ties with r's best key, so it carries a share of r's output
+    like that key's: a kernel that misses the last rows (a skipped tile, an
+    offset formed in 32 bits that wraps) moves the output far past the
+    tolerance."""
+    import torch
+
+    b, h, _ = q.shape
+    g = h // k.shape[2]
+    rows = torch.arange(b, device=k.device)
+    for r in range(h):
+        scores = torch.einsum("bnd,bd->bn", k[:, lo:hi - h, r // g].float(), q[:, r].float())
+        k[:, hi - 1 - r, r // g] = k[rows, lo + scores.argmax(-1), r // g]
+        v[:, hi - 1 - r, r // g] = 2.0 + r / 16
+
+
+def _cell_decode_case(case, label) -> tuple:
+    """Kernel 5 at a long cell's shape: the model's route (``decode_route``:
+    the split route from ``SPLIT_FROM`` keys a fused block) counted once,
+    both routes on the same inputs against the oracle and their twins and
+    timed, the planted control (each route over all but the last
+    CONTROL_ROWS keys must miss the oracle), the library call beside ->
+    (fused row, partials row)."""
+    import torch
+    import torch.nn.functional as tnf
+
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    b, skv, h, kv, d, kv_len, window, cap, dtype, q_scale = case
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(skv + d + h)
+    q = (torch.randn((b, 1, h, d), generator=g, device=dev) * q_scale).to(dt)
+    k, v = (torch.randn((b, skv, kv, d), generator=g, device=dev, dtype=dt) for _ in range(2))
+    lo = 0 if window is None else kv_len - window + 1
+    _plant_last_rows(q[:, 0], k, v, lo, kv_len)
+    kl = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+    kw = dict(softcap=cap, window=window)
+    route = ops.decode_route(dt, d, b * kv, skv, window)
+    fns = ops.fused_num_splits(b * kv, skv, "tc")
+    pns = ref.split_count(skv, ops.default_num_splits(b * kv, skv, "tc"))
+
+    def fused_call(kl=kl):
+        return ops.decode_attention(q, k, v, kl, num_splits=fns, **kw)
+
+    def partials_call(kl=kl):
+        return ops.decode_attention_split(q, k, v, kl, **kw)
+
+    def split_call(kl=kl):
+        return ref.combine_partials(*partials_call(kl)).reshape(b, 1, h, d).to(dt)
+
+    def fused_plain():
+        return ref.decode_attention_fused(q, k, v, kl, num_splits=fns, **kw)
+
+    def split_plain():
+        qm = q.reshape(b * kv, h // kv, d)
+        km, vm = (t.transpose(1, 2).reshape(b * kv, skv, d) for t in (k, v))
+        return ref.decode_attention_partials(qm, km, vm, kl, num_splits=pns, **kw)
+
+    before = dict(ops.ROUTES)
+    out = ops.decode_attention(q, k, v, kl, **kw)  # the model's call
+    torch.cuda.synchronize()
+    key = "split" if route == "split" else "tc"
+    assert ops.ROUTES == {**before, key: before[key] + 1}, (label, ops.ROUTES)
+    assert torch.equal(out, fused_call() if route == "fused" else split_call()), label
+    oracle = ref.reference_decode(q, k, v, kl, **kw).float()
+    tol = FA_TOL[dtype]
+    short = kl - CONTROL_ROWS
+    errs, misses = {}, {}
+    for name, call in (("fused", fused_call), ("split", split_call)):
+        got = call().float()
+        errs[name] = (got - oracle).abs().max().item()
+        assert torch.allclose(got, oracle, rtol=tol, atol=tol), (
+            f"{label}: the {name} route is {errs[name]} off the oracle")
+        control = call(short).float()
+        misses[name] = (control - oracle).abs().max().item()
+        assert not torch.allclose(control, oracle, rtol=tol, atol=tol), (
+            f"{label}: the {name} route without the last {CONTROL_ROWS} keys stays within "
+            f"{misses[name]} of the oracle: the tolerance does not bind")
+    if b * skv * kv * d >= 2**30:  # the index audit
+        print(f"[cells] index audit ({label}): both routes read the planted rows "
+              f"{kv_len - h}..{kv_len - 1} (within {max(errs.values()):.3g} of the oracle; "
+              f"without the last {CONTROL_ROWS} keys {min(misses.values()):.3g} or more)",
+              flush=True)
+    twin = fused_plain().float()
+    assert torch.allclose(fused_call().float(), twin, rtol=tol, atol=tol), (
+        label, (fused_call().float() - twin).abs().max().item())
+    for nm, x, y in zip(("m", "l", "acc"), partials_call(), split_plain()):
+        x = x.reshape(y.shape)
+        perr = (x - y).abs().max().item()
+        assert perr <= DA_TOL * max(1.0, y.abs().max().item()), (label, nm, perr)
+    if cap is None:  # SDPA over the live keys, GQA
+        lo = 0 if window is None else kv_len - window + 1
+        qt = q.transpose(1, 2)
+        kt, vt = (t[:, lo:kv_len].transpose(1, 2) for t in (k, v))
+
+        def library_call():
+            return tnf.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+        lib_name = "sdpa"
+    else:
+        library_call = _flex_call(q, k[:, :kv_len], v[:, :kv_len], causal=False,
+                                  window=None if window is None else window - 1, cap=cap,
+                                  q_base=kv_len - 1)
+        lib_name = "flex_attention"
+    lib = library_call().transpose(1, 2).float()
+    assert torch.allclose(lib, oracle, rtol=tol, atol=tol), (
+        f"{lib_name} disagrees at {label} by {(lib - oracle).abs().max().item()}")
+    ms = {n: _time_ms(f) for n, f in (("fused", fused_call), ("split", split_call),
+                                      ("partials", partials_call), ("library", library_call))}
+    plain_ms = _time_ms(fused_plain, reps=3, warmup=1, inner=1)
+    bound_ms, bound_by = _da_bound(case[:9], fused=True)
+    p_bound_ms, p_bound_by = _da_bound(case[:9], fused=False)
+    served = ms[route]
+    print(f"[cells] kernel 5 at {label}: B={b} H={h} KV={kv} D={d} kv_len={kv_len} window="
+          f"{window} softcap={cap} q_scale={q_scale}; the route: {route}; fused ({fns} splits) "
+          f"{ms['fused']:.4f} ms, split ({pns} splits + the combine) {ms['split']:.4f} ms (the "
+          f"partials alone "
+          f"{ms['partials']:.4f}), {lib_name} {ms['library']:.4f} ms, plain twin {plain_ms:.4f} "
+          f"ms; bound {bound_ms:.4f} ms ({bound_by}): the route at {bound_ms / served:.1%} of "
+          f"it; within {max(errs.values()):.3g} of the oracle (rtol = atol = {tol}), without "
+          f"the last {CONTROL_ROWS} keys fused {misses['fused']:.3g} / split "
+          f"{misses['split']:.3g} off", flush=True)
+    fused_row = dict(ms=served, route=route, fused_ms=ms["fused"], split_ms=ms["split"],
+                     fused_splits=fns, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=ms["library"], library=lib_name, case=label, q_scale=q_scale,
+                     max_abs_err=max(errs.values()), control_err=misses["fused"],
+                     serves=CELL_DA[case])
+    part_row = dict(ms=ms["partials"], splits=pns, with_combine_ms=ms["split"],
+                    plain_ms=plain_ms, bound_ms=p_bound_ms, bound_by=p_bound_by,
+                    library_ms=ms["library"], library=lib_name, case=label, q_scale=q_scale,
+                    max_abs_err=errs["split"], control_err=misses["split"],
+                    serves=CELL_DA[case])
+    return fused_row, part_row
+
+
+def _cell_flash_case(b) -> dict:
+    """Kernel 3 at the qwen3-1.7b prefill_32k layer (B ``b`` x 32,768 queries
+    over a 32,768-row cache, H 16 / KV 8, D 128, causal: the "tc" route; q
+    drawn x CELL_FA_Q_SCALE, rows planted among the last keys for the last
+    query) against the plain twin run over query blocks of FA_BLOCK rows
+    (each over the keys up to its last row, so no S^2 scores are held), the
+    planted control (the last block of queries over all but the last
+    CONTROL_ROWS keys must miss the twin), beside SDPA and the bound."""
+    import torch
+    import torch.nn.functional as tnf
+
+    from repro_torch.kernels.flash_attention import kernel, ops
+
+    s, h, kv, d = 32768, 16, 8, 128
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q = (torch.randn((b, s, h, d), generator=g, device=dev) * CELL_FA_Q_SCALE).to(torch.bfloat16)
+    k, v = (torch.randn((b, s, kv, d), generator=g, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    _plant_last_rows(q[:, -1], k, v, 0, s)
+    kl = torch.full((1,), s, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, window=None, logit_softcap=None, q_offset_from_kv_len=True)
+    assert kernel.route(q.dtype, s, d, h // kv, s) == "tc"
+
+    def kernel_call():
+        return ops.flash_attention(q, k, v, kl, **kw)
+
+    before = ops.ROUTES["tc"]
+    out = kernel_call()
+    torch.cuda.synchronize()
+    assert ops.ROUTES["tc"] == before + 1
+    tol = FA_TOL["bfloat16"]
+    t0 = time.perf_counter()
+    err = 0.0
+    for i0 in range(0, s, FA_BLOCK):  # the twin, one block of queries at a time
+        i1 = i0 + FA_BLOCK
+        want = ops.plain_bshd(q[:, i0:i1], k[:, :i1], v[:, :i1],
+                              torch.full((1,), i1, dtype=torch.int32, device=dev), **kw).float()
+        got = out[:, i0:i1].float()
+        err = max(err, (got - want).abs().max().item())
+        assert torch.allclose(got, want, rtol=tol, atol=tol), (
+            f"flash tc at the prefill_32k layer differs from the twin by {err} (rows {i0}-)")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    # the control: the last block's queries over the keys before the last
+    # CONTROL_ROWS (every one of which those queries see), as a kernel that
+    # skipped the last key tiles would give them
+    i0 = s - CONTROL_ROWS
+    control = ops.flash_attention(q[:, i0:].contiguous(), k[:, :i0].contiguous(),
+                                  v[:, :i0].contiguous(),
+                                  torch.full((1,), i0, dtype=torch.int32, device=dev),
+                                  **{**kw, "causal": False}).float()
+    want = ops.plain_bshd(q[:, i0:], k, v, kl, **kw).float()
+    miss = (control - want).abs().max().item()
+    assert not torch.allclose(control, want, rtol=tol, atol=tol), (
+        f"flash tc at the prefill_32k layer without the last {CONTROL_ROWS} keys stays within "
+        f"{miss} of the twin: the tolerance does not bind")
+    del control, want
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library_call():
+        return tnf.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    lib = library_call().transpose(1, 2)
+    for i0 in range(0, s, 4096):  # in blocks: the f32 copies of all rows are 2 GB each
+        x, y = lib[:, i0:i0 + 4096].float(), out[:, i0:i0 + 4096].float()
+        assert torch.allclose(x, y, rtol=tol, atol=tol), (
+            f"sdpa disagrees at the prefill_32k layer by {(x - y).abs().max().item()}")
+    del lib
+    ms = _time_ms(kernel_call, reps=5, warmup=1, inner=1)
+    library_ms = _time_ms(library_call, reps=5, warmup=1, inner=1)
+    t_ops = 4.0 * d * b * h * s * (s + 1) / 2 / BF16_OPS_PER_S * 1e3
+    t_bytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d) / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    label = f"B={b} Sq=Skv={s} H={h} KV={kv} D={d} causal bf16 (tc)"
+    print(f"[cells] kernel 3 at the qwen3-1.7b prefill_32k layer, {label}, q_scale "
+          f"{CELL_FA_Q_SCALE}: max abs diff {err:.3g} (rtol = atol = {tol}; the twin over "
+          f"{s // FA_BLOCK} query blocks, {plain_ms:.1f} ms; without the last {CONTROL_ROWS} "
+          f"keys the last block is {miss:.3g} off); kernel {ms:.4f} ms, sdpa {library_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, library="sdpa", case=label, max_abs_err=err,
+                q_scale=CELL_FA_Q_SCALE, control_err=miss,
+                serves="qwen3-1.7b prefill_32k (a layer)")
+
+
+def _cell_ssd_case(b) -> dict:
+    """Kernel 6 at the mamba2-370m prefill_32k layer (B ``b`` x 32,768 tokens,
+    H 32, P 64, N 128, chunk 256: 128 chunks, the "tc" route) against the
+    plain twin run SSD_BLOCK batch rows at a time."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel, ops, ref
+
+    s, chunk, h, n = 32768, 256, 32, 128
+    dev = torch.device("cuda")
+    args = _ssd_inputs(b, s, h, n, dev, seed=s + n)
+    assert kernel.route(args[0].dtype, chunk, SSD_P, n) == "tc"
+
+    def kernel_call():
+        return ops.intra_chunk(*args, chunk=chunk, final_state=True)
+
+    got = kernel_call()
+    result = {"max_abs_err": 0.0}
+    t0 = time.perf_counter()
+    for r0 in range(0, b, SSD_BLOCK):
+        want = ref.intra_chunk_bshp(*(t[r0:r0 + SSD_BLOCK] for t in args), chunk=chunk,
+                                    final_state=True)
+        summary = _ssd_hold(f"ssd tc prefill_32k rows {r0}-", [t[r0:r0 + SSD_BLOCK] for t in got],
+                            want, result)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ms = _time_ms(kernel_call, reps=5, warmup=1, inner=1)
+    (bound_ms, bound_by), nbytes = _ssd_bound(b, s, chunk, True, h, n)
+    label = f"B={b} S={s} H={h} P={SSD_P} N={n} chunk={chunk} bf16 (tc, {s // chunk} chunks)"
+    print(f"[cells] kernel 6 at the mamba2-370m prefill_32k layer, {label}: max abs diff "
+          f"{result['max_abs_err']:.3g} (last rows: {summary}; the twin {SSD_BLOCK} rows at a "
+          f"time, {plain_ms:.1f} ms); kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{nbytes / 1e6:.1f} MB), {bound_ms / ms:.1%} of bound", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, case=label, max_abs_err=result["max_abs_err"],
+                serves="mamba2-370m prefill_32k (a layer)")
+
+
+def _rope_on_card() -> str:
+    """``rope_frequencies`` on the card bitwise the CPU's, and ``apply_rope``
+    within ROPE_TOL of it at the long cells' positions -> a summary."""
+    import torch
+
+    from repro_torch.models.layers import apply_rope, rope_frequencies
+
+    out = []
+    pos = torch.tensor(ROPE_POSITIONS)
+    for d, theta in ROPE_CASES:
+        f_cpu, f_gpu = rope_frequencies(d, theta), rope_frequencies(d, theta, "cuda").cpu()
+        ulps = int((f_cpu.view(torch.int32) - f_gpu.view(torch.int32)).abs().max())
+        x = torch.randn((1, len(ROPE_POSITIONS), 2, d),
+                        generator=torch.Generator().manual_seed(d))
+        err = (apply_rope(x, pos, theta) - apply_rope(x.cuda(), pos.cuda(), theta).cpu())
+        err = err.abs().max().item()
+        assert ulps == 0 and err <= ROPE_TOL * x.abs().max().item(), (d, theta, ulps, err)
+        out.append(f"D {d} theta {theta:g}: frequencies bitwise, apply_rope within {err:.3g}")
+    return "; ".join(out)
+
+
+def _cell_expected(cfg, batch: int, seq_len: int, kind: str, calls: int) -> dict:
+    """The launches by route that ``calls`` prefills or decode steps of a
+    long cell make."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+
+    groups = cfg.num_layers // len(cfg.layer_pattern)
+    want = {}
+
+    def add(key):
+        want[key] = want.get(key, 0) + groups * calls
+
+    for mixer in cfg.layer_pattern:
+        if kind == "prefill":
+            if mixer in ("global", "local", "hymba"):
+                add("flash_attention/tc")
+            if mixer in ("mamba", "hymba"):
+                add("ssd_intra_chunk/tc")
+        elif mixer in ("global", "local", "hymba"):  # a hymba layer attends as "global"
+            window = cfg.sliding_window + 1 if mixer == "local" else None
+            route = da_ops.decode_route(torch.bfloat16, cfg.head_dim, batch * cfg.num_kv_heads,
+                                        seq_len, window)
+            if route == "split":
+                add("decode_attention_fused/split")
+                add("decode_attention_partials/tc")
+            else:
+                add("decode_attention_fused/tc")
+    return want
+
+
+def _gate(cell, seed: int) -> str:
+    """The cell's kernel route against the plain engines on the card, over the
+    same weights and cache, at one pattern period (two layers where the
+    period is one) and the cell's full length: the logits within the
+    model's tolerance of their largest magnitude."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import cells
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model, random_model
+
+    spec = cell.shape
+    layers = max(2, len(cell.cfg.layer_pattern))
+    cut = dataclasses.replace(cell.cfg, num_layers=layers)
+    model, params = random_model(cut, seed=0, device="cuda")
+    plain = Model(dataclasses.replace(model.cfg, attn_impl="auto"))
+    tol = CELL_GATE_TOL.get(cell.arch, ZOO_GATE_TOL)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        if spec.kind == "prefill":
+            b = min(cell.batch, 2)
+            batch = {"tokens": torch.randint(0, cut.vocab_size, (b, spec.seq_len),
+                                             generator=gen, device="cuda")}
+            got, _ = model.prefill(params, batch, spec.seq_len)
+            want, _ = plain.prefill(params, batch, spec.seq_len)
+        else:
+            b = cell.batch
+            cache = tf.init_model_cache(cut, b, spec.seq_len, cut.activation_dtype,
+                                        device="cuda")
+            cache = cells.fill_cache(cache, gen, spec.seq_len - 1)
+            state = [t for t in cache.ssm_conv + cache.ssm_h if t is not None]
+            saved = [t.clone() for t in state]
+            token = torch.randint(0, cut.vocab_size, (b, 1), generator=gen, device="cuda")
+            got, _ = model.decode_step(params, token, cache)
+            for t, s in zip(state, saved):  # the step advanced the SSM state in place
+                t.copy_(s)
+            want, _ = plain.decode_step(params, token, cache)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    assert bool(torch.isfinite(got).all()) and err <= tol, (
+        f"{cell.arch} x {spec.name}: the kernel route's logits differ from the plain engines' "
+        f"by {err} of their scale (tol {tol})")
+    return (f"gate at {layers} layers, B {b}, the full length: logits within {err:.3g} of "
+            f"their scale (tol {tol}), argmax equal on {same:.0%} of rows")
+
+
+def phase_long_cells() -> tuple:
+    """Phase 9b: the reference's serve cells on one card (``launch/cells.py``):
+    RoPE at their positions (card vs CPU), each kernel at the shape a cell
+    gives it (``CELL_DA``, the flash and SSD prefill layers) against its plain
+    version, then each cell at ``one_card_cell``'s batch and depth through
+    ``build_prefill_step`` / ``build_decode_step`` (random bf16 weights, a
+    ``fill_cache``d cache for the decodes): the launches by route, ms a
+    prefill or step (host clock, synchronised, median), tokens/s, peak
+    memory, then its gate (``_gate``) -> (launches, kernel rows by name)."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import cells
+    from repro_torch.launch import steps as st
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import random_model
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[cells] RoPE on the card vs the CPU at positions {ROPE_POSITIONS}: "
+          f"{_rope_on_card()}", flush=True)
+    sized = [cells.one_card_cell(arch, shape) for arch, shape in cells.SERVE_CELLS]
+    rows = {"decode_attention_fused": [], "decode_attention_partials_tc": []}
+    for case, label in CELL_DA.items():
+        fused_row, part_row = _cell_decode_case(case, label)
+        rows["decode_attention_fused"].append(fused_row)
+        rows["decode_attention_partials_tc"].append(part_row)
+        gc.collect()
+        torch.cuda.empty_cache()
+    by_cell = {(c.arch, c.shape.kind): c for c in sized}
+    rows["flash_attention_tc"] = [_cell_flash_case(by_cell["qwen3-1.7b", "prefill"].batch)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["ssd_intra_chunk_tc"] = [_cell_ssd_case(by_cell["mamba2-370m", "prefill"].batch)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[cells] kernel cases in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    counted = (fa_ops, da_ops, ssd_ops)
+    launches = {}
+    for i, cell in enumerate(sized):
+        cfg, spec, b = cell.cfg, cell.shape, cell.batch
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, params = random_model(cfg, seed=0, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        times = []
+        if spec.kind == "prefill":
+            step = st.build_prefill_step(model.cfg, spec)
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, spec.seq_len),
+                                             generator=gen, device="cuda")}
+            logits, cache = step.fn(params, {"tokens": batch["tokens"][:1]})  # warm-up, one row
+            del logits, cache
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            for c in counted:
+                c.reset_counts()
+            for _ in range(CELL_PREFILLS):
+                t1 = time.perf_counter()
+                logits, cache = step.fn(params, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+                assert bool(torch.isfinite(logits).all()), cell
+                assert logits.shape == (b, 1, cfg.vocab_size), cell
+                assert int(cache.length) == spec.seq_len
+                del logits, cache
+            tokens, calls = b * spec.seq_len, CELL_PREFILLS
+        else:
+            step = st.build_decode_step(model.cfg, spec)
+            cache = tf.init_model_cache(cfg, b, spec.seq_len, cfg.activation_dtype,
+                                        device="cuda")
+            cache = cells.fill_cache(cache, gen, spec.seq_len - 1)
+            token = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device="cuda")
+            logits, _ = step.fn(params, token, cache)  # warm-up
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            for c in counted:
+                c.reset_counts()
+            for _ in range(CELL_STEPS):  # each step writes the last free row again
+                token = logits.argmax(-1)
+                t1 = time.perf_counter()
+                logits, after = step.fn(params, token, cache)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+                assert bool(torch.isfinite(logits).all()), cell
+                assert logits.shape == (b, 1, cfg.vocab_size), cell
+                assert int(after.length) == spec.seq_len
+            del cache, after, logits
+            tokens, calls = b, CELL_STEPS
+        run = _launches(fa_ops, da_ops, ssd_ops)
+        plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
+        peak = torch.cuda.max_memory_allocated()
+        want = _cell_expected(cfg, b, spec.seq_len, spec.kind, calls)
+        got = {k: n for k, n in run.items() if "/" in k and n}
+        assert got == want, (cell.arch, spec.name, got, want)
+        assert not any(plain.values()), f"plain path ran on the {cell.arch} cell: {plain}"
+        for k, n in run.items():
+            launches[k] = launches.get(k, 0) + n
+        ms = statistics.median(times) * 1e3
+        del model, params, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        gate = _gate(cell, 200 + i)
+        what = (f"prefill B={b} x {spec.seq_len} tokens" if spec.kind == "prefill" else
+                f"decode B={b} over {spec.seq_len} keys (a cache at {spec.seq_len - 1})")
+        print(f"[cells] {cell.arch} x {spec.name} ({cfg.num_layers} layers, bf16; reduced: "
+              f"{'; '.join(cell.reduced) or 'nothing'}; reckoned {cell.total_bytes / 1e9:.1f} "
+              f"GB, of it {cell.activation_bytes / 1e9:.1f} activations): {what}: {ms:.3f} ms "
+              f"median of {calls} ({min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}; host clock, "
+              f"synchronised), {tokens / ms * 1e3:.0f} tokens/s; setup {setup_s:.1f} s; peak "
+              f"{peak / 2**30:.3f} GiB ({peak / 1e9:.2f} GB); launches {got}; {gate}",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[cells] {len(sized)} cells in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, rows
 
 
 def _train_grads(cfg, params, batch):
@@ -3794,6 +4358,19 @@ def phase_serving_robustness() -> dict:
     return total
 
 
+def _laps():
+    """-> lap(name): prints the seconds since the previous lap (or this
+    call) and the script's time so far, on a ``[time]`` line."""
+    last = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - last[0]:.1f} s (the script at {now - T_START:.1f} s)",
+              flush=True)
+        last[0] = now
+    return lap
+
+
 def main() -> int:
     import torch
 
@@ -3818,7 +4395,9 @@ def main() -> int:
     print(f"[env] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
+    lap = _laps()
     phase_build()
+    lap("build")
     gloo = start_mesh_gloo()  # phase 8's CPU checks, beside the card phases
     atexit.register(lambda: gloo[0].poll() is None and gloo[0].kill())
     table, combine, costs, outputs = _small_world()
@@ -3828,33 +4407,53 @@ def main() -> int:
     world8 = _small_world(SESSION8_AUCS, SESSION8_COSTS)  # eight functions: "global" tables
     global_route = phase_global_tables(world8[0], world8[2])
     world10 = _small_world(SESSION10_AUCS, SESSION10_COSTS, learn_on="cuda")  # ten functions
+    lap("2 scoring kernels")
     flash = phase_flash()
     for route, name in (("simt", "flash_attention"), ("tc", "flash_attention_tc"),
                         ("short", "flash_attention_short"), ("split", "flash_attention_split")):
         results[name] = flash[route]
+    lap("2 flash")
     (results["decode_attention_partials"], results["decode_attention_partials_tc"],
      results["decode_attention_fused"]) = phase_decode()
+    lap("2 decode")
     results["ssd_intra_chunk"], results["ssd_intra_chunk_tc"] = phase_ssd()
+    lap("2 ssd")
     phase_cpu_vs_gpu(table, combine, costs, outputs)
     phase_cascade_cpu_vs_gpu("qwen3-1.7b")
     phase_cascade_cpu_vs_gpu("mamba2-370m")
     phase_operator_cpu_vs_gpu(quickstart)
+    lap("3 session, cascades, operator: CPU vs card")
     phase_serve_cpu_vs_gpu()
     phase_serve_bf16_cpu_vs_gpu()
     phase_moe_cpu_vs_gpu()
+    lap("3 serve, bf16, moe: CPU vs card")
     phase_cascade_bf16_cpu_vs_gpu()
+    lap("3 cascade bf16")
     runs = [phase_main_path(), phase_session_functions(world8, 8),
-            phase_session_functions(world10, 10),
-            phase_serving_robustness(),
-            phase_cascade_main_path("qwen3-1.7b"),
-            phase_cascade_main_path("mamba2-370m"), phase_cascade_main_path("hymba-1.5b"),
-            phase_operator_main_path(), phase_serve_entry_points(), phase_model_serve(),
-            phase_zoo_serve()]
+            phase_session_functions(world10, 10)]
+    lap("4 main path, 4a")
+    runs.append(phase_serving_robustness())
+    lap("4b robustness")
+    runs += [phase_cascade_main_path("qwen3-1.7b"), phase_cascade_main_path("mamba2-370m"),
+             phase_cascade_main_path("hymba-1.5b")]
+    lap("5 cascades")
+    runs += [phase_operator_main_path(), phase_serve_entry_points(), phase_model_serve()]
+    lap("6, 7 operator, entry points, model serve")
+    runs.append(phase_zoo_serve())
+    lap("7b zoo")
     phase_train_cpu_vs_gpu()
     train_run = phase_train_main_path()
     train_run["resume"] = phase_train_resume()
+    lap("7c train")
     runs.append(phase_model_mesh(gloo))
+    lap("8 model mesh")
     runs.append(phase_session_mesh())
+    lap("9 session mesh")
+    cell_launches, cell_rows = phase_long_cells()
+    lap("9b long cells")
+    runs.append(cell_launches)
+    for name, rows in cell_rows.items():  # the cells' shapes beside the zoo's
+        results[name].setdefault("shapes", []).extend(rows)
     # launches: the sum over the main-path runs (each zeroes the counts first)
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
@@ -3894,7 +4493,7 @@ def main() -> int:
     by_name["decode_attention_fused"].update(
         host_ms=results["decode_attention_fused"]["host_ms"],
         routes={r: sum(run.get(f"decode_attention_fused/{r}", 0) for run in runs)
-                for r in ("tc", "simt")})
+                for r in ("tc", "simt", "split")})
     by_name["flash_attention_split"].update(short_ms=results["flash_attention_split"]["short_ms"])
     print(f"[train] {json.dumps(train_run)}", flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s (the script: "

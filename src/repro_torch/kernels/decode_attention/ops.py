@@ -39,10 +39,19 @@ split keeps at least 64 keys: at the qwen3 decode shape 8 splits in bf16
 (the fastest of 4 / 8 / 16 / 32 on the card) and 16 in f32; the
 reference's rule (halve until it divides Skv) applies to any count.
 
+From ``SPLIT_FROM`` keys a fused block at the cluster's cap
+(``decode_route``: a long cache over few (b, kv head) pairs, e.g. 524,288
+keys at batch 1) ``decode_attention`` takes the "split" route instead: the
+partials kernel's tc form over ``default_num_splits`` splits of the cache,
+then ``ref.combine_partials`` — the fused kernel's cluster holds at most
+``kernel.MAX_SPLITS`` blocks a (b, kv head), which leaves most SMs idle
+there.  ``num_splits`` given keeps the fused route.
+
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-path calls,
-one key per kernel, ``ROUTES`` the fused kernel's launches by form ("tc"
-or "simt", ``kernel.fused_route``) and ``PARTIAL_ROUTES`` the partials
-kernel's (``kernel.partials_route``); ``reset_counts`` zeroes all four.
+one key per kernel, ``ROUTES`` the mesh-free decode's card calls by route:
+the fused kernel's launches by form ("tc" or "simt", ``kernel.fused_route``)
+and "split"; ``PARTIAL_ROUTES`` counts the partials kernel's launches
+(``kernel.partials_route``); ``reset_counts`` zeroes all four.
 """
 
 from __future__ import annotations
@@ -58,13 +67,20 @@ KERNEL = "decode_attention_partials"
 FUSED = "decode_attention_fused"
 LAUNCHES = {KERNEL: 0, FUSED: 0}
 PLAIN_CALLS = {KERNEL: 0, FUSED: 0}
-ROUTES = dict.fromkeys(kernel.FORMS, 0)
+ROUTES = dict.fromkeys(kernel.FORMS + ("split",), 0)
 PARTIAL_ROUTES = dict.fromkeys(kernel.FORMS, 0)
 DTYPES = (torch.float32, torch.bfloat16)
 SMS = 132  # streaming multiprocessors of an H100 SXM
 FILL_BLOCKS = 4 * SMS  # the partials' simt form: blocks the SMs hold at once
 TC_FILL_BLOCKS = 2 * SMS  # ... and its tc form
 MIN_SPLIT_KEYS = 64
+# Keys one block of the fused route would read (the live keys' bound known on
+# the host — the cache length, or the window — over ``fused_num_splits``),
+# from which ``decode_attention`` takes the split route where the fused
+# cluster is at its cap: the split route ran 0.98x (hymba, G 5 D 64) and
+# 0.84x (gemma2's global layer, D 256) the fused time at 8,192 keys a block
+# and 1.31x / 1.02x at 4,096 (H100, tools/long_decode_timings.py, PERF.md §6).
+SPLIT_FROM = 8192
 
 
 def reset_counts() -> None:
@@ -87,6 +103,22 @@ def fused_num_splits(bkv: int, skv: int, route: str) -> int:
     while ns > 1 and (skv < ns * MIN_SPLIT_KEYS or bkv * ns > per_sm * SMS):
         ns //= 2
     return ns
+
+
+def decode_route(dtype: torch.dtype, d: int, bkv: int, skv: int, window: Optional[int]) -> str:
+    """The mesh-free decode's route: "split" (the partials kernel's tc form
+    at ``default_num_splits``, then the PyTorch combine) where the fused
+    kernel's tc form runs its cluster at the cap of ``kernel.MAX_SPLITS``
+    blocks per (b, kv head) — too few (b, kv head) pairs to fill the SMs —
+    and each block would read ``SPLIT_FROM`` keys or more; else "fused"
+    (which fills the card at qwen3's B 16 over 32,768 keys: one block a
+    pair, 0.93x the split route's time).  It reads only host values:
+    ``skv`` and ``window`` bound the live keys."""
+    if kernel.fused_route(dtype, d) != "tc" or kernel.partials_route(dtype, d) != "tc":
+        return "fused"
+    ns = fused_num_splits(bkv, skv, "tc")
+    live = skv if window is None else min(skv, window)
+    return "split" if ns == kernel.MAX_SPLITS and live // ns >= SPLIT_FROM else "fused"
 
 
 def _check_kv_len(kv_len, dev) -> torch.Tensor:
@@ -228,6 +260,11 @@ def decode_attention(
             raise TypeError(f"{name} has dtype {t.dtype}, q has {q.dtype}")
     kv_len = _check_kv_len(kv_len, q.device)
     g = h // kvh
+    if num_splits is None and decode_route(q.dtype, d, b * kvh, skv, window) == "split":
+        m, l, acc = decode_attention_split(q, k, v, kv_len, softcap=softcap, window=window)
+        if q.device.type == "cuda":
+            ROUTES["split"] += 1
+        return ref.combine_partials(m, l, acc).reshape(b, 1, h, d).to(q.dtype)
     route = kernel.fused_route(q.dtype, d)
     ns = fused_num_splits(b * kvh, skv, route) if num_splits is None else num_splits
     if not 1 <= ns <= kernel.MAX_SPLITS:

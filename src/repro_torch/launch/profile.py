@@ -2,6 +2,7 @@
 
     python -m repro_torch.launch.profile [--path session|operator|prefill|decode|train]
         [--bank simulated|cascade] [--backbone ARCH] [--epochs 8] [--mode best|table]
+        [--shape prefill_32k|decode_32k|long_500k]
 
 ``--bank simulated`` (default) builds the main-path session (524,288 rows
 grown to 1,048,576 by one ingest, 8 tenant slots, bf16 substrate), admits
@@ -24,7 +25,13 @@ window; llava-next-mistral-7b 2,880 random image embeds + 512 tokens;
 seamless-m4t-large-v2 512 tokens over 1,024 random frames; grok-1-314b and
 arctic-480b at full width cut to the depth one 80 GB card holds,
 ``ONE_CARD_LAYERS``) and profile whole prefills, or decode steps after one
-prefill; an "epoch" below is then one prefill or one decode step.  ``--path
+prefill; an "epoch" below is then one prefill or one decode step.  With
+``--shape prefill_32k|decode_32k|long_500k`` they build the reference's
+serve cell instead (``launch.cells.one_card_cell``: the batch and depth one
+80 GB card holds) and run it through ``launch.steps.build_prefill_step`` /
+``build_decode_step`` without a mesh: whole prefills of the cell's
+length, or decode steps from a ``fill_cache``d cache at ``seq_len - 1``
+(each step writes its last free row and attends over every row).  ``--path
 train`` builds the ``--backbone`` model at its published width with random
 f32 weights and AdamW (``launch.steps.build_train_step``, the chunked
 attention engine and remat) and profiles whole train steps over
@@ -203,6 +210,47 @@ def _model(backbone: str, decode: bool):
         f"{prompt} tokens{extra} (bf16, kernel route; an 'epoch' is one {kind})")
 
 
+def _cell(backbone: str, shape: str, decode: bool):
+    from repro_torch.launch import cells, steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import random_model
+
+    cell = cells.one_card_cell(backbone, shape)
+    spec, b = cell.shape, cell.batch
+    if (spec.kind == "decode") != decode:
+        raise SystemExit(f"--shape {shape} is a {spec.kind} cell: use --path {spec.kind}")
+    model, params = random_model(cell.cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    if decode:
+        step = steps.build_decode_step(model.cfg, spec)
+        cache = tf.init_model_cache(model.cfg, b, spec.seq_len, model.cfg.activation_dtype,
+                                    device="cuda")
+        cache = cells.fill_cache(cache, gen, spec.seq_len - 1)
+        token = torch.randint(0, cell.cfg.vocab_size, (b, 1), generator=gen, device="cuda")
+
+        def run(logits, n, stop_when_exhausted):
+            for _ in range(n):  # from the cache at seq_len - 1 each time
+                logits, _ = step.fn(params, token if logits is None else logits.argmax(-1),
+                                    cache)
+            return logits, None
+    else:
+        step = steps.build_prefill_step(model.cfg, spec)
+        batch = {"tokens": torch.randint(0, cell.cfg.vocab_size, (b, spec.seq_len),
+                                         generator=gen, device="cuda")}
+
+        def run(logits, n, stop_when_exhausted):
+            for _ in range(n):  # keeps no cache between prefills
+                logits = step.fn(params, batch)[0]
+            return logits, None
+
+    state, _ = run(None, 1, False)  # warm-up
+    kind = "decode step" if decode else "prefill"
+    return run, state, None, (
+        f"{backbone} x {shape} at full width ({cell.cfg.num_layers} layers; reduced: "
+        f"{'; '.join(cell.reduced) or 'nothing'}), {kind}s at B={b} over {spec.seq_len} "
+        f"{'keys' if decode else 'tokens'} (bf16, kernel route; an 'epoch' is one {kind})")
+
+
 def _train(backbone: str):
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.data.pipeline import SyntheticTokenStream, TokenStreamConfig, to_device
@@ -278,6 +326,9 @@ def main(argv=None) -> int:
     ap.add_argument("--backbone", default="qwen3-1.7b", choices=sorted(ARCHS),
                     help="the cascade bank's backbone, or the model of --path prefill / "
                          "decode / train, at its published width")
+    ap.add_argument("--shape", default=None, choices=("prefill_32k", "decode_32k", "long_500k"),
+                    help="with --path prefill / decode: the reference's serve cell, sized to "
+                         "one card (launch/cells.py)")
     ap.add_argument("--epochs", type=int, default=8)
     ap.add_argument("--mode", default="best", choices=("best", "table"),
                     help="scoring mode of the simulated bank (the cascade serves best mode)")
@@ -288,6 +339,8 @@ def main(argv=None) -> int:
 
     if args.path == "operator":
         run, state, bank, label = _operator()
+    elif args.path in ("prefill", "decode") and args.shape:
+        run, state, bank, label = _cell(args.backbone, args.shape, args.path == "decode")
     elif args.path in ("prefill", "decode"):
         run, state, bank, label = _model(args.backbone, args.path == "decode")
     elif args.path == "train":
@@ -331,8 +384,9 @@ def main(argv=None) -> int:
     for e in sorted(events, key=_device_us, reverse=True)[: args.top]:
         print(f"[profile]   {_device_us(e) / 1e3 / n:9.4f} ms/epoch  "
               f"{e.count // max(n, 1):5d} calls/epoch  {e.key[:110]}")
-    if args.path == "train":
+    if args.path == "train" or args.shape:
         print(f"[profile] peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if args.path == "train":
         _train_parts(args.backbone, state)
     if bank is not None:
         # device idle right after each host read: end of its DtoH copy -> next kernel start

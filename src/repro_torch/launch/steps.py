@@ -1,5 +1,5 @@
-"""Step builders (port of ``repro.launch.steps``): the train step on one
-device or over a mesh, and the prefill and decode steps over a mesh, with
+"""Step builders (port of ``repro.launch.steps``): the train, prefill and
+decode steps on one device or over a mesh, the mesh forms with
 ``input_specs`` / ``cache_specs`` stand-ins for the dry run.
 
 ``train_recipe`` is the one place that decides how a configuration
@@ -29,8 +29,10 @@ microbatch's inputs are redistributed to the batch placements after they
 are cut, and the metrics come back as plain tensors.  ``BuiltStep.args``
 holds meta-device DTensor stand-ins of the step's arguments (the
 reference's ShapeDtypeStructs): the dry run calls the step on them, which
-allocates nothing.  Without a mesh ``build_train_step`` is the one-device
-step, unchanged.
+allocates nothing.  Without a mesh each builder gives the one-device
+step: the prefill and decode steps run on the card unless ``device="cpu"``
+is passed (they raise with no GPU; nothing falls back), with no DTensor
+dispatch (a (1, 1) mesh's host cost).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.device import resolve_device
 from repro_torch.launch.rules import rules_for_cell
 from repro_torch.models import transformer as tf
 from repro_torch.models.activation_sharding import activation_sharding
@@ -374,10 +377,22 @@ def _build_mesh_train_step(cfg, shape, mesh, optimizer, grad_clip, num_microbatc
                      param_shardings=param_sh, rules=rules, mesh=mesh)
 
 
-def build_prefill_step(cfg: ModelConfig, shape: ShapeSpec, mesh) -> BuiltStep:
+def build_prefill_step(cfg: ModelConfig, shape: ShapeSpec, mesh=None, device=None) -> BuiltStep:
     """``fn(params, batch)`` -> (logits of the last position, the cache sized
-    ``shape.seq_len`` in the decode placements), over ``mesh``."""
+    ``shape.seq_len``): over ``mesh``, the cache in the decode placements;
+    without one, on ``device`` (``None``: the card, raising with no GPU;
+    ``"cpu"`` runs the plain path), where the batch is moved and the cache
+    allocated (the parameters must already be there)."""
     model = Model(cfg)
+    if mesh is None:
+        dev = resolve_device(device)
+
+        def prefill_local(params, batch):
+            with torch.no_grad():
+                return model.prefill(params, {k: v.to(dev) for k, v in batch.items()},
+                                     max_len=shape.seq_len)
+
+        return BuiltStep(fn=prefill_local)
     rules = rules_for_cell(cfg, mesh, shape.kind, shape.global_batch)
     abstract, axes = abstract_params_and_axes(model)
     param_sh = shardings_for_axes(axes, rules, mesh)
@@ -391,12 +406,27 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeSpec, mesh) -> BuiltStep:
     return BuiltStep(fn=prefill, args=args, param_shardings=param_sh, rules=rules, mesh=mesh)
 
 
-def build_decode_step(cfg: ModelConfig, shape: ShapeSpec, mesh) -> BuiltStep:
-    """``fn(params, token, cache)`` -> (logits, the cache one token longer),
-    over ``mesh``: the cache is moved into the decode rules' placements
-    first (a no-op for a prefill step's cache of the same cell's mesh) and
-    written in place."""
+def build_decode_step(cfg: ModelConfig, shape: ShapeSpec, mesh=None, device=None) -> BuiltStep:
+    """``fn(params, token, cache)`` -> (logits, the cache one token longer).
+    Over ``mesh`` the cache is moved into the decode rules' placements first
+    (a no-op for a prefill step's cache of the same cell's mesh) and written
+    in place.  Without one it runs on ``device`` (as ``build_prefill_step``)
+    over a cache of ``shape.seq_len`` rows — the reference's decode cell
+    takes one at length ``seq_len - 1`` and attends over all its rows — and
+    writes the new token's row in place."""
     model = Model(cfg)
+    if mesh is None:
+        dev = resolve_device(device)
+
+        def decode_local(params, token, cache):
+            rows = {t.shape[2] for t in cache.kv_k if t is not None}
+            if rows and rows != {shape.seq_len}:
+                raise ValueError(f"the {shape.name} decode step takes a cache of "
+                                 f"{shape.seq_len} rows, got {sorted(rows)}")
+            with torch.no_grad():
+                return model.decode_step(params, token.to(dev), cache)
+
+        return BuiltStep(fn=decode_local)
     rules = rules_for_cell(cfg, mesh, shape.kind, shape.global_batch)
     abstract, axes = abstract_params_and_axes(model)
     param_sh = shardings_for_axes(axes, rules, mesh)

@@ -84,9 +84,26 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
 # ------------------------------------------------------------------- rope ---
 
 
+_FREQUENCIES = {}  # (head_dim, theta, device) -> the frequencies there
+
+
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    half = head_dim // 2
-    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+    """theta^(-i / half), i < half, in f32: computed on the CPU and copied to
+    ``device`` once per (head_dim, theta, device) (a plain tensor is kept and
+    shared: do not write into it).  The card's ``pow`` rounds an ulp away
+    from the CPU's at some of these (D 64 at theta 1e4 among them), and
+    position 524,287 turns one ulp of a frequency near 1 into a rotation
+    ~2e-3 off; computed on the CPU, the card's are the CPU's bitwise."""
+    dev = torch.device("cpu" if device is None else device)
+    key = (head_dim, float(theta), dev)
+    freqs = _FREQUENCIES.get(key)
+    if freqs is None:
+        half = head_dim // 2
+        freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32) / half))
+        freqs = freqs.to(dev)
+        if type(freqs) is torch.Tensor and dev.type != "meta":  # not a fake or meta stand-in
+            _FREQUENCIES[key] = freqs
+    return freqs
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

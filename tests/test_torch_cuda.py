@@ -1116,7 +1116,7 @@ def test_cuda_bf16_models_route_the_bf16_kernels(cuda_device, arch):
         assert fa_ops.ROUTES == {"tc": n, "short": 0, "split": 0, "simt": 0}, fa_ops.ROUTES
         assert da_ops.LAUNCHES == {"decode_attention_partials": 0,
                                    "decode_attention_fused": n * steps}, da_ops.LAUNCHES
-        assert da_ops.ROUTES == {"tc": n * steps, "simt": 0}, da_ops.ROUTES
+        assert da_ops.ROUTES == {"tc": n * steps, "simt": 0, "split": 0}, da_ops.ROUTES
     else:
         assert ssd_ops.ROUTES == {"tc": n, "simt": 0, "packed": 0}, ssd_ops.ROUTES
     assert not any({**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}.values())
@@ -1215,7 +1215,7 @@ def test_cuda_zoo_bf16_models_route_the_kernels(cuda_device, arch):
         assert fa_ops.ROUTES == {"tc": n, "short": 0, "split": 0, "simt": 0}, fa_ops.ROUTES
     assert da_ops.LAUNCHES == {"decode_attention_partials": 0,
                                "decode_attention_fused": n * steps}, da_ops.LAUNCHES
-    assert da_ops.ROUTES == {"tc": n * steps, "simt": 0}, da_ops.ROUTES  # D 64 / 80 / 256
+    assert da_ops.ROUTES == {"tc": n * steps, "simt": 0, "split": 0}, da_ops.ROUTES  # D 64 / 80 / 256
     assert ssd_ops.ROUTES == {"tc": n if arch == "hymba-1.5b" else 0, "simt": 0, "packed": 0}
     assert int(cache.length) == prompt + steps
     f32 = Model(dataclasses.replace(model.cfg, dtype="float32"))
@@ -1618,3 +1618,62 @@ def test_one_rank_mesh_steps_on_the_card(cuda_device):
             assert (w - g).abs().max().item() <= 2e-2 * w.abs().max().item()
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 4097], ids=["global", "local"])
+def test_long_decode_reads_the_last_rows_of_a_2_30_element_slice(cuda_device, window):
+    """The index audit's cases (``chip_smoke.py`` phase 9b): gemma2-9b's
+    global and local layers at long_500k, K and V [1, 524,288, 8, 256] bf16
+    (2^30 elements, the last row's bytes just under 2^31; the local layer's
+    window of 4,096 keys at their end).  Kv head j's key at row 524,287 - j
+    points along its queries (scores ~16x the others' spread, past the
+    softcap of 50) and its value is 4 + j: both mesh-free decode routes (the
+    model's — "split" by ``decode_route`` for the global layer, "fused" for
+    the window — and the fused kernel at 8 splits) must read those rows, as
+    the plain twin does."""
+    b, skv, h, kv, d, cap = 1, 524288, 16, 8, 256, 50.0
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q = torch.randn((b, 1, h, d), generator=g, device=cuda_device, dtype=torch.bfloat16)
+    k, v = (torch.randn((b, skv, kv, d), generator=g, device=cuda_device, dtype=torch.bfloat16)
+            for _ in range(2))
+    assert k.numel() == 2**30
+    qg = q[:, 0].float().reshape(b, kv, h // kv, d).mean(dim=2)
+    for j in range(kv):
+        k[:, skv - 1 - j, j] = (8.0 * qg[:, j]).to(k.dtype)
+        v[:, skv - 1 - j, j] = 4.0 + j
+    want_rows = (4.0 + torch.arange(kv, device=cuda_device)).repeat_interleave(h // kv)
+    kl = torch.full((1,), skv, dtype=torch.int32, device=cuda_device)
+    kw = dict(softcap=cap, window=window)
+    oracle = da_ref.reference_decode(q, k, v, kl, **kw).float()
+    assert (oracle[0, 0, :, 0] - want_rows).abs().max().item() <= 2e-2
+    route = da_ops.decode_route(torch.bfloat16, d, b * kv, skv, window)
+    assert route == ("split" if window is None else "fused")
+    da_ops.reset_counts()
+    routed = da_ops.decode_attention(q, k, v, kl, **kw)
+    fused = da_ops.decode_attention(q, k, v, kl, num_splits=8, **kw)
+    torch.cuda.synchronize()
+    assert da_ops.ROUTES == ({"tc": 1, "simt": 0, "split": 1} if route == "split"
+                             else {"tc": 2, "simt": 0, "split": 0}), da_ops.ROUTES
+    for name, out in ((route, routed), ("fused", fused)):
+        out = out.float()
+        assert (out - oracle).abs().max().item() <= 2e-2, name
+        assert (out[0, 0, :, 0] - want_rows).abs().max().item() <= 2e-2, name
+
+
+@pytest.mark.cuda
+def test_rope_on_the_card_is_the_cpus_at_long_positions(cuda_device):
+    """``rope_frequencies`` on the card is the CPU's bitwise (the card's pow
+    rounded D 64's an ulp apart, ~2e-3 of the rotation at 524,287), and
+    ``apply_rope`` agrees within 2e-5 of its input's scale at the long
+    cells' positions."""
+    from repro_torch.models.layers import apply_rope, rope_frequencies
+
+    pos = torch.tensor([0, 4095, 32767, 524287])
+    for d, theta in ((64, 1e4), (80, 1e4), (128, 1e6), (256, 1e4), (256, 1e6)):
+        assert torch.equal(rope_frequencies(d, theta, cuda_device).cpu(),
+                           rope_frequencies(d, theta))
+        x = torch.randn((2, 4, 3, d), generator=torch.Generator().manual_seed(d))
+        err = (apply_rope(x.to(cuda_device), pos.to(cuda_device), theta).cpu()
+               - apply_rope(x, pos, theta)).abs().max().item()
+        assert err <= 2e-5 * x.abs().max().item(), (d, theta, err)

@@ -401,7 +401,7 @@ def test_fused_route_picks_the_form_from_dtype_and_head_dim(dtype, d, want):
     q, k, v = (torch.from_numpy(a) for a in _inputs(3, 1, 32, 4, 2, 16, jnp.float32))
     ops.reset_counts()
     ops.decode_attention(q, k, v, torch.tensor([8], dtype=torch.int32))
-    assert ops.ROUTES == {"tc": 0, "simt": 0} and ops.PLAIN_CALLS[ops.FUSED] == 1
+    assert ops.ROUTES == {"tc": 0, "simt": 0, "split": 0} and ops.PLAIN_CALLS[ops.FUSED] == 1
 
 
 # b, skv, h, kv, d, kv_len, window, softcap, num_splits, q_scale, dtype: q drawn
