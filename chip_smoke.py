@@ -557,6 +557,20 @@ FA_CASES = [
     LONG_FA,
     PREFILL_FA,
 ]
+# the tc pipeline's edges at D 64 and 128 (two products in flight in each
+# consumer warpgroup, the warpgroups' turns on named barriers)
+for _d in (64, 128):
+    FA_CASES += [
+        (1, 128, 128, 4, 2, _d, False, None, None, "bfloat16", None, False),  # 1 live key tile
+        (1, 128, 256, 4, 2, _d, False, None, None, "bfloat16", None, False),  # 2
+        (1, 128, 384, 4, 2, _d, False, None, None, "bfloat16", None, False),  # 3
+        (1, 200, 200, 4, 2, _d, True, None, None, "bfloat16", None, False),  # 8 rows in wg 1
+        (1, 200, 256, 2, 1, _d, True, None, None, "bfloat16", 100, True),  # rows 0-99: no key
+        # rows 0-139 see no key: query tiles with no live key tile beside tiles with four
+        (1, 640, 640, 2, 1, _d, True, None, None, "bfloat16", 500, True),
+        (1, 64, 256, 4, 2, _d, True, 64, None, "bfloat16", None, True),  # window: one tile
+    ]
+FA_CASES.append((2, 200, 333, 4, 2, 64, True, 100, 30.0, "bfloat16", 300, True, 12.0))
 # the model zoo's attention at full width (phase 7b's shapes: a prefill's
 # queries at the end of its live rows of a cache 32 rows longer), each with
 # the layers it serves; D 80 and D 256 take the tc kernel, timed beside the
@@ -757,7 +771,7 @@ def phase_build():
             if "Compiling entry function" in line:
                 name = line.split("'")[1] if "'" in line else line.strip()
             elif ("spill stores" in line or "Used" in line or "warning" in line
-                  or "wgmma" in line or "error" in line):
+                  or "wgmma" in line or "(C75" in line or "error" in line):
                 print(f"[build] ptxas {name}: {line.split(' : ')[-1].strip()}", flush=True)
     print(f"[build] all kernels ready in {time.perf_counter() - t0:.2f} s", flush=True)
 

@@ -46,14 +46,16 @@ def nvcc() -> str:
 
 def build_library(source: Path, flags: tuple, stem: str) -> tuple[Path, str, float]:
     """Compile ``source`` if needed -> (library path, nvcc log, seconds); the
-    log and seconds are empty / 0 when the library was already built."""
+    log is kept beside the library, so a library already built returns its
+    build's log and 0 seconds."""
     h = hashlib.sha256(" ".join(flags).encode())
     for f in sorted(p for p in source.parent.rglob("*") if p.is_file()):
         h.update(f.relative_to(source.parent).as_posix().encode() + b"\0" + f.read_bytes())
     digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"{stem}_{digest}.so"
+    log = lib.with_suffix(".log")
     if lib.exists():
-        return lib, "", 0.0
+        return lib, log.read_text() if log.exists() else "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
     t0 = time.perf_counter()
@@ -67,6 +69,7 @@ def build_library(source: Path, flags: tuple, stem: str) -> tuple[Path, str, flo
         raise KernelBuildError(
             f"nvcc failed ({proc.returncode}) building {source.name}:\n{proc.stderr}"
         )
+    log.write_text(proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
     return lib, proc.stderr, seconds
 

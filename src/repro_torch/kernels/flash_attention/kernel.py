@@ -114,7 +114,7 @@ def library_tc(tanhf: bool = False) -> ctypes.CDLL:
     """The loaded tensor-core kernel library (built on first use)."""
     path, _, _ = build_tc(tanhf)
     lib = ctypes.CDLL(str(path))
-    lib.flash_attention_tc_fwd.argtypes = [_P] * 5 + [_I] * 9 + [_F, _F, _I, _P]
+    lib.flash_attention_tc_fwd.argtypes = [_P] * 5 + [_I] * 9 + [_F, _F, _I, _P, _P]
     lib.flash_attention_tc_fwd.restype = _I
     return lib
 
@@ -137,6 +137,20 @@ def library_split() -> ctypes.CDLL:
     lib.flash_attention_split_fwd.argtypes = [_P] * 5 + [_I] * 9 + [_F, _F, _I, _I, _P]
     lib.flash_attention_split_fwd.restype = _I
     return lib
+
+
+_TC_COUNTS: dict = {}
+
+
+def _tc_counts(device: torch.device, stream: int) -> int:
+    """The tc kernel's item counts on ``stream`` (two int32, zero between
+    launches: each launch counts the items its blocks take and sets them back
+    to 0 at its end) -> their device address.  One pair a stream, so that
+    only launches that run in order share one."""
+    key = (device.index, stream)
+    if key not in _TC_COUNTS:
+        _TC_COUNTS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _TC_COUNTS[key].data_ptr()
 
 
 def launch(
@@ -169,7 +183,8 @@ def launch(
     ]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if kind == "tc":
-        err = library_tc(tanhf).flash_attention_tc_fwd(*args, stream)
+        err = library_tc(tanhf).flash_attention_tc_fwd(*args, _tc_counts(q.device, stream),
+                                                       stream)
     elif kind == "short":
         err = library_short().flash_attention_short_fwd(*args, stream)
     elif kind == "split":

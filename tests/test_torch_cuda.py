@@ -482,7 +482,20 @@ FA_TC_CASES = [
     (1, 200, 256, 2, 1, 256, True, None, None, 100, True),
     (2, 128, 300, 4, 2, 80, False, 64, 20.0, None, True),  # window without causal
     (2, 512, 512, 8, 4, 256, True, None, None, None, False),  # 8 key tiles through the ring
+    (1, 200, 256, 2, 1, 128, True, None, None, 100, True),  # rows 0-99 have no live key
 ]
+# the pipeline's edges at D 64 and 128 (two products in flight in each
+# consumer warpgroup, the warpgroups' turns on named barriers)
+for _d in (64, 128):
+    FA_TC_CASES += [
+        (1, 128, 128, 4, 2, _d, False, None, None, None, False),  # 1 live key tile
+        (1, 128, 256, 4, 2, _d, False, None, None, None, False),  # 2
+        (1, 128, 384, 4, 2, _d, False, None, None, None, False),  # 3
+        (1, 200, 200, 4, 2, _d, True, None, None, None, False),  # 8 live rows in warpgroup 1
+        # rows 0-139 see no key: query tiles with no live key tile beside tiles with four
+        (1, 640, 640, 2, 1, _d, True, None, None, 500, True),
+        (1, 64, 256, 4, 2, _d, True, 64, None, None, True),  # the window leaves one tile
+    ]
 
 
 @pytest.mark.cuda
@@ -509,6 +522,7 @@ def test_flash_tc_kernel_matches_plain_twin(cuda_device, case):
 # 20-50 barely moves, so only these cases tell a right softcap from none.
 FA_TC_CAPPED_CASES = [
     (2, 200, 333, 4, 2, 64, True, 100, 20.0, 300, True, 8.0),
+    (2, 200, 333, 4, 2, 64, True, 100, 30.0, 300, True, 12.0),
     (2, 200, 333, 4, 2, 80, True, 100, 30.0, 300, True, 12.0),
     (2, 200, 333, 4, 2, 128, True, 100, 30.0, 300, True, 12.0),
     (2, 200, 333, 4, 2, 256, True, 100, 30.0, 300, True, 12.0),

@@ -38,6 +38,19 @@ FA_CASES = [
     (1, 128, 128, 4, 1, 80, True, 48, 30.0, "bfloat16"),
     (1, 128, 128, 4, 2, 256, True, 48, 50.0, "bfloat16"),  # gemma2's: window + softcap
 ]
+# the tc kernel's pipeline edges (two products in flight, the warpgroups'
+# turns), at D 64 and 128; then kv_len and q_offset_from_kv_len
+for _d in (64, 128):
+    FA_CASES += [
+        (1, 128, 128, 4, 2, _d, False, None, None, "bfloat16"),  # 1 live key tile
+        (1, 128, 256, 4, 2, _d, False, None, None, "bfloat16"),  # 2
+        (1, 128, 384, 4, 2, _d, False, None, None, "bfloat16"),  # 3
+        (1, 200, 200, 4, 2, _d, True, None, None, "bfloat16"),  # 8 live rows in warpgroup 1
+        (1, 200, 256, 2, 1, _d, True, None, None, "bfloat16", 100, True),  # rows 0-99: no key
+        # rows 0-139 see no key: query tiles with no live key tile beside tiles with four
+        (1, 640, 640, 2, 1, _d, True, None, None, "bfloat16", 500, True),
+        (1, 64, 256, 4, 2, _d, True, 64, None, "bfloat16", None, True),  # the window: one tile
+    ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -57,22 +70,31 @@ def _f32(x):
     return np.asarray(x).astype(np.float32)
 
 
+def _block(n):
+    """The reference kernel's block along an axis of n rows: 64, or the whole
+    axis where 64 does not divide it (its grid takes whole blocks only)."""
+    return 64 if n % 64 == 0 else n
+
+
 @pytest.mark.parametrize("case", FA_CASES)
 def test_plain_twin_matches_jax_reference_and_kernel(case):
-    b, sq, skv, h, kv, d, causal, window, cap, dtype = case
+    b, sq, skv, h, kv, d, causal, window, cap, dtype, kv_len, q_off = (*case, None, False)[:12]
     q, k, v = _inputs(sq + d, b, sq, skv, h, kv, d, dtype)
     ops.reset_counts()
-    out = ops.flash_attention(*(interop.to_torch(x) for x in (q, k, v)), causal=causal,
-                              window=window, logit_softcap=cap)
+    t_len = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32)
+    out = ops.flash_attention(*(interop.to_torch(x) for x in (q, k, v)), t_len, causal=causal,
+                              window=window, logit_softcap=cap, q_offset_from_kv_len=q_off)
     assert ops.PLAIN_CALLS["flash_attention"] == 1 and ops.LAUNCHES["flash_attention"] == 0
     assert out.dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float32)
-    kv_len = jnp.asarray([skv], jnp.int32)
+    kv_len = jnp.asarray([skv if kv_len is None else kv_len], jnp.int32)
     j_kernel = j_ops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_len,
                                      causal=causal, window=window, logit_softcap=cap,
-                                     block_q=64, block_kv=64, interpret=True)
+                                     q_offset_from_kv_len=q_off, block_q=_block(sq),
+                                     block_kv=_block(skv), interpret=True)
     j_plain = j_ref.reference_bhsd(jnp.asarray(_bhsd(q)), jnp.asarray(_bhsd(k)),
                                    jnp.asarray(_bhsd(v)), kv_len, num_q_heads=h,
-                                   num_kv_heads=kv, causal=causal, window=window, softcap=cap)
+                                   num_kv_heads=kv, causal=causal, window=window, softcap=cap,
+                                   q_offset_from_kv_len=q_off)
     j_plain = np.transpose(_f32(j_plain).reshape(b, h, sq, d), (0, 2, 1, 3))
     tol = TOL[dtype]
     np.testing.assert_allclose(_f32(interop.to_numpy(out)), j_plain, rtol=tol, atol=tol)
@@ -119,29 +141,35 @@ CAPPED_CASES = [
     (1, 128, 128, 4, 2, 80, 48, 30.0, 12.0),
     (1, 128, 128, 4, 2, 128, None, 30.0, 12.0),
     (1, 128, 128, 4, 2, 256, None, 50.0, 16.0),
+    # the tc pipeline's ragged tiles at D 64 and 128; then kv_len, q_offset_from_kv_len
+    (2, 200, 333, 4, 2, 64, 100, 30.0, 12.0, 300, True),
+    (2, 200, 333, 4, 2, 128, 100, 30.0, 12.0, 300, True),
 ]
 
 
 @pytest.mark.parametrize("case", CAPPED_CASES)
 def test_plain_twin_matches_jax_where_the_softcap_binds(case):
-    b, sq, skv, h, kv, d, window, cap, q_scale = case
+    b, sq, skv, h, kv, d, window, cap, q_scale, kv_len, q_off = (*case, None, False)[:11]
     assert kernel.route(torch.bfloat16, sq, d, h // kv, skv) == "tc"
     q, k, v = _inputs(sq * 3 + d, b, sq, skv, h, kv, d, "float32")
     q, k, v = ((x * s).astype(ml_dtypes.bfloat16) for x, s in ((q, q_scale), (k, 1), (v, 1)))
-    kw = dict(causal=True, window=window, logit_softcap=cap)
-    out = ops.flash_attention(*(interop.to_torch(x) for x in (q, k, v)), **kw)
-    kv_len = jnp.asarray([skv], jnp.int32)
+    kw = dict(causal=True, window=window, logit_softcap=cap, q_offset_from_kv_len=q_off)
+    t_len = None if kv_len is None else torch.tensor([kv_len], dtype=torch.int32)
+    out = ops.flash_attention(*(interop.to_torch(x) for x in (q, k, v)), t_len, **kw)
+    kv_len = jnp.asarray([skv if kv_len is None else kv_len], jnp.int32)
     j_kernel = j_ops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_len,
-                                     block_q=64, block_kv=64, interpret=True, **kw)
+                                     block_q=_block(sq), block_kv=_block(skv), interpret=True,
+                                     **kw)
     j_plain = j_ref.reference_bhsd(jnp.asarray(_bhsd(q)), jnp.asarray(_bhsd(k)),
                                    jnp.asarray(_bhsd(v)), kv_len, num_q_heads=h,
-                                   num_kv_heads=kv, causal=True, window=window, softcap=cap)
+                                   num_kv_heads=kv, causal=True, window=window, softcap=cap,
+                                   q_offset_from_kv_len=q_off)
     j_plain = np.transpose(_f32(j_plain).reshape(b, h, sq, d), (0, 2, 1, 3))
     got = _f32(interop.to_numpy(out))
     np.testing.assert_allclose(got, j_plain, rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
     np.testing.assert_allclose(got, _f32(j_kernel), rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
     # the cap binds: the same inputs without it give another answer
-    uncapped = ops.flash_attention(*(interop.to_torch(x) for x in (q, k, v)),
+    uncapped = ops.flash_attention(*(interop.to_torch(x) for x in (q, k, v)), t_len,
                                    **{**kw, "logit_softcap": None})
     assert not np.allclose(_f32(interop.to_numpy(uncapped)), j_plain,
                            rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
