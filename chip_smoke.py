@@ -47,7 +47,14 @@ in order; any failure raises and the script exits non-zero:
    bf16: the "tc" route, and the "simt" kernel on the same inputs,
    uncounted, which must be the slower) and the cascade's (512
    lanes x 8 tokens, with and without the final state: the "packed"
-   route), every output within 1e-4 of its largest magnitude.  The flash
+   route), every output within 1e-4 of its largest magnitude; then the
+   SSD inter-chunk kernel (``csrc/ssd_inter_chunk.cu``: the recurrence over
+   chunks, adding into y_intra in place) on the intra-chunk kernel's
+   outputs at ``INTER_CASES`` (the mamba2 and hymba prefills, a packed
+   cascade block with a state, eight packed chunks with none, h0 without
+   the final state), y and the final state within 1e-4 of their largest
+   magnitudes against its twin (the loop over chunks), timed beside its
+   bound and the twin.  The flash
    cases run its four kernels, as ``kernel.route`` picks them: for bf16
    "tc" (wgmma + TMA, >= 64 query rows, D 64 / 80 / 128 / 256), and at D
    64 / 128 with fewer rows "split" (at most 8 query rows a kv head over
@@ -196,7 +203,8 @@ in order; any failure raises and the script exits non-zero:
    width: qwen3-1.7b over 2,048 tokens x 8 (28 flash launches in the
    prefill, all by the "tc" route; 28 fused decode launches a step and no
    partials kernel) and mamba2-370m over 4,096 tokens x 2 (48 SSD launches
-   in the prefill, all by the "tc" route; decode runs ``ssd_step``), with
+   in the prefill, all by the "tc" route, and 48 of the inter-chunk kernel;
+   decode runs ``ssd_step``), with
    ms per prefill and per step and peak memory;
 7b. the model zoo at published widths (``ZOO_ARCHS``; random bf16 weights
    built on the card one f32 matrix at a time, B 1, 16 greedy decode steps,
@@ -290,12 +298,14 @@ in order; any failure raises and the script exits non-zero:
    (``_plant_last_rows``): the same kernel without the last 256 keys must
    miss the tolerance (the planted control), and on gemma2's two 2^30-element
    slices this is the index audit; then the tc SSD kernel at the mamba2
-   prefill_32k layer (128 chunks; its twin two batch rows at a time); then
+   prefill_32k layer (128 chunks; its twin two batch rows at a time) and
+   the inter-chunk kernel on its outputs from a given h0 (the same); then
    each cell at full width (random bf16
    weights) through ``build_prefill_step`` / ``build_decode_step`` without
    a mesh (a decode from a ``fill_cache``d cache at ``seq_len - 1``: every
    step writes the last free row and attends over all ``seq_len`` keys):
-   the launches by route, ms a prefill or step (median), tokens/s and peak
+   the launches by route (every SSD layer of a prefill an intra- and an
+   inter-chunk launch), ms a prefill or step (median), tokens/s and peak
    memory, then the gate: at the cell's length and one pattern period (two
    layers where the period is one), the kernel route's logits within 2e-2
    (qwen3, mamba2) or 4e-2 (the zoo) of the plain engines' on the same
@@ -316,7 +326,10 @@ in order; any failure raises and the script exits non-zero:
    ``ssd_intra_chunk_tc`` and
    ``ssd_intra_chunk`` (the simt and packed kernels of ``ssd_scan.cu``, its
    numbers the packed kernel's at the cascade shape, with the simt
-   kernel's ``prefill_simt_ms`` and the ``routes``); the scoring kernels
+   kernel's ``prefill_simt_ms`` and the ``routes``), ``ssd_inter_chunk``
+   (its numbers the mamba2 prefill's, its launches every SSD layer of
+   phases 7-9b's prefills; a cascade block of 8 tokens, one chunk with no
+   state entering it, launches none); the scoring kernels
    carry their launches by table route (``routes``: "smem", "global") and
    the global route's phase 2 numbers (``global_route``, best mode's F 10
    and F 11 cases under its ``past_f8`` as ``F10`` and ``F11``, each naming
@@ -414,6 +427,7 @@ SOURCES = {
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention_fused.cu",
     "ssd_intra_chunk": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
     "ssd_intra_chunk_tc": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_tc.cu",
+    "ssd_inter_chunk": "src/repro_torch/kernels/ssd_scan/csrc/ssd_inter_chunk.cu",
 }
 REPLACES = {
     "enrich_score_table": "src/repro/kernels/enrich_score/kernel.py:318",
@@ -428,6 +442,7 @@ REPLACES = {
     "decode_attention_fused": "src/repro/kernels/decode_attention/kernel.py:65",
     "ssd_intra_chunk": "src/repro/kernels/ssd_scan/kernel.py:72",
     "ssd_intra_chunk_tc": "src/repro/kernels/ssd_scan/kernel.py:72",
+    "ssd_inter_chunk": "src/repro/kernels/ssd_scan/ops.py:18",  # its scan over chunks, :47
 }
 # the launch counters each JSON entry sums over the main-path runs: the
 # flash, SSD and decode wrappers count per route / kernel
@@ -459,6 +474,16 @@ SSD_CASES = [(2, 4096, 256, True, 32, 128), (512, 8, 8, False, 32, 128),
              (512, 8, 8, True, 32, 128), (1, 2048, 256, True, 50, 16), (512, 8, 8, False, 50, 16)]
 SSD_P = 64
 SSD_TOL = 1e-4  # relative to the output's largest magnitude: f32 sums in another order
+# the inter-chunk kernel (y = y_intra + cumexp C.h over the chunks' states) on
+# the intra-chunk kernel's outputs: the mamba2-370m prefill (B 2, S 4096, h0
+# and the final state, as a prefill into a cache runs it), hymba-1.5b's (H
+# 50, N 16), a packed cascade block with a state entering it, eight packed
+# chunks with none and no final state, and h0 without the final state.
+# b, s, chunk, heads, state_dim, h0 given, final_state
+INTER_CASES = [(2, 4096, 256, 32, 128, True, True), (1, 2048, 256, 50, 16, True, True),
+               (512, 8, 8, 32, 128, True, True), (64, 64, 8, 50, 16, False, False),
+               (2, 4096, 256, 32, 128, True, False)]
+INTER_OUTPUTS = ("y", "h_final")
 # qwen3-1.7b decode: B 8, H 16, KV 8, D 128, kv_len 2048 of a 4096 cache;
 # b, skv, h, kv, d, kv_len, window, softcap, dtype
 DA_CASES = [
@@ -755,14 +780,14 @@ def phase_build():
     t0 = time.perf_counter()
     builds = (es_kernel.build, fa_kernel.build, fa_kernel.build_tc, fa_kernel.build_short,
               fa_kernel.build_split, da_kernel.build, da_kernel.build_fused, ssd_kernel.build,
-              ssd_kernel.build_tc,
+              ssd_kernel.build_tc, ssd_kernel.build_inter,
               functools.partial(fa_kernel.build_tc, tanhf=True))  # phase 2's softcap check
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, all at once
         built = [f.result() for f in [pool.submit(b) for b in builds]]
     for load in (es_kernel.library, fa_kernel.library, fa_kernel.library_tc,
                  fa_kernel.library_short, fa_kernel.library_split, da_kernel.library,
                  da_kernel.library_fused,
-                 ssd_kernel.library, ssd_kernel.library_tc):
+                 ssd_kernel.library, ssd_kernel.library_tc, ssd_kernel.library_inter):
         load()
     for path, log, nvcc_s in built:
         print(f"[build] {path.name}: nvcc {nvcc_s:.2f} s", flush=True)
@@ -1875,6 +1900,8 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
                              "simt": 0}, fa_ops.ROUTES
     assert ssd_ops.ROUTES == {"tc": 0, "simt": 0, "packed": launches["ssd_intra_chunk"]}, (
         ssd_ops.ROUTES)
+    # a block of 8 tokens is one chunk with no state entering it: nothing to add
+    assert launches["ssd_inter_chunk"] == 0, launches
     assert launches["enrich_score_best"] == report.epochs and not launches["enrich_score_table"]
     assert launches["enrich_score_best/smem"] == report.epochs, launches  # P 3, F 3
     assert not any(plain.values()), f"plain path ran on the cascade main path: {plain}"
@@ -1939,10 +1966,15 @@ def _ssd_bound(b, s, chunk, final_state, h, n) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"), nbytes
 
 
-def _ssd_hold(name, got, want, result) -> str:
-    """Every output within SSD_TOL of its largest magnitude -> a summary."""
+def _ssd_hold(name, got, want, result,
+              labels=("y_intra", "s_contrib", "cumexp")) -> str:
+    """Every output within SSD_TOL of its largest magnitude (an output the
+    twin leaves out, None, is left out too) -> a summary."""
     errs = []
-    for label, g, w in zip(("y_intra", "s_contrib", "cumexp"), got, want):
+    for label, g, w in zip(labels, got, want):
+        assert (g is None) == (w is None), (name, label)
+        if w is None:
+            continue
         assert g.shape == w.shape, (label, g.shape, w.shape)
         if not w.numel():
             continue
@@ -2019,6 +2051,80 @@ def phase_ssd() -> tuple:
             results[name].update(row)
     return results["ssd_intra_chunk"], results["ssd_intra_chunk_tc"]
 
+
+def _inter_bound(b, s, chunk, h, n, with_h0, final, c_bytes=2, p=SSD_P) -> tuple:
+    """(bound_ms, bound_by), bytes: the inter-chunk function reads y_intra,
+    cumexp and C on the rows a state enters (every chunk with h0, all but
+    the first without), each kept state S_i and h0 once, and writes y on
+    those rows and the final state once; its products, C.h on those rows,
+    are two bf16 tensor-core products (h split hi + lo)."""
+    nc = s // chunk
+    kept = nc if final else nc - 1
+    rows = s if with_h0 else s - chunk
+    nbytes = (2 * 4 * b * rows * h * p + 4 * b * h * kept * p * n + 4 * b * h * rows
+              + c_bytes * b * rows * n + 4 * b * h * p * n * (int(with_h0) + int(final)))
+    ops = 2 * 2 * b * h * rows * p * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"), nbytes
+
+
+def phase_ssd_inter() -> dict:
+    """Kernel 6's inter-chunk recurrence (``csrc/ssd_inter_chunk.cu``) against
+    its plain twin (``ref.inter_chunk_bshp``, the loop over chunks) at
+    ``INTER_CASES``, each counted launch adding into a copy of y_intra in
+    place, y and the final state within SSD_TOL of their scale; timed beside
+    its bound and the twin -> results (the mamba2 prefill's row, the others
+    in ``shapes``)."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel, ops, ref
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    result = {"max_abs_err": 0.0}
+    for i, (b, s, chunk, h, n, with_h0, final) in enumerate(INTER_CASES):
+        x, dt, a, bm, cm = _ssd_inputs(b, s, h, n, dev, seed=s + n)
+        y_intra, s_contrib, cumexp = ops.intra_chunk(x, dt, a, bm, cm, chunk=chunk,
+                                                     final_state=final)
+        h0 = (torch.randn((b, h, SSD_P, n), generator=torch.Generator(device=dev).manual_seed(s),
+                          device=dev) if with_h0 else None)
+        want = ref.inter_chunk_bshp(y_intra, s_contrib, cumexp, cm, h0, chunk=chunk,
+                                    final_state=final)
+        y = y_intra.clone()
+        before = ops.LAUNCHES["ssd_inter_chunk"]
+        got = ops.inter_chunk(y, s_contrib, cumexp, cm, h0, chunk=chunk, final_state=final)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["ssd_inter_chunk"] == before + 1, ops.LAUNCHES
+        assert got[0].data_ptr() == y.data_ptr(), "the kernel writes y_intra in place"
+        layout = kernel.inter_layout(b, h, SSD_P, sms)
+        label = (f"B={b} S={s} H={h} P={SSD_P} N={n} chunk={chunk} ({s // chunk} chunks) bf16 "
+                 f"C, h0 {'given' if with_h0 else 'none'}, final state {final}, {layout[0]} "
+                 f"warps a block, {layout[1]} on rows")
+        errs = _ssd_hold(label, got, want, result, INTER_OUTPUTS)
+        hf = torch.empty_like(got[1]) if final else None
+
+        def kernel_call():  # adds into y again on each call: the time is the same
+            kernel.launch_inter(y, s_contrib, cumexp, cm, h0, hf, chunk=chunk, layout=layout)
+
+        def plain_call():
+            return ref.inter_chunk_bshp(y_intra, s_contrib, cumexp, cm, h0, chunk=chunk,
+                                        final_state=final)
+
+        ms, plain_ms = _time_ms(kernel_call), _time_ms(plain_call)
+        (bound_ms, bound_by), nbytes = _inter_bound(b, s, chunk, h, n, with_h0, final)
+        print(f"[ssd-inter] {label}: max abs diff {errs}; kernel {ms:.4f} ms, plain (the loop) "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
+              f"{bound_ms / ms:.1%} of bound", flush=True)
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=None)
+        if i == 0:  # the mamba2 prefill: the table's row
+            result.update(row)
+        else:
+            result.setdefault("shapes", []).append(dict(row, case=label))
+        del x, dt, a, bm, cm, y_intra, s_contrib, cumexp, h0, y, got, want
+    torch.cuda.empty_cache()
+    return result
 
 def _da_bound(case, fused: bool) -> tuple:
     """(bound_ms, bound_by): q and the live K / V rows read once, and the
@@ -2580,7 +2686,7 @@ def phase_model_serve() -> dict:
                 "ssd_intra_chunk": 0, "flash_attention": 0, "flash_attention/simt": 0,
                 "flash_attention/tc": 0, "flash_attention/short": 0, "flash_attention/split": 0,
                 "ssd_intra_chunk/tc": 0, "ssd_intra_chunk/simt": 0,
-                "ssd_intra_chunk/packed": 0}
+                "ssd_intra_chunk/packed": 0, "ssd_inter_chunk": 0}
         if arch == "qwen3-1.7b":
             # the prefill on the tensor cores; one fused decode launch a layer and step
             assert run == {**idle, "flash_attention": n, "flash_attention/tc": n}, run
@@ -2588,7 +2694,10 @@ def phase_model_serve() -> dict:
             assert run_all == {**run, "decode_attention_fused": n * steps,
                                "decode_attention_fused/tc": n * steps}, run_all
         else:
-            assert run == {**idle, "ssd_intra_chunk": n, "ssd_intra_chunk/tc": n}, run
+            # each layer's prefill: the intra-chunk kernel, then the recurrence from the
+            # cache's state
+            assert run == {**idle, "ssd_intra_chunk": n, "ssd_intra_chunk/tc": n,
+                           "ssd_inter_chunk": n}, run
             assert run_all == run, run_all  # decode steps run ssd_step, no kernel
         assert not any(plain.values()), f"plain path ran on the {arch} serve path: {plain}"
         assert logits.shape == (b, 1, cfg.vocab_size) and torch.isfinite(logits).all()
@@ -2633,6 +2742,7 @@ def _zoo_expected(cfg, steps: int) -> dict:
     want["flash_attention"] = sum(want[f"flash_attention/{r}"]
                                   for r in ("tc", "short", "split", "simt"))
     want["ssd_intra_chunk"] = sum(want[f"ssd_intra_chunk/{r}"] for r in ("tc", "simt", "packed"))
+    want["ssd_inter_chunk"] = want["ssd_intra_chunk"]  # a prefill's recurrence from the cache
     return want
 
 
@@ -2979,10 +3089,12 @@ def _cell_flash_case(b) -> dict:
                 serves="qwen3-1.7b prefill_32k (a layer)")
 
 
-def _cell_ssd_case(b) -> dict:
+def _cell_ssd_case(b) -> tuple:
     """Kernel 6 at the mamba2-370m prefill_32k layer (B ``b`` x 32,768 tokens,
-    H 32, P 64, N 128, chunk 256: 128 chunks, the "tc" route) against the
-    plain twin run SSD_BLOCK batch rows at a time."""
+    H 32, P 64, N 128, chunk 256: 128 chunks): the intra-chunk kernel (the
+    "tc" route), then the inter-chunk kernel on its outputs from a given
+    h0, each against its plain twin run SSD_BLOCK batch rows at a time ->
+    (intra row, inter row)."""
     import torch
 
     from repro_torch.kernels.ssd_scan import kernel, ops, ref
@@ -3011,9 +3123,48 @@ def _cell_ssd_case(b) -> dict:
           f"{result['max_abs_err']:.3g} (last rows: {summary}; the twin {SSD_BLOCK} rows at a "
           f"time, {plain_ms:.1f} ms); kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
           f"{nbytes / 1e6:.1f} MB), {bound_ms / ms:.1%} of bound", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, case=label, max_abs_err=result["max_abs_err"],
-                serves="mamba2-370m prefill_32k (a layer)")
+    intra_row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=None, case=label, max_abs_err=result["max_abs_err"],
+                     serves="mamba2-370m prefill_32k (a layer)")
+
+    # the inter-chunk kernel on those outputs, from a given h0 (a prefill into a cache)
+    y_intra, s_contrib, cumexp = got
+    cm = args[4]
+    del args, got
+    h0 = torch.randn((b, h, SSD_P, n), generator=torch.Generator(device=dev).manual_seed(s),
+                     device=dev)
+    y = y_intra.clone()
+    before = ops.LAUNCHES["ssd_inter_chunk"]
+    y, hf = ops.inter_chunk(y, s_contrib, cumexp, cm, h0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_inter_chunk"] == before + 1, ops.LAUNCHES
+    result = {"max_abs_err": 0.0}
+    t0 = time.perf_counter()
+    for r0 in range(0, b, SSD_BLOCK):
+        rs = slice(r0, r0 + SSD_BLOCK)
+        want = ref.inter_chunk_bshp(y_intra[rs], s_contrib[rs], cumexp[rs], cm[rs], h0[rs],
+                                    chunk=chunk)
+        summary = _ssd_hold(f"ssd inter prefill_32k rows {r0}-", (y[rs], hf[rs]), want, result,
+                            INTER_OUTPUTS)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    layout = kernel.inter_layout(b, h, SSD_P, torch.cuda.get_device_properties(dev)
+                                 .multi_processor_count)
+
+    def inter_call():  # adds into y again on each call: the time is the same
+        kernel.launch_inter(y, s_contrib, cumexp, cm, h0, hf, chunk=chunk, layout=layout)
+
+    ms = _time_ms(inter_call, reps=5, warmup=1, inner=1)
+    (bound_ms, bound_by), nbytes = _inter_bound(b, s, chunk, h, n, True, True)
+    label = (f"B={b} S={s} H={h} P={SSD_P} N={n} chunk={chunk} ({s // chunk} chunks), bf16 C, "
+             f"h0 given, {layout[0]} warps a block, {layout[1]} on rows")
+    print(f"[cells] the inter-chunk kernel at the mamba2-370m prefill_32k layer, {label}: max "
+          f"abs diff {result['max_abs_err']:.3g} (last rows: {summary}; the twin {SSD_BLOCK} "
+          f"rows at a time, {plain_ms:.1f} ms); kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}, {nbytes / 1e6:.1f} MB), {bound_ms / ms:.1%} of bound", flush=True)
+    inter_row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=None, case=label, max_abs_err=result["max_abs_err"],
+                     serves="mamba2-370m prefill_32k (a layer)")
+    return intra_row, inter_row
 
 
 def _rope_on_card() -> str:
@@ -3154,7 +3305,8 @@ def phase_long_cells() -> tuple:
     rows["flash_attention_tc"] = [_cell_flash_case(by_cell["qwen3-1.7b", "prefill"].batch)]
     gc.collect()
     torch.cuda.empty_cache()
-    rows["ssd_intra_chunk_tc"] = [_cell_ssd_case(by_cell["mamba2-370m", "prefill"].batch)]
+    intra_row, inter_row = _cell_ssd_case(by_cell["mamba2-370m", "prefill"].batch)
+    rows["ssd_intra_chunk_tc"], rows["ssd_inter_chunk"] = [intra_row], [inter_row]
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[cells] kernel cases in {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -3216,6 +3368,8 @@ def phase_long_cells() -> tuple:
         want = _cell_expected(cfg, b, spec.seq_len, spec.kind, calls)
         got = {k: n for k, n in run.items() if "/" in k and n}
         assert got == want, (cell.arch, spec.name, got, want)
+        # every SSD layer of a prefill runs the recurrence from the cache's state
+        assert run["ssd_inter_chunk"] == run["ssd_intra_chunk"], run
         assert not any(plain.values()), f"plain path ran on the {cell.arch} cell: {plain}"
         for k, n in run.items():
             launches[k] = launches.get(k, 0) + n
@@ -3602,9 +3756,10 @@ def _mesh_serve(mesh, arch, b, prompt, steps, max_len, layers) -> dict:
         assert decode_counts["decode_attention_fused"] == 0, decode_counts
     else:
         assert prefill_counts["ssd_intra_chunk/tc"] == n, prefill_counts
+        assert prefill_counts["ssd_inter_chunk"] == n, prefill_counts
     launches = {k: prefill_counts.get(k, 0) + decode_counts.get(k, 0)
                 for k in ("flash_attention", "flash_attention/tc", "ssd_intra_chunk",
-                          "ssd_intra_chunk/tc", "decode_attention_partials",
+                          "ssd_intra_chunk/tc", "ssd_inter_chunk", "decode_attention_partials",
                           "decode_attention_partials/tc", "decode_attention_partials/simt")}
     return dict(prefill_ms=mesh_prefill_ms, first_prefill_ms=first_prefill_ms,
                 free_prefill_ms=free_prefill_ms,
@@ -4431,6 +4586,7 @@ def main() -> int:
      results["decode_attention_fused"]) = phase_decode()
     lap("2 decode")
     results["ssd_intra_chunk"], results["ssd_intra_chunk_tc"] = phase_ssd()
+    results["ssd_inter_chunk"] = phase_ssd_inter()
     lap("2 ssd")
     phase_cpu_vs_gpu(table, combine, costs, outputs)
     phase_cascade_cpu_vs_gpu("qwen3-1.7b")

@@ -1,4 +1,4 @@
-"""Build and bind the hand-written CUDA SSD intra-chunk kernels.
+"""Build and bind the hand-written CUDA SSD kernels.
 
 ``csrc/ssd_scan_tc.cu`` ("tc": Hopper tensor cores, mma.sync on bf16 x, B
 and C, chunks of 64 / 128 / 256, P of 64 or 128, N of 16, 64 or 128) and
@@ -8,6 +8,11 @@ over all heads) each expose one ``extern "C"`` launcher, compiled with
 ``nvcc`` for ``sm_90a`` into a shared library of its own at first use
 (``kernels/build.py``) and loaded with ``ctypes``.  ``route`` picks the
 kernel from the dtype and shape alone: it is not a fallback.
+``csrc/ssd_inter_chunk.cu`` is the inter-chunk recurrence (one block walks
+a batch row, head and group of P columns through every chunk, its state in
+registers; the products on the tensor cores for a bf16 or f32 C), in a
+library of its own (``launch_inter``, its block layout by ``inter_layout``
+from the shape alone).
 
 Nothing here touches CUDA or nvcc at import time: the CPU test suite imports
 this module on machines with neither.
@@ -26,12 +31,14 @@ from repro_torch.kernels.build import BASE_FLAGS, build_library, check_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 SOURCE_TC = Path(__file__).resolve().parent / "csrc" / "ssd_scan_tc.cu"
+SOURCE_INTER = Path(__file__).resolve().parent / "csrc" / "ssd_inter_chunk.cu"
 MAX_CHUNK = 256
 MAX_HEAD_DIM = 128
 PACKED_CHUNKS = (4, 8, 16, 32)
 TC_CHUNKS = (64, 128, 256)
 TC_DIMS = (64, 128)  # the tc kernel's head dims P
 TC_STATE_DIMS = (16, 64, 128)  # and its state dims N (16: hymba's SSD heads)
+INTER_MAX_STATE_DIM = 128  # the inter-chunk kernel's N (padded to 16, 32, 64 or 128)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,6 +72,11 @@ def build_tc(heads_n16: Optional[int] = None) -> tuple[Path, str, float]:
     return build_library(SOURCE_TC, BASE_FLAGS, "ssd_scan_tc")
 
 
+def build_inter() -> tuple[Path, str, float]:
+    """Compile the inter-chunk kernel if needed -> (library path, nvcc log, seconds)."""
+    return build_library(SOURCE_INTER, BASE_FLAGS, "ssd_inter_chunk")
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded simt / packed kernel library (built on first use)."""
@@ -83,6 +95,28 @@ def library_tc(heads_n16: Optional[int] = None) -> ctypes.CDLL:
     lib.ssd_intra_chunk_tc_fwd.argtypes = [_P] * 8 + [_I] * 7 + [_L] * 12 + [_P]
     lib.ssd_intra_chunk_tc_fwd.restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library_inter() -> ctypes.CDLL:
+    """The loaded inter-chunk kernel library (built on first use)."""
+    path, _, _ = build_inter()
+    lib = ctypes.CDLL(str(path))
+    lib.ssd_inter_chunk_fwd.argtypes = [_P] * 6 + [_I] * 7 + [_L] * 2 + [_I] * 4 + [_P]
+    lib.ssd_inter_chunk_fwd.restype = _I
+    return lib
+
+
+def inter_layout(bsz: int, heads: int, p: int, sms: int) -> tuple[int, int]:
+    """(warps a block, of them row warps) for the inter-chunk kernel: 4 or 2
+    warps of 16 columns of P each, the most that P's columns fill and that
+    still give two blocks an SM; else 4 warps over the same 16 columns, each
+    multiplying a quarter of a tile's rows (small batches)."""
+    tiles = -(-p // 16)  # P's 16-column tiles
+    for warps in (4, 2):
+        if warps <= tiles and bsz * heads * -(-tiles // warps) >= 2 * sms:
+            return warps, 1
+    return 4, 4
 
 
 def rows_aligned(t: torch.Tensor) -> bool:
@@ -121,3 +155,22 @@ def launch(x, dt, a, b, c, y, s, ce, *, chunk: int, kind: str,
         err = library().ssd_intra_chunk_fwd(*args, int(x.dtype == torch.bfloat16), int(vec_x),
                                             stream)
     check_launch(err, f"ssd_intra_chunk ({kind})")
+
+
+def launch_inter(y, s, ce, c, h0, hf, *, chunk: int, layout: tuple[int, int]) -> None:
+    """Launch the inter-chunk kernel on the current stream (the caller
+    validated operands) with ``layout`` = (warps a block, row warps; see
+    ``inter_layout``): y [B, S, H, P] f32 (y_intra, updated in place), s
+    [B, H, nc', P, N], ce [B, H, S], h0 and hf [B, H, P, N] (or None), all
+    contiguous f32; c [B, S, N] bf16 or f32 with a unit innermost stride."""
+    bsz, seq, heads, p = y.shape
+    n = c.shape[2]
+    is_bf16 = c.dtype == torch.bfloat16
+    vec = is_bf16 and n % 8 == 0 and rows_aligned(c)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    err = library_inter().ssd_inter_chunk_fwd(
+        y.data_ptr(), s.data_ptr(), ce.data_ptr(), c.data_ptr(),
+        None if h0 is None else h0.data_ptr(), None if hf is None else hf.data_ptr(),
+        bsz, seq, heads, p, n, chunk, s.shape[2], c.stride(0), c.stride(1), int(is_bf16),
+        int(vec), *layout, stream)
+    check_launch(err, "ssd_inter_chunk")

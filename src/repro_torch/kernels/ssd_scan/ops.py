@@ -1,25 +1,29 @@
-"""Wrappers: the Mamba-2 SSD scan through the intra-chunk kernel.
+"""Wrappers: the Mamba-2 SSD scan through the hand-written kernels.
 
 ``intra_chunk`` computes the intra-chunk term in the model's layout (x
 ``[B, S, H, P]``, dt ``[B, S, H]``, a ``[B, H]``, single-group B / C
-``[B, S, N]``); ``ssd_bshp`` adds the inter-chunk recurrence (a PyTorch
-loop over chunks, as the reference runs it in a jnp scan,
-``repro/kernels/ssd_scan/ops.py``) and is the model's route;
-``ssd_scan`` keeps the reference's ``[BH, S, P]`` signature over the same
-two steps.  They route by the device of their tensors: on the CPU the
-intra-chunk term is the plain PyTorch twin (``ref.py``); on a CUDA tensor
-the hand-written kernel that ``kernel.route`` names launches — "tc" (bf16
-on the tensor cores: the mamba2 and hymba prefills' chunks of 256, state
-dims 128 and 16), "packed" (chunks
-of 4 to 32: the cascade's 8 tokens) or "simt" (f32 and the other shapes)
-— or the call raises: it never falls back and reads no environment
-switch.  The kernel has no backward pass: an input that requires grad
-under grad mode is refused (``kernels.autograd``).  The kernels read strided views, so the model passes x, B and C as
-slices of its projection and B / C with no H-fold copy.
+``[B, S, N]``); ``inter_chunk`` runs the recurrence over chunks (the
+reference's jnp scan, ``repro/kernels/ssd_scan/ops.py``); ``ssd_bshp`` is
+the two in turn and is the model's route; ``ssd_scan`` keeps the
+reference's ``[BH, S, P]`` signature over the same two steps.  They route
+by the device of their tensors: on the CPU each runs its plain PyTorch twin
+(``ref.py``); on a CUDA tensor a hand-written kernel launches or the call
+raises: it never falls back and reads no environment switch.  The
+intra-chunk kernel is the one ``kernel.route`` names — "tc" (bf16 on the
+tensor cores: the mamba2 and hymba prefills' chunks of 256, state dims 128
+and 16), "packed" (chunks of 4 to 32: the cascade's 8 tokens) or "simt"
+(f32 and the other shapes); the inter-chunk kernel
+(``csrc/ssd_inter_chunk.cu``) takes every shape the intra-chunk kernels
+give it with N <= 128, and adds into y_intra in place.  Where no state
+enters any chunk (one chunk, no h0) the term is zero and y is y_intra:
+nothing launches.  The kernels have no backward pass: an input that
+requires grad under grad mode is refused (``kernels.autograd``).  The
+kernels read strided views, so the model passes x, B and C as slices of
+its projection and B / C with no H-fold copy.
 
-``LAUNCHES`` counts kernel launches, ``ROUTES`` them by kernel, and
-``PLAIN_CALLS`` plain-path calls, so a run can show that its main path
-went through the kernels (``reset_counts`` zeroes them).
+``LAUNCHES`` counts kernel launches by kernel, ``ROUTES`` the intra-chunk
+launches by route, and ``PLAIN_CALLS`` plain-path calls, so a run can show
+that its main path went through the kernels (``reset_counts`` zeroes them).
 """
 
 from __future__ import annotations
@@ -32,17 +36,17 @@ from repro_torch.kernels.autograd import refuse_grad
 from repro_torch.kernels.ssd_scan import kernel, ref
 
 KERNEL = "ssd_intra_chunk"
-LAUNCHES = {KERNEL: 0}
-ROUTES = {"tc": 0, "simt": 0, "packed": 0}
-PLAIN_CALLS = {KERNEL: 0}
+INTER = "ssd_inter_chunk"
+LAUNCHES = {KERNEL: 0, INTER: 0}
+ROUTES = {"tc": 0, "simt": 0, "packed": 0}  # the intra-chunk kernel's
+PLAIN_CALLS = {KERNEL: 0, INTER: 0}
 DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_counts() -> None:
-    LAUNCHES[KERNEL] = 0
-    PLAIN_CALLS[KERNEL] = 0
-    for r in ROUTES:
-        ROUTES[r] = 0
+    for counts in (LAUNCHES, PLAIN_CALLS, ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _check(x, dt, a, b, c, chunk) -> None:
@@ -107,32 +111,69 @@ def intra_chunk(x, dt, a, b, c, *, chunk: int, final_state: bool = True):
     return out
 
 
+def _check_inter(y_intra, s_contrib, cumexp, c, h0, chunk, final_state) -> None:
+    if y_intra.ndim != 4 or s_contrib.ndim != 5 or cumexp.ndim != 3 or c.ndim != 3:
+        raise ValueError("inter_chunk takes y_intra [B, S, H, P], s_contrib [B, H, nc', P, N], "
+                         "cumexp [B, H, S] and c [B, S, N]")
+    bsz, seq, heads, p = y_intra.shape
+    n = c.shape[2]
+    if chunk <= 0 or seq % chunk:
+        raise ValueError(f"chunk {chunk} does not divide the sequence length {seq}")
+    nc = seq // chunk
+    kept = nc if final_state else nc - 1
+    if tuple(s_contrib.shape) != (bsz, heads, kept, p, n):
+        raise ValueError(f"s_contrib {tuple(s_contrib.shape)} is not {(bsz, heads, kept, p, n)}")
+    if tuple(cumexp.shape) != (bsz, heads, seq) or tuple(c.shape[:2]) != (bsz, seq):
+        raise ValueError(f"cumexp {tuple(cumexp.shape)} / c {tuple(c.shape)} do not fit y_intra "
+                         f"{tuple(y_intra.shape)}")
+    if h0 is not None and tuple(h0.shape) != (bsz, heads, p, n):
+        raise ValueError(f"h0 {tuple(h0.shape)} is not {(bsz, heads, p, n)}")
+    for name, t in (("s_contrib", s_contrib), ("cumexp", cumexp), ("c", c), ("h0", h0)):
+        if t is not None and t.device != y_intra.device:
+            raise ValueError(f"{name} is on {t.device}, y_intra on {y_intra.device}")
+
+
+def _launch_inter(y_intra, s_contrib, cumexp, c, h0, chunk, final_state):
+    bsz, seq, heads, p = y_intra.shape
+    n = c.shape[2]
+    if p % 4 or n % 4 or n > kernel.INTER_MAX_STATE_DIM:
+        raise ValueError(f"the inter-chunk kernel takes head_dim and state_dim multiples of 4 "
+                         f"and state_dim <= {kernel.INTER_MAX_STATE_DIM}; got P {p}, N {n}")
+    for name, t in (("y_intra", y_intra), ("s_contrib", s_contrib), ("cumexp", cumexp)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"the inter-chunk kernel takes a contiguous f32 {name}")
+    if c.dtype not in DTYPES or c.stride(-1) != 1:
+        raise ValueError(f"the inter-chunk kernel takes a bf16 or f32 c with a unit innermost "
+                         f"stride, got {c.dtype} with strides {c.stride()}")
+    if h0 is not None:
+        h0 = h0.to(torch.float32).contiguous()
+    dev = y_intra.device
+    hf = torch.empty((bsz, heads, p, n), dtype=torch.float32, device=dev) if final_state else None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kernel.launch_inter(y_intra, s_contrib, cumexp, c, h0, hf, chunk=chunk,
+                        layout=kernel.inter_layout(bsz, heads, p, sms))
+    return y_intra, hf
+
+
 def inter_chunk(y_intra, s_contrib, cumexp, c, h0, *, chunk: int, final_state: bool = True):
     """The inter-chunk recurrence: h_{i+1} = h_i exp(cum_last_i) + S_i, and
     y_t += cumexp_t C_t . h_i for t in chunk i -> (y [B, S, H, P] f32,
-    h_final [B, H, P, N] f32, or None without ``final_state``)."""
-    bsz, seq, heads, p = y_intra.shape
-    n = c.shape[-1]
-    nc = seq // chunk
-    ce = cumexp.reshape(bsz, heads, nc, chunk)
-    h = None if h0 is None else h0.float()
-    entering = []  # the state entering each chunk
-    for i in range(nc):
-        entering.append(h)
-        if i < s_contrib.shape[2]:
-            s_i = s_contrib[:, :, i]
-            h = s_i if h is None else h * ce[:, :, i, -1, None, None] + s_i
-    if any(e is not None for e in entering):
-        zero = torch.zeros((bsz, heads, p, n), dtype=torch.float32, device=y_intra.device)
-        hs = torch.stack([zero if e is None else e for e in entering], dim=2)  # [B, H, nc, P, N]
-        cr = c.float().reshape(bsz, nc, chunk, n)
-        y_inter = torch.einsum("bcqn,bhcpn,bhcq->bcqhp", cr, hs, ce)
-        y_intra = y_intra + y_inter.reshape(bsz, seq, heads, p)
-    if not final_state:
-        return y_intra, None
-    if h is None:
-        h = torch.zeros((bsz, heads, p, n), dtype=torch.float32, device=y_intra.device)
-    return y_intra, h
+    h_final [B, H, P, N] f32, or None without ``final_state``).  On the card
+    y is y_intra, updated in place; on the CPU (the twin) a new tensor."""
+    refuse_grad(INTER, y_intra, s_contrib, cumexp, c, h0)
+    _check_inter(y_intra, s_contrib, cumexp, c, h0, chunk, final_state)
+    dev = y_intra.device
+    if dev.type == "cpu":
+        PLAIN_CALLS[INTER] += 1
+        return ref.inter_chunk_bshp(y_intra, s_contrib, cumexp, c, h0, chunk=chunk,
+                                    final_state=final_state)
+    if dev.type != "cuda":
+        raise ValueError(f"inter_chunk runs on cpu or cuda, not {dev}")
+    if h0 is None and y_intra.shape[1] == chunk:  # no state enters the one chunk
+        return y_intra, s_contrib[:, :, 0] if final_state else None
+    out = _launch_inter(y_intra, s_contrib, cumexp, c, h0, chunk, final_state)
+    LAUNCHES[INTER] += 1
+    return out
 
 
 def ssd_bshp(x, dt, a, b, c, h0: Optional[torch.Tensor] = None, *, chunk: int = 256,

@@ -1,7 +1,9 @@
-"""Plain PyTorch twins of the SSD intra-chunk kernel and the naive recurrence.
+"""Plain PyTorch twins of the SSD kernels and the naive recurrence.
 
 Port of ``repro/kernels/ssd_scan/kernel.py:ssd_intra_chunk`` (its function,
-f32 math) and ``repro/kernels/ssd_scan/ref.py:reference_ssd``.  The
+f32 math), of the inter-chunk scan that ``repro/kernels/ssd_scan/ops.py:
+ssd_scan`` runs after it, and of ``repro/kernels/ssd_scan/ref.py:
+reference_ssd``.  The
 cumulative sum is ``torch.cumsum`` (the reference kernel's tril-ones matmul
 sums in another order), and the decay ``exp(cum_i - cum_j)`` is masked to
 ``j <= i`` BEFORE the exponential: for ``j > i`` it overflows to inf, and
@@ -10,8 +12,10 @@ inf * 0 would be NaN.
 ``intra_chunk_bshp`` works in the model's layout — x ``[B, S, H, P]``, dt
 ``[B, S, H]``, a ``[B, H]`` and single-group B / C ``[B, S, N]`` shared by
 the H heads — which is the layout the CUDA kernel reads; ``ssd_intra_chunk``
-is the reference kernel's ``[BH, ...]`` layout over the same function.  The
-CPU path of ``ops`` and the card checks run them.
+is the reference kernel's ``[BH, ...]`` layout over the same function.
+``inter_chunk_bshp`` is the recurrence over chunks as a Python loop, the
+twin of ``csrc/ssd_inter_chunk.cu``.  The CPU path of ``ops``, the model's
+plain engines and the card checks run them.
 """
 
 from __future__ import annotations
@@ -56,6 +60,37 @@ def intra_chunk_bshp(
     xw = xf[:, :kept] * (dtf[:, :kept] * tail)[..., None]
     s_contrib = torch.einsum("bcqhp,bcqn->bhcpn", xw, bf[:, :kept])
     return y, s_contrib, cumexp
+
+
+def inter_chunk_bshp(y_intra, s_contrib, cumexp, c, h0, *, chunk: int,
+                     final_state: bool = True):
+    """The inter-chunk recurrence: h_{i+1} = h_i exp(cum_last_i) + S_i, and
+    y_t += cumexp_t C_t . h_i for t in chunk i -> (y [B, S, H, P] f32,
+    h_final [B, H, P, N] f32, or None without ``final_state``).  y_intra
+    [B, S, H, P], s_contrib [B, H, nc', P, N], cumexp [B, H, S], c [B, S, N],
+    h0 [B, H, P, N] or None; y_intra is not written."""
+    bsz, seq, heads, p = y_intra.shape
+    n = c.shape[-1]
+    nc = seq // chunk
+    ce = cumexp.reshape(bsz, heads, nc, chunk)
+    h = None if h0 is None else h0.float()
+    entering = []  # the state entering each chunk
+    for i in range(nc):
+        entering.append(h)
+        if i < s_contrib.shape[2]:
+            s_i = s_contrib[:, :, i]
+            h = s_i if h is None else h * ce[:, :, i, -1, None, None] + s_i
+    if any(e is not None for e in entering):
+        zero = torch.zeros((bsz, heads, p, n), dtype=torch.float32, device=y_intra.device)
+        hs = torch.stack([zero if e is None else e for e in entering], dim=2)  # [B, H, nc, P, N]
+        cr = c.float().reshape(bsz, nc, chunk, n)
+        y_inter = torch.einsum("bcqn,bhcpn,bhcq->bcqhp", cr, hs, ce)
+        y_intra = y_intra + y_inter.reshape(bsz, seq, heads, p)
+    if not final_state:
+        return y_intra, None
+    if h is None:
+        h = torch.zeros((bsz, heads, p, n), dtype=torch.float32, device=y_intra.device)
+    return y_intra, h
 
 
 def ssd_intra_chunk(

@@ -38,18 +38,23 @@ GIB = 1 << 30
 # room for fragmentation, cuBLAS workspaces and the kernels' own buffers.
 CARD_BYTES = 76 * GIB
 # A prefill's live activations, in bytes a token per unit of its widest
-# per-token activation (a gated MLP's hidden width, the SSM's input
-# projection, the query heads): ten bf16 copies.  Measured on the H100: the
-# qwen3-1.7b prefill at B 8 peaked at 12.7 bytes a token and unit (a gated
-# MLP's gate, up and product beside RoPE's f32 halves), the mamba2-370m
-# prefill at B 32 at 15.2 (the SSD's f32 intra-chunk output, inter-chunk
-# term and sum beside the projection), 72.07 GB in a process of its own.  The
-# margin is not the card's limit alone: run after chip_smoke.py's earlier
-# phases, that same B 32 prefill ran out of memory with 10.9 GiB of the
-# allocator's segments reserved but free (fragmentation), so the margin adds
-# about five bytes a token and unit of room for it, which cuts mamba2-370m's
-# prefill_32k from B 32 to B 16.
-PREFILL_BYTES_PER_WIDTH = 20
+# per-token activation (``widest_activation``: a gated MLP's hidden width,
+# the SSM's input projection, the query heads), by family: the peak measured
+# on an H100 80GB HBM3 (700 W) in a process of its own, less the weights and
+# the cache.  The attention family: the qwen3-1.7b prefill at B 8 peaked at
+# 12.7 (a gated MLP's gate, up and product beside RoPE's f32 halves).  The
+# SSM family: the mamba2-370m prefill at B 32 peaked at 47.73 GB, 9.87 (8.94
+# at B 16: 22.10 GB; ``launch/profile.py --shape prefill_32k --batch 32``),
+# with the SSD's recurrence a kernel that adds into the intra-chunk output
+# in place and the mixer freeing its projection and conv output once
+# consumed; with the recurrence a PyTorch loop it peaked at 15.2 (72.07 GB).
+# A model with both kinds of layer takes the larger.
+PREFILL_BYTES_PER_WIDTH = {"attention": 12.7, "ssm": 9.9}
+# Room for the allocator's fragmentation on top of a family's peak: run
+# after chip_smoke.py's earlier phases, the B 32 mamba2 prefill once ran out
+# of memory with 10.9 GiB of the allocator's segments reserved but free
+# (2.5 bytes a token and unit at B 32); about five bytes are kept.
+PREFILL_ROOM_BYTES_PER_WIDTH = 5.0
 # A decode step's activations: per-layer vectors of B rows and the logits
 # [B, V] f32 (three copies: the unembedding's f32 output, its softcap, the
 # argmax's input), on top of a fixed margin.
@@ -101,10 +106,20 @@ def widest_activation(cfg: ModelConfig) -> int:
     return max(widths)
 
 
+def prefill_bytes_per_width(cfg: ModelConfig) -> float:
+    """A prefill's bytes a token and unit of width: the measured peak of the
+    families its layers belong to (the larger), plus the room."""
+    kinds = {"mamba": ("ssm",), "hymba": ("attention", "ssm")}  # else attention alone
+    families = {f for mixer in cfg.layer_pattern for f in kinds.get(mixer, ("attention",))}
+    return (max(PREFILL_BYTES_PER_WIDTH[f] for f in families)
+            + PREFILL_ROOM_BYTES_PER_WIDTH)
+
+
 def activation_bytes(cfg: ModelConfig, shape: ShapeSpec, batch: int) -> int:
     """The margin for a step's activations (see the constants above)."""
     if shape.kind == "prefill":
-        return batch * shape.seq_len * PREFILL_BYTES_PER_WIDTH * widest_activation(cfg)
+        return int(batch * shape.seq_len * prefill_bytes_per_width(cfg)
+                   * widest_activation(cfg))
     return DECODE_FIXED_BYTES + batch * cfg.vocab_size * 4 * DECODE_LOGIT_COPIES
 
 
@@ -133,9 +148,10 @@ def one_card_cell(arch: str, shape: str) -> Cell:
     if batch >= 1:
         if batch < spec.global_batch:
             over = _bytes(cfg, spec, 2 * batch)
-            why = (f" (of it {over[2] / 1e9:.1f} GB of activations at {PREFILL_BYTES_PER_WIDTH} "
-                   f"bytes a token and unit of width: the measured peaks' 12.7-15.2 plus room "
-                   f"for the allocator's fragmentation)" if spec.kind == "prefill" else "")
+            why = (f" (of it {over[2] / 1e9:.1f} GB of activations at "
+                   f"{prefill_bytes_per_width(cfg):g} bytes a token and unit of width: the "
+                   f"family's measured peak plus room for the allocator's fragmentation)"
+                   if spec.kind == "prefill" else "")
             reduced.append(f"global batch {spec.global_batch} -> {batch}: {sum(over) / 1e9:.1f} "
                            f"GB reckoned at batch {2 * batch}{why} exceeds the card's "
                            f"{CARD_BYTES / 1e9:.1f} GB")

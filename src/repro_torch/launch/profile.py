@@ -2,7 +2,7 @@
 
     python -m repro_torch.launch.profile [--path session|operator|prefill|decode|train]
         [--bank simulated|cascade] [--backbone ARCH] [--epochs 8] [--mode best|table]
-        [--shape prefill_32k|decode_32k|long_500k]
+        [--shape prefill_32k|decode_32k|long_500k] [--batch B] [--ranges]
 
 ``--bank simulated`` (default) builds the main-path session (524,288 rows
 grown to 1,048,576 by one ingest, 8 tenant slots, bf16 substrate), admits
@@ -31,7 +31,13 @@ serve cell instead (``launch.cells.one_card_cell``: the batch and depth one
 80 GB card holds) and run it through ``launch.steps.build_prefill_step`` /
 ``build_decode_step`` without a mesh: whole prefills of the cell's
 length, or decode steps from a ``fill_cache``d cache at ``seq_len - 1``
-(each step writes its last free row and attends over every row).  ``--path
+(each step writes its last free row and attends over every row); ``--batch``
+runs the cell at another batch (a measurement of the peak memory of a batch
+that the reckoning does not admit yet).  ``--ranges`` times the Mamba-2
+mixer's parts on the device (``SSM_RANGES``: CUDA events around every call
+of the named functions) and prints each part's device time a prefill, so
+the elementwise work can be split between the SSD's recurrence and the
+mixer's conv, gates and norm.  ``--path
 train`` builds the ``--backbone`` model at its published width with random
 f32 weights and AdamW (``launch.steps.build_train_step``, the chunked
 attention engine and remat) and profiles whole train steps over
@@ -52,10 +58,13 @@ kernel).  Needs a GPU; it has no CPU mode.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import importlib
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -71,7 +80,7 @@ CASCADE_TENANTS = ((0, 1), (1, 2), (0, 2), (0,), (1,), (2,), (0, 1, 2), (0, 1))
 KINDS = (  # (label, substrings of the kernel name), first match wins
     ("attention (flash kernel)", ("flash_attention",)),
     ("attention (decode kernel)", ("decode_partials", "decode_fused")),
-    ("SSD intra-chunk kernel", ("ssd_intra_chunk",)),
+    ("SSD kernels (intra, inter)", ("ssd_intra_chunk", "ssd_inter_chunk")),
     ("scoring (enrich_score)", ("enrich_score",)),
     ("matmuls (cuBLAS)", ("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas")),
     ("sorts and scans", ("RadixSort", "scan", "Scan", "sort")),
@@ -79,6 +88,18 @@ KINDS = (  # (label, substrings of the kernel name), first match wins
                                          "Memset", "index", "gather", "scatter")),
 )
 
+# --ranges: the Mamba-2 mixer's parts (module, function, label), each call
+# timed on the device; the mixer's time less its parts' is its gates,
+# softplus, D skip, reshapes and casts
+SSM_RANGES = (
+    ("repro_torch.models.ssm", "ssm_apply", "mixer, all of it"),
+    ("repro_torch.models.ssm", "matmul", "in / out projections"),
+    ("repro_torch.models.ssm", "_causal_conv", "causal conv + SiLU"),
+    ("repro_torch.models.ssm", "rmsnorm", "norm"),
+    ("repro_torch.models.ssm", "ssd_chunked", "SSD, all of it"),
+    ("repro_torch.kernels.ssd_scan.ops", "intra_chunk", "SSD intra-chunk"),
+    ("repro_torch.kernels.ssd_scan.ops", "inter_chunk", "SSD inter-chunk"),
+)
 
 OPERATOR_OBJECTS = 1 << 20
 MODEL_SHAPES = {  # batch, prompt tokens (after a vision model's image embeds)
@@ -123,6 +144,34 @@ def _device_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+@contextlib.contextmanager
+def timed_ranges(ranges):
+    """Each (module, function, label) of ``ranges`` patched, for the block,
+    with a wrapper that records CUDA events around every call -> {label:
+    [(start, end), ...]}."""
+    spans = {label: [] for _, _, label in ranges}
+    saved = []
+    for mod_name, attr, label in ranges:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, attr)
+
+        def wrapped(*args, _fn=fn, _label=label, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = _fn(*args, **kwargs)
+            end.record()
+            spans[_label].append((start, end))
+            return out
+
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, wrapped)
+    try:
+        yield spans
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def _kind(name: str) -> str:
@@ -210,13 +259,13 @@ def _model(backbone: str, decode: bool):
         f"{prompt} tokens{extra} (bf16, kernel route; an 'epoch' is one {kind})")
 
 
-def _cell(backbone: str, shape: str, decode: bool):
+def _cell(backbone: str, shape: str, decode: bool, batch: Optional[int] = None):
     from repro_torch.launch import cells, steps
     from repro_torch.models import transformer as tf
     from repro_torch.models.model import random_model
 
     cell = cells.one_card_cell(backbone, shape)
-    spec, b = cell.shape, cell.batch
+    spec, b = cell.shape, batch or cell.batch
     if (spec.kind == "decode") != decode:
         raise SystemExit(f"--shape {shape} is a {spec.kind} cell: use --path {spec.kind}")
     model, params = random_model(cell.cfg, seed=0, device="cuda")
@@ -247,7 +296,9 @@ def _cell(backbone: str, shape: str, decode: bool):
     kind = "decode step" if decode else "prefill"
     return run, state, None, (
         f"{backbone} x {shape} at full width ({cell.cfg.num_layers} layers; reduced: "
-        f"{'; '.join(cell.reduced) or 'nothing'}), {kind}s at B={b} over {spec.seq_len} "
+        f"{'; '.join(cell.reduced) or 'nothing'}"
+        f"{'' if b == cell.batch else f'; run at B={b}, not the reckoned {cell.batch}'}), "
+        f"{kind}s at B={b} over {spec.seq_len} "
         f"{'keys' if decode else 'tokens'} (bf16, kernel route; an 'epoch' is one {kind})")
 
 
@@ -329,6 +380,10 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", default=None, choices=("prefill_32k", "decode_32k", "long_500k"),
                     help="with --path prefill / decode: the reference's serve cell, sized to "
                          "one card (launch/cells.py)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="with --shape: run the cell at this batch")
+    ap.add_argument("--ranges", action="store_true",
+                    help="time the Mamba-2 mixer's parts on the device (SSM_RANGES)")
     ap.add_argument("--epochs", type=int, default=8)
     ap.add_argument("--mode", default="best", choices=("best", "table"),
                     help="scoring mode of the simulated bank (the cascade serves best mode)")
@@ -340,7 +395,8 @@ def main(argv=None) -> int:
     if args.path == "operator":
         run, state, bank, label = _operator()
     elif args.path in ("prefill", "decode") and args.shape:
-        run, state, bank, label = _cell(args.backbone, args.shape, args.path == "decode")
+        run, state, bank, label = _cell(args.backbone, args.shape, args.path == "decode",
+                                        args.batch)
     elif args.path in ("prefill", "decode"):
         run, state, bank, label = _model(args.backbone, args.path == "decode")
     elif args.path == "train":
@@ -352,7 +408,8 @@ def main(argv=None) -> int:
     trunk0 = 0 if bank is None else bank.trunk_runs
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    ranges = timed_ranges(SSM_RANGES if args.ranges else ())
+    with torch.profiler.profile(activities=acts) as prof, ranges as spans:
         t0 = time.perf_counter()
         state, _ = run(state, args.epochs, stop_when_exhausted=False)
         torch.cuda.synchronize()
@@ -384,8 +441,13 @@ def main(argv=None) -> int:
     for e in sorted(events, key=_device_us, reverse=True)[: args.top]:
         print(f"[profile]   {_device_us(e) / 1e3 / n:9.4f} ms/epoch  "
               f"{e.count // max(n, 1):5d} calls/epoch  {e.key[:110]}")
+    for label, pairs in spans.items():  # --ranges
+        ms = sum(a.elapsed_time(b) for a, b in pairs)
+        print(f"[profile]   range {label:26s} {ms / n:9.4f} ms/epoch  {len(pairs) // n:5d} "
+              f"calls/epoch  {ms * 1e3 / busy_us:6.1%} of busy (CUDA events)")
     if args.path == "train" or args.shape:
-        print(f"[profile] peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[profile] peak memory {peak / 2**30:.3f} GiB ({peak / 1e9:.2f} GB)")
     if args.path == "train":
         _train_parts(args.backbone, state)
     if bank is not None:

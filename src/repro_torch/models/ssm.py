@@ -5,13 +5,14 @@ inter-chunk state recurrence.  ``ssd_chunked`` has two engines, chosen by
 ``cfg.attn_impl`` like the attention engines:
 
     kernel       — ``repro_torch.kernels.ssd_scan``: the hand-written CUDA
-                   intra-chunk kernel on the card (its plain twin on the
-                   CPU) and the recurrence as a PyTorch loop over chunks;
-    auto / dense / chunked — the kernel's plain twin and the same
-                   recurrence on any device (the reference's jnp closed form,
-                   which it runs under every attention engine): the route
-                   training differentiates through (the kernel has no
-                   backward).
+                   intra-chunk and inter-chunk kernels on the card (their
+                   plain twins on the CPU);
+    auto / dense / chunked — the kernels' plain twins (``ssd_scan/ref.py``:
+                   the recurrence a PyTorch loop over chunks) on any device
+                   (the reference's jnp closed form, which it runs under
+                   every attention engine): the route training
+                   differentiates through (the kernels have no backward),
+                   and the oracle the card checks hold the kernels against.
 
 ``ssd_step`` (decode, one token) stays plain PyTorch: no TPU kernel
 computes it.  Single-group (G=1) B/C as in mamba2-370m; the state cache for
@@ -101,7 +102,8 @@ def _causal_conv(xbc, w, b, cache_tail: Optional[torch.Tensor] = None):
     for i in range(1, width):
         out = out + full[:, i:i + s] * wd[i]
     out = out + b.to(xbc.dtype)
-    new_tail = full[:, full.shape[1] - (width - 1):]
+    # a copy: a view of the tail would keep all of ``full`` alive with the cache
+    new_tail = full[:, full.shape[1] - (width - 1):].clone()
     return F.silu(out), new_tail
 
 
@@ -139,8 +141,8 @@ def ssd_chunked(
     kw = dict(chunk=chunk, final_state=final_state)
     if impl == "kernel":
         y, h = ssd_ops.ssd_bshp(x, dt.float(), a_bh, b_mat, c_mat, h0, **kw)
-    elif impl in ("auto", "dense", "chunked"):
-        y, h = ssd_ops.inter_chunk(
+    elif impl in ("auto", "dense", "chunked"):  # the twins on any device: never a kernel
+        y, h = ssd_ref.inter_chunk_bshp(
             *ssd_ref.intra_chunk_bshp(x, dt.float(), a_bh, b_mat, c_mat, **kw), c_mat, h0, **kw)
     else:
         raise NotImplementedError(f"SSD engine {impl!r}: the port runs 'auto', 'dense', "
@@ -186,6 +188,10 @@ def ssm_apply(params: dict, cfg, x: torch.Tensor, cache: Optional[SSMCache] = No
     b_mat, c_mat = xbc[..., di:di + n], xbc[..., di + n:]
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     a = -torch.exp(params["A_log"])
+    # z is a view of the projection: its gate now, so the projection is freed
+    # before the SSD (a prefill's largest activation; the values are the same)
+    gate = F.silu(z)
+    del proj, z, dt_raw
 
     h0 = cache.h if cache is not None else None
     if seq == 1 and cache is not None:
@@ -195,8 +201,9 @@ def ssm_apply(params: dict, cfg, x: torch.Tensor, cache: Optional[SSMCache] = No
         y, h_new = ssd_chunked(x_in, dt, a, b_mat, c_mat, h0, chunk=s_cfg.chunk_size,
                                impl=cfg.attn_impl, final_state=cache is not None)
     y = y + x_in * params["D"].to(dt_in)[None, None, :, None]
+    del xbc, x_in, b_mat, c_mat  # the conv output, before the norm's f32 passes
     y = pin(y.reshape(bsz, seq, di))
-    y = rmsnorm(y * F.silu(z), params["norm_w"], cfg.rmsnorm_eps)
+    y = rmsnorm(y * gate, params["norm_w"], cfg.rmsnorm_eps)
     out = shard_act(matmul(y, params["out_proj"].to(dt_in)), "batch", "act_seq", "act_embed")
 
     new_cache = cache

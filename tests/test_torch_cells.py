@@ -165,19 +165,32 @@ def _cache(cfg, shape, batch) -> int:
     return total
 
 
+def _prefill_figure(cfg) -> float:
+    """The module's bytes a token and unit of width for ``cfg``: the measured
+    peak of each family its layers belong to (a hymba layer is both), the
+    larger, plus the room."""
+    peaks = set()
+    for mixer in cfg.layer_pattern:
+        if mixer in ("mamba", "hymba"):
+            peaks.add(cells.PREFILL_BYTES_PER_WIDTH["ssm"])
+        if mixer != "mamba":
+            peaks.add(cells.PREFILL_BYTES_PER_WIDTH["attention"])
+    return max(peaks) + cells.PREFILL_ROOM_BYTES_PER_WIDTH
+
+
 def _reckoned(cfg, shape, batch) -> int:
     """Bytes of one cell, reckoned here: every parameter in bf16 (the norms
     and SSM vectors, f32 in the tree, are under 1% of any of these models),
     the cache, and the activation margin the module states."""
     if shape.kind == "prefill":
-        act = batch * shape.seq_len * cells.PREFILL_BYTES_PER_WIDTH * cells.widest_activation(cfg)
+        act = batch * shape.seq_len * _prefill_figure(cfg) * cells.widest_activation(cfg)
     else:
         act = cells.DECODE_FIXED_BYTES + batch * cfg.vocab_size * 4 * cells.DECODE_LOGIT_COPIES
     return 2 * cfg.param_counts()["total"] + _cache(cfg, shape, batch) + act
 
 
 # arch, shape -> (batch, layers): what one 80 GB card holds (PERF.md §4)
-EXPECTED = {("qwen3-1.7b", "prefill_32k"): (8, 28), ("mamba2-370m", "prefill_32k"): (16, 48),
+EXPECTED = {("qwen3-1.7b", "prefill_32k"): (8, 28), ("mamba2-370m", "prefill_32k"): (32, 48),
             ("qwen3-1.7b", "decode_32k"): (16, 28), ("mamba2-370m", "decode_32k"): (128, 48),
             ("hymba-1.5b", "long_500k"): (1, 32), ("h2o-danube-1.8b", "long_500k"): (1, 24),
             ("gemma2-9b", "long_500k"): (1, 16), ("mamba2-370m", "long_500k"): (1, 48)}
@@ -208,6 +221,33 @@ def test_one_card_cell_sizes_each_serve_cell(arch, shape):
         assert cell.cfg == full
     if (cell.batch, cell.cfg.num_layers) == (spec.global_batch, full.num_layers):
         assert cell.reduced == ()
+
+
+@pytest.mark.parametrize("arch,families", [("qwen3-1.7b", ("attention",)),
+                                           ("mamba2-370m", ("ssm",)),
+                                           ("hymba-1.5b", ("attention", "ssm")),
+                                           ("gemma2-9b", ("attention",))])
+def test_prefill_reckoning_takes_each_family_s_measured_peak(arch, families):
+    """A prefill's bytes a token and unit of width: its families' measured
+    peak (the larger where a model has both) plus the unchanged room of 5."""
+    cfg = get_config(arch)
+    want = max(cells.PREFILL_BYTES_PER_WIDTH[f] for f in families) + 5.0
+    assert cells.PREFILL_ROOM_BYTES_PER_WIDTH == 5.0
+    assert cells.prefill_bytes_per_width(cfg) == want == _prefill_figure(cfg)
+    spec = SHAPES["prefill_32k"]
+    assert cells.activation_bytes(cfg, spec, 2) == int(
+        2 * spec.seq_len * want * cells.widest_activation(cfg))
+
+
+def test_mamba2_prefill_32k_runs_at_the_reference_batch():
+    """With the SSD's recurrence a kernel (no stacked states) the SSM
+    family's measured peak is below the loop's 15.2 bytes a token and unit,
+    and mamba2-370m's prefill_32k fits one card at the global batch of 32,
+    cut nowhere; qwen3-1.7b's stays at B 8 (its 30 GB cache)."""
+    assert cells.PREFILL_BYTES_PER_WIDTH["ssm"] < 15.2
+    cell = cells.one_card_cell("mamba2-370m", "prefill_32k")
+    assert (cell.batch, cell.reduced) == (32, ()) and cell.total_bytes <= cells.CARD_BYTES
+    assert cells.one_card_cell("qwen3-1.7b", "prefill_32k").batch == 8
 
 
 def test_one_card_cell_refuses_what_the_reference_skips():

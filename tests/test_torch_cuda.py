@@ -859,6 +859,108 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         ssd_kernel.launch(x, dt, a, bm, bm, *out, chunk=64, kind="packed")
 
 
+
+# the inter-chunk kernel: b, s, chunk, h, p, n, dtype, h0 given, final_state
+INTER_CASES = [
+    (2, 4096, 256, 32, 64, 128, torch.bfloat16, True, True),  # the mamba2 prefill
+    (1, 2048, 256, 50, 64, 16, torch.bfloat16, True, True),  # hymba's: H 50, N 16
+    (512, 8, 8, 32, 64, 128, torch.bfloat16, True, True),  # a packed cascade block, a state
+    (64, 64, 8, 50, 64, 16, torch.bfloat16, False, False),  # 8 packed chunks, no h0 or state
+    (2, 1024, 256, 32, 64, 128, torch.bfloat16, True, False),  # h0, no final state
+    (2, 96, 96, 4, 16, 16, torch.float32, True, True),  # f32 C at smoke widths: 64 + 32 rows
+    (3, 160, 32, 5, 48, 8, torch.bfloat16, False, True),  # P 48, N 8 padded to 16, no h0
+    (2, 128, 64, 3, 16, 12, torch.bfloat16, True, True),  # N 12: C rows not 16-byte aligned
+]
+
+
+def _inter_inputs(dev, case):
+    """The intra-chunk kernel's outputs on model-layout operands, C a strided
+    slice of the projection, and h0 (or None)."""
+    b, s, chunk, h, p, n, dtype, with_h0, final = case
+    args = _ssd_inputs(dev, dtype, s + h + n, b, s, h, p, n)
+    y_intra, s_contrib, cumexp = ssd_ops.intra_chunk(*args, chunk=chunk, final_state=final)
+    rng = np.random.default_rng(s + n)
+    h0 = (torch.from_numpy(rng.standard_normal((b, h, p, n)).astype(np.float32)).to(dev)
+          if with_h0 else None)
+    return y_intra, s_contrib, cumexp, args[4], h0
+
+
+def _inter_hold(got, want) -> None:
+    """y and the final state within 1e-4 of each one's largest magnitude (the
+    state's products split into bf16 hi + lo lose ~2^-16 of |h|; sums in
+    another order)."""
+    for name, g, w in zip(("y", "h_final"), got, want):
+        assert (g is None) == (w is None), name
+        if w is None:
+            continue
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        assert err <= 1e-4 * max(scale, 1.0), (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INTER_CASES)
+def test_ssd_inter_chunk_kernel_matches_plain_twin(cuda_device, case):
+    """One counted launch, y_intra updated in place, y and the final state
+    within 1e-4 of the twin (``ref.inter_chunk_bshp``, the loop over chunks)."""
+    chunk, final = case[2], case[8]
+    y_intra, s_contrib, cumexp, c, h0 = _inter_inputs(cuda_device, case)
+    assert c.stride(-1) == 1 and not c.is_contiguous()
+    want = ssd_ref.inter_chunk_bshp(y_intra, s_contrib, cumexp, c, h0, chunk=chunk,
+                                    final_state=final)
+    y = y_intra.clone()
+    before = ssd_ops.LAUNCHES["ssd_inter_chunk"]
+    got = ssd_ops.inter_chunk(y, s_contrib, cumexp, c, h0, chunk=chunk, final_state=final)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES["ssd_inter_chunk"] == before + 1
+    assert got[0].data_ptr() == y.data_ptr()  # in place
+    _inter_hold(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(1, 1), (2, 1), (4, 1), (4, 4)])
+def test_ssd_inter_chunk_kernel_holds_every_block_layout(cuda_device, layout):
+    """1, 2 and 4 warps a block over 16 columns of P each, and 4 warps over
+    the same 16 columns splitting a tile's rows (uncounted launches), on P
+    48 (at 4 column warps one has no column of P; 160 rows: a last tile of
+    32 rows leaves two row warps idle) and hymba's P 64 x 50 heads."""
+    for case in (INTER_CASES[6], (1, 512, 256, 50, 64, 16, torch.bfloat16, True, True)):
+        chunk, final = case[2], case[8]
+        y_intra, s_contrib, cumexp, c, h0 = _inter_inputs(cuda_device, case)
+        want = ssd_ref.inter_chunk_bshp(y_intra, s_contrib, cumexp, c, h0, chunk=chunk,
+                                        final_state=final)
+        b, _, h, p = y_intra.shape
+        hf = torch.empty((b, h, p, c.shape[2]), device=cuda_device) if final else None
+        ssd_kernel.launch_inter(y_intra, s_contrib, cumexp, c, h0, hf, chunk=chunk,
+                                layout=layout)
+        torch.cuda.synchronize()
+        _inter_hold((y_intra, hf), want)
+
+
+@pytest.mark.cuda
+def test_ssd_inter_chunk_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    y_intra, s_contrib, cumexp, c, h0 = _inter_inputs(cuda_device, INTER_CASES[7])
+    before = ssd_ops.LAUNCHES["ssd_inter_chunk"]
+    # one chunk and no h0: no state enters it, y is y_intra and nothing launches
+    one = _inter_inputs(cuda_device, (2, 64, 64, 3, 16, 12, torch.bfloat16, False, True))
+    y, h = ssd_ops.inter_chunk(*one[:4], None, chunk=64)
+    assert y is one[0] and torch.equal(h, one[1][:, :, 0])
+    assert ssd_ops.LAUNCHES["ssd_inter_chunk"] == before
+    with pytest.raises(ValueError, match="state_dim <= 128"):
+        wide = _inter_inputs(cuda_device, (1, 128, 64, 2, 16, 132, torch.bfloat16, True, True))
+        ssd_ops.inter_chunk(*wide, chunk=64)
+    with pytest.raises(ValueError, match="contiguous f32 y_intra"):
+        ssd_ops.inter_chunk(y_intra.transpose(1, 2).contiguous().transpose(1, 2), s_contrib,
+                            cumexp, c, h0, chunk=64)
+    with pytest.raises(ValueError, match="bf16 or f32 c"):
+        ssd_ops.inter_chunk(y_intra, s_contrib, cumexp, c.half(), h0, chunk=64)
+    with pytest.raises(ValueError, match="s_contrib"):
+        ssd_ops.inter_chunk(y_intra, s_contrib, cumexp, c, h0, chunk=64, final_state=False)
+    with pytest.raises(ValueError, match="on cpu"):
+        ssd_ops.inter_chunk(y_intra, s_contrib, cumexp.cpu(), c, h0, chunk=64)
+    assert ssd_ops.LAUNCHES["ssd_inter_chunk"] == before
+
+
 # --------------------------------------------------------- decode attention --
 
 # b, skv, h, kv, d, kv_len, window, softcap, num_splits (of the partials route)
@@ -1081,11 +1183,13 @@ def test_cuda_model_prefill_and_decode_run_the_kernels(cuda_device, arch):
     launches = {**fa_ops.LAUNCHES, **da_ops.LAUNCHES, **ssd_ops.LAUNCHES}
     if arch == "mamba2-370m":
         assert launches == {"flash_attention": 0, "decode_attention_partials": 0,
-                            "decode_attention_fused": 0, "ssd_intra_chunk": 2}, launches
+                            "decode_attention_fused": 0, "ssd_intra_chunk": 2,
+                            "ssd_inter_chunk": 2}, launches
         assert ssd_ops.ROUTES == {"tc": 0, "simt": 0, "packed": 2}  # f32, chunk 16
     else:
         assert launches == {"flash_attention": 2, "decode_attention_partials": 0,
-                            "decode_attention_fused": 8, "ssd_intra_chunk": 0}, launches
+                            "decode_attention_fused": 8, "ssd_intra_chunk": 0,
+                            "ssd_inter_chunk": 0}, launches
 
 
 # reduced bf16 models that route the bf16 kernels: prompt, teacher-forced steps

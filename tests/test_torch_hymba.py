@@ -53,7 +53,8 @@ def test_prefill_and_decode_match_jax(j_impl, impl):
         assert not any(plain.values()), plain
     else:  # 2 layers: flash + SSD in the prefill, fused decode + ssd_step a step
         assert plain == {"flash_attention": 2, "decode_attention_partials": 0,
-                         "decode_attention_fused": 6, "ssd_intra_chunk": 2}, plain
+                         "decode_attention_fused": 6, "ssd_intra_chunk": 2,
+                         "ssd_inter_chunk": 2}, plain
 
 
 def test_hymba_cache_holds_kv_and_ssm_stacks_like_the_reference():

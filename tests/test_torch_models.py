@@ -243,10 +243,12 @@ def test_prefill_and_decode_match_jax(arch, impl):
         assert not any(plain.values()), plain
     elif arch == "mamba2-370m":  # 2 layers: the SSD route in prefill, ssd_step in decode
         assert plain == {"flash_attention": 0, "decode_attention_partials": 0,
-                         "decode_attention_fused": 0, "ssd_intra_chunk": 2}, plain
+                         "decode_attention_fused": 0, "ssd_intra_chunk": 2,
+                         "ssd_inter_chunk": 2}, plain
     else:  # the flash route in prefill, the fused decode route per step
         assert plain == {"flash_attention": 2, "decode_attention_partials": 0,
-                         "decode_attention_fused": 6, "ssd_intra_chunk": 0}, plain
+                         "decode_attention_fused": 6, "ssd_intra_chunk": 0,
+                         "ssd_inter_chunk": 0}, plain
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-370m"])

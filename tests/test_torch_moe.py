@@ -151,7 +151,8 @@ def test_prefill_and_decode_match_jax(arch, impl):
         assert not any(plain.values()), plain
     else:
         assert plain == {"flash_attention": 2, "decode_attention_partials": 0,
-                         "decode_attention_fused": 6, "ssd_intra_chunk": 0}, plain
+                         "decode_attention_fused": 6, "ssd_intra_chunk": 0,
+                         "ssd_inter_chunk": 0}, plain
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)

@@ -15,7 +15,14 @@ Tolerances:
   (f32) and 5e-2 (bf16);
 * the mixer and the SSD engines against the reference's jnp ``ssd_chunked``
   and ``ssm_apply``: 2e-5 (f32 sums in another order, XLA's and PyTorch's
-  softplus / exp differ by an ulp).
+  softplus / exp differ by an ulp);
+* the inter-chunk twin (``ref.inter_chunk_bshp``, the CPU path of
+  ``ops.inter_chunk``) and ``ops.ssd_bshp`` against the reference's
+  ``ssd_scan`` (its Pallas intra-chunk kernel in interpret mode, then its
+  jnp scan) and ``ssd_chunked``, at state dims 16 and 128 and chunks of 8
+  and 256: ``INTER_TOL`` of the output's largest magnitude (the twin's
+  states sum over the chunks' exponentials in another order than XLA's
+  scan, and C.h sums N products in another order).
 """
 
 import dataclasses
@@ -41,6 +48,7 @@ from test_torch_threads import one_torch_thread  # noqa: F401
 
 INTRA_TOL = 2e-5
 MIXER_TOL = 2e-5
+INTER_TOL = 2e-5  # of the output's largest magnitude
 
 
 def _f32(x):
@@ -136,6 +144,119 @@ def test_shared_bc_layout_and_dropped_final_state(s, chunk):
     torch.testing.assert_close(h.reshape(bsz * nh, p, n), h_bh, rtol=1e-6, atol=1e-6)
     y2, h2 = ops.ssd_bshp(x, dt, a_bh, b, c, chunk=chunk, final_state=False)
     assert h2 is None and torch.equal(y2, y)
+
+
+# ------------------------------------------------- the inter-chunk twin --
+
+
+def _model_layout(seed, bsz, s, nh, p, n):
+    """x, dt, a [H], b, c and h0 in the model's layout (numpy, f32), the
+    reference tests' distributions."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((bsz, s, nh, p)).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.standard_normal((bsz, s, nh)))) * 0.1).astype(np.float32)
+    a = (-np.exp(rng.standard_normal(nh) * 0.3)).astype(np.float32)
+    b, c = (rng.standard_normal((bsz, s, n)).astype(np.float32) for _ in range(2))
+    h0 = rng.standard_normal((bsz, nh, p, n)).astype(np.float32)
+    return x, dt, a, b, c, h0
+
+
+def _close(got, want):
+    want = _f32(want)
+    scale = max(float(np.abs(want).max()), 1.0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=INTER_TOL * scale)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("n,chunk", [(16, 8), (16, 256), (128, 8), (128, 256)])
+def test_inter_chunk_twin_matches_the_reference_scan(n, chunk, with_h0):
+    """The twin on the intra-chunk twin's outputs, and ``ops.ssd_bshp`` on the
+    CPU (both twins, each counted as a plain call), against the reference's
+    ``ssd_scan`` (the [BH] layout, B / C broadcast over the heads) and its
+    model-layout ``ssd_chunked``; with and without h0, with the final state
+    and without it (then y alone, and no state)."""
+    bsz, nh, p = 2, 2, 8
+    s = 4 * chunk if chunk == 8 else 2 * chunk
+    x, dt, a, b, c, h0 = _model_layout(n + chunk, bsz, s, nh, p, n)
+    h0 = h0 if with_h0 else None
+    t = [torch.from_numpy(v) for v in (x, dt, a, b, c)]
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    a_bh = t[2][None].expand(bsz, nh)
+    parts = ref.intra_chunk_bshp(t[0], t[1], a_bh, t[3], t[4], chunk=chunk)
+    y_twin, h_twin = ref.inter_chunk_bshp(*parts, t[4], th0, chunk=chunk)
+    ops.reset_counts()
+    y, h = ops.ssd_bshp(t[0], t[1], a_bh, t[3], t[4], th0, chunk=chunk)
+    assert ops.PLAIN_CALLS == {ops.KERNEL: 1, ops.INTER: 1} and not any(ops.LAUNCHES.values())
+    assert torch.equal(y, y_twin) and torch.equal(h, h_twin)
+    y_part, none = ops.ssd_bshp(t[0], t[1], a_bh, t[3], t[4], th0, chunk=chunk,
+                                final_state=False)
+    assert none is None and torch.equal(y_part, y)
+    # the reference: its scan in the [BH] layout, and the model's ssd_chunked
+    xb = x.transpose(0, 2, 1, 3).reshape(bsz * nh, s, p)
+    dtb = dt.transpose(0, 2, 1).reshape(bsz * nh, s)
+    ab = np.broadcast_to(a, (bsz, nh)).reshape(-1).copy()
+    bb, cb = (np.broadcast_to(m[:, None], (bsz, nh, s, n)).reshape(bsz * nh, s, n).copy()
+              for m in (b, c))
+    h0b = None if h0 is None else jnp.asarray(h0.reshape(bsz * nh, p, n))
+    jy, jh = j_ops.ssd_scan(*(jnp.asarray(v) for v in (xb, dtb, ab, bb, cb)), h0b, chunk=chunk,
+                            interpret=True)
+    _close(y.permute(0, 2, 1, 3).reshape(bsz * nh, s, p), jy)
+    _close(h.reshape(bsz * nh, p, n), jh)
+    jy, jh = j_ssm.ssd_chunked(*(jnp.asarray(v) for v in (x, dt, a, b, c)),
+                               None if h0 is None else jnp.asarray(h0), chunk=chunk)
+    _close(y, jy)
+    _close(h, jh)
+
+
+@pytest.mark.parametrize("impl", ["auto", "dense", "chunked", "kernel"])
+def test_plain_engines_run_the_twin_and_never_the_kernel_route(impl, monkeypatch):
+    """``ssd_chunked``'s plain engines call ``ref.inter_chunk_bshp`` itself and
+    never ``ops.inter_chunk`` (whose CUDA route launches the kernel), so the
+    card's oracle stays plain; the kernel engine goes through
+    ``ops.inter_chunk``, which on the CPU runs the same twin."""
+    calls = {"twin": 0, "ops": 0, "launch": 0}
+    twin, routed = ref.inter_chunk_bshp, ops.inter_chunk
+
+    def counted(key, fn):
+        def wrapped(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    def launch(*args, **kwargs):
+        calls["launch"] += 1
+        raise AssertionError("the inter-chunk kernel launched")
+
+    monkeypatch.setattr(ref, "inter_chunk_bshp", counted("twin", twin))
+    monkeypatch.setattr(ops, "inter_chunk", counted("ops", routed))
+    monkeypatch.setattr(ops, "_launch_inter", launch)
+    monkeypatch.setattr(kernel, "launch_inter", launch)
+    x, dt, a, b, c, h0 = (torch.from_numpy(v) for v in _model_layout(10, 2, 48, 3, 8, 16))
+    y, h = ssm.ssd_chunked(x, dt, a, b, c, h0, chunk=16, impl=impl)
+    assert calls == {"twin": 1, "ops": int(impl == "kernel"), "launch": 0}, calls
+    want = twin(*ref.intra_chunk_bshp(x, dt, a[None].expand(2, 3), b, c, chunk=16), c, h0,
+                chunk=16)
+    assert torch.equal(y, want[0]) and torch.equal(h, want[1])
+
+
+def test_inter_chunk_refuses_grad_and_misfit_operands():
+    """The wrapper refuses an input that requires grad (the kernel has no
+    backward; on any device) and operands that do not fit one another."""
+    from repro_torch.kernels.autograd import NoBackwardError
+
+    x, dt, a, b, c, h0 = (torch.from_numpy(v) for v in _model_layout(11, 2, 32, 2, 8, 16))
+    parts = ref.intra_chunk_bshp(x, dt, a[None].expand(2, 2), b, c, chunk=8)
+    with pytest.raises(NoBackwardError):
+        ops.inter_chunk(parts[0].requires_grad_(True), *parts[1:], c, h0, chunk=8)
+    parts = [t.detach() for t in parts]
+    with pytest.raises(ValueError, match="s_contrib"):
+        ops.inter_chunk(*parts, c, h0, chunk=8, final_state=False)
+    with pytest.raises(ValueError, match="does not divide"):
+        ops.inter_chunk(*parts, c, h0, chunk=7)
+    with pytest.raises(ValueError, match="h0"):
+        ops.inter_chunk(*parts, c, h0[:, :1], chunk=8)
+    with pytest.raises(ValueError, match="cumexp"):
+        ops.inter_chunk(parts[0], parts[1], parts[2][:, :, :16], c, h0, chunk=8)
 
 
 # ------------------------------------------------------------- the mixer --

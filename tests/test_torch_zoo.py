@@ -54,10 +54,12 @@ def test_prefill_and_decode_match_jax(arch, impl):
         enc, steps = 2, 3
         assert plain == {"flash_attention": enc + 2 * n + steps * n,
                          "decode_attention_partials": 0,
-                         "decode_attention_fused": steps * n, "ssd_intra_chunk": 0}, plain
+                         "decode_attention_fused": steps * n, "ssd_intra_chunk": 0,
+                         "ssd_inter_chunk": 0}, plain
     else:
         assert plain == {"flash_attention": n, "decode_attention_partials": 0,
-                         "decode_attention_fused": 3 * n, "ssd_intra_chunk": 0}, plain
+                         "decode_attention_fused": 3 * n, "ssd_intra_chunk": 0,
+                         "ssd_inter_chunk": 0}, plain
 
 
 def test_gemma2_prefill_and_decode_match_jax_in_bf16():
