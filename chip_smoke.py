@@ -54,7 +54,15 @@ in order; any failure raises and the script exits non-zero:
    cascade block with a state, eight packed chunks with none, h0 without
    the final state), y and the final state within 1e-4 of their largest
    magnitudes against its twin (the loop over chunks), timed beside its
-   bound and the twin.  The flash
+   bound and the twin; then the Mamba-2 mixer's two kernels
+   (``csrc/ssm_mixer.cu``: the front — causal conv + SiLU, the gate, dt's
+   softplus, the conv tail — and the gated norm) at ``MIXER_CASES`` (phase
+   7's mamba2 prefill, hymba's prefill, both cascade trunks, a mamba2
+   decode step at B 128, the mamba2 prefill_32k layer at B 32, its twins
+   two rows at a time): the front bitwise its twin (the eager chain), the
+   norm within one ulp (the share of values apart printed), each beside a
+   control that must miss (the conv's taps reversed, the norm without its
+   gate), timed beside its bytes bound and its twin.  The flash
    cases run its four kernels, as ``kernel.route`` picks them: for bf16
    "tc" (wgmma + TMA, >= 64 query rows, D 64 / 80 / 128 / 256), and at D
    64 / 128 with fewer rows "split" (at most 8 query rows a kv head over
@@ -188,7 +196,8 @@ in order; any failure raises and the script exits non-zero:
    times per trunk epoch, all by the "packed" route, the flash kernel never;
    then with the 32-layer hymba-1.5b trunk (d_model 1600, 25 / 5 heads of
    64 beside 50 SSD heads of state 16): 32 flash launches, all "short", and
-   32 SSD launches, all "packed", per trunk epoch;
+   32 SSD launches, all "packed", per trunk epoch; both SSM trunks launch
+   the mixer's front and gated norm once a layer and trunk epoch;
 6. the operator main path at full size: the quickstart query and corpus at
    N = 1,048,576 (+1,024 rows to train on), ``OperatorConfig()`` defaults
    (plan size 256, table mode, exact answers), the ``preprocess_cheapest``
@@ -204,7 +213,8 @@ in order; any failure raises and the script exits non-zero:
    prefill, all by the "tc" route; 28 fused decode launches a step and no
    partials kernel) and mamba2-370m over 4,096 tokens x 2 (48 SSD launches
    in the prefill, all by the "tc" route, and 48 of the inter-chunk kernel;
-   decode runs ``ssd_step``), with
+   decode runs ``ssd_step``; the mixer's front and gated norm 48 times in
+   the prefill and in every step), with
    ms per prefill and per step and peak memory;
 7b. the model zoo at published widths (``ZOO_ARCHS``; random bf16 weights
    built on the card one f32 matrix at a time, B 1, 16 greedy decode steps,
@@ -329,7 +339,11 @@ in order; any failure raises and the script exits non-zero:
    kernel's ``prefill_simt_ms`` and the ``routes``), ``ssd_inter_chunk``
    (its numbers the mamba2 prefill's, its launches every SSD layer of
    phases 7-9b's prefills; a cascade block of 8 tokens, one chunk with no
-   state entering it, launches none); the scoring kernels
+   state entering it, launches none), ``ssm_mixer_front`` and
+   ``ssm_mixer_gated_norm`` (their numbers phase 7's mamba2 prefill's, the
+   other shapes in ``shapes``, with the values apart from the twin; their
+   launches every mamba2 and hymba layer of phases 5-9b, prefill and decode
+   step); the scoring kernels
    carry their launches by table route (``routes``: "smem", "global") and
    the global route's phase 2 numbers (``global_route``, best mode's F 10
    and F 11 cases under its ``past_f8`` as ``F10`` and ``F11``, each naming
@@ -428,6 +442,8 @@ SOURCES = {
     "ssd_intra_chunk": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
     "ssd_intra_chunk_tc": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_tc.cu",
     "ssd_inter_chunk": "src/repro_torch/kernels/ssd_scan/csrc/ssd_inter_chunk.cu",
+    "ssm_mixer_front": "src/repro_torch/kernels/ssm_mixer/csrc/ssm_mixer.cu",
+    "ssm_mixer_gated_norm": "src/repro_torch/kernels/ssm_mixer/csrc/ssm_mixer.cu",
 }
 REPLACES = {
     "enrich_score_table": "src/repro/kernels/enrich_score/kernel.py:318",
@@ -443,6 +459,10 @@ REPLACES = {
     "ssd_intra_chunk": "src/repro/kernels/ssd_scan/kernel.py:72",
     "ssd_intra_chunk_tc": "src/repro/kernels/ssd_scan/kernel.py:72",
     "ssd_inter_chunk": "src/repro/kernels/ssd_scan/ops.py:18",  # its scan over chunks, :47
+    # no Pallas kernel: the reference's jnp mixer, which XLA fuses (the conv
+    # + SiLU :73, softplus :191, SiLU(z) :207; the D skip :205, the gated norm :207)
+    "ssm_mixer_front": "src/repro/models/ssm.py:73",
+    "ssm_mixer_gated_norm": "src/repro/models/ssm.py:205",
 }
 # the launch counters each JSON entry sums over the main-path runs: the
 # flash, SSD and decode wrappers count per route / kernel
@@ -484,6 +504,20 @@ INTER_CASES = [(2, 4096, 256, 32, 128, True, True), (1, 2048, 256, 50, 16, True,
                (512, 8, 8, 32, 128, True, True), (64, 64, 8, 50, 16, False, False),
                (2, 4096, 256, 32, 128, True, False)]
 INTER_OUTPUTS = ("y", "h_final")
+# the Mamba-2 mixer's two kernels (csrc/ssm_mixer.cu) at the shapes the main
+# paths give them: phase 7's mamba2 prefill (into a cache: a tail in and out),
+# hymba's prefill (rows of 6,482 values: 4-byte loads), the cascade trunks'
+# 512 lanes x 8 tokens (no cache), a mamba2 decode step at decode_32k's B 128,
+# and the prefill_32k layer at B 32 (its twin SSD_BLOCK rows at a time).
+# label, arch, b, s, a conv tail (in and out)
+MIXER_CASES = [("mamba2 prefill (phase 7)", "mamba2-370m", 2, 4096, True),
+               ("hymba prefill", "hymba-1.5b", 1, 2048, True),
+               ("mamba2 cascade trunk", "mamba2-370m", 512, 8, False),
+               ("hymba cascade trunk", "hymba-1.5b", 512, 8, False),
+               ("mamba2 decode step (decode_32k's B 128)", "mamba2-370m", 128, 1, True),
+               ("mamba2 prefill_32k layer", "mamba2-370m", 32, 32768, True)]
+MIXER_NORM_ULPS = 1  # the norm against its twin: the sum of squares in another order
+MIXER_KERNELS = ("ssm_mixer_front", "ssm_mixer_gated_norm")  # one launch each an SSM layer
 # qwen3-1.7b decode: B 8, H 16, KV 8, D 128, kv_len 2048 of a 4096 cache;
 # b, skv, h, kv, d, kv_len, window, softcap, dtype
 DA_CASES = [
@@ -776,18 +810,20 @@ def phase_build():
     from repro_torch.kernels.enrich_score import kernel as es_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssm_mixer import kernel as mixer_kernel
 
     t0 = time.perf_counter()
     builds = (es_kernel.build, fa_kernel.build, fa_kernel.build_tc, fa_kernel.build_short,
               fa_kernel.build_split, da_kernel.build, da_kernel.build_fused, ssd_kernel.build,
-              ssd_kernel.build_tc, ssd_kernel.build_inter,
+              ssd_kernel.build_tc, ssd_kernel.build_inter, mixer_kernel.build,
               functools.partial(fa_kernel.build_tc, tanhf=True))  # phase 2's softcap check
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, all at once
         built = [f.result() for f in [pool.submit(b) for b in builds]]
     for load in (es_kernel.library, fa_kernel.library, fa_kernel.library_tc,
                  fa_kernel.library_short, fa_kernel.library_split, da_kernel.library,
                  da_kernel.library_fused,
-                 ssd_kernel.library, ssd_kernel.library_tc, ssd_kernel.library_inter):
+                 ssd_kernel.library, ssd_kernel.library_tc, ssd_kernel.library_inter,
+                 mixer_kernel.library):
         load()
     for path, log, nvcc_s in built:
         print(f"[build] {path.name}: nvcc {nvcc_s:.2f} s", flush=True)
@@ -1832,6 +1868,7 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     from repro_torch.kernels.enrich_score import ops as es_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssm_mixer import ops as mixer_ops
     from repro_torch.launch import serve
 
     torch.cuda.reset_peak_memory_stats()
@@ -1856,14 +1893,14 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
         assert (cfg.num_layers, cfg.d_model, s_cfg.state_dim, s_cfg.head_dim, s_cfg.expand,
                 s_cfg.conv_width, s_cfg.chunk_size) == (48, 1024, 128, 64, 2, 4, 256), cfg
         assert trunk["layers"][0]["ssm"]["in_proj"].shape == (48, 1024, 4384)
-        kernel_names, width = ("ssd_intra_chunk",), (
+        kernel_names, width = ("ssd_intra_chunk",) + MIXER_KERNELS, (
             "48 layers, d_model 1024, 32 SSD heads, P 64, N 128, bf16 trunk")
-    else:  # hymba: a flash and an SSD launch in every layer
+    else:  # hymba: a flash, an SSD and the mixer's two launches in every layer
         assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                 s_cfg.state_dim, s_cfg.head_dim, s_cfg.num_heads(cfg.d_model)) == (
                     32, 1600, 25, 5, 64, 16, 64, 50), cfg
         assert trunk["layers"][0]["ssm"]["in_proj"].shape == (32, 1600, 6482)
-        kernel_names, width = ("flash_attention", "ssd_intra_chunk"), (
+        kernel_names, width = ("flash_attention", "ssd_intra_chunk") + MIXER_KERNELS, (
             "32 layers, d_model 1600, 25/5 heads of D 64 beside 50 SSD heads of P 64, N 16, "
             "bf16 trunk")
     epoch_marks, trunk_marks = [], []
@@ -1873,7 +1910,7 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
         epoch_marks.append(time.perf_counter())
         trunk_marks.append(bank.trunk_runs)
 
-    for counted in (es_ops, fa_ops, ssd_ops):
+    for counted in (es_ops, fa_ops, ssd_ops, mixer_ops):
         counted.reset_counts()
     syncs0, trunk0 = bank.bank_syncs, bank.trunk_runs
     t1 = time.perf_counter()
@@ -1882,9 +1919,11 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     report = serve.serve_session_trace(session, state, serve.parse_trace(CASCADE_TRACE),
                                        preds=preds, chunk_size=1, boundary_hook=on_chunk)
     launches = {**_es_counts(es_ops), **fa_ops.LAUNCHES, **ssd_ops.LAUNCHES,
+                **mixer_ops.LAUNCHES,
                 **{f"flash_attention/{r}": n for r, n in fa_ops.ROUTES.items()},
                 **{f"ssd_intra_chunk/{r}": n for r, n in ssd_ops.ROUTES.items()}}
-    plain = {**es_ops.PLAIN_CALLS, **fa_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
+    plain = {**es_ops.PLAIN_CALLS, **fa_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS,
+             **mixer_ops.PLAIN_CALLS}
     peak = torch.cuda.max_memory_allocated()
     trunk_epochs = bank.trunk_runs - trunk0
     st, hist = report.state, report.history
@@ -1893,7 +1932,7 @@ def phase_cascade_main_path(arch="qwen3-1.7b") -> dict:
     assert trunk_epochs >= 4, f"the trunk ran on {trunk_epochs} epochs (< 4)"
     for name in kernel_names:
         assert launches[name] == cfg.num_layers * trunk_epochs, (launches, trunk_epochs)
-    other = {"flash_attention", "ssd_intra_chunk"} - set(kernel_names)
+    other = {"flash_attention", "ssd_intra_chunk", *MIXER_KERNELS} - set(kernel_names)
     assert not any(launches[k] for k in other), launches
     # the cascade's 8-token blocks take the short flash kernel and the packed SSD kernel
     assert fa_ops.ROUTES == {"tc": 0, "short": launches["flash_attention"], "split": 0,
@@ -2125,6 +2164,205 @@ def phase_ssd_inter() -> dict:
         del x, dt, a, bm, cm, y_intra, s_contrib, cumexp, h0, y, got, want
     torch.cuda.empty_cache()
     return result
+
+def _mixer_inputs(arch, b, s, tail, dev, seed):
+    """The front's operands at ``arch``'s published widths: a bf16 projection
+    (unit-normal x 2), conv_w / conv_b / dt_bias in f32 (one dt bias past
+    softplus's threshold of 20), the conv tail [B, W-1, C] or None ->
+    ((di, N, H, P, W, eps), proj, conv_w, conv_b, dt_bias, tail)."""
+    import torch
+
+    from repro_torch.configs.archs import get_config
+
+    cfg = get_config(arch)
+    sc = cfg.ssm
+    di, n, h = sc.d_inner(cfg.d_model), sc.state_dim, sc.num_heads(cfg.d_model)
+    c, width = di + 2 * n, sc.conv_width
+    g = torch.Generator(device=dev).manual_seed(seed)
+    proj = torch.empty((b, s, 2 * di + 2 * n + h), dtype=torch.bfloat16, device=dev)
+    for r in range(b):  # a row at a time: no f32 copy of the whole projection
+        proj[r] = torch.randn(proj.shape[1:], generator=g, device=dev) * 2
+    dt_bias = torch.randn((h,), generator=g, device=dev) * 3
+    dt_bias[0] = 25.0
+    tl = (torch.randn((b, width - 1, c), generator=g, device=dev).to(torch.bfloat16) if tail
+          else None)
+    return ((di, n, h, sc.head_dim, width, cfg.rmsnorm_eps), proj,
+            torch.randn((width, c), generator=g, device=dev) * 0.5,
+            torch.randn((c,), generator=g, device=dev) * 0.1, dt_bias, tl)
+
+
+def _mixer_bounds(b, s, di, n, h, width, tail) -> tuple:
+    """((front bound_ms, bound_by), front bytes, (norm bound_ms, bound_by),
+    norm bytes): each input read once, each output written once (bf16
+    activations, f32 parameters and dt), against the f32 operations (the
+    conv's 2 W a channel and its SiLU; SiLU(z); softplus; the norm's ~8 a
+    value) at the f32 rate."""
+    c = di + 2 * n
+    tails = 2 * 2 * b * (width - 1) * c if tail else 0
+    front_bytes = (2 * b * s * (2 * di + 2 * n + h) + 4 * (width * c + c + h)
+                   + 2 * b * s * (c + di) + 4 * b * s * h + tails)
+    front_ops = b * s * (c * (2 * width + 4) + 4 * di + 4 * h)
+    norm_bytes = 2 * b * s * di * 4 + 4 * (h + di)
+    norm_ops = b * s * di * 8
+    out = []
+    for nbytes, ops in ((front_bytes, front_ops), (norm_bytes, norm_ops)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        out += [(t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"), nbytes]
+    return tuple(out)
+
+
+def _ulps(got, want):
+    """Units in the last place between two tensors of one dtype (bf16 or f32),
+    elementwise, as int64 (0 where bitwise, 1 for neighbouring values across
+    zero too)."""
+    import torch
+
+    assert got.dtype == want.dtype and got.dtype in (torch.bfloat16, torch.float32), (
+        got.dtype, want.dtype)
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    top = -(1 << (8 * got.element_size() - 1))
+
+    def ordered(t):  # sign-magnitude bits -> integers in the values' order
+        i = t.contiguous().view(bits).long()
+        return torch.where(i >= 0, i, top - i)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def phase_mixer() -> dict:
+    """The Mamba-2 mixer's two kernels (``csrc/ssm_mixer.cu``) against their
+    twins (``ssm_mixer/ref.py``, the eager chain) at ``MIXER_CASES``: the
+    front's xbc, gate, dt and new tail bitwise, the gated norm within
+    ``MIXER_NORM_ULPS`` ulp (the share of values apart printed); each case's
+    controls must miss (the front with the conv's taps reversed, the norm
+    without its gate; uncounted launches); each kernel timed beside its
+    bytes bound and its twin (the twins alone, at the prefill_32k layer
+    SSD_BLOCK rows at a time, apart from the comparisons) -> results by
+    kernel name (phase 7's shape the table's row, the others in
+    ``shapes``)."""
+    import torch
+
+    from repro_torch.kernels.ssm_mixer import kernel, ops, ref
+
+    dev = torch.device("cuda")
+    fronts = ("xbc", "gate", "dt", "new_tail")
+    results = {ops.FRONT: {"max_abs_err": 0.0}, ops.NORM: {"max_abs_err": 0.0}}
+    for i, (label, arch, b, s, tail) in enumerate(MIXER_CASES):
+        (di, n, h, p, width, eps), proj, w, bias, dt_bias, tl = _mixer_inputs(arch, b, s, tail,
+                                                                             dev, seed=i)
+        big = s >= 32768  # the prefill_32k layer: the twins a block of rows at a time
+        step = SSD_BLOCK if big else b
+
+        def front_call():
+            return ops.front(proj, w, bias, dt_bias, d_inner=di, state_dim=n, cache_tail=tl,
+                             new_tail=tail)
+
+        def front_twin(rs=slice(None)):
+            return ref.front(proj[rs], w, bias, dt_bias, di, n, None if tl is None else tl[rs])
+
+        def blocks(twin):  # the twin over every batch row, ``step`` at a time, its outputs dropped
+            def run():
+                for r0 in range(0, b, step):
+                    twin(slice(r0, r0 + step))
+            return run
+
+        before = dict(ops.LAUNCHES)
+        got = front_call()
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[ops.FRONT] == before[ops.FRONT] + 1, ops.LAUNCHES
+        apart, most = dict.fromkeys(fronts, 0), dict.fromkeys(fronts, 0)
+        for r0 in range(0, b, step):
+            rs = slice(r0, r0 + step)
+            for name, g_, w_ in zip(fronts, got, front_twin(rs)):
+                if g_ is None:
+                    continue
+                u = _ulps(g_[rs], w_)
+                apart[name] += int((u > 0).sum())
+                most[name] = max(most[name], int(u.max()))
+                results[ops.FRONT]["max_abs_err"] = max(
+                    results[ops.FRONT]["max_abs_err"],
+                    (g_[rs].double() - w_.double()).abs().max().item())
+        assert not any(apart.values()), (
+            f"{label}: the front kernel differs from its twin: values apart {apart}, most ulps "
+            f"{most}")
+        # control: the conv's taps reversed must miss the twin
+        ctl = [None if t is None else torch.empty_like(t) for t in got]
+        kernel.launch_front(proj, tl, w.flip(0).contiguous(), bias, dt_bias, *ctl, d_inner=di)
+        torch.cuda.synchronize()
+        assert not torch.equal(ctl[0], got[0]), f"{label}: the reversed-taps control matched"
+        del ctl
+
+        # the norm on the front's xbc and gate, a random y, D and norm_w
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        y = torch.empty((b, s, h, p), dtype=torch.bfloat16, device=dev)
+        for r in range(b):
+            y[r] = torch.randn(y.shape[1:], generator=g, device=dev)
+        d_skip = torch.randn((h,), generator=g, device=dev)
+        norm_w = 1 + 0.1 * torch.randn((di,), generator=g, device=dev)
+        x_in, gate = got[0][..., :di].reshape(b, s, h, p), got[1]
+
+        def norm_call(gate=gate):
+            return ops.gated_norm(y, x_in, d_skip, gate, norm_w, eps)
+
+        def norm_twin(rs=slice(None), gate=gate):
+            return ref.gated_norm(y[rs], x_in[rs], d_skip, gate[rs], norm_w, eps)
+
+        before = dict(ops.LAUNCHES)
+        out = norm_call()
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[ops.NORM] == before[ops.NORM] + 1, ops.LAUNCHES
+        ctl = torch.empty_like(out)
+        kernel.launch_gated_norm(y, x_in, torch.ones_like(gate), d_skip, norm_w, ctl, eps=eps)
+        torch.cuda.synchronize()
+        norm_apart, norm_most, ctl_most = 0, 0, 0
+        for r0 in range(0, b, step):
+            rs = slice(r0, r0 + step)
+            want = norm_twin(rs)
+            u = _ulps(out[rs], want)
+            norm_apart += int((u > 0).sum())
+            norm_most = max(norm_most, int(u.max()))
+            ctl_most = max(ctl_most, int(_ulps(ctl[rs], want).max()))
+            results[ops.NORM]["max_abs_err"] = max(
+                results[ops.NORM]["max_abs_err"],
+                (out[rs].double() - want.double()).abs().max().item())
+        assert norm_most <= MIXER_NORM_ULPS, (
+            f"{label}: the norm kernel is {norm_most} ulps from its twin "
+            f"(> {MIXER_NORM_ULPS}; {norm_apart} values apart)")
+        assert ctl_most > MIXER_NORM_ULPS, f"{label}: the norm without its gate matched"
+        del ctl
+
+        timing = dict(reps=5, warmup=1, inner=1) if big else {}
+        front_ms, norm_ms = _time_ms(front_call, **timing), _time_ms(norm_call, **timing)
+        twin_timing = dict(reps=3, warmup=0, inner=1) if big else {}
+        front_twin_ms = _time_ms(blocks(front_twin), **twin_timing)
+        norm_twin_ms = _time_ms(blocks(norm_twin), **twin_timing)
+        fb, fbytes, nb, nbytes = _mixer_bounds(b, s, di, n, h, width, tail)
+        shape = (f"{label}: {arch} B={b} S={s} di={di} N={n} H={h} W={width} bf16, tail "
+                 f"{'in and out' if tail else 'none'}")
+        print(f"[mixer] {shape}; front: xbc, gate, dt, tail bitwise the "
+              f"twin (values apart {apart}); reversed-taps control missed; kernel "
+              f"{front_ms:.4f} ms, twin {front_twin_ms:.4f} ms"
+              f"{f' ({step} rows at a time)' if big else ''}, bound {fb[0]:.4f} ms ({fb[1]}, "
+              f"{fbytes / 1e6:.1f} MB), {fb[0] / front_ms:.1%} of bound", flush=True)
+        print(f"[mixer] {shape}; gated norm: {norm_apart} of {out.numel()} values "
+              f"({norm_apart / out.numel():.3%}) apart from the twin, at most {norm_most} ulp "
+              f"(<= {MIXER_NORM_ULPS}); without its gate {ctl_most} ulps (missed); kernel "
+              f"{norm_ms:.4f} ms, twin {norm_twin_ms:.4f} ms, bound {nb[0]:.4f} ms ({nb[1]}, "
+              f"{nbytes / 1e6:.1f} MB), {nb[0] / norm_ms:.1%} of bound", flush=True)
+        rows = {ops.FRONT: dict(ms=front_ms, plain_ms=front_twin_ms, bound_ms=fb[0],
+                                bound_by=fb[1], library_ms=None, values_apart=apart),
+                ops.NORM: dict(ms=norm_ms, plain_ms=norm_twin_ms, bound_ms=nb[0],
+                               bound_by=nb[1], library_ms=None, values_apart=norm_apart,
+                               share_apart=norm_apart / out.numel(), most_ulps=norm_most)}
+        for name, row in rows.items():
+            if i == 0:  # phase 7's mamba2 prefill: the table's row
+                results[name].update(row)
+            else:
+                results[name].setdefault("shapes", []).append(dict(row, case=shape))
+        del proj, w, bias, dt_bias, tl, got, y, x_in, gate, out, d_skip, norm_w
+        torch.cuda.empty_cache()
+    return results
+
 
 def _da_bound(case, fused: bool) -> tuple:
     """(bound_ms, bound_by): q and the live K / V rows read once, and the
@@ -2436,10 +2674,11 @@ def phase_serve_cpu_vs_gpu():
               f"logits within {worst:.3g} (<= {SERVE_LOGIT_TOL}), greedy tokens equal", flush=True)
 
 
-def _launches(fa_ops, da_ops, ssd_ops) -> dict:
-    """The kernel counters, the flash and SSD launches split by route, the
-    fused and partials decode launches by form."""
-    return {**fa_ops.LAUNCHES, **da_ops.LAUNCHES, **ssd_ops.LAUNCHES,
+def _launches(fa_ops, da_ops, ssd_ops, mixer_ops) -> dict:
+    """The kernel counters (the mixer's two kernels among them), the flash and
+    SSD launches split by route, the fused and partials decode launches by
+    form."""
+    return {**fa_ops.LAUNCHES, **da_ops.LAUNCHES, **ssd_ops.LAUNCHES, **mixer_ops.LAUNCHES,
             **{f"flash_attention/{r}": n for r, n in fa_ops.ROUTES.items()},
             **{f"decode_attention_fused/{r}": n for r, n in da_ops.ROUTES.items()},
             **{f"decode_attention_partials/{r}": n for r, n in da_ops.PARTIAL_ROUTES.items()},
@@ -2475,10 +2714,11 @@ def phase_serve_bf16_cpu_vs_gpu():
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssm_mixer import ops as mixer_ops
     from repro_torch.models.model import random_model, teacher_forced
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    counted = (fa_ops, da_ops, ssd_ops)
+    counted = (fa_ops, da_ops, ssd_ops, mixer_ops)
     for arch, (prompt, steps, b) in BF16_CHECK.items():
         cfg = get_config(arch, bf16_check=True)
         model, params = random_model(cfg, seed=5, device="cpu")
@@ -2497,8 +2737,9 @@ def phase_serve_bf16_cpu_vs_gpu():
         gpu, cache = teacher_forced(model, map_tree(lambda t: t.to("cuda"), params), seq.cuda(),
                                     prompt, max_len, {k: v.cuda() for k, v in extra.items()})
         torch.cuda.synchronize()
-        launches = _launches(fa_ops, da_ops, ssd_ops)
-        plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
+        launches = _launches(fa_ops, da_ops, ssd_ops, mixer_ops)
+        plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS,
+                 **mixer_ops.PLAIN_CALLS}
         want = _zoo_expected(cfg, steps)
         assert {k: launches.get(k, 0) for k in want} == want, (arch, launches, want)
         assert not any(plain.values()), f"plain path ran on the card: {plain}"
@@ -2647,10 +2888,11 @@ def phase_model_serve() -> dict:
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssm_mixer import ops as mixer_ops
 
     from repro_torch.models.model import random_model
 
-    counted = (fa_ops, da_ops, ssd_ops)
+    counted = (fa_ops, da_ops, ssd_ops, mixer_ops)
     launches = {}
     for arch, b, prompt, steps, max_len in SERVE_PATHS:
         cfg = get_config(arch)
@@ -2668,7 +2910,7 @@ def phase_model_serve() -> dict:
         logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t1
-        run = _launches(fa_ops, da_ops, ssd_ops)
+        run = _launches(fa_ops, da_ops, ssd_ops, mixer_ops)
         routes = dict(fa_ops.ROUTES)
         step_s = []
         for _ in range(steps):
@@ -2676,8 +2918,9 @@ def phase_model_serve() -> dict:
             logits, cache = model.decode_step(params, logits.argmax(-1), cache)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t2)
-        run_all = _launches(fa_ops, da_ops, ssd_ops)
-        plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
+        run_all = _launches(fa_ops, da_ops, ssd_ops, mixer_ops)
+        plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS,
+                 **mixer_ops.PLAIN_CALLS}
         peak = torch.cuda.max_memory_allocated()
         n = cfg.num_layers
         idle = {"decode_attention_partials": 0, "decode_attention_fused": 0,
@@ -2686,7 +2929,8 @@ def phase_model_serve() -> dict:
                 "ssd_intra_chunk": 0, "flash_attention": 0, "flash_attention/simt": 0,
                 "flash_attention/tc": 0, "flash_attention/short": 0, "flash_attention/split": 0,
                 "ssd_intra_chunk/tc": 0, "ssd_intra_chunk/simt": 0,
-                "ssd_intra_chunk/packed": 0, "ssd_inter_chunk": 0}
+                "ssd_intra_chunk/packed": 0, "ssd_inter_chunk": 0,
+                **dict.fromkeys(MIXER_KERNELS, 0)}
         if arch == "qwen3-1.7b":
             # the prefill on the tensor cores; one fused decode launch a layer and step
             assert run == {**idle, "flash_attention": n, "flash_attention/tc": n}, run
@@ -2694,11 +2938,12 @@ def phase_model_serve() -> dict:
             assert run_all == {**run, "decode_attention_fused": n * steps,
                                "decode_attention_fused/tc": n * steps}, run_all
         else:
-            # each layer's prefill: the intra-chunk kernel, then the recurrence from the
-            # cache's state
+            # each layer's prefill: the mixer's front, the intra-chunk kernel, the
+            # recurrence from the cache's state, the gated norm
             assert run == {**idle, "ssd_intra_chunk": n, "ssd_intra_chunk/tc": n,
-                           "ssd_inter_chunk": n}, run
-            assert run_all == run, run_all  # decode steps run ssd_step, no kernel
+                           "ssd_inter_chunk": n, **dict.fromkeys(MIXER_KERNELS, n)}, run
+            # a decode step: the mixer's two kernels a layer around ssd_step
+            assert run_all == {**run, **dict.fromkeys(MIXER_KERNELS, n * (1 + steps))}, run_all
         assert not any(plain.values()), f"plain path ran on the {arch} serve path: {plain}"
         assert logits.shape == (b, 1, cfg.vocab_size) and torch.isfinite(logits).all()
         assert int(cache.length) == prompt + steps
@@ -2743,6 +2988,9 @@ def _zoo_expected(cfg, steps: int) -> dict:
                                   for r in ("tc", "short", "split", "simt"))
     want["ssd_intra_chunk"] = sum(want[f"ssd_intra_chunk/{r}"] for r in ("tc", "simt", "packed"))
     want["ssd_inter_chunk"] = want["ssd_intra_chunk"]  # a prefill's recurrence from the cache
+    ssm_layers = n if set(cfg.layer_pattern) & {"mamba", "hymba"} else 0
+    for key in MIXER_KERNELS:  # the mixer's front and gated norm, prefill and every step
+        want[key] = ssm_layers * (1 + steps)
     return want
 
 
@@ -2761,10 +3009,11 @@ def phase_zoo_serve() -> dict:
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssm_mixer import ops as mixer_ops
     from repro_torch.launch.profile import MODEL_SHAPES, model_batch, model_config
     from repro_torch.models.model import random_model
 
-    counted = (fa_ops, da_ops, ssd_ops)
+    counted = (fa_ops, da_ops, ssd_ops, mixer_ops)
     launches = {}
     t_phase = time.perf_counter()
     steps = ZOO_STEPS
@@ -2800,8 +3049,9 @@ def phase_zoo_serve() -> dict:
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t2)
             finite = finite and bool(torch.isfinite(logits).all())
-        run = _launches(fa_ops, da_ops, ssd_ops)
-        plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
+        run = _launches(fa_ops, da_ops, ssd_ops, mixer_ops)
+        plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS,
+                 **mixer_ops.PLAIN_CALLS}
         peak = torch.cuda.max_memory_allocated()
         want = _zoo_expected(cfg, steps)
         assert {k: run.get(k, 0) for k in want} == want, (arch, run, want)
@@ -3202,6 +3452,9 @@ def _cell_expected(cfg, batch: int, seq_len: int, kind: str, calls: int) -> dict
         want[key] = want.get(key, 0) + groups * calls
 
     for mixer in cfg.layer_pattern:
+        if mixer in ("mamba", "hymba"):  # the mixer's two kernels, prefill or step
+            for key in MIXER_KERNELS:
+                add(key)
         if kind == "prefill":
             if mixer in ("global", "local", "hymba"):
                 add("flash_attention/tc")
@@ -3283,6 +3536,7 @@ def phase_long_cells() -> tuple:
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssm_mixer import ops as mixer_ops
     from repro_torch.launch import cells
     from repro_torch.launch import steps as st
     from repro_torch.models import transformer as tf
@@ -3311,7 +3565,7 @@ def phase_long_cells() -> tuple:
     torch.cuda.empty_cache()
     print(f"[cells] kernel cases in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    counted = (fa_ops, da_ops, ssd_ops)
+    counted = (fa_ops, da_ops, ssd_ops, mixer_ops)
     launches = {}
     for i, cell in enumerate(sized):
         cfg, spec, b = cell.cfg, cell.shape, cell.batch
@@ -3362,11 +3616,12 @@ def phase_long_cells() -> tuple:
                 assert int(after.length) == spec.seq_len
             del cache, after, logits
             tokens, calls = b, CELL_STEPS
-        run = _launches(fa_ops, da_ops, ssd_ops)
-        plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}
+        run = _launches(fa_ops, da_ops, ssd_ops, mixer_ops)
+        plain = {**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS,
+                 **mixer_ops.PLAIN_CALLS}
         peak = torch.cuda.max_memory_allocated()
         want = _cell_expected(cfg, b, spec.seq_len, spec.kind, calls)
-        got = {k: n for k, n in run.items() if "/" in k and n}
+        got = {k: n for k, n in run.items() if ("/" in k or k in MIXER_KERNELS) and n}
         assert got == want, (cell.arch, spec.name, got, want)
         # every SSD layer of a prefill runs the recurrence from the cache's state
         assert run["ssd_inter_chunk"] == run["ssd_intra_chunk"], run
@@ -3412,9 +3667,10 @@ def _all_counts() -> dict:
     from repro_torch.kernels.enrich_score import ops as es_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssm_mixer import ops as mixer_ops
 
-    return {**_launches(fa_ops, da_ops, ssd_ops), **_es_counts(es_ops),
-            **{f"plain/{k}": n for ops in (fa_ops, da_ops, ssd_ops, es_ops)
+    return {**_launches(fa_ops, da_ops, ssd_ops, mixer_ops), **_es_counts(es_ops),
+            **{f"plain/{k}": n for ops in (fa_ops, da_ops, ssd_ops, mixer_ops, es_ops)
                for k, n in ops.PLAIN_CALLS.items()}}
 
 
@@ -3423,9 +3679,10 @@ def _reset_all_counts() -> None:
     from repro_torch.kernels.enrich_score import ops as es_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssm_mixer import ops as mixer_ops
     from repro_torch.models import attention
 
-    for ops in (fa_ops, da_ops, ssd_ops, es_ops, attention):
+    for ops in (fa_ops, da_ops, ssd_ops, mixer_ops, es_ops, attention):
         ops.reset_counts()
 
 
@@ -3731,7 +3988,8 @@ def _mesh_serve(mesh, arch, b, prompt, steps, max_len, layers) -> dict:
         top2 = w_.topk(2, dim=-1).values
         near = (top2[..., 0] - top2[..., 1]) <= diff  # a near tie may flip
         flips += int(((w_.argmax(-1) != g_.argmax(-1)) & ~near).sum())
-    moved = {k: v for k, v in {**prefill_counts, **decode_counts}.items() if v}
+    moved = {k: prefill_counts[k] + decode_counts[k] for k in prefill_counts
+             if prefill_counts[k] + decode_counts[k]}
     print(f"[mesh] {arch} at full width ({n} layers, bf16, kernel route, G "
           f"{cfg.num_heads // max(cfg.num_kv_heads, 1)}) on {tuple(mesh.shape)} "
           f"{mesh.mesh_dim_names}: prefill B={b} x {prompt} {mesh_prefill_ms:.2f} ms on the mesh "
@@ -3745,8 +4003,7 @@ def _mesh_serve(mesh, arch, b, prompt, steps, max_len, layers) -> dict:
           f"peak memory {peak / 2**30:.3f} GiB", flush=True)
     assert not over and flips == 0, (arch, over, flips)
     assert all(torch.isfinite(x).all() for x in got)
-    plain = {k: v for k, v in {**prefill_counts, **decode_counts}.items()
-             if k.startswith("plain/") and v}
+    plain = {k: v for k, v in moved.items() if k.startswith("plain/")}
     assert not plain, plain
     if cfg.num_heads:  # tc flash on the local heads, the partials on the kv_seq shard,
         # every partials launch on the tc form (bf16, D 128; G 2 and G 6)
@@ -3754,13 +4011,17 @@ def _mesh_serve(mesh, arch, b, prompt, steps, max_len, layers) -> dict:
         assert decode_counts["decode_attention_partials"] == n * steps, decode_counts
         assert decode_counts["decode_attention_partials/tc"] == n * steps, decode_counts
         assert decode_counts["decode_attention_fused"] == 0, decode_counts
-    else:
+    else:  # the mixer's kernels and the SSD's on the rank's local shards
         assert prefill_counts["ssd_intra_chunk/tc"] == n, prefill_counts
         assert prefill_counts["ssd_inter_chunk"] == n, prefill_counts
+        for key in MIXER_KERNELS:
+            assert prefill_counts[key] == n and decode_counts[key] == n * steps, (
+                prefill_counts, decode_counts)
     launches = {k: prefill_counts.get(k, 0) + decode_counts.get(k, 0)
                 for k in ("flash_attention", "flash_attention/tc", "ssd_intra_chunk",
                           "ssd_intra_chunk/tc", "ssd_inter_chunk", "decode_attention_partials",
-                          "decode_attention_partials/tc", "decode_attention_partials/simt")}
+                          "decode_attention_partials/tc", "decode_attention_partials/simt",
+                          *MIXER_KERNELS)}
     return dict(prefill_ms=mesh_prefill_ms, first_prefill_ms=first_prefill_ms,
                 free_prefill_ms=free_prefill_ms,
                 step_ms=statistics.median(mesh_step_ms) if steps else None,
@@ -4588,6 +4849,8 @@ def main() -> int:
     results["ssd_intra_chunk"], results["ssd_intra_chunk_tc"] = phase_ssd()
     results["ssd_inter_chunk"] = phase_ssd_inter()
     lap("2 ssd")
+    results.update(phase_mixer())
+    lap("2 mixer")
     phase_cpu_vs_gpu(table, combine, costs, outputs)
     phase_cascade_cpu_vs_gpu("qwen3-1.7b")
     phase_cascade_cpu_vs_gpu("mamba2-370m")
@@ -4655,6 +4918,9 @@ def main() -> int:
         prefill_bound_ms=results["ssd_intra_chunk"]["prefill_bound_ms"],
         routes={r: sum(run.get(f"ssd_intra_chunk/{r}", 0) for run in runs)
                 for r in ("tc", "simt", "packed")})
+    for name in MIXER_KERNELS:  # the contract against the twin, as measured at the row's shape
+        by_name[name].update({k: results[name][k] for k in (
+            "values_apart", "share_apart", "most_ulps") if k in results[name]})
     by_name["decode_attention_partials_tc"].update(
         with_combine_ms=results["decode_attention_partials_tc"]["with_combine_ms"],
         simt_ms=results["decode_attention_partials_tc"]["simt_ms"])

@@ -81,6 +81,7 @@ KINDS = (  # (label, substrings of the kernel name), first match wins
     ("attention (flash kernel)", ("flash_attention",)),
     ("attention (decode kernel)", ("decode_partials", "decode_fused")),
     ("SSD kernels (intra, inter)", ("ssd_intra_chunk", "ssd_inter_chunk")),
+    ("Mamba-2 mixer kernels", ("ssm_mixer",)),
     ("scoring (enrich_score)", ("enrich_score",)),
     ("matmuls (cuBLAS)", ("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas")),
     ("sorts and scans", ("RadixSort", "scan", "Scan", "sort")),
@@ -89,13 +90,17 @@ KINDS = (  # (label, substrings of the kernel name), first match wins
 )
 
 # --ranges: the Mamba-2 mixer's parts (module, function, label), each call
-# timed on the device; the mixer's time less its parts' is its gates,
-# softplus, D skip, reshapes and casts
+# timed on the device; the mixer's time less its parts' is its reshapes and
+# casts.  The kernel engine (the serve paths) runs the two mixer kernels'
+# wrappers; the plain engines run their twins, whose conv and norm are named
+# here too (the twins' gates, softplus and D skip fall in the remainder).
 SSM_RANGES = (
     ("repro_torch.models.ssm", "ssm_apply", "mixer, all of it"),
     ("repro_torch.models.ssm", "matmul", "in / out projections"),
-    ("repro_torch.models.ssm", "_causal_conv", "causal conv + SiLU"),
-    ("repro_torch.models.ssm", "rmsnorm", "norm"),
+    ("repro_torch.kernels.ssm_mixer.ops", "front", "mixer front kernel"),
+    ("repro_torch.kernels.ssm_mixer.ops", "gated_norm", "mixer gated-norm kernel"),
+    ("repro_torch.kernels.ssm_mixer.ref", "causal_conv", "twin: conv + SiLU"),
+    ("repro_torch.kernels.ssm_mixer.ref", "rmsnorm", "twin: norm"),
     ("repro_torch.models.ssm", "ssd_chunked", "SSD, all of it"),
     ("repro_torch.kernels.ssd_scan.ops", "intra_chunk", "SSD intra-chunk"),
     ("repro_torch.kernels.ssd_scan.ops", "inter_chunk", "SSD inter-chunk"),

@@ -14,6 +14,13 @@ inter-chunk state recurrence.  ``ssd_chunked`` has two engines, chosen by
                    differentiates through (the kernels have no backward),
                    and the oracle the card checks hold the kernels against.
 
+The mixer's elementwise work on each side of the SSD — the causal conv +
+SiLU, the gate and dt's softplus before it, the D skip and the gated RMSNorm
+after it — goes the same way: under the kernel engine through
+``repro_torch.kernels.ssm_mixer.ops`` (two hand-written CUDA kernels on the
+card, their twins on the CPU), under the plain engines through the twins
+themselves (``ssm_mixer/ref.py``, the eager chain).
+
 ``ssd_step`` (decode, one token) stays plain PyTorch: no TPU kernel
 computes it.  Single-group (G=1) B/C as in mamba2-370m; the state cache for
 decode is (conv_tail [B, W-1, conv_channels], h [B, H, P, N]).
@@ -25,13 +32,14 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
-from repro_torch.models.activation_sharding import (is_dtensor, on_local_shards, pin,
-                                                      placements, shard_act)
-from repro_torch.models.layers import _dense_init, matmul, rmsnorm
+from repro_torch.kernels.ssm_mixer import ops as mixer_ops
+from repro_torch.kernels.ssm_mixer import ref as mixer_ref
+from repro_torch.models.activation_sharding import (is_dtensor, on_local_shards, placements,
+                                                      shard_act)
+from repro_torch.models.layers import _dense_init, matmul
 
 
 class SSMCache(NamedTuple):
@@ -78,33 +86,6 @@ def ssm_axes() -> dict:
 
 def ssm_cache_axes() -> SSMCache:
     return SSMCache(conv=("batch", None, "ssm_inner"), h=("batch", "ssm_heads", None, "state"))
-
-
-def _split_proj(cfg, proj: torch.Tensor):
-    s = cfg.ssm
-    d = cfg.d_model
-    di, n = s.d_inner(d), s.state_dim
-    return proj[..., :di], proj[..., di:2 * di + 2 * n], proj[..., 2 * di + 2 * n:]
-
-
-def _causal_conv(xbc, w, b, cache_tail: Optional[torch.Tensor] = None):
-    """Depthwise causal conv of width W; cache_tail holds the previous W-1 steps."""
-    width = w.shape[0]
-    if cache_tail is None:
-        pad = torch.zeros(xbc.shape[:1] + (width - 1,) + xbc.shape[2:], dtype=xbc.dtype,
-                          device=xbc.device)
-    else:
-        pad = cache_tail.to(xbc.dtype)
-    full = torch.cat([pad, xbc], dim=1)  # [B, W-1+S, C]
-    s = xbc.shape[1]
-    wd = w.to(xbc.dtype)
-    out = full[:, 0:s] * wd[0]
-    for i in range(1, width):
-        out = out + full[:, i:i + s] * wd[i]
-    out = out + b.to(xbc.dtype)
-    # a copy: a view of the tail would keep all of ``full`` alive with the cache
-    new_tail = full[:, full.shape[1] - (width - 1):].clone()
-    return F.silu(out), new_tail
 
 
 def ssd_chunked(
@@ -181,17 +162,14 @@ def ssm_apply(params: dict, cfg, x: torch.Tensor, cache: Optional[SSMCache] = No
     bsz, seq, _ = x.shape
 
     proj = shard_act(matmul(x, params["in_proj"].to(dt_in)), "batch", "act_seq", "ssm_inner")
-    z, xbc, dt_raw = _split_proj(cfg, proj)
     conv_tail = cache.conv if cache is not None else None
-    xbc, new_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"], conv_tail)
+    keep_tail = cache is not None and update_cache
+    xbc, gate, dt, new_tail = _front(params, cfg, proj, conv_tail, keep_tail)
+    # the projection is freed before the SSD (a prefill's largest activation)
+    del proj
     x_in = xbc[..., :di].reshape(bsz, seq, nh, p)
     b_mat, c_mat = xbc[..., di:di + n], xbc[..., di + n:]
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
     a = -torch.exp(params["A_log"])
-    # z is a view of the projection: its gate now, so the projection is freed
-    # before the SSD (a prefill's largest activation; the values are the same)
-    gate = F.silu(z)
-    del proj, z, dt_raw
 
     h0 = cache.h if cache is not None else None
     if seq == 1 and cache is not None:
@@ -200,16 +178,60 @@ def ssm_apply(params: dict, cfg, x: torch.Tensor, cache: Optional[SSMCache] = No
     else:
         y, h_new = ssd_chunked(x_in, dt, a, b_mat, c_mat, h0, chunk=s_cfg.chunk_size,
                                impl=cfg.attn_impl, final_state=cache is not None)
-    y = y + x_in * params["D"].to(dt_in)[None, None, :, None]
-    del xbc, x_in, b_mat, c_mat  # the conv output, before the norm's f32 passes
-    y = pin(y.reshape(bsz, seq, di))
-    y = rmsnorm(y * gate, params["norm_w"], cfg.rmsnorm_eps)
+    del b_mat, c_mat, dt
+    y = _gated_norm(params, cfg, y, xbc, gate)
+    del xbc, x_in, gate  # the conv output and the gate, before the out-projection
     out = shard_act(matmul(y, params["out_proj"].to(dt_in)), "batch", "act_seq", "act_embed")
 
     new_cache = cache
-    if cache is not None and update_cache:
+    if keep_tail:
         new_cache = SSMCache(conv=new_tail.to(cache.conv.dtype), h=h_new)
     return out, new_cache
+
+
+def _front(params: dict, cfg, proj, conv_tail, keep_tail: bool):
+    """The mixer's front -> (xbc, gate, dt, the new conv tail or None):
+    ``mixer_ops.front`` under the kernel engine (on a mesh on each rank's
+    batch rows, the projection's channels gathered whole), else its twin."""
+    s_cfg = cfg.ssm
+    di, n = s_cfg.d_inner(cfg.d_model), s_cfg.state_dim
+    w, b, dt_bias = params["conv_w"], params["conv_b"], params["dt_bias"]
+    if cfg.attn_impl != "kernel":
+        xbc, gate, dt, tail = mixer_ref.front(proj, w, b, dt_bias, di, n, conv_tail)
+        return xbc, gate, dt, tail if keep_tail else None
+
+    def local(pl, wl, bl, dbl, tl):
+        return mixer_ops.front(pl, wl, bl, dbl, d_inner=di, state_dim=n, cache_tail=tl,
+                               new_tail=keep_tail)
+
+    if not is_dtensor(proj):
+        return local(proj, w, b, dt_bias, conv_tail)
+    rows = placements("batch", None, None)
+    return on_local_shards(
+        local, (rows, rows, rows, rows if keep_tail else None),
+        (rows, placements(None, None), placements(None), placements(None),
+         None if conv_tail is None else rows), proj, w, b, dt_bias, conv_tail)
+
+
+def _gated_norm(params: dict, cfg, y, xbc, gate):
+    """The D skip and the gated RMSNorm -> [B, S, di]: ``mixer_ops.gated_norm``
+    under the kernel engine (on a mesh on each rank's batch rows, the rows
+    whole), else its twin."""
+    bsz, seq, nh, p = y.shape
+    di = nh * p
+    d_skip, norm_w, eps = params["D"], params["norm_w"], cfg.rmsnorm_eps
+    if cfg.attn_impl != "kernel":
+        return mixer_ref.gated_norm(y, xbc[..., :di].reshape(y.shape), d_skip, gate, norm_w, eps)
+
+    def local(yl, xl, dl, gl, wl):
+        return mixer_ops.gated_norm(yl, xl[..., :di].reshape(yl.shape), dl, gl, wl, eps)
+
+    if not is_dtensor(y):
+        return local(y, xbc, d_skip, gate, norm_w)
+    rows = placements("batch", None, None)
+    return on_local_shards(
+        local, rows, (placements("batch", None, None, None), rows, placements(None), rows,
+                      placements(None)), y, xbc, d_skip, gate, norm_w)
 
 
 def init_ssm_cache(cfg, batch: int, dtype, device=None) -> SSMCache:

@@ -86,8 +86,11 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.kernels.ssm_mixer import ops as ssm_mixer_ops
+from repro_torch.kernels.ssm_mixer import ref as ssm_mixer_ref
 from repro_torch.launch.serve import state_digests
 from _torch_screen_world import SCREEN_KINDS, screen_world
+from _torch_ulps import ulps
 
 
 @pytest.fixture
@@ -961,6 +964,139 @@ def test_ssd_inter_chunk_wrapper_refuses_what_the_kernel_does_not_take(cuda_devi
     assert ssd_ops.LAUNCHES["ssd_inter_chunk"] == before
 
 
+# ---------------------------------------------------- the Mamba-2 mixer --
+
+# (d_inner, state_dim, heads, head_dim) of mamba2-370m and hymba-1.5b
+MIXER_WIDTHS = {"mamba2-370m": (2048, 128, 32, 64), "hymba-1.5b": (3200, 16, 50, 64)}
+# arch, b, s, dtype, a conv tail given, extra values a projection row (1: an
+# odd row stride, which the kernels' loads do not fit)
+MIXER_CASES = [
+    ("mamba2-370m", 2, 300, torch.bfloat16, False, 0),  # a prefill: tiles past 32 rows
+    ("mamba2-370m", 3, 1, torch.bfloat16, True, 0),  # a decode step
+    ("mamba2-370m", 2, 40, torch.bfloat16, True, 0),  # a prefill into a cache
+    ("hymba-1.5b", 1, 300, torch.bfloat16, False, 0),  # rows of 6,482 values: 4-byte loads
+    ("hymba-1.5b", 4, 1, torch.bfloat16, True, 0),
+    ("hymba-1.5b", 16, 8, torch.bfloat16, False, 0),  # the cascade trunk's 8 tokens
+    ("mamba2-370m", 2, 70, torch.float32, True, 0),
+    ("hymba-1.5b", 2, 33, torch.float32, True, 0),
+]
+MIXER_MISFITS = [("mamba2-370m", 2, 50, torch.bfloat16, True, 1),
+                 ("hymba-1.5b", 1, 2, torch.float32, True, 1)]
+
+
+def _mixer_front_inputs(dev, case):
+    """proj (a slice of wider rows where asked), conv_w [4, C], conv_b, dt_bias
+    and the tail (or None), drawn with numpy from the case."""
+    arch, b, s, dtype, tail, pad = case
+    di, n, h, _ = MIXER_WIDTHS[arch]
+    c, width = di + 2 * n, 2 * di + 2 * n + h
+    rng = np.random.default_rng(b * s + h)
+
+    def draw(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dev)
+
+    proj = (draw(b, s, width + pad, scale=2.0).to(dtype))[..., :width]
+    dt_bias = draw(h, scale=3.0)
+    dt_bias[0] = 25.0  # softplus's threshold
+    return (proj, draw(4, c, scale=0.5), draw(c, scale=0.1), dt_bias,
+            draw(b, 3, c).to(dtype) if tail else None)
+
+
+def _bitwise(name, got, want):
+    """got equal to want bit for bit (the count and size of any difference in
+    the message)."""
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    apart = ulps(got, want)
+    assert not apart.any(), (f"{name}: {int((apart > 0).sum())} of {apart.numel()} values "
+                             f"differ, up to {int(apart.max())} ulps")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MIXER_CASES)
+def test_ssm_mixer_front_kernel_matches_plain_twin_bitwise(cuda_device, case):
+    """One counted launch; xbc, the gate, dt and the new tail bitwise the
+    twin's on the card (the eager chain's roundings and formulas)."""
+    arch, dtype = case[0], case[3]
+    di, n = MIXER_WIDTHS[arch][:2]
+    proj, w, b, dt_bias, tail = _mixer_front_inputs(cuda_device, case)
+    want = ssm_mixer_ref.front(proj, w, b, dt_bias, di, n, tail)
+    before = ssm_mixer_ops.LAUNCHES["ssm_mixer_front"]
+    got = ssm_mixer_ops.front(proj, w, b, dt_bias, d_inner=di, state_dim=n, cache_tail=tail,
+                              new_tail=True)
+    torch.cuda.synchronize()
+    assert ssm_mixer_ops.LAUNCHES["ssm_mixer_front"] == before + 1
+    for name, g, wt in zip(("xbc", "gate", "dt", "new_tail"), got, want):
+        _bitwise(f"{arch} {case[1:]} {name}", g, wt)
+
+
+def _mixer_norm_inputs(dev, case):
+    """y [B, S, H, P], x a strided view of an xbc, D, the gate, norm_w."""
+    arch, b, s, dtype, _, pad = case
+    di, n, h, p = MIXER_WIDTHS[arch]
+    rng = np.random.default_rng(b * s + p)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    xbc = draw(b, s, pad + di + 2 * n).to(dtype)
+    x = xbc[..., pad:pad + di].reshape(b, s, h, p)
+    return draw(b, s, h, p).to(dtype), x, draw(h), draw(b, s, di).to(dtype), draw(di)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MIXER_CASES)
+def test_ssm_mixer_gated_norm_kernel_matches_plain_twin(cuda_device, case):
+    """One counted launch; the normed rows within one ulp of the twin's in
+    bf16 and four in f32 (the sum of squares in another order than
+    ``torch.mean``'s)."""
+    dtype = case[3]
+    most = 1 if dtype == torch.bfloat16 else 4
+    y, x, d, gate, w = _mixer_norm_inputs(cuda_device, case)
+    want = ssm_mixer_ref.gated_norm(y, x, d, gate, w, 1e-5)
+    before = ssm_mixer_ops.LAUNCHES["ssm_mixer_gated_norm"]
+    got = ssm_mixer_ops.gated_norm(y, x, d, gate, w, 1e-5)
+    torch.cuda.synchronize()
+    assert ssm_mixer_ops.LAUNCHES["ssm_mixer_gated_norm"] == before + 1
+    apart = ulps(got, want)
+    assert int(apart.max()) <= most, (case, int(apart.max()), int((apart > 0).sum()))
+
+
+@pytest.mark.cuda
+def test_ssm_mixer_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    from repro_torch.kernels.autograd import NoBackwardError
+
+    case = ("mamba2-370m", 1, 4, torch.bfloat16, True, 0)
+    di, n = MIXER_WIDTHS["mamba2-370m"][:2]
+    proj, w, b, dt_bias, tail = _mixer_front_inputs(cuda_device, case)
+    before = dict(ssm_mixer_ops.LAUNCHES)
+    with pytest.raises(NoBackwardError):
+        ssm_mixer_ops.front(proj.float().requires_grad_(True), w, b, dt_bias, d_inner=di,
+                            state_dim=n)
+    with pytest.raises(ValueError, match="conv width of 4"):
+        ssm_mixer_ops.front(proj, torch.zeros((5, w.shape[1]), device=cuda_device), b, dt_bias,
+                            d_inner=di, state_dim=n)
+    with pytest.raises(ValueError, match="on cpu"):
+        ssm_mixer_ops.front(proj, w, b, dt_bias, d_inner=di, state_dim=n, cache_tail=tail.cpu())
+    with pytest.raises(TypeError, match="one dtype"):
+        ssm_mixer_ops.front(proj.half(), w, b, dt_bias, d_inner=di, state_dim=n)
+    y, x, d, gate, nw = _mixer_norm_inputs(cuda_device, case)
+    with pytest.raises(ValueError, match="one row"):
+        ssm_mixer_ops.gated_norm(y.transpose(2, 3).contiguous().transpose(2, 3), x, d, gate, nw,
+                                 1e-5)
+    with pytest.raises(TypeError, match="one dtype"):
+        ssm_mixer_ops.gated_norm(y, x.float(), d, gate, nw, 1e-5)
+    for misfit in MIXER_MISFITS:  # an odd row stride: the loads do not fit
+        arch = misfit[0]
+        di, n = MIXER_WIDTHS[arch][:2]
+        proj, w, b, dt_bias, tail = _mixer_front_inputs(cuda_device, misfit)
+        with pytest.raises(ValueError, match="loads 2 values"):
+            ssm_mixer_ops.front(proj, w, b, dt_bias, d_inner=di, state_dim=n, cache_tail=tail)
+        y, x, d, gate, nw = _mixer_norm_inputs(cuda_device, misfit)
+        with pytest.raises(ValueError, match="loads 16 bytes"):
+            ssm_mixer_ops.gated_norm(y, x, d, gate, nw, 1e-5)
+    assert dict(ssm_mixer_ops.LAUNCHES) == before
+
+
 # --------------------------------------------------------- decode attention --
 
 # b, skv, h, kv, d, kv_len, window, softcap, num_splits (of the partials route)
@@ -1224,12 +1360,15 @@ def test_cuda_bf16_models_route_the_bf16_kernels(cuda_device, arch):
     f32_model = random_model(dataclasses.replace(cfg, dtype="float32"), seed=5, device="cpu")[0]
     ref, _ = teacher_forced(f32_model, map_tree(lambda t: t.float(), cpu_params), seq, prompt,
                             max_len)
-    for counts in (fa_ops, da_ops, ssd_ops):
+    for counts in (fa_ops, da_ops, ssd_ops, ssm_mixer_ops):
         counts.reset_counts()
     gpu, cache = teacher_forced(model, map_tree(lambda t: t.to(cuda_device), cpu_params),
                                 seq.to(cuda_device), prompt, max_len)
     torch.cuda.synchronize()
     n = cfg.num_layers
+    mixer = n * (1 + steps) if arch == "mamba2-370m" else 0  # the prefill and every step
+    assert ssm_mixer_ops.LAUNCHES == {"ssm_mixer_front": mixer,
+                                      "ssm_mixer_gated_norm": mixer}, ssm_mixer_ops.LAUNCHES
     if arch == "qwen3-1.7b":
         assert fa_ops.ROUTES == {"tc": n, "short": 0, "split": 0, "simt": 0}, fa_ops.ROUTES
         assert da_ops.LAUNCHES == {"decode_attention_partials": 0,
@@ -1237,7 +1376,8 @@ def test_cuda_bf16_models_route_the_bf16_kernels(cuda_device, arch):
         assert da_ops.ROUTES == {"tc": n * steps, "simt": 0, "split": 0}, da_ops.ROUTES
     else:
         assert ssd_ops.ROUTES == {"tc": n, "simt": 0, "packed": 0}, ssd_ops.ROUTES
-    assert not any({**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS}.values())
+    assert not any({**fa_ops.PLAIN_CALLS, **da_ops.PLAIN_CALLS, **ssd_ops.PLAIN_CALLS,
+                    **ssm_mixer_ops.PLAIN_CALLS}.values())
     assert int(cache.length) == prompt + steps
     bf16_err = max((c - r).abs().max().item() for c, r in zip(cpu, ref))
     err = max((g.cpu() - c).abs().max().item() for g, c in zip(gpu, cpu))
@@ -1295,7 +1435,7 @@ def _teacher_forced_pair(cuda_device, cfg, prompt, steps, seed):
             rng.standard_normal((2, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32))
     max_len = prompt + steps + 8
     cpu, _ = teacher_forced(model, params, seq, prompt, max_len, extra)
-    for counts in (fa_ops, da_ops, ssd_ops):
+    for counts in (fa_ops, da_ops, ssd_ops, ssm_mixer_ops):
         counts.reset_counts()
     gpu, cache = teacher_forced(model, map_tree(lambda t: t.to(cuda_device), params),
                                 seq.to(cuda_device), prompt, max_len,
@@ -1335,6 +1475,9 @@ def test_cuda_zoo_bf16_models_route_the_kernels(cuda_device, arch):
                                "decode_attention_fused": n * steps}, da_ops.LAUNCHES
     assert da_ops.ROUTES == {"tc": n * steps, "simt": 0, "split": 0}, da_ops.ROUTES  # D 64 / 80 / 256
     assert ssd_ops.ROUTES == {"tc": n if arch == "hymba-1.5b" else 0, "simt": 0, "packed": 0}
+    mixer = n * (1 + steps) if arch == "hymba-1.5b" else 0  # the prefill and every step
+    assert ssm_mixer_ops.LAUNCHES == {"ssm_mixer_front": mixer,
+                                      "ssm_mixer_gated_norm": mixer}, ssm_mixer_ops.LAUNCHES
     assert int(cache.length) == prompt + steps
     f32 = Model(dataclasses.replace(model.cfg, dtype="float32"))
     ref, _ = teacher_forced(f32, map_tree(lambda t: t.float(), params), seq, prompt, max_len,
